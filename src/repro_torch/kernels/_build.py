@@ -1,0 +1,148 @@
+"""Build and load the port's CUDA kernels (``repro_torch/csrc/*.cu``).
+
+Every source is compiled by its own ``nvcc`` process, all started at once,
+into an object file for ``sm_90a``; the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build lands
+in ``build/repro_torch/<hash>/`` at the root of the checkout (git-ignored),
+keyed on the hash of the sources and flags, at the first call that needs
+it — so a fresh checkout builds everything on its first kernel launch.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the PCIT filter's output is a threshold decision: no FMA contraction and
+# IEEE division / sqrt, so each step rounds as the plain version's ops do
+FILE_FLAGS = {"pcit_filter.cu": ("-fmad=false", "-prec-div=true",
+                                 "-prec-sqrt=true", "-ftz=false")}
+LIB_NAME = "librepro_torch_kernels.so"
+
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    # quorum, lo, hi, w, out, B, k, block, n_pairs, softening, stream
+    "repro_pairwise_batch_forces": [_vp] * 5 + [_i] * 4 + [_f, _vp],
+    # a, b, c, batch, M, N, K, stream
+    "repro_pairwise_corr": [_vp] * 3 + [_i] * 4 + [_vp],
+    # r_xy, rows_x, rows_y, gx, gy, keep, visits, batch, M, N, Z, stream
+    "repro_pcit_filter": [_vp] * 7 + [_i] * 4 + [_vp],
+}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc`` (default
+    ``/usr/local/cuda``), else ``nvcc`` on the PATH."""
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(set CUDA_HOME or put nvcc on the PATH)")
+    return found
+
+
+def _flags(src: str) -> tuple:
+    return FLAGS + FILE_FLAGS.get(src, ())
+
+
+def build_key() -> str:
+    """Hash of every source and flag set — the build directory's name."""
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.encode())
+        h.update(" ".join(_flags(src)).encode())
+        h.update((CSRC / src).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile (if not already built for these sources) and return the
+    shared library's path.  The compiler's ``-Xptxas -v`` report (registers,
+    shared memory, spills per kernel) is kept in ``build.log`` beside it."""
+    out_dir = BUILD_ROOT / build_key()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT))
+    try:
+        procs = []
+        for src in SOURCES:
+            obj = tmp / (src + ".o")
+            cmd = [nvcc, *_flags(src), "-c", str(CSRC / src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for src, _obj, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {src} (rc={proc.returncode})\n{text}")
+            if proc.returncode:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp / LIB_NAME),
+             *(str(obj) for _src, obj, _p in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
+        (tmp / "build.log").write_text("\n".join(log))
+        try:
+            os.replace(tmp, out_dir)  # atomic: a concurrent build may win
+        except OSError:
+            if not lib.exists():
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's ``argtypes`` /
+    ``restype`` declared (built on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error from its launch."""
+    if rc:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device (kernels launch on
+    it and never synchronize)."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs every tensor on one "
+                         f"CUDA device, got {sorted(map(str, devs))}")

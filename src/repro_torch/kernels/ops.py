@@ -1,0 +1,70 @@
+"""Public entry points of the port's kernels (the counterpart of
+``repro/kernels/ops.py``).
+
+Dispatch is by the device of the input tensors, and by nothing else:
+
+  * a tensor on the CPU runs the plain PyTorch version (``kernels/ref.py``);
+  * a tensor on a CUDA device launches the hand-written kernel, and a
+    kernel that fails to build, load or launch raises — there is no path
+    that falls back to the plain version on the card.
+
+The CUDA kernels mask their own ragged edges, so nothing is padded here.
+Entry points take a leading batch axis (simulated devices or stacked
+tiles), so one launch covers a whole batched step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import pairwise_batch, pairwise_corr as _corr_mod, pcit_filter as _pcit_mod
+from . import ref
+
+KERNEL_MODULES = {
+    "pairwise_batch": pairwise_batch,
+    "pairwise_corr": _corr_mod,
+    "pcit_filter": _pcit_mod,
+}
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def pairwise_corr(xs_i: torch.Tensor, xs_j: torch.Tensor) -> torch.Tensor:
+    """Correlation tiles [B, M, N] float32 of standardized row blocks
+    [B, M, G] x [B, N, G] (PCIT phase 2)."""
+    if _on_cpu(xs_i):
+        return ref.pairwise_corr(xs_i, xs_j)
+    return _corr_mod.pairwise_corr_cuda(xs_i, xs_j)
+
+
+def pcit_filter(r_xy, rows_x, rows_y, gx, gy) -> torch.Tensor:
+    """PCIT keep tiles [B, M, N] bool (PCIT phase 4); see
+    ``kernels/pcit_filter.py``."""
+    if _on_cpu(r_xy):
+        return ref.pcit_filter(r_xy, rows_x, rows_y, gx, gy)
+    return _pcit_mod.pcit_filter_cuda(r_xy, rows_x, rows_y, gx, gy)
+
+
+def pairwise_batch_forces(quorum, lo, hi, wi, wj, *,
+                          softening: float = 1e-2) -> torch.Tensor:
+    """Fused batched n-body step for the engine's ``batch_fn`` hook:
+    quorum [B, k, block, 4], lo / hi [n_pairs] slot ids, wi / wj
+    [B, n_pairs] per-side pair weights -> [B, k, block, 3] float32."""
+    if _on_cpu(quorum):
+        return ref.pairwise_batch_forces(quorum, lo, hi, wi, wj,
+                                         softening=softening)
+    return pairwise_batch.pairwise_batch_forces_cuda(quorum, lo, hi, wi, wj,
+                                                     softening=softening)
+
+
+def launch_counts() -> dict:
+    """Kernel launches per kernel since the counts were last reset."""
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0

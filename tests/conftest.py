@@ -10,3 +10,8 @@ if str(SRC) not in sys.path:
 # NOTE: no XLA_FLAGS here on purpose — smoke tests and benches must see the
 # single real CPU device.  Distributed tests spawn subprocesses with their
 # own XLA_FLAGS (see tests/test_distributed.py).
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips (from a fixture) elsewhere")

@@ -1,0 +1,80 @@
+"""Import hygiene and device defaults of the PyTorch port.
+
+The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX nor
+the JAX package ``repro`` (importing any ``repro`` module installs the jax
+shims); only the port's tests import both.  Entry points run on the CUDA
+device unless the caller asks for the CPU, and raise where there is none.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
+    r"from\s+repro(\.|\s)|from\s+\.\.\.+\s+import|"
+    r".*__import__\(\s*['\"](jax|repro)(\.|['\"]))", re.M)
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch.apps.pcit, repro_torch.apps.nbody, "
+        "repro_torch.core.selfcheck, repro_torch.kernels.ops\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_in_source(path):
+    hits = [m.group(0).strip() for m in FORBIDDEN.finditer(path.read_text())]
+    assert not hits, f"{path}: {hits}"
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """device=None means the CUDA device; on a host without one the entry
+    points raise instead of running on the CPU."""
+    from repro_torch.apps import nbody, pcit
+    from repro_torch.core import comm, selfcheck
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        comm.SingleProcessComm(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        comm.SingleProcessComm(4, "cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        selfcheck.main(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nbody.distributed_forces(torch.zeros(8, 4), comm.SingleProcessComm(2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pcit.run_quorum_pcit(torch.zeros(8, 4).numpy(),
+                             comm.SingleProcessComm(2))
+    assert comm.SingleProcessComm(4, "cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a CUDA device, and alone in a directory, chip_smoke.py exits
+    non-zero and prints no result line."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for script in (ROOT / "chip_smoke.py", alone):
+        r = subprocess.run([sys.executable, str(script)], env=env,
+                           capture_output=True, text=True, timeout=300,
+                           cwd=script.parent)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
