@@ -10,22 +10,33 @@ beside the script).  Phases:
 
   1. the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
-  2. each kernel (B1 pairwise_batch, B2 pairwise_corr, B3 pcit_filter) at
-     the main path's shapes against its plain PyTorch version, timed with
-     CUDA events beside the plain version (and, for B2, torch.matmul);
-  3. the engine self-check on the card at P = 2, 5, 8, every mode;
-  4. n-body, the quorum path at N = 65,536 bodies over P = 8 devices with
+  2. B1 pairwise_batch, B2 pairwise_corr and B3 pcit_filter, and
+  3. B4 query_topk and B5 pairwise_threshold, each at its main path's
+     shapes against its plain PyTorch version, timed with CUDA events
+     beside the plain version and, where one exists, a library yardstick;
+  4. the engine self-check on the card at P = 2, 5, 8, every mode;
+  5. the serving and sparse-join self-checks at P = 2, 5, 8, every mode
+     including ``kernel``;
+  6. n-body, the quorum path at N = 65,536 bodies over P = 8 devices with
      the fused kernel, against the plain scan path, plus leapfrog steps;
-  5. PCIT at N = 8,192 genes x G = 512 samples over P = 8 devices with the
+  7. PCIT at N = 8,192 genes x G = 512 samples over P = 8 devices with the
      kernels, against a matmul and the plain filter on the card, and at
      N = 64 against the numpy O(N^3) reference;
-  6. a JSON line of every kernel (launches on the main path, error against
-     the plain version, times, bound), the nvidia-smi line, and the result
-     line ``{"ok": true, "device": {...}}`` last.
+  8. serving: a 1,000,000 x 128 corpus (the base-set shape of
+     ANN-Benchmarks' sift-128-euclidean; synthetic clustered non-negative
+     vectors from a seed) resident over P = 8 devices; 40 microbatches of
+     256 l2 top-10 queries through B4, top-100 microbatches, a streamed
+     block replace, and a range query that escalates its capacity, held
+     against a brute force on the card;
+  9. the similarity join of 262,144 x 128 clustered vectors over P = 8
+     devices through B5, held against a brute force on the card;
+  then a JSON line of every kernel (launches on the main path, error
+  against the plain version, times, bound), the nvidia-smi line, and the
+  result line ``{"ok": true, "device": {...}}`` last.
 
 Kernel launch counts are set to 0 just before each main path (n-body,
-PCIT) is driven and read just after it, so comparison launches do not
-count.
+PCIT, serving, join) is driven and read just after it, so comparison
+launches do not count.
 """
 
 from __future__ import annotations
@@ -58,6 +69,21 @@ NBODY_OPS, NBODY_OPS_BOTH = 20, 23
 # mean with its three divisions, two products, abs and compares)
 PCIT_OPS = 36
 BOUNDARY_TOL = 1e-6
+# serving: the base-set shape of ANN-Benchmarks' sift-128-euclidean
+SERVE_N, SERVE_D, SERVE_CLUSTERS = 1_000_000, 128, 1000
+SERVE_Q, SERVE_BATCHES, SERVE_TOPK = 256, 40, 10
+SERVE_BIG_TOPK, SERVE_BIG_BATCHES, SERVE_AFTER_BATCHES = 100, 4, 4
+SERVE_HELD = (0, 13, 26, 39)         # microbatches held against brute force
+REPLACED_BLOCK = 3
+THR_Q, THR_HITS, THR_CAP0 = 64, 100, 16
+# the similarity join: block 32,768 at P = 8
+JOIN_N, JOIN_D, JOIN_CLUSTERS = 262_144, 128, 256
+JOIN_HITS, JOIN_CAP0, JOIN_SAMPLE = 100_000, 8192, 16384
+CLUSTER_SPREAD = 0.3
+# scores within SCORE_TOL * max(1, |s|) of each other (or of the k-th
+# score, or of the threshold) may order differently between the kernels'
+# fp32 accumulation and cuBLAS's
+SCORE_TOL = 1e-5
 
 
 class CheckFailed(RuntimeError):
@@ -384,6 +410,470 @@ def phase_pcit(report: dict) -> None:
     say("pcit N=64 G=24 P=8 on the card == numpy pcit_reference")
 
 
+# ---------------------------------------------------------------------------
+# Serving and the similarity join (B4, B5)
+# ---------------------------------------------------------------------------
+
+def cluster_centers(n: int, d: int, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.rand(n, d, generator=g, device=DEVICE)
+
+
+def clustered(centers: torch.Tensor, n: int, seed: int) -> torch.Tensor:
+    """n non-negative vectors around random centers, made on the device
+    from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    pick = torch.randint(centers.shape[0], (n,), generator=g, device=DEVICE)
+    x = centers[pick] + CLUSTER_SPREAD * torch.randn(
+        n, centers.shape[1], generator=g, device=DEVICE)
+    return x.clamp_(min=0.0)
+
+
+def l2_scores(q: torch.Tensor, X: torch.Tensor, xn: torch.Tensor):
+    """[Q, N] scores 2 q.x - |x|^2 - |q|^2 (the engine's formula) by
+    cuBLAS, TF32 off."""
+    return 2.0 * (q @ X.T) - xn[None, :] - (q * q).sum(-1)[:, None]
+
+
+def tol_of(s: torch.Tensor) -> torch.Tensor:
+    return SCORE_TOL * torch.clamp(s.abs(), min=1.0)
+
+
+def check_topk_rows(q, X, xn, got_v, got_i, want_v, want_i, what: str) -> int:
+    """Top-k rows [Q, topk] against the wanted ones: values within rtol /
+    atol 1e-5; an index may differ only where the brute-force scores of
+    the two candidates lie within SCORE_TOL of each other or of the k-th
+    score.  Returns the number of differing entries."""
+    check(torch.allclose(got_v, want_v, rtol=SCORE_TOL, atol=SCORE_TOL),
+          f"{what}: values differ by up to "
+          f"{float((got_v - want_v).abs().max()):.3e}")
+    check(bool((got_i >= 0).all() and (got_i < X.shape[0]).all()),
+          f"{what}: an index is out of range (a sentinel?)")
+    diff = got_i != want_i
+    if not bool(diff.any()):
+        return 0
+    rows = X[got_i.long()]                                  # [Q, topk, d]
+    s_got = (2.0 * torch.einsum("qd,qtd->qt", q, rows) - xn[got_i.long()]
+             - (q * q).sum(-1)[:, None])
+    kth = want_v[:, -1:].expand_as(want_v)
+    ok = ((s_got - want_v).abs() <= tol_of(want_v)) | (
+        ((s_got - kth).abs() <= tol_of(kth))
+        & ((want_v - kth).abs() <= tol_of(kth)))
+    check(bool(ok[diff].all()), f"{what}: {int((diff & ~ok).sum())} indices "
+          "differ beyond the tie tolerance")
+    return int(diff.sum())
+
+
+def brute_topk(q, X, xn, topk: int, chunk: int = 32):
+    """(-score, index) top-k of every query over the whole corpus: cuBLAS
+    scores, then one stable sort by -score (indices are already
+    ascending)."""
+    vals, idx = [], []
+    for c0 in range(0, q.shape[0], chunk):
+        s = l2_scores(q[c0:c0 + chunk], X, xn)
+        sv, si = torch.sort(-s, dim=-1, stable=True)
+        vals.append(-sv[:, :topk])
+        idx.append(si[:, :topk].int())
+    return torch.cat(vals), torch.cat(idx)
+
+
+def serving_data():
+    """The serving corpus, its queries, the replacement block and the
+    range-query batch (all from seeds, on the device)."""
+    centers = cluster_centers(SERVE_CLUSTERS, SERVE_D, 10)
+    X = clustered(centers, SERVE_N, 11)
+    n_batches = SERVE_BATCHES + SERVE_BIG_BATCHES + SERVE_AFTER_BATCHES
+    queries = clustered(centers, SERVE_Q * n_batches, 12).reshape(
+        n_batches, SERVE_Q, SERVE_D)
+    fresh = clustered(centers, SERVE_N // P, 13)
+    thr_q = clustered(centers, THR_Q, 14)
+    return X, queries, fresh, thr_q
+
+
+def capture_batch_fn(store: dict, outputs):
+    """A batch_fn that records the engine's operands and returns dummies
+    of the right shapes: the main path's kernel inputs, bit for bit."""
+    def fn(*args):
+        store["args"] = args
+        return outputs(*args)
+    return fn
+
+
+def phase_kernels_serving(report: dict) -> None:
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.placement import get_placement
+    from repro_torch.core.sparse import quorum_allpairs_threshold
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.cover import build_cover
+    from repro_torch.serving.engine import quorum_query_topk, quantize_pow2
+    from repro_torch.serving.stream import build_state
+
+    comm = SingleProcessComm(P, DEVICE)
+    plc = get_placement("cyclic", P)
+    sched = plc.schedule()
+
+    # ---- B4 at the serving path's shapes: stack [8, 4, 125000, 128] ----
+    X, queries, _fresh, _thr_q = serving_data()
+    xn = (X * X).sum(-1)
+    q = queries[0]
+    topk = quantize_pow2(SERVE_TOPK)
+    state = build_state(X, comm, placement=plc)
+    mask_table = torch.as_tensor(build_cover(P, plc).mask_table(),
+                                 device=DEVICE)
+    store: dict = {}
+    quorum_query_topk(q, state.stack, state.stack_valid, mask_table,
+                      topk=topk, comm=comm, schedule=sched, mode="batched",
+                      metric="l2", batch_fn=capture_batch_fn(
+                          store, lambda st, qq, m, g: (
+                              torch.full((P, qq.shape[0], topk), -1e30,
+                                         device=DEVICE),
+                              torch.zeros(P, qq.shape[0], topk,
+                                          dtype=torch.int32,
+                                          device=DEVICE))))
+    stack, qq, mask, gidx = store.pop("args")
+    got_v, got_i = ops.query_topk(stack, qq, mask, gidx, topk=topk,
+                                  metric="l2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [ref.query_topk(stack[p:p + 1], qq, mask[p:p + 1], gidx[p:p + 1],
+                           topk=topk, metric="l2") for p in range(P)]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want_v = torch.cat([w[0] for w in want])
+    want_i = torch.cat([w[1] for w in want])
+    err = float((got_v - want_v).abs().max())
+    n_diff = 0
+    for p in range(P):
+        live = want_i[p, :, 0] != ref.IDX_SENTINEL
+        check(bool((live == (got_i[p, :, 0] != ref.IDX_SENTINEL)).all()),
+              f"B4: device {p} sentinel rows differ")
+        if bool(live.any()):
+            n_diff += check_topk_rows(qq, X, xn, got_v[p], got_i[p],
+                                      want_v[p], want_i[p], f"B4 device {p}")
+    ms = cuda_ms(lambda: ops.query_topk(stack, qq, mask, gidx, topk=topk,
+                                        metric="l2"), reps=10)
+    live_rows = mask > 0
+    n_rows = int(live_rows.sum())
+    Xu = stack[live_rows]                                  # [n_rows, d]
+    neg_xn = -(Xu * Xu).sum(-1)[None]
+    lib_ms = cuda_ms(lambda: torch.topk(torch.addmm(neg_xn, qq, Xu.T,
+                                                    alpha=2.0), topk),
+                     reps=10)
+    Q, d = qq.shape
+    b_ms, b_by = bound(n_rows * d * 4 + nbytes(qq, mask, gidx, got_v, got_i),
+                       2.0 * Q * d * n_rows)
+    say(f"B4 query_topk stack {tuple(stack.shape)} x Q={Q} topk={topk} l2, "
+        f"{n_rows} unmasked rows: max_abs_err={err:.3e}, indices differ at "
+        f"{n_diff} near-tie entries; kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+        f" ms (host clock, device by device), torch.addmm + torch.topk (two "
+        f"calls) {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    report["query_topk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib_ms, differing=n_diff)
+    del state, stack, mask, gidx, Xu, want, X, queries
+
+    # ---- B5 at the join's shapes: quorum [8, 4, 32768, 128] ------------
+    X, xn, thr = join_data()
+    N = X.shape[0]
+    xs = X.reshape(P, N // P, JOIN_D)
+    cap = 1 << 15
+    quorum_allpairs_threshold(
+        xs, comm, threshold=thr, capacity=cap, schedule=sched,
+        mode="batched", n_valid=N, batch_fn=capture_batch_fn(
+            store, lambda qu, lo, hi, meta: (
+                torch.zeros(P, cap, device=DEVICE),
+                torch.zeros(P, cap, dtype=torch.int32, device=DEVICE),
+                torch.zeros(P, cap, dtype=torch.int32, device=DEVICE),
+                torch.zeros(P, dtype=torch.int32, device=DEVICE))))
+    quorum, lo, hi, meta = store.pop("args")
+    kw = dict(threshold=thr, capacity=cap, block_rows=N // P, metric="l2")
+    got = ops.pairwise_threshold(quorum, lo, hi, meta, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref.pairwise_threshold(quorum, lo, hi, meta, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(bool((got[3] <= cap).all()), f"B5: capacity {cap} overflowed")
+    err, n_diff = compare_hits(X, xn, thr, got, want, "B5")
+    ms = cuda_ms(lambda: ops.pairwise_threshold(quorum, lo, hi, meta, **kw),
+                 reps=3)
+    cand = 0
+    for p in range(P):
+        for n in range(len(lo)):
+            a, s_, _ga, _gb, nv_lo, nv_hi = (int(v) for v in meta[p, n])
+            if a:
+                cand += (nv_lo * (nv_lo - 1) // 2 if s_ else nv_lo * nv_hi)
+    b_ms, b_by = bound(nbytes(quorum, meta, *got), 2.0 * JOIN_D * cand)
+    say(f"B5 pairwise_threshold quorum {tuple(quorum.shape)} x {len(lo)} "
+        f"pairs, {cand} candidates in active tiles, {int(got[3].sum())} "
+        f"hits: max_abs_err={err:.3e}, {n_diff} hits differ (all within "
+        f"{SCORE_TOL} of the threshold); kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (host clock), bound {b_ms:.3f} ms ({b_by})")
+    # an overflowing capacity keeps the plain version's exact prefix
+    # (small-integer data: every score exact, so no boundary rounding)
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    qi = torch.randint(-2, 3, (2, 3, 300, 8), generator=g,
+                       device=DEVICE).float()
+    mi = torch.tensor([[1, 1, 0, 0, 300, 300], [1, 0, 0, 1, 280, 300],
+                       [1, 0, 1, 2, 300, 250]], dtype=torch.int32,
+                      device=DEVICE).expand(2, 3, 6).contiguous()
+    kwi = dict(threshold=6.0, capacity=700, block_rows=300, metric="dot")
+    a = ops.pairwise_threshold(qi, [0, 0, 1], [0, 1, 2], mi, **kwi)
+    b = ref.pairwise_threshold(qi, [0, 0, 1], [0, 1, 2], mi, **kwi)
+    check(bool((a[3] > 700).all()) and all(torch.equal(x, y)
+                                           for x, y in zip(a, b)),
+          "B5: the overflowing prefix differs from the plain version's")
+    say(f"B5 overflow: counts {a[3].tolist()} > capacity 700, the kept "
+        "prefix equals the plain version's")
+    report["pairwise_threshold"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=b_ms,
+                                        bound_by=b_by, library_ms=None,
+                                        differing=n_diff, candidates=cand)
+
+
+def hit_scores(X, xn, i, j):
+    """Brute-force l2 scores of pairs (i, j), the engine's formula."""
+    i, j = i.long(), j.long()
+    return 2.0 * (X[i] * X[j]).sum(-1) - xn[j] - xn[i]
+
+
+def pair_keys(i, j, N: int) -> torch.Tensor:
+    return i.long() * N + j.long()
+
+
+def compare_pair_sets(X, xn, thr, got_i, got_j, want_i, want_j,
+                      what: str) -> int:
+    """Pair sets may differ only by pairs whose brute-force score lies
+    within SCORE_TOL * max(1, |thr|) of the threshold."""
+    N = X.shape[0]
+    gk, wk = pair_keys(got_i, got_j, N), pair_keys(want_i, want_j, N)
+    check(gk.unique().numel() == gk.numel(), f"{what}: a pair is repeated")
+    only = torch.cat([gk[~torch.isin(gk, wk)], wk[~torch.isin(wk, gk)]])
+    if only.numel():
+        s = hit_scores(X, xn, only // N, only % N)
+        t = SCORE_TOL * max(1.0, abs(thr))
+        check(bool(((s - thr).abs() <= t).all()),
+              f"{what}: {only.numel()} pairs differ, some beyond {t:.3e} of "
+              "the threshold")
+    return int(only.numel())
+
+
+def compare_hits(X, xn, thr, got, want, what: str):
+    """Compacted per-device buffers (vals, i, j, count) against the plain
+    version's: identical when no pair sits on the threshold, else the
+    sets differ only at it.  Returns (max |value error|, differing
+    pairs)."""
+    if all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])):
+        return float((got[0] - want[0]).abs().max()), 0
+    n_diff, err = 0, 0.0
+    for p in range(P):
+        ng = min(int(got[3][p]), got[1].shape[1])
+        nw = min(int(want[3][p]), want[1].shape[1])
+        gi, gj = got[1][p, :ng], got[2][p, :ng]
+        n_diff += compare_pair_sets(X, xn, thr, gi, gj, want[1][p, :nw],
+                                    want[2][p, :nw], f"{what} device {p}")
+        err = max(err, float((got[0][p, :ng]
+                              - hit_scores(X, xn, gi, gj)).abs().max()))
+    return err, n_diff
+
+
+def join_data():
+    """The join's corpus and a threshold for about JOIN_HITS pairs, taken
+    from the pairs of a seeded sample of rows."""
+    X = clustered(cluster_centers(JOIN_CLUSTERS, JOIN_D, 20), JOIN_N, 21)
+    xn = (X * X).sum(-1)
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    rows = torch.randperm(JOIN_N, generator=g, device=DEVICE)[:JOIN_SAMPLE]
+    # each sampled row sees its pairs with every other row, so the sample
+    # holds about 2 * JOIN_HITS * S / N of the passing pairs
+    want = max(1, round(2 * JOIN_HITS * JOIN_SAMPLE / JOIN_N))
+    best = None
+    for c0 in range(0, JOIN_SAMPLE, 1024):
+        r = rows[c0:c0 + 1024]
+        s = l2_scores(X[r], X, xn)
+        s[torch.arange(len(r), device=DEVICE), r] = -float("inf")
+        top = torch.topk(s.flatten(), min(want, s.numel())).values
+        best = top if best is None else torch.topk(torch.cat([best, top]),
+                                                   want).values
+    return X, xn, float(best[-1])
+
+
+def phase_selfcheck_serving() -> None:
+    from repro_torch.core.sparse import selfcheck_main
+    from repro_torch.serving import selfcheck
+    for p in (2, 5, 8):
+        selfcheck.main(p, device=DEVICE)
+        selfcheck_main(p, device=DEVICE)
+
+
+def phase_serving(report: dict) -> None:
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingCorpus
+    from repro_torch.serving.engine import quantize_pow2
+
+    comm = SingleProcessComm(P, DEVICE)
+    X, queries, fresh, thr_q = serving_data()
+    xn = (X * X).sum(-1)
+    block = SERVE_N // P
+    rb = slice(REPLACED_BLOCK * block, (REPLACED_BLOCK + 1) * block)
+    # per-query thresholds midway between the THR_HITS-th and the next
+    # score over the corpus as it stands after the replace
+    s_thr = l2_scores(thr_q, X, xn)
+    s_thr[:, rb] = l2_scores(thr_q, fresh, (fresh * fresh).sum(-1))
+    top = torch.topk(s_thr, THR_HITS + 1).values
+    thr_vec = (top[:, THR_HITS - 1] + top[:, THR_HITS]) / 2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    t0 = time.perf_counter()
+    sc = ServingCorpus.build(X, comm, placement="cyclic")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held, lat = {}, []
+    for b in range(SERVE_BATCHES):
+        t0 = time.perf_counter()
+        out = sc.query(queries[b], topk=SERVE_TOPK, metric="l2",
+                       use_kernel=True)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if b in SERVE_HELD:
+            held[b] = out
+    lat_big = []
+    for b in range(SERVE_BATCHES, SERVE_BATCHES + SERVE_BIG_BATCHES):
+        t0 = time.perf_counter()
+        out = sc.query(queries[b], topk=SERVE_BIG_TOPK, metric="l2",
+                       use_kernel=True)
+        torch.cuda.synchronize()
+        lat_big.append((time.perf_counter() - t0) * 1e3)
+    held_big = (b, out)
+    t0 = time.perf_counter()
+    sc.replace_block(REPLACED_BLOCK, fresh)
+    torch.cuda.synchronize()
+    replace_ms = (time.perf_counter() - t0) * 1e3
+    for b in range(SERVE_BATCHES + SERVE_BIG_BATCHES, queries.shape[0]):
+        out = sc.query(queries[b], topk=SERVE_TOPK, metric="l2",
+                       use_kernel=True)
+    held_after = (b, out)
+    t0 = time.perf_counter()
+    tv, ti, tc = sc.query_threshold(thr_q, threshold=thr_vec,
+                                    capacity=THR_CAP0, mode="batched",
+                                    metric="l2")
+    torch.cuda.synchronize()
+    thr_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    resident = sc.state.stack[0].numel() * sc.state.stack.element_size()
+    report["query_topk"]["launches"] = counts["query_topk"]
+    check(counts["query_topk"] > 0, "serving: B4 was never launched")
+    escalations = (ti.shape[1] // quantize_pow2(THR_CAP0)).bit_length() - 1
+
+    # the results against a brute force on the card
+    n_diff = 0
+    for b, (v, i) in held.items():
+        want_v, want_i = brute_topk(queries[b], X, xn, SERVE_TOPK)
+        n_diff += check_topk_rows(queries[b], X, xn, v, i, want_v, want_i,
+                                  f"serving microbatch {b}")
+    b, (v, i) = held_big
+    want_v, want_i = brute_topk(queries[b], X, xn, SERVE_BIG_TOPK)
+    n_diff += check_topk_rows(queries[b], X, xn, v, i, want_v, want_i,
+                              f"serving top-{SERVE_BIG_TOPK} microbatch {b}")
+    X[rb] = fresh
+    xn[rb] = (fresh * fresh).sum(-1)
+    b, (v, i) = held_after
+    want_v, want_i = brute_topk(queries[b], X, xn, SERVE_TOPK)
+    n_diff += check_topk_rows(queries[b], X, xn, v, i, want_v, want_i,
+                              f"serving after the replace, microbatch {b}")
+    hits = 0
+    for r in range(THR_Q):
+        n = int(tc[r])
+        check(n <= ti.shape[1], f"range query {r}: count {n} overflows")
+        gi = ti[r, :n]
+        check(bool((gi[1:] > gi[:-1]).all()),
+              f"range query {r}: hits not in ascending index order")
+        check(bool((ti[r, n:] == 2 ** 31 - 1).all()),
+              f"range query {r}: no sentinels past the count")
+        wi = torch.nonzero(s_thr[r] >= thr_vec[r]).reshape(-1).int()
+        only = torch.cat([gi[~torch.isin(gi, wi)], wi[~torch.isin(wi, gi)]])
+        t = SCORE_TOL * max(1.0, abs(float(thr_vec[r])))
+        check(bool(((s_thr[r, only.long()] - thr_vec[r]).abs() <= t).all()),
+              f"range query {r}: hits differ beyond {t:.3e} of the threshold")
+        check(torch.allclose(tv[r, :n], s_thr[r, gi.long()], rtol=SCORE_TOL,
+                             atol=SCORE_TOL), f"range query {r}: values")
+        n_diff += int(only.numel())
+        hits += n
+    p50, p99 = np.percentile(lat, [50, 99])
+    qps = SERVE_BATCHES * SERVE_Q / (sum(lat) / 1e3)
+    say(f"serving N={SERVE_N} d={SERVE_D} P={P} (cover {sc.plan.n_cover} "
+        f"devices): build {build_s:.2f} s; {SERVE_BATCHES} microbatches of "
+        f"Q={SERVE_Q} l2 top-{SERVE_TOPK}: p50 {p50:.3f} ms, p99 {p99:.3f} "
+        f"ms (host clock, synchronized), {qps:.1f} queries/s; top-"
+        f"{SERVE_BIG_TOPK}: {', '.join(f'{t:.2f}' for t in lat_big)} ms; "
+        f"replace_block {replace_ms:.1f} ms; range query Q={THR_Q}: "
+        f"{thr_ms:.1f} ms, {hits} hits, {escalations} escalations from "
+        f"capacity {THR_CAP0}; peak {peak / 2**30:.3f} GiB; resident stack "
+        f"{resident / 2**20:.1f} MiB per device vs N*d*4 = "
+        f"{SERVE_N * SERVE_D * 4 / 2**20:.1f} MiB; B4 launches "
+        f"{counts['query_topk']}; {n_diff} entries differ from the brute "
+        "force, all within the tie tolerance")
+
+
+def phase_join(report: dict) -> None:
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.sparse import similarity_join
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace as obs_trace
+
+    comm = SingleProcessComm(P, DEVICE)
+    X, xn, thr = join_data()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tr = obs_trace.configure(metrics_only=True)
+    try:
+        t0 = time.perf_counter()
+        res = similarity_join(X, comm, threshold=thr, metric="l2",
+                              mode="batched", placement="cyclic",
+                              capacity=JOIN_CAP0, use_kernel=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        obs_trace.reset()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    report["pairwise_threshold"]["launches"] = counts["pairwise_threshold"]
+    check(counts["pairwise_threshold"] > 0, "join: B5 was never launched")
+    got_i = torch.as_tensor(res.i, device=DEVICE)
+    got_j = torch.as_tensor(res.j, device=DEVICE)
+    check(bool((got_i < got_j).all()), "join: a pair has i >= j")
+    wi, wj = [], []
+    cols = torch.arange(JOIN_N, device=DEVICE)
+    for r0 in range(0, JOIN_N, 4096):
+        r = cols[r0:r0 + 4096]
+        s = l2_scores(X[r], X, xn)
+        ii, jj = torch.nonzero((s >= thr) & (cols[None] > r[:, None]),
+                               as_tuple=True)
+        wi.append(ii + r0)
+        wj.append(jj)
+    wi, wj = torch.cat(wi), torch.cat(wj)
+    n_diff = compare_pair_sets(X, xn, thr, got_i, got_j, wi, wj, "join")
+    s_got = hit_scores(X, xn, got_i, got_j)
+    check(torch.allclose(torch.as_tensor(res.scores, device=DEVICE), s_got,
+                         rtol=SCORE_TOL, atol=SCORE_TOL), "join: scores")
+    say(f"join N={JOIN_N} d={JOIN_D} P={P} l2 threshold {thr:.6g}: "
+        f"{res.n_pairs} pairs in {secs:.3f} s (host clock, synchronized), "
+        f"peak {peak / 2**30:.3f} GiB, {res.escalations} escalations from "
+        f"capacity {JOIN_CAP0} to {res.capacity}, "
+        f"{int(tr.counter_total('sparse.tiles_pruned'))} of "
+        f"{int(tr.counter_total('sparse.tiles_scheduled'))} tiles pruned, "
+        f"B5 launches {counts['pairwise_threshold']}; brute force "
+        f"{wi.numel()} pairs, {n_diff} differ (all within the threshold "
+        "tolerance)")
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -391,6 +881,10 @@ KERNELS = {
                       "src/repro/kernels/pairwise_corr.py:52"),
     "pcit_filter": ("src/repro_torch/csrc/pcit_filter.cu",
                     "src/repro/kernels/pcit_filter.py:79"),
+    "query_topk": ("src/repro_torch/csrc/query_topk.cu",
+                   "src/repro/kernels/query_score.py:121"),
+    "pairwise_threshold": ("src/repro_torch/csrc/pairwise_threshold.cu",
+                           "src/repro/kernels/pairwise_threshold.py:150"),
 }
 
 
@@ -421,10 +915,16 @@ def main() -> int:
     say((lib.parent / "build.log").read_text())
 
     report: dict = {}
-    phases = [("kernels vs plain versions", lambda: phase_kernels(report)),
+    phases = [("kernels B1-B3 vs plain versions",
+               lambda: phase_kernels(report)),
+              ("kernels B4, B5 vs plain versions",
+               lambda: phase_kernels_serving(report)),
               ("engine selfcheck", phase_selfcheck),
+              ("serving and sparse selfchecks", phase_selfcheck_serving),
               ("n-body main path", lambda: phase_nbody(report)),
-              ("PCIT main path", lambda: phase_pcit(report))]
+              ("PCIT main path", lambda: phase_pcit(report)),
+              ("serving main path", lambda: phase_serving(report)),
+              ("join main path", lambda: phase_join(report))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..kernels.ref import IDX_SENTINEL, NEG_INF
+from ..kernels.ref import sort_by_score_index as _sort2
 from ..obs import trace as obs_trace
 from . import env as env_mod
 from .comm import SingleProcessComm, tree_map
@@ -426,15 +427,6 @@ def _pair_sweep_impl(emitter: SweepEmitter, *, schedule: PairSchedule,
 # ---------------------------------------------------------------------------
 # Shared top-k selection monoid (DESIGN.md sections 9.2, 12.2)
 # ---------------------------------------------------------------------------
-
-def _sort2(k1: torch.Tensor, k2: torch.Tensor):
-    """Ascending sort along the last axis by the key pair (k1, k2): a
-    stable sort by the minor key, then a stable sort by the major key."""
-    order = torch.argsort(k2, dim=-1, stable=True)
-    k1, k2 = k1.gather(-1, order), k2.gather(-1, order)
-    order = torch.argsort(k1, dim=-1, stable=True)
-    return k1.gather(-1, order), k2.gather(-1, order)
-
 
 def topk_by_score(vals: torch.Tensor, idx: torch.Tensor, topk: int):
     """Top-k along the last axis by the (-score, index) total order; pads

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu")
+SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
+           "query_topk.cu", "pairwise_threshold.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the PCIT filter's output is a threshold decision: no FMA contraction and
@@ -34,6 +35,7 @@ FILE_FLAGS = {"pcit_filter.cu": ("-fmad=false", "-prec-div=true",
 LIB_NAME = "librepro_torch_kernels.so"
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ll = ctypes.c_longlong
 SIGNATURES = {
     # quorum, lo, hi, w, out, B, k, block, n_pairs, softening, stream
     "repro_pairwise_batch_forces": [_vp] * 5 + [_i] * 4 + [_f, _vp],
@@ -41,6 +43,14 @@ SIGNATURES = {
     "repro_pairwise_corr": [_vp] * 3 + [_i] * 4 + [_vp],
     # r_xy, rows_x, rows_y, gx, gy, keep, visits, batch, M, N, Z, stream
     "repro_pcit_filter": [_vp] * 7 + [_i] * 4 + [_vp],
+    # stack, queries, mask, gidx, list_v, list_i, list_full, out_v, out_i,
+    # P, k, block, d, Q, topk, l2, stream
+    "repro_query_topk": [_vp] * 9 + [_i] * 7 + [_vp],
+    # rows per chunk list of the first query_topk pass
+    "repro_query_topk_chunk_rows": [],
+    # quorum, lo, hi, meta, row_count, row_off, out_v, out_i, out_j, count,
+    # P, k, block, d, n_pairs, block_rows, threshold, capacity, l2, stream
+    "repro_pairwise_threshold": [_vp] * 10 + [_i] * 6 + [_f, _ll, _i, _vp],
 }
 
 

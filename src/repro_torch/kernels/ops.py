@@ -18,12 +18,15 @@ from __future__ import annotations
 import torch
 
 from . import pairwise_batch, pairwise_corr as _corr_mod, pcit_filter as _pcit_mod
+from . import pairwise_threshold as _thr_mod, query_score as _query_mod
 from . import ref
 
 KERNEL_MODULES = {
     "pairwise_batch": pairwise_batch,
     "pairwise_corr": _corr_mod,
     "pcit_filter": _pcit_mod,
+    "query_topk": _query_mod,
+    "pairwise_threshold": _thr_mod,
 }
 
 
@@ -57,6 +60,34 @@ def pairwise_batch_forces(quorum, lo, hi, wi, wj, *,
                                          softening=softening)
     return pairwise_batch.pairwise_batch_forces_cuda(quorum, lo, hi, wi, wj,
                                                      softening=softening)
+
+
+def query_topk(stack, queries, mask, gidx, *, topk: int,
+               metric: str = "dot"):
+    """Fused query scoring + dedup mask + top-k for the serving engine's
+    ``batch_fn`` hook: stack [P, k, block, d], queries [Q, d], mask / gidx
+    [P, k, block] -> (values [P, Q, topk], indices [P, Q, topk]); see
+    ``kernels/query_score.py``."""
+    if _on_cpu(stack):
+        return ref.query_topk(stack, queries, mask, gidx, topk=topk,
+                              metric=metric)
+    return _query_mod.query_topk_cuda(stack, queries, mask, gidx, topk=topk,
+                                      metric=metric)
+
+
+def pairwise_threshold(quorum, lo, hi, meta, *, threshold: float,
+                       capacity: int, block_rows: int, metric: str = "dot"):
+    """Fused thresholded scoring + compaction for the similarity join's
+    ``batch_fn`` hook: quorum [P, k, block, d], lo / hi [n_pairs], meta
+    [P, n_pairs, 6] -> (vals, i, j [P, capacity], count [P]); see
+    ``kernels/pairwise_threshold.py``."""
+    if _on_cpu(quorum):
+        return ref.pairwise_threshold(quorum, lo, hi, meta,
+                                      threshold=threshold, capacity=capacity,
+                                      block_rows=block_rows, metric=metric)
+    return _thr_mod.pairwise_threshold_cuda(
+        quorum, lo, hi, meta, threshold=threshold, capacity=capacity,
+        block_rows=block_rows, metric=metric)
 
 
 def launch_counts() -> dict:

@@ -16,6 +16,18 @@ NEG_INF = -1e30
 # shared "no candidate" index sentinel for every top-k path — cross-path
 # index agreement depends on all of them using this exact value
 IDX_SENTINEL = int(np.iinfo(np.int32).max)
+QUERY_METRICS = ("dot", "l2")
+
+
+def sort_by_score_index(k1: torch.Tensor, k2: torch.Tensor):
+    """Ascending sort along the last axis by the key pair (k1, k2): a
+    stable sort by the minor key, then a stable sort by the major key.
+    With k1 = -score it is the (-score, index) total order of every top-k
+    path."""
+    order = torch.argsort(k2, dim=-1, stable=True)
+    k1, k2 = k1.gather(-1, order), k2.gather(-1, order)
+    order = torch.argsort(k1, dim=-1, stable=True)
+    return k1.gather(-1, order), k2.gather(-1, order)
 
 
 def pairwise_corr(xs_i: torch.Tensor, xs_j: torch.Tensor) -> torch.Tensor:
@@ -83,3 +95,120 @@ def pairwise_batch_forces(quorum, lo, hi, wi, wj, *,
         acc[:, l] += f_i * wi[:, n, None, None]
         acc[:, h] += f_j * wj[:, n, None, None]
     return acc
+
+
+def _check_metric(metric: str) -> None:
+    if metric not in QUERY_METRICS:
+        raise ValueError(f"metric must be one of {QUERY_METRICS}, "
+                         f"got {metric!r}")
+
+
+def query_topk(stack, queries, mask, gidx, *, topk: int,
+               metric: str = "dot"):
+    """Fused query-scoring top-k (B4): stack [..., k, block, d]; queries
+    [Q, d] shared by every leading entry; mask [..., k, block] (> 0 =
+    score the row); gidx [..., k, block] global row ids.  Scores are
+    ``q.x`` or ``2 q.x - |x|^2 - |q|^2`` (l2); selection is by the
+    (-score, index) total order, masked rows and missing candidates are
+    (NEG_INF, IDX_SENTINEL).  Returns (values [..., Q, topk] float32,
+    indices [..., Q, topk] int32)."""
+    _check_metric(metric)
+    stack = stack.float()
+    q = queries.float()
+    *lead, k, block, _d = stack.shape
+    Q = q.shape[0]
+    s = torch.einsum("qd,...sbd->...qsb", q, stack)
+    if metric == "l2":
+        s = (2.0 * s - torch.sum(stack * stack, dim=-1)[..., None, :, :]
+             - torch.sum(q * q, dim=-1)[:, None, None])
+    valid = torch.as_tensor(mask, device=stack.device) > 0
+    s = torch.where(valid[..., None, :, :], s,
+                    torch.full_like(s, NEG_INF)).reshape(*lead, Q, k * block)
+    ids = torch.where(valid, torch.as_tensor(gidx, device=stack.device)
+                      .to(torch.int32), IDX_SENTINEL)
+    ids = ids.reshape(*lead, 1, k * block).expand(*lead, Q, k * block)
+    n = k * block
+    if n < topk:
+        pad = (0, topk - n)
+        s = torch.nn.functional.pad(s, pad, value=NEG_INF)
+        ids = torch.nn.functional.pad(ids, pad, value=IDX_SENTINEL)
+    sv, si = sort_by_score_index(-s, ids)
+    return -sv[..., :topk], si[..., :topk]
+
+
+def tile_scores(bi: torch.Tensor, bj: torch.Tensor, metric: str):
+    """[..., m, d] x [..., n, d] -> [..., m, n] under the join metric: the
+    dot, or ``2 x.y - |y|^2 - |x|^2`` (l2) — one formula for the join, the
+    serving engine and both kernels, so threshold membership agrees."""
+    dot = bi @ bj.transpose(-1, -2)
+    if metric == "dot":
+        return dot
+    return (2.0 * dot - torch.sum(bj * bj, dim=-1)[..., None, :]
+            - torch.sum(bi * bi, dim=-1)[..., :, None])
+
+
+# score-tile elements per step of the plain join compaction (bounds its
+# working set at the main path's [P, block, block] tiles)
+_THRESHOLD_STEP_ELEMS = 1 << 26
+
+
+def pairwise_threshold(quorum, lo, hi, meta, *, threshold: float,
+                       capacity: int, block_rows: int, metric: str = "dot"):
+    """Thresholded sparse-join compaction (B5): quorum [..., k, block, d];
+    lo / hi [n_pairs] slot ids; meta [..., n_pairs, 6] int32 rows
+    ``(active, is_self, ga, gb, nv_lo, nv_hi)``.  Each passing entry of an
+    active tile — score >= threshold, row < nv_lo, col < nv_hi, and row <
+    col on a self tile — is emitted as ``(score, min_gid, max_gid)`` with
+    ``gid = g * block_rows + row``, compacted in (pair, row, col) order
+    into [capacity] buffers; entries past capacity are dropped while the
+    count keeps the true total (the overflow contract).  Returns
+    ``(vals [..., capacity] float32, i / j [..., capacity] int32, count
+    [...] int32)``; unused slots are (NEG_INF, IDX_SENTINEL).
+
+    Tiles are formed pair by pair in row strips, so the working set stays
+    bounded; a pair no leading entry has active is skipped."""
+    _check_metric(metric)
+    quorum = quorum.float()
+    *lead, k, block, d = quorum.shape
+    dev = quorum.device
+    q = quorum.reshape(-1, k, block, d)
+    B = q.shape[0]
+    meta = torch.as_tensor(meta, device=dev).to(torch.int64).reshape(B, -1, 6)
+    lo = torch.as_tensor(lo).reshape(-1).tolist()
+    hi = torch.as_tensor(hi).reshape(-1).tolist()
+    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+    vbuf = torch.full((B, capacity + 1), NEG_INF, dtype=torch.float32,
+                      device=dev)
+    ibuf = torch.full((B, capacity + 1), IDX_SENTINEL, dtype=torch.int32,
+                      device=dev)
+    jbuf = torch.full_like(ibuf, IDX_SENTINEL)
+    count = torch.zeros(B, dtype=torch.int64, device=dev)
+    active_any = meta[:, :, 0].eq(1).any(0).tolist()
+    rows_step = max(1, min(block, _THRESHOLD_STEP_ELEMS // max(1, B * block)))
+    cols = torch.arange(block, device=dev)
+    for p, (l, h) in enumerate(zip(lo, hi)):
+        if not active_any[p]:
+            continue
+        act, is_self, ga, gb, nv_lo, nv_hi = (meta[:, p, c] for c in range(6))
+        for r0 in range(0, block, rows_step):
+            rows = torch.arange(r0, min(block, r0 + rows_step), device=dev)
+            s = tile_scores(q[:, l, r0:r0 + len(rows)], q[:, h], metric)
+            keep = (s >= thr) & (act == 1)[:, None, None]
+            keep &= ((rows[:, None] < nv_lo[:, None, None])
+                     & (cols[None, :] < nv_hi[:, None, None]))
+            keep &= (is_self == 0)[:, None, None] | (rows[:, None]
+                                                      < cols[None, :])
+            gi = ga[:, None, None] * block_rows + rows[:, None]
+            gj = gb[:, None, None] * block_rows + cols[None, :]
+            keep = keep.reshape(B, -1)
+            pos = count[:, None] + torch.cumsum(keep, dim=1) - 1
+            pos = torch.where(keep & (pos < capacity), pos, capacity)
+            vbuf.scatter_(1, pos, s.reshape(B, -1))
+            ibuf.scatter_(1, pos, torch.minimum(gi, gj).reshape(B, -1)
+                          .to(torch.int32))
+            jbuf.scatter_(1, pos, torch.maximum(gi, gj).reshape(B, -1)
+                          .to(torch.int32))
+            count += keep.sum(1)
+    out = (vbuf[:, :capacity], ibuf[:, :capacity], jbuf[:, :capacity],
+           count.to(torch.int32))
+    return tuple(t.reshape(tuple(lead) + tuple(t.shape[1:])) for t in out)

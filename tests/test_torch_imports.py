@@ -27,7 +27,10 @@ def test_port_imports_no_jax_and_no_reference():
     code = (
         "import sys\n"
         "import repro_torch.apps.pcit, repro_torch.apps.nbody, "
-        "repro_torch.core.selfcheck, repro_torch.kernels.ops\n"
+        "repro_torch.core.selfcheck, repro_torch.kernels.ops, "
+        "repro_torch.core.sparse, repro_torch.serving, "
+        "repro_torch.serving.selfcheck, repro_torch.kernels.query_score, "
+        "repro_torch.kernels.pairwise_threshold\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -63,6 +66,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         pcit.run_quorum_pcit(torch.zeros(8, 4).numpy(),
                              comm.SingleProcessComm(2))
+    from repro_torch.core import sparse
+    from repro_torch.serving import ServingCorpus
+    from repro_torch.serving import selfcheck as serving_selfcheck
+    corpus = torch.zeros(8, 4).numpy()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingCorpus.build(corpus, comm.SingleProcessComm(2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sparse.similarity_join(corpus, comm.SingleProcessComm(2),
+                               threshold=0.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving_selfcheck.main(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sparse.selfcheck_main(2)
     assert comm.SingleProcessComm(4, "cpu").device.type == "cpu"
 
 

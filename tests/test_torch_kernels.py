@@ -16,10 +16,14 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
+from repro.kernels.pairwise_threshold import pairwise_threshold_pallas
+from repro.kernels.query_score import query_topk_pallas
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.pairwise_batch import pairwise_batch_forces_cuda
 from repro_torch.kernels.pairwise_corr import pairwise_corr_cuda
+from repro_torch.kernels.pairwise_threshold import pairwise_threshold_cuda
 from repro_torch.kernels.pcit_filter import pcit_filter_cuda
+from repro_torch.kernels.query_score import query_topk_cuda
 
 
 @pytest.mark.parametrize("M,N,G", [(128, 128, 128), (64, 96, 50),
@@ -121,6 +125,24 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pairwise_batch_forces_cuda(q, [0], [2], w, w)
     with pytest.raises(ValueError, match="float32"):
         pairwise_batch_forces_cuda(q.double(), [0], [1], w, w)
+    stack, m = torch.zeros(1, 2, 8, 4), torch.ones(1, 2, 8)
+    g = torch.zeros(1, 2, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        query_topk_cuda(stack, torch.zeros(3, 4), m, g, topk=4)
+    with pytest.raises(ValueError, match="topk"):
+        query_topk_cuda(stack, torch.zeros(3, 4), m, g, topk=1025)
+    with pytest.raises(ValueError, match="mask and gidx"):
+        query_topk_cuda(stack, torch.zeros(3, 4), m[:, :1], g, topk=4)
+    meta = torch.ones(1, 1, 6, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_threshold_cuda(stack, [0], [1], meta, threshold=0.0,
+                                capacity=8, block_rows=8)
+    with pytest.raises(ValueError, match="slot ids"):
+        pairwise_threshold_cuda(stack, [0], [2], meta, threshold=0.0,
+                                capacity=8, block_rows=8)
+    with pytest.raises(ValueError, match="meta"):
+        pairwise_threshold_cuda(stack, [0, 1], [1, 0], meta, threshold=0.0,
+                                capacity=8, block_rows=8)
 
 
 def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
@@ -130,7 +152,10 @@ def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
         assert (_build.CSRC / src).is_file()
     assert set(_build.SIGNATURES) == {"repro_pairwise_batch_forces",
                                       "repro_pairwise_corr",
-                                      "repro_pcit_filter"}
+                                      "repro_pcit_filter",
+                                      "repro_query_topk",
+                                      "repro_query_topk_chunk_rows",
+                                      "repro_pairwise_threshold"}
     key = _build.build_key()
     assert key == _build.build_key() and len(key) == 16
     monkeypatch.setitem(_build.FILE_FLAGS, "pcit_filter.cu", ())
@@ -144,7 +169,149 @@ def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
 def test_launch_counts_reset():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"pairwise_batch": 0, "pairwise_corr": 0,
-                                   "pcit_filter": 0}
+                                   "pcit_filter": 0, "query_topk": 0,
+                                   "pairwise_threshold": 0}
     # the plain path on the CPU launches nothing
     ops.pairwise_corr(torch.zeros(1, 2, 3), torch.zeros(1, 2, 3))
     assert sum(ops.launch_counts().values()) == 0
+
+
+def _b4_inputs(k, block, d, Q, seed, ties):
+    """A B4 cell: masked rows, a fully masked slot, scattered global ids;
+    with ``ties``, small-integer data (every score exact) and duplicated
+    rows, so equal scores must break by the smaller index."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        stack = rng.integers(-2, 3, size=(k, block, d)).astype(np.float32)
+        stack[:, 1::2] = stack[:, 0:block - block % 2:2]
+        stack[-1] = stack[0]
+        queries = rng.integers(-2, 3, size=(Q, d)).astype(np.float32)
+    else:
+        stack = rng.normal(size=(k, block, d)).astype(np.float32)
+        queries = rng.normal(size=(Q, d)).astype(np.float32)
+    mask = (rng.uniform(size=(k, block)) > 0.3).astype(np.float32)
+    mask[0] = 0.0
+    gidx = rng.permutation(4 * k * block)[:k * block].reshape(k, block)
+    return stack, queries, mask, gidx.astype(np.int32)
+
+
+B4_CELLS = [(3, 16, 8, 4, 4, False), (4, 12, 24, 5, 8, False),
+            (2, 32, 16, 12, 3, False), (5, 8, 4, 3, 40, False),
+            (4, 16, 8, 6, 10, True), (3, 20, 6, 7, 64, True)]
+
+
+@pytest.mark.parametrize("k,block,d,Q,topk,ties", B4_CELLS)
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_query_topk_plain(k, block, d, Q, topk, ties, metric):
+    """B4's plain version against the reference's plain version and its
+    Pallas kernel (interpret mode): ragged Q, masked rows, a fully masked
+    slot, ties between duplicated rows, topk above the candidate count.
+    Exact on indices, rtol 1e-5 on values."""
+    stack, queries, mask, gidx = _b4_inputs(k, block, d, Q,
+                                            k * 100 + block + Q, ties)
+    want = r_ref.query_topk(jnp.asarray(stack), jnp.asarray(queries), mask,
+                            gidx, topk=topk, metric=metric)
+    pallas = query_topk_pallas(jnp.asarray(stack), jnp.asarray(queries),
+                               jnp.asarray(mask), jnp.asarray(gidx),
+                               topk=topk, metric=metric, interpret=True)
+    # the port takes a leading device axis: device 1 sees the mask reversed
+    st2 = torch.as_tensor(np.stack([stack, stack]))
+    m2 = torch.as_tensor(np.stack([mask, mask[::-1].copy()]))
+    g2 = torch.as_tensor(np.stack([gidx, gidx]))
+    got_v, got_i = ops.query_topk(st2, torch.as_tensor(queries), m2, g2,
+                                  topk=topk, metric=metric)
+    assert got_v.shape == (2, Q, topk) and got_i.dtype == torch.int32
+    for w in (want, pallas):
+        np.testing.assert_array_equal(got_i[0].numpy(), np.asarray(w[1]))
+        np.testing.assert_allclose(got_v[0].numpy(), np.asarray(w[0]),
+                                   rtol=1e-5, atol=1e-5)
+    w1 = r_ref.query_topk(jnp.asarray(stack), jnp.asarray(queries),
+                          mask[::-1], gidx, topk=topk, metric=metric)
+    np.testing.assert_array_equal(got_i[1].numpy(), np.asarray(w1[1]))
+    if k * block < topk:
+        assert (got_i[0, :, k * block:] == ref.IDX_SENTINEL).all()
+
+
+def _b5_inputs(k, block, d, n_pairs, seed, ties):
+    """A B5 cell as the reference's sweep draws it: a self pair, repeated
+    pairs and lo > hi, an inactive (prefiltered) tile, ragged nv_lo /
+    nv_hi, arbitrary global block ids."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        quorum = rng.integers(-2, 3, size=(k, block, d)).astype(np.float32)
+    else:
+        quorum = rng.normal(size=(k, block, d)).astype(np.float32)
+    lo = rng.integers(0, k, size=n_pairs).astype(np.int32)
+    hi = rng.integers(0, k, size=n_pairs).astype(np.int32)
+    lo[0] = hi[0] = 0
+    meta = np.stack([
+        np.ones(n_pairs), (lo == hi),
+        rng.permutation(2 * n_pairs)[:n_pairs],
+        rng.permutation(2 * n_pairs)[:n_pairs],
+        np.minimum(block, rng.integers(1, block + 1, n_pairs)),
+        np.minimum(block, rng.integers(1, block + 1, n_pairs)),
+    ], axis=1).astype(np.int32)
+    if n_pairs > 1:
+        meta[1, 0] = 0
+    return quorum, lo, hi, meta
+
+
+B5_CELLS = [(3, 16, 8, 4, 256, False), (4, 12, 24, 6, 64, False),
+            (2, 8, 4, 2, 128, False), (5, 8, 16, 8, 16, False),
+            (3, 10, 6, 5, 12, True)]
+
+
+@pytest.mark.parametrize("k,block,d,n_pairs,capacity,ties", B5_CELLS)
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_threshold_plain(k, block, d, n_pairs, capacity, ties,
+                                  metric):
+    """B5's plain version against the reference's plain version and its
+    Pallas kernel (interpret mode): inactive tiles, self tiles, ragged
+    nv_lo / nv_hi, overflowing capacities (the same first-capacity
+    prefix), exact-integer scores on the threshold.  Exact on ids and
+    counts, rtol 1e-5 on values."""
+    quorum, lo, hi, meta = _b5_inputs(k, block, d, n_pairs,
+                                      k * 1000 + block, ties)
+    s = quorum[0] @ quorum[-1].T
+    if metric == "l2":
+        s = (2.0 * s - (quorum[-1] ** 2).sum(-1)[None]
+             - (quorum[0] ** 2).sum(-1)[:, None])
+    # integer scores: a threshold equal to a score keeps it (>=)
+    thr = float(np.quantile(s, 0.7)) if not ties else float(np.median(s))
+    kw = dict(threshold=thr, capacity=capacity, block_rows=block,
+              metric=metric)
+    want = r_ref.pairwise_threshold(jnp.asarray(quorum), lo, hi, meta, **kw)
+    pallas = pairwise_threshold_pallas(jnp.asarray(quorum), lo, hi,
+                                       jnp.asarray(meta), interpret=True,
+                                       **kw)
+    meta2 = np.stack([meta, meta])
+    meta2[1, :, 0] = 1 - meta2[1, :, 0]          # device 1: flags flipped
+    got = ops.pairwise_threshold(torch.as_tensor(np.stack([quorum, quorum])),
+                                 lo, hi, torch.as_tensor(meta2), **kw)
+    assert got[0].shape == (2, capacity) and got[3].shape == (2,)
+    for w in (want, pallas):
+        np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(w[1]))
+        np.testing.assert_array_equal(got[2][0].numpy(), np.asarray(w[2]))
+        np.testing.assert_allclose(got[0][0].numpy(), np.asarray(w[0]),
+                                   rtol=1e-5, atol=1e-5)
+        assert int(got[3][0]) == int(np.asarray(w[3]).reshape(()))
+    w1 = r_ref.pairwise_threshold(jnp.asarray(quorum), lo, hi, meta2[1], **kw)
+    np.testing.assert_array_equal(got[1][1].numpy(), np.asarray(w1[1]))
+    assert int(got[3][1]) == int(w1[3])
+    if (k, block, d, n_pairs, capacity) == (5, 8, 16, 8, 16):
+        assert int(got[3][0]) > capacity            # the overflow cell
+
+
+def test_pairwise_threshold_plain_strips_match_one_step(monkeypatch):
+    """The plain join compaction forms tiles in row strips; the strip size
+    changes nothing (order, overflow prefix, count)."""
+    quorum, lo, hi, meta = _b5_inputs(3, 16, 8, 4, 7, False)
+    kw = dict(threshold=0.5, capacity=24, block_rows=16, metric="dot")
+    q = torch.as_tensor(quorum)
+    whole = ref.pairwise_threshold(q, lo, hi, torch.as_tensor(meta), **kw)
+    monkeypatch.setattr(ref, "_THRESHOLD_STEP_ELEMS", 3 * 16)
+    strips = ref.pairwise_threshold(q, lo, hi, torch.as_tensor(meta), **kw)
+    torch.testing.assert_close(whole[0], strips[0], rtol=1e-6, atol=1e-6)
+    for a, b in zip(whole[1:], strips[1:]):
+        assert torch.equal(a, b)
+    assert int(whole[3]) > 24

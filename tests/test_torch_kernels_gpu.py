@@ -128,3 +128,135 @@ def test_wrappers_count_launches(cuda):
     x = torch.zeros(1, 4, 3, device=cuda)
     ops.pairwise_corr(x, x)
     assert ops.launch_counts()["pairwise_corr"] == 1
+
+
+def _query_inputs(rng, P, k, block, d, Q, integer, cuda):
+    if integer:   # exact scores and many equal ones: ties break by index
+        stack = rng.integers(-1, 2, size=(P, k, block, d))
+        queries = rng.integers(-1, 2, size=(Q, d))
+    else:
+        stack = rng.normal(size=(P, k, block, d))
+        queries = rng.normal(size=(Q, d))
+    mask = (rng.uniform(size=(P, k, block)) > 0.2).astype(np.float32)
+    mask[:, 0] = 0.0                       # a slot no device scores
+    gidx = np.stack([rng.permutation(3 * k * block)[:k * block]
+                     .reshape(k, block) for _ in range(P)])
+    return (torch.as_tensor(stack, dtype=torch.float32, device=cuda),
+            torch.as_tensor(queries, dtype=torch.float32, device=cuda),
+            torch.as_tensor(mask, device=cuda),
+            torch.as_tensor(gidx, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("P,k,block,d,Q,topk,integer", [
+    (2, 3, 16, 8, 5, 4, False), (1, 4, 12, 24, 70, 8, False),
+    (3, 5, 8, 4, 3, 40, False), (2, 3, 10000, 8, 33, 16, True),
+    (1, 2, 9000, 16, 64, 128, True), (2, 4, 20000, 128, 256, 16, False),
+    (1, 2, 5000, 32, 20, 1024, False)])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_query_topk(cuda, P, k, block, d, Q, topk, integer, metric):
+    """B4 against its plain version: ragged Q and blocks, masked rows, a
+    masked slot, topk above the candidates, exact ties across chunk lists,
+    topk up to 1024."""
+    rng = np.random.default_rng(P * 1000 + block + topk)
+    args = _query_inputs(rng, P, k, block, d, Q, integer, cuda)
+    got_v, got_i = ops.query_topk(*args, topk=topk, metric=metric)
+    want_v, want_i = ref.query_topk(*args, topk=topk, metric=metric)
+    torch.testing.assert_close(got_v, want_v, rtol=1e-5, atol=1e-5)
+    if integer:   # every score exact: the order must be too
+        assert torch.equal(got_i, want_i)
+    else:
+        _assert_near_ties(args, got_i, want_v, want_i, metric)
+
+
+def _assert_near_ties(args, got_i, want_v, want_i, metric):
+    """Where the kernel's fp32 accumulation orders two candidates other
+    than cuBLAS's did, the plain score of the kernel's pick must lie within
+    1e-5 * max(1, |s|) of the wanted score at that rank (or both of the
+    k-th score)."""
+    stack, queries, _mask, gidx = args
+    P, k, block, d = stack.shape
+    diff = got_i != want_i
+    if not bool(diff.any()):
+        return
+    assert bool((got_i[diff] != ref.IDX_SENTINEL).all())
+    inv = torch.zeros(P, int(gidx.max()) + 1, dtype=torch.long,
+                      device=stack.device)
+    inv.scatter_(1, gidx.reshape(P, -1).long(),
+                 torch.arange(k * block, device=stack.device).expand(P, -1))
+    ids = torch.where(diff, got_i, gidx.reshape(P, -1)[:, :1, None]).long()
+    pos = inv.gather(1, ids.reshape(P, -1)).reshape(ids.shape)
+    rows = torch.stack([stack[p].reshape(-1, d)[pos[p]] for p in range(P)])
+    s = torch.einsum("qd,pqtd->pqt", queries, rows)
+    if metric == "l2":
+        s = (2.0 * s - (rows * rows).sum(-1)
+             - (queries * queries).sum(-1)[None, :, None])
+    tol = 1e-5 * torch.clamp(want_v.abs(), min=1.0)
+    kth = want_v[..., -1:].expand_as(want_v)
+    ok = ((s - want_v).abs() <= tol) | (((s - kth).abs() <= tol)
+                                        & ((want_v - kth).abs() <= tol))
+    assert bool(ok[diff].all()), int((diff & ~ok).sum())
+
+
+def test_query_topk_refuses_large_topk(cuda):
+    args = _query_inputs(np.random.default_rng(0), 1, 2, 8, 4, 3, False,
+                         cuda)
+    with pytest.raises(ValueError, match="topk"):
+        ops.query_topk(*args, topk=1025)
+
+
+def _threshold_inputs(rng, P, k, block, d, n_pairs, integer, cuda):
+    if integer:
+        quorum = rng.integers(-2, 3, size=(P, k, block, d))
+    else:
+        quorum = rng.normal(size=(P, k, block, d))
+    lo = rng.integers(0, k, size=n_pairs).astype(np.int32)
+    hi = rng.integers(0, k, size=n_pairs).astype(np.int32)
+    lo[0] = hi[0] = 0
+    meta = np.stack([
+        rng.uniform(size=(P, n_pairs)) > 0.2,
+        np.broadcast_to(lo == hi, (P, n_pairs)),
+        rng.integers(0, 2 * n_pairs, size=(P, n_pairs)),
+        rng.integers(0, 2 * n_pairs, size=(P, n_pairs)),
+        np.minimum(block, rng.integers(1, block + 40, size=(P, n_pairs))),
+        np.minimum(block, rng.integers(1, block + 40, size=(P, n_pairs))),
+    ], axis=-1).astype(np.int32)
+    meta[:, 0, 0] = 1
+    return (torch.as_tensor(quorum, dtype=torch.float32, device=cuda), lo, hi,
+            torch.as_tensor(meta, device=cuda))
+
+
+@pytest.mark.parametrize("P,k,block,d,n_pairs,capacity,integer", [
+    (2, 3, 16, 8, 4, 256, False), (1, 4, 12, 24, 6, 64, False),
+    (3, 5, 8, 16, 8, 16, False), (2, 3, 300, 8, 5, 4000, True),
+    (2, 3, 300, 8, 5, 700, True), (1, 3, 3000, 64, 4, 1 << 16, True)])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_threshold(cuda, P, k, block, d, n_pairs, capacity, integer,
+                            metric):
+    """B5 against its plain version: inactive and self tiles, ragged
+    nv_lo / nv_hi, repeated pairs, and overflowing capacities, where the
+    kept entries must be the same first-capacity prefix."""
+    rng = np.random.default_rng(P * 1000 + block + capacity)
+    quorum, lo, hi, meta = _threshold_inputs(rng, P, k, block, d, n_pairs,
+                                             integer, cuda)
+    s = ref.tile_scores(quorum[0, 0], quorum[0, -1], metric)
+    thr = float(torch.quantile(s.flatten()[:100000], 0.9))
+    kw = dict(threshold=thr, capacity=capacity, block_rows=block,
+              metric=metric)
+    got = ops.pairwise_threshold(quorum, lo, hi, meta, **kw)
+    want = ref.pairwise_threshold(quorum, lo, hi, meta, **kw)
+    assert torch.equal(got[3], want[3])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+def test_new_wrappers_count_launches(cuda):
+    ops.reset_launch_counts()
+    args = _query_inputs(np.random.default_rng(0), 1, 2, 8, 4, 3, False,
+                         cuda)
+    ops.query_topk(*args, topk=2)
+    quorum, lo, hi, meta = _threshold_inputs(np.random.default_rng(0), 1, 2,
+                                             8, 4, 2, False, cuda)
+    ops.pairwise_threshold(quorum, lo, hi, meta, threshold=0.0, capacity=8,
+                           block_rows=8)
+    counts = ops.launch_counts()
+    assert counts["query_topk"] == 1 and counts["pairwise_threshold"] == 1
