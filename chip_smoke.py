@@ -30,13 +30,27 @@ beside the script).  Phases:
      against a brute force on the card;
   9. the similarity join of 262,144 x 128 clustered vectors over P = 8
      devices through B5, held against a brute force on the card;
+ 10. B6 pairwise_topk, B7 pairwise_threshold_q and B8 pairwise_topk_q (int8
+     and bf16) at the k-NN and quantized paths' shapes against their plain
+     versions, timed beside them and a two-call library yardstick;
+ 11. the k-NN and quantized-pipeline self-checks at P = 2, 5, 8, every mode
+     including ``kernel``;
+ 12. the k-NN graph (top-10, l2) of the join's corpus through B6, held
+     against a brute force on the card;
+ 13. the quantized join (int8, then bf16) of that corpus through B7, held
+     against the f32 join of phase 9;
+ 14. the quantized k-NN graph (int8) through B8, doubling M until every row
+     is certified, held against the f32 graph of phase 12;
+ 15. quantized serving (int8) of the 1,000,000 x 128 corpus: microbatches
+     of 256 l2 top-10 queries before and after a block replace, held
+     against the f32 ``ServingCorpus.query``;
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
 
 Kernel launch counts are set to 0 just before each main path (n-body,
-PCIT, serving, join) is driven and read just after it, so comparison
-launches do not count.
+PCIT, serving, join, k-NN graph, quantized join, quantized k-NN) is driven
+and read just after it, so comparison launches do not count.
 """
 
 from __future__ import annotations
@@ -59,6 +73,8 @@ PCIT_N, PCIT_G = 8192, 512
 PCIT_RANK = 16           # latent factors of the synthetic expression data
 # published H100 SXM peaks (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
+PEAK_INT8_OPS = 1979e12  # int8 tensor cores, dense
 PEAK_BYTES = 3.35e12     # HBM3
 # fp32 operations per body pair of the n-body step (difference 3, r^2 6,
 # rsqrt and its cube 3, mass product 2, force 3, row sum 3), plus 3 for the
@@ -80,6 +96,10 @@ THR_Q, THR_HITS, THR_CAP0 = 64, 100, 16
 JOIN_N, JOIN_D, JOIN_CLUSTERS = 262_144, 128, 256
 JOIN_HITS, JOIN_CAP0, JOIN_SAMPLE = 100_000, 8192, 16384
 CLUSTER_SPREAD = 0.3
+# the k-NN graph of the join's corpus, and quantized serving microbatches
+# before and after the block replace
+KNN_TOPK, QSERVE_BATCHES = 10, 4
+QUANT_CAP = 1 << 20      # B7's per-device buffer at the join's shape
 # scores within SCORE_TOL * max(1, |s|) of each other (or of the k-th
 # score, or of the threshold) may order differently between the kernels'
 # fp32 accumulation and cuBLAS's
@@ -114,10 +134,12 @@ def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of bytes over
-    the memory rate and fp32 operations over the fp32 peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+    the memory rate and operations over their type's peak (fp32 unless
+    given)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -860,6 +882,7 @@ def phase_join(report: dict) -> None:
         wj.append(jj)
     wi, wj = torch.cat(wi), torch.cat(wj)
     n_diff = compare_pair_sets(X, xn, thr, got_i, got_j, wi, wj, "join")
+    report["join_pairs"] = (got_i, got_j)
     s_got = hit_scores(X, xn, got_i, got_j)
     check(torch.allclose(torch.as_tensor(res.scores, device=DEVICE), s_got,
                          rtol=SCORE_TOL, atol=SCORE_TOL), "join: scores")
@@ -874,6 +897,517 @@ def phase_join(report: dict) -> None:
         "tolerance)")
 
 
+# ---------------------------------------------------------------------------
+# The k-NN graph and the quantized paths (B6, B7, B8)
+# ---------------------------------------------------------------------------
+
+def lists_near(got_v, got_i, want_v, want_i, what: str) -> int:
+    """Lists [..., topk] against the plain version's where the two sum in
+    other orders: values within SCORE_TOL * max(1, |s|) rank by rank, and
+    where the ids differ the wanted score at that rank has a near-tie
+    partner (another listed score, or the k-th) within that tolerance.
+    Returns the number of differing entries."""
+    tol = tol_of(want_v)
+    check(bool(((got_v - want_v).abs() <= tol).all()),
+          f"{what}: values differ by up to "
+          f"{float((got_v - want_v).abs().max()):.3e}")
+    diff = got_i != want_i
+    if not bool(diff.any()):
+        return 0
+    gap = (want_v[..., :, None] - want_v[..., None, :]).abs()
+    eye = torch.eye(want_v.shape[-1], dtype=torch.bool, device=DEVICE)
+    partner = ((gap <= tol[..., None]) & ~eye).any(-1)
+    kth = (want_v - want_v[..., -1:]).abs() <= tol
+    check(bool((partner | kth)[diff].all()),
+          f"{what}: {int((diff & ~(partner | kth)).sum())} ids differ "
+          "beyond the tie tolerance")
+    return int(diff.sum())
+
+
+def active_candidates(meta) -> int:
+    """Unique row pairs of the active tiles (self tiles count once)."""
+    cand = 0
+    for a, s_, _ga, _gb, nv_lo, nv_hi in meta.reshape(-1, 6).tolist():
+        if a:
+            cand += nv_lo * (nv_lo - 1) // 2 if s_ else nv_lo * nv_hi
+    return cand
+
+
+def per_tile_library(quorum, lo, hi, meta, product) -> float:
+    """The two-call yardstick over every active tile: ``product`` (one
+    library matmul) then torch.topk along both orientations (one for a
+    self tile).  Device ms of one pass."""
+    active = meta[..., 0].cpu()
+    lo, hi = [int(v) for v in lo], [int(v) for v in hi]
+
+    def run():
+        for p in range(P):
+            for n, (l, h) in enumerate(zip(lo, hi)):
+                if active[p, n]:
+                    s = product(quorum[p, l], quorum[p, h])
+                    torch.topk(s, KNN_TOPK, dim=1)
+                    if l != h:
+                        torch.topk(s, KNN_TOPK, dim=0)
+    return cuda_ms(run, reps=1)
+
+
+def band_edge_check(qc, thr, got, want, what: str) -> int:
+    """bf16 band buffers against the plain version's: identical, or the
+    pair sets differ only by pairs whose plain band score lies within
+    SCORE_TOL * max(1, |thr - eps|) of the band's edge ``thr - eps``."""
+    from repro_torch.kernels.ref import quant_eps_tile
+    if all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])):
+        return 0
+    n_diff = 0
+    d = qc.q.shape[1]
+    for p in range(P):
+        ng = min(int(got[3][p]), got[1].shape[1])
+        nw = min(int(want[3][p]), want[1].shape[1])
+        gk = pair_keys(got[1][p, :ng], got[2][p, :ng], qc.q.shape[0])
+        wk = pair_keys(want[1][p, :nw], want[2][p, :nw], qc.q.shape[0])
+        only = torch.cat([gk[~torch.isin(gk, wk)], wk[~torch.isin(wk, gk)]])
+        if not only.numel():
+            continue
+        i, j = only // qc.q.shape[0], only % qc.q.shape[0]
+        bi, bj = i // qc.block, j // qc.block
+        s = (qc.q[i].float() * qc.q[j].float()).sum(-1) \
+            * (qc.scale[bi] * qc.scale[bj])
+        s = (2.0 * s - qc.sq[j]) - qc.sq[i]
+        eps = quant_eps_tile(qc.delta[bi], qc.delta[bj], qc.l1[i][:, None],
+                             qc.l1[j][:, None], dim=d, metric="l2")[:, 0, 0]
+        edge = thr - eps
+        check(bool(((s - edge).abs() <= tol_of(edge)).all()),
+              f"{what} device {p}: {only.numel()} pairs differ, some away "
+              "from the band's edge")
+        n_diff += int(only.numel())
+    return n_diff
+
+
+def phase_kernels_knn(report: dict) -> None:
+    from repro_torch.core import quant
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.knn import quorum_allpairs_knn
+    from repro_torch.core.placement import get_placement
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.engine import quantize_pow2
+
+    comm = SingleProcessComm(P, DEVICE)
+    sched = get_placement("cyclic", P).schedule()
+    X, xn, thr = join_data()
+    N = X.shape[0]
+    block = N // P
+    store: dict = {}
+
+    def lists_out(shape_of, topk):
+        return lambda qu, lo, hi, meta: (
+            torch.full(shape_of(qu) + (topk,), -1e30, device=DEVICE),
+            torch.zeros(shape_of(qu) + (topk,), dtype=torch.int32,
+                        device=DEVICE))
+
+    # ---- B6 at the k-NN graph's shapes: quorum [8, 4, 32768, 128] ------
+    quorum_allpairs_knn(X.reshape(P, block, JOIN_D), comm, topk=KNN_TOPK,
+                        schedule=sched, metric="l2", mode="batched",
+                        n_valid=N, batch_fn=capture_batch_fn(
+                            store, lists_out(lambda qu: qu.shape[:3],
+                                             KNN_TOPK)))
+    quorum, lo, hi, meta = store.pop("args")
+    kw = dict(topk=KNN_TOPK, block_rows=block, metric="l2")
+    got_v, got_i = ops.pairwise_topk(quorum, lo, hi, meta, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [ref.pairwise_topk(quorum[p:p + 1], lo, hi, meta[p:p + 1], **kw)
+            for p in range(P)]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want_v = torch.cat([w[0] for w in want])
+    want_i = torch.cat([w[1] for w in want])
+    del want
+    err = float((got_v - want_v).abs().max())
+    n_diff = 0
+    for p in range(P):
+        for s_ in range(sched.k):
+            g = (p + int(sched.shifts[s_])) % P
+            n_diff += check_topk_rows(
+                X[g * block:(g + 1) * block], X, xn, got_v[p, s_],
+                got_i[p, s_], want_v[p, s_], want_i[p, s_],
+                f"B6 device {p} slot {s_}")
+    ms = cuda_ms(lambda: ops.pairwise_topk(quorum, lo, hi, meta, **kw),
+                 reps=2)
+    lib_ms = per_tile_library(quorum, lo, hi, meta,
+                              lambda a, b: torch.mm(a, b.T))
+    cand = active_candidates(meta)
+    b_ms, b_by = bound(nbytes(quorum, meta, got_v, got_i), 2.0 * JOIN_D * cand)
+    say(f"B6 pairwise_topk quorum {tuple(quorum.shape)} x {len(lo)} pairs, "
+        f"{cand} candidate pairs in active tiles, l2 top-{KNN_TOPK}: "
+        f"max_abs_err={err:.3e}, ids differ at {n_diff} near-tie entries; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (host clock, device by "
+        f"device), torch.mm (TF32 off) + torch.topk per active tile "
+        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    report["pairwise_topk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   library_ms=lib_ms, differing=n_diff)
+    del quorum, got_v, got_i, want_v, want_i
+
+    # ---- B8 at the quantized k-NN's first pass: M = 16 ------------------
+    M = quantize_pow2(KNN_TOPK)
+    kw = dict(topk=M, block_rows=block, metric="l2")
+    for qm in ("int8", "bf16"):
+        qc = quant.quantize_corpus(X, P, block, qm)
+        quant.quorum_allpairs_knn_q(
+            qc.blocks(), comm, topk=M, schedule=sched, metric="l2",
+            mode="batched", n_valid=N, batch_fn=capture_batch_fn(
+                store, lists_out(lambda qb: qb.q.shape[:3], M)))
+        qq, lo, hi, meta = store.pop("args")
+        sd = quant._kernel_sd(qq)
+        got_v, got_i = ops.pairwise_topk_q(qq.q, sd, qq.sq, lo, hi, meta,
+                                           **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [ref.pairwise_topk_q(qq.q[p:p + 1], qq.scale[p:p + 1],
+                                    qq.sq[p:p + 1], lo, hi, meta[p:p + 1],
+                                    **kw) for p in range(P)]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        want_v = torch.cat([w[0] for w in want])
+        want_i = torch.cat([w[1] for w in want])
+        del want
+        err = float((got_v - want_v).abs().max())
+        if qm == "int8":
+            check(torch.equal(got_v, want_v) and torch.equal(got_i, want_i),
+                  f"B8 int8: lists differ from the plain version's "
+                  f"(max abs err {err:.3e}, "
+                  f"{int((got_i != want_i).sum())} ids)")
+            n_diff = 0
+        else:
+            n_diff = lists_near(got_v, got_i, want_v, want_i, "B8 bf16")
+        ms = cuda_ms(lambda: ops.pairwise_topk_q(qq.q, sd, qq.sq, lo, hi,
+                                                 meta, **kw), reps=2)
+        if qm == "int8":
+            lib_ms = per_tile_library(qq.q, lo, hi, meta,
+                                      lambda a, b: torch._int_mm(a, b.T))
+            lib_name = "torch._int_mm + torch.topk"
+        else:
+            lib_ms = per_tile_library(qq.q, lo, hi, meta,
+                                      lambda a, b: torch.mm(a, b.T))
+            lib_name = "torch.mm (bf16) + torch.topk"
+        cand = active_candidates(meta)
+        b_ms, b_by = bound(nbytes(qq.q, sd, qq.sq, meta, got_v, got_i),
+                           2.0 * JOIN_D * cand,
+                           PEAK_INT8_OPS if qm == "int8" else PEAK_BF16_FLOPS)
+        say(f"B8 pairwise_topk_q {qm} {tuple(qq.q.shape)} x {len(lo)} pairs, "
+            f"l2 top-{M}: max_abs_err={err:.3e}, ids differ at {n_diff} "
+            f"entries ({'identical' if qm == 'int8' else 'near ties'}); "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (host clock, device "
+            f"by device), {lib_name} per active tile {lib_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}, {qm} tensor-core peak)")
+        if qm == "int8":
+            report["pairwise_topk_q"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+        else:
+            report["pairwise_topk_q"]["bf16_ms"] = ms
+        del qq, got_v, got_i, want_v, want_i
+
+    # ---- B7 at the quantized join's shapes ------------------------------
+    cap = QUANT_CAP
+    kw = dict(threshold=thr, capacity=cap, block_rows=block, metric="l2")
+    for qm in ("int8", "bf16"):
+        qc = quant.quantize_corpus(X, P, block, qm)
+        quant.quorum_allpairs_threshold_q(
+            qc.blocks(), comm, threshold=thr, capacity=cap, schedule=sched,
+            metric="l2", mode="batched", n_valid=N,
+            batch_fn=capture_batch_fn(store, lambda qb, lo, hi, meta: (
+                torch.zeros(P, cap, device=DEVICE),
+                torch.zeros(P, cap, dtype=torch.int32, device=DEVICE),
+                torch.zeros(P, cap, dtype=torch.int32, device=DEVICE),
+                torch.zeros(P, dtype=torch.int32, device=DEVICE))))
+        qq, lo, hi, meta = store.pop("args")
+        sd = quant._kernel_sd(qq)
+        got = ops.pairwise_threshold_q(qq.q, sd, qq.l1, qq.sq, lo, hi, meta,
+                                       **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [ref.pairwise_threshold_q(
+            qq.q[p:p + 1], qq.scale[p:p + 1], qq.delta[p:p + 1],
+            qq.l1[p:p + 1], qq.sq[p:p + 1], lo, hi, meta[p:p + 1], **kw)
+            for p in range(P)]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        want = tuple(torch.cat([w[f] for w in want]) for f in range(4))
+        check(bool((got[3] <= cap).all()), f"B7 {qm}: capacity overflowed")
+        if qm == "int8":
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  "B7 int8: band buffers differ from the plain version's")
+            n_diff, err = 0, 0.0
+        else:
+            n_diff = band_edge_check(qc, thr, got, want, "B7 bf16")
+            same = got[1].shape == want[1].shape and n_diff == 0
+            err = float((got[0] - want[0]).abs().max()) if same else 0.0
+        ms = cuda_ms(lambda: ops.pairwise_threshold_q(
+            qq.q, sd, qq.l1, qq.sq, lo, hi, meta, **kw), reps=2)
+        cand = active_candidates(meta)
+        b_ms, b_by = bound(nbytes(qq.q, sd, qq.l1, qq.sq, meta, *got),
+                           2.0 * JOIN_D * cand,
+                           PEAK_INT8_OPS if qm == "int8" else PEAK_BF16_FLOPS)
+        say(f"B7 pairwise_threshold_q {qm} {tuple(qq.q.shape)} x {len(lo)} "
+            f"pairs, l2 band at threshold {thr:.6g}: {int(got[3].sum())} band "
+            f"entries, max_abs_err={err:.3e}, {n_diff} differ (at the band's "
+            f"edge); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (host clock,"
+            f" device by device), bound {b_ms:.3f} ms ({b_by}, {qm} "
+            "tensor-core peak)")
+        if qm == "int8":
+            report["pairwise_threshold_q"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, band=int(got[3].sum()))
+        else:
+            report["pairwise_threshold_q"]["bf16_ms"] = ms
+        del qq, got, want
+    # an overflowing capacity keeps the plain version's exact prefix
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    qi = torch.randint(-9, 10, (2, 3, 300, 16), generator=g,
+                       device=DEVICE).to(torch.int8)
+    sdi = torch.full((2, 3, 2), 0.05, device=DEVICE)
+    l1i = qi.float().abs().sum(-1) * 0.05
+    sqi = (qi.float() ** 2).sum(-1) * 0.0025
+    mi = torch.tensor([[1, 1, 0, 0, 300, 300], [1, 0, 0, 1, 280, 300],
+                       [1, 0, 1, 2, 300, 250]], dtype=torch.int32,
+                      device=DEVICE).expand(2, 3, 6).contiguous()
+    kwi = dict(threshold=0.5, capacity=700, block_rows=300, metric="dot")
+    a = ops.pairwise_threshold_q(qi, sdi, l1i, sqi, [0, 0, 1], [0, 1, 2], mi,
+                                 **kwi)
+    b = ref.pairwise_threshold_q(qi, sdi[..., 0], sdi[..., 1], l1i, sqi,
+                                 [0, 0, 1], [0, 1, 2], mi, **kwi)
+    check(bool((a[3] > 700).all()) and all(torch.equal(x, y)
+                                           for x, y in zip(a, b)),
+          "B7: the overflowing prefix differs from the plain version's")
+    say(f"B7 overflow: counts {a[3].tolist()} > capacity 700, the kept "
+        "prefix equals the plain version's")
+
+
+def phase_selfcheck_knn() -> None:
+    from repro_torch.core import knn, quant
+    for p in (2, 5, 8):
+        knn.selfcheck_main(p, device=DEVICE)
+        quant.selfcheck_main(p, device=DEVICE)
+
+
+def phase_knn(report: dict) -> None:
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.knn import knn_graph
+    from repro_torch.kernels import ops
+
+    comm = SingleProcessComm(P, DEVICE)
+    X, xn, _thr = join_data()
+    N = X.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    g = knn_graph(X, comm, topk=KNN_TOPK, metric="l2", mode="batched",
+                  placement="cyclic", use_kernel=True, quant="off")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    report["pairwise_topk"]["launches"] = counts["pairwise_topk"]
+    check(counts["pairwise_topk"] > 0, "k-NN: B6 was never launched")
+    check(g.indices.shape == (N, KNN_TOPK), "k-NN: wrong graph shape")
+    gv = torch.as_tensor(g.scores, device=DEVICE)
+    gi = torch.as_tensor(g.indices, device=DEVICE)
+    check(bool(torch.isfinite(gv).all()), "k-NN: non-finite scores")
+    rows = torch.arange(N, device=DEVICE)
+    check(not bool((gi == rows[:, None]).any()), "k-NN: a row lists itself")
+    n_diff = 0
+    for r0 in range(0, N, 4096):
+        r = rows[r0:r0 + 4096]
+        s = l2_scores(X[r], X, xn)
+        s[torch.arange(len(r), device=DEVICE), r] = -float("inf")
+        wv, wi = torch.topk(s, KNN_TOPK)
+        n_diff += check_topk_rows(X[r], X, xn, gv[r], gi[r], wv, wi,
+                                  f"k-NN rows {r0}..")
+    report["knn_graph"] = (gv, gi)
+    say(f"knn N={N} d={JOIN_D} P={P} l2 top-{KNN_TOPK}: {secs:.3f} s (host "
+        f"clock, synchronized), peak {peak / 2**30:.3f} GiB, B6 launches "
+        f"{counts['pairwise_topk']}; against the brute force {n_diff} of "
+        f"{gi.numel()} ids differ, all within the tie tolerance")
+
+
+def phase_quant_join(report: dict) -> None:
+    from repro_torch.core import quant
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.kernels import ops
+
+    comm = SingleProcessComm(P, DEVICE)
+    X, xn, thr = join_data()
+    N = X.shape[0]
+    f_i, f_j = report["join_pairs"]
+    report["pairwise_threshold_q"]["launches"] = 0
+    for qm in ("int8", "bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        st: dict = {}
+        t0 = time.perf_counter()
+        res = quant.quant_similarity_join(
+            X, comm, threshold=thr, quant=qm, metric="l2", mode="batched",
+            placement="cyclic", capacity=JOIN_CAP0, use_kernel=True, stats=st)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        report["pairwise_threshold_q"]["launches"] += \
+            counts["pairwise_threshold_q"]
+        check(counts["pairwise_threshold_q"] > 0,
+              f"quantized join {qm}: B7 was never launched")
+        got_i = torch.as_tensor(res.i, device=DEVICE)
+        got_j = torch.as_tensor(res.j, device=DEVICE)
+        check(bool((got_i < got_j).all()), f"quantized join {qm}: i >= j")
+        n_diff = compare_pair_sets(X, xn, thr, got_i, got_j, f_i, f_j,
+                                   f"quantized join {qm} vs the f32 join")
+        check(torch.allclose(torch.as_tensor(res.scores, device=DEVICE),
+                             hit_scores(X, xn, got_i, got_j),
+                             rtol=SCORE_TOL, atol=SCORE_TOL),
+              f"quantized join {qm}: scores")
+        say(f"quantized join {qm} N={N} P={P} l2 threshold {thr:.6g}: "
+            f"{res.n_pairs} pairs in {secs:.3f} s (host clock, synchronized),"
+            f" peak {peak / 2**30:.3f} GiB; band emitted {st['emitted']}, "
+            f"kept {st['kept']}, certain {st['certain']}, escalations "
+            f"{st['escalations']} (capacity {JOIN_CAP0} to {res.capacity}); "
+            f"B7 launches {counts['pairwise_threshold_q']}; {n_diff} pairs "
+            f"differ from the f32 join's {f_i.numel()} (all within the "
+            "threshold tolerance)")
+    k = build_schedule(P).k
+    sizes = {m: quant.corpus_bytes_per_device(N, JOIN_D, P, k, m)
+             for m in ("off", "int8", "bf16")}
+    say("corpus_bytes_per_device N=%d d=%d P=%d k=%d: f32 %d B, int8 %d B "
+        "(%.2fx less), bf16 %d B (%.2fx less)" % (
+            N, JOIN_D, P, k, sizes["off"], sizes["int8"],
+            sizes["off"] / sizes["int8"], sizes["bf16"],
+            sizes["off"] / sizes["bf16"]))
+
+
+def phase_quant_knn(report: dict) -> None:
+    from repro_torch.core import quant
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.placement import get_placement
+    from repro_torch.kernels import ops
+
+    comm = SingleProcessComm(P, DEVICE)
+    X, xn, _thr = join_data()
+    N = X.shape[0]
+    fv, fi = report["knn_graph"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    st: dict = {}
+    t0 = time.perf_counter()
+    g = quant.quant_knn_graph(X, comm, topk=KNN_TOPK, quant="int8",
+                              metric="l2", mode="batched",
+                              placement="cyclic", use_kernel=True, stats=st)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    report["pairwise_topk_q"]["launches"] = counts["pairwise_topk_q"]
+    check(counts["pairwise_topk_q"] > 0, "quantized k-NN: B8 never launched")
+    gv = torch.as_tensor(g.scores, device=DEVICE)
+    gi = torch.as_tensor(g.indices, device=DEVICE)
+    check(gi.shape == (N, KNN_TOPK), "quantized k-NN: wrong graph shape")
+    n_diff = 0
+    rows = torch.arange(N, device=DEVICE)
+    for r0 in range(0, N, 4096):
+        r = rows[r0:r0 + 4096]
+        n_diff += check_topk_rows(X[r], X, xn, gv[r], gi[r], fv[r], fi[r],
+                                  f"quantized k-NN rows {r0}.. vs f32")
+    passes = ", ".join(f"M={m}: {n} pending" for m, n in st["passes"])
+    # the device sweep of the last pass alone (B8 and the scatter merges)
+    m_last = st["passes"][-1][0]
+    qb = quant.quantize_corpus(X, P, N // P, "int8").blocks()
+    sweep = quant._qknn_fn(comm, N, N // P, m_last, "l2", "batched", True,
+                           get_placement("cyclic", P))
+    last_ms = cuda_ms(lambda: sweep(qb), reps=1, warmup=0)
+    say(f"quantized k-NN int8 N={N} P={P} l2 top-{KNN_TOPK}: {secs:.3f} s "
+        f"(host clock, synchronized), peak {peak / 2**30:.3f} GiB, passes "
+        f"[{passes}], B8 launches {counts['pairwise_topk_q']}; the sweep at "
+        f"M={m_last} alone {last_ms:.1f} ms (CUDA events); against the f32 "
+        f"graph {n_diff} ids differ, all within the tie tolerance")
+
+
+def phase_quant_serving() -> None:
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.quant import _query_q_fn, serving_query
+    from repro_torch.serving import ServingCorpus
+
+    comm = SingleProcessComm(P, DEVICE)
+    X, queries, fresh, _thr_q = serving_data()
+    xn = (X * X).sum(-1)
+    batches = range(2 * QSERVE_BATCHES)
+    # the f32 path's answers (B4), before and after the replace
+    sc = ServingCorpus.build(X, comm, placement="cyclic")
+    f32_stack = sc.state.stack[0].numel() * sc.state.stack.element_size()
+    want = {}
+    for b in batches:
+        if b == QSERVE_BATCHES:
+            sc.replace_block(REPLACED_BLOCK, fresh)
+        want[b] = sc.query(queries[b], topk=SERVE_TOPK, metric="l2",
+                           use_kernel=True)
+    del sc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scq = ServingCorpus.build(X, comm, placement="cyclic", quant="int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    got, lat = {}, []
+    for b in batches:
+        if b == QSERVE_BATCHES:
+            t0 = time.perf_counter()
+            scq.replace_block(REPLACED_BLOCK, fresh)
+            torch.cuda.synchronize()
+            replace_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got[b] = scq.query(queries[b], topk=SERVE_TOPK, metric="l2")
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    q_stack = scq.quant.stack_bytes_per_device()
+    # the M passes of one microbatch, and the device sweep of its last one
+    st: dict = {}
+    serving_query(scq, queries[0], topk=SERVE_TOPK, metric="l2", stats=st)
+    m_last = st["passes"][-1][0]
+    sweep = _query_q_fn(comm, m_last, "auto", "l2", scq.placement)
+    one_pass = cuda_ms(lambda: sweep(queries[0], scq.quant.stacks,
+                                     scq.state.stack_valid), reps=2)
+    n_diff = 0
+    block = SERVE_N // P
+    for b in batches:
+        if b == QSERVE_BATCHES:
+            X[REPLACED_BLOCK * block:(REPLACED_BLOCK + 1) * block] = fresh
+            xn = (X * X).sum(-1)
+        v, i = got[b]
+        n_diff += check_topk_rows(queries[b], X, xn, v, i, *want[b],
+                                  f"quantized serving microbatch {b}")
+    p50 = float(np.percentile(lat, 50))
+    say(f"quantized serving int8 N={SERVE_N} d={SERVE_D} P={P}: build "
+        f"{build_s:.2f} s; {len(lat)} microbatches of Q={SERVE_Q} l2 top-"
+        f"{SERVE_TOPK} ({QSERVE_BATCHES} before and {QSERVE_BATCHES} after "
+        f"replace_block({REPLACED_BLOCK}), {replace_ms:.1f} ms): "
+        f"{', '.join(f'{t:.2f}' for t in lat)} ms, p50 {p50:.3f} ms (host "
+        f"clock, synchronized); M passes of microbatch 0: "
+        f"{', '.join(f'M={m}: {n} pending' for m, n in st['passes'])}; the "
+        f"quantized sweep at M={m_last} {one_pass:.2f} ms (CUDA events); "
+        "resident "
+        "quantized stack "
+        f"{q_stack / 2**20:.1f} MiB per device vs f32 "
+        f"{f32_stack / 2**20:.1f} MiB; peak {peak / 2**30:.3f} GiB; {n_diff}"
+        " ids differ from the f32 path's, all within the tie tolerance")
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -885,6 +1419,12 @@ KERNELS = {
                    "src/repro/kernels/query_score.py:121"),
     "pairwise_threshold": ("src/repro_torch/csrc/pairwise_threshold.cu",
                            "src/repro/kernels/pairwise_threshold.py:150"),
+    "pairwise_topk": ("src/repro_torch/csrc/pairwise_topk.cu",
+                      "src/repro/kernels/pairwise_topk.py:158"),
+    "pairwise_threshold_q": ("src/repro_torch/csrc/pairwise_threshold_q.cu",
+                             "src/repro/kernels/pairwise_batch_q.py:178"),
+    "pairwise_topk_q": ("src/repro_torch/csrc/pairwise_topk_q.cu",
+                        "src/repro/kernels/pairwise_batch_q.py:291"),
 }
 
 
@@ -924,7 +1464,14 @@ def main() -> int:
               ("n-body main path", lambda: phase_nbody(report)),
               ("PCIT main path", lambda: phase_pcit(report)),
               ("serving main path", lambda: phase_serving(report)),
-              ("join main path", lambda: phase_join(report))]
+              ("join main path", lambda: phase_join(report)),
+              ("kernels B6-B8 vs plain versions",
+               lambda: phase_kernels_knn(report)),
+              ("k-NN and quant selfchecks", phase_selfcheck_knn),
+              ("k-NN graph main path", lambda: phase_knn(report)),
+              ("quantized join main path", lambda: phase_quant_join(report)),
+              ("quantized k-NN main path", lambda: phase_quant_knn(report)),
+              ("quantized serving", phase_quant_serving)]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")

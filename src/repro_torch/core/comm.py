@@ -29,6 +29,7 @@ __all__ = [
     "tree_map",
     "shard",
     "unshard",
+    "pad_blocks",
     "schedule_from_numpy",
 ]
 
@@ -46,14 +47,17 @@ def resolve_device(device=None) -> torch.device:
 
 
 def tree_map(fn: Callable[..., Any], tree, *rest):
-    """Map ``fn`` over the tensor leaves of a tuple / list / dict payload
-    (the pytrees the reference's gather and scatter move)."""
+    """Map ``fn`` over the tensor leaves of a tuple / list / dict payload,
+    named tuples included (the pytrees the reference's gather and scatter
+    move)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, *leaves)
-                          for leaves in zip(tree, *rest))
+        leaves = [tree_map(fn, *ls) for ls in zip(tree, *rest)]
+        if hasattr(tree, "_fields"):          # a NamedTuple
+            return type(tree)(*leaves)
+        return type(tree)(leaves)
     return fn(tree, *rest)
 
 
@@ -104,6 +108,17 @@ def shard(x_np, comm: SingleProcessComm, dtype=None) -> torch.Tensor:
 def unshard(t: torch.Tensor) -> torch.Tensor:
     """The inverse of :func:`shard`: ``[P, block, ...]`` -> ``[N, ...]``."""
     return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+def pad_blocks(corpus, P: int, device) -> torch.Tensor:
+    """The [N, d] corpus (numpy or tensor) zero-padded to P blocks of
+    ceil(N / P) rows on ``device``: [P, block, d] float32."""
+    corpus = torch.as_tensor(corpus, dtype=torch.float32)
+    N, d = corpus.shape
+    block = -(-N // P)
+    x = torch.zeros(P * block, d, dtype=torch.float32, device=device)
+    x[:N] = corpus.to(device)
+    return x.reshape(P, block, d)
 
 
 def schedule_from_numpy(P, A, shifts, pair_slots, pair_diff) -> PairSchedule:

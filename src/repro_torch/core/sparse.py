@@ -47,7 +47,7 @@ from ..kernels.ref import IDX_SENTINEL, NEG_INF, tile_scores
 from ..obs import trace as obs_trace
 from . import env as env_mod
 from . import sweep as sweep_mod
-from .comm import SingleProcessComm
+from .comm import SingleProcessComm, pad_blocks, tree_map
 from .scheduler import PairSchedule
 from .sweep import ENGINE_MODES, SweepEmitter, pair_mask_table
 
@@ -218,7 +218,8 @@ def _pair_meta(schedule: PairSchedule, comm: SingleProcessComm, block: int,
 
 def _tile_keep(scores, thr, nv_lo, nv_hi, is_self):
     """Threshold + row-validity + self-pair strict-triangle mask of
-    [P, m, n] tiles; nv_lo / nv_hi [P]; is_self a bool."""
+    [P, m, n] tiles against ``thr`` (a scalar or a broadcastable bound);
+    nv_lo / nv_hi [P]; is_self a bool."""
     r = torch.arange(scores.shape[-2], device=scores.device)[:, None]
     s = torch.arange(scores.shape[-1], device=scores.device)[None, :]
     keep = ((scores >= thr) & (r < nv_lo[:, None, None])
@@ -303,6 +304,11 @@ class ThresholdJoinEmitter(SweepEmitter):
         return SparseHits(vals=vals, i=ei, j=ej,
                           count=count.reshape(P).to(torch.int32))
 
+    def _tile(self, bi, bj):
+        """One tile's scores [P, block, block] and the bound each entry
+        must reach."""
+        return tile_scores(bi, bj, self.metric), self.thr
+
     def _compact_tile(self, carry, idx: int, act, bi, bj):
         """Score pair ``idx``'s tiles [P, block, block] from its two slots
         and append the survivors of the devices with ``act`` set; a pair
@@ -311,8 +317,8 @@ class ThresholdJoinEmitter(SweepEmitter):
             return carry
         bufs, count = carry
         P = self.P
-        scores = tile_scores(bi, bj, self.metric)
-        keep = _tile_keep(scores, self.thr, self.nv_lo[:, idx],
+        scores, bound = self._tile(bi, bj)
+        keep = _tile_keep(scores, bound, self.nv_lo[:, idx],
                           self.nv_hi[:, idx],
                           bool(self.schedule.pair_diff[idx] == 0))
         keep &= act[:, None, None]
@@ -336,7 +342,8 @@ class ThresholdJoinEmitter(SweepEmitter):
         idx = int(item)
         lo, hi = (int(s) for s in self.schedule.pair_slots[idx])
         return self._compact_tile(carry, idx, self.active[:, idx],
-                                  quorum[:, lo], quorum[:, hi])
+                                  tree_map(lambda a: a[:, lo], quorum),
+                                  tree_map(lambda a: a[:, hi], quorum))
 
     def scan_finalize(self, carry):
         """Drop the spare buffer column (the shared layout)."""
@@ -522,18 +529,6 @@ def _join_fn(comm: SingleProcessComm, N: int, block: int, threshold: float,
     return run
 
 
-def check_quant_off(quant: str | None) -> None:
-    """The port has no quantized scoring path yet (ROADMAP A.11): the
-    join and the serving corpus raise unless ``quant`` (or, when it is
-    None, ``REPRO_QUANT``) is ``"off"`` — they never run f32 in its
-    place."""
-    mode = env_mod.read_knob("REPRO_QUANT") if quant is None else quant
-    if mode not in (None, "off"):
-        raise NotImplementedError(
-            f"quant={mode!r}: the quantized scoring path is not ported yet "
-            "(ROADMAP A.11); use quant='off'")
-
-
 def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
                     metric: str = "dot", mode: str = "auto", placement=None,
                     capacity: int | None = None, prefilter: bool = True,
@@ -552,14 +547,23 @@ def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
 
     ``use_kernel`` routes the batched step through the B5 kernel
     (kernels/pairwise_threshold.py); ``prefilter`` toggles the norm-bound
-    tile skip.  ``quant`` other than ``"off"`` (or ``REPRO_QUANT``) raises
-    ``NotImplementedError``: the quantized path is ROADMAP A.11.  Returns
-    a :class:`JoinResult` with pairs sorted by (i, j).
+    tile skip.  ``quant`` selects the quantized band with f32 rescoring
+    (DESIGN.md section 17): ``"int8"`` / ``"bf16"`` route through
+    :func:`core.quant.quant_similarity_join` (the same pairs), ``"off"``
+    forces f32, None defers to ``REPRO_QUANT``.  Returns a
+    :class:`JoinResult` with pairs sorted by (i, j).
     """
-    check_quant_off(quant)
+    from . import quant as quant_mod
+    if quant is None:
+        quant = quant_mod.quant_from_env()
+    if quant != "off":
+        return quant_mod.quant_similarity_join(
+            corpus, comm, threshold=threshold, quant=quant, metric=metric,
+            mode=mode, placement=placement, capacity=capacity,
+            use_kernel=use_kernel, escalate=escalate,
+            max_doublings=max_doublings)
     dev = comm.device
-    corpus = torch.as_tensor(corpus, dtype=torch.float32)
-    N, d = corpus.shape
+    N = int(torch.as_tensor(corpus).shape[0])
     if N >= MAX_ROWS_F32_EXACT:
         raise ValueError(
             f"corpus has {N} rows >= 2^24; global row ids would lose "
@@ -568,10 +572,8 @@ def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
     from .placement import placement_from_env, resolve_placement
     plc = (placement_from_env(P) if placement is None
            else resolve_placement(placement, P))
-    block = -(-N // P)
-    x = torch.zeros(P * block, d, dtype=torch.float32, device=dev)
-    x[:N] = corpus.to(dev)
-    xs = x.reshape(P, block, d)
+    xs = pad_blocks(corpus, P, dev)
+    block = xs.shape[1]
     sched = plc.schedule()
     n_cand = sched.n_pairs * block * block
     cap = int(capacity) if capacity is not None else default_capacity(n_cand)
@@ -598,7 +600,7 @@ def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
         tr.count("sparse.candidates", P * n_cand)
         if prefilter:
             tr.count("sparse.tiles_pruned",
-                     _count_pruned_tiles(x, N, block, sched,
+                     _count_pruned_tiles(xs, N, block, sched,
                                          float(threshold), metric))
         tr.count("sparse.escalations", escalations)
     if overflow and escalate:

@@ -33,6 +33,7 @@ import torch
 
 from ..kernels.ref import IDX_SENTINEL, NEG_INF
 from ..kernels.ref import sort_by_score_index as _sort2
+from ..kernels.ref import topk_by_score_index
 from ..obs import trace as obs_trace
 from . import env as env_mod
 from .comm import SingleProcessComm, tree_map
@@ -438,8 +439,7 @@ def topk_by_score(vals: torch.Tensor, idx: torch.Tensor, topk: int):
         pad = (0, topk - n)
         vals = torch.nn.functional.pad(vals, pad, value=NEG_INF)
         idx = torch.nn.functional.pad(idx, pad, value=IDX_SENTINEL)
-    sv, si = _sort2(-vals, idx)
-    return -sv[..., :topk], si[..., :topk]
+    return topk_by_score_index(vals, idx, topk)
 
 
 def merge_topk(va, ia, vb, ib, topk: int):

@@ -25,13 +25,20 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
-           "query_topk.cu", "pairwise_threshold.cu")
+           "query_topk.cu", "pairwise_threshold.cu", "pairwise_topk.cu",
+           "pairwise_threshold_q.cu", "pairwise_topk_q.cu")
+# headers the sources include (part of the build key)
+HEADERS = ("pair_tile.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the PCIT filter's output is a threshold decision: no FMA contraction and
 # IEEE division / sqrt, so each step rounds as the plain version's ops do
 FILE_FLAGS = {"pcit_filter.cu": ("-fmad=false", "-prec-div=true",
-                                 "-prec-sqrt=true", "-ftz=false")}
+                                 "-prec-sqrt=true", "-ftz=false"),
+              # the quantized kernels' dequant epilogue and error band
+              # round op for op as the plain versions' ops do
+              "pairwise_threshold_q.cu": ("-fmad=false",),
+              "pairwise_topk_q.cu": ("-fmad=false",)}
 LIB_NAME = "librepro_torch_kernels.so"
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -51,6 +58,17 @@ SIGNATURES = {
     # quorum, lo, hi, meta, row_count, row_off, out_v, out_i, out_j, count,
     # P, k, block, d, n_pairs, block_rows, threshold, capacity, l2, stream
     "repro_pairwise_threshold": [_vp] * 10 + [_i] * 6 + [_f, _ll, _i, _vp],
+    # quorum, lo, hi, meta, list_v, list_i, out_v, out_i,
+    # P, k, block, d, n_pairs, block_rows, topk, tp, l2, stream
+    "repro_pairwise_topk": [_vp] * 8 + [_i] * 9 + [_vp],
+    # q, sd, sq, lo, hi, meta, list_v, list_i, out_v, out_i,
+    # P, k, block, d, n_pairs, block_rows, topk, tp, l2, bf16, stream
+    "repro_pairwise_topk_q": [_vp] * 10 + [_i] * 10 + [_vp],
+    # q, sd, l1, sq, lo, hi, meta, row_count, row_off, out_v, out_i, out_j,
+    # count, P, k, block, d, n_pairs, block_rows, threshold, capacity, l2,
+    # bf16, stream
+    "repro_pairwise_threshold_q": [_vp] * 13 + [_i] * 6 + [_f, _ll, _i, _i,
+                                                           _vp],
 }
 
 
@@ -72,12 +90,16 @@ def _flags(src: str) -> tuple:
 
 
 def build_key() -> str:
-    """Hash of every source and flag set — the build directory's name."""
+    """Hash of every source, header and flag set — the build directory's
+    name."""
     h = hashlib.sha256()
     for src in SOURCES:
         h.update(src.encode())
         h.update(" ".join(_flags(src)).encode())
         h.update((CSRC / src).read_bytes())
+    for hdr in HEADERS:
+        h.update(hdr.encode())
+        h.update((CSRC / hdr).read_bytes())
     return h.hexdigest()[:16]
 
 

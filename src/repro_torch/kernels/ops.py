@@ -19,14 +19,19 @@ import torch
 
 from . import pairwise_batch, pairwise_corr as _corr_mod, pcit_filter as _pcit_mod
 from . import pairwise_threshold as _thr_mod, query_score as _query_mod
+from . import pairwise_batch_q as _q_mod, pairwise_topk as _topk_mod
 from . import ref
 
+#: kernel name -> (wrapper module, name of its launch counter)
 KERNEL_MODULES = {
-    "pairwise_batch": pairwise_batch,
-    "pairwise_corr": _corr_mod,
-    "pcit_filter": _pcit_mod,
-    "query_topk": _query_mod,
-    "pairwise_threshold": _thr_mod,
+    "pairwise_batch": (pairwise_batch, "launches"),
+    "pairwise_corr": (_corr_mod, "launches"),
+    "pcit_filter": (_pcit_mod, "launches"),
+    "query_topk": (_query_mod, "launches"),
+    "pairwise_threshold": (_thr_mod, "launches"),
+    "pairwise_topk": (_topk_mod, "launches"),
+    "pairwise_threshold_q": (_q_mod, "threshold_launches"),
+    "pairwise_topk_q": (_q_mod, "topk_launches"),
 }
 
 
@@ -90,12 +95,54 @@ def pairwise_threshold(quorum, lo, hi, meta, *, threshold: float,
         block_rows=block_rows, metric=metric)
 
 
+def pairwise_topk(quorum, lo, hi, meta, *, topk: int, block_rows: int,
+                  metric: str = "dot"):
+    """Fused per-slot top-k accumulation for the k-NN graph's ``batch_fn``
+    hook: quorum [P, k, block, d], lo / hi [n_pairs], meta [P, n_pairs, 6]
+    -> (vals, idx [P, k, block, topk]); see ``kernels/pairwise_topk.py``."""
+    if _on_cpu(quorum):
+        return ref.pairwise_topk(quorum, lo, hi, meta, topk=topk,
+                                 block_rows=block_rows, metric=metric)
+    return _topk_mod.pairwise_topk_cuda(quorum, lo, hi, meta, topk=topk,
+                                        block_rows=block_rows, metric=metric)
+
+
+def pairwise_threshold_q(q, sd, l1, sq, lo, hi, meta, *, threshold: float,
+                         capacity: int, block_rows: int, metric: str = "dot"):
+    """Quantized band compaction for the quantized join's ``batch_fn``
+    hook: codes q [P, k, block, d], sd [P, k, 2] (scale, delta), l1 / sq
+    [P, k, block] -> (vals, i, j [P, capacity], count [P]); see
+    ``kernels/pairwise_batch_q.py``."""
+    if _on_cpu(q):
+        return ref.pairwise_threshold_q(
+            q, sd[..., 0], sd[..., 1], l1, sq, lo, hi, meta,
+            threshold=threshold, capacity=capacity, block_rows=block_rows,
+            metric=metric)
+    return _q_mod.pairwise_threshold_q_cuda(
+        q, sd, l1, sq, lo, hi, meta, threshold=threshold, capacity=capacity,
+        block_rows=block_rows, metric=metric)
+
+
+def pairwise_topk_q(q, sd, sq, lo, hi, meta, *, topk: int, block_rows: int,
+                    metric: str = "dot"):
+    """Quantized per-slot top-k for the quantized k-NN graph's ``batch_fn``
+    hook: codes q [P, k, block, d], sd [P, k, 2], sq [P, k, block] ->
+    (vals, idx [P, k, block, topk]); see ``kernels/pairwise_batch_q.py``."""
+    if _on_cpu(q):
+        return ref.pairwise_topk_q(q, sd[..., 0], sq, lo, hi, meta,
+                                   topk=topk, block_rows=block_rows,
+                                   metric=metric)
+    return _q_mod.pairwise_topk_q_cuda(q, sd, sq, lo, hi, meta, topk=topk,
+                                       block_rows=block_rows, metric=metric)
+
+
 def launch_counts() -> dict:
     """Kernel launches per kernel since the counts were last reset."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNEL_MODULES.values():
+        setattr(mod, attr, 0)

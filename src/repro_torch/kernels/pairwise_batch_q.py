@@ -1,0 +1,148 @@
+"""B7 and B8: quantized pair scoring (int8 or bf16 codes, float32 sums,
+dequant epilogue), hand-written CUDA.
+
+Replace the Pallas kernels of ``repro/kernels/pairwise_batch_q.py``:
+
+  * B7 ``pairwise_threshold_q_pallas`` (body ``_threshold_q_kernel``), the
+    quantized join's ``batch_fn``: B5's compaction with the widened band
+    ``score >= threshold - eps``.  Source ``csrc/pairwise_threshold_q.cu``.
+  * B8 ``pairwise_topk_q_pallas`` (body ``_pairwise_topk_q_kernel``), the
+    quantized k-NN graph's ``batch_fn``: B6's running lists over the
+    dequantized tiles, no band.  Source ``csrc/pairwise_topk_q.cu``.
+
+The codes stay in their storage type (1 or 2 bytes) all the way into
+shared memory and are widened there; the per-slot (scale, delta) pairs
+ride as one [P, k, 2] float32 operand, the row L1 norms and exact squared
+norms as [P, k, block] ones.  What bounds them on the H100: 2*d operations
+per candidate of an active tile, at the int8 (1,979 TOP/s) or bf16
+(989 TFLOP/s) tensor-core rate; these first versions are SIMT kernels on
+the float32 pipe, built with ``-fmad=false`` so that with int8 codes,
+whose float32 dots are exact while d * 127^2 < 2^24, their outputs equal
+the plain versions'.
+
+The plain versions beside them are :func:`pairwise_threshold_q_plain` and
+:func:`pairwise_topk_q_plain`; the device dispatch is
+:func:`repro_torch.kernels.ops.pairwise_threshold_q` /
+:func:`~repro_torch.kernels.ops.pairwise_topk_q`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .pairwise_threshold import check_pairs
+from .pairwise_topk import list_width
+from .ref import QUERY_METRICS
+from .ref import pairwise_threshold_q as pairwise_threshold_q_plain
+from .ref import pairwise_topk_q as pairwise_topk_q_plain
+
+__all__ = ["pairwise_threshold_q_cuda", "pairwise_topk_q_cuda",
+           "pairwise_threshold_q_plain", "pairwise_topk_q_plain",
+           "threshold_launches", "topk_launches"]
+
+#: B7 / B8 launches since the counts were last set to 0
+threshold_launches = 0
+topk_launches = 0
+
+
+def _check_codes(name: str, q: torch.Tensor, sd: torch.Tensor, rows,
+                 metric: str):
+    """Validate codes [P, k, block, d] (int8 or bfloat16), sd [P, k, 2]
+    and the [P, k, block] row arrays; returns them contiguous, sd and the
+    rows as float32."""
+    if metric not in QUERY_METRICS:
+        raise ValueError(f"metric must be one of {QUERY_METRICS}, "
+                         f"got {metric!r}")
+    if q.dim() != 4 or q.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f"{name}: q must be an int8 or bfloat16 [P, k, "
+                         f"block, d] tensor, got {q.dtype} {tuple(q.shape)}")
+    P, k, block, _d = q.shape
+    if sd.shape != (P, k, 2):
+        raise ValueError(f"{name}: sd must be [P, k, 2] = {(P, k, 2)}, got "
+                         f"{tuple(sd.shape)}")
+    for r in rows:
+        if r.shape != (P, k, block):
+            raise ValueError(f"{name}: l1 / sq must be [P, k, block] = "
+                             f"{(P, k, block)}, got {tuple(r.shape)}")
+    _build.require_cuda(name, q, sd, *rows)
+    return (q.contiguous(), sd.to(torch.float32).contiguous(),
+            [r.to(torch.float32).contiguous() for r in rows])
+
+
+def pairwise_threshold_q_cuda(q: torch.Tensor, sd: torch.Tensor,
+                              l1: torch.Tensor, sq: torch.Tensor, lo, hi,
+                              meta, *, threshold: float, capacity: int,
+                              block_rows: int, metric: str = "dot"):
+    """q [P, k, block, d] int8 / bfloat16 codes; sd [P, k, 2] (scale,
+    delta); l1 / sq [P, k, block]; lo / hi [n_pairs]; meta [P, n_pairs, 6];
+    all on one CUDA device.  Returns ``(vals [P, capacity] float32, i / j
+    [P, capacity] int32, count [P] int32)`` as
+    ``kernels/ref.py:pairwise_threshold_q``."""
+    global threshold_launches
+    if capacity < 1:
+        raise ValueError(f"capacity must be >= 1, got {capacity}")
+    q, sd, (l1, sq) = _check_codes("pairwise_threshold_q", q, sd, (l1, sq),
+                                   metric)
+    P, k, block, d = q.shape
+    lo_h, hi_h, n_pairs, meta = check_pairs("pairwise_threshold_q", q, lo,
+                                            hi, meta)
+    dev = q.device
+    out_v = torch.empty(P, capacity, dtype=torch.float32, device=dev)
+    out_i = torch.empty(P, capacity, dtype=torch.int32, device=dev)
+    out_j = torch.empty(P, capacity, dtype=torch.int32, device=dev)
+    count = torch.empty(P, dtype=torch.int32, device=dev)
+    if n_pairs * block == 0:
+        return (out_v.fill_(-1e30), out_i.fill_(2 ** 31 - 1),
+                out_j.fill_(2 ** 31 - 1), count.zero_())
+    row_count = torch.empty(P, n_pairs, block, dtype=torch.int32, device=dev)
+    row_off = torch.empty(P, n_pairs, block, dtype=torch.int64, device=dev)
+    lo_d, hi_d = lo_h.to(dev), hi_h.to(dev)
+    with torch.cuda.device(dev):
+        rc = _build.library().repro_pairwise_threshold_q(
+            q.data_ptr(), sd.data_ptr(), l1.data_ptr(), sq.data_ptr(),
+            lo_d.data_ptr(), hi_d.data_ptr(), meta.data_ptr(),
+            row_count.data_ptr(), row_off.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), out_j.data_ptr(), count.data_ptr(), P, k,
+            block, d, n_pairs, int(block_rows), float(threshold),
+            int(capacity), int(metric == "l2"),
+            int(q.dtype == torch.bfloat16), _build.stream_of(q))
+    _build.check(rc, "pairwise_threshold_q")
+    threshold_launches += 1
+    return out_v, out_i, out_j, count
+
+
+def pairwise_topk_q_cuda(q: torch.Tensor, sd: torch.Tensor, sq: torch.Tensor,
+                         lo, hi, meta, *, topk: int, block_rows: int,
+                         metric: str = "dot"):
+    """q [P, k, block, d] int8 / bfloat16 codes; sd [P, k, 2] (scale,
+    delta); sq [P, k, block]; lo / hi [n_pairs]; meta [P, n_pairs, 6]; all
+    on one CUDA device.  Returns ``(vals [P, k, block, topk] float32, idx
+    [P, k, block, topk] int32)`` as ``kernels/ref.py:pairwise_topk_q``."""
+    global topk_launches
+    if topk < 1:
+        raise ValueError(f"topk must be >= 1, got {topk}")
+    q, sd, (sq,) = _check_codes("pairwise_topk_q", q, sd, (sq,), metric)
+    P, k, block, d = q.shape
+    lo_h, hi_h, n_pairs, meta = check_pairs("pairwise_topk_q", q, lo, hi,
+                                            meta)
+    dev = q.device
+    tp = list_width(topk)
+    out_v = torch.empty(P, k, block, topk, dtype=torch.float32, device=dev)
+    out_i = torch.empty(P, k, block, topk, dtype=torch.int32, device=dev)
+    if block == 0:
+        return out_v, out_i
+    list_v = torch.empty(P, k, block, tp, dtype=torch.float32, device=dev)
+    list_i = torch.empty(P, k, block, tp, dtype=torch.int32, device=dev)
+    lo_d, hi_d = lo_h.to(dev), hi_h.to(dev)
+    with torch.cuda.device(dev):
+        rc = _build.library().repro_pairwise_topk_q(
+            q.data_ptr(), sd.data_ptr(), sq.data_ptr(), lo_d.data_ptr(),
+            hi_d.data_ptr(), meta.data_ptr(), list_v.data_ptr(),
+            list_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), P, k,
+            block, d, n_pairs, int(block_rows), int(topk), tp,
+            int(metric == "l2"), int(q.dtype == torch.bfloat16),
+            _build.stream_of(q))
+    _build.check(rc, "pairwise_topk_q")
+    topk_launches += 1
+    return out_v, out_i

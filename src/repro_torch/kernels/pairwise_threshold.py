@@ -29,10 +29,34 @@ from .ref import QUERY_METRICS
 from .ref import pairwise_threshold as pairwise_threshold_plain
 
 __all__ = ["pairwise_threshold_cuda", "pairwise_threshold_plain",
-           "launches"]
+           "check_pairs", "launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
+
+
+def check_pairs(name: str, data: torch.Tensor, lo, hi, meta):
+    """Validate the slot pairs and meta rows of a pair kernel over ``data``
+    [P, k, ...] (every tensor on one CUDA device); returns host int32
+    ``(lo, hi)``, the pair count and contiguous int32 meta."""
+    P, k = data.shape[:2]
+    lo_h = torch.as_tensor(lo, dtype=torch.int32, device="cpu").reshape(-1)
+    hi_h = torch.as_tensor(hi, dtype=torch.int32, device="cpu").reshape(-1)
+    n_pairs = lo_h.numel()
+    if hi_h.numel() != n_pairs:
+        raise ValueError("lo and hi must have the same length")
+    if n_pairs and (min(lo_h.min(), hi_h.min()) < 0
+                    or max(lo_h.max(), hi_h.max()) >= k):
+        raise ValueError(f"slot ids must lie in [0, {k})")
+    meta = torch.as_tensor(meta)
+    if meta.shape != (P, n_pairs, 6):
+        raise ValueError(f"meta must be [P={P}, n_pairs={n_pairs}, 6], got "
+                         f"{tuple(meta.shape)}")
+    if not 0 < P <= 65535 or n_pairs > 65535 or k > 65535:
+        raise ValueError(f"P={P}, k={k} or n_pairs={n_pairs} exceeds the "
+                         "launch grid")
+    _build.require_cuda(name, data, meta)
+    return lo_h, hi_h, n_pairs, meta.to(torch.int32).contiguous()
 
 
 def pairwise_threshold_cuda(quorum: torch.Tensor, lo, hi, meta, *,
@@ -54,26 +78,11 @@ def pairwise_threshold_cuda(quorum: torch.Tensor, lo, hi, meta, *,
         raise ValueError(f"quorum must be a float32 [P, k, block, d] tensor, "
                          f"got {quorum.dtype} {tuple(quorum.shape)}")
     P, k, block, d = quorum.shape
-    lo_h = torch.as_tensor(lo, dtype=torch.int32, device="cpu").reshape(-1)
-    hi_h = torch.as_tensor(hi, dtype=torch.int32, device="cpu").reshape(-1)
-    n_pairs = lo_h.numel()
-    if hi_h.numel() != n_pairs:
-        raise ValueError("lo and hi must have the same length")
-    if n_pairs and (min(lo_h.min(), hi_h.min()) < 0
-                    or max(lo_h.max(), hi_h.max()) >= k):
-        raise ValueError(f"slot ids must lie in [0, {k})")
-    meta = torch.as_tensor(meta)
-    if meta.shape != (P, n_pairs, 6):
-        raise ValueError(f"meta must be [P={P}, n_pairs={n_pairs}, 6], got "
-                         f"{tuple(meta.shape)}")
-    _build.require_cuda("pairwise_threshold", quorum, meta)
+    lo_h, hi_h, n_pairs, meta = check_pairs("pairwise_threshold", quorum, lo,
+                                            hi, meta)
     dev = quorum.device
     quorum = quorum.contiguous()
-    meta = meta.to(torch.int32).contiguous()
     lo_d, hi_d = lo_h.to(dev), hi_h.to(dev)
-    if not 0 < P <= 65535 or n_pairs > 65535:
-        raise ValueError(f"P={P} and n_pairs={n_pairs} exceed the launch "
-                         f"grid")
     out_v = torch.empty(P, capacity, dtype=torch.float32, device=dev)
     out_i = torch.empty(P, capacity, dtype=torch.int32, device=dev)
     out_j = torch.empty(P, capacity, dtype=torch.int32, device=dev)

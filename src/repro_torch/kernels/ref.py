@@ -17,6 +17,9 @@ NEG_INF = -1e30
 # index agreement depends on all of them using this exact value
 IDX_SENTINEL = int(np.iinfo(np.int32).max)
 QUERY_METRICS = ("dot", "l2")
+# relative float32-accumulation slack folded into the certified
+# quantization error bound (core/quant.py; DESIGN.md section 17)
+FP_REL = 1e-6
 
 
 def sort_by_score_index(k1: torch.Tensor, k2: torch.Tensor):
@@ -28,6 +31,48 @@ def sort_by_score_index(k1: torch.Tensor, k2: torch.Tensor):
     k1, k2 = k1.gather(-1, order), k2.gather(-1, order)
     order = torch.argsort(k1, dim=-1, stable=True)
     return k1.gather(-1, order), k2.gather(-1, order)
+
+
+def topk_by_score_index(vals: torch.Tensor, idx: torch.Tensor, topk: int):
+    """The first ``topk`` entries along the last axis under the (-score,
+    index) total order, best first; needs at least ``topk`` entries and
+    non-negative indices.
+
+    The same selection as :func:`sort_by_score_index` followed by a slice,
+    in one ``torch.topk`` over a packed int64 key: the score's bits mapped
+    to a descending signed order in the high word, the index in the low
+    word (-0.0 counts as 0.0, as the sort's float compare does)."""
+    bits = (vals.float() + 0.0).view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    key = ((~ordered).to(torch.int64) << 32) | idx.to(torch.int64)
+    pos = torch.topk(key, topk, dim=-1, largest=False, sorted=True).indices
+    return vals.gather(-1, pos), idx.gather(-1, pos)
+
+
+def quant_eps_tile(delta_lo, delta_hi, l1_lo, l1_hi, *, dim: int,
+                   metric: str = "dot") -> torch.Tensor:
+    """Certified per-entry error bound of quantized score tiles (DESIGN.md
+    section 17.2):
+
+      |s_q - s_f32| <= d_lo*l1_hi + d_hi*l1_lo + 3*dim*d_lo*d_hi
+                       + FP_REL*(l1_lo*l1_hi + 1)
+
+    delta_lo / delta_hi: [...] per-block rounding steps (scalars for one
+    tile); l1_lo [..., m] / l1_hi [..., n] f32 row L1 norms.  Returns the
+    [..., m, n] bound, doubled for l2 (whose norms are stored exactly).
+    The expression order is the reference's, so it rounds identically."""
+    l1_lo = torch.as_tensor(l1_lo, dtype=torch.float32)
+    l1_hi = torch.as_tensor(l1_hi, dtype=torch.float32, device=l1_lo.device)
+    d_lo = torch.as_tensor(delta_lo, dtype=torch.float32,
+                           device=l1_lo.device)[..., None, None]
+    d_hi = torch.as_tensor(delta_hi, dtype=torch.float32,
+                           device=l1_lo.device)[..., None, None]
+    eps = (d_lo * l1_hi[..., None, :] + d_hi * l1_lo[..., :, None]
+           + 3.0 * dim * d_lo * d_hi
+           + FP_REL * (l1_lo[..., :, None] * l1_hi[..., None, :] + 1.0))
+    if metric == "l2":
+        eps = 2.0 * eps
+    return eps
 
 
 def pairwise_corr(xs_i: torch.Tensor, xs_j: torch.Tensor) -> torch.Tensor:
@@ -170,13 +215,26 @@ def pairwise_threshold(quorum, lo, hi, meta, *, threshold: float,
     _check_metric(metric)
     quorum = quorum.float()
     *lead, k, block, d = quorum.shape
-    dev = quorum.device
     q = quorum.reshape(-1, k, block, d)
-    B = q.shape[0]
+    thr = torch.tensor(threshold, dtype=torch.float32, device=q.device)
+
+    def strip(l, h, r0, r1):
+        return tile_scores(q[:, l, r0:r1], q[:, h], metric), thr
+
+    return _compact_pairs(strip, lead, block, lo, hi, meta, capacity,
+                          block_rows, q.device)
+
+
+def _compact_pairs(strip, lead, block: int, lo, hi, meta, capacity: int,
+                   block_rows: int, dev):
+    """The compaction of B5 and B7: ``strip(l, h, r0, r1)`` gives the
+    scores [B, r1 - r0, block] of rows r0:r1 of slot l against slot h and
+    the bound each must reach (broadcastable); entries are kept under the
+    ownership rules and compacted in (pair, row, col) order."""
+    B = int(np.prod(lead)) if lead else 1
     meta = torch.as_tensor(meta, device=dev).to(torch.int64).reshape(B, -1, 6)
     lo = torch.as_tensor(lo).reshape(-1).tolist()
     hi = torch.as_tensor(hi).reshape(-1).tolist()
-    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
     vbuf = torch.full((B, capacity + 1), NEG_INF, dtype=torch.float32,
                       device=dev)
     ibuf = torch.full((B, capacity + 1), IDX_SENTINEL, dtype=torch.int32,
@@ -192,8 +250,8 @@ def pairwise_threshold(quorum, lo, hi, meta, *, threshold: float,
         act, is_self, ga, gb, nv_lo, nv_hi = (meta[:, p, c] for c in range(6))
         for r0 in range(0, block, rows_step):
             rows = torch.arange(r0, min(block, r0 + rows_step), device=dev)
-            s = tile_scores(q[:, l, r0:r0 + len(rows)], q[:, h], metric)
-            keep = (s >= thr) & (act == 1)[:, None, None]
+            s, bound = strip(l, h, r0, r0 + len(rows))
+            keep = (s >= bound) & (act == 1)[:, None, None]
             keep &= ((rows[:, None] < nv_lo[:, None, None])
                      & (cols[None, :] < nv_hi[:, None, None]))
             keep &= (is_self == 0)[:, None, None] | (rows[:, None]
@@ -212,3 +270,161 @@ def pairwise_threshold(quorum, lo, hi, meta, *, threshold: float,
     out = (vbuf[:, :capacity], ibuf[:, :capacity], jbuf[:, :capacity],
            count.to(torch.int32))
     return tuple(t.reshape(tuple(lead) + tuple(t.shape[1:])) for t in out)
+
+
+def _q_operands(q, scale, sq):
+    """Codes widened to float32 (exact for int8 and bf16) as [B, k, block,
+    d], scales [B, k], squared norms [B, k, block], and the leading
+    shape."""
+    *lead, k, block, d = q.shape
+    qf = q.reshape(-1, k, block, d).float()
+    B = qf.shape[0]
+    scale = torch.as_tensor(scale, dtype=torch.float32,
+                            device=qf.device).reshape(B, k)
+    sq = torch.as_tensor(sq, dtype=torch.float32,
+                         device=qf.device).reshape(B, k, block)
+    return qf, scale, sq, lead
+
+
+def _q_dots(qf, scale, l, h, r0, r1):
+    """Dequantized dots of rows r0:r1 of slot l against slot h, [B, rows,
+    block]: the f32 product of the codes times ``s_l * s_h``."""
+    return (qf[:, l, r0:r1] @ qf[:, h].transpose(-1, -2)) \
+        * (scale[:, l] * scale[:, h])[:, None, None]
+
+
+def pairwise_threshold_q(q, scale, delta, l1, sq, lo, hi, meta, *,
+                         threshold: float, capacity: int, block_rows: int,
+                         metric: str = "dot"):
+    """Quantized sparse-join compaction with the widened keep band (B7;
+    DESIGN.md section 17.3): q [..., k, block, d] int8 or bf16 codes;
+    scale / delta [..., k] (or [..., k, 1]) per-block dequant scale and
+    rounding step; l1 / sq [..., k, block] row L1 norms and exact squared
+    norms of the original rows; lo / hi / meta as in
+    :func:`pairwise_threshold`.  Scores are ``(q_l @ q_h^T) * (s_l *
+    s_h)`` (l2: ``(2 s - sq_h) - sq_l``), and an entry is kept when
+    ``score >= threshold - eps`` with eps from :func:`quant_eps_tile`.
+    Compaction order, overflow contract and sentinels are B5's."""
+    _check_metric(metric)
+    qf, scale, sq, lead = _q_operands(q, scale, sq)
+    B, k, block, d = qf.shape
+    delta = torch.as_tensor(delta, dtype=torch.float32,
+                            device=qf.device).reshape(B, k)
+    l1 = torch.as_tensor(l1, dtype=torch.float32,
+                         device=qf.device).reshape(B, k, block)
+
+    def strip(l, h, r0, r1):
+        s = _q_dots(qf, scale, l, h, r0, r1)
+        if metric == "l2":
+            s = (2.0 * s - sq[:, h][:, None, :]) - sq[:, l, r0:r1][:, :, None]
+        eps = quant_eps_tile(delta[:, l], delta[:, h], l1[:, l, r0:r1],
+                             l1[:, h], dim=d, metric=metric)
+        return s, threshold - eps
+
+    return _compact_pairs(strip, lead, block, lo, hi, meta, capacity,
+                          block_rows, qf.device)
+
+
+def pairwise_topk(quorum, lo, hi, meta, *, topk: int, block_rows: int,
+                  metric: str = "dot"):
+    """Per-slot running top-k lists over the scheduled tiles (B6; the k-NN
+    graph's batched step, DESIGN.md section 12.3): quorum [..., k, block,
+    d]; lo / hi [n_pairs] slot ids; meta [..., n_pairs, 6] int32 rows
+    ``(active, is_self, ga, gb, nv_lo, nv_hi)``.  For each active tile the
+    rows of the ``lo`` slot receive the ``hi`` block's valid rows as
+    candidates and, unless it is a self tile (whose diagonal is excluded),
+    the other way round, folded into per-slot [k, block, topk] lists under
+    the (-score, index) order.  Both orientations of an l2 tile score
+    ``(2 dot - |cand|^2) - |row|^2``.  Masked candidates are (NEG_INF,
+    IDX_SENTINEL).  Returns ``(vals [..., k, block, topk] float32, idx
+    [..., k, block, topk] int32)``; rows past a block's valid count carry
+    lists too (callers slice them off)."""
+    _check_metric(metric)
+    quorum = quorum.float()
+    *lead, k, block, d = quorum.shape
+    q = quorum.reshape(-1, k, block, d)
+    n2 = torch.sum(q * q, dim=-1)                         # [B, k, block]
+
+    def strip(l, h, r0, r1):
+        return q[:, l, r0:r1] @ q[:, h].transpose(-1, -2), n2[:, l], n2[:, h]
+
+    return _topk_pairs(strip, lead, k, block, lo, hi, meta, topk,
+                       block_rows, q.device, metric)
+
+
+def pairwise_topk_q(q, scale, sq, lo, hi, meta, *, topk: int,
+                    block_rows: int, metric: str = "dot"):
+    """Quantized per-slot top-k lists (B8; DESIGN.md section 17.3): q
+    [..., k, block, d] int8 or bf16 codes; scale [..., k] (or [..., k, 1])
+    dequant scales; sq [..., k, block] exact squared row norms; lo / hi /
+    meta as in :func:`pairwise_topk`.  Tiles are ``(q_l @ q_h^T) * (s_l *
+    s_h)`` with the stored norms in the l2 formulas; merge order,
+    sentinels and layout are B6's.  No error band: the caller certifies
+    and rescores the lists (core/quant.py)."""
+    _check_metric(metric)
+    qf, scale, sq, lead = _q_operands(q, scale, sq)
+    B, k, block, d = qf.shape
+
+    def strip(l, h, r0, r1):
+        return _q_dots(qf, scale, l, h, r0, r1), sq[:, l], sq[:, h]
+
+    return _topk_pairs(strip, lead, k, block, lo, hi, meta, topk,
+                       block_rows, qf.device, metric)
+
+
+def _topk_pairs(strip, lead, k: int, block: int, lo, hi, meta, topk: int,
+                block_rows: int, dev, metric: str):
+    """The running-list fold of B6 and B8: ``strip(l, h, r0, r1)`` gives
+    the dots [B, r1 - r0, block] of rows r0:r1 of slot l against slot h
+    and both slots' squared norms [B, block].  Pairs are walked in order,
+    in row strips of the lo slot; each strip's lo-side candidates merge
+    into the lo rows' lists and its transposed hi-side candidates into
+    the hi rows' lists (selection under a strict total order makes the
+    merge order immaterial)."""
+    B = int(np.prod(lead)) if lead else 1
+    meta = torch.as_tensor(meta, device=dev).to(torch.int64).reshape(B, -1, 6)
+    lo = torch.as_tensor(lo).reshape(-1).tolist()
+    hi = torch.as_tensor(hi).reshape(-1).tolist()
+    vals = torch.full((B, k, block, topk), NEG_INF, dtype=torch.float32,
+                      device=dev)
+    idx = torch.full((B, k, block, topk), IDX_SENTINEL, dtype=torch.int32,
+                     device=dev)
+    active_any = meta[:, :, 0].eq(1).any(0).tolist()
+    rows_step = max(1, min(block, _THRESHOLD_STEP_ELEMS // max(1, B * block)))
+    cols = torch.arange(block, device=dev)
+    sent = torch.tensor(IDX_SENTINEL, dtype=torch.int32, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+
+    def merge(slot, rs, cv, ci):
+        v = torch.cat([vals[:, slot, rs], cv], dim=-1)
+        i = torch.cat([idx[:, slot, rs], ci], dim=-1)
+        vals[:, slot, rs], idx[:, slot, rs] = topk_by_score_index(v, i, topk)
+
+    for p, (l, h) in enumerate(zip(lo, hi)):
+        if not active_any[p]:
+            continue
+        act, is_self, ga, gb, nv_lo, nv_hi = (meta[:, p, c, None, None]
+                                              for c in range(6))
+        on = act == 1
+        for r0 in range(0, block, rows_step):
+            r1 = min(block, r0 + rows_step)
+            rows = torch.arange(r0, r1, device=dev)[:, None]
+            dots, n2_l, n2_h = strip(l, h, r0, r1)
+            if metric == "l2":
+                t_lo = (2.0 * dots - n2_h[:, None, :]) - n2_l[:, r0:r1, None]
+                t_hi = (2.0 * dots - n2_l[:, r0:r1, None]) - n2_h[:, None, :]
+            else:
+                t_lo = t_hi = dots
+            # lo side: rows of slot l receive slot h's valid rows
+            keep = on & (cols < nv_hi) & ((is_self == 0) | (rows != cols))
+            merge(l, slice(r0, r1), torch.where(keep, t_lo, neg),
+                  torch.where(keep, (gb * block_rows + cols).to(torch.int32),
+                              sent))
+            # hi side (transposed; a self tile contributes once)
+            keep_t = (on & (is_self == 0) & (rows < nv_lo)).expand_as(t_hi)
+            merge(h, slice(None), torch.where(keep_t, t_hi, neg)
+                  .transpose(-1, -2),
+                  torch.where(keep_t, (ga * block_rows + rows)
+                              .to(torch.int32), sent).transpose(-1, -2))
+    shape = tuple(lead) + (k, block, topk)
+    return vals.reshape(shape), idx.reshape(shape)

@@ -41,11 +41,11 @@ import numpy as np
 import torch
 
 from ..core import sweep as sweep_mod
-from ..core.comm import SingleProcessComm
+from ..core.comm import SingleProcessComm, tree_map
 from ..core.placement import (Placement, get_placement, placement_from_env,
                               resolve_placement)
 from ..core.scheduler import PairSchedule
-from ..core.sparse import check_quant_off, default_capacity
+from ..core.sparse import default_capacity
 from ..core.sweep import SweepEmitter, merge_topk, slot_items, topk_by_score
 from ..kernels import ref as kref
 from ..kernels.ref import IDX_SENTINEL, NEG_INF
@@ -172,12 +172,15 @@ class QueryTopKEmitter(SweepEmitter):
         return fn(quorum, self.queries, self.mask.to(torch.float32),
                   self.gidx)
 
+    def _slot_scores(self, blk) -> torch.Tensor:
+        """[P, Q, block] scores of one slot's rows."""
+        return _scores(self.queries, blk, self.metric)
+
     def _slot(self, slot: int, blk):
         """One slot's masked scores and ids, [P, Q, block] each."""
-        Q, block = self.queries.shape[0], blk.shape[1]
+        Q, block = self.queries.shape[0], self.mask.shape[-1]
         vrow = self.mask[:, slot]                           # [P, block]
-        s = torch.where(vrow[:, None], _scores(self.queries, blk, self.metric),
-                        NEG_INF)
+        s = torch.where(vrow[:, None], self._slot_scores(blk), NEG_INF)
         g = torch.where(vrow, self.gidx[:, slot], IDX_SENTINEL)
         return s, g[:, None].expand(-1, Q, block)
 
@@ -196,8 +199,8 @@ class QueryTopKEmitter(SweepEmitter):
     def scan_emit(self, carry, quorum, item):
         """Merge one slot's masked scores into the running lists."""
         slot = int(item)
-        return merge_topk(*carry, *self._slot(slot, quorum[:, slot]),
-                          self.topk)
+        blk = tree_map(lambda a: a[:, slot], quorum)
+        return merge_topk(*carry, *self._slot(slot, blk), self.topk)
 
     def overlap_begin(self):
         """The per-slot candidate lists the tournament merge folds."""
@@ -528,6 +531,7 @@ class ServingCorpus:
         self.d = state.shard.shape[2]
         self.schedule = self.placement.schedule()
         self.plan = build_cover(self.P, self.placement)
+        self.quant = None        # QuantServing when built with quant != off
 
     @classmethod
     def build(cls, corpus, comm: SingleProcessComm, block: int | None = None,
@@ -537,10 +541,10 @@ class ServingCorpus:
         row capacity than ceil(N/P), leaving empty slots for streamed
         appends.  ``placement`` picks the residency layer (a Placement or
         spec name); None defers to ``REPRO_PLACEMENT`` (default auto ==
-        cyclic).  ``quant`` other than ``"off"`` (or ``REPRO_QUANT``)
-        raises ``NotImplementedError``: the quantized path is ROADMAP
-        A.11."""
-        check_quant_off(quant)
+        cyclic).  ``quant`` additionally keeps a quantized resident stack
+        (core/quant.py ``QuantServing``) that :meth:`query` scores against
+        with certified exact rescoring: ``"int8"`` / ``"bf16"`` enable it,
+        ``"off"`` stays f32, None defers to ``REPRO_QUANT``."""
         P = comm.P
         plc = (placement_from_env(P) if placement is None
                else resolve_placement(placement, P))
@@ -548,7 +552,16 @@ class ServingCorpus:
         block = state.shard.shape[1]
         N = corpus.shape[0]
         filled = np.clip(N - block * np.arange(P), 0, block).astype(np.int64)
-        return cls(comm, state, filled, placement=plc)
+        out = cls(comm, state, filled, placement=plc)
+        from ..core.quant import QuantServing, quant_from_env
+        qmode = quant_from_env() if quant is None else quant
+        if qmode != "off":
+            rows = torch.zeros(P * block, out.d, dtype=torch.float32,
+                               device=comm.device)
+            rows[:N] = torch.as_tensor(corpus, dtype=torch.float32).to(
+                comm.device)
+            out.quant = QuantServing(qmode, comm, out.schedule, block, rows)
+        return out
 
     @property
     def n_valid(self) -> int:
@@ -571,9 +584,23 @@ class ServingCorpus:
 
         With tracing on, each call is a ``serving.query`` host span
         (synchronized with the device, so the span is the true end-to-end
-        latency) and a ``serving.queries`` counter."""
+        latency) and a ``serving.queries`` counter.
+
+        A corpus built with ``quant != "off"`` scores against its quantized
+        stack and rescores the certified candidates exactly
+        (``core.quant.serving_query``): the same results, global row ids
+        as int64; the B4 kernel does not apply there."""
         if topk < 1:
             raise ValueError(f"topk must be >= 1, got {topk}")
+        if self.quant is not None:
+            if use_kernel:
+                raise ValueError(
+                    "use_kernel applies to the f32 serving path only; "
+                    "the quantized path has no fused kernel (rebuild "
+                    "with quant='off' for kernel queries)")
+            from ..core.quant import serving_query
+            return serving_query(self, queries, topk=topk, mode=mode,
+                                 metric=metric)
         kq = quantize_pow2(topk)
         run = query_fn(self.comm, kq, mode, metric, use_kernel,
                        self.placement)
@@ -669,6 +696,8 @@ class ServingCorpus:
         self.state = replace_block(self.state, self.comm, b, data, nvalid,
                                    placement=self.placement)
         self.filled[b] = (data.shape[0] if nvalid is None else nvalid)
+        if self.quant is not None:
+            self.quant.update_block(b, data, int(self.filled[b]))
 
     def append_block(self, data) -> int:
         """Stream ``data`` (rows <= block capacity, validated at this

@@ -30,7 +30,9 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.core.selfcheck, repro_torch.kernels.ops, "
         "repro_torch.core.sparse, repro_torch.serving, "
         "repro_torch.serving.selfcheck, repro_torch.kernels.query_score, "
-        "repro_torch.kernels.pairwise_threshold\n"
+        "repro_torch.kernels.pairwise_threshold, repro_torch.core.knn, "
+        "repro_torch.core.quant, repro_torch.kernels.pairwise_topk, "
+        "repro_torch.kernels.pairwise_batch_q\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -79,6 +81,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
         serving_selfcheck.main(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         sparse.selfcheck_main(2)
+    from repro_torch.core import knn, quant
+    with pytest.raises(RuntimeError, match="CUDA"):
+        knn.knn_graph(corpus, comm.SingleProcessComm(2), topk=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        knn.selfcheck_main(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quant.selfcheck_main(2)
     assert comm.SingleProcessComm(4, "cpu").device.type == "cpu"
 
 

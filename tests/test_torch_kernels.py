@@ -20,8 +20,11 @@ from repro.kernels.pairwise_threshold import pairwise_threshold_pallas
 from repro.kernels.query_score import query_topk_pallas
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.pairwise_batch import pairwise_batch_forces_cuda
+from repro_torch.kernels.pairwise_batch_q import (pairwise_threshold_q_cuda,
+                                                  pairwise_topk_q_cuda)
 from repro_torch.kernels.pairwise_corr import pairwise_corr_cuda
 from repro_torch.kernels.pairwise_threshold import pairwise_threshold_cuda
+from repro_torch.kernels.pairwise_topk import pairwise_topk_cuda
 from repro_torch.kernels.pcit_filter import pcit_filter_cuda
 from repro_torch.kernels.query_score import query_topk_cuda
 
@@ -143,6 +146,32 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="meta"):
         pairwise_threshold_cuda(stack, [0, 1], [1, 0], meta, threshold=0.0,
                                 capacity=8, block_rows=8)
+    # B6-B8: no topk ceiling, but CPU tensors and bad operands are refused
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_topk_cuda(stack, [0], [1], meta, topk=2048, block_rows=8)
+    with pytest.raises(ValueError, match="topk"):
+        pairwise_topk_cuda(stack, [0], [1], meta, topk=0, block_rows=8)
+    with pytest.raises(ValueError, match="float32"):
+        pairwise_topk_cuda(stack.double(), [0], [1], meta, topk=2,
+                           block_rows=8)
+    codes = torch.zeros(1, 2, 8, 4, dtype=torch.int8)
+    sd, rows = torch.ones(1, 2, 2), torch.ones(1, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_topk_q_cuda(codes, sd, rows, [0], [1], meta, topk=2048,
+                             block_rows=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_threshold_q_cuda(codes, sd, rows, rows, [0], [1], meta,
+                                  threshold=0.0, capacity=8, block_rows=8)
+    with pytest.raises(ValueError, match="int8 or bfloat16"):
+        pairwise_topk_q_cuda(stack, sd, rows, [0], [1], meta, topk=2,
+                             block_rows=8)
+    with pytest.raises(ValueError, match="sd must be"):
+        pairwise_threshold_q_cuda(codes, sd[..., :1], rows, rows, [0], [1],
+                                  meta, threshold=0.0, capacity=8,
+                                  block_rows=8)
+    with pytest.raises(ValueError, match="l1 / sq"):
+        pairwise_topk_q_cuda(codes, sd, rows[..., :3], [0], [1], meta,
+                             topk=2, block_rows=8)
 
 
 def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
@@ -150,16 +179,24 @@ def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
     raises (there is no path that drops to the plain version)."""
     for src in _build.SOURCES:
         assert (_build.CSRC / src).is_file()
+    for hdr in _build.HEADERS:
+        assert (_build.CSRC / hdr).is_file()
     assert set(_build.SIGNATURES) == {"repro_pairwise_batch_forces",
                                       "repro_pairwise_corr",
                                       "repro_pcit_filter",
                                       "repro_query_topk",
                                       "repro_query_topk_chunk_rows",
-                                      "repro_pairwise_threshold"}
+                                      "repro_pairwise_threshold",
+                                      "repro_pairwise_topk",
+                                      "repro_pairwise_topk_q",
+                                      "repro_pairwise_threshold_q"}
     key = _build.build_key()
     assert key == _build.build_key() and len(key) == 16
     monkeypatch.setitem(_build.FILE_FLAGS, "pcit_filter.cu", ())
     assert _build.build_key() != key
+    # the quantized kernels round their epilogue as the plain versions do
+    for src in ("pairwise_threshold_q.cu", "pairwise_topk_q.cu"):
+        assert "-fmad=false" in _build.FILE_FLAGS[src]
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -170,7 +207,10 @@ def test_launch_counts_reset():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"pairwise_batch": 0, "pairwise_corr": 0,
                                    "pcit_filter": 0, "query_topk": 0,
-                                   "pairwise_threshold": 0}
+                                   "pairwise_threshold": 0,
+                                   "pairwise_topk": 0,
+                                   "pairwise_threshold_q": 0,
+                                   "pairwise_topk_q": 0}
     # the plain path on the CPU launches nothing
     ops.pairwise_corr(torch.zeros(1, 2, 3), torch.zeros(1, 2, 3))
     assert sum(ops.launch_counts().values()) == 0
@@ -315,3 +355,158 @@ def test_pairwise_threshold_plain_strips_match_one_step(monkeypatch):
     for a, b in zip(whole[1:], strips[1:]):
         assert torch.equal(a, b)
     assert int(whole[3]) > 24
+
+
+B6_CELLS = [(3, 16, 8, 4, 5, False), (4, 12, 24, 6, 1, False),
+            (2, 8, 4, 2, 20, False), (5, 8, 16, 8, 3, True),
+            (3, 10, 6, 5, 7, True)]
+
+
+@pytest.mark.parametrize("k,block,d,n_pairs,topk,ties", B6_CELLS)
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_topk_plain(k, block, d, n_pairs, topk, ties, metric):
+    """B6's plain version against the reference's (``ref.pairwise_topk``):
+    self tiles, repeated pairs and lo > hi, an inactive tile, ragged nv_lo
+    / nv_hi, tie-heavy integer data, topk above the candidate count.
+    Indices exact, values within rtol 1e-6."""
+    quorum, lo, hi, meta = _b5_inputs(k, block, d, n_pairs,
+                                      k * 3000 + block + topk, ties)
+    kw = dict(topk=topk, block_rows=block, metric=metric)
+    want = r_ref.pairwise_topk(jnp.asarray(quorum), lo, hi, meta, **kw)
+    meta2 = np.stack([meta, meta])
+    meta2[1, :, 0] = 1 - meta2[1, :, 0]          # device 1: flags flipped
+    got = ops.pairwise_topk(torch.as_tensor(np.stack([quorum, quorum])), lo,
+                            hi, torch.as_tensor(meta2), **kw)
+    assert got[0].shape == (2, k, block, topk) and got[1].dtype == torch.int32
+    np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0][0].numpy(), np.asarray(want[0]),
+                               rtol=1e-6, atol=1e-6)
+    w1 = r_ref.pairwise_topk(jnp.asarray(quorum), lo, hi, meta2[1], **kw)
+    np.testing.assert_array_equal(got[1][1].numpy(), np.asarray(w1[1]))
+
+
+def _q_inputs(k, block, d, n_pairs, seed, qmode):
+    """A B7 / B8 cell: B5's pair layout over int8 codes or bf16 values
+    (exactly representable, so both packages hold the same codes), with
+    per-slot scales and deltas and per-row norms."""
+    quorum, lo, hi, meta = _b5_inputs(k, block, d, n_pairs, seed, False)
+    rng = np.random.default_rng(seed + 1)
+    if qmode == "int8":
+        codes = rng.integers(-127, 128, size=(k, block, d)).astype(np.int8)
+        scale = rng.uniform(0.001, 0.02, k).astype(np.float32)
+    else:
+        codes = torch.as_tensor(quorum).to(torch.bfloat16).float().numpy()
+        scale = np.ones(k, np.float32)
+    delta = (scale / 2).astype(np.float32)
+    deq = codes.astype(np.float32) * scale[:, None, None]
+    l1 = np.abs(deq).sum(-1).astype(np.float32)
+    sq = (deq * deq).sum(-1).astype(np.float32)
+    return codes, scale, delta, l1, sq, lo, hi, meta
+
+
+def _codes(codes, qmode):
+    t = torch.as_tensor(codes)
+    return t if qmode == "int8" else t.to(torch.bfloat16)
+
+
+def _jcodes(codes, qmode):
+    return jnp.asarray(codes) if qmode == "int8" else \
+        jnp.asarray(codes).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("k,block,d,n_pairs,capacity",
+                         [(3, 16, 8, 4, 256), (4, 12, 24, 6, 64),
+                          (5, 8, 16, 8, 16), (2, 8, 128, 3, 40)])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+@pytest.mark.parametrize("qmode", ["int8", "bf16"])
+def test_pairwise_threshold_q_plain(k, block, d, n_pairs, capacity, metric,
+                                    qmode):
+    """B7's plain version against the reference's
+    (``ref.pairwise_threshold_q``): band membership, order, overflow
+    prefix and counts exact; int8 values exact, bf16 within rtol 1e-6."""
+    codes, scale, delta, l1, sq, lo, hi, meta = _q_inputs(
+        k, block, d, n_pairs, k * 5000 + block, qmode)
+    deq = codes.astype(np.float32) * scale[:, None, None]
+    s = deq[0] @ deq[-1].T
+    if metric == "l2":
+        s = 2.0 * s - sq[-1][None] - sq[0][:, None]
+    kw = dict(threshold=float(np.quantile(s, 0.8)), capacity=capacity,
+              block_rows=block, metric=metric)
+    want = r_ref.pairwise_threshold_q(_jcodes(codes, qmode), scale, delta,
+                                      l1, sq, lo, hi, meta, **kw)
+    two = lambda a: torch.as_tensor(np.stack([a, a]))  # noqa: E731
+    meta2 = np.stack([meta, meta])
+    meta2[1, :, 0] = 1 - meta2[1, :, 0]
+    sd = two(np.stack([scale, delta], -1))
+    got = ops.pairwise_threshold_q(
+        _codes(np.stack([codes, codes]), qmode), sd, two(l1), two(sq), lo,
+        hi, torch.as_tensor(meta2), **kw)
+    np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[2][0].numpy(), np.asarray(want[2]))
+    assert int(got[3][0]) == int(np.asarray(want[3]))
+    if qmode == "int8":
+        np.testing.assert_array_equal(got[0][0].numpy(), np.asarray(want[0]))
+    else:
+        np.testing.assert_allclose(got[0][0].numpy(), np.asarray(want[0]),
+                                   rtol=1e-6, atol=1e-6)
+    w1 = r_ref.pairwise_threshold_q(_jcodes(codes, qmode), scale, delta, l1,
+                                    sq, lo, hi, meta2[1], **kw)
+    np.testing.assert_array_equal(got[1][1].numpy(), np.asarray(w1[1]))
+    assert int(got[3][1]) == int(np.asarray(w1[3]))
+    if (k, capacity, metric) == (5, 16, "dot"):
+        assert int(got[3][0]) > capacity            # the overflow cell
+
+
+@pytest.mark.parametrize("k,block,d,n_pairs,topk",
+                         [(3, 16, 8, 4, 5), (4, 12, 24, 6, 1),
+                          (2, 8, 128, 3, 20)])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+@pytest.mark.parametrize("qmode", ["int8", "bf16"])
+def test_pairwise_topk_q_plain(k, block, d, n_pairs, topk, metric, qmode):
+    """B8's plain version against the reference's (``ref.pairwise_topk_q``):
+    indices exact, int8 values exact, bf16 within rtol 1e-6."""
+    codes, scale, _delta, _l1, sq, lo, hi, meta = _q_inputs(
+        k, block, d, n_pairs, k * 7000 + block, qmode)
+    kw = dict(topk=topk, block_rows=block, metric=metric)
+    want = r_ref.pairwise_topk_q(_jcodes(codes, qmode), scale, sq, lo, hi,
+                                 meta, **kw)
+    sd = torch.as_tensor(np.stack([scale, scale / 2], -1))[None]
+    got = ops.pairwise_topk_q(_codes(codes[None], qmode), sd,
+                              torch.as_tensor(sq)[None], lo, hi,
+                              torch.as_tensor(meta)[None], **kw)
+    assert got[0].shape == (1, k, block, topk)
+    np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(want[1]))
+    if qmode == "int8":
+        np.testing.assert_array_equal(got[0][0].numpy(), np.asarray(want[0]))
+    else:
+        np.testing.assert_allclose(got[0][0].numpy(), np.asarray(want[0]),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_topk_plain_strips_match_one_step(monkeypatch):
+    """B6 / B8's plain versions fold row strips; the strip size changes
+    nothing."""
+    quorum, lo, hi, meta = _b5_inputs(3, 16, 8, 4, 11, False)
+    q, m = torch.as_tensor(quorum), torch.as_tensor(meta)
+    kw = dict(topk=6, block_rows=16, metric="l2")
+    whole = ref.pairwise_topk(q, lo, hi, m, **kw)
+    monkeypatch.setattr(ref, "_THRESHOLD_STEP_ELEMS", 3 * 16)
+    strips = ref.pairwise_topk(q, lo, hi, m, **kw)
+    assert torch.equal(whole[1], strips[1])
+    torch.testing.assert_close(whole[0], strips[0], rtol=1e-6, atol=1e-6)
+
+
+def test_topk_by_score_index_is_the_sort_order():
+    """The packed-key selection equals the two-key sort: ties by index,
+    -0.0 as 0.0, negative scores, sentinels last."""
+    rng = np.random.default_rng(3)
+    v = torch.as_tensor(rng.integers(-3, 4, size=(5, 40)).astype(np.float32))
+    v[0, :3] = -0.0
+    v[1, 5:] = ref.NEG_INF
+    i = torch.as_tensor(rng.permutation(200).reshape(5, 40), dtype=torch.int32)
+    i[2, 7] = ref.IDX_SENTINEL
+    sv, si = ref.sort_by_score_index(-v, i)
+    for k in (1, 7, 40):
+        gv, gi = ref.topk_by_score_index(v, i, k)
+        assert torch.equal(gi, si[:, :k])
+        assert torch.equal(gv, -sv[:, :k])

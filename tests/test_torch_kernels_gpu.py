@@ -260,3 +260,142 @@ def test_new_wrappers_count_launches(cuda):
                            block_rows=8)
     counts = ops.launch_counts()
     assert counts["query_topk"] == 1 and counts["pairwise_threshold"] == 1
+
+
+def _pair_inputs(rng, P, k, block, d, n_pairs, integer, self_only, cuda):
+    """B6-B8 cells: B5's pair layout, or self tiles only."""
+    quorum, lo, hi, meta = _threshold_inputs(rng, P, k, block, d, n_pairs,
+                                             integer, cuda)
+    if self_only:
+        lo = hi = np.arange(n_pairs, dtype=np.int32) % k
+        meta[..., 1] = 1
+        meta[..., 3] = meta[..., 2]
+        meta[..., 5] = meta[..., 4]
+    return quorum, lo, hi, meta
+
+
+def _quantized(quorum, qmode):
+    """Codes, [P, k, 2] (scale, delta), l1 and sq of a float quorum."""
+    if qmode == "int8":
+        scale = quorum.abs().amax(dim=(2, 3)).clamp(min=1e-30) / 127.0
+        codes = torch.clamp(torch.round(quorum / scale[..., None, None]),
+                            -127, 127).to(torch.int8)
+    else:
+        scale = torch.ones(quorum.shape[:2], device=quorum.device)
+        codes = quorum.to(torch.bfloat16)
+    sd = torch.stack([scale, scale / 2], dim=-1)
+    return codes, sd, quorum.abs().sum(-1), (quorum * quorum).sum(-1)
+
+
+def _assert_lists_near(got_v, got_i, want_v, want_i):
+    """B6 / bf16 lists against the plain version's: values within 1e-5 *
+    max(1, |s|) rank by rank, and where the ids differ the wanted score at
+    that rank has a near-tie partner (another listed score, or the k-th,
+    within the same tolerance) that fp32 summation order may flip."""
+    tol = 1e-5 * torch.clamp(want_v.abs(), min=1.0)
+    assert bool(((got_v - want_v).abs() <= tol).all())
+    diff = got_i != want_i
+    if not bool(diff.any()):
+        return
+    gap = (want_v[..., :, None] - want_v[..., None, :]).abs()
+    eye = torch.eye(want_v.shape[-1], dtype=torch.bool,
+                    device=want_v.device)
+    partner = ((gap <= tol[..., None]) & ~eye).any(-1)
+    kth = (want_v - want_v[..., -1:]).abs() <= tol
+    assert bool((partner | kth)[diff].all()), int(diff.sum())
+
+
+PAIR_CELLS = [(2, 3, 16, 8, 4, False, False), (1, 4, 100, 24, 6, True, False),
+              (2, 3, 300, 128, 5, False, False),
+              (1, 3, 300, 16, 5, True, True), (2, 2, 77, 32, 3, False, True)]
+
+
+@pytest.mark.parametrize("P,k,block,d,n_pairs,integer,self_only", PAIR_CELLS)
+@pytest.mark.parametrize("topk", [1, 10, 2048])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_topk(cuda, P, k, block, d, n_pairs, integer, self_only,
+                       topk, metric):
+    """B6 against its plain version: inactive, self and ragged tiles,
+    tie-heavy integer data (exact order), and topk up to 2048 (no
+    ceiling: the lists live in global memory)."""
+    rng = np.random.default_rng(P * 100 + block + topk)
+    quorum, lo, hi, meta = _pair_inputs(rng, P, k, block, d, n_pairs,
+                                        integer, self_only, cuda)
+    kw = dict(topk=topk, block_rows=block, metric=metric)
+    got = ops.pairwise_topk(quorum, lo, hi, meta, **kw)
+    want = ref.pairwise_topk(quorum, lo, hi, meta, **kw)
+    if integer:
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    else:
+        _assert_lists_near(*got, *want)
+
+
+@pytest.mark.parametrize("P,k,block,d,n_pairs,integer,self_only", PAIR_CELLS)
+@pytest.mark.parametrize("topk", [1, 10, 2048])
+@pytest.mark.parametrize("qmode", ["int8", "bf16"])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_topk_q(cuda, P, k, block, d, n_pairs, integer, self_only,
+                         topk, qmode, metric):
+    """B8 against its plain version: int8 lists identical (ties included),
+    bf16 within the near-tie rule."""
+    rng = np.random.default_rng(P * 300 + block + topk)
+    quorum, lo, hi, meta = _pair_inputs(rng, P, k, block, d, n_pairs,
+                                        integer, self_only, cuda)
+    codes, sd, _l1, sq = _quantized(quorum, qmode)
+    kw = dict(topk=topk, block_rows=block, metric=metric)
+    got = ops.pairwise_topk_q(codes, sd, sq, lo, hi, meta, **kw)
+    want = ref.pairwise_topk_q(codes, sd[..., 0], sq, lo, hi, meta, **kw)
+    if qmode == "int8":
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    else:
+        _assert_lists_near(*got, *want)
+
+
+@pytest.mark.parametrize("P,k,block,d,n_pairs,integer,self_only", PAIR_CELLS)
+@pytest.mark.parametrize("capacity", [37, 1 << 16])
+@pytest.mark.parametrize("qmode", ["int8", "bf16"])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_threshold_q(cuda, P, k, block, d, n_pairs, integer,
+                              self_only, capacity, qmode, metric):
+    """B7 against its plain version: the int8 band, its order and its
+    overflow prefix identical; bf16 may differ only at the band's edge,
+    where fp32 summation order decides."""
+    rng = np.random.default_rng(P * 500 + block + capacity)
+    quorum, lo, hi, meta = _pair_inputs(rng, P, k, block, d, n_pairs,
+                                        integer, self_only, cuda)
+    codes, sd, l1, sq = _quantized(quorum, qmode)
+    s = ref.tile_scores(quorum[0, 0], quorum[0, -1], metric)
+    kw = dict(threshold=float(torch.quantile(s.flatten()[:100000], 0.9)),
+              capacity=capacity, block_rows=block, metric=metric)
+    got = ops.pairwise_threshold_q(codes, sd, l1, sq, lo, hi, meta, **kw)
+    want = ref.pairwise_threshold_q(codes, sd[..., 0], sd[..., 1], l1, sq,
+                                    lo, hi, meta, **kw)
+    if qmode == "int8" or torch.equal(got[3], want[3]):
+        assert torch.equal(got[3], want[3])
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        if qmode == "int8":
+            assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    else:
+        n = want[3].to(torch.float32)
+        assert bool(((got[3] - want[3]).abs() <= 1e-4 * n + 2).all())
+    if capacity == 37:
+        assert bool((want[3] > capacity).any())     # an overflowing cell
+
+
+def test_pair_kernels_count_launches(cuda):
+    """Each of B6-B8 counts one launch per call, and only there."""
+    quorum, lo, hi, meta = _pair_inputs(np.random.default_rng(0), 1, 2, 8, 4,
+                                        2, False, False, cuda)
+    codes, sd, l1, sq = _quantized(quorum, "int8")
+    ops.reset_launch_counts()
+    ref.pairwise_topk(quorum, lo, hi, meta, topk=2, block_rows=8)
+    assert sum(ops.launch_counts().values()) == 0
+    ops.pairwise_topk(quorum, lo, hi, meta, topk=2, block_rows=8)
+    ops.pairwise_topk_q(codes, sd, sq, lo, hi, meta, topk=2, block_rows=8)
+    ops.pairwise_topk_q(codes, sd, sq, lo, hi, meta, topk=3, block_rows=8)
+    ops.pairwise_threshold_q(codes, sd, l1, sq, lo, hi, meta, threshold=0.0,
+                             capacity=8, block_rows=8)
+    counts = ops.launch_counts()
+    assert (counts["pairwise_topk"], counts["pairwise_topk_q"],
+            counts["pairwise_threshold_q"]) == (1, 2, 1)

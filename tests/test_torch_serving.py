@@ -287,11 +287,22 @@ def test_tree_merge_gives_global_topk_on_every_device():
 def test_argument_contract(monkeypatch):
     comm = SingleProcessComm(4, "cpu")
     corpus = np.zeros((27, 6), np.float32)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ServingCorpus.build(corpus, comm, quant="int8")
+    # quant keeps a quantized stack (argument first, then REPRO_QUANT) that
+    # query() routes to, with the f32 path's results
+    rows = np.random.default_rng(2).normal(size=(27, 6)).astype(np.float32)
+    queries = rows[:3] + 0.5
+    want = ServingCorpus.build(rows, comm, quant="off").query(queries, topk=3)
+    sc = ServingCorpus.build(rows, comm, quant="int8")
     monkeypatch.setenv("REPRO_QUANT", "bf16")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ServingCorpus.build(corpus, comm)
+    sc_env = ServingCorpus.build(rows, comm)
+    assert (sc.quant.mode, sc_env.quant.mode) == ("int8", "bf16")
+    for c in (sc, sc_env):
+        v, i = c.query(queries, topk=3)
+        np.testing.assert_array_equal(i.numpy(), want[1].numpy())
+        np.testing.assert_allclose(v.numpy(), want[0].numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    with pytest.raises(ValueError, match="f32 serving path only"):
+        sc.query(queries, topk=3, use_kernel=True)
     monkeypatch.setenv("REPRO_QUANT", "off")
     sc = ServingCorpus.build(corpus, comm, block=9)
     with pytest.raises(ValueError, match="batched"):

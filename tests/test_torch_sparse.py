@@ -24,6 +24,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.core import sparse as r_sparse
+from repro_torch.core import quant as t_quant
 from repro_torch.core import sparse
 from repro_torch.core.comm import SingleProcessComm
 from repro_torch.core.placement import get_placement
@@ -267,11 +268,21 @@ def test_counters_and_pruned_tiles(reference):
 def test_argument_contract(monkeypatch):
     comm = SingleProcessComm(4, "cpu")
     corpus = np.random.default_rng(0).normal(size=(20, 3)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        sparse.similarity_join(corpus, comm, threshold=0.0, quant="int8")
+    # quant routes to the quantized join (argument first, then REPRO_QUANT),
+    # which gives the f32 join's pairs
+    want = sparse.similarity_join(corpus, comm, threshold=0.0, quant="off")
+    seen = []
+    real = t_quant.quant_similarity_join
+    monkeypatch.setattr(t_quant, "quant_similarity_join",
+                        lambda *a, **kw: seen.append(kw["quant"])
+                        or real(*a, **kw))
+    got = [sparse.similarity_join(corpus, comm, threshold=0.0, quant="int8")]
     monkeypatch.setenv("REPRO_QUANT", "bf16")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        sparse.similarity_join(corpus, comm, threshold=0.0)
+    got.append(sparse.similarity_join(corpus, comm, threshold=0.0))
+    assert seen == ["int8", "bf16"]
+    for res in got:
+        np.testing.assert_array_equal(res.i, want.i)
+        np.testing.assert_array_equal(res.j, want.j)
     monkeypatch.delenv("REPRO_QUANT")
     with pytest.raises(ValueError, match="batched"):
         sparse.similarity_join(corpus, comm, threshold=0.0, mode="scan",
