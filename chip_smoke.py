@@ -44,13 +44,27 @@ beside the script).  Phases:
  15. quantized serving (int8) of the 1,000,000 x 128 corpus: microbatches
      of 256 l2 top-10 queries before and after a block replace, held
      against the f32 ``ServingCorpus.query``;
+ 16. B9 flash_attention (one quorum pair [8, 4096, 40 | 8, 128], causal
+     and not, bf16 and f32) and B10 ssd_chunk (mamba2-130m's prefill,
+     [4, 32768, 24, 64], chunk 256) against their plain versions, timed
+     beside them and, for B9, scaled_dot_product_attention;
+ 17. quorum and ring sequence-parallel causal attention at qwen3-14b's
+     attention widths (H = 40, KV = 8, hd = 128), T = 32,768, P = 8, in
+     bf16 and in f32, held against each other, whole-sequence B9 and the
+     f32 plain attention on sampled rows;
+ 18. mamba2-130m (full config, 128,983,488 random parameters from a seed)
+     prefill of 4 x 32,768 tokens through B10, decode == prefill at 1,024
+     tokens (bf16 and f32), and the card's prefill against the CPU's;
+ 19. mamba2-130m serving: ``serve()`` at batch 4, prompt 16, 32 generated
+     tokens, B10 launched 24 times per step;
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
 
 Kernel launch counts are set to 0 just before each main path (n-body,
-PCIT, serving, join, k-NN graph, quantized join, quantized k-NN) is driven
-and read just after it, so comparison launches do not count.
+PCIT, serving, join, k-NN graph, quantized join, quantized k-NN, quorum
+attention, prefill, serving) is driven and read just after it, so
+comparison launches do not count.
 """
 
 from __future__ import annotations
@@ -100,6 +114,24 @@ CLUSTER_SPREAD = 0.3
 # before and after the block replace
 KNN_TOPK, QSERVE_BATCHES = 10, 4
 QUANT_CAP = 1 << 20      # B7's per-device buffer at the join's shape
+# quorum / ring sequence-parallel attention at qwen3-14b's attention widths
+# (H = 40, KV = 8, head_dim = 128) and the prefill_32k length, batch cut
+# from 32 to 1; ATTN_SAMPLE first and last rows of each block are held
+# against the plain f32 attention
+ATTN_B, ATTN_T, ATTN_H, ATTN_KV, ATTN_HD = 1, 32_768, 40, 8, 128
+ATTN_SAMPLE = 256
+# B9's tolerances.  Its partials (o, m, l) are f32 from the same widened
+# inputs in either dtype: FLASH_PART_TOL.  An attention output is held
+# element by element to |got - want| <= rel * |want| + FLASH_ATOL, with
+# rel = 2^-7 for a bf16 output (one bf16 ulp of |want|: a bf16 rounding of
+# the f32 value, or two roundings one ulp apart) and 0 for an f32 one.
+FLASH_PART_TOL, FLASH_ATOL, BF16_REL = 1e-5, 1e-5, 2.0 ** -7
+# mamba2-130m: prefill_32k with the batch cut from 32 to 4; decode checked
+# against prefill at SSM_CHECK_T tokens; serving at the defaults of the
+# JAX package's serve() (batch 4, prompt 16, 32 generated tokens)
+SSM_PREFILL_B, SSM_PREFILL_T, SSM_CHECK_T = 4, 32_768, 1024
+SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK = 24, 64, 128, 256
+SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_GEN = 4, 16, 32
 # scores within SCORE_TOL * max(1, |s|) of each other (or of the k-th
 # score, or of the threshold) may order differently between the kernels'
 # fp32 accumulation and cuBLAS's
@@ -1408,6 +1440,409 @@ def phase_quant_serving() -> None:
         " ids differ from the f32 path's, all within the tie tolerance")
 
 
+# ---------------------------------------------------------------------------
+# B9 flash attention, quorum / ring attention; B10, mamba2-130m
+# ---------------------------------------------------------------------------
+
+def attn_inputs(dtype, seed: int):
+    """q [B, T, H, hd], k / v [B, T, KV, hd] of N(0, 1) values, made on
+    the card from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rnd(heads):
+        return torch.randn(ATTN_B, ATTN_T, heads, ATTN_HD, generator=g,
+                           device=DEVICE).to(dtype)
+    return rnd(ATTN_H), rnd(ATTN_KV), rnd(ATTN_KV)
+
+
+def plain_flash_block_rows(q, k, v, causal: bool, rows: int = 512):
+    """ref.flash_block over row chunks of q (the full [.., 4096, 4096]
+    score tensor would not fit twice): rows r0:r1 against keys :r1 with
+    the end-aligned mask are rows r0:r1 of the causal block."""
+    from repro_torch.kernels import ref
+    outs = []
+    for r0 in range(0, q.shape[1], rows):
+        r1 = min(q.shape[1], r0 + rows)
+        kk, vv = (k[:, :r1], v[:, :r1]) if causal else (k, v)
+        outs.append(ref.flash_block(q[:, r0:r1], kk, vv, causal=causal))
+    return tuple(torch.cat([o[i] for o in outs], dim=1) for i in range(3))
+
+
+def flash_errs(got, want) -> tuple[float, float]:
+    """(max abs err of the normalized output o / l, max abs err of m)."""
+    go = got[0] / got[2].clamp_min(1e-30)[..., None]
+    wo = want[0] / want[2].clamp_min(1e-30)[..., None]
+    return float((go - wo).abs().max()), float((got[1] - want[1]).abs().max())
+
+
+def flash_ops(rows: int, Tq: int, Tk: int, heads: int, hd: int,
+              causal: bool) -> float:
+    """Operations of attention over visible (query, key) pairs: 2 hd for
+    q.k and 2 hd for p.v."""
+    if causal:
+        pairs = sum(min(Tk, i + Tk - Tq + 1) for i in range(Tq))
+    else:
+        pairs = Tq * Tk
+    return 4.0 * hd * pairs * rows * heads
+
+
+def sampled_plain_rows(q, k, v):
+    """(row ranges, plain f32 causal attention of those rows): the first
+    and last ATTN_SAMPLE rows of each of the P sequence blocks."""
+    from repro_torch.kernels import ref
+    blk = ATTN_T // P
+    ranges = []
+    for b in range(P):
+        ranges += [(b * blk, b * blk + ATTN_SAMPLE),
+                   ((b + 1) * blk - ATTN_SAMPLE, (b + 1) * blk)]
+    want = [ref.flash_attention(q[:, r0:r1].float(), k[:, :r1].float(),
+                                v[:, :r1].float(), causal=True)
+            for r0, r1 in ranges]
+    return ranges, want
+
+
+def out_err(got, want) -> tuple[float, float]:
+    """(max abs err, worst ratio of |got - want| to its limit) of an
+    attention output against ``want``; the check is ratio <= 1."""
+    rel = BF16_REL if torch.bfloat16 in (got.dtype, want.dtype) else 0.0
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    return (float(d.max()),
+            float((d / (rel * want.abs() + FLASH_ATOL)).max()))
+
+
+def sampled_err(out, ranges, want) -> tuple[float, float]:
+    errs = [out_err(out[:, r0:r1], w) for (r0, r1), w in zip(ranges, want)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def ssd_inputs(seed: int, Bsz: int, T: int):
+    """B10's inputs at mamba2-130m's widths: x, B and C as strided views
+    into one projection [Bsz, T, d_inner + 2 N] (as ``models/ssm.py``
+    passes them), dt in [0.01, 0.2], A in -[0.5, 2] (tests/test_kernels.py's
+    ranges)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    H, Pd, N = SSM_HEADS, SSM_HEAD_DIM, SSM_STATE
+    xBC = torch.randn(Bsz, T, H * Pd + 2 * N, generator=g, device=DEVICE)
+    x = xBC[..., :H * Pd].unflatten(-1, (H, Pd))
+    Bm, Cm = xBC[..., H * Pd:H * Pd + N], xBC[..., H * Pd + N:]
+    dt = 0.01 + 0.19 * torch.rand(Bsz, T, H, generator=g, device=DEVICE)
+    A = -(0.5 + 1.5 * torch.rand(H, generator=g, device=DEVICE))
+    return x, dt, A, Bm, Cm
+
+
+def phase_kernels_lm(report: dict) -> None:
+    from repro_torch.kernels import ops, ref
+
+    # ---- B9 at one quorum pair: [P*B, 4096, 40 | 8, 128] ---------------
+    blk = ATTN_T // P
+    rows_b = P * ATTN_B
+    res = {}
+    tol = FLASH_PART_TOL
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=DEVICE).manual_seed(21)
+        q = torch.randn(rows_b, blk, ATTN_H, ATTN_HD, generator=g,
+                        device=DEVICE).to(dtype)
+        k = torch.randn(rows_b, blk, ATTN_KV, ATTN_HD, generator=g,
+                        device=DEVICE).to(dtype)
+        v = torch.randn(rows_b, blk, ATTN_KV, ATTN_HD, generator=g,
+                        device=DEVICE).to(dtype)
+        for causal in (False, True):
+            got = ops.flash_block(q, k, v, causal=causal)
+            want = plain_flash_block_rows(q, k, v, causal)
+            err, m_err = flash_errs(got, want)
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  "B9: non-finite partial")
+            check(err < tol and m_err < tol,
+                  f"B9 {dtype} causal={causal}: max abs err {err:.3e} (m "
+                  f"{m_err:.3e}) >= {tol}")
+            l_rel = float(((got[2] - want[2]).abs()
+                           / want[2].clamp_min(1e-30)).max())
+            check(l_rel < tol, f"B9: row sums rel err {l_rel:.3e} >= {tol}")
+            ms = cuda_ms(lambda: ops.flash_block(q, k, v, causal=causal))
+            plain_ms = cuda_ms(lambda: plain_flash_block_rows(q, k, v,
+                                                              causal),
+                               reps=1, warmup=0)
+            qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib_ms = cuda_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 qs, ks, vs, is_causal=causal,
+                                 enable_gqa=True))
+            del qs, ks, vs
+            n_ops = flash_ops(rows_b, blk, blk, ATTN_H, ATTN_HD, causal)
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
+                else PEAK_FP32_FLOPS
+            b_ms, b_by = bound(nbytes(q, k, v, *got), n_ops, peak)
+            res[(dtype, causal)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+            say(f"B9 flash_attention partial {str(dtype)[6:]} causal="
+                f"{causal} q {tuple(q.shape)} kv {tuple(k.shape)}: max_abs"
+                f"_err={err:.3e} (m {m_err:.3e}, l rel {l_rel:.3e}; < {tol})"
+                f" kernel {ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), "
+                f"plain {plain_ms:.3f} ms (row chunks), sdpa {lib_ms:.3f} "
+                f"ms, bound {b_ms:.3f} ms ({b_by}, "
+                f"{'bf16 tensor cores' if peak == PEAK_BF16_FLOPS else 'fp32'})")
+            del got, want
+        del q, k, v
+    # the main path's common launch: a full (non-diagonal) pair in bf16
+    report["flash_attention"] = res[(torch.bfloat16, False)]
+
+    # ---- B10 at mamba2-130m's prefill ([4, 32768, 24, 64], chunk 256)
+    # and at each decode step's shape ([4, 1, 24, 64], chunk 1) ---------
+    errs = []
+    for label, Bsz, T, L in (("prefill", SSM_PREFILL_B, SSM_PREFILL_T,
+                              SSM_CHUNK),
+                             ("decode", SERVE_LM_BATCH, 1, 1)):
+        x, dt, A, Bm, Cm = ssd_inputs(22, Bsz, T)
+        got = ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=L)
+        want = ref.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=L)
+        e = []
+        for name, gt, wt in zip(("y", "S", "cd"), got, want):
+            check(gt.shape == wt.shape and bool(torch.isfinite(gt).all()),
+                  f"B10 {label}: {name} of the wrong shape or not finite")
+            check(torch.allclose(gt, wt, rtol=1e-4, atol=1e-4),
+                  f"B10 {label}: {name} not within rtol / atol 1e-4 (max "
+                  f"abs err {float((gt - wt).abs().max()):.3e})")
+            e.append(float((gt - wt).abs().max()))
+        errs += e
+        del want
+        ms = cuda_ms(lambda: ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=L))
+        plain_ms = cuda_ms(lambda: ref.ssd_intra_chunk(x, dt, A, Bm, Cm,
+                                                       chunk=L),
+                           reps=1, warmup=0)
+        H, Pd = x.shape[2:]
+        N = Bm.shape[-1]
+        cells = Bsz * H * (T // L)
+        tri = L * (L + 1) // 2
+        n_ops = cells * (2.0 * N * tri + 2.0 * Pd * tri + 2.0 * L * N * Pd)
+        b_ms, b_by = bound(nbytes(x, dt, A, Bm, Cm, *got), n_ops)
+        say(f"B10 ssd_chunk {label} x {tuple(x.shape)} B/C "
+            f"{tuple(Bm.shape)} chunk {L} ({cells} cells): max_abs_err y "
+            f"{e[0]:.3e}, S {e[1]:.3e}, cd {e[2]:.3e} (rtol / atol 1e-4) "
+            f"kernel {ms:.3f} ms ({n_ops / ms / 1e9:.3f} TFLOP/s), plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        if label == "prefill":
+            # the row of the kernels line: prefill's launch, the costly one
+            report["ssd_chunk"] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=None)
+        del x, dt, A, Bm, Cm, got
+    report["ssd_chunk"]["max_abs_err"] = max(errs)
+
+
+def phase_attention(report: dict) -> None:
+    from repro_torch.apps.attention import distributed_attention
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace as obs_trace
+
+    comm = SingleProcessComm(P, DEVICE)
+    for dtype in (torch.bfloat16, torch.float32):
+        lim = (f"|diff| <= {'2^-7 |want| + ' if dtype == torch.bfloat16 else ''}"
+               f"{FLASH_ATOL:g}")
+        q, k, v = attn_inputs(dtype, 23)
+        ranges, want = sampled_plain_rows(q, k, v)
+        outs = {}
+        for strategy in ("quorum", "ring"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tr = obs_trace.configure(metrics_only=True)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                out = distributed_attention(q, k, v, comm, strategy=strategy)
+                torch.cuda.synchronize()
+            finally:
+                obs_trace.reset()
+            ms = (time.perf_counter() - t0) * 1e3
+            n = ops.launch_counts()["flash_attention"]
+            peak = torch.cuda.max_memory_allocated() - base
+            check(n > 0, f"{strategy} attention: B9 was never launched")
+            check(out.shape == q.shape and out.dtype == dtype
+                  and bool(torch.isfinite(out).all()),
+                  f"{strategy} attention: wrong shape / dtype or not finite")
+            if strategy == "quorum" and dtype == torch.bfloat16:
+                report["flash_attention"]["launches"] = n
+            moved = sum(tr.counter_total(f"comm.ppermute.{c}")
+                        for c in ("gather_bytes", "scatter_bytes",
+                                  "ring_bytes"))
+            s_err, s_ratio = sampled_err(out, ranges, want)
+            check(s_ratio <= 1, f"{strategy} attention: sampled rows vs f32 "
+                  f"plain attention max abs err {s_err:.3e}, {s_ratio:.3f} "
+                  f"times the limit {lim}")
+            outs[strategy] = out
+            say(f"{strategy} attention {str(dtype)[6:]} B={ATTN_B} "
+                f"T={ATTN_T} H={ATTN_H} KV={ATTN_KV} hd={ATTN_HD} P={P}: "
+                f"{ms:.1f} ms (host clock, synchronized), peak "
+                f"{peak / 2**30:.3f} GiB above the inputs, B9 launches {n}, "
+                f"comm {moved / 2**20:.1f} MiB per device (gather "
+                f"{tr.counter_total('comm.ppermute.gather_bytes') / 2**20:.1f}"
+                f", scatter "
+                f"{tr.counter_total('comm.ppermute.scatter_bytes') / 2**20:.1f}"
+                f", ring "
+                f"{tr.counter_total('comm.ppermute.ring_bytes') / 2**20:.1f})"
+                f"; sampled rows vs f32 plain max abs err {s_err:.3e} "
+                f"({s_ratio:.3f} of the limit)")
+        d, d_ratio = out_err(outs["quorum"], outs["ring"])
+        check(d_ratio <= 1, f"quorum vs ring attention: max abs diff "
+              f"{d:.3e}, {d_ratio:.3f} times the limit {lim}")
+        whole = ops.flash_attention(q, k, v, causal=True)
+        w_err, w_ratio = out_err(outs["quorum"], whole)
+        check(w_ratio <= 1, f"quorum attention vs whole-sequence B9: max "
+              f"abs diff {w_err:.3e}, {w_ratio:.3f} times the limit {lim}")
+        ws_err, ws_ratio = sampled_err(whole, ranges, want)
+        check(ws_ratio <= 1, f"whole-sequence B9 vs f32 plain rows: "
+              f"{ws_err:.3e}, {ws_ratio:.3f} times the limit {lim}")
+        whole_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                           reps=2)
+        sdpa = "not timed (in f32 it takes the math backend, whose score " \
+            "tensor needs 160 GiB)"
+        if dtype == torch.bfloat16:
+            qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = "{:.3f} ms".format(cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True), reps=2))
+            del qs, ks, vs
+        n_ops = flash_ops(ATTN_B, ATTN_T, ATTN_T, ATTN_H, ATTN_HD, True)
+        peak_rate = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
+            else PEAK_FP32_FLOPS
+        b_ms, b_by = bound(nbytes(q, k, v, whole), n_ops, peak_rate)
+        say(f"attention {str(dtype)[6:]}: quorum vs ring max abs diff "
+            f"{d:.3e} ({d_ratio:.3f} of the limit), quorum vs whole-sequence"
+            f" B9 {w_err:.3e} ({w_ratio:.3f}), whole-sequence B9 vs sampled "
+            f"f32 plain rows {ws_err:.3e} ({ws_ratio:.3f}; limit {lim}); "
+            f"whole-sequence B9 (ops.flash_attention, causal) {whole_ms:.3f}"
+            f" ms ({n_ops / whole_ms / 1e9:.1f} TFLOP/s), sdpa causal "
+            f"{sdpa}, bound {b_ms:.3f} ms ({b_by})")
+        del q, k, v, outs, whole, want
+
+
+def phase_mamba_prefill(report: dict) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import lm
+
+    cfg = get_config("mamba2_130m")
+    n_params = lm.count_params(cfg)
+    check(n_params == 128_983_488, f"mamba2-130m has {n_params} parameters")
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    prefill = build_prefill_step(cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(24)
+    toks = torch.randint(0, cfg.vocab_size, (SSM_PREFILL_B, SSM_PREFILL_T),
+                         generator=g, device=DEVICE)
+    prefill(params, {"tokens": toks[:, :SSM_CHUNK]})      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = ops.launch_counts()["ssd_chunk"]
+    peak = torch.cuda.max_memory_allocated()
+    report["ssd_chunk"]["launches"] = n
+    check(n == cfg.n_layers, f"prefill: B10 launched {n} times, expected "
+          f"{cfg.n_layers}")
+    check(logits.shape == (SSM_PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "prefill: logits of the wrong shape or not finite")
+    say(f"mamba2-130m prefill {SSM_PREFILL_B} x {SSM_PREFILL_T} tokens "
+        f"({n_params} parameters, bf16): {secs * 1e3:.1f} ms (host clock, "
+        f"synchronized), {SSM_PREFILL_B * SSM_PREFILL_T / secs:.0f} tokens/s,"
+        f" peak {peak / 2**30:.3f} GiB, B10 launches {n}")
+    del logits
+
+    # decode == prefill at SSM_CHECK_T tokens: bf16 within 2e-2 of the
+    # largest logit (tests/test_models.py's 2e-2, scaled), and an f32 copy
+    # within 1e-4 of it
+    short = toks[:2, :SSM_CHECK_T]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = lm.params_from_numpy(
+        cfg32, _tree_to_numpy(params), device=DEVICE)
+    for c, p, label in ((cfg, params, "bf16"), (cfg32, params32, "f32")):
+        want = build_prefill_step(c)(p, {"tokens": short})
+        state = lm.init_decode_state(c, short.shape[0], SSM_CHECK_T,
+                                     device=DEVICE)
+        step = build_serve_step(c)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in range(SSM_CHECK_T):
+            lg, state = step(p, state, short[:, t:t + 1])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / SSM_CHECK_T
+        n_dec = ops.launch_counts()["ssd_chunk"]
+        check(n_dec == SSM_CHECK_T * c.n_layers,
+              f"decode: {n_dec} B10 launches over {SSM_CHECK_T} steps")
+        d = float((lg[:, -1] - want).abs().max())
+        rel = 2e-2 if label == "bf16" else 1e-4
+        lim = rel * max(1.0, float(want.abs().max()))
+        check(d < lim, f"decode vs prefill ({label}) at {SSM_CHECK_T} "
+              f"tokens: max abs diff {d:.3e} >= {lim:.3e}")
+        say(f"mamba2-130m {label} decode vs prefill at {SSM_CHECK_T} tokens:"
+            f" last-position logits max abs diff {d:.3e} (< {lim:.3e}), "
+            f"max |logit| {float(want.abs().max()):.3f}; {n_dec} "
+            f"single-step B10 launches, {step_ms:.3f} ms per step")
+        # the same model on the CPU through the plain path
+        p_cpu = lm.params_from_numpy(c, _tree_to_numpy(p), device="cpu")
+        t0 = time.perf_counter()
+        cpu = build_prefill_step(c)(p_cpu, {"tokens": short[:1].cpu()})
+        cpu_s = time.perf_counter() - t0
+        d_cpu = float((want[:1].cpu() - cpu).abs().max())
+        lim = rel * max(1.0, float(cpu.abs().max()))
+        check(d_cpu < lim, f"card vs CPU prefill ({label}): max abs diff "
+              f"{d_cpu:.3e} >= {lim:.3e}")
+        say(f"mamba2-130m {label} prefill at {SSM_CHECK_T} tokens, card vs "
+            f"the CPU plain path: last-position logits max abs diff "
+            f"{d_cpu:.3e} (< {lim:.3e}); CPU {cpu_s:.1f} s")
+        del p_cpu, state
+
+
+def _tree_to_numpy(tree):
+    return {k: _tree_to_numpy(v) if isinstance(v, dict)
+            else v.float().cpu().numpy() for k, v in tree.items()}
+
+
+def phase_mamba_serve() -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+
+    cfg = get_config("mamba2_130m")
+    serve("mamba2_130m", smoke=False, batch=SERVE_LM_BATCH, prompt_len=4,
+          gen_len=4, seed=1, device=DEVICE)                    # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs = serve("mamba2_130m", smoke=False, batch=SERVE_LM_BATCH,
+                 prompt_len=SERVE_LM_PROMPT, gen_len=SERVE_LM_GEN, seed=0,
+                 device=DEVICE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = SERVE_LM_PROMPT + SERVE_LM_GEN - 1
+    n = ops.launch_counts()["ssd_chunk"]
+    check(seqs.shape == (SERVE_LM_BATCH, SERVE_LM_PROMPT + SERVE_LM_GEN),
+          f"serve: sequences of shape {seqs.shape}")
+    check(((seqs >= 0) & (seqs < cfg.vocab_size)).all(),
+          "serve: a token outside the vocabulary")
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(SERVE_LM_BATCH, SERVE_LM_PROMPT))
+    check((seqs[:, :SERVE_LM_PROMPT] == prompt).all(),
+          "serve: the teacher-forced prompt was not kept")
+    check(n == steps * cfg.n_layers,
+          f"serve: {n} B10 launches over {steps} steps, expected "
+          f"{cfg.n_layers} per step")
+    say(f"mamba2-130m serve batch {SERVE_LM_BATCH}, prompt "
+        f"{SERVE_LM_PROMPT}, gen {SERVE_LM_GEN}: {secs:.3f} s with parameter "
+        f"init (host clock, synchronized), {n / steps:.0f} B10 launches per "
+        f"step over {steps} steps")
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -1425,10 +1860,15 @@ KERNELS = {
                              "src/repro/kernels/pairwise_batch_q.py:178"),
     "pairwise_topk_q": ("src/repro_torch/csrc/pairwise_topk_q.cu",
                         "src/repro/kernels/pairwise_batch_q.py:291"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:103"),
+    "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk.py:60"),
 }
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this smoke run needs "
             "a CUDA device")
@@ -1471,7 +1911,14 @@ def main() -> int:
               ("k-NN graph main path", lambda: phase_knn(report)),
               ("quantized join main path", lambda: phase_quant_join(report)),
               ("quantized k-NN main path", lambda: phase_quant_knn(report)),
-              ("quantized serving", phase_quant_serving)]
+              ("quantized serving", phase_quant_serving),
+              ("kernels B9, B10 vs plain versions",
+               lambda: phase_kernels_lm(report)),
+              ("quorum and ring attention main path",
+               lambda: phase_attention(report)),
+              ("mamba2-130m prefill main path",
+               lambda: phase_mamba_prefill(report)),
+              ("mamba2-130m serving", phase_mamba_serve)]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")
@@ -1489,6 +1936,7 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+    say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -1,0 +1,75 @@
+"""Registry: arch id -> (full config, reduced smoke config), shape cells
+(port of ``repro/configs/registry.py``).
+
+Every architecture of the reference is listed; only the configs the port
+has resolve.  The others raise ``NotImplementedError`` until their model
+families are ported (ROADMAP.md A.17).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, List
+
+from ..models.config import ModelConfig
+
+ARCHS: List[str] = [
+    "mamba2_130m",
+    "starcoder2_3b",
+    "deepseek_coder_33b",
+    "qwen3_14b",
+    "h2o_danube_1_8b",
+    "jamba_v0_1_52b",
+    "whisper_large_v3",
+    "llama4_scout_17b_a16e",
+    "llama4_maverick_400b_a17b",
+    "qwen2_vl_72b",
+]
+
+# the configs whose model family the port runs
+PORTED = ("mamba2_130m",)
+
+# canonical ids with dashes also accepted
+_ALIAS = {a.replace("_", "-"): a for a in ARCHS}
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    """A benchmark cell shape: run kind, sequence length, batch."""
+    name: str
+    kind: str        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, Shape] = {
+    "train_4k": Shape("train_4k", "train", 4_096, 256),
+    "prefill_32k": Shape("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": Shape("decode_32k", "decode", 32_768, 128),
+    "long_500k": Shape("long_500k", "decode", 524_288, 1),
+}
+
+# archs allowed to run the sub-quadratic long-context cell
+LONG_OK = {"mamba2_130m", "jamba_v0_1_52b", "h2o_danube_1_8b"}
+
+
+def _module(arch: str):
+    arch = _ALIAS.get(arch, arch)
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; one of {ARCHS}")
+    if arch not in PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (ROADMAP.md A.17); the port "
+            f"has {list(PORTED)}")
+    return importlib.import_module(f".{arch}", package=__package__)
+
+
+def get_config(arch: str) -> ModelConfig:
+    """The full-scale ModelConfig registered under ``arch``."""
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """The tiny smoke-test variant of ``arch`` (same topology)."""
+    return _module(arch).SMOKE

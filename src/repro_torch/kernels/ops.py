@@ -20,7 +20,9 @@ import torch
 from . import pairwise_batch, pairwise_corr as _corr_mod, pcit_filter as _pcit_mod
 from . import pairwise_threshold as _thr_mod, query_score as _query_mod
 from . import pairwise_batch_q as _q_mod, pairwise_topk as _topk_mod
+from . import flash_attention as _flash_mod, ssd_chunk as _ssd_mod
 from . import ref
+from .ref import NEG_INF
 
 #: kernel name -> (wrapper module, name of its launch counter)
 KERNEL_MODULES = {
@@ -32,6 +34,8 @@ KERNEL_MODULES = {
     "pairwise_topk": (_topk_mod, "launches"),
     "pairwise_threshold_q": (_q_mod, "threshold_launches"),
     "pairwise_topk_q": (_q_mod, "topk_launches"),
+    "flash_attention": (_flash_mod, "launches"),
+    "ssd_chunk": (_ssd_mod, "launches"),
 }
 
 
@@ -134,6 +138,51 @@ def pairwise_topk_q(q, sd, sq, lo, hi, meta, *, topk: int, block_rows: int,
                                    metric=metric)
     return _q_mod.pairwise_topk_q_cuda(q, sd, sq, lo, hi, meta, topk=topk,
                                        block_rows=block_rows, metric=metric)
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """4-d attention entry point (GQA): q [B, Tq, H, hd], k / v [B, Tk,
+    KV, hd] -> [B, Tq, H, hd] in q's dtype; head h reads kv head h // G,
+    causal masking is end-aligned; see ``kernels/flash_attention.py``."""
+    if _on_cpu(q):
+        return ref.flash_attention(q, k, v, causal=causal)
+    return _flash_mod.flash_attention_cuda(q, k, v, causal=causal)
+
+
+def flash_block(q, k, v, *, causal: bool, row_valid=None):
+    """Partial attention of one block pair: q [B, Tq, H, hd], k / v [B, Tk,
+    KV, hd] -> (o unnormalized [B, Tq, H, hd], m, l [B, Tq, H]) float32.
+    ``row_valid`` [B]: rows whose flag is 0 become the merge identity
+    (o = 0, m = NEG_INF, l = 0), as ``repro/apps/attention.py`` zeroes the
+    schedule's invalid pairs; the kernel skips their work."""
+    if not _on_cpu(q):
+        return _flash_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                               partial=True,
+                                               row_valid=row_valid)
+    o, m, l = ref.flash_block(q, k, v, causal=causal)
+    if row_valid is None:
+        return o, m, l
+    w = torch.as_tensor(row_valid).to(torch.float32).reshape(-1, 1, 1)
+    m = torch.where(w > 0, m, NEG_INF)
+    return o * w[..., None], m, l * w
+
+
+def ssd_intra_chunk(x, dt, A, Bm, Cm, *, chunk: int):
+    """The SSD intra-chunk step: x [B, T, H, P], dt [B, T, H], A [H], Bm /
+    Cm [B, T, N] -> (y_intra [B, T, H, P], S [B, nc, H, N, P], cd [B, T,
+    H]) float32; see ``kernels/ssd_chunk.py``."""
+    if _on_cpu(x):
+        return ref.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=chunk)
+    return _ssd_mod.ssd_chunk_cuda(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+def ssd_chunk(x, dt, A, Bm, Cm, *, chunk: int = 256) -> torch.Tensor:
+    """Full SSD (the reference's ``ops.ssd_chunk``): the intra-chunk step
+    plus the inter-chunk recurrence from a zero state.  x [B, T, H, P];
+    dt [B, T, H]; A [H]; Bm / Cm [B, T, N] -> y [B, T, H, P] float32."""
+    L = min(chunk, x.shape[1])
+    y_intra, S, cd = ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=L)
+    return _ssd_mod.ssd_inter_chunk(y_intra, S, cd, Cm, chunk=L)[0]
 
 
 def launch_counts() -> dict:

@@ -8,6 +8,8 @@ CPU the dispatch in :mod:`repro_torch.kernels.ops` runs them directly.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -428,3 +430,98 @@ def _topk_pairs(strip, lead, k: int, block: int, lo, hi, meta, topk: int,
                               .to(torch.int32), sent).transpose(-1, -2))
     shape = tuple(lead) + (k, block, topk)
     return vals.reshape(shape), idx.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# B9: flash attention;  B10: the SSD intra-chunk step
+# ---------------------------------------------------------------------------
+
+def causal_visible(Tq: int, Tk: int, device) -> torch.Tensor:
+    """End-aligned causal visibility [Tq, Tk]: key j is visible to query i
+    iff j <= i + Tk - Tq (``np.tril(ones, k=Tk - Tq)``)."""
+    i = torch.arange(Tq, device=device)[:, None]
+    j = torch.arange(Tk, device=device)[None, :]
+    return j <= i + (Tk - Tq)
+
+
+def _gqa_scores(q, k, causal: bool):
+    """Scaled scores [B, KV, G, Tq, Tk] float32 with the NEG_INF causal
+    mask; query head h reads kv head h // G."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Tq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float() / math.sqrt(hd),
+                     k.float())
+    if causal:
+        s = torch.where(causal_visible(Tq, Tk, s.device), s, NEG_INF)
+    return s
+
+
+def flash_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Plain attention (B9's normalized output): q [B, Tq, H, hd], k / v
+    [B, Tk, KV, hd] -> [B, Tq, H, hd] in q's dtype; softmax in float32
+    over end-aligned causal scores masked with the finite NEG_INF."""
+    B, Tq, H, hd = q.shape
+    w = torch.softmax(_gqa_scores(q, k, causal), dim=-1)
+    o = torch.einsum("bkgqs,bskh->bkgqh", w, v.float())
+    return o.reshape(B, H, Tq, hd).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def flash_block(q, k, v, *, causal: bool):
+    """Plain partial attention (B9's partial epilogue;
+    ``repro/apps/attention.py:flash_block``): q [B, Tq, H, hd], k / v
+    [B, Tk, KV, hd] -> (o [B, Tq, H, hd] unnormalized, o = sum exp(s - m)
+    v; m [B, Tq, H] row max; l [B, Tq, H] row sum-exp), float32.  With
+    Tq == Tk the causal mask is the diagonal block's lower triangle."""
+    B, Tq, H, hd = q.shape
+    s = _gqa_scores(q, k, causal)
+    m = torch.amax(s, dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bkgqh", p, v.float())
+    o = o.reshape(B, H, Tq, hd).permute(0, 2, 1, 3)
+    m = m.reshape(B, H, Tq).permute(0, 2, 1)
+    l = l.reshape(B, H, Tq).permute(0, 2, 1)
+    return o, m, l
+
+
+def ssd_intra_chunk(x, dt, A, Bm, Cm, *, chunk: int):
+    """Plain SSD intra-chunk step (B10): x [B, T, H, P], dt [B, T, H], A
+    [H], Bm / Cm [B, T, N], chunks of length ``chunk``.  Per chunk, with
+    cums the inclusive cumsum of dt * A: y_i = sum_{j<=i} (C_i . B_j)
+    exp(cums_i - cums_j) dt_j x_j, S = sum_j exp(cums_last - cums_j) dt_j
+    B_j x_j^T and cd = exp(cums).  Returns (y [B, T, H, P], S [B, nc, H,
+    N, P], cd [B, T, H]), float32."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = T // chunk
+    xc = x.float().reshape(Bsz, nc, chunk, H, P)
+    dtc = dt.float().reshape(Bsz, nc, chunk, H)
+    Bc = Bm.float().reshape(Bsz, nc, chunk, N)
+    Cc = Cm.float().reshape(Bsz, nc, chunk, N)
+    cums = torch.cumsum(dtc * A.float(), dim=2)             # [B, nc, L, H]
+    CB = torch.einsum("bcln,bcmn->bclm", Cc, Bc)            # [B, nc, L, L]
+    seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]   # [B, nc, L, L, H]
+    tril = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(tril[None, None, :, :, None], torch.exp(seg), 0.0)
+    W = CB[..., None] * decay * dtc[:, :, None, :, :]
+    y = torch.einsum("bclmh,bcmhp->bclhp", W, xc).reshape(Bsz, T, H, P)
+    dend = torch.exp(cums[:, :, -1:, :] - cums) * dtc
+    S = torch.einsum("bclh,bcln,bclhp->bchnp", dend, Bc, xc)
+    return y, S, torch.exp(cums).reshape(Bsz, T, H)
+
+
+def ssd_chunk(x, dt, A, Bm, Cm) -> torch.Tensor:
+    """Sequential (non-chunked) SSD oracle: x [B, T, H, P]; dt [B, T, H];
+    A [H]; Bm / Cm [B, T, N].  Returns y [B, T, H, P] float32."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    x, dt, Bm, Cm = x.float(), dt.float(), Bm.float(), Cm.float()
+    h = torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(T):
+        a = torch.exp(dt[:, t] * A)                          # [B, H]
+        h = a[:, :, None, None] * h + torch.einsum(
+            "bh,bn,bhp->bhnp", dt[:, t], Bm[:, t], x[:, t])
+        ys.append(torch.einsum("bn,bhnp->bhp", Cm[:, t], h))
+    return torch.stack(ys, dim=1)

@@ -1,0 +1,128 @@
+"""B10: the Mamba2 SSD intra-chunk step, hand-written CUDA, and the
+inter-chunk recurrence around it.
+
+Replaces the Pallas kernel ``repro/kernels/ssd_chunk.py:ssd_chunk_pallas``
+(body ``_ssd_kernel``), the intra-chunk part of every Mamba2 layer
+(``models/ssm.py:ssd_chunked``) and of ``ops.ssd_chunk``.  Source:
+``repro_torch/csrc/ssd_chunk.cu``.
+
+What bounds it on the H100: fp32 arithmetic outside the tensor cores
+(67 TFLOP/s): per (batch*head, chunk) cell the lower triangle of C B^T
+over N, the decay-weighted product with x, and the chunk state S over the
+chunk.  The TPU kernel takes one (bh, chunk) cell per grid step with its
+B and C repeated per head; here one block owns one cell, reads B and C
+per batch row (``bh // H``) through strides, and forms the 64 x 64
+blocks of C B^T on or below the diagonal only, taking the decay's
+exponent only where i >= j (it cannot overflow there).
+
+The O(nc) inter-chunk recurrence is framework code, as in the
+reference's ``ops.ssd_chunk``: :func:`ssd_inter_chunk` walks the chunk
+states with one fused multiply-add per chunk and forms every chunk's
+inter-chunk output in one batched matmul.
+
+The plain version beside the kernel is :func:`ssd_intra_chunk_plain`;
+the device dispatch is :func:`repro_torch.kernels.ops.ssd_intra_chunk`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import ssd_intra_chunk as ssd_intra_chunk_plain
+
+__all__ = ["ssd_chunk_cuda", "ssd_intra_chunk_plain", "ssd_inter_chunk",
+           "launches"]
+
+#: kernel launches since the count was last set to 0
+launches = 0
+
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 128, 256
+
+
+def _check_args(x, dt, A, Bm, Cm, chunk: int) -> None:
+    """Raise unless x [B, T, H, P], dt [B, T, H], A [H] and Bm / Cm
+    [B, T, N] fit together and T divides into chunks of ``chunk``."""
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 \
+            or Cm.shape != Bm.shape:
+        raise ValueError(
+            f"need x [B, T, H, P], dt [B, T, H], A [H], B / C [B, T, N]; "
+            f"got {tuple(x.shape)}, {tuple(dt.shape)}, {tuple(A.shape)}, "
+            f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    Bsz, T, H, _ = x.shape
+    if tuple(dt.shape) != (Bsz, T, H) or A.shape[0] != H \
+            or tuple(Bm.shape[:2]) != (Bsz, T):
+        raise ValueError("x, dt, A, B and C disagree on batch, length or "
+                         "heads")
+    if chunk < 1 or T % chunk:
+        raise ValueError(f"T={T} does not divide into chunks of {chunk}")
+
+
+def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int):
+    """x [B, T, H, P], dt [B, T, H], A [H], Bm / Cm [B, T, N], float32 on
+    one CUDA device (x, Bm, Cm may be strided views with a contiguous last
+    axis).  Returns ``(y_intra [B, T, H, P], S [B, nc, H, N, P], cd [B, T,
+    H])`` float32, as ``ref.ssd_intra_chunk``."""
+    global launches
+    _check_args(x, dt, A, Bm, Cm, chunk)
+    _build.require_cuda("ssd_chunk", x, dt, A, Bm, Cm)
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", Bm), ("C", Cm)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"ssd_chunk takes float32, got {name} "
+                             f"{t.dtype}")
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if chunk > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
+        raise ValueError(f"ssd_chunk supports chunk <= {MAX_CHUNK}, "
+                         f"P <= {MAX_HEAD_DIM}, N <= {MAX_STATE}; got "
+                         f"{chunk}, {P}, {N}")
+    x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
+                 for t in (x, Bm, Cm))
+    dt, A = dt.contiguous(), A.contiguous()
+    nc = T // chunk
+    dev = x.device
+    y = torch.empty(Bsz, T, H, P, dtype=torch.float32, device=dev)
+    S = torch.empty(Bsz, nc, H, N, P, dtype=torch.float32, device=dev)
+    cd = torch.empty(Bsz, T, H, dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y, S, cd
+    with torch.cuda.device(dev):
+        rc = _build.library().repro_ssd_chunk(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), S.data_ptr(), cd.data_ptr(), Bsz,
+            T, H, P, N, chunk, *x.stride()[:3], *Bm.stride()[:2],
+            *Cm.stride()[:2], _build.stream_of(x))
+    _build.check(rc, "ssd_chunk")
+    launches += 1
+    return y, S, cd
+
+
+def ssd_inter_chunk(y_intra: torch.Tensor, S: torch.Tensor, cd: torch.Tensor,
+                    Cm: torch.Tensor, *, chunk: int, h0=None):
+    """The inter-chunk recurrence of the chunked SSD scan.
+
+    y_intra [B, T, H, P], S [B, nc, H, N, P] and cd [B, T, H] (the
+    intra-chunk step's outputs), Cm [B, T, N], h0 [B, H, N, P] or None.
+    With h_0 = h0 (zeros) and h_{c+1} = cd_{c, L-1} h_c + S_c, chunk c
+    adds C_t cd_t h_c at each of its positions t.  Returns ``(y [B, T, H,
+    P], h_nc [B, H, N, P])`` float32; y is ``y_intra`` updated in place.
+    """
+    Bsz, T, H, P = y_intra.shape
+    nc = T // chunk
+    N = Cm.shape[-1]
+    cd_c = cd.reshape(Bsz, nc, chunk, H)
+    cd_last = cd_c[:, :, -1, :, None, None]                 # [B, nc, H, 1, 1]
+    hs = torch.empty(nc + 1, Bsz, H, N, P, dtype=torch.float32,
+                     device=y_intra.device)
+    if h0 is None:
+        hs[0].zero_()
+    else:
+        hs[0].copy_(h0)
+    for c in range(nc):
+        torch.addcmul(S[:, c], cd_last[:, c], hs[c], out=hs[c + 1])
+    h_prev = hs[:-1].permute(1, 0, 3, 2, 4).reshape(Bsz * nc, N, H * P)
+    y_inter = torch.bmm(Cm.float().reshape(Bsz * nc, chunk, N), h_prev)
+    y_inter = y_inter.view(Bsz, nc, chunk, H, P).mul_(cd_c[..., None])
+    y = y_intra.add_(y_inter.view(Bsz, T, H, P))
+    return y, hs[-1].clone()

@@ -1,0 +1,135 @@
+"""Mamba2 (SSD — state-space duality) block: chunked forward and O(1)-state
+decode step (port of ``repro/models/ssm.py``).
+
+Per head (scalar A, state size N, head dim P):
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t x_t^T      (h: [N, P])
+    y_t = C_t^T h_t + D * x_t
+The chunked algorithm (arXiv:2405.21060) computes within-chunk interactions
+as masked matmuls and carries chunk-final states from chunk to chunk.  The
+intra-chunk part is ``ops.ssd_intra_chunk`` (kernel B10,
+``kernels/ssd_chunk.py``, on a CUDA device; its plain version on the CPU)
+and the inter-chunk recurrence runs in PyTorch on either device.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from ..kernels.ssd_chunk import ssd_inter_chunk
+from .common import ParamDef, Tree, rmsnorm
+
+__all__ = ["MambaBlock", "ssm_defs", "ssd_chunked", "mamba_block",
+           "init_ssm_state"]
+
+
+def ssm_defs(cfg) -> Tree:
+    """Mamba2 block ParamDefs (in/out proj, conv, dt/A/D)."""
+    d, di = cfg.d_model, cfg.d_inner
+    N, H = cfg.ssm_state, cfg.ssm_heads
+    conv_ch = di + 2 * N  # conv over x, B, C streams (mamba2 layout)
+    return {
+        "in_proj": ParamDef((d, 2 * di + 2 * N + H), ("F", "T")),  # z,x,B,C,dt
+        "conv_w": ParamDef((cfg.ssm_conv, conv_ch), (None, "T"), scale=1.0),
+        "conv_b": ParamDef((conv_ch,), ("T",), "zeros"),
+        "A_log": ParamDef((H,), (None,), "ones"),
+        "D": ParamDef((H,), (None,), "ones"),
+        "dt_bias": ParamDef((H,), (None,), "zeros"),
+        "norm": ParamDef((di,), (None,), "ones"),
+        "out_proj": ParamDef((di, d), ("T", "F"), scale=cfg.out_scale),
+    }
+
+
+def _split_proj(cfg, proj):
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return torch.split(proj, [di, di + 2 * N, H], dim=-1)   # z, xBC, dt
+
+
+def _causal_conv(cfg, p, xBC, conv_state=None):
+    """Depthwise causal conv width W over [B, T, C]; optional carried state
+    [B, W-1, C] for decode.  Returns (out, new_state)."""
+    W = cfg.ssm_conv
+    if conv_state is None:
+        pad = torch.zeros(xBC.shape[0], W - 1, xBC.shape[2], dtype=xBC.dtype,
+                          device=xBC.device)
+    else:
+        pad = conv_state
+    xp = torch.cat([pad, xBC], dim=1)                    # [B, T+W-1, C]
+    T = xBC.shape[1]
+    out = sum(xp[:, i:i + T] * p["conv_w"][i] for i in range(W))
+    out = F.silu(out + p["conv_b"])
+    new_state = xp[:, -(W - 1):] if W > 1 else pad
+    return out, new_state
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
+    """Chunked SSD scan.
+
+    x: [B, T, H, P]; dt: [B, T, H] (>0); A: [H] (<0); Bm / Cm: [B, T, N];
+    h0: [B, H, N, P] or None (zeros).  Returns y [B, T, H, P] and the final
+    state [B, H, N, P], float32: the intra-chunk step (kernel B10 on a
+    CUDA device, its plain version on the CPU), then the inter-chunk
+    recurrence from h0.
+    """
+    T = x.shape[1]
+    if T % chunk:
+        raise ValueError(f"T={T} does not divide into chunks of {chunk}")
+    y_intra, S, cd = ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=chunk)
+    return ssd_inter_chunk(y_intra, S, cd, Cm, chunk=chunk, h0=h0)
+
+
+def mamba_block(cfg, p: Tree, x, *, state=None):
+    """Full Mamba2 block over [B, T, d].  state=None for a prompt.
+
+    Returns (out [B, T, d], new_state dict) — state carries (conv, ssm) for
+    decode continuation.
+    """
+    B, T, d = x.shape
+    di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    proj = x @ p["in_proj"]                             # [B, T, 2di+2N+H]
+    z, xBC, dt = _split_proj(cfg, proj)
+    conv_state = None if state is None else state["conv"]
+    xBC, new_conv = _causal_conv(cfg, p, xBC, conv_state)
+    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])          # [B, T, H]
+    A = -torch.exp(p["A_log"].float())                  # [H] negative
+    xh = xs.reshape(B, T, H, Pd).float()
+
+    chunk = min(cfg.ssm_chunk, T)
+    h0 = None if state is None else state["ssm"]
+    y, hT = ssd_chunked(xh, dt, A, Bm.float(), Cm.float(), chunk, h0=h0)
+    y = y + p["D"][None, None, :, None] * xh
+    y = y.reshape(B, T, di).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), p["norm"])
+    out = y @ p["out_proj"]
+    return out, {"conv": new_conv, "ssm": hT}
+
+
+def init_ssm_state(cfg, batch: int, device=None) -> Tree:
+    """Zeroed decode-time SSM carry (conv tail + state)."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
+    return {
+        "conv": torch.zeros(batch, cfg.ssm_conv - 1, di + 2 * N,
+                            dtype=cfg.dtype, device=device),
+        "ssm": torch.zeros(batch, H, N, Pd, dtype=torch.float32,
+                           device=device),
+    }
+
+
+class MambaBlock(nn.Module):
+    """One Mamba2 layer as a module: the parameters of :func:`ssm_defs`
+    (frozen) and :func:`mamba_block` as its forward."""
+
+    def __init__(self, cfg, params: Tree):
+        super().__init__()
+        self.cfg = cfg
+        self.params = nn.ParameterDict(
+            {k: nn.Parameter(v, requires_grad=False)
+             for k, v in params.items()})
+
+    def forward(self, x, state=None):
+        """x [B, T, d] -> (out [B, T, d], new (conv, ssm) state)."""
+        return mamba_block(self.cfg, dict(self.params), x, state=state)

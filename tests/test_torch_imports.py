@@ -32,7 +32,13 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.serving.selfcheck, repro_torch.kernels.query_score, "
         "repro_torch.kernels.pairwise_threshold, repro_torch.core.knn, "
         "repro_torch.core.quant, repro_torch.kernels.pairwise_topk, "
-        "repro_torch.kernels.pairwise_batch_q\n"
+        "repro_torch.kernels.pairwise_batch_q, "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_chunk, "
+        "repro_torch.apps.attention, repro_torch.models.config, "
+        "repro_torch.models.common, repro_torch.models.ssm, "
+        "repro_torch.models.lm, repro_torch.configs.registry, "
+        "repro_torch.configs.mamba2_130m, repro_torch.launch.steps, "
+        "repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -88,6 +94,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         knn.selfcheck_main(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         quant.selfcheck_main(2)
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.serve("mamba2_130m", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "mamba2_130m", "--smoke"])
     assert comm.SingleProcessComm(4, "cpu").device.type == "cpu"
 
 

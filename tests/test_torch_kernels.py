@@ -18,6 +18,7 @@ from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
 from repro.kernels.pairwise_threshold import pairwise_threshold_pallas
 from repro.kernels.query_score import query_topk_pallas
+from repro.apps import attention as r_attn
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.pairwise_batch import pairwise_batch_forces_cuda
 from repro_torch.kernels.pairwise_batch_q import (pairwise_threshold_q_cuda,
@@ -27,6 +28,9 @@ from repro_torch.kernels.pairwise_threshold import pairwise_threshold_cuda
 from repro_torch.kernels.pairwise_topk import pairwise_topk_cuda
 from repro_torch.kernels.pcit_filter import pcit_filter_cuda
 from repro_torch.kernels.query_score import query_topk_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+from repro_torch.apps import attention as attn
 
 
 @pytest.mark.parametrize("M,N,G", [(128, 128, 128), (64, 96, 50),
@@ -172,6 +176,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="l1 / sq"):
         pairwise_topk_q_cuda(codes, sd, rows[..., :3], [0], [1], meta,
                              topk=2, block_rows=8)
+    # B9, B10
+    qa, ka = torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(qa, ka, ka, causal=True)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        flash_attention_cuda(qa, torch.zeros(1, 4, 3, 8),
+                             torch.zeros(1, 4, 3, 8), causal=True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(qa.double(), ka, ka, causal=True)
+    x, dt = torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2)
+    A, Bm = torch.zeros(2), torch.zeros(1, 8, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk_cuda(x, dt, A, Bm, Bm, chunk=4)
+    with pytest.raises(ValueError, match="chunks of 3"):
+        ssd_chunk_cuda(x, dt, A, Bm, Bm, chunk=3)
+    with pytest.raises(ValueError, match="disagree"):
+        ssd_chunk_cuda(x, dt[:, :, :1], A, Bm, Bm, chunk=4)
 
 
 def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
@@ -189,7 +210,9 @@ def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
                                       "repro_pairwise_threshold",
                                       "repro_pairwise_topk",
                                       "repro_pairwise_topk_q",
-                                      "repro_pairwise_threshold_q"}
+                                      "repro_pairwise_threshold_q",
+                                      "repro_flash_attention",
+                                      "repro_ssd_chunk"}
     key = _build.build_key()
     assert key == _build.build_key() and len(key) == 16
     monkeypatch.setitem(_build.FILE_FLAGS, "pcit_filter.cu", ())
@@ -210,7 +233,8 @@ def test_launch_counts_reset():
                                    "pairwise_threshold": 0,
                                    "pairwise_topk": 0,
                                    "pairwise_threshold_q": 0,
-                                   "pairwise_topk_q": 0}
+                                   "pairwise_topk_q": 0,
+                                   "flash_attention": 0, "ssd_chunk": 0}
     # the plain path on the CPU launches nothing
     ops.pairwise_corr(torch.zeros(1, 2, 3), torch.zeros(1, 2, 3))
     assert sum(ops.launch_counts().values()) == 0
@@ -510,3 +534,145 @@ def test_topk_by_score_index_is_the_sort_order():
         gv, gi = ref.topk_by_score_index(v, i, k)
         assert torch.equal(gi, si[:, :k])
         assert torch.equal(gv, -sv[:, :k])
+
+
+# ---------------------------------------------------------------------------
+# B9 flash attention, B10 SSD chunk: the cells of tests/test_kernels.py
+# ---------------------------------------------------------------------------
+
+FLASH_CELLS = [(2, 128, 128, 4, 2, 64, True), (1, 64, 256, 4, 4, 32, True),
+               (2, 128, 128, 2, 1, 64, False), (1, 256, 256, 8, 2, 128, True)]
+
+
+def _jax_qkv(B, Tq, Tk, H, KV, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return (jnp.asarray(rng.normal(size=(B, Tq, H, hd)), dtype),
+            jnp.asarray(rng.normal(size=(B, Tk, KV, hd)), dtype),
+            jnp.asarray(rng.normal(size=(B, Tk, KV, hd)), dtype))
+
+
+def _to_torch(a, dtype=None):
+    t = torch.tensor(np.asarray(jnp.asarray(a).astype(jnp.float32)))
+    return t if dtype is None else t.to(dtype)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal", FLASH_CELLS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain(B, Tq, Tk, H, KV, hd, causal, dtype):
+    """The port's plain B9 (what ops.flash_attention runs on the CPU)
+    against the Pallas kernel in interpret mode and the JAX oracle, at the
+    reference's kernel tolerances (2e-3 f32, 3e-2 bf16)."""
+    q, k, v = _jax_qkv(B, Tq, Tk, H, KV, hd, dtype, B * Tq + H + hd)
+    tdt = getattr(torch, dtype)
+    got = ops.flash_attention(*(_to_torch(a, tdt) for a in (q, k, v)),
+                              causal=causal)
+    assert got.dtype == tdt and got.shape == (B, Tq, H, hd)
+    tol = 2e-3 if dtype == "float32" else 3e-2
+    for want in (r_ops.flash_attention(q, k, v, causal=causal, bq=64, bk=64),
+                 r_ref.flash_attention(q, k, v, causal=causal)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,T,H,KV,hd", [(2, 16, 4, 2, 16), (1, 24, 6, 3, 8),
+                                         (2, 8, 4, 4, 32)])
+@pytest.mark.parametrize("causal_diag", [True, False])
+def test_flash_block_and_merge_match_jax(B, T, H, KV, hd, causal_diag):
+    """flash_block (the partial epilogue's plain version) and the (o, m, l)
+    monoid against repro.apps.attention's, within 1e-5 (f32)."""
+    q, k, v = _jax_qkv(B, T, T, H, KV, hd, "float32", T + H)
+    want = r_attn.flash_block(q, k, v, causal_diag=causal_diag)
+    got = attn.flash_block(*(_to_torch(a) for a in (q, k, v)),
+                           causal_diag=causal_diag)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+    q2, k2, v2 = _jax_qkv(B, T, T, H, KV, hd, "float32", T + H + 1)
+    other = r_attn.flash_block(q2, k2, v2, causal_diag=False)
+    merged = r_attn.merge_partials(want, other)
+    tmerged = attn.merge_partials(got, tuple(_to_torch(a) for a in other))
+    for g, w in zip(tmerged, merged):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+    # two identities merge to the identity: exp(NEG_INF - NEG_INF) = 1
+    e_j = r_attn.empty_partial((B, T, hd), H)
+    e_t = attn.empty_partial((B, T, hd), H)
+    for g, w in zip(attn.merge_partials(e_t, e_t),
+                    r_attn.merge_partials(e_j, e_j)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_flash_block_row_valid_is_the_reference_masking():
+    """Invalid rows become (0, NEG_INF, 0), the reference's masking of an
+    invalid (device, pair) slot (apps/attention.py:115-119)."""
+    q, k, v = _jax_qkv(4, 16, 16, 4, 2, 16, "float32", 5)
+    w = np.array([1, 0, 1, 0], np.float32)
+    o, m, l = r_attn.flash_block(q, k, v, causal_diag=True)
+    wj = jnp.asarray(w)[:, None, None]
+    want = (o * wj[..., None], jnp.where(wj > 0, m, r_attn.NEG_INF), l * wj)
+    got = attn.flash_block(*(_to_torch(a) for a in (q, k, v)),
+                           causal_diag=True, valid=torch.tensor(w))
+    for g, wa in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wa), rtol=1e-5,
+                                   atol=1e-5)
+
+
+SSD_CELLS = [(2, 32, 3, 8, 16, 8), (1, 64, 2, 16, 8, 16), (2, 16, 4, 8, 32, 16)]
+
+
+def _ssd_np(B, T, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, T, H, P)).astype(np.float32),
+            rng.uniform(0.01, 0.2, size=(B, T, H)).astype(np.float32),
+            (-rng.uniform(0.5, 2, size=(H,))).astype(np.float32),
+            rng.normal(size=(B, T, N)).astype(np.float32),
+            rng.normal(size=(B, T, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", SSD_CELLS)
+def test_ssd_chunk_plain(B, T, H, P, N, chunk):
+    """The port's full SSD (plain intra-chunk step + inter-chunk scan) and
+    its sequential oracle against the Pallas kernel in interpret mode and
+    the JAX oracle, within the reference's 1e-4."""
+    args = _ssd_np(B, T, H, P, N, B + T + H + P + N)
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [torch.tensor(a) for a in args]
+    want = np.asarray(r_ops.ssd_chunk(*jargs, chunk=chunk))
+    np.testing.assert_allclose(np.asarray(r_ref.ssd_chunk(*jargs)), want,
+                               rtol=1e-4, atol=1e-4)
+    got = ops.ssd_chunk(*targs, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == (B, T, H, P)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ref.ssd_chunk(*targs).numpy(), want,
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", SSD_CELLS)
+def test_ssd_intra_chunk_plain_is_the_pallas_body(B, T, H, P, N, chunk):
+    """y_intra, S and cd of the plain B10 against the Pallas kernel's three
+    outputs (interpret mode) in its [BH, nc, ...] layout."""
+    from repro.kernels.ssd_chunk import ssd_chunk_pallas
+    x, dt, A, Bm, Cm = _ssd_np(B, T, H, P, N, T * H + N)
+    nc = T // chunk
+    N_ = Bm.shape[-1]
+    xf = x.transpose(0, 2, 1, 3).reshape(B * H, nc, chunk, P)
+    dtf = dt.transpose(0, 2, 1).reshape(B * H, nc, chunk)
+    Bf = np.repeat(Bm.reshape(B, 1, nc, chunk, N_), H, 1).reshape(
+        B * H, nc, chunk, N_)
+    Cf = np.repeat(Cm.reshape(B, 1, nc, chunk, N_), H, 1).reshape(
+        B * H, nc, chunk, N_)
+    y_w, S_w, cd_w = (np.asarray(a) for a in ssd_chunk_pallas(
+        jnp.asarray(xf), jnp.asarray(dtf), jnp.asarray(np.tile(A, B)),
+        jnp.asarray(Bf), jnp.asarray(Cf), interpret=True))
+    y, S, cd = ops.ssd_intra_chunk(*(torch.tensor(a) for a in
+                                     (x, dt, A, Bm, Cm)), chunk=chunk)
+    np.testing.assert_allclose(
+        y.numpy().reshape(B, nc, chunk, H, P).transpose(0, 3, 1, 2, 4)
+        .reshape(B * H, nc, chunk, P), y_w, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        S.numpy().transpose(0, 2, 1, 3, 4).reshape(B * H, nc, N_, P), S_w,
+        rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        cd.numpy().reshape(B, nc, chunk, H).transpose(0, 3, 1, 2)
+        .reshape(B * H, nc, chunk), cd_w, rtol=1e-5, atol=1e-6)

@@ -399,3 +399,121 @@ def test_pair_kernels_count_launches(cuda):
     counts = ops.launch_counts()
     assert (counts["pairwise_topk"], counts["pairwise_topk_q"],
             counts["pairwise_threshold_q"]) == (1, 2, 1)
+
+
+# ---------------------------------------------------------------------------
+# B9 flash_attention, B10 ssd_chunk
+# ---------------------------------------------------------------------------
+
+FLASH_CELLS = [(2, 100, 100, 2, 1, 64),    # ragged (not multiples of 64)
+               (1, 70, 200, 1, 5, 80),     # Tq < Tk, end-aligned; hd 80
+               (2, 130, 130, 2, 5, 128),   # GQA G = 5
+               (1, 96, 40, 1, 5, 64)]      # Tq > Tk: causal rows see no key
+
+
+def _qkv(cuda, B, Tq, Tk, KV, G, hd, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, Tq, KV * G, hd, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, Tk, KV, hd, device=cuda, generator=g).to(dtype)
+    v = torch.randn(B, Tk, KV, hd, device=cuda, generator=g).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,Tq,Tk,KV,G,hd", FLASH_CELLS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention(cuda, B, Tq, Tk, KV, G, hd, causal, dtype):
+    """Normalized epilogue against the plain softmax: within 1e-5 in f32,
+    and within one bf16 ulp of the value (2^-7 relative, plus 1e-5) in
+    bf16, where both round an f32 result to the output's dtype."""
+    q, k, v = _qkv(cuda, B, Tq, Tk, KV, G, hd, dtype, Tq + hd)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,KV,G,hd", FLASH_CELLS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_partial(cuda, B, Tq, Tk, KV, G, hd, causal, dtype):
+    """Partial epilogue (o unnormalized, m, l in float32) against the plain
+    flash block: both widen the same inputs to float32, so only the
+    summation order differs (1e-5 relative to each output's scale)."""
+    q, k, v = _qkv(cuda, B, Tq, Tk, KV, G, hd, dtype, Tk + hd)
+    o, m, l = ops.flash_block(q, k, v, causal=causal)
+    wo, wm, wl = ref.flash_block(q, k, v, causal=causal)
+    torch.testing.assert_close(m, wm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, wl, rtol=1e-5, atol=1e-5)
+    scale = float(wo.abs().max())
+    torch.testing.assert_close(o, wo, rtol=1e-5, atol=1e-5 * max(1.0, scale))
+    if causal and Tq > Tk:   # rows that see no key: p = 1 on every key
+        blind = Tq - Tk
+        assert bool((m[:, :blind] == -1e30).all())
+        assert bool((l[:, :blind] == Tk).all())
+
+
+def test_flash_row_valid_writes_identity(cuda):
+    q, k, v = _qkv(cuda, 6, 130, 130, 2, 5, 128, torch.bfloat16, 3)
+    valid = torch.tensor([1, 0, 1, 1, 0, 0], device=cuda)
+    o, m, l = ops.flash_block(q, k, v, causal=True, row_valid=valid)
+    fo, fm, fl = ops.flash_block(q, k, v, causal=True)
+    on = valid.bool()
+    assert torch.equal(o[on], fo[on]) and torch.equal(m[on], fm[on]) \
+        and torch.equal(l[on], fl[on])
+    assert bool((o[~on] == 0).all()) and bool((l[~on] == 0).all())
+    assert bool((m[~on] == -1e30).all())
+    # the plain path applies the same identity
+    po, pm, pl = ops.flash_block(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                                 row_valid=valid.cpu())
+    assert bool((po[~on.cpu()] == 0).all()) and bool((pm[~on.cpu()]
+                                                      == -1e30).all())
+
+
+def _ssd_inputs(cuda, B, T, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    # x, B and C as strided views into one projection, as in the model
+    xBC = torch.as_tensor(rng.normal(size=(B, T, H * P + 2 * N)),
+                          dtype=torch.float32, device=cuda)
+    x = xBC[..., :H * P].unflatten(-1, (H, P))
+    Bm, Cm = xBC[..., H * P:H * P + N], xBC[..., H * P + N:]
+    dt = torch.as_tensor(rng.uniform(0.01, 0.2, size=(B, T, H)),
+                         dtype=torch.float32, device=cuda)
+    A = torch.as_tensor(-rng.uniform(0.5, 2, size=(H,)), dtype=torch.float32,
+                        device=cuda)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("L", [1, 16, 256])
+@pytest.mark.parametrize("N", [16, 128])
+@pytest.mark.parametrize("P", [16, 64])
+def test_ssd_chunk(cuda, L, N, P):
+    """y_intra, S and cd against the plain intra-chunk step (the
+    reference's 1e-4 kernel tolerance)."""
+    T = 5 if L == 1 else 2 * L
+    args = _ssd_inputs(cuda, 2, T, 3, P, N, L + N + P)
+    got = ops.ssd_intra_chunk(*args, chunk=L)
+    want = ref.ssd_intra_chunk(*args, chunk=L)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_full_scan_matches_sequential(cuda):
+    args = _ssd_inputs(cuda, 2, 64, 3, 16, 32, 7)
+    torch.testing.assert_close(ops.ssd_chunk(*args, chunk=16),
+                               ref.ssd_chunk(*args), rtol=1e-4, atol=1e-4)
+
+
+def test_b9_b10_count_launches(cuda):
+    ops.reset_launch_counts()
+    q, k, v = _qkv(cuda, 1, 8, 8, 1, 1, 16, torch.float32, 0)
+    ops.flash_attention(q, k, v)
+    ops.flash_block(q, k, v, causal=False)
+    args = _ssd_inputs(cuda, 1, 4, 2, 16, 16, 0)
+    ops.ssd_intra_chunk(*args, chunk=1)
+    ops.ssd_intra_chunk(*args, chunk=4)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 and counts["ssd_chunk"] == 2
