@@ -9,7 +9,9 @@ first failed check (and at once where there is no CUDA device, or no port
 beside the script).  Phases:
 
   1. the card's name and power limit; build the CUDA kernels from
-     ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
+     ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel); read
+     the library's SASS with ``cuobjdump``: the bf16 B9 kernel must issue
+     HGMMA (``wgmma``) and B2 no atomics;
   2. B1 pairwise_batch, B2 pairwise_corr and B3 pcit_filter, and
   3. B4 query_topk and B5 pairwise_threshold, each at its main path's
      shapes against its plain PyTorch version, timed with CUDA events
@@ -45,9 +47,10 @@ beside the script).  Phases:
      of 256 l2 top-10 queries before and after a block replace, held
      against the f32 ``ServingCorpus.query``;
  16. B9 flash_attention (one quorum pair [8, 4096, 40 | 8, 128], causal
-     and not, bf16 and f32) and B10 ssd_chunk (mamba2-130m's prefill,
-     [4, 32768, 24, 64], chunk 256) against their plain versions, timed
-     beside them and, for B9, scaled_dot_product_attention;
+     and not, bf16 on the ``wgmma`` kernel and f32 on the SIMT one) and B10
+     ssd_chunk (mamba2-130m's prefill, [4, 32768, 24, 64], chunk 256)
+     against their plain versions, timed beside them and, for B9,
+     scaled_dot_product_attention;
  17. quorum and ring sequence-parallel causal attention at qwen3-14b's
      attention widths (H = 40, KV = 8, hd = 128), T = 32,768, P = 8, in
      bf16 and in f32, held against each other, whole-sequence B9 and the
@@ -177,6 +180,38 @@ def bound(nbytes: float, ops: float,
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def sass_functions(lib: Path) -> dict:
+    """{mangled kernel name: its SASS text} of the built library, from the
+    toolkit's ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = body
+    return funcs
+
+
+def check_sass(lib: Path) -> None:
+    """The bf16 B9 kernel runs on the tensor cores (every instantiation
+    issues HGMMA, the SASS of ``wgmma``); B2 issues no atomics."""
+    funcs = sass_functions(lib)
+    tc = {n: f.count("HGMMA") for n, f in funcs.items()
+          if "flash_tc_kernel" in n}
+    check(len(tc) == 3 and all(c > 0 for c in tc.values()),
+          f"B9 bf16: HGMMA counts per instantiation {sorted(tc.values())}")
+    # B2: the 16-byte-copy and the plain-load instantiations
+    corr = [f for n, f in funcs.items() if "corr_kernel" in n]
+    atomics = sum(f.count("ATOM") + f.count("RED.") for f in corr)
+    check(len(corr) == 2 and atomics == 0,
+          f"B2: {len(corr)} kernels, {atomics} atomic instructions")
+    say(f"SASS: bf16 B9 (flash_tc_kernel, hd padded to 64 / 128 / 256) "
+        f"HGMMA instructions {sorted(tc.values())}; B2 (corr_kernel, two "
+        f"instantiations) atomics {atomics}")
 
 
 def make_bodies(n: int, seed: int) -> np.ndarray:
@@ -317,8 +352,11 @@ def phase_kernels(report: dict) -> None:
     lib_ms = cuda_ms(lambda: torch.bmm(lhs, rhs.transpose(1, 2)), reps=10)
     Bt, M, G = lhs.shape
     b_ms, b_by = bound(nbytes(lhs, rhs, got), 2.0 * Bt * M * rhs.shape[1] * G)
-    say(f"B2 pairwise_corr {tuple(lhs.shape)} x {tuple(rhs.shape)}: "
-        f"max_abs_err={err:.3e} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    say(f"B2 pairwise_corr {tuple(lhs.shape)} x {tuple(rhs.shape)} "
+        f"(SIMT fp32, 128 x 128 tiles, 8 x 16 per thread, k slices of 32 "
+        f"in a 3-stage cp.async ring): max_abs_err={err:.3e} kernel "
+        f"{ms:.3f} ms ({2.0 * Bt * M * rhs.shape[1] * G / ms / 1e9:.1f} "
+        f"TFLOP/s, {ms / lib_ms:.3f} x torch.bmm), plain {plain_ms:.3f} ms, "
         f"torch.bmm (TF32 off) {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
     report["pairwise_corr"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                    bound_ms=b_ms, bound_by=b_by,
@@ -1533,6 +1571,7 @@ def ssd_inputs(seed: int, Bsz: int, T: int):
 
 def phase_kernels_lm(report: dict) -> None:
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import route_of
 
     # ---- B9 at one quorum pair: [P*B, 4096, 40 | 8, 128] ---------------
     blk = ATTN_T // P
@@ -1573,16 +1612,24 @@ def phase_kernels_lm(report: dict) -> None:
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
                 else PEAK_FP32_FLOPS
             b_ms, b_by = bound(nbytes(q, k, v, *got), n_ops, peak)
+            route = route_of(dtype)
+            # the wgmma route issues 6 hd tensor operations per visible
+            # pair (P V as P_hi V + P_lo V), the algorithm's bound 4 hd
+            work = (f"; the split issues {1.5 * n_ops:.3e} tensor operations"
+                    f", {bound(0, 1.5 * n_ops, peak)[0]:.3f} ms"
+                    if route == "wgmma" else "")
             res[(dtype, causal)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
-            say(f"B9 flash_attention partial {str(dtype)[6:]} causal="
+            say(f"B9 flash_attention partial {str(dtype)[6:]} ({route} "
+                f"kernel) causal="
                 f"{causal} q {tuple(q.shape)} kv {tuple(k.shape)}: max_abs"
                 f"_err={err:.3e} (m {m_err:.3e}, l rel {l_rel:.3e}; < {tol})"
                 f" kernel {ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), "
                 f"plain {plain_ms:.3f} ms (row chunks), sdpa {lib_ms:.3f} "
-                f"ms, bound {b_ms:.3f} ms ({b_by}, "
-                f"{'bf16 tensor cores' if peak == PEAK_BF16_FLOPS else 'fp32'})")
+                f"ms, bound {b_ms:.3f} ms ({b_by}, {n_ops:.3e} operations on "
+                f"{'bf16 tensor cores' if peak == PEAK_BF16_FLOPS else 'fp32'}"
+                f"{work})")
             del got, want
         del q, k, v
     # the main path's common launch: a full (non-diagonal) pair in bf16
@@ -1635,6 +1682,7 @@ def phase_attention(report: dict) -> None:
     from repro_torch.apps.attention import distributed_attention
     from repro_torch.core.comm import SingleProcessComm
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import route_of
     from repro_torch.obs import trace as obs_trace
 
     comm = SingleProcessComm(P, DEVICE)
@@ -1674,7 +1722,8 @@ def phase_attention(report: dict) -> None:
                   f"plain attention max abs err {s_err:.3e}, {s_ratio:.3f} "
                   f"times the limit {lim}")
             outs[strategy] = out
-            say(f"{strategy} attention {str(dtype)[6:]} B={ATTN_B} "
+            say(f"{strategy} attention {str(dtype)[6:]} (B9 "
+                f"{route_of(dtype)} kernel) B={ATTN_B} "
                 f"T={ATTN_T} H={ATTN_H} KV={ATTN_KV} hd={ATTN_HD} P={P}: "
                 f"{ms:.1f} ms (host clock, synchronized), peak "
                 f"{peak / 2**30:.3f} GiB above the inputs, B9 launches {n}, "
@@ -1860,7 +1909,8 @@ KERNELS = {
                              "src/repro/kernels/pairwise_batch_q.py:178"),
     "pairwise_topk_q": ("src/repro_torch/csrc/pairwise_topk_q.cu",
                         "src/repro/kernels/pairwise_batch_q.py:291"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    # the row's launch is bf16 (wgmma); f32 runs csrc/flash_attention.cu
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:103"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk.py:60"),
@@ -1893,6 +1943,7 @@ def main() -> int:
     say(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s "
         f"({lib})")
     say((lib.parent / "build.log").read_text())
+    check_sass(lib)
 
     report: dict = {}
     phases = [("kernels B1-B3 vs plain versions",

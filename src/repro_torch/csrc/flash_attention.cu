@@ -2,9 +2,10 @@
 // repro/kernels/flash_attention.py:flash_attention_pallas, body
 // _flash_kernel).
 //
-// q [B, Tq, H, hd], k / v [B, Tk, KV, hd] (float32 or bfloat16, any
-// strides with a contiguous last axis); head h reads kv head h / (H / KV),
-// so grouped-query attention needs no broadcast copy.  Scores are
+// q [B, Tq, H, hd], k / v [B, Tk, KV, hd] (float32, any strides with a
+// contiguous last axis; bfloat16 runs on flash_attention_tc.cu); head h
+// reads kv head h / (H / KV), so grouped-query attention needs no
+// broadcast copy.  Scores are
 // (q * hd^-1/2) . k in float32.  Causal masking is end-aligned: key j is
 // visible to query i iff j <= i + Tk - Tq; a masked score is the finite
 // NEG_INF = -1e30 of the reference, never -inf, so a row that sees no key
@@ -34,11 +35,9 @@
 // buffer (K, then V of the same tile) to keep two blocks on an SM.
 //
 // Bound on the H100: fp32 arithmetic outside the tensor cores (4 * hd
-// operations per visible (query, key) pair, 67 TFLOP/s); with bf16 inputs
-// the same work on bf16 tensor cores (989 TFLOP/s) is the bound a wgmma
-// version would chase.
+// operations per visible (query, key) pair, 67 TFLOP/s).  TF32 tensor
+// cores would break the 1e-5 limits on the f32 partials.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,25 +48,16 @@ constexpr int kThreads = 256;   // 16 x 16; each thread owns 4 q rows
 constexpr int kStride = 68;     // row stride of the transposed tiles
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 template <int HDP>
 constexpr int smem_floats() {
   // Qt [HDP][kStride] + max(Kt [HDP][kStride], V [kBK][HDP]) + Pt [kBK][kStride]
   return HDP * kStride * 2 + kBK * kStride;
 }
 
-template <typename T, int HDP>
+template <int HDP>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, void* __restrict__ o_out,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, void* __restrict__ o_out,
              float* __restrict__ m_out, float* __restrict__ l_out,
              const int* __restrict__ row_valid, int BH, int nqt, int Tq,
              int Tk, int H, int G, int hd, long long sq_b, long long sq_t,
@@ -98,20 +88,20 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ((float*)o_out)[row * hd + d] = 0.f;
         if (d == 0) { m_out[row] = kNegInf; l_out[row] = 0.f; }
       } else {
-        store((T*)o_out + row * hd + d, 0.f);
+        ((float*)o_out)[row * hd + d] = 0.f;
       }
     }
     return;
   }
 
-  const T* qb = q + b * sq_b + h * sq_h;
-  const T* kb = k + b * sk_b + kvh * sk_h;
-  const T* vb = v + b * sv_b + kvh * sv_h;
+  const float* qb = q + b * sq_b + h * sq_h;
+  const float* kb = k + b * sk_b + kvh * sk_h;
+  const float* vb = v + b * sv_b + kvh * sv_h;
 
   for (int idx = tid; idx < kBQ * HDP; idx += kThreads) {
     const int r = idx / HDP, d = idx % HDP;
     float x = 0.f;
-    if (q0 + r < Tq && d < hd) x = to_f(qb[(q0 + r) * sq_t + d]) * scale;
+    if (q0 + r < Tq && d < hd) x = qb[(q0 + r) * sq_t + d] * scale;
     Qt[d * kStride + r] = x;
   }
 
@@ -136,7 +126,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kBK * HDP; idx += kThreads) {
       const int r = idx / HDP, d = idx % HDP;
       float x = 0.f;
-      if (k0 + r < Tk && d < hd) x = to_f(kb[(k0 + r) * sk_t + d]);
+      if (k0 + r < Tk && d < hd) x = kb[(k0 + r) * sk_t + d];
       KV[d * kStride + r] = x;
     }
     __syncthreads();
@@ -197,7 +187,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kBK * HDP; idx += kThreads) {
       const int r = idx / HDP, d = idx % HDP;
       float x = 0.f;
-      if (k0 + r < Tk && d < hd) x = to_f(vb[(k0 + r) * sv_t + d]);
+      if (k0 + r < Tk && d < hd) x = vb[(k0 + r) * sv_t + d];
       KV[r * HDP + d] = x;
     }
     __syncthreads();
@@ -238,7 +228,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (partial)
           ((float*)o_out)[row * hd + d] = acc[r][g * 4 + c];
         else
-          store((T*)o_out + row * hd + d, acc[r][g * 4 + c] * inv);
+          ((float*)o_out)[row * hd + d] = acc[r][g * 4 + c] * inv;
       }
     if (partial && tx == 0) {
       m_out[row] = m_i[r];
@@ -247,7 +237,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HDP>
+template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* o, float* m,
            float* l, const int* row_valid, int B, int Tq, int Tk, int H,
            int KV, int hd, long long sq_b, long long sq_t, long long sq_h,
@@ -256,20 +246,19 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
            cudaStream_t stream) {
   const int bytes = smem_floats<HDP>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
   const int nqt = (Tq + kBQ - 1) / kBQ;
   const long long blocks = (long long)nqt * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_kernel<T, HDP><<<(unsigned)blocks, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, o, m, l, row_valid, B * H, nqt,
-      Tq, Tk, H, H / KV, hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t,
-      sv_h, causal, partial, 1.f / sqrtf((float)hd));
+  flash_kernel<HDP><<<(unsigned)blocks, kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, o, m, l, row_valid,
+      B * H, nqt, Tq, Tk, H, H / KV, hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h,
+      sv_b, sv_t, sv_h, causal, partial, 1.f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* m,
              float* l, const int* row_valid, int B, int Tq, int Tk, int H,
              int KV, int hd, long long sq_b, long long sq_t, long long sq_h,
@@ -277,17 +266,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* m,
              long long sv_t, long long sv_h, int causal, int partial,
              cudaStream_t stream) {
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd,
-                         sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
-                         causal, partial, stream);
+    return launch<64>(q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd,
+                      sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
+                      causal, partial, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd,
-                          sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t,
-                          sv_h, causal, partial, stream);
+    return launch<128>(q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd,
+                       sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
+                       causal, partial, stream);
   if (hd <= 256)
-    return launch<T, 256>(q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd,
-                          sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t,
-                          sv_h, causal, partial, stream);
+    return launch<256>(q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd,
+                       sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
+                       causal, partial, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -298,14 +287,8 @@ extern "C" int repro_flash_attention(
     const void* row_valid, int B, int Tq, int Tk, int H, int KV, int hd,
     long long sq_b, long long sq_t, long long sq_h, long long sk_b,
     long long sk_t, long long sk_h, long long sv_b, long long sv_t,
-    long long sv_h, int causal, int partial, int bf16, void* stream) {
-  if (bf16)
-    return dispatch<__nv_bfloat16>(
-        q, k, v, o, (float*)m, (float*)l, (const int*)row_valid, B, Tq, Tk,
-        H, KV, hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
-        causal, partial, (cudaStream_t)stream);
-  return dispatch<float>(q, k, v, o, (float*)m, (float*)l,
-                         (const int*)row_valid, B, Tq, Tk, H, KV, hd, sq_b,
-                         sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
-                         causal, partial, (cudaStream_t)stream);
+    long long sv_h, int causal, int partial, void* stream) {
+  return dispatch(q, k, v, o, (float*)m, (float*)l, (const int*)row_valid, B,
+                  Tq, Tk, H, KV, hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b,
+                  sv_t, sv_h, causal, partial, (cudaStream_t)stream);
 }

@@ -27,9 +27,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
            "query_topk.cu", "pairwise_threshold.cu", "pairwise_topk.cu",
            "pairwise_threshold_q.cu", "pairwise_topk_q.cu",
-           "flash_attention.cu", "ssd_chunk.cu")
+           "flash_attention.cu", "flash_attention_tc.cu", "ssd_chunk.cu")
 # headers the sources include (part of the build key)
-HEADERS = ("pair_tile.cuh",)
+HEADERS = ("pair_tile.cuh", "hopper.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the PCIT filter's output is a threshold decision: no FMA contraction and
@@ -71,8 +71,11 @@ SIGNATURES = {
     "repro_pairwise_threshold_q": [_vp] * 13 + [_i] * 6 + [_f, _ll, _i, _i,
                                                            _vp],
     # q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd, the (batch, time,
-    # head) strides of q, k and v, causal, partial, bf16, stream
-    "repro_flash_attention": [_vp] * 7 + [_i] * 6 + [_ll] * 9 + [_i] * 3
+    # head) strides of q, k and v, causal, partial, stream: float32 (SIMT)
+    "repro_flash_attention": [_vp] * 7 + [_i] * 6 + [_ll] * 9 + [_i] * 2
+    + [_vp],
+    # the same for bfloat16 (wgmma)
+    "repro_flash_attention_tc": [_vp] * 7 + [_i] * 6 + [_ll] * 9 + [_i] * 2
     + [_vp],
     # x, dt, A, B, C, y, S, cd, batch, T, H, P, N, chunk, the (batch, time,
     # head) strides of x, the (batch, time) strides of B and C, stream

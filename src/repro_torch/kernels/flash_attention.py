@@ -3,15 +3,24 @@
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py:
 flash_attention_pallas`` (body ``_flash_kernel``), the block-pair compute
 of quorum and ring attention (``apps/attention.py``) and the 4-d
-``ops.flash_attention``.  Source: ``repro_torch/csrc/flash_attention.cu``.
+``ops.flash_attention``.  Two kernels, chosen by dtype alone
+(:func:`route_of`):
 
-What bounds it on the H100: fp32 arithmetic outside the tensor cores
-(4 * hd operations per visible (query, key) pair, 67 TFLOP/s).  The TPU
-kernel carries the row statistics across its sequential kv grid axis in
-VMEM scratch; here one block owns one (batch*head, 64-row q tile) and
-loops over 64-key tiles, skipping the tiles past the causal diagonal.  It
-reads q / k / v in their ``[B, T, H|KV, hd]`` layout with strides and
-indexes kv head ``h // G``, so nothing is transposed or broadcast first.
+* bfloat16 (``"wgmma"``, ``repro_torch/csrc/flash_attention_tc.cu``): Q·Kᵀ
+  and P·V on Hopper's bf16 tensor cores (``wgmma``), P·V as two bf16
+  products P_hi·V + P_lo·V so that p keeps about 16 bits and the f32
+  partials stay within 1e-5 of the plain version; bound by the bf16
+  tensor cores (4 * hd operations per visible (query, key) pair at 989
+  TFLOP/s; the split issues 6 * hd).
+* float32 (``"simt"``, ``repro_torch/csrc/flash_attention.cu``): fp32
+  arithmetic outside the tensor cores (67 TFLOP/s); TF32 would break the
+  same limits.
+
+The TPU kernel carries the row statistics across its sequential kv grid
+axis in VMEM scratch; here a block owns (batch*head, a q tile) and loops
+over kv tiles, skipping the tiles past the causal diagonal.  Both read
+q / k / v in their ``[B, T, H|KV, hd]`` layout with strides and index kv
+head ``h // G``, so nothing is transposed or broadcast first.
 The ``partial`` epilogue writes the unnormalized accumulator with the row
 max and row sum (the (o, m, l) partial of ``apps/attention.py``) instead
 of the normalized output, and ``row_valid`` turns whole batch rows into
@@ -31,10 +40,17 @@ from .ref import flash_attention as flash_attention_plain
 from .ref import flash_block as flash_block_plain
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
-           "flash_block_plain", "launches"]
+           "flash_block_plain", "launches", "route_of"]
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (both routes)
 launches = 0
+
+
+def route_of(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call in ``dtype`` launches: ``"wgmma"`` for
+    bfloat16 (every hd in 1..256, padded to 64, 128 or 256), ``"simt"`` for
+    float32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def _check(q, k, v):
@@ -67,7 +83,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l)`` float32 — o [B, Tq, H, hd] unnormalized, m / l [B, Tq, H] — as
     ``ref.flash_block``.  ``row_valid`` [B] (bool or integer): rows whose
     flag is 0 are written as the merge identity (o = 0, m = NEG_INF,
-    l = 0)."""
+    l = 0).  bfloat16 launches the ``wgmma`` kernel, float32 the SIMT one
+    (:func:`route_of`); either way one launch, counted in ``launches``."""
     global launches
     _check(q, k, v)
     _build.require_cuda("flash_attention", q, k, v)
@@ -93,15 +110,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (o, m, l) if partial else o
     if Tk == 0:
         raise ValueError("flash_attention needs at least one key")
-    with torch.cuda.device(dev):
-        rc = _build.library().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             m.data_ptr() if partial else None,
             l.data_ptr() if partial else None,
             valid.data_ptr() if valid is not None else None,
             B, Tq, Tk, H, KV, hd, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(causal), int(partial),
-            int(q.dtype == torch.bfloat16), _build.stream_of(q))
+            *v.stride()[:3], int(causal), int(partial))
+    lib = _build.library()
+    fn = (lib.repro_flash_attention_tc if route_of(q.dtype) == "wgmma"
+          else lib.repro_flash_attention)
+    with torch.cuda.device(dev):
+        rc = fn(*args, _build.stream_of(q))
     _build.check(rc, "flash_attention")
     launches += 1
     return (o, m, l) if partial else o

@@ -5,12 +5,14 @@ pairwise_corr_pallas`` (body ``_corr_kernel``), PCIT phase 2.  Source:
 ``repro_torch/csrc/pairwise_corr.cu``.
 
 What bounds it on the H100: fp32 arithmetic outside the tensor cores
-(67 TFLOP/s; 2*M*N*G flops per tile).  TF32 tensor cores are ruled out
-because the PCIT filter makes threshold decisions on these values; the
-first design is a SIMT tiled GEMM (64 x 64 output tiles, 4 x 4 per thread,
-FMA in f32), limited by shared-memory reads more than by the FMA units.
-One launch covers every stacked tile (all devices and pairs of the batched
-mode).
+(67 TFLOP/s; 2*M*N*G flops per tile).  Tensor cores are ruled out: TF32
+keeps about three digits where the PCIT filter makes threshold decisions,
+and any reordered sum (3xTF32, split-K) moves near-zero outputs by about
+1e-5.  So each output is one ``fmaf`` chain over k in order, and the
+design is a register-blocked SIMT GEMM: 128 x 128 output tiles, 8 x 16 per
+thread fed by float4 shared-memory reads, K slices of 32 through a
+3-stage ``cp.async`` ring.  One launch covers every stacked tile (all
+devices and pairs of the batched mode).
 
 The plain version beside it is :func:`pairwise_corr_plain`; the device
 dispatch is :func:`repro_torch.kernels.ops.pairwise_corr`.
@@ -47,7 +49,7 @@ def pairwise_corr_cuda(xs_i: torch.Tensor, xs_j: torch.Tensor) -> torch.Tensor:
     B, M, G = a.shape
     N = b.shape[1]
     out = torch.empty(B, M, N, dtype=torch.float32, device=a.device)
-    if B > 65535 or -(-M // 64) > 65535:
+    if B > 65535 or -(-M // 128) > 65535:
         raise ValueError(f"B={B} or M={M} exceeds the launch grid")
     if out.numel() == 0:
         return out

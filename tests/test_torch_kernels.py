@@ -8,6 +8,8 @@ test_torch_kernels_gpu.py and chip_smoke.py); here the wrappers must refuse
 CPU tensors instead of computing anything.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -212,6 +214,7 @@ def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
                                       "repro_pairwise_topk_q",
                                       "repro_pairwise_threshold_q",
                                       "repro_flash_attention",
+                                      "repro_flash_attention_tc",
                                       "repro_ssd_chunk"}
     key = _build.build_key()
     assert key == _build.build_key() and len(key) == 16
@@ -616,6 +619,52 @@ def test_flash_block_row_valid_is_the_reference_masking():
     for g, wa in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(wa), rtol=1e-5,
                                    atol=1e-5)
+
+
+def _online_pv(q, k, v, split: bool, bk: int = 64):
+    """The bf16 wgmma B9's arithmetic on one non-causal block: scores and
+    p in f32, tile by tile of ``bk`` keys with the online rescale, and
+    P·V from bf16 copies of p (P_hi, plus P_lo = bf16(p - P_hi) with
+    ``split``) against the bf16 V, summed in f32.  Returns o / l."""
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, Tq, KV, H // KV, hd) / math.sqrt(hd)
+    m = torch.full((B, KV, H // KV, Tq), ref.NEG_INF)
+    l = torch.zeros_like(m)
+    o = torch.zeros(B, KV, H // KV, Tq, hd)
+    for k0 in range(0, k.shape[1], bk):
+        kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kt)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = torch.einsum("bkgqs,bskh->bkgqh", hi, vt)
+        if split:
+            lo = (p - hi).bfloat16().float()
+            pv = pv + torch.einsum("bkgqs,bskh->bkgqh", lo, vt)
+        o = o * corr[..., None] + pv
+        m = m_new
+    o = o / l[..., None]
+    return o.reshape(B, H, Tq, hd).permute(0, 2, 1, 3)
+
+
+def test_flash_split_p_keeps_partials_within_1e5():
+    """Why the bf16 wgmma B9 computes P·V as P_hi·V + P_lo·V: at a full
+    quorum pair's statistics (N(0, 1) bf16 inputs, 4,096 visible keys,
+    hd 128) the split keeps o / l within 1e-5 of the f32 plain flash block,
+    the limit chip_smoke.py holds B9's partials to; a single bf16 rounding
+    of p does not."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+               .bfloat16() for shape in ((1, 64, 4, 128), (1, 4096, 1, 128),
+                                         (1, 4096, 1, 128)))
+    wo, _wm, wl = ref.flash_block(q, k, v, causal=False)
+    want = wo / wl[..., None]
+    split = float((_online_pv(q, k, v, split=True) - want).abs().max())
+    single = float((_online_pv(q, k, v, split=False) - want).abs().max())
+    assert split < 1e-5 < single, (split, single)
 
 
 SSD_CELLS = [(2, 32, 3, 8, 16, 8), (1, 64, 2, 16, 8, 16), (2, 16, 4, 8, 32, 16)]

@@ -68,7 +68,11 @@ def test_pairwise_batch_main_shape(cuda):
 
 
 @pytest.mark.parametrize("B,M,N,G", [(5, 70, 90, 33), (2, 64, 64, 16),
-                                     (40, 1024, 1024, 512)])
+                                     (40, 1024, 1024, 512),
+                                     # 128-row / -column tile edges, K past a
+                                     # 32-deep slice, K % 4 != 0 (plain loads)
+                                     (3, 127, 129, 513), (2, 129, 127, 127),
+                                     (1, 513, 257, 129), (2, 128, 128, 16)])
 def test_pairwise_corr(cuda, B, M, N, G):
     g = torch.Generator(device=cuda).manual_seed(B + M)
     xi = torch.randn(B, M, G, device=cuda, generator=g)
@@ -408,7 +412,14 @@ def test_pair_kernels_count_launches(cuda):
 FLASH_CELLS = [(2, 100, 100, 2, 1, 64),    # ragged (not multiples of 64)
                (1, 70, 200, 1, 5, 80),     # Tq < Tk, end-aligned; hd 80
                (2, 130, 130, 2, 5, 128),   # GQA G = 5
-               (1, 96, 40, 1, 5, 64)]      # Tq > Tk: causal rows see no key
+               (1, 96, 40, 1, 5, 64),      # Tq > Tk: causal rows see no key
+               # the wgmma kernel's edges: 128-row blocks of two 64-row
+               # warpgroups, 64- (hd <= 128) or 32-key (hd 256) tiles, hd
+               # padded to 64 / 128 / 256, plain loads where hd % 8 != 0
+               (1, 127, 127, 1, 2, 16), (1, 128, 128, 2, 1, 96),
+               (2, 129, 129, 1, 3, 128), (1, 257, 257, 1, 2, 64),
+               (1, 129, 257, 1, 2, 256), (1, 257, 127, 1, 1, 128),
+               (1, 127, 129, 2, 5, 256), (1, 129, 129, 1, 2, 36)]
 
 
 def _qkv(cuda, B, Tq, Tk, KV, G, hd, dtype, seed):
@@ -470,6 +481,40 @@ def test_flash_row_valid_writes_identity(cuda):
                                  row_valid=valid.cpu())
     assert bool((po[~on.cpu()] == 0).all()) and bool((pm[~on.cpu()]
                                                       == -1e30).all())
+
+
+@pytest.mark.parametrize("Tq,hd", [(257, 96), (129, 256), (127, 128)])
+def test_flash_row_valid_mix(cuda, Tq, hd):
+    """G = 5 and a mix of valid and invalid rows in bf16: valid rows equal
+    the plain flash block (1e-5), invalid rows are the merge identity."""
+    q, k, v = _qkv(cuda, 5, Tq, Tq, 1, 5, hd, torch.bfloat16, Tq + hd)
+    valid = torch.tensor([0, 1, 1, 0, 1], device=cuda)
+    o, m, l = ops.flash_block(q, k, v, causal=True, row_valid=valid)
+    on = valid.bool()
+    wo, wm, wl = ref.flash_block(q[on], k[on], v[on], causal=True)
+    torch.testing.assert_close(m[on], wm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l[on], wl, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(o[on], wo, rtol=1e-5,
+                               atol=1e-5 * max(1.0, float(wo.abs().max())))
+    assert bool((o[~on] == 0).all()) and bool((l[~on] == 0).all())
+    assert bool((m[~on] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_strided_views(cuda, dtype):
+    """q / k / v as head-major tensors seen through transposes (strides
+    other than the packed ones, last axis contiguous) equal the packed
+    call exactly."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qh = torch.randn(2, 10, 200, 64, device=cuda, generator=g).to(dtype)
+    kh = torch.randn(2, 2, 200, 64, device=cuda, generator=g).to(dtype)
+    vh = torch.randn(2, 2, 200, 64, device=cuda, generator=g).to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in (qh, kh, vh))
+    got = ops.flash_block(q, k, v, causal=True)
+    want = ops.flash_block(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _ssd_inputs(cuda, B, T, H, P, N, seed):
