@@ -73,6 +73,7 @@ comparison launches do not count.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -196,9 +197,15 @@ def sass_functions(lib: Path) -> dict:
     return funcs
 
 
+# a float atomic in SASS: ATOM / ATOMS / ATOMG / RED on an F16 / F32 / F64
+FLOAT_ATOMIC = re.compile(r"\b(?:ATOMG?|ATOMS|RED)\.[A-Z0-9_.]*F(?:16|32|64)")
+
+
 def check_sass(lib: Path) -> None:
     """The bf16 B9 kernel runs on the tensor cores (every instantiation
-    issues HGMMA, the SASS of ``wgmma``); B2 issues no atomics."""
+    issues HGMMA, the SASS of ``wgmma``); B8's tensor-core route issues
+    IMMA (int8) and HMMA (bf16), the SASS of ``mma.sync``; B2 issues no
+    atomics, and B4 and B8 no float atomics."""
     funcs = sass_functions(lib)
     tc = {n: f.count("HGMMA") for n, f in funcs.items()
           if "flash_tc_kernel" in n}
@@ -209,9 +216,27 @@ def check_sass(lib: Path) -> None:
     atomics = sum(f.count("ATOM") + f.count("RED.") for f in corr)
     check(len(corr) == 2 and atomics == 0,
           f"B2: {len(corr)} kernels, {atomics} atomic instructions")
+    # B8 (topk_tc_kernel<int8_t | __nv_bfloat16, vec, resident rows, long
+    # lists>): eight instantiations of each
+    b8 = {n: f for n, f in funcs.items() if "topk_tc_kernel" in n}
+    imma = [f.count("IMMA") for n, f in b8.items() if "topk_tc_kernelIa" in n]
+    hmma = [f.count("HMMA") for n, f in b8.items()
+            if "topk_tc_kernelI13__nv_bfloat16" in n]
+    check(len(imma) == 8 and all(c > 0 for c in imma),
+          f"B8 int8: IMMA counts per instantiation {imma}")
+    check(len(hmma) == 8 and all(c > 0 for c in hmma),
+          f"B8 bf16: HMMA counts per instantiation {hmma}")
+    # B4 (score_kernel x 2, merge_kernel of query_topk.cu) and B8
+    sel = {n: f for n, f in funcs.items()
+           if "query_topk" in n or "topk_tc_kernel" in n}
+    f_atomics = sum(len(FLOAT_ATOMIC.findall(f)) for f in sel.values())
+    check(len(sel) == 19 and f_atomics == 0,
+          f"B4 / B8: {len(sel)} kernels, {f_atomics} float atomics")
     say(f"SASS: bf16 B9 (flash_tc_kernel, hd padded to 64 / 128 / 256) "
         f"HGMMA instructions {sorted(tc.values())}; B2 (corr_kernel, two "
-        f"instantiations) atomics {atomics}")
+        f"instantiations) atomics {atomics}; B8 (topk_tc_kernel) IMMA "
+        f"{imma} int8, HMMA {hmma} bf16; B4 / B8 ({len(sel)} kernels) float "
+        f"atomics {f_atomics}")
 
 
 def make_bodies(n: int, seed: int) -> np.ndarray:
@@ -1059,6 +1084,8 @@ def phase_kernels_knn(report: dict) -> None:
     from repro_torch.core.knn import quorum_allpairs_knn
     from repro_torch.core.placement import get_placement
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.pairwise_batch_q import (pairwise_topk_q_cuda,
+                                                      route_of)
     from repro_torch.serving.engine import quantize_pow2
 
     comm = SingleProcessComm(P, DEVICE)
@@ -1169,14 +1196,53 @@ def phase_kernels_knn(report: dict) -> None:
             f"entries ({'identical' if qm == 'int8' else 'near ties'}); "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (host clock, device "
             f"by device), {lib_name} per active tile {lib_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by}, {qm} tensor-core peak)")
+            f"{b_ms:.3f} ms ({b_by}, {qm} tensor-core peak); route "
+            f"{route_of(qq.q.dtype, qq.q.shape[-1])}")
         if qm == "int8":
             report["pairwise_topk_q"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
-        else:
-            report["pairwise_topk_q"]["bf16_ms"] = ms
+        else:   # the bf16 instance rides the same row
+            report["pairwise_topk_q"].update(
+                bf16_max_abs_err=err, bf16_ms=ms, bf16_plain_ms=plain_ms,
+                bf16_bound_ms=b_ms, bf16_library_ms=lib_ms)
         del qq, got_v, got_i, want_v, want_i
+
+    # ---- B8 bf16 by route: the tie rule's worst reading over 6 seeds at
+    # d = 128, 256, 1,040 (dot scores near zero: the rule is 1e-5 absolute
+    # there) -------------------------------------------------------------
+    mb = torch.tensor([[[1, 1, 0, 0, 200, 200], [1, 0, 0, 1, 200, 200],
+                        [1, 1, 1, 1, 200, 200]]], dtype=torch.int32,
+                      device=DEVICE)
+    kwb = dict(topk=512, block_rows=200, metric="dot")
+    for d in (128, 256, 1040):
+        reads = {"tensor_cores": 0.0, "simt": 0.0}
+        for seed in range(6):
+            g = torch.Generator(device=DEVICE).manual_seed(1000 * d + seed)
+            codes = torch.randn(1, 2, 200, d, generator=g,
+                                device=DEVICE).to(torch.bfloat16)
+            sdb = torch.ones(1, 2, 2, device=DEVICE)
+            sqb = (codes.float() ** 2).sum(-1)
+            want_v, _ = ref.pairwise_topk_q(codes, sdb[..., 0], sqb,
+                                            [0, 0, 1], [0, 1, 1], mb, **kwb)
+            real = want_v > -1e29
+            for route in reads:
+                got_v, _ = pairwise_topk_q_cuda(codes, sdb, sqb, [0, 0, 1],
+                                                [0, 1, 1], mb, route=route,
+                                                **kwb)
+                reads[route] = max(reads[route], float(
+                    ((got_v - want_v).abs() / tol_of(want_v))[real].max()))
+        chosen = route_of(torch.bfloat16, d)
+        # at d = 1,040 no float32 summation order but the plain version's
+        # own stays within 1e-5 of it near zero: read, not held
+        check(d == 1040 or reads[chosen] <= 1.0,
+              f"B8 bf16 d={d}: route {chosen} reads {reads[chosen]:.3f} of "
+              "the tie rule")
+        say(f"B8 bf16 d={d} dot top-512 (scores down to 0), worst of 6 "
+            f"seeds: max |err| / (1e-5 max(1, |s|)) tensor cores "
+            f"{reads['tensor_cores']:.3f}, simt {reads['simt']:.3f}; "
+            f"route_of picks {chosen}")
+    del codes
 
     # ---- B7 at the quantized join's shapes ------------------------------
     cap = QUANT_CAP
@@ -1394,17 +1460,22 @@ def phase_quant_knn(report: dict) -> None:
         n_diff += check_topk_rows(X[r], X, xn, gv[r], gi[r], fv[r], fi[r],
                                   f"quantized k-NN rows {r0}.. vs f32")
     passes = ", ".join(f"M={m}: {n} pending" for m, n in st["passes"])
-    # the device sweep of the last pass alone (B8 and the scatter merges)
-    m_last = st["passes"][-1][0]
+    # each pass's device sweep alone (B8 and the scatter merges); the rest
+    # of the run is the host's certification and f32 rescoring
     qb = quant.quantize_corpus(X, P, N // P, "int8").blocks()
-    sweep = quant._qknn_fn(comm, N, N // P, m_last, "l2", "batched", True,
-                           get_placement("cyclic", P))
-    last_ms = cuda_ms(lambda: sweep(qb), reps=1, warmup=0)
+    sweeps = []
+    for m, _n in st["passes"]:
+        sweep = quant._qknn_fn(comm, N, N // P, m, "l2", "batched", True,
+                               get_placement("cyclic", P))
+        sweeps.append((m, cuda_ms(lambda: sweep(qb), reps=1, warmup=0)))
+    sweep_s = sum(ms for _m, ms in sweeps) / 1e3
     say(f"quantized k-NN int8 N={N} P={P} l2 top-{KNN_TOPK}: {secs:.3f} s "
         f"(host clock, synchronized), peak {peak / 2**30:.3f} GiB, passes "
-        f"[{passes}], B8 launches {counts['pairwise_topk_q']}; the sweep at "
-        f"M={m_last} alone {last_ms:.1f} ms (CUDA events); against the f32 "
-        f"graph {n_diff} ids differ, all within the tie tolerance")
+        f"[{passes}], B8 launches {counts['pairwise_topk_q']}; each pass's "
+        f"sweep alone (CUDA events) "
+        f"{', '.join(f'M={m}: {ms:.1f} ms' for m, ms in sweeps)}, "
+        f"{sweep_s:.3f} s in all, the rest {secs - sweep_s:.3f} s; against "
+        f"the f32 graph {n_diff} ids differ, all within the tie tolerance")
 
 
 def phase_quant_serving() -> None:
@@ -1634,6 +1705,27 @@ def phase_kernels_lm(report: dict) -> None:
         del q, k, v
     # the main path's common launch: a full (non-diagonal) pair in bf16
     report["flash_attention"] = res[(torch.bfloat16, False)]
+
+    # ---- B9 bf16 partials at hd 256 over a whole 4,096-key block: 128
+    # tiles of 32 keys, each tile's P V joining O by one f32 fmaf --------
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    q, k, v = (torch.randn(1, blk, h, 256, generator=g, device=DEVICE)
+               .to(torch.bfloat16) for h in (2, 1, 1))
+    for causal in (False, True):
+        got = ops.flash_block(q, k, v, causal=causal)
+        want = plain_flash_block_rows(q, k, v, causal)
+        err, m_err = flash_errs(got, want)
+        l_rel = float(((got[2] - want[2]).abs()
+                       / want[2].clamp_min(1e-30)).max())
+        check(all(bool(torch.isfinite(t).all()) for t in got)
+              and err < tol and m_err < tol and l_rel < tol,
+              f"B9 bf16 hd 256 causal={causal}: max abs err {err:.3e} (m "
+              f"{m_err:.3e}, l rel {l_rel:.3e}) >= {tol}")
+        say(f"B9 flash_attention partial bf16 hd 256 causal={causal} q "
+            f"{tuple(q.shape)} kv {tuple(k.shape)}: max_abs_err={err:.3e} "
+            f"(m {m_err:.3e}, l rel {l_rel:.3e}; < {tol})")
+        del got, want
+    del q, k, v
 
     # ---- B10 at mamba2-130m's prefill ([4, 32768, 24, 64], chunk 256)
     # and at each decode step's shape ([4, 1, 24, 64], chunk 1) ---------
@@ -1986,7 +2078,9 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     **{k: v for k, v in r.items()
+                        if k.startswith("bf16_")}})
     say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

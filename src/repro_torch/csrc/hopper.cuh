@@ -1,7 +1,8 @@
 // Small PTX wrappers for Hopper (sm_90a) kernels: cp.async with zero
 // fill, the async-proxy fence, wgmma's fence / commit / wait, the shared
-// memory matrix descriptor of the 128-byte swizzled layout, and the bf16
-// wgmma shapes the port's kernels issue.
+// memory matrix descriptor of the 128-byte swizzled layout, the bf16
+// wgmma shapes the port's kernels issue, and the warp-level ldmatrix /
+// mma.sync pair (int8 and bf16) of B8.
 //
 // The swizzled layout (what every descriptor here names): a tile of R
 // rows is cut into blocks of 64 bf16 columns (128 bytes a row); a block
@@ -177,6 +178,36 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Four 8 x 8 b16 matrices from shared memory: lanes 8m .. 8m + 7 give the
+// addresses of matrix m's eight 16-byte rows; thread t receives 32 bits of
+// row t / 4 of each matrix (bytes 4 (t % 4) .. + 3) in r[m].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+
+// Warp-level products on 16 x 8 tiles over 32 bytes of k (int8: k32,
+// bf16: k16).  A (16 x 32 bytes, row-major) in a[4] as ldmatrix_x4 gives
+// its four 8 x 16-byte quarters (rows 0-7 | 8-15) x (bytes 0-15 | 16-31);
+// B (8 columns x 32 bytes of k) in b0 (bytes 0-15) and b1 (bytes 16-31).
+// Thread t holds d[0], d[1] at row t / 4 and d[2], d[3] at row t / 4 + 8,
+// columns 2 (t % 4) + {0, 1}.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace hopper

@@ -1,7 +1,7 @@
 // Shared pieces of the pair-tile kernels B6 pairwise_topk, B7
-// pairwise_threshold_q and B8 pairwise_topk_q: the 64 x 64 SIMT score
-// tile over operands of any storage type, and the running top-k lists of
-// B6 / B8 with their final ordering.
+// pairwise_threshold_q and B8 pairwise_topk_q (its SIMT route): the
+// 64 x 64 SIMT score tile over operands of any storage type, and the
+// running top-k lists of B6 / B8 with their final ordering.
 //
 // Score tile.  Every entry is one fmaf chain over d in ascending order,
 // so the dot of rows (u, v) is the same bit pattern whichever of them is
@@ -10,9 +10,8 @@
 // (exact for int8 and bf16).
 //
 // Running lists.  One warp owns a row's list of n entries in global
-// memory, unordered, and admits a candidate only if it beats the list's
-// current worst entry under the (-score, index) order; once the list is
-// full, few candidates do.  order_kernel sorts each list at the end.
+// memory (topk_select.cuh's warp_offer); order_kernel sorts each list at
+// the end.
 
 #pragma once
 
@@ -20,10 +19,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topk_select.cuh"
+
 namespace pair_tile {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kSentinel = 0x7fffffff;
+using topk_select::before;
+using topk_select::kNegInf;
+using topk_select::kSentinel;
+using topk_select::warp_offer;
+
 constexpr int kTile = 64;      // rows and columns of a score tile
 constexpr int kDepth = 16;     // d per shared-memory stage
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
@@ -109,79 +113,6 @@ __device__ __forceinline__ float row_norm(const T* __restrict__ x, int d) {
     s = fmaf(v, v, s);
   }
   return s;
-}
-
-// true iff (va, ia) comes before (vb, ib) in the (-score, index) order
-__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
-// The worst entry of a list of n (the last in the order; of equal ones
-// the highest position).  Every lane returns the same (value, index,
-// position).
-__device__ __forceinline__ void warp_worst(const float* v, const int* ix,
-                                           int n, float& wv, int& wi,
-                                           int& wp) {
-  const int lane = threadIdx.x & 31;
-  wv = 3.0e38f;
-  wi = -1;
-  wp = -1;
-  for (int t = lane; t < n; t += 32) {
-    const float a = v[t];
-    const int b = ix[t];
-    if (wp < 0 || before(wv, wi, a, b) || (a == wv && b == wi)) {
-      wv = a;
-      wi = b;
-      wp = t;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
-    const int op = __shfl_xor_sync(0xffffffffu, wp, off);
-    const bool take = op >= 0 && (wp < 0 || before(wv, wi, ov, oi) ||
-                                  (ov == wv && oi == wi && op > wp));
-    if (take) {
-      wv = ov;
-      wi = oi;
-      wp = op;
-    }
-  }
-}
-
-// Offer one candidate per lane to the warp's list (v, ix) of n entries,
-// `filled` of them set; the list keeps the n best offers, (wv, wi, wp) its
-// worst once full.  __syncwarp orders lane 0's writes before the reads.
-__device__ __forceinline__ void warp_offer(float cv, int ci, float* v,
-                                           int* ix, int n, int& filled,
-                                           float& wv, int& wi, int& wp) {
-  const int lane = threadIdx.x & 31;
-  const bool real = before(cv, ci, kNegInf, kSentinel);
-  const bool want = filled < n ? real : before(cv, ci, wv, wi);
-  unsigned bits = __ballot_sync(0xffffffffu, want);
-  while (bits) {
-    const int src = __ffs(bits) - 1;
-    bits &= bits - 1;
-    const float sv = __shfl_sync(0xffffffffu, cv, src);
-    const int si = __shfl_sync(0xffffffffu, ci, src);
-    if (filled < n) {
-      if (lane == 0) {
-        v[filled] = sv;
-        ix[filled] = si;
-      }
-      ++filled;
-      __syncwarp();
-      if (filled == n) warp_worst(v, ix, n, wv, wi, wp);
-    } else if (before(sv, si, wv, wi)) {
-      if (lane == 0) {
-        v[wp] = sv;
-        ix[wp] = si;
-      }
-      __syncwarp();
-      warp_worst(v, ix, n, wv, wi, wp);
-    }
-  }
 }
 
 // B6 / B8 selection pass.  One block per (device p, slot, 64-row tile)
@@ -356,7 +287,19 @@ order_kernel(float* __restrict__ list_v, int* __restrict__ list_i,
   }
 }
 
-// Launch both passes of B6 / B8; returns the first CUDA error.
+// Sort the n_lists lists of tp entries and write their first topk.
+inline int launch_order(float* list_v, int* list_i, float* out_v, int* out_i,
+                        long long n_lists, int topk, int tp, cudaStream_t s) {
+  // lists of up to 1024 entries are sorted in shared memory (32 KB)
+  const int smem_tp = tp <= 1024 ? tp : 0;
+  const size_t smem = (size_t)kOrderWarps * smem_tp * (sizeof(float) + sizeof(int));
+  const long long blocks = (n_lists + kOrderWarps - 1) / kOrderWarps;
+  order_kernel<<<(unsigned)blocks, kOrderWarps * 32, smem, s>>>(
+      list_v, list_i, out_v, out_i, n_lists, topk, tp, smem_tp);
+  return (int)cudaGetLastError();
+}
+
+// Launch both passes of B6 / B8 (SIMT); returns the first CUDA error.
 template <typename T, bool kQuant>
 inline int launch_topk(const T* quorum, const float* sd, const float* sq,
                        const int* lo, const int* hi, const int* meta,
@@ -370,14 +313,8 @@ inline int launch_topk(const T* quorum, const float* sd, const float* sq,
       block_rows, topk, tp, l2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n_lists = (long long)P * k * block;
-  // lists of up to 1024 entries are sorted in shared memory (32 KB)
-  const int smem_tp = tp <= 1024 ? tp : 0;
-  const size_t smem = (size_t)kOrderWarps * smem_tp * (sizeof(float) + sizeof(int));
-  const long long blocks = (n_lists + kOrderWarps - 1) / kOrderWarps;
-  order_kernel<<<(unsigned)blocks, kOrderWarps * 32, smem, s>>>(
-      list_v, list_i, out_v, out_i, n_lists, topk, tp, smem_tp);
-  return (int)cudaGetLastError();
+  return launch_order(list_v, list_i, out_v, out_i, (long long)P * k * block,
+                      topk, tp, s);
 }
 
 }  // namespace pair_tile

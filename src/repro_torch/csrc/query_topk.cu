@@ -4,128 +4,130 @@
 //
 // For every simulated device p, Q queries are scored against the k
 // resident slots of its [k, block, d] stack (dot, or the l2 score
-// 2 q.x - |x|^2 - |q|^2); rows whose mask is 0 become (NEG_INF,
+// (2 q.x - |x|^2) - |q|^2); rows whose mask is 0 become (NEG_INF,
 // IDX_SENTINEL); the result is the top-k under the (-score, index) total
 // order: among equal scores the smaller global row id wins.
 //
+// Bound on the H100: fp32 arithmetic outside the tensor cores, 2*Q*d
+// operations per unmasked (query, row) (67 TFLOP/s).  The f32 scores
+// decide the ranking, so no TF32: every score is one fmaf chain over d in
+// ascending order wherever it sits in the tile, and |x|^2, |q|^2 are
+// chains of the same kind, so identical rows tie exactly and ties break
+// by index as in the plain version.
+//
 // Design.  The TPU kernel walks the k slots in order on its sequential
 // grid and merges each slot into one running [Q, topk] list.  Hopper's
-// blocks run in no order, so the selection is split into two passes:
+// blocks run in no order, so the selection takes two passes:
 //
-//   1. score_kernel: one block per (device, slot, 4096-row chunk, 64-query
-//      tile).  A chunk whose mask is all zero (a slot this device does not
-//      score under the cover) exits at once and flags its list empty.
-//      Otherwise 64-row sub-tiles are scored by a SIMT fp32 GEMM (4 x 4
-//      outputs per thread, TF32 off: the scores decide the ranking) into
-//      shared memory, and one warp per query keeps the chunk's top-k in a
-//      list in global scratch: a candidate enters only if it beats the
-//      list's current worst entry, which then is recomputed.  After the
-//      list has filled, few candidates beat the running k-th value.
-//   2. merge_kernel: one warp per (device, query) runs the same selection
-//      over the non-empty chunk lists into a shared-memory list, then
-//      orders it by rank (the number of entries before each one under the
-//      total order, ties of identical sentinels broken by position).
+//   1. score_kernel: one block of 256 threads per (device, slot, 16,384-row
+//      chunk, 128-query tile).  A chunk whose mask is all zero (a slot the
+//      cover leaves to another device) exits at once and flags its list
+//      empty.  Otherwise the block scores 128 x 256 tiles (128 queries,
+//      256 corpus rows) as B2's GEMM (pairwise_corr.cu) does: 8 x 16
+//      outputs per thread, 32-deep d slices of both operands through a
+//      3-stage 16-byte cp.async ring in dynamic shared memory (zero fill
+//      past Q, the chunk and d; plain loads where d or a base is not
+//      16-byte aligned), conflict-free float4 reads; the queries' slices
+//      ride the ring beside the rows' (they stay in L2), so any d fits.
+//      The ring runs on across tiles, so the next tile's slices load while
+//      this one is selected.  Selection stays in registers: each score is
+//      compared with its query's admission bound, and only the few that
+//      beat it go through the candidate queues of topk_select.cuh to the
+//      query's running list (shared memory for topk <= 16, global scratch
+//      above that); the queues drain once one is half full.
+//   2. merge_kernel: one warp per (device, query) runs the same list over
+//      the non-empty chunk lists into shared memory, then orders it by
+//      rank (the number of entries before each one under the total order,
+//      ties of identical sentinels broken by position).
 //
-// Bound on the H100: fp32 arithmetic outside the tensor cores, 2*Q*d
-// operations per unmasked (query, row); the unmasked rows are read from
-// device memory once per 64-query tile.
-//
-// Every score goes through the same fmaf sequence over d whatever its
-// position in the tile, so identical rows score identically and ties
-// break by index exactly as in the plain version.
+// No float atomics; the output does not depend on the order in which
+// candidates reach a list.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+#include "topk_select.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kSentinel = 0x7fffffff;
-constexpr int kQT = 64;        // queries per block
-constexpr int kRT = 64;        // rows per scored sub-tile
-constexpr int kDepth = 16;     // d per shared-memory stage
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
+using namespace hopper;
+using namespace topk_select;
+
+constexpr int kQT = 128;        // queries per block
+constexpr int kRT = 256;        // corpus rows per score tile
+constexpr int kDepth = 32;      // d per ring stage
+constexpr int kLd = kDepth + 4;  // row stride in shared memory (floats)
+constexpr int kStages = 3;
+constexpr int kThreads = 256;   // 16 x 16, each 8 queries x 16 rows
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 4096;   // rows per chunk list
+constexpr int kChunk = 16384;   // rows per chunk list
+constexpr int kQueue = 32;      // queued candidates per query
+constexpr int kSmemTopk = 16;   // lists up to this long live in shared memory
+constexpr int kStageFloats = (kQT + kRT) * kLd;
+constexpr int kRingBytes = kStages * kStageFloats * (int)sizeof(float);
 constexpr int kMergeWarps = 4;
 
-// true iff (va, ia) comes before (vb, ib) in the (-score, index) order
-__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
+struct Sel {
+  Queues<kQT, kQueue> q;
+  float qn[kQT];   // |q|^2 (l2)
+  float xn[kRT];   // |x|^2 of the tile's rows (l2)
+  int G[kRT];      // the tile's global row ids, kSentinel where masked
+};
 
-// The warp's current worst entry of a list of n (value, index) pairs:
-// the last one in the total order (and, of equal ones, the highest
-// position).  Every lane returns the same (value, index, position).
-__device__ __forceinline__ void warp_worst(const float* v, const int* ix,
-                                           int n, float& wv, int& wi,
-                                           int& wp) {
-  const int lane = threadIdx.x & 31;
-  wv = 3.0e38f;
-  wi = -1;
-  wp = -1;
-  for (int t = lane; t < n; t += 32) {
-    const float a = v[t];
-    const int b = ix[t];
-    if (wp < 0 || before(wv, wi, a, b) || (a == wv && b == wi)) {
-      wv = a;
-      wi = b;
-      wp = t;
-    }
-  }
+// d slice [k0, k0 + 32) of queries [q0, q0 + 128) (ring rows 0..127) and
+// of chunk rows [r0, r0 + 256) (ring rows 128..383) into the stage at dst
+template <bool kVec>
+__device__ __forceinline__ void load_stage(uint32_t dst,
+                                           const float* __restrict__ queries,
+                                           int q0, int Q,
+                                           const float* __restrict__ rows,
+                                           int r0, int r_end, int k0, int d,
+                                           int tid) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
-    const int op = __shfl_xor_sync(0xffffffffu, wp, off);
-    const bool take = op >= 0 && (wp < 0 || before(wv, wi, ov, oi) ||
-                                  (ov == wv && oi == wi && op > wp));
-    if (take) {
-      wv = ov;
-      wi = oi;
-      wp = op;
+  for (int e = 0; e < (kQT + kRT) * (kDepth / 4) / kThreads; ++e) {
+    const int idx = tid + e * kThreads;
+    const int r = idx / (kDepth / 4), c = idx % (kDepth / 4);
+    const bool isq = r < kQT;   // uniform in e
+    const float* g = isq ? queries : rows;
+    const int gr = isq ? q0 + r : r0 + r - kQT;
+    const bool row_ok = gr < (isq ? Q : r_end);
+    const int gk = k0 + 4 * c;
+    const float* src = g + (size_t)(row_ok ? gr : 0) * d + gk;
+    const uint32_t dd = dst + (uint32_t)(r * kLd + 4 * c) * 4u;
+    if constexpr (kVec) {
+      const bool ok = row_ok && gk < d;
+      cp_async16(dd, ok ? src : g, ok ? 16 : 0);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        w[x] = __float_as_uint(row_ok && gk + x < d ? src[x] : 0.f);
+      st_shared_v4(dd, make_uint4(w[0], w[1], w[2], w[3]));
     }
   }
 }
 
-// Offer one candidate per lane to a warp-owned list (v, ix) of n entries
-// of which `filled` are set; the list keeps the n best offers.  (wv, wi,
-// wp) is its worst entry once it is full.  Only this warp touches the
-// list; __syncwarp orders lane 0's writes before the other lanes' reads.
-__device__ __forceinline__ void warp_offer(float cv, int ci, float* v,
-                                           int* ix, int n, int& filled,
-                                           float& wv, int& wi, int& wp) {
-  const int lane = threadIdx.x & 31;
-  // while the list has room every real candidate enters; after that only
-  // those ahead of the current worst
-  const bool real = before(cv, ci, kNegInf, kSentinel);
-  const bool want = filled < n ? real : before(cv, ci, wv, wi);
-  unsigned bits = __ballot_sync(0xffffffffu, want);
-  while (bits) {
-    const int src = __ffs(bits) - 1;
-    bits &= bits - 1;
-    const float sv = __shfl_sync(0xffffffffu, cv, src);
-    const int si = __shfl_sync(0xffffffffu, ci, src);
-    if (filled < n) {
-      if (lane == 0) {
-        v[filled] = sv;
-        ix[filled] = si;
-      }
-      ++filled;
-      __syncwarp();
-      if (filled == n) warp_worst(v, ix, n, wv, wi, wp);
-    } else if (before(sv, si, wv, wi)) {
-      if (lane == 0) {
-        v[wp] = sv;
-        ix[wp] = si;
-      }
-      __syncwarp();
-      warp_worst(v, ix, n, wv, wi, wp);
-    }
-  }
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(kThreads)
-score_kernel(const float* __restrict__ stack,  // [P, k, block, d]
+// squared norm of one 32-float ring row, continuing the chain s
+__device__ __forceinline__ float norm_slice(const float* row, float s) {
+#pragma unroll
+  for (int k4 = 0; k4 < kDepth / 4; ++k4) {
+    const float4 v = *reinterpret_cast<const float4*>(row + 4 * k4);
+    s = fmaf(v.x, v.x, s);
+    s = fmaf(v.y, v.y, s);
+    s = fmaf(v.z, v.z, s);
+    s = fmaf(v.w, v.w, s);
+  }
+  return s;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+score_kernel(const float* __restrict__ stack,   // [P, k, block, d]
              const float* __restrict__ queries,  // [Q, d]
              const float* __restrict__ mask,     // [P, k, block]
              const int* __restrict__ gidx,       // [P, k, block]
@@ -134,6 +136,8 @@ score_kernel(const float* __restrict__ stack,  // [P, k, block, d]
              int* __restrict__ list_full,        // [P, n_lists]
              int k, int block, int d, int Q, int topk, int n_chunks,
              int l2) {
+  extern __shared__ __align__(16) float smem[];
+  Sel& sel = *reinterpret_cast<Sel*>(smem + kStages * kStageFloats);
   const int p = blockIdx.z;
   const int list = blockIdx.x;  // slot * n_chunks + chunk
   const int slot = list / n_chunks;
@@ -145,7 +149,7 @@ score_kernel(const float* __restrict__ stack,  // [P, k, block, d]
   const float* __restrict__ rows = stack + slot_off * d;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
+  const int warp = tid / 32;
 
   bool any = false;
   for (int r = r_begin + tid; r < r_end; r += kThreads)
@@ -155,118 +159,186 @@ score_kernel(const float* __restrict__ stack,  // [P, k, block, d]
     list_full[(size_t)p * n_lists + list] = any ? 1 : 0;
   if (!any) return;  // a slot this device does not score: no work
 
-  __shared__ float As[kDepth][kQT + 1];    // query slice, transposed
-  __shared__ float Bs[kDepth][kRT + 1];    // row slice, transposed
-  __shared__ float S[kQT][kRT + 1];        // masked scores of a sub-tile
-  __shared__ int G[kRT];                   // masked global ids
-  __shared__ float qn[kQT], xn[kRT];       // squared norms (l2)
-  // per-query list state, owned by the warp that serves the query
-  __shared__ float worst_v[kQT];
-  __shared__ int worst_i[kQT], worst_p[kQT], filled[kQT];
-
-  for (int q = tid; q < kQT; q += kThreads) {
-    float s = 0.f;
-    if (l2 && q0 + q < Q)
-      for (int c = 0; c < d; ++c) {
-        const float x = queries[(size_t)(q0 + q) * d + c];
-        s = fmaf(x, x, s);
-      }
-    qn[q] = s;
-    worst_v[q] = kNegInf;
-    worst_i[q] = kSentinel;
-    worst_p[q] = 0;
-    filled[q] = 0;
-  }
-  // every list starts as topk sentinels: a chunk with fewer real rows
-  // than topk leaves them in place
-  for (int e = tid; e < kQT * topk; e += kThreads) {
-    const int q = e / topk;
-    if (q0 + q >= Q) continue;
-    const size_t o = (((size_t)p * Q + q0 + q) * n_lists + list) * topk +
-                     e % topk;
-    list_v[o] = kNegInf;
-    list_i[o] = kSentinel;
-  }
-  __syncthreads();
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kRT) {
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-    float norm = 0.f;  // |x|^2 of row r0 + tid, threads 0..63
-    for (int c0 = 0; c0 < d; c0 += kDepth) {
-#pragma unroll
-      for (int e = 0; e < kQT * kDepth / kThreads; ++e) {
-        const int idx = tid + e * kThreads;
-        const int rr = idx / kDepth, cc = idx % kDepth;
-        const bool okc = c0 + cc < d;
-        As[cc][rr] = (okc && q0 + rr < Q)
-                         ? queries[(size_t)(q0 + rr) * d + c0 + cc] : 0.f;
-        Bs[cc][rr] = (okc && r0 + rr < r_end)
-                         ? rows[(size_t)(r0 + rr) * d + c0 + cc] : 0.f;
-      }
-      __syncthreads();
-      if (tid < kRT) {
-#pragma unroll
-        for (int cc = 0; cc < kDepth; ++cc)
-          norm = fmaf(Bs[cc][tid], Bs[cc][tid], norm);
-      }
-#pragma unroll
-      for (int cc = 0; cc < kDepth; ++cc) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[cc][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[cc][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  // the running lists: shared memory for short ones (entry t of query q's
+  // list at t * kQT + q), else the output scratch itself; both start as
+  // topk sentinels (a chunk with fewer real rows than topk leaves them)
+  const bool in_smem = topk <= kSmemTopk;
+  float* lv = reinterpret_cast<float*>(&sel + 1);
+  int* li = reinterpret_cast<int*>(lv + kQT * topk);
+  const size_t lstride = (size_t)n_lists * topk;
+  if (in_smem) {
+    for (int e = tid; e < kQT * topk; e += kThreads) {
+      lv[e] = kNegInf;
+      li[e] = kSentinel;
     }
-    if (tid < kRT) {
+  } else {
+    lv = list_v + (((size_t)p * Q + q0) * n_lists + list) * topk;
+    li = list_i + (((size_t)p * Q + q0) * n_lists + list) * topk;
+    for (int e = tid; e < kQT * topk; e += kThreads) {
+      const int q = e / topk;
+      if (q0 + q >= Q) continue;
+      lv[q * lstride + e % topk] = kNegInf;
+      li[q * lstride + e % topk] = kSentinel;
+    }
+  }
+  sel.q.init(tid, kThreads);
+
+  auto drain_lists = [&]() {
+    if (in_smem)
+      sel.q.drain_threads(lv, li, topk);
+    else
+      sel.q.drain_warps(warp, kWarps, lv, li, lstride, topk);
+  };
+
+  const uint32_t s0 = smem_u32(smem);
+  const int nk = max(1, (d + kDepth - 1) / kDepth);
+  const int n_tiles = (r_end - r_begin + kRT - 1) / kRT;
+  const int total = n_tiles * nk;
+  auto load = [&](int t) {
+    load_stage<kVec>(s0 + (uint32_t)((t % kStages) * kStageFloats) * 4u,
+                     queries, q0, Q, rows, r_begin + (t / nk) * kRT, r_end,
+                     (t % nk) * kDepth, d, tid);
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < total) load(t);
+    cp_async_commit();
+  }
+
+  float acc[8][16];
+  float xnorm = 0.f, qnorm = 0.f;
+  for (int t = 0; t < total; ++t) {
+    const int tile = t / nk, ks = t % nk;
+    const int r0 = r_begin + tile * kRT;
+    if (ks == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+      xnorm = 0.f;
+      // the tile's global ids (the last tile's readers are past a barrier)
       const int r = r0 + tid;
-      const bool ok = r < r_end && mask[slot_off + r] > 0.f;
-      xn[tid] = norm;
-      G[tid] = ok ? gidx[slot_off + r] : kSentinel;
+      sel.G[tid] = r < r_end && mask[slot_off + r] > 0.f ? gidx[slot_off + r]
+                                                         : kSentinel;
     }
+    cp_async_wait<kStages - 2>();   // slice t landed
+    __syncthreads();                // ... for every thread; slice t-1 done
+    if (t + kStages - 1 < total) load(t + kStages - 1);
+    cp_async_commit();
+    const float* As = smem + (t % kStages) * kStageFloats;  // queries
+    const float* Bs = As + kQT * kLd;                        // rows
+#pragma unroll
+    for (int k4 = 0; k4 < kDepth / 4; ++k4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(&As[(ty + 16 * i) * kLd +
+                                                     4 * k4]);
+      // the rows in two halves of 8 (registers for the selection state)
+#pragma unroll
+      for (int jh = 0; jh < 16; jh += 8) {
+        float4 bv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(
+              &Bs[(tx + 16 * (jh + j)) * kLd + 4 * k4]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)   // d in order
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][jh + j] = fmaf(lane_of(a[i], kk), lane_of(bv[j], kk),
+                                    acc[i][jh + j]);
+      }
+    }
+    if (l2) {
+      xnorm = norm_slice(Bs + tid * kLd, xnorm);
+      if (tile == 0 && tid < kQT) qnorm = norm_slice(As + tid * kLd, qnorm);
+    }
+    if (ks != nk - 1) continue;
+
+    // ---- the tile is scored: publish its rows' norms ----
+    sel.xn[tid] = xnorm;
+    if (tile == 0 && tid < kQT) sel.qn[tid] = qnorm;
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = ty + 16 * i;
+    for (int j = 0; j < 16; ++j) {
+      const int r = tx + 16 * j;
+      const bool live = sel.G[r] != kSentinel;
+      const float xn = sel.xn[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
+      for (int i = 0; i < 8; ++i) {
         float s = acc[i][j];
-        if (l2) s = (2.f * s - xn[r]) - qn[q];
-        S[q][r] = G[r] == kSentinel ? kNegInf : s;
+        if (l2) s = (2.f * s - xn) - sel.qn[ty + 16 * i];
+        // masked rows and absent queries never enter a list
+        acc[i][j] = live && q0 + ty + 16 * i < Q ? s : -INFINITY;
       }
     }
-    __syncthreads();
-    // selection: warp w serves queries w, w + 8, ...
-    for (int q = warp; q < kQT; q += kWarps) {
-      if (q0 + q >= Q) break;
-      const size_t o = (((size_t)p * Q + q0 + q) * n_lists + list) * topk;
-      int f = filled[q];
-      float wv = worst_v[q];
-      int wi = worst_i[q], wp = worst_p[q];
+    // ---- selection: queue what beats each query's bound, then drain ----
+    for (;;) {
+      int pending = 0, drain = 0;
 #pragma unroll
-      for (int half = 0; half < kRT / 32; ++half) {
-        const int r = half * 32 + lane;
-        warp_offer(S[q][r], G[r], list_v + o, list_i + o, topk, f, wv, wi,
-                   wp);
+      for (int i = 0; i < 8; ++i) {
+        const int q = ty + 16 * i;   // shared by 16 aligned lanes
+        float bv = sel.q.bound_v[q];
+        int bi = sel.q.bound_i[q];
+        float top = acc[i][0];
+#pragma unroll
+        for (int j = 1; j < 16; ++j) top = fmaxf(top, acc[i][j]);
+        if (topk <= 16 && __any_sync(0xffffffffu, bi == kSentinel)) {
+          // while a list fills: at least 16 candidates reach the minimum
+          // of the 16 lanes' best scores, so nothing below it can make
+          // the query's top-k
+          float floor_v = top;
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1)
+            floor_v = fminf(floor_v,
+                            __shfl_xor_sync(0xffffffffu, floor_v, off));
+          if (floor_v > bv) {
+            bv = floor_v;
+            bi = kSentinel;
+          }
+        }
+        if (!__any_sync(0xffffffffu, top >= bv)) continue;   // none passes
+        unsigned m = 0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float a = acc[i][j];
+          if (a > bv || (a == bv && sel.G[tx + 16 * j] < bi)) m |= 1u << j;
+        }
+        int pos = sel.q.template claim<16>(q, __popc(m));
+        drain |= m != 0 && pos + __popc(m) > kQueue / 2;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (!(m >> j & 1)) continue;
+          if (pos < kQueue) {
+            sel.q.put(pos, q, acc[i][j], sel.G[tx + 16 * j]);
+            acc[i][j] = -INFINITY;   // queued: never again
+          } else {
+            pending = 1;             // full: pending for the next round
+          }
+          ++pos;
+        }
       }
-      if (lane == 0) {
-        filled[q] = f;
-        worst_v[q] = wv;
-        worst_i[q] = wi;
-        worst_p[q] = wp;
-      }
+      // a queue half full or a candidate pending: drain, then retry
+      if (!__syncthreads_or(drain | pending)) break;
+      drain_lists();
+      if (!__syncthreads_or(pending)) break;
     }
+  }
+  __syncthreads();   // what the last tiles queued
+  drain_lists();
+
+  if (in_smem) {
     __syncthreads();
+    for (int e = tid; e < kQT * topk; e += kThreads) {
+      const int q = e % kQT, t = e / kQT;
+      if (q0 + q >= Q) continue;
+      const size_t o = (((size_t)p * Q + q0 + q) * n_lists + list) * topk + t;
+      list_v[o] = lv[e];
+      list_i[o] = li[e];
+    }
   }
 }
 
@@ -276,12 +348,12 @@ merge_kernel(const float* __restrict__ list_v,  // [P, Q, n_lists, topk]
              const int* __restrict__ list_full,  // [P, n_lists]
              float* __restrict__ out_v,          // [P, Q, topk]
              int* __restrict__ out_i, int Q, int topk, int n_lists) {
-  extern __shared__ unsigned char smem[];
+  extern __shared__ unsigned char smem_m[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int p = blockIdx.y;
   const int q = blockIdx.x * kMergeWarps + warp;
-  float* v = reinterpret_cast<float*>(smem) + (size_t)warp * topk;
-  int* ix = reinterpret_cast<int*>(smem) + (size_t)kMergeWarps * topk +
+  float* v = reinterpret_cast<float*>(smem_m) + (size_t)warp * topk;
+  int* ix = reinterpret_cast<int*>(smem_m) + (size_t)kMergeWarps * topk +
             (size_t)warp * topk;
   if (q >= Q) return;  // whole warps only: no block-wide barrier below
   for (int t = lane; t < topk; t += 32) {
@@ -319,6 +391,23 @@ merge_kernel(const float* __restrict__ list_v,  // [P, Q, n_lists, topk]
   }
 }
 
+template <bool kVec>
+int launch_score(const dim3& grid, cudaStream_t s, const float* stack,
+                 const float* queries, const float* mask, const int* gidx,
+                 float* list_v, int* list_i, int* list_full, int k, int block,
+                 int d, int Q, int topk, int n_chunks, int l2) {
+  const size_t smem = kRingBytes + sizeof(Sel) +
+                      (topk <= kSmemTopk ? (size_t)kQT * topk * 8 : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      score_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  score_kernel<kVec><<<grid, kThreads, smem, s>>>(
+      stack, queries, mask, gidx, list_v, list_i, list_full, k, block, d, Q,
+      topk, n_chunks, l2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int repro_query_topk(const void* stack, const void* queries,
@@ -330,15 +419,18 @@ extern "C" int repro_query_topk(const void* stack, const void* queries,
   const int n_chunks = (block + kChunk - 1) / kChunk;
   const cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid1(k * n_chunks, (Q + kQT - 1) / kQT, P);
-  score_kernel<<<grid1, kThreads, 0, s>>>(
-      (const float*)stack, (const float*)queries, (const float*)mask,
-      (const int*)gidx, (float*)list_v, (int*)list_i, (int*)list_full, k,
-      block, d, Q, topk, n_chunks, l2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)kMergeWarps * topk * (sizeof(float) + sizeof(int));
+  const bool vec = d % 4 == 0 &&
+                   ((uintptr_t)stack | (uintptr_t)queries) % 16 == 0;
+  const int rc =
+      (vec ? launch_score<true> : launch_score<false>)(
+          grid1, s, (const float*)stack, (const float*)queries,
+          (const float*)mask, (const int*)gidx, (float*)list_v,
+          (int*)list_i, (int*)list_full, k, block, d, Q, topk, n_chunks, l2);
+  if (rc != 0) return rc;
+  const size_t smem2 =
+      (size_t)kMergeWarps * topk * (sizeof(float) + sizeof(int));
   const dim3 grid2((Q + kMergeWarps - 1) / kMergeWarps, P);
-  merge_kernel<<<grid2, kMergeWarps * 32, smem, s>>>(
+  merge_kernel<<<grid2, kMergeWarps * 32, smem2, s>>>(
       (const float*)list_v, (const int*)list_i, (const int*)list_full,
       (float*)out_v, (int*)out_i, Q, topk, k * n_chunks);
   return (int)cudaGetLastError();

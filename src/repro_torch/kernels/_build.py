@@ -29,7 +29,7 @@ SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
            "pairwise_threshold_q.cu", "pairwise_topk_q.cu",
            "flash_attention.cu", "flash_attention_tc.cu", "ssd_chunk.cu")
 # headers the sources include (part of the build key)
-HEADERS = ("pair_tile.cuh", "hopper.cuh")
+HEADERS = ("pair_tile.cuh", "hopper.cuh", "topk_select.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the PCIT filter's output is a threshold decision: no FMA contraction and
@@ -63,8 +63,8 @@ SIGNATURES = {
     # P, k, block, d, n_pairs, block_rows, topk, tp, l2, stream
     "repro_pairwise_topk": [_vp] * 8 + [_i] * 9 + [_vp],
     # q, sd, sq, lo, hi, meta, list_v, list_i, out_v, out_i,
-    # P, k, block, d, n_pairs, block_rows, topk, tp, l2, bf16, stream
-    "repro_pairwise_topk_q": [_vp] * 10 + [_i] * 10 + [_vp],
+    # P, k, block, d, n_pairs, block_rows, topk, tp, l2, bf16, route, stream
+    "repro_pairwise_topk_q": [_vp] * 10 + [_i] * 11 + [_vp],
     # q, sd, l1, sq, lo, hi, meta, row_count, row_off, out_v, out_i, out_j,
     # count, P, k, block, d, n_pairs, block_rows, threshold, capacity, l2,
     # bf16, stream

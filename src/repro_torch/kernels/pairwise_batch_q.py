@@ -11,14 +11,22 @@ Replace the Pallas kernels of ``repro/kernels/pairwise_batch_q.py``:
     dequantized tiles, no band.  Source ``csrc/pairwise_topk_q.cu``.
 
 The codes stay in their storage type (1 or 2 bytes) all the way into
-shared memory and are widened there; the per-slot (scale, delta) pairs
-ride as one [P, k, 2] float32 operand, the row L1 norms and exact squared
-norms as [P, k, block] ones.  What bounds them on the H100: 2*d operations
-per candidate of an active tile, at the int8 (1,979 TOP/s) or bf16
-(989 TFLOP/s) tensor-core rate; these first versions are SIMT kernels on
-the float32 pipe, built with ``-fmad=false`` so that with int8 codes,
-whose float32 dots are exact while d * 127^2 < 2^24, their outputs equal
-the plain versions'.
+shared memory; the per-slot (scale, delta) pairs ride as one [P, k, 2]
+float32 operand, the row L1 norms and exact squared norms as [P, k, block]
+ones.  What bounds them on the H100: 2*d operations per candidate of an
+active tile, at the int8 (1,979 TOP/s) or bf16 (989 TFLOP/s) tensor-core
+rate.  Both files are built with ``-fmad=false``, so the dequant
+epilogues round op for op as the plain versions' do.
+
+B7 is a SIMT kernel on the float32 pipe (codes widened in shared memory;
+int8 float32 dots are exact while d * 127^2 < 2^24).  B8 scores on the
+tensor cores with ``mma.sync`` (int8 into s32, bf16 into f32) and
+selects behind each row's admission bound in registers.  Int8 with d
+above 1,040, where an s32 sum may no longer convert to float32 exactly,
+and bf16 with d above 128, where the tensor cores' accumulation drifts
+past the 1e-5 tie rule, take the float32 SIMT tile instead
+(:func:`route_of`).  Either way the int8 lists equal the plain
+version's.
 
 The plain versions beside them are :func:`pairwise_threshold_q_plain` and
 :func:`pairwise_topk_q_plain`; the device dispatch is
@@ -39,11 +47,33 @@ from .ref import pairwise_topk_q as pairwise_topk_q_plain
 
 __all__ = ["pairwise_threshold_q_cuda", "pairwise_topk_q_cuda",
            "pairwise_threshold_q_plain", "pairwise_topk_q_plain",
-           "threshold_launches", "topk_launches"]
+           "threshold_launches", "topk_launches", "route_of",
+           "INT8_EXACT_D", "BF16_TC_MAX_D"]
 
 #: B7 / B8 launches since the counts were last set to 0
 threshold_launches = 0
 topk_launches = 0
+
+#: the largest d at which every int8 code dot (|dot| <= d * 127^2) is an
+#: integer below 2^24, so its int32 sum converts to float32 exactly
+INT8_EXACT_D = (1 << 24) // (127 * 127)
+
+#: the widest bf16 rows scored on the tensor cores: their f32 accumulation
+#: (which does not round to nearest) drifts from the plain version's f32
+#: product with d, and near zero the tie rule is 1e-5 absolute; at d = 256
+#: it nears the rule where the float32 fmaf chain keeps a margin
+#: (``chip_smoke.py`` reads both routes at d = 128, 256 and 1,040)
+BF16_TC_MAX_D = 128
+
+
+def route_of(dtype: torch.dtype, d: int) -> str:
+    """The B8 kernel a CUDA call with codes of ``dtype`` and width ``d``
+    launches: ``"tensor_cores"`` (``mma.sync``) for int8 with d <=
+    :data:`INT8_EXACT_D` (1,040) and bf16 with d <= :data:`BF16_TC_MAX_D`
+    (128); ``"simt"`` (the float32 tile of ``csrc/pair_tile.cuh``) above
+    them."""
+    limit = INT8_EXACT_D if dtype == torch.int8 else BF16_TC_MAX_D
+    return "tensor_cores" if d <= limit else "simt"
 
 
 def _check_codes(name: str, q: torch.Tensor, sd: torch.Tensor, rows,
@@ -114,16 +144,22 @@ def pairwise_threshold_q_cuda(q: torch.Tensor, sd: torch.Tensor,
 
 def pairwise_topk_q_cuda(q: torch.Tensor, sd: torch.Tensor, sq: torch.Tensor,
                          lo, hi, meta, *, topk: int, block_rows: int,
-                         metric: str = "dot"):
+                         metric: str = "dot", route: str | None = None):
     """q [P, k, block, d] int8 / bfloat16 codes; sd [P, k, 2] (scale,
     delta); sq [P, k, block]; lo / hi [n_pairs]; meta [P, n_pairs, 6]; all
     on one CUDA device.  Returns ``(vals [P, k, block, topk] float32, idx
-    [P, k, block, topk] int32)`` as ``kernels/ref.py:pairwise_topk_q``."""
+    [P, k, block, topk] int32)`` as ``kernels/ref.py:pairwise_topk_q``.
+    ``route`` overrides :func:`route_of` (``chip_smoke.py`` reads both
+    routes' error at one shape)."""
     global topk_launches
     if topk < 1:
         raise ValueError(f"topk must be >= 1, got {topk}")
+    if route not in (None, "tensor_cores", "simt"):
+        raise ValueError(f"route must be 'tensor_cores' or 'simt', got "
+                         f"{route!r}")
     q, sd, (sq,) = _check_codes("pairwise_topk_q", q, sd, (sq,), metric)
     P, k, block, d = q.shape
+    route = route or route_of(q.dtype, d)
     lo_h, hi_h, n_pairs, meta = check_pairs("pairwise_topk_q", q, lo, hi,
                                             meta)
     dev = q.device
@@ -142,7 +178,7 @@ def pairwise_topk_q_cuda(q: torch.Tensor, sd: torch.Tensor, sq: torch.Tensor,
             list_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), P, k,
             block, d, n_pairs, int(block_rows), int(topk), tp,
             int(metric == "l2"), int(q.dtype == torch.bfloat16),
-            _build.stream_of(q))
+            int(route == "tensor_cores"), _build.stream_of(q))
     _build.check(rc, "pairwise_topk_q")
     topk_launches += 1
     return out_v, out_i

@@ -5,14 +5,18 @@ query_topk_pallas`` (body ``_query_topk_kernel``), the serving engine's
 ``batch_fn``.  Source: ``repro_torch/csrc/query_topk.cu``.
 
 What bounds it on the H100: fp32 arithmetic outside the tensor cores
-(67 TFLOP/s; 2*Q*d operations per unmasked (query, row)).  The TPU kernel
-merges slot after slot into one running [Q, topk] list on its sequential
-grid.  Here one launch covers every simulated device: a first pass scores
-4096-row chunks against 64-query tiles (SIMT fp32, TF32 off) and keeps
-each chunk's top-k per query behind a running k-th value; a chunk the
-cover mask leaves unscored exits at once, so only the cover's rows cost
-work.  A second pass merges the chunk lists per (device, query) and orders
-them.  Selection is exact under the (-score, index) order.
+(67 TFLOP/s; 2*Q*d operations per unmasked (query, row)); the f32 scores
+decide the ranking, so no TF32.  The TPU kernel merges slot after slot
+into one running [Q, topk] list on its sequential grid.  Here one launch
+covers every simulated device: a first pass scores 16,384-row chunks
+against 128-query tiles with B2's tile (``csrc/pairwise_corr.cu``;
+128 x 256 a block, a 3-stage ``cp.async`` ring) and keeps each chunk's
+top-k per query: each score is compared in registers with its query's
+admission bound, and only those that beat it are queued for the query's
+running list.  A chunk the cover mask leaves unscored exits at once, so
+only the cover's rows cost work.  A second pass merges the chunk lists per (device,
+query) and orders them.  Selection is exact under the (-score, index)
+order.
 
 The plain version beside it is :func:`query_topk_plain`; the device
 dispatch is :func:`repro_torch.kernels.ops.query_topk`.
@@ -76,7 +80,7 @@ def query_topk_cuda(stack: torch.Tensor, queries: torch.Tensor,
         return out_v.fill_(-1e30), out_i.fill_(2 ** 31 - 1)
     lib = _build.library()
     n_lists = k * -(-block // lib.repro_query_topk_chunk_rows())
-    if P > 65535 or -(-Q // 64) > 65535:
+    if P > 65535 or -(-Q // 128) > 65535:
         raise ValueError(f"P={P} or Q={Q} exceeds the launch grid")
     list_v = torch.empty(P, Q, n_lists, topk, dtype=torch.float32,
                          device=dev)

@@ -155,7 +155,15 @@ def _query_inputs(rng, P, k, block, d, Q, integer, cuda):
     (2, 3, 16, 8, 5, 4, False), (1, 4, 12, 24, 70, 8, False),
     (3, 5, 8, 4, 3, 40, False), (2, 3, 10000, 8, 33, 16, True),
     (1, 2, 9000, 16, 64, 128, True), (2, 4, 20000, 128, 256, 16, False),
-    (1, 2, 5000, 32, 20, 1024, False)])
+    (1, 2, 5000, 32, 20, 1024, False),
+    # the tile edges: Q past one 128-query tile, blocks ragged against
+    # the 256-row tiles and the 4,096-row chunks, d not a multiple of 4
+    # (plain loads), lists at the shared-memory limit (32) and past it
+    (1, 2, 8449, 20, 200, 32, True), (2, 2, 4097, 37, 129, 33, True),
+    (1, 3, 4351, 128, 300, 16, False),
+    # topk 1024 over fewer rows: every candidate passes, the queues
+    # fill and flush over many rounds
+    (2, 2, 1000, 16, 130, 1024, True)])
 @pytest.mark.parametrize("metric", ["dot", "l2"])
 def test_query_topk(cuda, P, k, block, d, Q, topk, integer, metric):
     """B4 against its plain version: ragged Q and blocks, masked rows, a
@@ -312,6 +320,19 @@ def _assert_lists_near(got_v, got_i, want_v, want_i):
 PAIR_CELLS = [(2, 3, 16, 8, 4, False, False), (1, 4, 100, 24, 6, True, False),
               (2, 3, 300, 128, 5, False, False),
               (1, 3, 300, 16, 5, True, True), (2, 2, 77, 32, 3, False, True)]
+# B8's tensor-core tile edges: 128-row tiles, 128-byte d slices (d 40: 40
+# / 80 bytes; d 256: int8 resident in two slices, bf16 on the SIMT route),
+# plain loads (d 24), self-only schedules
+B8_CELLS = PAIR_CELLS + [(1, 3, 300, 40, 5, True, False),
+                         (1, 2, 200, 256, 3, False, False),
+                         (2, 2, 260, 40, 3, True, True),
+                         (1, 2, 129, 24, 4, False, True)]
+# the int8 exactness limit: d 1,040 on the tensor cores (own rows streamed,
+# 1,040 bytes), 1,041 on the SIMT route.  int8 only: bf16 sums of 1,040
+# products in another order than the plain version's move scores near zero
+# by up to 9.2e-5 even on the float32 fmaf chain (PERF.md)
+B8_INT8_CELLS = [(1, 2, 200, 1040, 3, False, False),
+                 (1, 2, 150, 1041, 3, True, False)]
 
 
 @pytest.mark.parametrize("P,k,block,d,n_pairs,integer,self_only", PAIR_CELLS)
@@ -334,14 +355,15 @@ def test_pairwise_topk(cuda, P, k, block, d, n_pairs, integer, self_only,
         _assert_lists_near(*got, *want)
 
 
-@pytest.mark.parametrize("P,k,block,d,n_pairs,integer,self_only", PAIR_CELLS)
-@pytest.mark.parametrize("topk", [1, 10, 2048])
+@pytest.mark.parametrize("P,k,block,d,n_pairs,integer,self_only", B8_CELLS)
+@pytest.mark.parametrize("topk", [1, 10, 16, 512, 2048])
 @pytest.mark.parametrize("qmode", ["int8", "bf16"])
 @pytest.mark.parametrize("metric", ["dot", "l2"])
 def test_pairwise_topk_q(cuda, P, k, block, d, n_pairs, integer, self_only,
                          topk, qmode, metric):
     """B8 against its plain version: int8 lists identical (ties included),
-    bf16 within the near-tie rule."""
+    on both routes; bf16 within the near-tie rule; lists in shared memory
+    (topk <= 32) and in global memory."""
     rng = np.random.default_rng(P * 300 + block + topk)
     quorum, lo, hi, meta = _pair_inputs(rng, P, k, block, d, n_pairs,
                                         integer, self_only, cuda)
@@ -385,6 +407,42 @@ def test_pairwise_threshold_q(cuda, P, k, block, d, n_pairs, integer,
         assert bool(((got[3] - want[3]).abs() <= 1e-4 * n + 2).all())
     if capacity == 37:
         assert bool((want[3] > capacity).any())     # an overflowing cell
+
+
+@pytest.mark.parametrize("P,k,block,d,n_pairs,integer,self_only",
+                         B8_INT8_CELLS)
+@pytest.mark.parametrize("topk", [1, 16, 512, 2048])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_topk_q_int8_limit(cuda, P, k, block, d, n_pairs, integer,
+                                    self_only, topk, metric):
+    """int8 at the exactness limit: lists identical on both routes."""
+    rng = np.random.default_rng(P * 300 + block + topk)
+    quorum, lo, hi, meta = _pair_inputs(rng, P, k, block, d, n_pairs,
+                                        integer, self_only, cuda)
+    codes, sd, _l1, sq = _quantized(quorum, "int8")
+    kw = dict(topk=topk, block_rows=block, metric=metric)
+    got = ops.pairwise_topk_q(codes, sd, sq, lo, hi, meta, **kw)
+    want = ref.pairwise_topk_q(codes, sd[..., 0], sq, lo, hi, meta, **kw)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("d", [1040, 1041])
+def test_pairwise_topk_q_routes(cuda, d):
+    """The int8 call at d = 1,040 runs the tensor-core kernel and at 1,041
+    the SIMT one; each counts one launch and equals the plain version."""
+    from repro_torch.kernels.pairwise_batch_q import route_of
+    quorum, lo, hi, meta = _pair_inputs(np.random.default_rng(d), 1, 2, 64, d,
+                                        2, False, False, cuda)
+    codes, sd, _l1, sq = _quantized(quorum, "int8")
+    ops.reset_launch_counts()
+    got = ops.pairwise_topk_q(codes, sd, sq, lo, hi, meta, topk=5,
+                              block_rows=64)
+    want = ref.pairwise_topk_q(codes, sd[..., 0], sq, lo, hi, meta, topk=5,
+                               block_rows=64)
+    assert ops.launch_counts()["pairwise_topk_q"] == 1
+    assert route_of(torch.int8, d) == ("tensor_cores" if d <= 1040
+                                       else "simt")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_pair_kernels_count_launches(cuda):
@@ -446,7 +504,12 @@ def test_flash_attention(cuda, B, Tq, Tk, KV, G, hd, causal, dtype):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("B,Tq,Tk,KV,G,hd", FLASH_CELLS)
+# hd 256 over a whole 4,096-key quorum block: 128 tiles of 32 keys, each
+# tile's P V joining O by one f32 fmaf (ROADMAP C.1)
+FLASH_PART_CELLS = FLASH_CELLS + [(1, 4096, 4096, 1, 2, 256)]
+
+
+@pytest.mark.parametrize("B,Tq,Tk,KV,G,hd", FLASH_PART_CELLS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_partial(cuda, B, Tq, Tk, KV, G, hd, causal, dtype):
