@@ -11,11 +11,14 @@ beside the script).  Phases:
   1. the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel); read
      the library's SASS with ``cuobjdump``: the bf16 B9 kernel must issue
-     HGMMA (``wgmma``) and B2 no atomics;
+     HGMMA (``wgmma``), B7's and B8's tensor-core kernels IMMA / HMMA
+     (``mma.sync``), B2, B5 and B7 no atomics, B4 and B8 no float atomics;
   2. B1 pairwise_batch, B2 pairwise_corr and B3 pcit_filter, and
   3. B4 query_topk and B5 pairwise_threshold, each at its main path's
      shapes against its plain PyTorch version, timed with CUDA events
-     beside the plain version and, where one exists, a library yardstick;
+     beside the plain version and, where one exists, a library yardstick
+     (B5: beside a GEMM-only yardstick, ``torch.mm`` over the same active
+     tiles);
   4. the engine self-check on the card at P = 2, 5, 8, every mode;
   5. the serving and sparse-join self-checks at P = 2, 5, 8, every mode
      including ``kernel``;
@@ -34,7 +37,9 @@ beside the script).  Phases:
      devices through B5, held against a brute force on the card;
  10. B6 pairwise_topk, B7 pairwise_threshold_q and B8 pairwise_topk_q (int8
      and bf16) at the k-NN and quantized paths' shapes against their plain
-     versions, timed beside them and a two-call library yardstick;
+     versions, timed beside them and a two-call library yardstick (B7:
+     beside a GEMM-only yardstick, ``torch._int_mm`` / bf16 ``torch.mm``
+     over the same active tiles, and on each route at d = 128);
  11. the k-NN and quantized-pipeline self-checks at P = 2, 5, 8, every mode
      including ``kernel``;
  12. the k-NN graph (top-10, l2) of the join's corpus through B6, held
@@ -183,6 +188,51 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def kernel_split(fn, calls: int = 3) -> str:
+    """Mean device ms of each kernel that ``calls`` calls of ``fn`` launch,
+    from torch.profiler (CUPTI), as "name ms (xN captured), ..." in launch
+    order; N tells how many of the launches the trace kept."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        if "kernel" not in e.key or e.key.startswith("cuda") \
+                or e.device_time_total <= 0:
+            continue
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.removeprefix("void ").split("::")[-1]
+        parts.append(f"{name} {e.device_time_total / e.count / 1e3:.3f} ms "
+                     f"(x{e.count})")
+    return ", ".join(parts) or "not measured"
+
+
+def hot_tiles(got, tile: int = 128) -> int:
+    """Distinct (device, 128-row strip, 128-column tile) holding an entry
+    of compacted buffers that hold every entry (count <= capacity)."""
+    n = 0
+    for p in range(P):
+        c = int(got[3][p])
+        i, j = got[1][p, :c].long() // tile, got[2][p, :c].long() // tile
+        n += torch.unique(i * (1 << 32) + j).numel()
+    return n
+
+
+def walked_tiles(meta, tile: int = 128) -> int:
+    """The 128 x 128 tiles B5's / B7's count pass walks: every tile of an
+    active pair's valid rows, a self pair's from its diagonal on."""
+    n = 0
+    for a, s_, _ga, _gb, nv_lo, nv_hi in meta.reshape(-1, 6).tolist():
+        if a:
+            rs, cs_ = -(-nv_lo // tile), -(-nv_hi // tile)
+            n += sum(cs_ - r for r in range(rs)) if s_ else rs * cs_
+    return n
+
+
 def sass_functions(lib: Path) -> dict:
     """{mangled kernel name: its SASS text} of the built library, from the
     toolkit's ``cuobjdump -sass``."""
@@ -199,13 +249,15 @@ def sass_functions(lib: Path) -> dict:
 
 # a float atomic in SASS: ATOM / ATOMS / ATOMG / RED on an F16 / F32 / F64
 FLOAT_ATOMIC = re.compile(r"\b(?:ATOMG?|ATOMS|RED)\.[A-Z0-9_.]*F(?:16|32|64)")
+# any atomic opcode (not the barrier reduction BAR.RED of __syncthreads_or)
+ANY_ATOMIC = re.compile(r"(?<![\w.])(?:ATOMG?|ATOMS|RED)\.[A-Z0-9_.]*")
 
 
 def check_sass(lib: Path) -> None:
     """The bf16 B9 kernel runs on the tensor cores (every instantiation
-    issues HGMMA, the SASS of ``wgmma``); B8's tensor-core route issues
-    IMMA (int8) and HMMA (bf16), the SASS of ``mma.sync``; B2 issues no
-    atomics, and B4 and B8 no float atomics."""
+    issues HGMMA, the SASS of ``wgmma``); B7's and B8's tensor-core routes
+    issue IMMA (int8) and HMMA (bf16), the SASS of ``mma.sync``; B2, B5
+    and B7 issue no atomics, and B4 and B8 no float atomics."""
     funcs = sass_functions(lib)
     tc = {n: f.count("HGMMA") for n, f in funcs.items()
           if "flash_tc_kernel" in n}
@@ -226,17 +278,40 @@ def check_sass(lib: Path) -> None:
           f"B8 int8: IMMA counts per instantiation {imma}")
     check(len(hmma) == 8 and all(c > 0 for c in hmma),
           f"B8 bf16: HMMA counts per instantiation {hmma}")
+    # B7 (band_tc_kernel<int8_t | __nv_bfloat16, vec, resident rows,
+    # write pass>): eight instantiations of each
+    b7 = {n: f for n, f in funcs.items() if "band_tc_kernel" in n}
+    imma7 = [f.count("IMMA") for n, f in b7.items() if "band_tc_kernelIa" in n]
+    hmma7 = [f.count("HMMA") for n, f in b7.items()
+             if "band_tc_kernelI13__nv_bfloat16" in n]
+    check(len(imma7) == 8 and all(c > 0 for c in imma7),
+          f"B7 int8: IMMA counts per instantiation {imma7}")
+    check(len(hmma7) == 8 and all(c > 0 for c in hmma7),
+          f"B7 bf16: HMMA counts per instantiation {hmma7}")
     # B4 (score_kernel x 2, merge_kernel of query_topk.cu) and B8
     sel = {n: f for n, f in funcs.items()
            if "query_topk" in n or "topk_tc_kernel" in n}
     f_atomics = sum(len(FLOAT_ATOMIC.findall(f)) for f in sel.values())
     check(len(sel) == 19 and f_atomics == 0,
           f"B4 / B8: {len(sel)} kernels, {f_atomics} float atomics")
+    # B5 (tile_kernel x 4, norm_kernel) and B7 (band_tc_kernel x 16,
+    # band_simt_kernel x 4) with compact.cuh's scan: no atomic of any kind
+    # (no float atomic, and no atomic output cursor)
+    thr = {n: f for n, f in funcs.items()
+           if "pairwise_threshold" in n or "compact11scan_kernel" in n}
+    found = sorted({a for f in thr.values() for a in ANY_ATOMIC.findall(f)})
+    thr_atomics = sum(len(ANY_ATOMIC.findall(f)) for f in thr.values())
+    thr_float = sum(len(FLOAT_ATOMIC.findall(f)) for f in thr.values())
+    check(len(thr) >= 25 and thr_atomics == 0 and thr_float == 0,
+          f"B5 / B7: {len(thr)} kernels, {thr_atomics} atomics "
+          f"({thr_float} float): {found}")
     say(f"SASS: bf16 B9 (flash_tc_kernel, hd padded to 64 / 128 / 256) "
         f"HGMMA instructions {sorted(tc.values())}; B2 (corr_kernel, two "
         f"instantiations) atomics {atomics}; B8 (topk_tc_kernel) IMMA "
         f"{imma} int8, HMMA {hmma} bf16; B4 / B8 ({len(sel)} kernels) float "
-        f"atomics {f_atomics}")
+        f"atomics {f_atomics}; B7 (band_tc_kernel) IMMA {imma7} int8, HMMA "
+        f"{hmma7} bf16; B5 / B7 ({len(thr)} kernels with the scan) atomics "
+        f"{thr_atomics}, float atomics {thr_float}")
 
 
 def make_bodies(n: int, seed: int) -> np.ndarray:
@@ -714,6 +789,11 @@ def phase_kernels_serving(report: dict) -> None:
     err, n_diff = compare_hits(X, xn, thr, got, want, "B5")
     ms = cuda_ms(lambda: ops.pairwise_threshold(quorum, lo, hi, meta, **kw),
                  reps=3)
+    gemm_ms = per_tile_gemm(quorum, lo, hi, meta,
+                            lambda a, b, out: torch.mm(a, b.T, out=out),
+                            torch.float32)
+    split = kernel_split(lambda: ops.pairwise_threshold(quorum, lo, hi, meta,
+                                                        **kw))
     cand = 0
     for p in range(P):
         for n in range(len(lo)):
@@ -725,7 +805,10 @@ def phase_kernels_serving(report: dict) -> None:
         f"pairs, {cand} candidates in active tiles, {int(got[3].sum())} "
         f"hits: max_abs_err={err:.3e}, {n_diff} hits differ (all within "
         f"{SCORE_TOL} of the threshold); kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms (host clock), bound {b_ms:.3f} ms ({b_by})")
+        f"{plain_ms:.3f} ms (host clock), GEMM only, no threshold (torch.mm, "
+        f"TF32 off, per active tile) {gemm_ms:.3f} ms, bound {b_ms:.3f} ms "
+        f"({b_by}); by kernel (torch.profiler): {split}; hot tiles "
+        f"{hot_tiles(got)} of {walked_tiles(meta)}")
     # an overflowing capacity keeps the plain version's exact prefix
     # (small-integer data: every score exact, so no boundary rounding)
     g = torch.Generator(device=DEVICE).manual_seed(3)
@@ -745,6 +828,7 @@ def phase_kernels_serving(report: dict) -> None:
     report["pairwise_threshold"] = dict(max_abs_err=err, ms=ms,
                                         plain_ms=plain_ms, bound_ms=b_ms,
                                         bound_by=b_by, library_ms=None,
+                                        gemm_only_ms=gemm_ms,
                                         differing=n_diff, candidates=cand)
 
 
@@ -1046,6 +1130,41 @@ def per_tile_library(quorum, lo, hi, meta, product) -> float:
     return cuda_ms(run, reps=1)
 
 
+def per_tile_gemm(quorum, lo, hi, meta, product, dtype) -> float:
+    """The GEMM-only yardstick of B5 / B7 (no threshold, no compaction):
+    ``product(a, b, out)`` (one library matmul into a reused [block,
+    block] tile of ``dtype``) over every active tile.  Device ms of one
+    pass."""
+    active = meta[..., 0].cpu()
+    lo, hi = [int(v) for v in lo], [int(v) for v in hi]
+    block = quorum.shape[2]
+    out = torch.empty(block, block, dtype=dtype, device=DEVICE)
+
+    def run():
+        for p in range(P):
+            for n, (l, h) in enumerate(zip(lo, hi)):
+                if active[p, n]:
+                    product(quorum[p, l], quorum[p, h], out)
+    ms = cuda_ms(run, reps=1)
+    del out
+    return ms
+
+
+def common_value_err(got, want, N: int) -> float:
+    """Largest |value difference| over the pairs both compacted buffers
+    hold (the bf16 bands may differ at their edge)."""
+    err = 0.0
+    for p in range(P):
+        ng, nw = int(got[3][p]), int(want[3][p])
+        gk, gi = torch.sort(pair_keys(got[1][p, :ng], got[2][p, :ng], N))
+        wk, wi = torch.sort(pair_keys(want[1][p, :nw], want[2][p, :nw], N))
+        gv = got[0][p, :ng][gi][torch.isin(gk, wk)]
+        wv = want[0][p, :nw][wi][torch.isin(wk, gk)]
+        if gv.numel():
+            err = max(err, float((gv - wv).abs().max()))
+    return err
+
+
 def band_edge_check(qc, thr, got, want, what: str) -> int:
     """bf16 band buffers against the plain version's: identical, or the
     pair sets differ only by pairs whose plain band score lies within
@@ -1084,8 +1203,8 @@ def phase_kernels_knn(report: dict) -> None:
     from repro_torch.core.knn import quorum_allpairs_knn
     from repro_torch.core.placement import get_placement
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pairwise_batch_q import (pairwise_topk_q_cuda,
-                                                      route_of)
+    from repro_torch.kernels.pairwise_batch_q import (
+        pairwise_threshold_q_cuda, pairwise_topk_q_cuda, route_of)
     from repro_torch.serving.engine import quantize_pow2
 
     comm = SingleProcessComm(P, DEVICE)
@@ -1277,10 +1396,33 @@ def phase_kernels_knn(report: dict) -> None:
             n_diff, err = 0, 0.0
         else:
             n_diff = band_edge_check(qc, thr, got, want, "B7 bf16")
-            same = got[1].shape == want[1].shape and n_diff == 0
-            err = float((got[0] - want[0]).abs().max()) if same else 0.0
+            err = common_value_err(got, want, N)
         ms = cuda_ms(lambda: ops.pairwise_threshold_q(
             qq.q, sd, qq.l1, qq.sq, lo, hi, meta, **kw), reps=2)
+        # each route at this shape (d = 128): the band must not move
+        route_ms = {}
+        for route in ("tensor_cores", "simt"):
+            alt = pairwise_threshold_q_cuda(qq.q, sd, qq.l1, qq.sq, lo, hi,
+                                            meta, route=route, **kw)
+            if qm == "int8":
+                check(all(torch.equal(a, b) for a, b in zip(alt, want)),
+                      f"B7 int8 route {route}: band buffers differ")
+            del alt
+            route_ms[route] = cuda_ms(lambda: pairwise_threshold_q_cuda(
+                qq.q, sd, qq.l1, qq.sq, lo, hi, meta, route=route, **kw),
+                reps=1)
+        if qm == "int8":
+            gemm_ms = per_tile_gemm(
+                qq.q, lo, hi, meta,
+                lambda a, b, out: torch._int_mm(a, b.T, out=out), torch.int32)
+            gemm_name = "torch._int_mm"
+        else:
+            gemm_ms = per_tile_gemm(
+                qq.q, lo, hi, meta,
+                lambda a, b, out: torch.mm(a, b.T, out=out), torch.bfloat16)
+            gemm_name = "torch.mm (bf16)"
+        split = kernel_split(lambda: ops.pairwise_threshold_q(
+            qq.q, sd, qq.l1, qq.sq, lo, hi, meta, **kw))
         cand = active_candidates(meta)
         b_ms, b_by = bound(nbytes(qq.q, sd, qq.l1, qq.sq, meta, *got),
                            2.0 * JOIN_D * cand,
@@ -1289,14 +1431,23 @@ def phase_kernels_knn(report: dict) -> None:
             f"pairs, l2 band at threshold {thr:.6g}: {int(got[3].sum())} band "
             f"entries, max_abs_err={err:.3e}, {n_diff} differ (at the band's "
             f"edge); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (host clock,"
-            f" device by device), bound {b_ms:.3f} ms ({b_by}, {qm} "
-            "tensor-core peak)")
+            f" device by device), GEMM only, no threshold ({gemm_name} per "
+            f"active tile) {gemm_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
+            f"{qm} tensor-core peak); route {route_of(qq.q.dtype, JOIN_D)}; "
+            f"by route at d = {JOIN_D}: tensor_cores "
+            f"{route_ms['tensor_cores']:.3f} ms, simt {route_ms['simt']:.3f} "
+            f"ms; by kernel (torch.profiler): {split}; hot tiles "
+            f"{hot_tiles(got)} of {walked_tiles(meta)}")
         if qm == "int8":
             report["pairwise_threshold_q"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, band=int(got[3].sum()))
+                bound_by=b_by, library_ms=None, gemm_only_ms=gemm_ms,
+                simt_ms=route_ms["simt"], band=int(got[3].sum()))
         else:
-            report["pairwise_threshold_q"]["bf16_ms"] = ms
+            report["pairwise_threshold_q"].update(
+                bf16_ms=ms, bf16_max_abs_err=err, bf16_plain_ms=plain_ms,
+                bf16_bound_ms=b_ms, bf16_gemm_only_ms=gemm_ms,
+                bf16_simt_ms=route_ms["simt"])
         del qq, got, want
     # an overflowing capacity keeps the plain version's exact prefix
     g = torch.Generator(device=DEVICE).manual_seed(4)
@@ -2080,7 +2231,7 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      **{k: v for k, v in r.items()
-                        if k.startswith("bf16_")}})
+                        if k.startswith(("bf16_", "gemm_only", "simt_"))}})
     say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

@@ -1,5 +1,5 @@
-// Small PTX wrappers for Hopper (sm_90a) kernels: cp.async with zero
-// fill, the async-proxy fence, wgmma's fence / commit / wait, the shared
+// Small PTX wrappers for Hopper (sm_90a) kernels: cp.async (16 and 4
+// bytes) with zero fill, the async-proxy fence, wgmma's fence / commit / wait, the shared
 // memory matrix descriptor of the 128-byte swizzled layout, the bf16
 // wgmma shapes the port's kernels issue, and the warp-level ldmatrix /
 // mma.sync pair (int8 and bf16) of B8.
@@ -35,6 +35,12 @@ __device__ __forceinline__ uint32_t swizzled(int R, int row, int col) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+// 4-byte global -> shared copy (any 4-byte-aligned address), as above
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -19,10 +19,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "compact.cuh"
 #include "topk_select.cuh"
 
 namespace pair_tile {
 
+using compact::load_meta;
+using compact::Meta;
 using topk_select::before;
 using topk_select::kNegInf;
 using topk_select::kSentinel;
@@ -33,14 +36,6 @@ constexpr int kDepth = 16;     // d per shared-memory stage
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int kWarps = kThreads / 32;
 constexpr int kOrderWarps = 4;
-
-struct Meta {
-  int active, is_self, ga, gb, nv_lo, nv_hi;
-};
-
-__device__ __forceinline__ Meta load_meta(const int* m) {
-  return Meta{m[0], m[1], m[2], m[3], m[4], m[5]};
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }

@@ -12,256 +12,364 @@
 // (pair, row, col) order in [capacity] buffers; those past capacity are
 // dropped while the count keeps the true total.
 //
-// Design.  The TPU kernel walks the pairs in order on its sequential grid
-// with a running count in SMEM.  Hopper's blocks run in no order, and an
-// atomic cursor would scramble which entries survive an overflow, so the
-// order is made explicit in three passes:
+// Bound on the H100: fp32 arithmetic outside the tensor cores, 2*d
+// operations per candidate of an active tile (67 TFLOP/s).  The f32
+// scores decide the threshold, so no TF32: every score is one fmaf chain
+// over d in ascending order, and so is every squared norm (norm_kernel,
+// once per slot row, not per strip and per tile).
 //
-//   1. tile_kernel<false>: one block per (device, pair, 64-row strip)
-//      walks the strip's 64-column tiles (on a self tile, only those
-//      right of the diagonal) with a SIMT fp32 GEMM (4 x 4 outputs per
-//      thread, TF32 off: the scores are threshold decisions) and counts
-//      the survivors of each row;
-//   2. scan_kernel: one block per device turns the counts into exclusive
-//      offsets in (pair, row) order, writes the true count, and fills the
-//      unused tail of the buffers with (NEG_INF, IDX_SENTINEL);
-//   3. tile_kernel<true>: the same tiles again; within a row, a survivor's
-//      position is the row's offset plus the survivors left of it (warp
-//      ballots over the 16 threads that share the row).
-//
-// An inactive tile, or a strip past nv_lo, exits at once in both tile
-// passes.  Bound on the H100: fp32 arithmetic outside the tensor cores,
-// 2*d operations per candidate of an active tile; this first version
-// scores every active tile twice (count, then write).
+// Design.  compact.cuh's count -> scan -> write, one block of 128 threads
+// per (device, pair, 128-row strip): an inactive pair, or a strip past
+// nv_lo, exits at once.  The block scores 128 x 128 tiles as B2's GEMM
+// (pairwise_corr.cu) does: 8 x 16 scores a thread (rows ty + 16 i,
+// columns tx + 8 j), 32-deep d slices of the strip's rows and the tile's
+// columns through a 3-stage 16-byte cp.async ring in dynamic shared memory
+// (zero fill past the rows and d; plain loads where d or the base is not
+// 16-byte aligned), two blocks an SM.  The ring runs on across tiles, so
+// the next tile loads while this one's epilogue runs.  The count pass
+// walks every tile from the strip's diagonal (self tile) or from column 0,
+// adds each row's survivors (8 lanes share a row: three shuffles) and
+// marks the hot tiles; the write pass walks the hot tiles only and ranks
+// a survivor within its row by a ballot over the row's 8 lanes, column
+// tile by column tile (columns tx + 8 j: j-major, then tx).  Interior
+// tiles skip the row / column / diagonal masks.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "compact.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kSentinel = 0x7fffffff;
-constexpr int kTile = 64;
-constexpr int kDepth = 16;
-constexpr int kThreads = 256;  // 16 x 16, each 4 rows x 4 columns
-constexpr int kScanThreads = 1024;
+using namespace hopper;
+using compact::Cursor;
+using compact::Meta;
+using compact::Tiles;
 
-struct Meta {
-  int active, is_self, ga, gb, nv_lo, nv_hi;
+constexpr int kTile = 128;        // strip rows, tile columns
+constexpr int kDepth = 32;        // d per ring stage
+constexpr int kLd = kDepth + 4;   // row stride in shared memory (floats)
+constexpr int kStages = 3;
+constexpr int kThreads = 128;     // 16 x 8, each 8 rows x 16 columns
+constexpr int kStageFloats = 2 * kTile * kLd;
+constexpr int kRingBytes = kStages * kStageFloats * (int)sizeof(float);
+constexpr int kNormRows = 128;
+static_assert(kThreads == kTile, "one thread per strip row and tile column");
+
+struct Epi {
+  long long pos[kTile];  // write pass: each row's next position
+  int cnt[kTile];        // count pass: each row's survivors so far
+  float rn[kTile];       // |row|^2 of the strip (l2)
+  float cn[kTile];       // |column|^2 of the tile (l2)
 };
+constexpr int kSmemBytes = kRingBytes + (int)sizeof(Epi);
 
-template <bool kWrite>
-__global__ void __launch_bounds__(kThreads)
-tile_kernel(const float* __restrict__ quorum,  // [P, k, block, d]
-            const int* __restrict__ lo, const int* __restrict__ hi,
-            const int* __restrict__ meta,       // [P, n_pairs, 6]
-            int* __restrict__ row_count,        // [P, n_pairs, block]
-            const long long* __restrict__ row_off,  // [P, n_pairs, block]
-            float* __restrict__ out_v,          // [P, capacity]
-            int* __restrict__ out_i, int* __restrict__ out_j, int k,
-            int block, int d, int n_pairs, int block_rows, float thr,
-            long long capacity, int l2) {
-  const int p = blockIdx.z;
-  const int pair = blockIdx.y;
-  const int r0 = blockIdx.x * kTile;
+// |row|^2 of every row of x [n_rows, d]: one fmaf chain from 0 over d in
+// ascending order; 32 columns at a time through shared memory, so a warp
+// reads 32 consecutive floats of a row
+__global__ void __launch_bounds__(kNormRows)
+norm_kernel(const float* __restrict__ x, float* __restrict__ out,
+            long long n_rows, int d) {
+  __shared__ float t[kNormRows][33];
+  const long long r0 = (long long)blockIdx.x * kNormRows;
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int lane = tid % 32;
-  const int* mrow = meta + ((size_t)p * n_pairs + pair) * 6;
-  const Meta m{mrow[0], mrow[1], mrow[2], mrow[3], mrow[4], mrow[5]};
-  const size_t strip = ((size_t)p * n_pairs + pair) * block + r0;
-
-  if (m.active != 1 || r0 >= m.nv_lo) {
-    if (!kWrite)
-      for (int r = tid; r < kTile && r0 + r < block; r += kThreads)
-        row_count[strip + r] = 0;
-    return;
-  }
-  const float* __restrict__ A = quorum + ((size_t)p * k + lo[pair]) * block * d;
-  const float* __restrict__ B = quorum + ((size_t)p * k + hi[pair]) * block * d;
-
-  __shared__ float As[kDepth][kTile + 1];
-  __shared__ float Bs[kDepth][kTile + 1];
-  __shared__ float rn[kTile], cn[kTile];  // squared norms (l2)
-
-  // squared norms of the strip's rows (sequential fmaf over d)
-  if (tid < kTile) {
-    float s = 0.f;
-    if (l2 && r0 + tid < block)
-      for (int c = 0; c < d; ++c) {
-        const float x = A[(size_t)(r0 + tid) * d + c];
-        s = fmaf(x, x, s);
-      }
-    rn[tid] = s;
-  }
-  long long base[4];
-  int n_row[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    base[i] = (kWrite && r < block) ? row_off[strip + ty + 16 * i] : 0;
-  }
-  const unsigned half_shift = lane & 16;  // this half-warp's ballot bits
-  const unsigned below = (1u << (lane & 15)) - 1u;
-  // a self tile keeps only row < col: start at the strip's diagonal tile
-  const int c_begin = m.is_self == 1 ? r0 : 0;
-
-  for (int c0 = c_begin; c0 < m.nv_hi; c0 += kTile) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float norm = 0.f;
-    for (int k0 = 0; k0 < d; k0 += kDepth) {
-#pragma unroll
-      for (int e = 0; e < kTile * kDepth / kThreads; ++e) {
-        const int idx = tid + e * kThreads;
-        const int rr = idx / kDepth, kk = idx % kDepth;
-        const bool okk = k0 + kk < d;
-        As[kk][rr] = (okk && r0 + rr < block)
-                         ? A[(size_t)(r0 + rr) * d + k0 + kk] : 0.f;
-        Bs[kk][rr] = (okk && c0 + rr < block)
-                         ? B[(size_t)(c0 + rr) * d + k0 + kk] : 0.f;
-      }
-      __syncthreads();
-      if (tid < kTile) {
-#pragma unroll
-        for (int kk = 0; kk < kDepth; ++kk)
-          norm = fmaf(Bs[kk][tid], Bs[kk][tid], norm);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kDepth; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  float s = 0.f;
+  for (int k0 = 0; k0 < d; k0 += 32) {
+#pragma unroll 4
+    for (int e = 0; e < 32; ++e) {
+      const int r = 4 * e + tid / 32, c = tid % 32;
+      t[r][c] = r0 + r < n_rows && k0 + c < d
+                    ? x[(size_t)(r0 + r) * d + k0 + c] : 0.f;
     }
-    if (tid < kTile) cn[tid] = norm;
     __syncthreads();
-
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty + 16 * i;
-      const int r = r0 + rl;
-      int left = 0;  // survivors of this row in the tile's earlier columns
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j;
-        const int c = c0 + cl;
-        float s = acc[i][j];
-        if (l2) s = (2.f * s - cn[cl]) - rn[rl];
-        const bool keep = s >= thr && r < m.nv_lo && c < m.nv_hi &&
-                          (m.is_self != 1 || r < c);
-        const unsigned bits =
-            (__ballot_sync(0xffffffffu, keep) >> half_shift) & 0xffffu;
-        if (kWrite && keep) {
-          const long long pos = base[i] + left + __popc(bits & below);
-          if (pos < capacity) {
-            const int gi = m.ga * block_rows + r;
-            const int gj = m.gb * block_rows + c;
-            out_v[(size_t)p * capacity + pos] = s;
-            out_i[(size_t)p * capacity + pos] = min(gi, gj);
-            out_j[(size_t)p * capacity + pos] = max(gi, gj);
-          }
-        }
-        left += __popc(bits);
-      }
-      base[i] += left;
-      n_row[i] += left;
-    }
-    __syncthreads();  // cn is rewritten by the next tile
+    for (int c = 0; c < 32; ++c)   // past d: + 0, exact
+      s = fmaf(t[tid][c], t[tid][c], s);
+    __syncthreads();
   }
-  if (!kWrite) {
+  if (r0 + tid < n_rows) out[r0 + tid] = s;
+}
+
+// the d slice [k0, k0 + 32) of strip rows A[0, a_rows) (ring rows
+// 0..127) and tile rows B[0, b_rows) (ring rows 128..255) into the stage
+// at dst, zeros past the rows and d
+template <bool kVec>
+__device__ __forceinline__ void load_stage(uint32_t dst,
+                                           const float* __restrict__ A,
+                                           int a_rows,
+                                           const float* __restrict__ B,
+                                           int b_rows, int k0, int d,
+                                           int tid) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (tx == 0 && r0 + ty + 16 * i < block)
-        row_count[strip + ty + 16 * i] = n_row[i];
+  for (int e = 0; e < kTile * kDepth / 4 / kThreads; ++e) {
+    const int idx = tid + e * kThreads;
+    const int r = idx / (kDepth / 4), c = idx % (kDepth / 4);
+    const int gk = k0 + 4 * c;
+#pragma unroll
+    for (int op = 0; op < 2; ++op) {
+      const float* g = op ? B : A;
+      const bool row_ok = r < (op ? b_rows : a_rows);
+      const float* src = g + (size_t)(row_ok ? r : 0) * d + gk;
+      const uint32_t dd =
+          dst + (uint32_t)((op * kTile + r) * kLd + 4 * c) * 4u;
+      if constexpr (kVec) {
+        const bool ok = row_ok && gk < d;
+        cp_async16(dd, ok ? src : g, ok ? 16 : 0);
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          w[x] = __float_as_uint(row_ok && gk + x < d ? src[x] : 0.f);
+        st_shared_v4(dd, make_uint4(w[0], w[1], w[2], w[3]));
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const int* __restrict__ row_count,  // [P, n]
-            long long* __restrict__ row_off,    // [P, n]
-            int* __restrict__ count,            // [P]
-            float* __restrict__ out_v, int* __restrict__ out_i,
-            int* __restrict__ out_j, int n, long long capacity) {
-  const int p = blockIdx.x;
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// kVec: 16-byte copies (d % 4 == 0, 16-byte-aligned base), else plain
+// loads.  kWrite: the write pass (hot tiles only), else the count pass.
+template <bool kVec, bool kWrite>
+__global__ void __launch_bounds__(kThreads, 2)
+tile_kernel(const float* __restrict__ quorum,  // [P, k, block, d]
+            const float* __restrict__ norms,   // [P, k, block] (l2)
+            const int* __restrict__ lo, const int* __restrict__ hi,
+            const int* __restrict__ meta,      // [P, n_pairs, 6]
+            int* __restrict__ row_count,       // [P, n_pairs, block]
+            uint32_t* __restrict__ hot,        // [P, n_pairs, strips, words]
+            const long long* __restrict__ row_off,  // [P, n_pairs, block]
+            float* __restrict__ out_v,         // [P, capacity]
+            int* __restrict__ out_i, int* __restrict__ out_j, int k,
+            int block, int d, int n_pairs, int block_rows, float thr,
+            long long capacity, int l2) {
+  extern __shared__ __align__(16) float smem[];
+  Epi& ep = *reinterpret_cast<Epi*>(smem + kStages * kStageFloats);
+  const int p = blockIdx.z, pair = blockIdx.y;
+  const int r0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
-  const int seg = (n + kScanThreads - 1) / kScanThreads;
-  const int b = min(n, tid * seg), e = min(n, b + seg);
-  const int* c = row_count + (size_t)p * n;
-  long long sum = 0;
-  for (int t = b; t < e; ++t) sum += c[t];
-  // exclusive scan of the 1024 segment sums: warp scans, then the warps'
-  __shared__ long long warp_tot[kScanThreads / 32];
-  __shared__ long long total;
-  const int lane = tid % 32, warp = tid / 32;
-  long long incl = sum;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const long long o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += o;
-  }
-  if (lane == 31) warp_tot[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    long long w = warp_tot[lane];
-    long long wincl = w;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const long long o = __shfl_up_sync(0xffffffffu, wincl, off);
-      if (lane >= off) wincl += o;
+  const int tx = tid % 8, ty = tid / 8;
+  const int lane = tid % 32;
+  const size_t pp = (size_t)p * n_pairs + pair;
+  const size_t strip = pp * block + r0;
+  const int n_words = compact::hot_words(block, kTile);
+  uint32_t* bits = hot + (pp * gridDim.x + blockIdx.x) * n_words;
+  const Meta m = compact::load_meta(meta + pp * 6);
+  const int rows = min(kTile, block - r0);
+
+  if (m.active != 1 || r0 >= m.nv_lo) {
+    if (!kWrite) {
+      if (tid < rows) row_count[strip + tid] = 0;
+      for (int w = tid; w < n_words; w += kThreads) bits[w] = 0u;
     }
-    warp_tot[lane] = wincl - w;  // exclusive
-    if (lane == 31) total = wincl;
+    return;
   }
-  __syncthreads();
-  long long run = warp_tot[warp] + incl - sum;
-  long long* o = row_off + (size_t)p * n;
-  for (int t = b; t < e; ++t) {
-    o[t] = run;
-    run += c[t];
+  if (kWrite && row_off[strip] >= capacity) return;  // nothing to keep
+  const size_t lo_off = ((size_t)p * k + lo[pair]) * block;
+  const size_t hi_off = ((size_t)p * k + hi[pair]) * block;
+  const float* __restrict__ A = quorum + (lo_off + r0) * d;
+  const float* __restrict__ Bslot = quorum + hi_off * d;
+  const int vr = min(kTile, m.nv_lo - r0);  // the strip's valid rows
+  const bool self = m.is_self == 1;
+  ep.rn[tid] = l2 && tid < rows ? norms[lo_off + r0 + tid] : 0.f;
+  if (kWrite)
+    ep.pos[tid] = tid < rows ? row_off[strip + tid] : 0;
+  else
+    ep.cnt[tid] = 0;
+
+  // a self tile keeps only row < col: the count walk starts at the
+  // strip's diagonal tile (the write walk's hot bits start there too)
+  const int nks = max(1, (d + kDepth - 1) / kDepth);
+  const Tiles seq =
+      kWrite ? Tiles::written(bits, n_words)
+             : Tiles::count(self ? (int)blockIdx.x : 0,
+                            (m.nv_hi + kTile - 1) / kTile);
+  Cursor lw{seq, 0, nks}, cw{seq, 0, nks};
+  compact::HotWriter hw(bits, n_words);
+
+  const uint32_t s0 = smem_u32(smem);
+  auto load = [&](const Cursor& c, int stage) {
+    const int c0 = c.t.ct * kTile;
+    load_stage<kVec>(s0 + (uint32_t)(stage * kStageFloats) * 4u, A, rows,
+                     Bslot + (size_t)c0 * d, min(kTile, block - c0),
+                     c.ks * kDepth, d, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (!lw.done()) {
+      load(lw, s);
+      lw.step();
+    }
+    cp_async_commit();
   }
-  const long long tot = total;
-  if (tid == 0) count[p] = (int)min(tot, (long long)0x7fffffff);
-  for (long long t = min(tot, capacity) + tid; t < capacity; t += kScanThreads) {
-    out_v[(size_t)p * capacity + t] = kNegInf;
-    out_i[(size_t)p * capacity + t] = kSentinel;
-    out_j[(size_t)p * capacity + t] = kSentinel;
+
+  float acc[8][16];
+  for (int it = 0; !cw.done(); ++it) {
+    const int c0 = cw.t.ct * kTile;
+    if (cw.ks == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+      // the last tile's readers are past the barrier that ends its epilogue
+      ep.cn[tid] = l2 && c0 + tid < block ? norms[hi_off + c0 + tid] : 0.f;
+    }
+    cp_async_wait<kStages - 2>();   // slice it landed
+    __syncthreads();                // ... for every thread; slice it-1 done
+    if (!lw.done()) {
+      load(lw, (it + kStages - 1) % kStages);
+      lw.step();
+    }
+    cp_async_commit();
+    const float* As = smem + (it % kStages) * kStageFloats;
+    const float* Bs = As + kTile * kLd;
+#pragma unroll
+    for (int k4 = 0; k4 < kDepth / 4; ++k4) {
+      float4 a[8], bv[16];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(&As[(ty + 16 * i) * kLd +
+                                                     4 * k4]);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(&Bs[(tx + 8 * j) * kLd +
+                                                      4 * k4]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)   // d in order
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            acc[i][j] = fmaf(lane_of(a[i], kk), lane_of(bv[j], kk),
+                             acc[i][j]);
+    }
+    if (cw.ks != nks - 1) {
+      cw.step();
+      continue;
+    }
+
+    // ---- the tile is scored: threshold, masks, count or write ----
+    const bool edge = vr < kTile || c0 + kTile > m.nv_hi || (self && c0 == r0);
+    float cn[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) cn[j] = ep.cn[tx + 8 * j];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int rl = ty + 16 * i;
+      const float rn = ep.rn[rl];
+      unsigned keep = 0u;   // bit j: column tx + 8 j survives
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float s = acc[i][j];
+        if (l2) s = (2.f * s - cn[j]) - rn;
+        acc[i][j] = s;
+        bool k_ = s >= thr;
+        if (edge) {
+          const int c = c0 + tx + 8 * j;
+          k_ = k_ && rl < vr && c < m.nv_hi && (!self || r0 + rl < c);
+        }
+        keep |= (unsigned)k_ << j;
+      }
+      if (!kWrite) {
+        int n = __popc(keep);   // the row's survivors over its 8 lanes
+        n += __shfl_xor_sync(0xffffffffu, n, 1);
+        n += __shfl_xor_sync(0xffffffffu, n, 2);
+        n += __shfl_xor_sync(0xffffffffu, n, 4);
+        if (tx == 0) ep.cnt[rl] += n;
+        any |= keep != 0u;
+      } else {
+        const long long base = ep.pos[rl];
+        int left = 0;   // the row's survivors in the tile's earlier columns
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const bool k_ = keep >> j & 1u;
+          const unsigned b = (__ballot_sync(0xffffffffu, k_) >> (lane & 24)) &
+                             0xffu;
+          if (k_) {
+            const long long q = base + left + __popc(b & ((1u << tx) - 1u));
+            if (q < capacity) {
+              const int gi = m.ga * block_rows + r0 + rl;
+              const int gj = m.gb * block_rows + c0 + tx + 8 * j;
+              out_v[(size_t)p * capacity + q] = acc[i][j];
+              out_i[(size_t)p * capacity + q] = min(gi, gj);
+              out_j[(size_t)p * capacity + q] = max(gi, gj);
+            }
+          }
+          left += __popc(b);
+        }
+        __syncwarp();
+        if (tx == 0) ep.pos[rl] = base + left;
+      }
+    }
+    // ends the epilogue: ep.cn and ep.pos are rewritten by the next tile
+    if (!kWrite) {
+      any = __syncthreads_or(any);
+      if (tid == 0) hw.mark(cw.t.ct, any);
+    } else {
+      __syncthreads();
+    }
+    cw.step();
   }
+  cp_async_wait<0>();   // no copy outlives the block
+  if (!kWrite) {
+    __syncthreads();    // what the last epilogue counted (no tile: own row)
+    if (tid < rows) row_count[strip + tid] = ep.cnt[tid];
+    if (tid == 0) hw.finish();
+  }
+}
+
+template <bool kVec>
+int launch(const float* quorum, const int* lo, const int* hi,
+           const int* meta, float* norms, uint32_t* hot, int* row_count,
+           long long* row_off, float* out_v, int* out_i, int* out_j,
+           int* count, int P, int k, int block, int d, int n_pairs,
+           int block_rows, float thr, long long capacity, int l2,
+           cudaStream_t s) {
+  const auto count_k = tile_kernel<kVec, false>;
+  const auto write_k = tile_kernel<kVec, true>;
+  for (const auto kern : {count_k, write_k}) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (l2) {
+    const long long n_rows = (long long)P * k * block;
+    norm_kernel<<<(unsigned)((n_rows + kNormRows - 1) / kNormRows),
+                  kNormRows, 0, s>>>(quorum, norms, n_rows, d);
+  }
+  const dim3 grid((block + kTile - 1) / kTile, n_pairs, P);
+  count_k<<<grid, kThreads, kSmemBytes, s>>>(
+      quorum, norms, lo, hi, meta, row_count, hot, nullptr, nullptr, nullptr,
+      nullptr, k, block, d, n_pairs, block_rows, thr, capacity, l2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = compact::launch_scan(row_count, row_off, count, out_v, out_i, out_j,
+                             P, n_pairs * block, capacity, s);
+  if (err != cudaSuccess) return (int)err;
+  write_k<<<grid, kThreads, kSmemBytes, s>>>(
+      quorum, norms, lo, hi, meta, nullptr, hot, row_off, out_v, out_i,
+      out_j, k, block, d, n_pairs, block_rows, thr, capacity, l2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// norms [P, k, block] float32 scratch (l2); hot [P, n_pairs, strips,
+// words] of kernels.pairwise_threshold.hot_words(block, 128)
 extern "C" int repro_pairwise_threshold(
     const void* quorum, const void* lo, const void* hi, const void* meta,
-    void* row_count, void* row_off, void* out_v, void* out_i, void* out_j,
-    void* count, int P, int k, int block, int d, int n_pairs,
-    int block_rows, float threshold, long long capacity, int l2,
+    void* norms, void* hot, void* row_count, void* row_off, void* out_v,
+    void* out_i, void* out_j, void* count, int P, int k, int block, int d,
+    int n_pairs, int block_rows, float threshold, long long capacity, int l2,
     void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((block + kTile - 1) / kTile, n_pairs, P);
-  tile_kernel<false><<<grid, kThreads, 0, s>>>(
+  const bool vec = d % 4 == 0 && (uintptr_t)quorum % 16 == 0;
+  return (vec ? launch<true> : launch<false>)(
       (const float*)quorum, (const int*)lo, (const int*)hi, (const int*)meta,
-      (int*)row_count, nullptr, nullptr, nullptr, nullptr, k, block, d,
-      n_pairs, block_rows, threshold, capacity, l2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_kernel<<<P, kScanThreads, 0, s>>>(
-      (const int*)row_count, (long long*)row_off, (int*)count, (float*)out_v,
-      (int*)out_i, (int*)out_j, n_pairs * block, capacity);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  tile_kernel<true><<<grid, kThreads, 0, s>>>(
-      (const float*)quorum, (const int*)lo, (const int*)hi, (const int*)meta,
-      nullptr, (const long long*)row_off, (float*)out_v, (int*)out_i,
-      (int*)out_j, k, block, d, n_pairs, block_rows, threshold, capacity, l2);
-  return (int)cudaGetLastError();
+      (float*)norms, (uint32_t*)hot, (int*)row_count, (long long*)row_off,
+      (float*)out_v, (int*)out_i, (int*)out_j, (int*)count, P, k, block, d,
+      n_pairs, block_rows, threshold, capacity, l2, (cudaStream_t)stream);
 }

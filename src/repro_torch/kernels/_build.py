@@ -29,7 +29,8 @@ SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
            "pairwise_threshold_q.cu", "pairwise_topk_q.cu",
            "flash_attention.cu", "flash_attention_tc.cu", "ssd_chunk.cu")
 # headers the sources include (part of the build key)
-HEADERS = ("pair_tile.cuh", "hopper.cuh", "topk_select.cuh")
+HEADERS = ("pair_tile.cuh", "hopper.cuh", "topk_select.cuh",
+           "compact.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the PCIT filter's output is a threshold decision: no FMA contraction and
@@ -56,20 +57,21 @@ SIGNATURES = {
     "repro_query_topk": [_vp] * 9 + [_i] * 7 + [_vp],
     # rows per chunk list of the first query_topk pass
     "repro_query_topk_chunk_rows": [],
-    # quorum, lo, hi, meta, row_count, row_off, out_v, out_i, out_j, count,
-    # P, k, block, d, n_pairs, block_rows, threshold, capacity, l2, stream
-    "repro_pairwise_threshold": [_vp] * 10 + [_i] * 6 + [_f, _ll, _i, _vp],
+    # quorum, lo, hi, meta, norms, hot, row_count, row_off, out_v, out_i,
+    # out_j, count, P, k, block, d, n_pairs, block_rows, threshold,
+    # capacity, l2, stream
+    "repro_pairwise_threshold": [_vp] * 12 + [_i] * 6 + [_f, _ll, _i, _vp],
     # quorum, lo, hi, meta, list_v, list_i, out_v, out_i,
     # P, k, block, d, n_pairs, block_rows, topk, tp, l2, stream
     "repro_pairwise_topk": [_vp] * 8 + [_i] * 9 + [_vp],
     # q, sd, sq, lo, hi, meta, list_v, list_i, out_v, out_i,
     # P, k, block, d, n_pairs, block_rows, topk, tp, l2, bf16, route, stream
     "repro_pairwise_topk_q": [_vp] * 10 + [_i] * 11 + [_vp],
-    # q, sd, l1, sq, lo, hi, meta, row_count, row_off, out_v, out_i, out_j,
-    # count, P, k, block, d, n_pairs, block_rows, threshold, capacity, l2,
-    # bf16, stream
-    "repro_pairwise_threshold_q": [_vp] * 13 + [_i] * 6 + [_f, _ll, _i, _i,
-                                                           _vp],
+    # q, sd, l1, sq, lo, hi, meta, hot, warp_hot, row_count, row_off,
+    # out_v, out_i, out_j, count, P, k, block, d, n_pairs, block_rows,
+    # threshold, capacity, l2, bf16, route, stream
+    "repro_pairwise_threshold_q": [_vp] * 15 + [_i] * 6 + [_f, _ll]
+    + [_i] * 3 + [_vp],
     # q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd, the (batch, time,
     # head) strides of q, k and v, causal, partial, stream: float32 (SIMT)
     "repro_flash_attention": [_vp] * 7 + [_i] * 6 + [_ll] * 9 + [_i] * 2

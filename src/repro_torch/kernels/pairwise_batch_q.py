@@ -18,15 +18,20 @@ active tile, at the int8 (1,979 TOP/s) or bf16 (989 TFLOP/s) tensor-core
 rate.  Both files are built with ``-fmad=false``, so the dequant
 epilogues round op for op as the plain versions' do.
 
-B7 is a SIMT kernel on the float32 pipe (codes widened in shared memory;
-int8 float32 dots are exact while d * 127^2 < 2^24).  B8 scores on the
-tensor cores with ``mma.sync`` (int8 into s32, bf16 into f32) and
-selects behind each row's admission bound in registers.  Int8 with d
+Both score on the tensor cores with ``mma.sync`` (int8 into s32, bf16
+into f32).  B7 forms each tile once, lo rows x hi columns, on 128 x 128
+tiles, and compacts through ``csrc/compact.cuh`` (count, scan, write;
+the write pass scores again only the tiles, and within them the warp
+sub-tiles, that held a survivor); an entry meets a one-operation
+prefilter on its code dot, provably looser than the band, before the
+exact score and eps (the file header has the argument).  B8 selects
+behind each row's admission bound in registers.  Int8 with d
 above 1,040, where an s32 sum may no longer convert to float32 exactly,
 and bf16 with d above 128, where the tensor cores' accumulation drifts
-past the 1e-5 tie rule, take the float32 SIMT tile instead
-(:func:`route_of`).  Either way the int8 lists equal the plain
-version's.
+past the 1e-5 tie rule (B8) and past the band's certified slack (B7),
+take the float32 SIMT tile of ``csrc/pair_tile.cuh`` instead
+(:func:`route_of`).  Either way the int8 lists and the int8 band equal
+the plain versions'.
 
 The plain versions beside them are :func:`pairwise_threshold_q_plain` and
 :func:`pairwise_topk_q_plain`; the device dispatch is
@@ -39,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .pairwise_threshold import check_pairs
+from .pairwise_threshold import check_pairs, hot_words
 from .pairwise_topk import list_width
 from .ref import QUERY_METRICS
 from .ref import pairwise_threshold_q as pairwise_threshold_q_plain
@@ -47,7 +52,7 @@ from .ref import pairwise_topk_q as pairwise_topk_q_plain
 
 __all__ = ["pairwise_threshold_q_cuda", "pairwise_topk_q_cuda",
            "pairwise_threshold_q_plain", "pairwise_topk_q_plain",
-           "threshold_launches", "topk_launches", "route_of",
+           "threshold_launches", "topk_launches", "route_of", "band_tile",
            "INT8_EXACT_D", "BF16_TC_MAX_D"]
 
 #: B7 / B8 launches since the counts were last set to 0
@@ -67,13 +72,26 @@ BF16_TC_MAX_D = 128
 
 
 def route_of(dtype: torch.dtype, d: int) -> str:
-    """The B8 kernel a CUDA call with codes of ``dtype`` and width ``d``
-    launches: ``"tensor_cores"`` (``mma.sync``) for int8 with d <=
+    """The B7 and B8 kernel a CUDA call with codes of ``dtype`` and width
+    ``d`` launches: ``"tensor_cores"`` (``mma.sync``) for int8 with d <=
     :data:`INT8_EXACT_D` (1,040) and bf16 with d <= :data:`BF16_TC_MAX_D`
     (128); ``"simt"`` (the float32 tile of ``csrc/pair_tile.cuh``) above
-    them."""
+    them.  B7 strips are :func:`band_tile` rows on each route."""
     limit = INT8_EXACT_D if dtype == torch.int8 else BF16_TC_MAX_D
     return "tensor_cores" if d <= limit else "simt"
+
+
+def band_tile(route: str) -> int:
+    """Rows of a B7 strip, and columns of its score tile, on ``route``:
+    128 on the tensor cores, 64 on the SIMT tile (the hot-tile bits of
+    ``csrc/compact.cuh`` are sized by it)."""
+    return 128 if route == "tensor_cores" else 64
+
+
+def _check_route(route):
+    if route not in (None, "tensor_cores", "simt"):
+        raise ValueError(f"route must be 'tensor_cores' or 'simt', got "
+                         f"{route!r}")
 
 
 def _check_codes(name: str, q: torch.Tensor, sd: torch.Tensor, rows,
@@ -103,18 +121,23 @@ def _check_codes(name: str, q: torch.Tensor, sd: torch.Tensor, rows,
 def pairwise_threshold_q_cuda(q: torch.Tensor, sd: torch.Tensor,
                               l1: torch.Tensor, sq: torch.Tensor, lo, hi,
                               meta, *, threshold: float, capacity: int,
-                              block_rows: int, metric: str = "dot"):
+                              block_rows: int, metric: str = "dot",
+                              route: str | None = None):
     """q [P, k, block, d] int8 / bfloat16 codes; sd [P, k, 2] (scale,
-    delta); l1 / sq [P, k, block]; lo / hi [n_pairs]; meta [P, n_pairs, 6];
-    all on one CUDA device.  Returns ``(vals [P, capacity] float32, i / j
-    [P, capacity] int32, count [P] int32)`` as
-    ``kernels/ref.py:pairwise_threshold_q``."""
+    delta >= 0); l1 / sq [P, k, block] (l1 >= 0); lo / hi [n_pairs]; meta
+    [P, n_pairs, 6]; all on one CUDA device.  Returns ``(vals [P,
+    capacity] float32, i / j [P, capacity] int32, count [P] int32)`` as
+    ``kernels/ref.py:pairwise_threshold_q``.  ``route`` overrides
+    :func:`route_of` (``chip_smoke.py`` times both routes at one
+    shape)."""
     global threshold_launches
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
+    _check_route(route)
     q, sd, (l1, sq) = _check_codes("pairwise_threshold_q", q, sd, (l1, sq),
                                    metric)
     P, k, block, d = q.shape
+    route = route or route_of(q.dtype, d)
     lo_h, hi_h, n_pairs, meta = check_pairs("pairwise_threshold_q", q, lo,
                                             hi, meta)
     dev = q.device
@@ -127,16 +150,26 @@ def pairwise_threshold_q_cuda(q: torch.Tensor, sd: torch.Tensor,
                 out_j.fill_(2 ** 31 - 1), count.zero_())
     row_count = torch.empty(P, n_pairs, block, dtype=torch.int32, device=dev)
     row_off = torch.empty(P, n_pairs, block, dtype=torch.int64, device=dev)
+    tile = band_tile(route)
+    strips = -(-block // tile)
+    hot = torch.empty(P, n_pairs, strips, hot_words(block, tile),
+                      dtype=torch.int32, device=dev)
+    # the tensor-core route's per-warp flags: 8 bytes per (strip, tile)
+    warp_hot = torch.empty(P, n_pairs, strips,
+                           strips if route == "tensor_cores" else 0, 8,
+                           dtype=torch.uint8, device=dev)
     lo_d, hi_d = lo_h.to(dev), hi_h.to(dev)
     with torch.cuda.device(dev):
         rc = _build.library().repro_pairwise_threshold_q(
             q.data_ptr(), sd.data_ptr(), l1.data_ptr(), sq.data_ptr(),
             lo_d.data_ptr(), hi_d.data_ptr(), meta.data_ptr(),
-            row_count.data_ptr(), row_off.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), out_j.data_ptr(), count.data_ptr(), P, k,
-            block, d, n_pairs, int(block_rows), float(threshold),
-            int(capacity), int(metric == "l2"),
-            int(q.dtype == torch.bfloat16), _build.stream_of(q))
+            hot.data_ptr(), warp_hot.data_ptr(), row_count.data_ptr(),
+            row_off.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), out_j.data_ptr(),
+            count.data_ptr(), P, k, block, d, n_pairs, int(block_rows),
+            float(threshold), int(capacity), int(metric == "l2"),
+            int(q.dtype == torch.bfloat16), int(route == "tensor_cores"),
+            _build.stream_of(q))
     _build.check(rc, "pairwise_threshold_q")
     threshold_launches += 1
     return out_v, out_i, out_j, count
@@ -154,9 +187,7 @@ def pairwise_topk_q_cuda(q: torch.Tensor, sd: torch.Tensor, sq: torch.Tensor,
     global topk_launches
     if topk < 1:
         raise ValueError(f"topk must be >= 1, got {topk}")
-    if route not in (None, "tensor_cores", "simt"):
-        raise ValueError(f"route must be 'tensor_cores' or 'simt', got "
-                         f"{route!r}")
+    _check_route(route)
     q, sd, (sq,) = _check_codes("pairwise_topk_q", q, sd, (sq,), metric)
     P, k, block, d = q.shape
     route = route or route_of(q.dtype, d)

@@ -2,17 +2,21 @@
 
 Replaces the Pallas kernel ``repro/kernels/pairwise_threshold.py:
 pairwise_threshold_pallas`` (body ``_threshold_kernel``), the similarity
-join's ``batch_fn``.  Source: ``repro_torch/csrc/pairwise_threshold.cu``.
+join's ``batch_fn``.  Source: ``repro_torch/csrc/pairwise_threshold.cu``,
+compaction ``csrc/compact.cuh``.
 
 What bounds it on the H100: fp32 arithmetic outside the tensor cores
 (67 TFLOP/s; 2*d operations per candidate of an active tile).  The TPU
 kernel compacts with a running count on its sequential grid, through a
 one-hot matmul.  Here the (pair, row, col) order of the compacted buffers
-is made explicit in three passes, so an overflowing buffer keeps exactly
-the plain version's first-``capacity`` prefix: per-row survivor counts,
-an exclusive scan per device, and a second scoring pass that writes each
-survivor at its offset.  Inactive tiles exit at once in both scoring
-passes; a self tile scores only the tiles right of its diagonal.
+is made explicit, so an overflowing buffer keeps exactly the plain
+version's first-``capacity`` prefix: a count pass scores every active
+tile on B2's 128 x 128 fp32 tile (``csrc/pairwise_corr.cu``) and records
+per-row survivor counts and which column tiles hold a survivor (the hot
+tiles); an exclusive scan per device gives each row's offset; a write
+pass scores again only the hot tiles and writes each survivor at its
+offset.  Inactive tiles exit at once; a self tile scores only the tiles
+from its diagonal on.
 
 Threshold and capacity are runtime arguments: one build serves every
 threshold.  The plain version beside it is
@@ -29,10 +33,19 @@ from .ref import QUERY_METRICS
 from .ref import pairwise_threshold as pairwise_threshold_plain
 
 __all__ = ["pairwise_threshold_cuda", "pairwise_threshold_plain",
-           "check_pairs", "launches"]
+           "check_pairs", "hot_words", "launches", "TILE"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
+
+#: rows of a strip and columns of a score tile (``csrc/pairwise_threshold.cu``)
+TILE = 128
+
+
+def hot_words(block: int, tile: int) -> int:
+    """32-bit words of hot-tile bits per strip: one bit per column tile of
+    ``tile`` rows of a ``block``-row slot (``csrc/compact.cuh``)."""
+    return (-(-block // tile) + 31) // 32
 
 
 def check_pairs(name: str, data: torch.Tensor, lo, hi, meta):
@@ -87,19 +100,24 @@ def pairwise_threshold_cuda(quorum: torch.Tensor, lo, hi, meta, *,
     out_i = torch.empty(P, capacity, dtype=torch.int32, device=dev)
     out_j = torch.empty(P, capacity, dtype=torch.int32, device=dev)
     count = torch.empty(P, dtype=torch.int32, device=dev)
-    row_count = torch.empty(P, n_pairs, block, dtype=torch.int32, device=dev)
-    row_off = torch.empty(P, n_pairs, block, dtype=torch.int64, device=dev)
     if n_pairs * block == 0:
         return (out_v.fill_(-1e30), out_i.fill_(2 ** 31 - 1),
                 out_j.fill_(2 ** 31 - 1), count.zero_())
+    row_count = torch.empty(P, n_pairs, block, dtype=torch.int32, device=dev)
+    row_off = torch.empty(P, n_pairs, block, dtype=torch.int64, device=dev)
+    strips = -(-block // TILE)
+    hot = torch.empty(P, n_pairs, strips, hot_words(block, TILE),
+                      dtype=torch.int32, device=dev)
+    norms = torch.empty(P, k, block if metric == "l2" else 0,
+                        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _build.library().repro_pairwise_threshold(
             quorum.data_ptr(), lo_d.data_ptr(), hi_d.data_ptr(),
-            meta.data_ptr(), row_count.data_ptr(), row_off.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), out_j.data_ptr(),
-            count.data_ptr(), P, k, block, d, n_pairs, int(block_rows),
-            float(threshold), int(capacity), int(metric == "l2"),
-            _build.stream_of(quorum))
+            meta.data_ptr(), norms.data_ptr(), hot.data_ptr(),
+            row_count.data_ptr(), row_off.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), out_j.data_ptr(), count.data_ptr(), P, k,
+            block, d, n_pairs, int(block_rows), float(threshold),
+            int(capacity), int(metric == "l2"), _build.stream_of(quorum))
     _build.check(rc, "pairwise_threshold")
     launches += 1
     return out_v, out_i, out_j, count

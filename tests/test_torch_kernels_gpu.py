@@ -463,6 +463,140 @@ def test_pair_kernels_count_launches(cuda):
             counts["pairwise_threshold_q"]) == (1, 2, 1)
 
 
+# B5 / B7 around their 128-row strips and 128-column tiles (B7's SIMT route:
+# 64): blocks of 1, 127, 129 and 300 rows, d of 1, 33 and 130 (bf16 at
+# d 130 on the SIMT route); small-integer data, so every score is exact
+RAGGED_CELLS = [(1, 2, 1, 1, 3, False), (2, 3, 127, 33, 5, False),
+                (1, 3, 129, 130, 5, False), (2, 3, 300, 1, 5, True),
+                (1, 3, 300, 33, 4, True), (1, 2, 129, 130, 3, False)]
+
+
+def _ragged_inputs(seed, P, k, block, d, n_pairs, self_only, cuda):
+    return _pair_inputs(np.random.default_rng(seed), P, k, block, d, n_pairs,
+                        True, self_only, cuda)
+
+
+def _overflow_capacity(counts) -> int:
+    """A capacity that half the busiest device's entries overflow."""
+    return max(1, int(counts.max()) // 2)
+
+
+def _deep_tile_inputs(cuda):
+    """One slot pair (and a self pair) whose only survivors off the
+    diagonal sit in one deep column tile: slot 0's rows 0..127 (strip 0)
+    and 300..310 (strip 2) are ones, slot 1's rows 520..540 (column tile
+    4 of 5) are twos, everything else zero; at threshold 1 (dot) the
+    cross pair keeps exactly those rows against column tile 4."""
+    q = torch.zeros(1, 2, 600, 8, device=cuda)
+    q[0, 0, :128] = 1.0
+    q[0, 0, 300:311] = 1.0
+    q[0, 1, 520:541] = 2.0
+    meta = torch.tensor([[[1, 0, 0, 1, 600, 600], [1, 1, 0, 0, 600, 600]]],
+                        dtype=torch.int32, device=cuda)
+    return q, [0, 0], [1, 0], meta
+
+
+@pytest.mark.parametrize("P,k,block,d,n_pairs,self_only", RAGGED_CELLS)
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_threshold_ragged(cuda, P, k, block, d, n_pairs, self_only,
+                                   metric):
+    """B5 at ragged strips and tiles: identical buffers and counts, with a
+    large capacity and with one that overflows (the exact prefix)."""
+    quorum, lo, hi, meta = _ragged_inputs(block + d, P, k, block, d,
+                                          n_pairs, self_only, cuda)
+    kw = dict(threshold=1.0, block_rows=block, metric=metric)
+    want = ref.pairwise_threshold(quorum, lo, hi, meta, capacity=1 << 16,
+                                  **kw)
+    for cap in (1 << 16, _overflow_capacity(want[3])):
+        got = ops.pairwise_threshold(quorum, lo, hi, meta, capacity=cap,
+                                     **kw)
+        want = ref.pairwise_threshold(quorum, lo, hi, meta, capacity=cap,
+                                      **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), cap
+
+
+@pytest.mark.parametrize("P,k,block,d,n_pairs,self_only", RAGGED_CELLS)
+@pytest.mark.parametrize("qmode", ["int8", "bf16"])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_threshold_q_ragged(cuda, P, k, block, d, n_pairs,
+                                     self_only, qmode, metric):
+    """B7 at ragged strips and tiles on the route route_of picks: int8 dots
+    are exact s32 sums, and small integers are exact in bf16 with exact
+    sums, so both bands equal the plain version's bit for bit, overflow
+    prefix included."""
+    quorum, lo, hi, meta = _ragged_inputs(block + d + 7, P, k, block, d,
+                                          n_pairs, self_only, cuda)
+    codes, sd, l1, sq = _quantized(quorum, qmode)
+    kw = dict(threshold=1.0, block_rows=block, metric=metric)
+    want = ref.pairwise_threshold_q(codes, sd[..., 0], sd[..., 1], l1, sq,
+                                    lo, hi, meta, capacity=1 << 16, **kw)
+    for cap in (1 << 16, _overflow_capacity(want[3])):
+        got = ops.pairwise_threshold_q(codes, sd, l1, sq, lo, hi, meta,
+                                       capacity=cap, **kw)
+        want = ref.pairwise_threshold_q(codes, sd[..., 0], sd[..., 1], l1,
+                                        sq, lo, hi, meta, capacity=cap, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), cap
+
+
+@pytest.mark.parametrize("capacity", [1 << 12, 50])
+@pytest.mark.parametrize("kernel", ["f32", "int8", "bf16"])
+def test_threshold_deep_hot_tile(cuda, capacity, kernel):
+    """Strips whose only survivors sit in one deep column tile: the write
+    pass skips the cold tiles before it and every rank stays the plain
+    version's, also when capacity 50 cuts the buffer inside that tile."""
+    quorum, lo, hi, meta = _deep_tile_inputs(cuda)
+    kw = dict(threshold=1.0, capacity=capacity, block_rows=600,
+              metric="dot")
+    if kernel == "f32":
+        got = ops.pairwise_threshold(quorum, lo, hi, meta, **kw)
+        want = ref.pairwise_threshold(quorum, lo, hi, meta, **kw)
+    else:
+        codes, sd, l1, sq = _quantized(quorum, kernel)
+        if kernel == "bf16":   # core/quant.py's bf16 step: maxabs * 2^-8
+            sd[..., 1] = quorum.abs().amax(dim=(2, 3)) * 2.0 ** -8
+        got = ops.pairwise_threshold_q(codes, sd, l1, sq, lo, hi, meta, **kw)
+        want = ref.pairwise_threshold_q(codes, sd[..., 0], sd[..., 1], l1,
+                                        sq, lo, hi, meta, **kw)
+    # the cross pair: 139 rows x 21 columns; the self pair: C(139, 2)
+    assert int(want[3][0]) == 139 * 21 + 139 * 138 // 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("qmode,d", [("int8", 1040), ("int8", 1041),
+                                     ("bf16", 128), ("bf16", 129)])
+def test_pairwise_threshold_q_routes(cuda, qmode, d):
+    """B7 on each side of each route limit counts one launch a call; int8
+    equals the plain version on both routes, bf16 up to the band's edge;
+    and the two routes agree with each other at the same shape."""
+    from repro_torch.kernels.pairwise_batch_q import (
+        pairwise_threshold_q_cuda, route_of)
+    quorum, lo, hi, meta = _pair_inputs(np.random.default_rng(d), 1, 2, 150,
+                                        d, 3, False, False, cuda)
+    codes, sd, l1, sq = _quantized(quorum, qmode)
+    s = ref.tile_scores(quorum[0, 0], quorum[0, -1], "dot")
+    kw = dict(threshold=float(torch.quantile(s.flatten(), 0.9)),
+              capacity=1 << 16, block_rows=150, metric="dot")
+    ops.reset_launch_counts()
+    got = ops.pairwise_threshold_q(codes, sd, l1, sq, lo, hi, meta, **kw)
+    assert ops.launch_counts()["pairwise_threshold_q"] == 1
+    want = ref.pairwise_threshold_q(codes, sd[..., 0], sd[..., 1], l1, sq,
+                                    lo, hi, meta, **kw)
+    limit = 1040 if qmode == "int8" else 128
+    assert route_of(codes.dtype, d) == ("tensor_cores" if d <= limit
+                                        else "simt")
+    other = pairwise_threshold_q_cuda(
+        codes, sd, l1, sq, lo, hi, meta, route="simt"
+        if route_of(codes.dtype, d) == "tensor_cores" else "tensor_cores",
+        **kw)
+    if qmode == "int8":
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b) for a, b in zip(other, want))
+    else:
+        for g in (got, other):
+            n = want[3].to(torch.float32)
+            assert bool(((g[3] - want[3]).abs() <= 1e-4 * n + 2).all())
+
+
 # ---------------------------------------------------------------------------
 # B9 flash_attention, B10 ssd_chunk
 # ---------------------------------------------------------------------------
