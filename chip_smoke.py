@@ -12,8 +12,13 @@ beside the script).  Phases:
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel); read
      the library's SASS with ``cuobjdump``: the bf16 B9 kernel must issue
      HGMMA (``wgmma``), B7's and B8's tensor-core kernels IMMA / HMMA
-     (``mma.sync``), B2, B5 and B7 no atomics, B4 and B8 no float atomics;
-  2. B1 pairwise_batch, B2 pairwise_corr and B3 pcit_filter, and
+     (``mma.sync``), B2, B5 and B7 no atomics, B3, B4, B6 and B8 no float
+     atomics; and count the SASS instructions of B3's one-trio probes (the
+     exact chain, the prefilter);
+  2. B1 pairwise_batch, B2 pairwise_corr and B3 pcit_filter (with the
+     deciles of its search lengths, the useful share of its issued
+     lane-trios, the share of trios its prefilter decided, and its time
+     with the exact chain on every trio), and
   3. B4 query_topk and B5 pairwise_threshold, each at its main path's
      shapes against its plain PyTorch version, timed with CUDA events
      beside the plain version and, where one exists, a library yardstick
@@ -37,9 +42,11 @@ beside the script).  Phases:
      devices through B5, held against a brute force on the card;
  10. B6 pairwise_topk, B7 pairwise_threshold_q and B8 pairwise_topk_q (int8
      and bf16) at the k-NN and quantized paths' shapes against their plain
-     versions, timed beside them and a two-call library yardstick (B7:
-     beside a GEMM-only yardstick, ``torch._int_mm`` / bf16 ``torch.mm``
-     over the same active tiles, and on each route at d = 128);
+     versions, timed beside them and a two-call library yardstick (B6:
+     split by kernel, beside its scoring pass alone and with lists in
+     global memory; B7: beside a GEMM-only yardstick, ``torch._int_mm`` /
+     bf16 ``torch.mm`` over the same active tiles, and on each route at
+     d = 128);
  11. the k-NN and quantized-pipeline self-checks at P = 2, 5, 8, every mode
      including ``kernel``;
  12. the k-NN graph (top-10, l2) of the join's corpus through B6, held
@@ -145,6 +152,9 @@ SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_GEN = 4, 16, 32
 # score, or of the threshold) may order differently between the kernels'
 # fp32 accumulation and cuBLAS's
 SCORE_TOL = 1e-5
+# static SASS instructions (and MUFU among them) of B3's one-trio probes,
+# filled in by check_sass
+SASS_COUNTS: dict = {}
 
 
 class CheckFailed(RuntimeError):
@@ -257,7 +267,7 @@ def check_sass(lib: Path) -> None:
     """The bf16 B9 kernel runs on the tensor cores (every instantiation
     issues HGMMA, the SASS of ``wgmma``); B7's and B8's tensor-core routes
     issue IMMA (int8) and HMMA (bf16), the SASS of ``mma.sync``; B2, B5
-    and B7 issue no atomics, and B4 and B8 no float atomics."""
+    and B7 issue no atomics, and B3, B4, B6 and B8 no float atomics."""
     funcs = sass_functions(lib)
     tc = {n: f.count("HGMMA") for n, f in funcs.items()
           if "flash_tc_kernel" in n}
@@ -298,13 +308,43 @@ def check_sass(lib: Path) -> None:
     # band_simt_kernel x 4) with compact.cuh's scan: no atomic of any kind
     # (no float atomic, and no atomic output cursor)
     thr = {n: f for n, f in funcs.items()
-           if "pairwise_threshold" in n or "compact11scan_kernel" in n}
+           if "pairwise_threshold" in n or "compact11scan_kernel" in n
+           or "row_norms" in n}
     found = sorted({a for f in thr.values() for a in ANY_ATOMIC.findall(f)})
     thr_atomics = sum(len(ANY_ATOMIC.findall(f)) for f in thr.values())
     thr_float = sum(len(FLOAT_ATOMIC.findall(f)) for f in thr.values())
     check(len(thr) >= 25 and thr_atomics == 0 and thr_float == 0,
           f"B5 / B7: {len(thr)} kernels, {thr_atomics} atomics "
           f"({thr_float} float): {found}")
+    # B3 (pcit_kernel<prefilter, stats> x 4, the two trio probes) and B6
+    # (topk_kernel<vec, long lists, score only> x 6, with row_norms.cuh's
+    # norm pass and pair_tile.cuh's order pass in its source): integer
+    # atomics only (the shared pair counter and queue slots, B3's stats)
+    b3 = {n: f for n, f in funcs.items()
+          if "pcit_kernel" in n or "_probe" in n}
+    b6 = {n: f for n, f in funcs.items()
+          if "11topk_kernelI" in n
+          or ("pairwise_topk_cu" in n and "pairwise_topk_q_cu" not in n)}
+    b36_float = sum(len(FLOAT_ATOMIC.findall(f))
+                    for f in list(b3.values()) + list(b6.values()))
+    check(len(b3) == 6 and len([n for n in b6 if "11topk_kernelI" in n]) == 6
+          and b36_float == 0,
+          f"B3 / B6: {len(b3)} / {len(b6)} kernels, {b36_float} float "
+          f"atomics: {sorted(b3)} {sorted(b6)}")
+    sass_ops = {}
+    for kind in ("exact_probe", "prefilter_probe"):
+        body = next(f for n, f in funcs.items() if kind in n)
+        ins = [ln for ln in body.splitlines()
+               if re.match(r"\s*/\*[0-9a-f]{4}\*/\s+\S", ln)
+               and " NOP" not in ln]
+        sass_ops[kind] = (len(ins), sum("MUFU" in ln for ln in ins))
+    SASS_COUNTS.update(sass_ops)
+    say(f"SASS: B3 ({len(b3)} kernels) and B6 ({len(b6)} kernels) float "
+        f"atomics {b36_float}; one trio, static SASS instructions (MUFU) "
+        f"with its three loads, hoists and store: exact chain "
+        f"{sass_ops['exact_probe'][0]} ({sass_ops['exact_probe'][1]}), "
+        f"prefilter {sass_ops['prefilter_probe'][0]} "
+        f"({sass_ops['prefilter_probe'][1]})")
     say(f"SASS: bf16 B9 (flash_tc_kernel, hd padded to 64 / 128 / 256) "
         f"HGMMA instructions {sorted(tc.values())}; B2 (corr_kernel, two "
         f"instantiations) atomics {atomics}; B8 (topk_tc_kernel) IMMA "
@@ -398,7 +438,7 @@ def phase_kernels(report: dict) -> None:
     from repro_torch.core.scheduler import build_schedule
     from repro_torch.core.sweep import pair_mask_table, quorum_gather
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.pcit_filter import pcit_filter_cuda
+    from repro_torch.kernels.pcit_filter import STATS, pcit_filter_cuda
 
     comm = SingleProcessComm(P, DEVICE)
     sched = build_schedule(P)
@@ -468,7 +508,10 @@ def phase_kernels(report: dict) -> None:
     C = X_t @ X_t.T
     r_xy, rows_x, rows_y, gx, gy = pcit_tile_inputs(C, sched, PCIT_N // P)
     visits = torch.empty(r_xy.shape, dtype=torch.int32, device=DEVICE)
-    got = pcit_filter_cuda(r_xy, rows_x, rows_y, gx, gy, visits=visits)
+    stats = torch.empty(len(STATS), dtype=torch.int64, device=DEVICE)
+    got = pcit_filter_cuda(r_xy, rows_x, rows_y, gx, gy, visits=visits,
+                           stats=stats)
+    st = dict(zip(STATS, stats.tolist()))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = plain_pcit_chunked(r_xy, rows_x, rows_y, gx, gy)
@@ -477,6 +520,8 @@ def phase_kernels(report: dict) -> None:
     n_diff = compare_keep(got, want, r_xy, rows_x, rows_y, gx, gy, "B3")
     ms = cuda_ms(lambda: ops.pcit_filter(r_xy, rows_x, rows_y, gx, gy),
                  reps=2)
+    exact_ms = cuda_ms(lambda: pcit_filter_cuda(r_xy, rows_x, rows_y, gx, gy,
+                                                prefilter=False), reps=2)
     trios = int(visits.long().sum())
     b_ms, b_by = bound(nbytes(r_xy, rows_x, rows_y, gx, gy, got),
                        float(trios) * PCIT_OPS)
@@ -487,10 +532,26 @@ def phase_kernels(report: dict) -> None:
         f" visited {trios} of {full} trios; kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms (host clock, row chunks), bound {b_ms:.3f} ms "
         f"({b_by})")
+    live = visits[visits > 0].double()
+    sample = live[torch.randperm(live.numel(), device=DEVICE)[:1 << 24]]
+    deciles = torch.quantile(sample, torch.linspace(
+        0.1, 0.9, 9, device=DEVICE, dtype=torch.float64)).tolist()
+    evaluated = st["prefilter_decided"] + st["exact_decided"]
+    useful = trios / st["issued_lane_trios"]
+    say(f"B3 search: deciles of visits (off the diagonal, a 2^24 sample) "
+        f"{[int(q) for q in deciles]}; {st['issued_lane_trios']} lane-trios "
+        f"issued, useful share {useful:.4f}; of {evaluated} trios evaluated "
+        f"the prefilter decided {st['prefilter_decided'] / evaluated:.6f}, "
+        f"the exact chain {st['exact_decided']}; exact chain on every trio "
+        f"{exact_ms:.3f} ms; per trio, static SASS instructions (MUFU) of "
+        f"the one-trio probes: exact {SASS_COUNTS.get('exact_probe')}, "
+        f"prefilter {SASS_COUNTS.get('prefilter_probe')}")
     report["pcit_filter"] = dict(max_abs_err=float(n_diff > 0), ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=None,
-                                 differing=n_diff, visited_trios=trios)
+                                 differing=n_diff, visited_trios=trios,
+                                 exact_only_ms=exact_ms,
+                                 useful_lane_share=useful)
 
 
 def phase_selfcheck() -> None:
@@ -1205,6 +1266,8 @@ def phase_kernels_knn(report: dict) -> None:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pairwise_batch_q import (
         pairwise_threshold_q_cuda, pairwise_topk_q_cuda, route_of)
+    from repro_torch.kernels.pairwise_topk import (
+        pairwise_topk_score_only_cuda)
     from repro_torch.serving.engine import quantize_pow2
 
     comm = SingleProcessComm(P, DEVICE)
@@ -1249,6 +1312,15 @@ def phase_kernels_knn(report: dict) -> None:
                 f"B6 device {p} slot {s_}")
     ms = cuda_ms(lambda: ops.pairwise_topk(quorum, lo, hi, meta, **kw),
                  reps=2)
+    score_ms = cuda_ms(lambda: pairwise_topk_score_only_cuda(
+        quorum, lo, hi, meta, **kw), reps=2)
+    # 33 entries round up to lists of 64, past the 32 that B6 keeps in
+    # shared memory (csrc/pairwise_topk.cu, kSmemTp)
+    kw_long = dict(kw, topk=33)
+    long_ms = cuda_ms(lambda: ops.pairwise_topk(quorum, lo, hi, meta,
+                                                **kw_long), reps=1)
+    split = kernel_split(lambda: ops.pairwise_topk(quorum, lo, hi, meta,
+                                                   **kw))
     lib_ms = per_tile_library(quorum, lo, hi, meta,
                               lambda a, b: torch.mm(a, b.T))
     cand = active_candidates(meta)
@@ -1258,10 +1330,15 @@ def phase_kernels_knn(report: dict) -> None:
         f"max_abs_err={err:.3e}, ids differ at {n_diff} near-tie entries; "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (host clock, device by "
         f"device), torch.mm (TF32 off) + torch.topk per active tile "
-        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); by kernel "
+        f"(torch.profiler): {split}; the scoring pass alone (same tiles, no "
+        f"selection) {score_ms:.3f} ms; top-33 (lists in global memory) "
+        f"{long_ms:.3f} ms")
     report["pairwise_topk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                    bound_ms=b_ms, bound_by=b_by,
-                                   library_ms=lib_ms, differing=n_diff)
+                                   library_ms=lib_ms, differing=n_diff,
+                                   scoring_only_ms=score_ms,
+                                   global_lists_ms=long_ms)
     del quorum, got_v, got_i, want_v, want_i
 
     # ---- B8 at the quantized k-NN's first pass: M = 16 ------------------

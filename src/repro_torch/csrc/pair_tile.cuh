@@ -1,7 +1,8 @@
-// Shared pieces of the pair-tile kernels B6 pairwise_topk, B7
-// pairwise_threshold_q and B8 pairwise_topk_q (its SIMT route): the
-// 64 x 64 SIMT score tile over operands of any storage type, and the
-// running top-k lists of B6 / B8 with their final ordering.
+// Shared pieces of the pair-tile kernels B7 pairwise_threshold_q and B8
+// pairwise_topk_q (their SIMT routes): the 64 x 64 SIMT score tile over
+// operands of any storage type, and B8's running top-k lists; and the
+// final ordering of the lists (order_kernel), which B6 pairwise_topk and
+// both B8 routes use.
 //
 // Score tile.  Every entry is one fmaf chain over d in ascending order,
 // so the dot of rows (u, v) is the same bit pattern whichever of them is
@@ -110,7 +111,7 @@ __device__ __forceinline__ float row_norm(const T* __restrict__ x, int d) {
   return s;
 }
 
-// B6 / B8 selection pass.  One block per (device p, slot, 64-row tile)
+// B8's SIMT selection pass.  One block per (device p, slot, 64-row tile)
 // walks the pairs in order and folds every active tile that touches its
 // slot into its rows' lists: as the lo slot it scores the hi block's
 // valid rows (minus the diagonal on a self tile), as the hi slot of a
@@ -294,7 +295,7 @@ inline int launch_order(float* list_v, int* list_i, float* out_v, int* out_i,
   return (int)cudaGetLastError();
 }
 
-// Launch both passes of B6 / B8 (SIMT); returns the first CUDA error.
+// Launch both passes of B8 (SIMT); returns the first CUDA error.
 template <typename T, bool kQuant>
 inline int launch_topk(const T* quorum, const float* sd, const float* sq,
                        const int* lo, const int* hi, const int* meta,

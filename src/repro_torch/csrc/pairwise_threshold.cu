@@ -15,7 +15,7 @@
 // Bound on the H100: fp32 arithmetic outside the tensor cores, 2*d
 // operations per candidate of an active tile (67 TFLOP/s).  The f32
 // scores decide the threshold, so no TF32: every score is one fmaf chain
-// over d in ascending order, and so is every squared norm (norm_kernel,
+// over d in ascending order, and so is every squared norm (row_norms.cuh,
 // once per slot row, not per strip and per tile).
 //
 // Design.  compact.cuh's count -> scan -> write, one block of 128 threads
@@ -39,6 +39,7 @@
 
 #include "compact.cuh"
 #include "hopper.cuh"
+#include "row_norms.cuh"
 
 namespace {
 
@@ -54,7 +55,6 @@ constexpr int kStages = 3;
 constexpr int kThreads = 128;     // 16 x 8, each 8 rows x 16 columns
 constexpr int kStageFloats = 2 * kTile * kLd;
 constexpr int kRingBytes = kStages * kStageFloats * (int)sizeof(float);
-constexpr int kNormRows = 128;
 static_assert(kThreads == kTile, "one thread per strip row and tile column");
 
 struct Epi {
@@ -64,32 +64,6 @@ struct Epi {
   float cn[kTile];       // |column|^2 of the tile (l2)
 };
 constexpr int kSmemBytes = kRingBytes + (int)sizeof(Epi);
-
-// |row|^2 of every row of x [n_rows, d]: one fmaf chain from 0 over d in
-// ascending order; 32 columns at a time through shared memory, so a warp
-// reads 32 consecutive floats of a row
-__global__ void __launch_bounds__(kNormRows)
-norm_kernel(const float* __restrict__ x, float* __restrict__ out,
-            long long n_rows, int d) {
-  __shared__ float t[kNormRows][33];
-  const long long r0 = (long long)blockIdx.x * kNormRows;
-  const int tid = threadIdx.x;
-  float s = 0.f;
-  for (int k0 = 0; k0 < d; k0 += 32) {
-#pragma unroll 4
-    for (int e = 0; e < 32; ++e) {
-      const int r = 4 * e + tid / 32, c = tid % 32;
-      t[r][c] = r0 + r < n_rows && k0 + c < d
-                    ? x[(size_t)(r0 + r) * d + k0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < 32; ++c)   // past d: + 0, exact
-      s = fmaf(t[tid][c], t[tid][c], s);
-    __syncthreads();
-  }
-  if (r0 + tid < n_rows) out[r0 + tid] = s;
-}
 
 // the d slice [k0, k0 + 32) of strip rows A[0, a_rows) (ring rows
 // 0..127) and tile rows B[0, b_rows) (ring rows 128..255) into the stage
@@ -336,11 +310,7 @@ int launch(const float* quorum, const int* lo, const int* hi,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return (int)err;
   }
-  if (l2) {
-    const long long n_rows = (long long)P * k * block;
-    norm_kernel<<<(unsigned)((n_rows + kNormRows - 1) / kNormRows),
-                  kNormRows, 0, s>>>(quorum, norms, n_rows, d);
-  }
+  if (l2) row_norms::launch(quorum, norms, (long long)P * k * block, d, s);
   const dim3 grid((block + kTile - 1) / kTile, n_pairs, P);
   count_k<<<grid, kThreads, kSmemBytes, s>>>(
       quorum, norms, lo, hi, meta, row_count, hot, nullptr, nullptr, nullptr,

@@ -10,7 +10,7 @@
 // on which thread offered first.  A warp owns a list (warp_offer), or, in
 // the queue drains of short lists, a thread.
 //
-// Candidate queues (B4, B8).  After a score tile, every thread compares
+// Candidate queues (B4, B6, B8).  After a score tile, every thread compares
 // each of its scores in registers against its list's admission bound
 // (the worst entry once the list is full, else (NEG_INF, SENTINEL)), kept
 // in shared memory.  The scores that beat it claim slots of the list's

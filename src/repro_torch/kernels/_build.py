@@ -30,7 +30,7 @@ SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
            "flash_attention.cu", "flash_attention_tc.cu", "ssd_chunk.cu")
 # headers the sources include (part of the build key)
 HEADERS = ("pair_tile.cuh", "hopper.cuh", "topk_select.cuh",
-           "compact.cuh")
+           "compact.cuh", "row_norms.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the PCIT filter's output is a threshold decision: no FMA contraction and
@@ -50,8 +50,11 @@ SIGNATURES = {
     "repro_pairwise_batch_forces": [_vp] * 5 + [_i] * 4 + [_f, _vp],
     # a, b, c, batch, M, N, K, stream
     "repro_pairwise_corr": [_vp] * 3 + [_i] * 4 + [_vp],
-    # r_xy, rows_x, rows_y, gx, gy, keep, visits, batch, M, N, Z, stream
-    "repro_pcit_filter": [_vp] * 7 + [_i] * 4 + [_vp],
+    # r_xy, rows_x, rows_y, gx, gy, keep, visits, stats, batch, M, N, Z,
+    # prefilter, stream
+    "repro_pcit_filter": [_vp] * 8 + [_i] * 5 + [_vp],
+    # a, b, c, out, n, exact, stream
+    "repro_pcit_probe": [_vp] * 4 + [_i] * 2 + [_vp],
     # stack, queries, mask, gidx, list_v, list_i, list_full, out_v, out_i,
     # P, k, block, d, Q, topk, l2, stream
     "repro_query_topk": [_vp] * 9 + [_i] * 7 + [_vp],
@@ -61,9 +64,9 @@ SIGNATURES = {
     # out_j, count, P, k, block, d, n_pairs, block_rows, threshold,
     # capacity, l2, stream
     "repro_pairwise_threshold": [_vp] * 12 + [_i] * 6 + [_f, _ll, _i, _vp],
-    # quorum, lo, hi, meta, list_v, list_i, out_v, out_i,
-    # P, k, block, d, n_pairs, block_rows, topk, tp, l2, stream
-    "repro_pairwise_topk": [_vp] * 8 + [_i] * 9 + [_vp],
+    # quorum, lo, hi, meta, norms, list_v, list_i, out_v, out_i,
+    # P, k, block, d, n_pairs, block_rows, topk, tp, l2, score_only, stream
+    "repro_pairwise_topk": [_vp] * 9 + [_i] * 10 + [_vp],
     # q, sd, sq, lo, hi, meta, list_v, list_i, out_v, out_i,
     # P, k, block, d, n_pairs, block_rows, topk, tp, l2, bf16, route, stream
     "repro_pairwise_topk_q": [_vp] * 10 + [_i] * 11 + [_vp],

@@ -207,6 +207,7 @@ def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
     assert set(_build.SIGNATURES) == {"repro_pairwise_batch_forces",
                                       "repro_pairwise_corr",
                                       "repro_pcit_filter",
+                                      "repro_pcit_probe",
                                       "repro_query_topk",
                                       "repro_query_topk_chunk_rows",
                                       "repro_pairwise_threshold",

@@ -127,6 +127,173 @@ def test_pcit_filter_main_shape_tile(cuda):
         assert torch.equal(got[:, sl], want)
 
 
+def _b3_expected_visits(args):
+    """visits as the plain version defines them: the first z whose
+    one-column plain filter explains the pair, + 1; Z where none does; 0
+    on the diagonal."""
+    r_xy, rows_x, rows_y, gx, gy = args
+    Z = rows_x.shape[-1]
+    first = torch.full(r_xy.shape, Z, dtype=torch.int32, device=r_xy.device)
+    for z in range(Z - 1, -1, -1):
+        keep_z = ref.pcit_filter(r_xy, rows_x[..., z:z + 1],
+                                 rows_y[..., z:z + 1], gx - z, gy - z)
+        first = torch.where(keep_z, first, torch.full_like(first, z + 1))
+    diag = gx[..., :, None] == gy[..., None, :]
+    return torch.where(diag, torch.zeros_like(first), first)
+
+
+def _b3_cell(cuda, Z, starts, kept=(), gx=None, gy=None, M=8,
+             fill=0.9, a_lo=0.05, a_kept=0.95):
+    """One block of 8 x 32 pairs (M = 8), rows of x all ``fill``; row y is 0
+    (explains nothing) below starts[y] and ``fill`` from there, so an
+    explained pair first explains at starts[y]; r_xy is ``a_lo`` but at
+    the ``kept`` pairs (a_kept: explained by no z)."""
+    N = len(starts)
+    rows_x = torch.full((1, M, Z), fill, device=cuda)
+    z = torch.arange(Z, device=cuda)
+    st = torch.as_tensor(starts, device=cuda)
+    rows_y = torch.where(z[None] >= st[:, None], fill, 0.0)[None].float()
+    r_xy = torch.full((1, M, N), a_lo, device=cuda)
+    for x, y in kept:
+        r_xy[0, x, y] = a_kept
+    gx = torch.as_tensor(gx if gx is not None else [Z + 10 + i for i in
+                                                    range(M)],
+                         device=cuda)[None]
+    gy = torch.as_tensor(gy if gy is not None else [Z + 100 + i for i in
+                                                    range(N)],
+                         device=cuda)[None]
+    return r_xy, rows_x, rows_y.contiguous(), gx, gy
+
+
+def _b3_check(args, prefilter=True):
+    """The kernel equals the plain version, and visits its definition."""
+    visits = torch.empty(args[0].shape, dtype=torch.int32,
+                         device=args[0].device)
+    got = pcit_filter_cuda(*args, visits=visits, prefilter=prefilter)
+    assert torch.equal(got, ref.pcit_filter(*args))
+    assert torch.equal(visits, _b3_expected_visits(args))
+    return got, visits
+
+
+# starts at the head's edge (7, 8) and the lanes' (31, 32, 39, 40, 71, 72)
+B3_EDGE_STARTS = [0, 1, 7, 8, 9, 31, 32, 33, 39, 40, 41, 63, 64, 71, 72, 95,
+                  96, 2, 3, 5, 10, 20, 30, 45, 50, 60, 70, 80, 90, 99, 4, 6]
+
+
+@pytest.mark.parametrize("Z", [5, 8, 9, 40, 41, 77, 100, 300])
+@pytest.mark.parametrize("prefilter", [True, False])
+def test_b3_ragged_z(cuda, Z, prefilter):
+    """Z below the head, at it, past it and not a multiple of 32; pairs
+    first explained at every head and lane edge that Z reaches, and two
+    kept edges."""
+    starts = [min(s, Z + 5) for s in B3_EDGE_STARTS]
+    args = _b3_cell(cuda, Z, starts, kept=[(0, 3), (5, 17)])
+    got, visits = _b3_check(args, prefilter)
+    assert bool(got[0, 0, 3]) and bool(got[0, 5, 17])
+    assert int(visits[0, 0, 3]) == Z
+
+
+@pytest.mark.parametrize("excl", [(7, 8), (8, 9), (31, 32), (32, 33),
+                                  (39, 40), (40, 41)])
+def test_b3_exclusions_on_edges(cuda, excl):
+    """gx / gy exclude exactly the z where a pair would first be explained,
+    on the head's and the lanes' edges: the search goes on to the next z."""
+    zx, zy = excl
+    Z = 100
+    starts = [zx if y % 2 else zy for y in range(32)]
+    gx = [zx] * 4 + [Z + i for i in range(4)]
+    gy = [zy if y % 3 == 0 else Z + 50 + y for y in range(32)]
+    args = _b3_cell(cuda, Z, starts, gx=gx, gy=gy)
+    _got, visits = _b3_check(args)
+    # row 0 (gx = zx) on a column with start zx is first explained past zx
+    assert int(visits[0, 0, 1]) > zx + 1
+
+
+def test_b3_one_kept_edge_in_a_warp(cuda):
+    """A warp (one x, 32 y) with exactly one kept edge among pairs all
+    explained in the head: the kept edge alone goes on, to Z."""
+    Z = 333
+    args = _b3_cell(cuda, Z, [y % 5 for y in range(32)], kept=[(2, 19)])
+    got, visits = _b3_check(args)
+    assert int(got[0, 2].sum()) == 1 and bool(got[0, 2, 19])
+    assert int((visits[0, 2] > 8).sum()) == 1
+
+
+def test_b3_block_done_in_the_head(cuda):
+    """Every pair of the block is explained within the head: no pair
+    reaches the warp phase."""
+    args = _b3_cell(cuda, 500, [y % 7 for y in range(32)])
+    got, visits = _b3_check(args)
+    assert not bool(got.any()) and int(visits.max()) <= 8
+
+
+@pytest.mark.parametrize("fill,a_lo", [(0.99999994, 0.05), (1.0, 0.05),
+                                       (-1.0, 0.3), (0.9, -1e-12),
+                                       (-1e-12, 0.05), (0.999, 0.9999999),
+                                       (2.0 ** -21, 0.05), (0.0, 0.0)])
+def test_b3_prefilter_edges(cuda, fill, a_lo):
+    """|r| at and near 1, r = -1e-12 (r + 1e-12 = 0), values below the
+    prefilter's domain: such trios go to the exact chain, and the result is
+    the plain version's."""
+    Z = 70
+    args = _b3_cell(cuda, Z, [y * 2 for y in range(32)], kept=[(1, 1)],
+                    fill=fill, a_lo=a_lo)
+    _b3_check(args)
+
+
+def test_b3_prefilter_never_decides_against_exact(cuda):
+    """The kernel's own prefilter (rsqrt.approx / rcp.approx, as compiled)
+    on trios packed around their boundaries, random trios and edge values:
+    every trio it decides, it decides as the exact chain; and the kernel's
+    exact chain is the float32 chain op for op."""
+    from test_torch_pcit import boundary_trios, edge_trios, exact_explains
+    from repro_torch.kernels.pcit_filter import pcit_probe_cuda
+    for seed in range(4):
+        a, b, c = boundary_trios(np.random.default_rng(seed))
+        n = a.size   # the last 20,000 are random trios
+        if seed == 0:
+            ea, eb, ec = edge_trios()
+            a, b, c = (np.concatenate(t) for t in ((a, ea), (b, eb),
+                                                    (c, ec)))
+        ta, tb, tc = (torch.as_tensor(t, device=cuda) for t in (a, b, c))
+        exact = pcit_probe_cuda(ta, tb, tc, exact=True).cpu().numpy()
+        pre = pcit_probe_cuda(ta, tb, tc, exact=False).cpu().numpy()
+        np.testing.assert_array_equal(exact, exact_explains(a, b, c))
+        decided = pre >= 0
+        assert bool((pre[decided] == exact[decided]).all())
+        assert float(decided[n - 20000:n].mean()) > 0.99
+
+
+def test_b3_stats(cuda):
+    """The counters: every visited trio was evaluated and issued; with the
+    prefilter off nothing is decided by it, and keep and visits are the
+    same."""
+    from repro_torch.kernels.pcit_filter import STATS
+    R = torch.as_tensor(_corr_rows(np.random.default_rng(3), 2048, 64, 8),
+                        dtype=torch.float32, device=cuda)
+    ids = torch.arange(256, device=cuda)
+    args = (R[None, :256, 512:768].contiguous(), R[None, :256],
+            R[None, 512:768], ids[None], (ids + 512)[None])
+    out = {}
+    for pre in (True, False):
+        stats = torch.empty(len(STATS), dtype=torch.int64, device=cuda)
+        visits = torch.empty(1, 256, 256, dtype=torch.int32, device=cuda)
+        keep = pcit_filter_cuda(*args, visits=visits, stats=stats,
+                                prefilter=pre)
+        out[pre] = keep, visits, dict(zip(STATS, stats.tolist()))
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+    assert torch.equal(out[True][0], ref.pcit_filter(*args))
+    # visits count the excluded z (gx, gy) too, which are not evaluated
+    trios = int(out[True][1].long().sum()) - 2 * out[True][1].numel()
+    for pre in (True, False):
+        st = out[pre][2]
+        evaluated = st["prefilter_decided"] + st["exact_decided"]
+        assert trios <= evaluated <= st["issued_lane_trios"]
+    assert out[False][2]["prefilter_decided"] == 0
+    assert out[True][2]["prefilter_decided"] > out[True][2]["exact_decided"]
+
+
 def test_wrappers_count_launches(cuda):
     ops.reset_launch_counts()
     x = torch.zeros(1, 4, 3, device=cuda)
@@ -353,6 +520,50 @@ def test_pairwise_topk(cuda, P, k, block, d, n_pairs, integer, self_only,
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
     else:
         _assert_lists_near(*got, *want)
+
+
+# B6's tile edges: blocks of 127 / 128 / 129 / 257 own rows (128-row
+# blocks) and candidates (256-candidate tiles), d past a 32-deep slice and
+# d % 4 != 0 (plain loads), self-only schedules; small-integer data, so
+# every score is exact and ties are many
+B6_CELLS = [(1, 2, 127, 33, 3, True, False), (2, 2, 128, 32, 3, True, True),
+            (1, 3, 129, 8, 4, True, False), (1, 2, 257, 130, 3, True, False),
+            (1, 2, 257, 24, 3, True, True), (2, 3, 129, 5, 5, True, True)]
+
+
+@pytest.mark.parametrize("P,k,block,d,n_pairs,integer,self_only", B6_CELLS)
+@pytest.mark.parametrize("topk", [1, 10, 32, 33, 512, 2048])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_topk_tile_edges(cuda, P, k, block, d, n_pairs, integer,
+                                  self_only, topk, metric):
+    """B6 at its 128-row and 256-candidate edges, lists in shared memory
+    (topk <= 32) and in global memory (33 and above): identical lists,
+    ties included."""
+    rng = np.random.default_rng(P * 700 + block + topk + d)
+    quorum, lo, hi, meta = _pair_inputs(rng, P, k, block, d, n_pairs,
+                                        integer, self_only, cuda)
+    kw = dict(topk=topk, block_rows=block, metric=metric)
+    got = ops.pairwise_topk(quorum, lo, hi, meta, **kw)
+    want = ref.pairwise_topk(quorum, lo, hi, meta, **kw)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pairwise_topk_score_only(cuda, metric):
+    """The scoring pass alone (a measurement) finds each row's best score,
+    the head of its list, and does not count as a launch of B6."""
+    from repro_torch.kernels.pairwise_topk import (
+        pairwise_topk_score_only_cuda)
+    quorum, lo, hi, meta = _pair_inputs(np.random.default_rng(4), 2, 3, 300,
+                                        40, 5, True, False, cuda)
+    kw = dict(topk=4, block_rows=300, metric=metric)
+    ops.reset_launch_counts()
+    best = pairwise_topk_score_only_cuda(quorum, lo, hi, meta, **kw)
+    assert ops.launch_counts()["pairwise_topk"] == 0
+    want = ref.pairwise_topk(quorum, lo, hi, meta, **kw)[0][..., 0]
+    has = want > ref.NEG_INF
+    assert torch.equal(best[has], want[has])
+    assert bool((best[~has] == -float("inf")).all())
 
 
 @pytest.mark.parametrize("P,k,block,d,n_pairs,integer,self_only", B8_CELLS)
