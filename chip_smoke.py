@@ -15,10 +15,11 @@ beside the script).  Phases:
      (``mma.sync``), B2, B5 and B7 no atomics, B3, B4, B6 and B8 no float
      atomics; and count the SASS instructions of B3's one-trio probes (the
      exact chain, the prefilter);
-  2. B1 pairwise_batch, B2 pairwise_corr and B3 pcit_filter (with the
-     deciles of its search lengths, the useful share of its issued
-     lane-trios, the share of trios its prefilter decided, and its time
-     with the exact chain on every trio), and
+  2. B1 pairwise_batch (bit-equal across two launches, timed by kernel:
+     plan, side pass, reduction), B2 pairwise_corr and B3 pcit_filter
+     (with the deciles of its search lengths, the useful share of its
+     issued lane-trios, the share of trios its prefilter decided, and its
+     time with the exact chain on every trio), and
   3. B4 query_topk and B5 pairwise_threshold, each at its main path's
      shapes against its plain PyTorch version, timed with CUDA events
      beside the plain version and, where one exists, a library yardstick
@@ -60,7 +61,9 @@ beside the script).  Phases:
      against the f32 ``ServingCorpus.query``;
  16. B9 flash_attention (one quorum pair [8, 4096, 40 | 8, 128], causal
      and not, bf16 on the ``wgmma`` kernel and f32 on the SIMT one) and B10
-     ssd_chunk (mamba2-130m's prefill, [4, 32768, 24, 64], chunk 256)
+     ssd_chunk (mamba2-130m's prefill, [4, 32768, 24, 64], chunk 256, and
+     a decode step's [4, 1, 24, 64], chunk 1; bit-equal across two
+     launches; its bound with C B^T counted once per chunk and per head)
      against their plain versions, timed beside them and, for B9,
      scaled_dot_product_attention;
  17. quorum and ring sequence-parallel causal attention at qwen3-14b's
@@ -147,6 +150,10 @@ FLASH_PART_TOL, FLASH_ATOL, BF16_REL = 1e-5, 1e-5, 2.0 ** -7
 # JAX package's serve() (batch 4, prompt 16, 32 generated tokens)
 SSM_PREFILL_B, SSM_PREFILL_T, SSM_CHECK_T = 4, 32_768, 1024
 SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK = 24, 64, 128, 256
+# B10's L = 1 launch (a decode step's shape) in the earlier design, one
+# block per (batch row x head, chunk), on an H100 80GB HBM3 at 700 W
+# (PERF.md kernel table); printed beside this run's time
+DECODE_REF_MS = 0.081
 SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_GEN = 4, 16, 32
 # scores within SCORE_TOL * max(1, |s|) of each other (or of the k-th
 # score, or of the threshold) may order differently between the kernels'
@@ -456,7 +463,11 @@ def phase_kernels(report: dict) -> None:
     rel = err / float(want.abs().max())
     check(torch.isfinite(got).all(), "B1: non-finite forces")
     check(rel < 1e-4, f"B1: max abs err / max |plain| = {rel:.3e} >= 1e-4")
+    check(torch.equal(got, ops.pairwise_batch_forces(quorum, lo, hi, wi, wj)),
+          "B1: two launches on the same inputs differ")
     ms = cuda_ms(lambda: ops.pairwise_batch_forces(quorum, lo, hi, wi, wj))
+    split = kernel_split(lambda: ops.pairwise_batch_forces(quorum, lo, hi, wi,
+                                                           wj))
     plain_ms = cuda_ms(lambda: ref.pairwise_batch_forces(quorum, lo, hi, wi,
                                                          wj), reps=2)
     block = quorum.shape[2]
@@ -470,7 +481,8 @@ def phase_kernels(report: dict) -> None:
     w = torch.stack([wi, wj], -1)
     b_ms, b_by = bound(nbytes(quorum, w, got) + 8 * sched.n_pairs, ops_needed)
     say(f"B1 pairwise_batch {tuple(quorum.shape)} x {sched.n_pairs} pairs: "
-        f"max_abs_err={err:.3e} (rel {rel:.3e} < 1e-4) kernel {ms:.3f} ms, "
+        f"max_abs_err={err:.3e} (rel {rel:.3e} < 1e-4), bit-equal across two "
+        f"launches; kernel {ms:.3f} ms (by kernel, per launch: {split}), "
         f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
     report["pairwise_batch"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     bound_ms=b_ms, bound_by=b_by,
@@ -1974,21 +1986,37 @@ def phase_kernels_lm(report: dict) -> None:
             e.append(float((gt - wt).abs().max()))
         errs += e
         del want
-        ms = cuda_ms(lambda: ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=L))
+        again = ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=L)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"B10 {label}: two launches on the same inputs differ")
+        del again
+        ms = cuda_ms(lambda: ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=L),
+                     reps=3 if L > 1 else 50)
         plain_ms = cuda_ms(lambda: ref.ssd_intra_chunk(x, dt, A, Bm, Cm,
                                                        chunk=L),
                            reps=1, warmup=0)
         H, Pd = x.shape[2:]
         N = Bm.shape[-1]
-        cells = Bsz * H * (T // L)
+        nc = T // L
+        cells = Bsz * H * nc
         tri = L * (L + 1) // 2
-        n_ops = cells * (2.0 * N * tri + 2.0 * Pd * tri + 2.0 * L * N * Pd)
+        # C B^T below the diagonal once per (batch row, chunk): B and C are
+        # one group for every head; per head the product with x and S
+        n_ops = (Bsz * nc * 2.0 * N * tri
+                 + cells * (2.0 * Pd * tri + 2.0 * L * N * Pd))
         b_ms, b_by = bound(nbytes(x, dt, A, Bm, Cm, *got), n_ops)
+        # the same count with C B^T repeated per head
+        per_head_ms, _ = bound(nbytes(x, dt, A, Bm, Cm, *got), n_ops
+                               + (cells - Bsz * nc) * 2.0 * N * tri)
+        ref_note = (f" (the per-head kernel before this design: "
+                    f"{DECODE_REF_MS} ms)" if L == 1 else "")
         say(f"B10 ssd_chunk {label} x {tuple(x.shape)} B/C "
             f"{tuple(Bm.shape)} chunk {L} ({cells} cells): max_abs_err y "
-            f"{e[0]:.3e}, S {e[1]:.3e}, cd {e[2]:.3e} (rtol / atol 1e-4) "
-            f"kernel {ms:.3f} ms ({n_ops / ms / 1e9:.3f} TFLOP/s), plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+            f"{e[0]:.3e}, S {e[1]:.3e}, cd {e[2]:.3e} (rtol / atol 1e-4), "
+            f"bit-equal across two launches; kernel {ms:.4f} ms{ref_note} "
+            f"({n_ops / ms / 1e9:.3f} TFLOP/s), plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, {n_ops:.4e} operations; with "
+            f"C B^T counted per head {per_head_ms:.4f} ms)")
         if label == "prefill":
             # the row of the kernels line: prefill's launch, the costly one
             report["ssd_chunk"] = dict(ms=ms, plain_ms=plain_ms,

@@ -46,8 +46,9 @@ LIB_NAME = "librepro_torch_kernels.so"
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ll = ctypes.c_longlong
 SIGNATURES = {
-    # quorum, lo, hi, w, out, B, k, block, n_pairs, softening, stream
-    "repro_pairwise_batch_forces": [_vp] * 5 + [_i] * 4 + [_f, _vp],
+    # quorum, lo, hi, w, list, partial, out, B, k, block, n_pairs,
+    # softening, stream
+    "repro_pairwise_batch_forces": [_vp] * 7 + [_i] * 4 + [_f, _vp],
     # a, b, c, batch, M, N, K, stream
     "repro_pairwise_corr": [_vp] * 3 + [_i] * 4 + [_vp],
     # r_xy, rows_x, rows_y, gx, gy, keep, visits, stats, batch, M, N, Z,

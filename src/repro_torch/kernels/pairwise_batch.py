@@ -8,10 +8,14 @@ What bounds it on the H100: fp32 arithmetic outside the tensor cores
 (67 TFLOP/s; about 20 flops per body pair, with the body blocks read once
 from device memory).  The TPU kernel accumulates the pairs in order into
 one VMEM scratch on its sequential grid; Hopper's blocks run in no order
-and float atomics are ruled out, so each CUDA block owns one (device, slot,
-row tile) and walks the pairs itself: deterministic, one pass, every
-non-self tile formed from both of its sides (about 1.8x the bound's flops
-at P = 8).
+and float atomics are ruled out, so one call launches three kernels: a
+plan that lists the (device, pair, side) items with a non-zero weight, a
+side pass that gives each listed item and 512-body row tile one block (one
+pass over the partner block: equal work per block, whatever the schedule)
+and writes the unweighted partial forces to scratch ``[B, n_pairs, 2,
+block, 3]``, and a reduction that adds the weighted partials in pair
+order, side 0 before side 1.  Deterministic; every non-self tile is formed
+from both of its sides.  ``launches`` counts one per call.
 
 The plain version beside it is :func:`pairwise_batch_forces_plain`; the
 device dispatch is :func:`repro_torch.kernels.ops.pairwise_batch_forces`.
@@ -67,11 +71,15 @@ def pairwise_batch_forces_cuda(quorum: torch.Tensor, lo, hi,
     out = torch.empty(B, k, block, 3, dtype=torch.float32, device=dev)
     if block == 0:
         return out
+    # the plan's item list and the side pass's unweighted partials
+    plan = torch.empty(1 + B * n_pairs * 2, dtype=torch.int32, device=dev)
+    partial = torch.empty(B, n_pairs, 2, block, 3, dtype=torch.float32,
+                          device=dev)
     with torch.cuda.device(dev):
         rc = _build.library().repro_pairwise_batch_forces(
             quorum.data_ptr(), lo_d.data_ptr(), hi_d.data_ptr(), w.data_ptr(),
-            out.data_ptr(), B, k, block, n_pairs, float(softening),
-            _build.stream_of(quorum))
+            plan.data_ptr(), partial.data_ptr(), out.data_ptr(), B, k, block,
+            n_pairs, float(softening), _build.stream_of(quorum))
     _build.check(rc, "pairwise_batch_forces")
     launches += 1
     return out

@@ -7,13 +7,19 @@ Replaces the Pallas kernel ``repro/kernels/ssd_chunk.py:ssd_chunk_pallas``
 ``repro_torch/csrc/ssd_chunk.cu``.
 
 What bounds it on the H100: fp32 arithmetic outside the tensor cores
-(67 TFLOP/s): per (batch*head, chunk) cell the lower triangle of C B^T
-over N, the decay-weighted product with x, and the chunk state S over the
-chunk.  The TPU kernel takes one (bh, chunk) cell per grid step with its
-B and C repeated per head; here one block owns one cell, reads B and C
-per batch row (``bh // H``) through strides, and forms the 64 x 64
-blocks of C B^T on or below the diagonal only, taking the decay's
-exponent only where i >= j (it cannot overflow there).
+(67 TFLOP/s).  B and C are one group shared by every head, so the
+function needs C B^T below the diagonal once per (batch row, chunk), then
+per head its decay-weighted product with x and the chunk state S.  The
+TPU kernel takes one (bh, chunk) cell per grid step with its B and C
+repeated per head; here one block owns a (batch row, chunk) cell and
+walks its heads 8 at a time (a block per 8 heads where the cells are too
+few to fill the card).  It forms the lower strip of C B^T once per 64-row
+tile for every head, factors the decay out of the product below the
+diagonal tile (``exp(cums_i - cums_j) = u_i v_j`` about one reference
+row, both factors <= 1 where every dt * A <= 0), takes the explicit
+masked exponent on the diagonal tile and for any head with some dt * A >
+0, and forms S as one product over the chunk; every product runs on an
+8 x 16 register tile a thread (the file's header has the design).
 
 The O(nc) inter-chunk recurrence is framework code, as in the
 reference's ``ops.ssd_chunk``: :func:`ssd_inter_chunk` walks the chunk

@@ -67,6 +67,63 @@ def test_pairwise_batch_main_shape(cuda):
     assert float((got[:2] - want).abs().max() / want.abs().max()) < 1e-4
 
 
+def _b1_check(cuda, rng, B, k, block, lo, hi, wi, wj):
+    q = torch.as_tensor(_bodies(rng, B, k, block), device=cuda)
+    wi, wj = (torch.as_tensor(np.asarray(w, np.float32), device=cuda)
+              for w in (wi, wj))
+    got = ops.pairwise_batch_forces(q, lo, hi, wi, wj)
+    want = ref.pairwise_batch_forces(q, lo, hi, wi, wj)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+    return q, wi, wj, got
+
+
+def test_pairwise_batch_every_pair_on_one_slot(cuda):
+    """Every weighted side lands on slot 0 (the hi sides weigh 0 except
+    on self pairs): the side pass's items all feed one slot, and slots 1
+    and 2 stay exactly 0."""
+    rng = np.random.default_rng(11)
+    lo = np.array([0, 0, 0, 0, 0], np.int32)
+    hi = np.array([0, 1, 2, 1, 0], np.int32)
+    wi = rng.uniform(0.5, 2, (2, 5))
+    wj = np.where(hi == lo, wi, 0.0)
+    *_, got = _b1_check(cuda, rng, 2, 3, 700, lo, hi, wi, wj)
+    assert torch.count_nonzero(got[:, 1:]) == 0
+
+
+@pytest.mark.parametrize("same", [False, True])
+def test_pairwise_batch_one_pair(cuda, same):
+    rng = np.random.default_rng(12 + same)
+    lo = np.array([1], np.int32)
+    hi = np.array([1 if same else 0], np.int32)
+    _b1_check(cuda, rng, 3, 2, 1000, lo, hi, rng.uniform(0.5, 2, (3, 1)),
+              rng.uniform(0.5, 2, (3, 1)))
+
+
+def test_pairwise_batch_zero_softening(cuda):
+    """softening = 0 is not a normal float, so the side pass keeps
+    rsqrtf's denormal handling (no self pair: every r2 > 0)."""
+    rng = np.random.default_rng(14)
+    q = torch.as_tensor(_bodies(rng, 2, 2, 300), device=cuda)
+    lo, hi = np.array([0], np.int32), np.array([1], np.int32)
+    w = torch.ones(2, 1, device=cuda)
+    got = ops.pairwise_batch_forces(q, lo, hi, w, w, softening=0.0)
+    want = ref.pairwise_batch_forces(q, lo, hi, w, w, softening=0.0)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+
+
+def test_pairwise_batch_bit_equal(cuda):
+    """Two launches on the same inputs give the same bits (no float
+    atomics; the reduction adds in pair order)."""
+    sched = build_schedule(8)
+    rng = np.random.default_rng(13)
+    lo, hi = sched.pair_slots[:, 0], sched.pair_slots[:, 1]
+    wi = pair_mask_table(sched)
+    wj = np.where(sched.pair_diff == 0, 0, wi)
+    q, wi, wj, got = _b1_check(cuda, rng, 8, sched.k, 2000, lo, hi, wi, wj)
+    assert torch.equal(got, ops.pairwise_batch_forces(q, lo, hi, wi, wj))
+
+
 @pytest.mark.parametrize("B,M,N,G", [(5, 70, 90, 33), (2, 64, 64, 16),
                                      (40, 1024, 1024, 512),
                                      # 128-row / -column tile edges, K past a
@@ -952,6 +1009,82 @@ def test_ssd_chunk(cuda, L, N, P):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def _ssd_close(args, L):
+    got = ops.ssd_intra_chunk(*args, chunk=L)
+    want = ref.ssd_intra_chunk(*args, chunk=L)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    return got
+
+
+@pytest.mark.parametrize("L", [1, 16, 96, 256])
+@pytest.mark.parametrize("H", [3, 24, 25])
+def test_ssd_chunk_head_groups(cuda, L, H):
+    """mamba2-130m's widths (P 64, N 128) with H not a multiple of the 8
+    heads a block owns; L = 96 leaves a ragged 64-row tile."""
+    T = 3 if L == 1 else 2 * L
+    _ssd_close(_ssd_inputs(cuda, 1, T, H, 64, 128, 100 * L + H), L)
+
+
+@pytest.mark.parametrize("L", [16, 64])
+@pytest.mark.parametrize("H", [3, 25])
+def test_ssd_chunk_many_cells(cuda, L, H):
+    """600 (batch row, chunk) cells: enough to fill the card, so one block
+    walks every 8-head group of its cell under one C B^T strip (H = 25
+    leaves a group of one head)."""
+    _ssd_close(_ssd_inputs(cuda, 2, 300 * L, H, 64, 128, 5 * L + H), L)
+
+
+@pytest.mark.parametrize("P,N", [(30, 50), (100, 37), (128, 256),
+                                 (128, 128)])
+def test_ssd_chunk_widths(cuda, P, N):
+    """Head widths past 64 (a block of 4 heads x 128 columns) and widths
+    that are not multiples of 4 (4-byte loads instead of 16-byte copies),
+    with ragged 64-row tiles."""
+    _ssd_close(_ssd_inputs(cuda, 2, 192, 5, P, N, P + N), 96)
+
+
+@pytest.mark.parametrize("L", [64, 96, 256])
+def test_ssd_chunk_wide_span(cuda, L):
+    """cums spans far more than 88 within a chunk (dt up to 2, A down to
+    -16; exp(-cums_j) alone would overflow).  dt is a multiple of 1/8 and
+    A an integer, so every cumsum is exact and both versions see the same
+    decays."""
+    x, _dt, _A, Bm, Cm = _ssd_inputs(cuda, 2, 2 * L, 5, 64, 128, 7 * L)
+    rng = np.random.default_rng(L)
+    dt = torch.as_tensor(rng.integers(1, 17, size=(2, 2 * L, 5)) / 8,
+                         dtype=torch.float32, device=cuda)
+    A = torch.tensor([-16.0, -9.0, -3.0, -1.0, -16.0], device=cuda)
+    cums = torch.cumsum((dt * A).view(2, 2, L, 5), dim=2)
+    assert float((cums[:, :, 0, 0] - cums[:, :, -1, 0]).min()) > 88
+    _ssd_close((x, dt, A, Bm, Cm), L)
+
+
+@pytest.mark.parametrize("L", [16, 96])
+def test_ssd_chunk_positive_a(cuda, L):
+    """Heads with dt * A > 0 (growth, a short chunk) take the explicit
+    route on every tile; the others stay factored.  dt is a multiple of
+    1/32 and A of 1/16, so every cumsum is exact: growth multiplies any
+    rounding of the cumsum into the result, and the two versions would
+    then disagree by their cumsums' rounding, not by the kernel."""
+    x, _dt, _A, Bm, Cm = _ssd_inputs(cuda, 2, 2 * L, 10, 64, 128, 3 * L)
+    rng = np.random.default_rng(L + 1)
+    dt = torch.as_tensor(rng.integers(1, 9, size=(2, 2 * L, 10)) / 32,
+                         dtype=torch.float32, device=cuda)
+    A = torch.tensor([0.125, -1.0, 0.0625, -2.0, -0.5, 0.125, -1.5, -0.75,
+                      0.0625, -1.0], device=cuda)
+    _ssd_close((x, dt, A, Bm, Cm), L)
+
+
+def test_ssd_chunk_bit_equal(cuda):
+    """Two launches on the same inputs give the same bits."""
+    args = _ssd_inputs(cuda, 2, 192, 25, 64, 128, 5)
+    first = _ssd_close(args, 96)
+    again = ops.ssd_intra_chunk(*args, chunk=96)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_ssd_full_scan_matches_sequential(cuda):
