@@ -65,7 +65,7 @@ beside the script).  Phases:
      a decode step's [4, 1, 24, 64], chunk 1; bit-equal across two
      launches; its bound with C B^T counted once per chunk and per head)
      against their plain versions, timed beside them and, for B9,
-     scaled_dot_product_attention;
+     scaled_dot_product_attention (bf16, and f32 beside the f32 route);
  17. quorum and ring sequence-parallel causal attention at qwen3-14b's
      attention widths (H = 40, KV = 8, hd = 128), T = 32,768, P = 8, in
      bf16 and in f32, held against each other, whole-sequence B9 and the
@@ -75,14 +75,29 @@ beside the script).  Phases:
      tokens (bf16 and f32), and the card's prefill against the CPU's;
  19. mamba2-130m serving: ``serve()`` at batch 4, prompt 16, 32 generated
      tokens, B10 launched 24 times per step;
+ 20. continuous-batching serving over phase 8's corpus: ``serve_queries``
+     through ``BatchScheduler`` (B4, 256 requests a launch) drains 40
+     microbatches of l2 top-10 requests with a stream update every 10
+     (held microbatches against the brute force and, bit for bit, against
+     ``ServingCorpus.query``); a heterogeneous pack (k = 1..100, range
+     queries with mixed thresholds and capacities) bit-identical to each
+     request alone; a capacity escalation; expiry and a partial result
+     under injected clocks; the background loop with 1,024 requests;
+ 21. delta churn: ``DeltaIndex`` over the dense reduce and the k-NN graph
+     (65,536 x 128) and the join (16,384 x 128) at P = 8, eight random
+     updates of 1, 2 and 4 dirty blocks, each bit-equal to a from-scratch
+     fold and sweeping |D|P - C(|D|, 2) tiles;
+ 22. fault-tolerant sweeps of the same workloads in every mode under a
+     seeded kill every 2 rounds, and with every holder of a block killed
+     (a restore from the checkpoint), each bit-equal to the fault-free run;
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
 
 Kernel launch counts are set to 0 just before each main path (n-body,
 PCIT, serving, join, k-NN graph, quantized join, quantized k-NN, quorum
-attention, prefill, serving) is driven and read just after it, so
-comparison launches do not count.
+attention, prefill, serving, the batching drain) is driven and read just
+after it, so comparison launches do not count.
 """
 
 from __future__ import annotations
@@ -155,6 +170,17 @@ SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK = 24, 64, 128, 256
 # (PERF.md kernel table); printed beside this run's time
 DECODE_REF_MS = 0.081
 SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_GEN = 4, 16, 32
+# the continuous batcher over phase 8's corpus: microbatches of SERVE_Q
+# requests, a stream update every BATCH_STREAM_EVERY microbatches, the
+# background loop with BATCH_ASYNC requests
+BATCH_STREAM_EVERY, BATCH_ASYNC = 10, 1024
+BATCH_TOPKS = (1, 2, 3, 5, 8, 10, 13, 20, 32, 50, 64, 100)
+# churn and the fault-tolerant sweep: the dense reduce and the k-NN graph
+# at N = 65,536 x 128, the join at 16,384 x 128 (its constructor forms all
+# N(N-1)/2 scores to place its threshold), P = 8, cyclic
+CHURN_N, CHURN_JOIN_N, CHURN_D = 65_536, 16_384, 128
+CHURN_DIRTY = (1, 2, 4, 1, 2, 4, 1, 2)      # dirty blocks per update
+CKPT_BUDGET = 1 << 30                       # npz bytes a sweep may write
 # scores within SCORE_TOL * max(1, |s|) of each other (or of the k-th
 # score, or of the threshold) may order differently between the kernels'
 # fp32 accumulation and cuBLAS's
@@ -1918,6 +1944,20 @@ def phase_kernels_lm(report: dict) -> None:
                              .scaled_dot_product_attention(
                                  qs, ks, vs, is_causal=causal,
                                  enable_gqa=True))
+            # which backends take these inputs (the default picks one)
+            backends = []
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            for be in (SDPBackend.FLASH_ATTENTION,
+                       SDPBackend.EFFICIENT_ATTENTION):
+                try:
+                    with sdpa_kernel([be]):
+                        be_ms = cuda_ms(lambda: torch.nn.functional
+                                        .scaled_dot_product_attention(
+                                            qs, ks, vs, is_causal=causal,
+                                            enable_gqa=True), reps=1)
+                    backends.append(f"{be.name.lower()} alone {be_ms:.3f} ms")
+                except RuntimeError:
+                    backends.append(f"{be.name.lower()} refuses them")
             del qs, ks, vs
             n_ops = flash_ops(rows_b, blk, blk, ATTN_H, ATTN_HD, causal)
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
@@ -1938,13 +1978,26 @@ def phase_kernels_lm(report: dict) -> None:
                 f"_err={err:.3e} (m {m_err:.3e}, l rel {l_rel:.3e}; < {tol})"
                 f" kernel {ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), "
                 f"plain {plain_ms:.3f} ms (row chunks), sdpa {lib_ms:.3f} "
-                f"ms, bound {b_ms:.3f} ms ({b_by}, {n_ops:.3e} operations on "
+                f"ms ({', '.join(backends)}), bound {b_ms:.3f} ms ({b_by}, {n_ops:.3e} operations on "
                 f"{'bf16 tensor cores' if peak == PEAK_BF16_FLOPS else 'fp32'}"
                 f"{work})")
             del got, want
         del q, k, v
-    # the main path's common launch: a full (non-diagonal) pair in bf16
-    report["flash_attention"] = res[(torch.bfloat16, False)]
+    # the main path's common launch: a full (non-diagonal) pair in bf16;
+    # beside it the f32 route and scaled_dot_product_attention on the same
+    # f32 tensors (enable_gqa, TF32 off), full and causal
+    report["flash_attention"] = dict(res[(torch.bfloat16, False)])
+    for causal, tag in ((False, "f32_"), (True, "f32_causal_")):
+        r32 = res[(torch.float32, causal)]
+        report["flash_attention"].update({
+            tag + "ms": r32["ms"], tag + "library_ms": r32["library_ms"],
+            tag + "bound_ms": r32["bound_ms"]})
+    say("B9 f32 route (csrc/flash_attention.cu) beside sdpa on the same f32 "
+        "tensors (enable_gqa, TF32 off): full "
+        f"{res[(torch.float32, False)]['ms']:.3f} vs "
+        f"{res[(torch.float32, False)]['library_ms']:.3f} ms, causal "
+        f"{res[(torch.float32, True)]['ms']:.3f} vs "
+        f"{res[(torch.float32, True)]['library_ms']:.3f} ms")
 
     # ---- B9 bf16 partials at hd 256 over a whole 4,096-key block: 128
     # tiles of 32 keys, each tile's P V joining O by one f32 fmaf --------
@@ -2240,6 +2293,358 @@ def phase_mamba_serve() -> None:
         f"step over {steps} steps")
 
 
+# ---------------------------------------------------------------------------
+# The continuous-batching front end, delta churn, fault-tolerant sweeps
+# ---------------------------------------------------------------------------
+
+def phase_batching() -> None:
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import IDX_SENTINEL, NEG_INF
+    from repro_torch.launch.query_serve import serve_queries
+    from repro_torch.serving import ServingCorpus
+    from repro_torch.serving.batching import BatchScheduler, latency_summary
+
+    comm = SingleProcessComm(P, DEVICE)
+    X, queries, _fresh, _thr_q = serving_data()
+    sc = ServingCorpus.build(X, comm, placement="cyclic")
+    sched = BatchScheduler(sc, max_batch=SERVE_Q, pad_queries_to=SERVE_Q,
+                           use_kernel=True)
+    drain_q = queries[:SERVE_BATCHES].reshape(-1, SERVE_D)
+    # warm-up: one microbatch through a throwaway scheduler
+    serve_queries(sc, queries[SERVE_BATCHES], microbatch=SERVE_Q,
+                  topk=SERVE_TOPK, metric="l2", use_kernel=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    vals, idx, qps = serve_queries(
+        sc, drain_q, microbatch=SERVE_Q, topk=SERVE_TOPK, metric="l2",
+        use_kernel=True, stream_every=BATCH_STREAM_EVERY,
+        rng=np.random.default_rng(20), scheduler=sched)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["query_topk"]
+    st = sched.stats()
+    lat = latency_summary(sched.latencies_s)
+    check(launches == SERVE_BATCHES == st["launches"],
+          f"batching: {launches} B4 launches for {SERVE_BATCHES} microbatches")
+    check(vals.shape == (SERVE_BATCHES * SERVE_Q, SERVE_TOPK)
+          and np.isfinite(vals).all() and st["done"] == len(vals),
+          "batching: results of the wrong shape, not finite or not done")
+
+    # replay the stream updates (the same draws) from the original corpus:
+    # each held microbatch against the brute force and, bit for bit, against
+    # ServingCorpus.query on the corpus as it stood
+    rng = np.random.default_rng(20)
+    updates = {bi: (int(rng.integers(P)),
+                    rng.normal(size=(sc.block, SERVE_D)).astype(np.float32))
+               for bi in range(BATCH_STREAM_EVERY, SERVE_BATCHES,
+                               BATCH_STREAM_EVERY)}
+    for b, _ in updates.values():
+        sc.replace_block(b, X[b * sc.block:(b + 1) * sc.block])
+    Xcur = X.clone()
+    n_diff = 0
+    for bi in range(SERVE_BATCHES):
+        if bi in updates:
+            b, data = updates[bi]
+            data = torch.from_numpy(data).to(DEVICE)
+            sc.replace_block(b, data)
+            Xcur[b * sc.block:(b + 1) * sc.block] = data
+        if bi not in SERVE_HELD:
+            continue
+        q = queries[bi]
+        rows = slice(bi * SERVE_Q, (bi + 1) * SERVE_Q)
+        got_v = torch.from_numpy(vals[rows]).to(DEVICE)
+        got_i = torch.from_numpy(idx[rows]).to(DEVICE)
+        sv, si = sc.query(q, topk=SERVE_TOPK, metric="l2", use_kernel=True)
+        check(torch.equal(sv, got_v) and torch.equal(si, got_i),
+              f"batching microbatch {bi}: not bit-equal to "
+              "ServingCorpus.query")
+        xn = (Xcur * Xcur).sum(-1)
+        want_v, want_i = brute_topk(q, Xcur, xn, SERVE_TOPK)
+        n_diff += check_topk_rows(q, Xcur, xn, got_v, got_i, want_v, want_i,
+                                  f"batching microbatch {bi}")
+    say(f"batching N={SERVE_N} d={SERVE_D} P={P}: {SERVE_BATCHES} "
+        f"microbatches of {SERVE_Q} l2 top-{SERVE_TOPK} requests through "
+        f"BatchScheduler(use_kernel, max_batch={SERVE_Q}) with a stream "
+        f"update every {BATCH_STREAM_EVERY}: {qps:.1f} queries/s "
+        f"steady-state (stream updates excluded), per-request p50 "
+        f"{lat['p50_s'] * 1e3:.3f} ms, p99 {lat['p99_s'] * 1e3:.3f} ms (host "
+        f"clock); {wall:.2f} s wall with {len(updates)} updates; B4 launches "
+        f"{launches}, {st['packed_requests'] / st['launches']:.1f} requests "
+        f"per launch; held microbatches {SERVE_HELD} bit-equal to "
+        f"ServingCorpus.query, {n_diff} entries differ from the brute force, "
+        "all within the tie tolerance")
+
+    # a heterogeneous pack: k from 1 to 100 and range queries with mixed
+    # thresholds and capacities, each bit-identical to the request alone
+    X = Xcur                       # the corpus as it stands now
+    xn = (X * X).sum(-1)
+    hq = queries[SERVE_BATCHES:SERVE_BATCHES + 2].reshape(-1, SERVE_D)
+    sched = BatchScheduler(sc, max_batch=64, use_kernel=True)
+    reqs = []
+    for j, k in enumerate(BATCH_TOPKS):
+        for metric in ("l2", "dot"):
+            reqs.append(sched.submit(hq[2 * j + (metric == "dot")],
+                                     kind="topk", topk=k, metric=metric))
+    for j, (hits, cap) in enumerate(((10, 16), (100, 8), (300, 64),
+                                     (50, 1), (1000, 256), (5, 2))):
+        for metric in ("l2", "dot"):
+            q = hq[32 + 2 * j + (metric == "dot")]
+            s = l2_scores(q[None], X, xn)[0] if metric == "l2" \
+                else (X @ q)
+            top = torch.topk(s, hits + 1).values
+            thr = float((top[hits - 1] + top[hits]) / 2)
+            reqs.append(sched.submit(q, kind="threshold", threshold=thr,
+                                     capacity=cap, metric=metric))
+    sched.drain()
+    for r in reqs:
+        res = r.result(0)
+        check(res.ok, f"pack: request {r.rid} {res.status}")
+        if r.kind == "topk":
+            sv, si = sc.query(r.query[None], topk=r.topk, metric=r.metric,
+                              use_kernel=True)
+            same = (np.array_equal(res.scores, sv[0].cpu().numpy())
+                    and np.array_equal(res.indices, si[0].cpu().numpy()))
+        else:
+            sv, si, sn = sc.query_threshold(r.query[None],
+                                            threshold=r.threshold,
+                                            metric=r.metric)
+            n = int(sn[0])
+            same = (res.count == n
+                    and np.array_equal(res.scores, sv[0, :n].cpu().numpy())
+                    and np.array_equal(res.indices, si[0, :n].cpu().numpy()))
+        check(same, f"pack: {r.kind} request (k={r.topk}, threshold="
+              f"{r.threshold}, {r.metric}) differs from the request alone")
+    pst = sched.stats()
+    check(pst["escalations"] > 0, "pack: no capacity escalation")
+
+    # one escalation from capacity 1, deadline expiry and a partial result
+    # under injected clocks
+    sched = BatchScheduler(sc, max_batch=8)
+    q = queries[SERVE_BATCHES + 1, 0]
+    thr = float(torch.topk(l2_scores(q[None], X, xn)[0], 201).values[199:]
+                .mean())
+    esc = sched.submit(q, kind="threshold", threshold=thr, capacity=1,
+                       metric="l2")
+    sched.drain()
+    res = esc.result(0)
+    sv, si, sn = sc.query_threshold(q[None], threshold=thr, metric="l2")
+    check(res.ok and res.count == int(sn[0]) == 200
+          and np.array_equal(res.indices, si[0, :200].cpu().numpy())
+          and sched.counters["escalations"] == 8,
+          f"escalation: {res.status} count {res.count}, "
+          f"{sched.counters['escalations']} escalations")
+    t = [0.0]
+    sched = BatchScheduler(sc, max_batch=8, clock=lambda: t[0],
+                           use_kernel=True)
+    live = sched.submit(q, kind="topk", topk=SERVE_TOPK, metric="l2")
+    dead = sched.submit(q, kind="topk", topk=SERVE_TOPK, metric="l2",
+                        deadline_s=1.0)
+    t[0] = 2.0
+    sched.drain()
+    sv, si = sc.query(q[None], topk=SERVE_TOPK, metric="l2",
+                      use_kernel=True)
+    check(dead.result(0).status == "expired"
+          and (dead.result(0).indices == IDX_SENTINEL).all()
+          and (dead.result(0).scores == NEG_INF).all()
+          and np.array_equal(live.result(0).indices, si[0].cpu().numpy()),
+          "deadline: expiry or its live batchmate wrong")
+    t2 = [0.0]
+
+    def stepping_clock():
+        t2[0] += 0.4
+        return t2[0]
+
+    sched = BatchScheduler(sc, max_batch=8, clock=stepping_clock)
+    part = sched.submit(q, kind="threshold", threshold=-1e30, capacity=1,
+                        deadline_s=0.5, metric="l2")
+    sched.step()
+    res = part.result(0)
+    check(res.status == "partial" and res.count == sc.n_valid
+          and len(res.indices) == 1,
+          f"deadline: {res.status}, count {res.count} of {sc.n_valid}")
+
+    # the background loop: BATCH_ASYNC requests submitted from this thread
+    aq = queries[SERVE_BATCHES + 1:SERVE_BATCHES + 1
+                 + BATCH_ASYNC // SERVE_Q].reshape(-1, SERVE_D)
+    sched = BatchScheduler(sc, max_batch=SERVE_Q, max_queue=BATCH_ASYNC,
+                           use_kernel=True)
+    sched.start()
+    t0 = time.perf_counter()
+    try:
+        reqs = [sched.submit(aq[j], kind="topk", topk=SERVE_TOPK,
+                             metric="l2") for j in range(BATCH_ASYNC)]
+        results = [r.result(timeout=300) for r in reqs]
+    finally:
+        sched.stop()
+    async_s = time.perf_counter() - t0
+    for c0 in range(0, BATCH_ASYNC, SERVE_Q):
+        sv, si = sc.query(aq[c0:c0 + SERVE_Q], topk=SERVE_TOPK, metric="l2",
+                          use_kernel=True)
+        got_i = np.stack([r.indices for r in results[c0:c0 + SERVE_Q]])
+        got_v = np.stack([r.scores for r in results[c0:c0 + SERVE_Q]])
+        check(all(r.ok for r in results[c0:c0 + SERVE_Q])
+              and np.array_equal(got_i, si.cpu().numpy())
+              and np.array_equal(got_v, sv.cpu().numpy()),
+              f"background loop: requests {c0}.. differ from "
+              "ServingCorpus.query")
+    ast = sched.stats()
+    say(f"batching checks: heterogeneous pack of {int(pst['admitted'])} "
+        f"requests (top-k k = {BATCH_TOPKS[0]}..{BATCH_TOPKS[-1]}, 12 range "
+        f"queries, capacities 1..256) in {int(pst['launches'])} launches, "
+        f"{int(pst['escalations'])} escalations, bit-identical to each "
+        f"request alone; escalation from capacity 1 to 256 (8 doublings); "
+        f"expiry and a partial result under injected clocks; background "
+        f"loop {BATCH_ASYNC} requests in {async_s:.2f} s, "
+        f"{int(ast['launches'])} launches, p50 {ast['p50_s'] * 1e3:.3f} ms,"
+        f" p99 {ast['p99_s'] * 1e3:.3f} ms, bit-equal to ServingCorpus.query")
+    del sc, X, queries
+
+
+def _churn_workloads(churn: bool):
+    from repro_torch.core.delta import churn_workload
+    from repro_torch.core.faults import (DenseReduceWorkload,
+                                         KnnGraphWorkload, SparseJoinWorkload)
+    for cls, n in ((DenseReduceWorkload, CHURN_N),
+                   (KnnGraphWorkload, CHURN_N),
+                   (SparseJoinWorkload, CHURN_JOIN_N)):
+        kw = dict(n_items=n, dim=CHURN_D, seed=0, device=DEVICE)
+        yield churn_workload(cls, P, **kw) if churn else cls(P, **kw)
+
+
+def _result_size(res) -> str:
+    return (f"{tuple(res.shape)} {str(res.dtype)[6:]}" if res.dim()
+            else f"{float(res):.6e}")
+
+
+def phase_churn() -> None:
+    from repro_torch.core.delta import DeltaIndex, random_update, scratch_fold
+    from repro_torch.core.placement import get_placement
+
+    plc = get_placement("cyclic", P)
+    for wl in _churn_workloads(churn=True):
+        t0 = time.perf_counter()
+        index = DeltaIndex(wl, plc, mode="batched")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rng = np.random.RandomState(21)
+        times = {}
+        for u, n_dirty in enumerate(CHURN_DIRTY):
+            dirty: set = set()
+            while len(dirty) < n_dirty:
+                b, data = random_update(wl, rng, index.span_of)
+                index.replace_block(b, data)
+                dirty.add(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = index.apply()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = scratch_fold(wl)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            tiles = n_dirty * P - n_dirty * (n_dirty - 1) // 2
+            check(wl.equal(out, want), f"churn {wl.name} update {u} "
+                  f"({n_dirty} dirty): not bit-equal to scratch_fold")
+            check(index.stats.last_tiles == tiles, f"churn {wl.name} update "
+                  f"{u}: {index.stats.last_tiles} tiles swept, not {tiles}")
+            times.setdefault(n_dirty, []).append((t1 - t0, t2 - t1))
+        parts = "; ".join(
+            f"|D| = {d} ({d * P - d * (d - 1) // 2} of {index.stats.tiles_full}"
+            f" tiles): delta {np.mean([a for a, _ in v]) * 1e3:.1f} ms vs "
+            f"full {np.mean([b for _, b in v]) * 1e3:.1f} ms"
+            for d, v in sorted(times.items()))
+        say(f"churn {wl.name} N={wl.n} d={CHURN_D} P={P} cyclic batched "
+            f"({_result_size(out)}): build {build_s * 1e3:.1f} ms; "
+            f"{len(CHURN_DIRTY)} updates, each bit-equal to scratch_fold; "
+            f"{parts} (host clock, synchronized)")
+        del index, out, want, wl
+
+
+def phase_faults() -> None:
+    import tempfile
+    from repro_torch.core.faults import (FaultEvent, FaultPlan,
+                                         run_fault_tolerant_sweep)
+    from repro_torch.core.placement import get_placement
+    from repro_torch.core.sweep import ENGINE_MODES, sweep_rounds
+
+    plc = get_placement("cyclic", P)
+    holders = [i for i in range(P) if 0 in plc.residency_sets[i]]
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_fault_tolerant_sweep(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for wl in _churn_workloads(churn=False):
+            free = {}
+            for mode in ENGINE_MODES:
+                (res, _st), secs = timed(wl, plc, mode)
+                free[mode] = secs
+                if mode == "batched":
+                    baseline = res
+                check(wl.equal(res, baseline),
+                      f"faults {wl.name}: fault-free {mode} differs")
+            # the largest checkpoint holds every block and every partial
+            ckpt_bytes = (sum(b.numel() for b in wl.blocks) * 4
+                          + (baseline.numel() * baseline.element_size()
+                             if wl.name == "sparse" else 0))
+            lines = []
+            for mode in ENGINE_MODES:
+                n_rounds = len(sweep_rounds(plc.schedule(), mode))
+                every = max(1, -(-n_rounds * ckpt_bytes // CKPT_BUDGET))
+                plan = FaultPlan.random_kills(P, n_rounds, every=2,
+                                              seed=22 + len(mode))
+                d = Path(tmp) / f"{wl.name}_{mode}"
+                (out, st), secs = timed(wl, plc, mode, plan,
+                                        ckpt_dir=str(d), ckpt_every=every)
+                check(st.n_kills == plan.n_kills > 0 and wl.equal(out,
+                                                                  baseline),
+                      f"faults {wl.name} {mode}: not bit-equal to the "
+                      f"fault-free run ({st.n_kills} kills)")
+                rec = sum(v for k, v in st.recovery_s.items()
+                          if k != "checkpoint")
+                lines.append(
+                    f"{mode}: {n_rounds} rounds, {st.n_kills} kills, "
+                    f"ckpt_every {every} ({st.n_checkpoints} checkpoints, "
+                    f"{st.recovery_s.get('checkpoint', 0.0) * 1e3:.0f} ms), "
+                    f"recovery {rec * 1e3:.1f} ms, {st.n_reassigned} pairs "
+                    f"reassigned, {st.n_rereplicated} blocks re-replicated "
+                    f"({st.bytes_rereplicated / 2**20:.1f} MiB), "
+                    f"{st.n_fetches} fetches ({st.bytes_fetched / 2**20:.1f} "
+                    f"MiB), slowdown {secs / free[mode]:.2f}x "
+                    f"({secs * 1e3:.0f} vs {free[mode] * 1e3:.0f} ms)")
+            # every holder of block 0 dies after the first checkpoint: the
+            # sweep restores from it
+            n_rounds = len(sweep_rounds(plc.schedule(), "scan"))
+            every = max(1, -(-n_rounds * ckpt_bytes // CKPT_BUDGET))
+            kill = min(every, n_rounds - 1)
+            plan = FaultPlan(events=tuple(FaultEvent("kill", kill, h)
+                                          for h in holders))
+            (out, st), secs = timed(wl, plc, "scan", plan,
+                                    ckpt_dir=str(Path(tmp) / f"{wl.name}_r"),
+                                    ckpt_every=every)
+            check(st.n_restores == 1 and wl.equal(out, baseline),
+                  f"faults {wl.name}: block loss ({st.n_restores} restores) "
+                  "not bit-equal to the fault-free run")
+            lines.append(
+                f"all {len(holders)} holders of block 0 killed at scan round "
+                f"{kill}: restored from the checkpoint in "
+                f"{st.recovery_s['restore'] * 1e3:.1f} ms, "
+                f"{st.n_recomputed} partials recomputed, {st.n_rereplicated} "
+                f"blocks re-seeded, {secs * 1e3:.0f} ms in all")
+            say(f"faults {wl.name} N={wl.n} d={CHURN_D} P={P} cyclic "
+                f"({_result_size(baseline)}), bit-equal to the fault-free "
+                f"run, residency invariant asserted after every repair; "
+                f"fault-free batched / overlap / scan "
+                f"{free['batched'] * 1e3:.0f} / {free['overlap'] * 1e3:.0f} "
+                f"/ {free['scan'] * 1e3:.0f} ms; " + "; ".join(lines))
+            del wl, baseline, out
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -2317,7 +2722,10 @@ def main() -> int:
                lambda: phase_attention(report)),
               ("mamba2-130m prefill main path",
                lambda: phase_mamba_prefill(report)),
-              ("mamba2-130m serving", phase_mamba_serve)]
+              ("mamba2-130m serving", phase_mamba_serve),
+              ("continuous-batching serving", phase_batching),
+              ("delta churn", phase_churn),
+              ("fault-tolerant sweeps", phase_faults)]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")
@@ -2336,7 +2744,8 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      **{k: v for k, v in r.items()
-                        if k.startswith(("bf16_", "gemm_only", "simt_"))}})
+                        if k.startswith(("bf16_", "gemm_only", "simt_",
+                                         "f32_"))}})
     say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

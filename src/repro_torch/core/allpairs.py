@@ -92,6 +92,25 @@ class DenseReduceEmitter(SweepEmitter):
         self.hi_slots = schedule.pair_slots[:, 1]
         self.is_self = schedule.pair_diff == 0
 
+    @staticmethod
+    def delta_retract(standing, stale, ctx=None):
+        """Subtract a stale tile partial from the running float64 total,
+        the additive group's retract (DESIGN.md section 16.2).  The delta
+        index publishes the canonical-order refold of its ledger (float
+        addition is not associative); this running total is the O(1)
+        estimate the refold is checked against."""
+        standing = torch.as_tensor(standing, dtype=torch.float64)
+        return standing - torch.as_tensor(stale, dtype=torch.float64,
+                                          device=standing.device)
+
+    @staticmethod
+    def delta_fold(standing, fresh, ctx=None):
+        """Add a fresh tile partial to the running float64 total, the
+        counterpart of :meth:`delta_retract`."""
+        standing = torch.as_tensor(standing, dtype=torch.float64)
+        return standing + torch.as_tensor(fresh, dtype=torch.float64,
+                                          device=standing.device)
+
     def _zeros(self, *lead) -> torch.Tensor:
         return torch.zeros(lead + tuple(self.probe.shape),
                            dtype=self.probe.dtype, device=self.mask.device)

@@ -17,6 +17,9 @@ the kernel hook.  This module supplies the emitter and the monoid:
   * **monoid** — the scatter reduction is a top-k *merge*:
     ``quorum_scatter`` routes each slot's partial lists home with the
     inverse shifts and folds arrivals with the selection merge.
+  * **delta rules** — :meth:`KnnEmitter.delta_retract` /
+    :meth:`KnnEmitter.delta_fold` patch a standing graph under churn
+    (``core/delta.py``); :func:`lexsort_topk` is their selection.
 
 Every candidate row v != u reaches u's list exactly once globally (the
 ownership partition plus the even-P dedup mask), and selection by a strict
@@ -38,7 +41,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..kernels.ref import IDX_SENTINEL, NEG_INF
+from ..kernels.ref import IDX_SENTINEL, NEG_INF, topk_by_score_index
 from ..kernels.ref import QUERY_METRICS as KNN_METRICS
 from . import sweep as sweep_mod
 from .comm import SingleProcessComm, pad_blocks, tree_map
@@ -52,8 +55,30 @@ __all__ = [
     "quorum_allpairs_knn",
     "knn_graph",
     "brute_force_knn",
+    "lexsort_topk",
     "KNN_METRICS",
 ]
+
+_LOW = (1 << 32) - 1
+#: the missing-neighbour id of int64 candidate lists (``core/delta.py``,
+#: ``core/faults.py``)
+SENT_I64 = torch.iinfo(torch.int64).max
+
+
+def lexsort_topk(scores: torch.Tensor, idx: torch.Tensor, topk: int):
+    """The first ``topk`` (score, index) entries of each row under the
+    strict (-score, index) order, best first: ``np.lexsort((idx,
+    -score))`` and a slice, through the packed-key ``torch.topk`` of
+    ``kernels.ref.topk_by_score_index``.  ``idx`` is int64 with ids below
+    2^32 - 1 and the int64-max sentinel, which ranks last among equal
+    scores.  Rows shorter than ``topk`` pad with (-inf, sentinel)."""
+    m = scores.shape[1]
+    if m < topk:
+        scores = torch.nn.functional.pad(scores, (0, topk - m),
+                                         value=float("-inf"))
+        idx = torch.nn.functional.pad(idx, (0, topk - m), value=SENT_I64)
+    s, i = topk_by_score_index(scores, idx.clamp(max=_LOW), topk)
+    return s, torch.where(i == _LOW, SENT_I64, i)
 
 
 def _merge_lists(cv, ci, sv, si, topk: int):
@@ -109,9 +134,8 @@ class KnnEmitter(SweepEmitter):
 
     Folds every tile's two candidate planes into per-slot running [P, k,
     block, topk] (value, index) lists; the adapter then scatter-*merges*
-    the per-slot partials at the block owners.  The reference's
-    ``delta_retract`` / ``delta_fold`` hooks belong with the delta sweep
-    and are not ported here.
+    the per-slot partials at the block owners.  Its delta rules patch a
+    standing graph for ``core/delta.py``.
     """
 
     def __init__(self, schedule: PairSchedule, mask, topk: int, metric: str,
@@ -125,6 +149,34 @@ class KnnEmitter(SweepEmitter):
             self.is_self = meta
         self.batch_fn = batch_fn
         self.P = mask.shape[0]
+
+    @staticmethod
+    def delta_retract(standing, stale, ctx=None):
+        """The rows whose standing neighbour list cites a retracted
+        source (DESIGN.md section 16.4).  Top-k selection is not
+        invertible (a removed neighbour can expose a candidate the list
+        already dropped), so retraction returns the *refresh set*:
+        ``standing`` is ``(scores, indices [n, k])``, ``stale`` the dirty
+        global-id ``(starts, stops)`` ranges, the result an [n] bool mask
+        of rows the delta index rebuilds from its per-tile ledger."""
+        best_i = standing[1]
+        starts = torch.as_tensor(stale[0], dtype=torch.int64,
+                                 device=best_i.device)
+        stops = torch.as_tensor(stale[1], dtype=torch.int64,
+                                device=best_i.device)
+        hit = ((best_i[:, :, None] >= starts) & (best_i[:, :, None] < stops))
+        return hit.any(dim=2).any(dim=1)
+
+    @staticmethod
+    def delta_fold(standing, fresh, ctx=None):
+        """Merge fresh per-row candidates into standing neighbour lists
+        under the strict (-score, index) total order (DESIGN.md section
+        16.4), an associative, commutative monoid.  Both arguments are
+        ``(scores [n, k], indices [n, k])`` with the (-inf, int64 max)
+        sentinel padding."""
+        s = torch.cat([standing[0], fresh[0]], dim=1)
+        i = torch.cat([standing[1], fresh[1]], dim=1)
+        return lexsort_topk(s, i, standing[0].shape[1])
 
     def meta_rows(self) -> torch.Tensor:
         """The [P, n_pairs, 6] int32 ``(active, is_self, ga, gb, nv_lo,

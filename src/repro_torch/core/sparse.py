@@ -74,6 +74,18 @@ JOIN_METRICS = ("dot", "l2")
 MAX_ROWS_F32_EXACT = 1 << 24
 
 
+def _pair_rows(rows, device=None) -> torch.Tensor:
+    """(i, j) hit rows as an [n, 2] int64 tensor."""
+    return torch.as_tensor(rows, dtype=torch.int64,
+                           device=device).reshape(-1, 2)
+
+
+def _pair_key(rows: torch.Tensor) -> torch.Tensor:
+    """One int64 per (i, j) row ordering as (i, j) lexicographically
+    (0 <= j < 2^32)."""
+    return (rows[:, 0] << 32) | rows[:, 1]
+
+
 class SparseHits(NamedTuple):
     """Every device's compacted passing pairs.
 
@@ -268,6 +280,28 @@ class ThresholdJoinEmitter(SweepEmitter):
         self.batch_fn = batch_fn
         self.active = self.mask > 0           # [P, n_pairs], refined below
         self.P = mask.shape[0]
+
+    @staticmethod
+    def delta_retract(standing, stale, ctx=None):
+        """Retract stale (i, j) rows from a standing sorted hit set
+        (DESIGN.md section 16.3).  A global pair lives in exactly one
+        tile, so removing the dirty tiles' old rows is an exact set
+        difference.  Both are [n, 2] int64 tensors."""
+        standing = _pair_rows(standing)
+        stale = _pair_rows(stale, standing.device)
+        if not len(standing) or not len(stale):
+            return standing
+        return standing[~torch.isin(_pair_key(standing), _pair_key(stale))]
+
+    @staticmethod
+    def delta_fold(standing, fresh, ctx=None):
+        """Insert fresh (i, j) rows into a standing hit set and restore
+        the canonical (lo, hi) order (DESIGN.md section 16.3): rows are
+        globally unique, so the sorted union is bit-equal to a
+        from-scratch fold."""
+        standing = _pair_rows(standing)
+        allr = torch.cat([standing, _pair_rows(fresh, standing.device)])
+        return allr[torch.argsort(_pair_key(allr))]
 
     def _slot_valid(self) -> torch.Tensor:
         return (torch.arange(self.block, device=self.nv.device)[None, None]
@@ -673,17 +707,23 @@ def threshold_with_gap(scores, selectivity: float,
     that quantile, so float-rounding differences between engine paths
     cannot flip membership (DESIGN.md section 11.3).  The single home of
     the gap-placement idiom — the pairwise wrapper below and the serving
-    selfcheck both use it."""
-    flat = np.sort(np.asarray(scores, np.float32).reshape(-1))[::-1]
-    target = max(1, min(len(flat) - 2, int(round(selectivity * len(flat)))))
-    # widen the search until an adjacent gap exceeds min_gap
-    for off in range(0, len(flat) - 1):
-        for idx in (target - off, target + off):
-            if 0 < idx < len(flat):
-                gap = flat[idx - 1] - flat[idx]
-                if gap > min_gap:
-                    return float((flat[idx - 1] + flat[idx]) / 2.0)
-    raise ValueError("no score gap wide enough for a robust threshold")
+    selfcheck both use it.
+
+    ``scores`` may be a tensor: the sort and the gap search then run on
+    its device.  The search takes the nearest gap to the target rank,
+    the lower rank first at equal distance (the reference's widening
+    loop, in one pass)."""
+    flat = torch.sort(torch.as_tensor(scores, dtype=torch.float32)
+                      .reshape(-1), descending=True).values
+    n = flat.numel()
+    target = max(1, min(n - 2, int(round(selectivity * n))))
+    gap = flat[:-1] - flat[1:]              # gap[idx - 1] sits above idx
+    idx = torch.nonzero(gap > min_gap).reshape(-1) + 1
+    if not idx.numel():
+        raise ValueError("no score gap wide enough for a robust threshold")
+    off = idx - target
+    best = int(idx[torch.argmin(2 * off.abs() + (off > 0).long())])
+    return float((flat[best - 1] + flat[best]) / 2.0)
 
 
 def threshold_for_selectivity(corpus: np.ndarray, selectivity: float,

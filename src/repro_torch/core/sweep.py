@@ -367,6 +367,30 @@ class SweepEmitter(abc.ABC):
     def overlap_finalize(self, state):
         """Fold the overlap state into the sweep output."""
 
+    # -- delta maintenance (DESIGN.md section 16) -------------------------
+    # Patch rules over *standing* (folded) outputs, consumed by
+    # core/delta.py's DeltaIndex: retract a dirty tile's stale
+    # contribution, fold its fresh one.  Static, so a caller uses them
+    # without building an emitter; they act on tensors.
+
+    @staticmethod
+    def delta_retract(standing, stale, ctx=None):
+        """Remove a stale contribution from a standing output.  Emitters
+        with an invertible (or patchable) output monoid override this;
+        the base protocol has no delta rule."""
+        raise NotImplementedError(
+            "this emitter does not support delta maintenance "
+            "(no delta_retract rule; see DESIGN.md section 16)")
+
+    @staticmethod
+    def delta_fold(standing, fresh, ctx=None):
+        """Fold a fresh contribution into a standing output.  Emitters
+        with a delta-maintainable output monoid override this; the base
+        protocol has no delta rule."""
+        raise NotImplementedError(
+            "this emitter does not support delta maintenance "
+            "(no delta_fold rule; see DESIGN.md section 16)")
+
 
 def pair_sweep(emitter: SweepEmitter, *, schedule: PairSchedule,
                comm: SingleProcessComm, mode: str, x=None, stack=None):

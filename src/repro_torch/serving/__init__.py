@@ -7,10 +7,11 @@
     the card) plus a shift tree merge (``ServingCorpus`` is the host
     handle), and the thresholded range query,
   * ``stream`` — streamed corpus updates (replace / append a block) over
-    the existing cyclic shifts, no global reshuffle.
-
-The reference's continuous-batching front end (``serving/batching.py``) is
-not ported yet (ROADMAP A.12).
+    the existing cyclic shifts, no global reshuffle,
+  * ``batching`` — the continuous-batching front end: admission queue,
+    heterogeneous packing, deadlines, capacity escalation, the async loop
+    and p50 / p99 accounting (``BatchScheduler``; the CLI front end is
+    ``launch/query_serve.py``).
 """
 
 from .cover import CoverPlan, build_cover
@@ -26,4 +27,22 @@ __all__ = [
     "ServingState",
     "build_state",
     "replace_block",
+    "AdmissionError",
+    "BatchScheduler",
+    "Request",
+    "RequestResult",
+    "latency_summary",
+    "percentile",
 ]
+
+# the front end loads on first use, so ``python -m
+# repro_torch.serving.batching`` runs the module once
+_BATCHING = ("AdmissionError", "BatchScheduler", "Request", "RequestResult",
+             "latency_summary", "percentile")
+
+
+def __getattr__(name):
+    if name in _BATCHING:
+        from . import batching
+        return getattr(batching, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -60,6 +60,7 @@ __all__ = [
     "merge_topk",
     "tree_merge_topk",
     "quantize_pow2",
+    "QUERY_CHUNK",
     "quorum_query_topk",
     "quorum_query_threshold",
     "QueryTopKEmitter",
@@ -79,6 +80,33 @@ def quantize_pow2(n: int, floor: int = 1) -> int:
     """
     n = max(int(n), int(floor), 1)
     return 1 << (n - 1).bit_length()
+
+
+#: rows of every launch on the library-scored query paths (cuBLAS on the
+#: card, BLAS on the CPU): a fixed width, because a GEMM's reduction order
+#: may change with its row count, and a request must score the same bits
+#: alone as packed with others (``serving/batching.py``)
+QUERY_CHUNK = 32
+
+
+def _launch_rows(run, q: torch.Tensor, *per_query, width: int | None):
+    """``run(q_rows, *per_query_rows)`` over launches of ``width`` rows of
+    ``q`` (``None``: one launch of at least two rows, where the kernel's
+    scores do not depend on the row count but a one-row product takes the
+    matrix-vector path), the last zero-padded; ``per_query`` vectors pad
+    with +inf.  The outputs are concatenated and cut to the Q rows."""
+    Q = q.shape[0]
+    w = max(Q, 2) if width is None else width
+    outs = []
+    for c0 in range(0, Q, w):
+        pad = max(0, c0 + w - Q)
+        rows = torch.nn.functional.pad(q[c0:c0 + w], (0, 0, 0, pad))
+        extra = [torch.nn.functional.pad(v[c0:c0 + w], (0, pad),
+                                         value=float("inf"))
+                 for v in per_query]
+        outs.append(run(rows, *extra))
+    return tuple(torch.cat([o[i] for o in outs])[:Q]
+                 for i in range(len(outs[0])))
 
 
 def _scores(queries: torch.Tensor, blk: torch.Tensor,
@@ -605,13 +633,17 @@ class ServingCorpus:
         run = query_fn(self.comm, kq, mode, metric, use_kernel,
                        self.placement)
         q = self._queries(queries)
+        # the B4 kernel scores a query the same in any launch width; the
+        # library path launches QUERY_CHUNK rows at a time
+        width = None if use_kernel else QUERY_CHUNK
         tr = obs_trace.get_tracer()
         if not tr:
-            out = run(q, self.state)
+            out = _launch_rows(lambda r: run(r, self.state), q, width=width)
         else:
             with tr.span("serving.query", Q=int(q.shape[0]), topk=topk,
                          mode=mode, metric=metric, P=self.P):
-                out = run(q, self.state)
+                out = _launch_rows(lambda r: run(r, self.state), q,
+                                   width=width)
                 if q.device.type == "cuda":
                     torch.cuda.synchronize(q.device)
             tr.count("serving.queries", int(q.shape[0]))
@@ -643,25 +675,32 @@ class ServingCorpus:
                    else min(default_capacity(total_rows), total_rows))
         cap = min(quantize_pow2(cap_req), total_rows)
         q = self._queries(queries)
+        Q = q.shape[0]
+        thr = torch.as_tensor(threshold, dtype=torch.float32,
+                              device=q.device).broadcast_to((Q,))
         escalations = 0
         tr = obs_trace.get_tracer()
-        span = tr.span("serving.query_threshold", Q=int(q.shape[0]),
+        span = tr.span("serving.query_threshold", Q=Q,
                        mode=mode, metric=metric, P=self.P) if tr \
             else obs_trace.NOOP.span("")
         with span:
             while True:
                 run = threshold_fn(self.comm, cap, mode, metric,
                                    self.placement)
-                vals, idx, cnt = run(q, threshold, self.state)
+                # QUERY_CHUNK rows a launch; padding rows match nothing
+                vals, idx, cnt = _launch_rows(
+                    lambda r, t: run(r, t, self.state), q, thr,
+                    width=QUERY_CHUNK)
+                if not escalate:        # the caller reads the counts
+                    break
                 counts = cnt.cpu().numpy()
-                if (not (counts > cap).any() or not escalate
-                        or cap >= total_rows
+                if (not (counts > cap).any() or cap >= total_rows
                         or escalations >= max_doublings):
                     break
                 cap = min(2 * cap, total_rows)
                 escalations += 1
         if tr:
-            tr.count("serving.queries", int(q.shape[0]))
+            tr.count("serving.queries", Q)
             tr.count("serving.threshold_escalations", escalations)
         if escalate and (counts > cap).any():
             raise RuntimeError(

@@ -38,7 +38,10 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.models.common, repro_torch.models.ssm, "
         "repro_torch.models.lm, repro_torch.configs.registry, "
         "repro_torch.configs.mamba2_130m, repro_torch.launch.steps, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.serving.batching, "
+        "repro_torch.launch.query_serve, repro_torch.core.delta, "
+        "repro_torch.core.faults, repro_torch.ckpt.checkpoint, "
+        "repro_torch.launch.elastic\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -99,6 +102,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
         serve.serve("mamba2_130m", smoke=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "mamba2_130m", "--smoke"])
+    from repro_torch.core import delta, faults
+    from repro_torch.launch import query_serve
+    from repro_torch.serving import batching
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batching.main(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        query_serve.main(["--n", "16", "--requests", "4"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        delta._main(["--P", "4", "--modes", "batched"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        faults._main(["--P", "5", "--modes", "batched"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        faults.DenseReduceWorkload(4)
     assert comm.SingleProcessComm(4, "cpu").device.type == "cpu"
 
 
