@@ -62,9 +62,10 @@ beside the script).  Phases:
  16. B9 flash_attention (one quorum pair [8, 4096, 40 | 8, 128], causal
      and not, bf16 on the ``wgmma`` kernel and f32 on the SIMT one) and B10
      ssd_chunk (mamba2-130m's prefill, [4, 32768, 24, 64], chunk 256, and
-     a decode step's [4, 1, 24, 64], chunk 1; bit-equal across two
-     launches; its bound with C B^T counted once per chunk and per head)
-     against their plain versions, timed beside them and, for B9,
+     a decode step's [4, 1, 24, 64], chunk 1, timed with 200 launches
+     queued behind a spin kernel; bit-equal across two launches; its
+     bound with C B^T counted once per chunk and per head) against their
+     plain versions, timed beside them and, for B9,
      scaled_dot_product_attention (bf16, and f32 beside the f32 route);
  17. quorum and ring sequence-parallel causal attention at qwen3-14b's
      attention widths (H = 40, KV = 8, hd = 128), T = 32,768, P = 8, in
@@ -90,14 +91,29 @@ beside the script).  Phases:
  22. fault-tolerant sweeps of the same workloads in every mode under a
      seeded kill every 2 rounds, and with every holder of a block killed
      (a restore from the checkpoint), each bit-equal to the fault-free run;
+ 23. observability: the comm predictor against the traced counters of a
+     dense sweep (f32, bf16) and of a quantized gather (int8, bf16) at
+     8,192 x 128 a block, every placement at P = 8 and P = 13, exactly;
+     the feedback loop at P = 8 (device 2 slowed 4x: a smaller pair share,
+     bit-exact output); ``python -m repro_torch.obs.report`` on the trace
+     of a sweep on the card (exit 0);
+ 24. qwen3-14b (full config, 40 layers, 14,768,307,200 random bf16
+     parameters from a seed) prefill of 1 x 32,768 tokens through
+     ``build_prefill_step``, B9 launched once per layer, its share of the
+     device time from torch.profiler; at 2 layers of the same widths the
+     B9 route against the plain attention at T = 4,096 and 4,000, and
+     decode == prefill at 1,024 tokens;
+ 25. qwen3-14b serving: ``serve()`` at batch 4, prompt 16, 32 generated
+     tokens (no B9 launch: decode attention is a plain product);
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
 
 Kernel launch counts are set to 0 just before each main path (n-body,
 PCIT, serving, join, k-NN graph, quantized join, quantized k-NN, quorum
-attention, prefill, serving, the batching drain) is driven and read just
-after it, so comparison launches do not count.
+attention, mamba2 prefill and serving, the batching drain, qwen3-14b
+prefill and serving) is driven and read just after it, so comparison
+launches do not count.
 """
 
 from __future__ import annotations
@@ -165,11 +181,25 @@ FLASH_PART_TOL, FLASH_ATOL, BF16_REL = 1e-5, 1e-5, 2.0 ** -7
 # JAX package's serve() (batch 4, prompt 16, 32 generated tokens)
 SSM_PREFILL_B, SSM_PREFILL_T, SSM_CHECK_T = 4, 32_768, 1024
 SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_CHUNK = 24, 64, 128, 256
-# B10's L = 1 launch (a decode step's shape) in the earlier design, one
-# block per (batch row x head, chunk), on an H100 80GB HBM3 at 700 W
-# (PERF.md kernel table); printed beside this run's time
-DECODE_REF_MS = 0.081
+# B10's L = 1 launch (a decode step's shape) is timed over DECODE_REPS
+# launches queued behind a spin kernel of SPIN_CYCLES (about 0.1 s), so
+# the events time the card's work and not the host's launch rate
+DECODE_REPS, SPIN_CYCLES = 200, 200_000_000
 SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_GEN = 4, 16, 32
+# qwen3-14b at full width and depth (40 layers, 14,768,307,200 random bf16
+# parameters from a seed; the count the JAX package's count_params gives),
+# prefill_32k with the batch cut from 32 to 1; its checks at QWEN_CHECK_LAYERS
+# layers of the same widths: the B9 route against the plain attention at
+# QWEN_CHECK_T (one of them ragged), and decode == prefill at
+# QWEN_DECODE_T tokens; serving at the JAX package's serve() defaults
+QWEN_PARAMS, QWEN_B, QWEN_T = 14_768_307_200, 1, 32_768
+QWEN_CHECK_LAYERS, QWEN_CHECK_T, QWEN_DECODE_T = 2, (4096, 4000), 1024
+# B9 on the prefill's layer-0 q / k / v is checked on the first, middle
+# and last QWEN_SAMPLE query rows
+QWEN_SAMPLE = 256
+# the observability phase: dense and quantized comm checks at the churn
+# phases' block size (N = 65,536 x 128 at P = 8) and P = 13
+OBS_BLOCK, OBS_DIM, OBS_P = 8192, 128, (8, 13)
 # the continuous batcher over phase 8's corpus: microbatches of SERVE_Q
 # requests, a stream update every BATCH_STREAM_EVERY microbatches, the
 # background loop with BATCH_ASYNC requests
@@ -216,6 +246,32 @@ def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = DECODE_REPS) -> tuple[float, float, float]:
+    """Device ms per call of ``fn`` with ``reps`` calls queued behind a
+    spin kernel: the host enqueues them while the card spins, so the
+    events around them time the card's back-to-back work, not the host's
+    launch rate.  Returns (device ms per call, host ms per call to enqueue,
+    the spin's ms); fails if the host did not finish enqueuing within the
+    spin."""
+    fn()
+    torch.cuda.synchronize()
+    spin0, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    spin0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    spin_ms = spin0.elapsed_time(start)
+    check(host_ms < spin_ms, f"queued timing: the host took {host_ms:.1f} ms "
+          f"to enqueue {reps} calls, longer than the {spin_ms:.1f} ms spin")
+    return start.elapsed_time(end) / reps, host_ms / reps, spin_ms
 
 
 def bound(nbytes: float, ops: float,
@@ -2043,8 +2099,17 @@ def phase_kernels_lm(report: dict) -> None:
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"B10 {label}: two launches on the same inputs differ")
         del again
-        ms = cuda_ms(lambda: ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=L),
-                     reps=3 if L > 1 else 50)
+        if L > 1:
+            ms = cuda_ms(lambda: ops.ssd_intra_chunk(x, dt, A, Bm, Cm,
+                                                     chunk=L))
+        else:
+            # a decode step's launch is shorter than the host's call: time
+            # it queued, and beside it as the events around 50 calls read
+            # it while the host sets the pace
+            ms, host_ms, spin_ms = queued_ms(
+                lambda: ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=L))
+            paced_ms = cuda_ms(lambda: ops.ssd_intra_chunk(
+                x, dt, A, Bm, Cm, chunk=L), reps=50)
         plain_ms = cuda_ms(lambda: ref.ssd_intra_chunk(x, dt, A, Bm, Cm,
                                                        chunk=L),
                            reps=1, warmup=0)
@@ -2061,8 +2126,10 @@ def phase_kernels_lm(report: dict) -> None:
         # the same count with C B^T repeated per head
         per_head_ms, _ = bound(nbytes(x, dt, A, Bm, Cm, *got), n_ops
                                + (cells - Bsz * nc) * 2.0 * N * tri)
-        ref_note = (f" (the per-head kernel before this design: "
-                    f"{DECODE_REF_MS} ms)" if L == 1 else "")
+        ref_note = (f" ({DECODE_REPS} launches queued behind a "
+                    f"{spin_ms:.1f} ms spin, {host_ms:.4f} ms each to "
+                    f"enqueue; the events around 50 unqueued calls read "
+                    f"{paced_ms:.4f} ms, the host's pace)" if L == 1 else "")
         say(f"B10 ssd_chunk {label} x {tuple(x.shape)} B/C "
             f"{tuple(Bm.shape)} chunk {L} ({cells} cells): max_abs_err y "
             f"{e[0]:.3e}, S {e[1]:.3e}, cd {e[2]:.3e} (rtol / atol 1e-4), "
@@ -2075,6 +2142,9 @@ def phase_kernels_lm(report: dict) -> None:
             report["ssd_chunk"] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=b_ms, bound_by=b_by,
                                        library_ms=None)
+        else:
+            report["ssd_chunk"].update(decode_ms=ms, decode_plain_ms=plain_ms,
+                                       decode_bound_ms=b_ms)
         del x, dt, A, Bm, Cm, got
     report["ssd_chunk"]["max_abs_err"] = max(errs)
 
@@ -2114,7 +2184,7 @@ def phase_attention(report: dict) -> None:
                   and bool(torch.isfinite(out).all()),
                   f"{strategy} attention: wrong shape / dtype or not finite")
             if strategy == "quorum" and dtype == torch.bfloat16:
-                report["flash_attention"]["launches"] = n
+                report["flash_attention"]["quorum_launches"] = n
             moved = sum(tr.counter_total(f"comm.ppermute.{c}")
                         for c in ("gather_bytes", "scatter_bytes",
                                   "ring_bytes"))
@@ -2645,6 +2715,338 @@ def phase_faults() -> None:
             del wl, baseline, out
 
 
+# ---------------------------------------------------------------------------
+# Observability; qwen3-14b prefill and serving
+# ---------------------------------------------------------------------------
+
+def phase_observability() -> None:
+    import os
+    import tempfile
+    from repro_torch.core.allpairs import quorum_allpairs
+    from repro_torch.core.comm import SingleProcessComm, shard
+    from repro_torch.core.placement import get_placement
+    from repro_torch.obs import comm as obs_comm
+    from repro_torch.obs import feedback
+    from repro_torch.obs import trace as obs_trace
+
+    # predicted bytes == traced bytes, exactly, for every placement at P;
+    # verify_* raise on the first difference
+    for Pn in OBS_P:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            got = obs_comm.verify_dense_comm(Pn, block=OBS_BLOCK, dim=OBS_DIM,
+                                             dtype=dtype, device=DEVICE,
+                                             verbose=False)
+            say(f"comm predictor, dense sweep {dtype} N = {Pn * OBS_BLOCK} x "
+                f"{OBS_DIM}, P = {Pn}: traced == predicted for "
+                + ", ".join(f"{r['placement']} (gather "
+                            f"{r['gather_bytes']} B x{r['gather_hops']}, "
+                            f"scatter {r['scatter_bytes']} B, allgather "
+                            f"{r['allgather_bytes']} B)" for r in got)
+                + f" ({time.perf_counter() - t0:.2f} s)")
+        for qmode in ("int8", "bf16"):
+            got = obs_comm.verify_quant_comm(Pn, block=OBS_BLOCK, dim=OBS_DIM,
+                                             qmode=qmode, device=DEVICE,
+                                             verbose=False)
+            say(f"comm predictor, {qmode} QuantBlocks gather, P = {Pn}: "
+                "traced == predicted for "
+                + ", ".join(f"{r['placement']} ({r['gather_bytes']} B "
+                            f"x{r['gather_hops']})" for r in got))
+        check({r["placement"] for r in got}
+              >= ({"cyclic", "full"} | ({"projective"} if Pn == 13
+                                        else set())),
+              f"comm predictor at P = {Pn}: placements {got}")
+
+    # the feedback loop: a 4x-slowed device 2 owns fewer pairs, output
+    # bit-exact (feedback_selfcheck raises otherwise)
+    n = feedback.feedback_selfcheck(P=8, slow_factor=4.0, device=DEVICE,
+                                    verbose=False)
+    check(n >= 1, "feedback selfcheck checked no placement")
+    say(f"feedback selfcheck P = 8, device 2 slowed 4x: {n} placement(s), "
+        f"the slowed device's pair share shrank, output bit-exact")
+
+    # obs.report on a trace that a traced sweep on the card wrote
+    comm = SingleProcessComm(8, DEVICE)
+    x = shard(np.random.default_rng(0).normal(size=(8 * OBS_BLOCK, OBS_DIM)),
+              comm, dtype=torch.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "sweep_trace.json"
+        tr = obs_trace.configure(path=path)
+        try:
+            quorum_allpairs(lambda a, b: (a * (b * b).sum((-2, -1), True),
+                                          b * (a * a).sum((-2, -1), True)),
+                            x, comm, mode="overlap",
+                            placement=get_placement("cyclic", 8))
+            torch.cuda.synchronize()
+            tr.export()
+        finally:
+            obs_trace.reset()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report", str(path)],
+            capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    check(r.returncode == 0 and "comm.ppermute.gather_bytes" in r.stdout,
+          f"obs.report on the card's trace: exit {r.returncode}\n"
+          f"{r.stdout}{r.stderr}")
+    say(f"python -m repro_torch.obs.report on a traced overlap sweep (P = 8, "
+        f"N = {8 * OBS_BLOCK} x {OBS_DIM}): exit 0\n{r.stdout.strip()}")
+
+
+def device_breakdown(fn) -> dict:
+    """Device ms by kernel family over one call of ``fn``, from
+    torch.profiler (CUPTI): B9 (``flash``), GEMMs, everything else, the
+    ten costliest kernels by name, and ``wall`` the host clock around
+    that same call (synchronized), against which the kernels' sum gives
+    the card's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    fam = {"b9": 0.0, "gemm": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_time_total <= 0 or e.key.startswith("cuda"):
+            continue
+        ms = e.device_time_total / 1e3
+        key = e.key.lower()
+        if "flash" in key:
+            fam["b9"] += ms
+        elif any(w in key for w in ("gemm", "gemv", "nvjet", "xmma",
+                                    "cutlass", "sm90_")):
+            fam["gemm"] += ms
+        else:
+            fam["other"] += ms
+        name = e.key.replace("(anonymous namespace)::", "")
+        top.append((ms, e.count,
+                    name.removeprefix("void ").split("(")[0][:80]))
+    fam["top"] = sorted(top, reverse=True)[:10]
+    fam["wall"] = wall
+    return fam
+
+
+def phase_qwen_prefill(report: dict) -> None:
+    import dataclasses
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm
+    from repro_torch.models.common import apply_norm, tree_map
+
+    cfg = get_config("qwen3_14b")
+    n_params = lm.count_params(cfg)
+    check(n_params == QWEN_PARAMS, f"qwen3-14b has {n_params} parameters, "
+          f"the JAX package's count_params {QWEN_PARAMS}")
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    param_bytes = torch.cuda.memory_allocated() - base
+    say(f"qwen3-14b: {n_params} random bf16 parameters from a seed, "
+        f"{param_bytes / 2**30:.3f} GiB on the card, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prefill = build_prefill_step(cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(25)
+    toks = torch.randint(0, cfg.vocab_size, (QWEN_B, QWEN_T), generator=g,
+                         device=DEVICE)
+    prefill(params, {"tokens": toks[:, :512]})              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = ops.launch_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() - base
+    report["flash_attention"]["launches"] = n
+    check(n == cfg.n_layers, f"prefill: B9 launched {n} times, expected "
+          f"{cfg.n_layers} (one per attention layer)")
+    check(logits.shape == (QWEN_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "prefill: logits of the wrong shape or not finite")
+    del logits
+    say(f"qwen3-14b prefill {QWEN_B} x {QWEN_T} tokens ({cfg.n_layers} "
+        f"layers, bf16): {secs * 1e3:.1f} ms (host clock, synchronized), "
+        f"{QWEN_B * QWEN_T / secs:.0f} tokens/s, peak "
+        f"{peak / 2**30:.3f} GiB above the parameters, B9 launches {n}")
+    split = device_breakdown(lambda: prefill(params, {"tokens": toks}))
+    dev_ms = split["b9"] + split["gemm"] + split["other"]
+    if dev_ms > 0:
+        idle = max(0.0, 1.0 - dev_ms / split["wall"])
+        report["flash_attention"].update(
+            prefill_ms=split["b9"] / n, prefill_share=split["b9"] / dev_ms,
+            prefill_idle_share=idle)
+        say(f"qwen3-14b prefill, a second one under torch.profiler: host "
+            f"clock {split['wall']:.1f} ms (synchronized), kernels' summed "
+            f"device time {dev_ms:.1f} ms, so the card idles "
+            f"{100 * idle:.2f} % of that window")
+        say(f"qwen3-14b prefill device time (torch.profiler, a second "
+            f"prefill) {dev_ms:.1f} ms: B9 {split['b9']:.1f} ms "
+            f"({split['b9'] / n:.3f} ms a layer, "
+            f"{100 * split['b9'] / dev_ms:.1f} %), GEMMs "
+            f"{split['gemm']:.1f} ms ({100 * split['gemm'] / dev_ms:.1f} %),"
+            f" the rest {split['other']:.1f} ms "
+            f"({100 * split['other'] / dev_ms:.1f} %)")
+        say("  costliest kernels: " + "; ".join(
+            f"{name} {ms:.1f} ms (x{cnt})" for ms, cnt, name in split["top"]))
+    else:
+        say("qwen3-14b prefill device time: not measured (the profiler "
+            "showed no device time)")
+    # B9 alone on this prefill's first-layer q / k / v, and on N(0, 1)
+    # tensors of the same shapes (phase 17's inputs); its output on the
+    # real q / k / v against the f32 plain attention (kernels/ref.py) on
+    # the first, middle and last QWEN_SAMPLE query rows, under phase 16's
+    # rule (2^-7 |want| + 1e-5).  ref's causal mask is end-aligned, so
+    # rows r0:r1 against keys :r1 are rows r0:r1 of the whole sequence.
+    with torch.inference_mode():
+        p0 = tree_map(lambda a: a[0], params["layers"]["pos0"])
+        x, positions = lm.embed_inputs(cfg, params, {"tokens": toks})
+        qkv = attn_mod.qkv_project(cfg, p0["attn"], apply_norm(
+            cfg, p0["norm1"], x), positions)
+        del x
+        out = ops.flash_attention(*qkv, causal=True)
+        errs = []
+        for r0 in (0, (QWEN_T - QWEN_SAMPLE) // 2, QWEN_T - QWEN_SAMPLE):
+            r1 = r0 + QWEN_SAMPLE
+            q, k, v = qkv
+            want = ref.flash_attention(q[:, r0:r1].float(), k[:, :r1].float(),
+                                       v[:, :r1].float(), causal=True)
+            errs.append(out_err(out[:, r0:r1], want))
+            del want
+        del out
+        err, ratio = max(e[0] for e in errs), max(e[1] for e in errs)
+        check(ratio <= 1.0, f"B9 on the prefill's layer-0 q / k / v "
+              f"(T = {QWEN_T}): max abs err {err:.3e}, {ratio:.3f} of the "
+              "limit 2^-7 |want| + 1e-5")
+        alone = [cuda_ms(lambda: ops.flash_attention(*t, causal=True))
+                 for t in (qkv, tuple(torch.randn_like(a) for a in qkv))]
+    del qkv
+    report["flash_attention"].update(prefill_alone_ms=alone[0],
+                                     prefill_max_abs_err=err)
+    say(f"B9 on the first layer's q / k / v of this prefill (q [{QWEN_B}, "
+        f"{QWEN_T}, {cfg.n_heads}, {cfg.head_dim}], k / v [{QWEN_B}, "
+        f"{QWEN_T}, {cfg.n_kv_heads}, {cfg.head_dim}], causal) vs the f32 "
+        f"plain attention on the first, middle and last {QWEN_SAMPLE} rows: "
+        f"max abs err {err:.3e}, {ratio:.3f} of the limit")
+    say(f"B9 alone (CUDA events, 3 launches) on the first layer's q / k / v"
+        f" of this prefill: {alone[0]:.3f} ms; on N(0, 1) tensors of the "
+        f"same shapes: {alone[1]:.3f} ms")
+
+    # the checks at QWEN_CHECK_LAYERS layers of the same widths (the first
+    # layers' parameters, as views)
+    cfg2 = dataclasses.replace(cfg, n_layers=QWEN_CHECK_LAYERS)
+    params2 = dict(params, layers=tree_map(lambda a: a[:QWEN_CHECK_LAYERS],
+                                           params["layers"]))
+    prefill2 = build_prefill_step(cfg2)
+    # (a) the B9 route against the same model with the plain attention
+    # (kernels/ref.py) on the card: the prefill step's last-position
+    # logits, and lm.forward's logits at every position, each row within
+    # 2e-2 of max(1, its max |logit|)
+    for T in QWEN_CHECK_T:
+        short = {"tokens": toks[:, :T]}
+        ops.reset_launch_counts()
+        got = prefill2(params2, short)
+        got_all, _ = lm.forward(cfg2, params2, short)
+        n_b9 = ops.launch_counts()["flash_attention"]
+        with mock.patch.object(ops, "flash_attention", ref.flash_attention):
+            want = prefill2(params2, short)
+            want_all, _ = lm.forward(cfg2, params2, short)
+        check(n_b9 == 2 * QWEN_CHECK_LAYERS and ops.launch_counts()[
+            "flash_attention"] == n_b9, f"B9 launches at T = {T}: {n_b9}")
+        check(got_all.shape == (QWEN_B, T, cfg.vocab_size)
+              and bool(torch.isfinite(got).all())
+              and bool(torch.isfinite(got_all).all()),
+              f"qwen3-14b x{QWEN_CHECK_LAYERS} at T = {T}: logits of the "
+              "wrong shape or not finite")
+        d = float((got - want).abs().max())
+        lim = 2e-2 * max(1.0, float(want.abs().max()))
+        d_all = (got_all - want_all).abs().amax(-1)
+        lim_all = 2e-2 * want_all.abs().amax(-1).clamp_min(1.0)
+        worst = float((d_all / lim_all).max())
+        check(d < lim, f"qwen3-14b x{QWEN_CHECK_LAYERS} at T = {T}: B9 route"
+              f" vs plain attention max abs diff {d:.3e} >= {lim:.3e}")
+        check(worst < 1.0, f"qwen3-14b x{QWEN_CHECK_LAYERS} at T = {T}: "
+              f"forward logits, B9 route vs plain attention, worst position "
+              f"at {worst:.3f} of its limit")
+        say(f"qwen3-14b {QWEN_CHECK_LAYERS} layers, T = {T}: last-position "
+            f"logits through B9 vs the plain attention on the card max abs "
+            f"diff {d:.3e} (< {lim:.3e}), max |logit| "
+            f"{float(want.abs().max()):.3f}; all {T} positions' logits "
+            f"(lm.forward) max abs diff {float(d_all.max()):.3e}, worst "
+            f"position at {worst:.3f} of its limit")
+        del got, want, got_all, want_all, d_all, lim_all
+    # (b) decoding QWEN_DECODE_T tokens one by one == their prefill
+    short = toks[:, :QWEN_DECODE_T].repeat(2, 1)
+    short[1] = short[1].roll(7)
+    want = prefill2(params2, {"tokens": short})
+    state = lm.init_decode_state(cfg2, short.shape[0], QWEN_DECODE_T,
+                                 device=DEVICE)
+    step = build_serve_step(cfg2)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(QWEN_DECODE_T):
+        lg, state = step(params2, state, short[:, t:t + 1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / QWEN_DECODE_T
+    check(ops.launch_counts()["flash_attention"] == 0,
+          "decode launched B9 (its attention is a plain product)")
+    d = float((lg[:, -1] - want).abs().max())
+    lim = 2e-2 * max(1.0, float(want.abs().max()))
+    check(d < lim, f"qwen3-14b decode vs prefill at {QWEN_DECODE_T} tokens: "
+          f"max abs diff {d:.3e} >= {lim:.3e}")
+    say(f"qwen3-14b {QWEN_CHECK_LAYERS} layers, decode vs prefill at "
+        f"{QWEN_DECODE_T} tokens (2 rows): last-position logits max abs diff"
+        f" {d:.3e} (< {lim:.3e}), max |logit| {float(want.abs().max()):.3f};"
+        f" {step_ms:.3f} ms per step")
+    del params, params2, state, want, lg
+
+
+def phase_qwen_serve() -> None:
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+
+    cfg = get_config("qwen3_14b")
+    serve("qwen3_14b", smoke=False, batch=SERVE_LM_BATCH, prompt_len=4,
+          gen_len=4, seed=1, device=DEVICE)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        seqs = serve("qwen3_14b", smoke=False, batch=SERVE_LM_BATCH,
+                     prompt_len=SERVE_LM_PROMPT, gen_len=SERVE_LM_GEN,
+                     seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(seqs.shape == (SERVE_LM_BATCH, SERVE_LM_PROMPT + SERVE_LM_GEN),
+          f"serve: sequences of shape {seqs.shape}")
+    check(((seqs >= 0) & (seqs < cfg.vocab_size)).all(),
+          "serve: a token outside the vocabulary")
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(SERVE_LM_BATCH, SERVE_LM_PROMPT))
+    check((seqs[:, :SERVE_LM_PROMPT] == prompt).all(),
+          "serve: the teacher-forced prompt was not kept")
+    n = ops.launch_counts()["flash_attention"]
+    check(n == 0, f"serve: B9 launched {n} times; decode attention is a "
+          f"plain product")
+    say(f"qwen3-14b serve batch {SERVE_LM_BATCH}, prompt {SERVE_LM_PROMPT}, "
+        f"gen {SERVE_LM_GEN} (full config): {secs:.3f} s with parameter init "
+        f"(host clock, synchronized), B9 launches {n}; serve(): "
+        f"{out.getvalue().strip()}")
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -2725,7 +3127,12 @@ def main() -> int:
               ("mamba2-130m serving", phase_mamba_serve),
               ("continuous-batching serving", phase_batching),
               ("delta churn", phase_churn),
-              ("fault-tolerant sweeps", phase_faults)]
+              ("fault-tolerant sweeps", phase_faults),
+              ("observability: comm predictor, feedback, report",
+               phase_observability),
+              ("qwen3-14b prefill main path",
+               lambda: phase_qwen_prefill(report)),
+              ("qwen3-14b serving", phase_qwen_serve)]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")
@@ -2745,7 +3152,8 @@ def main() -> int:
                      "library_ms": r["library_ms"],
                      **{k: v for k, v in r.items()
                         if k.startswith(("bf16_", "gemm_only", "simt_",
-                                         "f32_"))}})
+                                         "f32_", "decode_", "quorum_",
+                                         "prefill_"))}})
     say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

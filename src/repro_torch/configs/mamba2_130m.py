@@ -13,6 +13,7 @@ CONFIG = ModelConfig(
     family="ssm",
     n_layers=24,
     d_model=768,
+    n_heads=0, n_kv_heads=0, head_dim=64,
     d_ff=0,
     vocab_size=50_280,
     layer_pattern=("M",),
@@ -25,6 +26,7 @@ SMOKE = ModelConfig(
     family="ssm",
     n_layers=2,
     d_model=64,
+    n_heads=0, n_kv_heads=0, head_dim=16,
     d_ff=0,
     vocab_size=256,
     layer_pattern=("M",),

@@ -2,8 +2,9 @@
 (port of ``repro/configs/registry.py``).
 
 Every architecture of the reference is listed; only the configs the port
-has resolve.  The others raise ``NotImplementedError`` until their model
-families are ported (ROADMAP.md A.17).
+has resolve (mamba2 and the dense attention family).  The others (MoE,
+hybrid, encoder-decoder, vision) raise ``NotImplementedError`` until their
+model families are ported (ROADMAP.md A.17 items 2-3).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ ARCHS: List[str] = [
 ]
 
 # the configs whose model family the port runs
-PORTED = ("mamba2_130m",)
+PORTED = ("mamba2_130m", "qwen3_14b", "starcoder2_3b", "deepseek_coder_33b",
+          "h2o_danube_1_8b")
 
 # canonical ids with dashes also accepted
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}

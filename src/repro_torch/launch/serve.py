@@ -2,6 +2,7 @@
 (port of ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch mamba2_130m [--smoke] [--device cpu]
+    python -m repro_torch.launch.serve --arch qwen3_14b [--smoke] [--device cpu]
 
 The prompt is teacher-forced token by token, then ``gen_len`` tokens are
 decoded greedily.  Runs on the CUDA device unless ``device`` says

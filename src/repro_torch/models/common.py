@@ -1,6 +1,5 @@
-"""Shared building blocks: ParamDef tables and norms (port of the part of
-``repro/models/common.py`` the SSM family needs; RoPE, M-RoPE and the MLPs
-come with the attention families, ROADMAP.md A.17).
+"""Shared building blocks: ParamDef tables, norms, positions, MLPs (port
+of ``repro/models/common.py``).
 
 Sharding placeholders in ParamDef specs are kept as data ("T" the tensor
 axis, "F" the fsdp axis, None replicated); nothing resolves them yet.
@@ -12,7 +11,9 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 Tree = Dict[str, Any]
 
@@ -112,3 +113,92 @@ def apply_norm(cfg, p: Tree, x):
     if cfg.norm == "layernorm":
         return layernorm(x, p["gamma"], p["beta"])
     return rmsnorm(x, p["gamma"])
+
+
+# ---------------------------------------------------------------------------
+# Positions: RoPE / M-RoPE / sinusoidal
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    """RoPE inverse frequencies for ``head_dim`` (numpy, host-side)."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def _rotate(x, ang):
+    """Rotate the two halves of x [..., seq, heads, hd] by the float32
+    angles [..., seq, hd/2], in float32; cast back to x's dtype."""
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _freqs(hd: int, theta: float, device) -> torch.Tensor:
+    """:func:`rope_freqs` in float64 on ``device``, then float32 (formed
+    there: a copy from the host would wait for the device each layer)."""
+    i = torch.arange(0, hd, 2, dtype=torch.float64, device=device)
+    return (1.0 / (theta ** (i / hd))).float()
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., seq, heads, head_dim]; positions: [..., seq] integers.  The
+    angles are formed in float32, as the reference forms them."""
+    freqs = _freqs(x.shape[-1], theta, x.device)               # [hd/2]
+    return _rotate(x, positions[..., :, None].float() * freqs)
+
+
+def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
+    """M-RoPE (qwen2-vl): rotary over 3 position streams (t, h, w).
+
+    positions3: [..., seq, 3].  Each frequency slot is assigned to one of
+    the three sections; text tokens use identical t = h = w positions,
+    which makes M-RoPE degenerate to 1-D RoPE exactly.
+    """
+    hd = x.shape[-1]
+    sec = np.asarray(sections, np.int64)
+    if sec.sum() != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {hd // 2}")
+    # frequency slot -> section id
+    sid = torch.as_tensor(np.repeat(np.arange(len(sec)), sec),
+                          device=x.device)
+    pos = positions3.float()[..., sid]                        # [..., seq, hd/2]
+    return _rotate(x, pos * _freqs(hd, theta, x.device))
+
+
+def sincos_positions(seq: int, d_model: int) -> np.ndarray:
+    """Whisper-style fixed sinusoidal embeddings [seq, d_model]."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d_model // 2)[None, :]
+    ang = pos / (10_000 ** (2 * i / d_model))
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_defs(cfg, d_ff: Optional[int] = None) -> Tree:
+    """MLP ParamDefs (swiglu or gelu layout per config)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp == "swiglu":
+        return {
+            "wi": ParamDef((d, f), ("F", "T")),
+            "wg": ParamDef((d, f), ("F", "T")),
+            "wo": ParamDef((f, d), ("T", "F"), scale=cfg.out_scale),
+        }
+    return {
+        "wi": ParamDef((d, f), ("F", "T")),
+        "wo": ParamDef((f, d), ("T", "F"), scale=cfg.out_scale),
+    }
+
+
+def apply_mlp(cfg, p: Tree, x):
+    """Apply the config's MLP flavor with params ``p`` (gelu is the tanh
+    approximation, ``jax.nn.gelu``'s default)."""
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    else:
+        h = F.gelu(x @ p["wi"], approximate="tanh")
+    return h @ p["wo"]

@@ -12,26 +12,42 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One frozen hyperparameter record describing a model family member.
+    """One frozen hyperparameter record describing a model family member
+    (dense / ssm / hybrid / moe / audio / vlm), with the reference's
+    fields that a model's function depends on.
 
-    The port holds the fields that its Mamba2 family reads, and the ones
-    that tell an unported family apart (layer kind "A", MoE, encoder-
-    decoder, frontends), which raise ``NotImplementedError``.  The
-    reference's attention, MoE-routing and execution fields (heads, RoPE,
-    windows, remat, sharding axes, ...) come with the families that read
-    them (ROADMAP.md A.17)."""
+    The port runs the dense attention family (layer kind "A") and the
+    Mamba2 family (kind "M").  The MoE, encoder-decoder and vision fields
+    are read by families not ported yet (ROADMAP.md A.17 items 2-3), which
+    raise ``NotImplementedError``.  The reference's sharding and
+    compilation fields (``remat``, ``scan_layers``, ``fsdp``, ``attn_sp``,
+    ``seq_shard``, ``dp_axes``, ``tp_axis``, ``unroll_inner``,
+    ``moe_ec_constraint``) are left out: the port runs on one device,
+    eagerly, and nothing here would read them."""
     name: str = "model"
     family: str = "dense"          # dense | ssm | hybrid | moe | audio | vlm
     n_layers: int = 2
     d_model: int = 64
+    n_heads: int = 2
+    n_kv_heads: int = 2
+    head_dim: int = 0              # 0 -> d_model // n_heads
     d_ff: int = 128
     vocab_size: int = 256
 
     norm: str = "rmsnorm"          # rmsnorm | layernorm
+    mlp: str = "swiglu"            # swiglu | gelu
+    qk_norm: bool = False
+    pos: str = "rope"              # rope | mrope | sincos | none
+    rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)  # t/h/w dims (qwen2-vl)
+    window: Optional[int] = None   # sliding-window attention size
 
     # MoE
     moe_experts: int = 0
+    moe_top_k: int = 0
     moe_every: int = 1             # every n-th layer is MoE (others dense)
+    moe_shared: bool = False       # additional always-on shared expert
+    capacity_factor: float = 1.25
 
     # Mamba2 / SSD
     ssm_state: int = 0
@@ -45,13 +61,24 @@ class ModelConfig:
 
     # encoder-decoder (whisper backbone)
     encdec: bool = False
+    n_enc_layers: int = 0
+    dec_ratio: int = 8             # T_dec = seq_len // dec_ratio in shape cells
 
     # modality frontend stubs
     frontend: Optional[str] = None  # audio_frames | vision_patches
+    vis_tokens: int = 1024          # stub patch-embedding count (vlm)
 
     tie_embeddings: bool = False
 
+    # numerics / execution
     dtype: object = torch.bfloat16
+    attn_block_k: int = 1024        # kv-block size for blocked attention
+    attn_block_threshold: int = 4096  # windowed attention: blocked path when
+                                      # T >= this (models/attention.py)
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
     # ---- derived -----------------------------------------------------------
     @property

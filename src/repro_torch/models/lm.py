@@ -1,13 +1,13 @@
-"""Decoder-only LM stack (port of ``repro/models/lm.py`` for layer kind
-"M", the Mamba2 family).
+"""Decoder-only LM stack (port of ``repro/models/lm.py`` for layer kinds
+"A", dense GQA attention with its MLP, and "M", the Mamba2 block).
 
 The layer stack is a repeating "superblock" pattern whose parameters are
 stacked over ``n_superblocks`` on a leading axis, as in the reference; the
 port walks the superblocks in a plain loop under ``torch.inference_mode()``
 (no remat: it serves, it does not train).  Parameters are nested dicts of
-tensors built from the ParamDef tables.  Layer kind "A", MoE and
-encoder-decoder models are not ported yet (ROADMAP.md A.17) and raise
-``NotImplementedError``.
+tensors built from the ParamDef tables.  MoE layers, the hybrid MLP and
+encoder-decoder models are not ported yet (ROADMAP.md A.17 items 2-3) and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,9 +18,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from . import attention as attn
 from . import ssm as ssm_mod
-from .common import (ParamDef, Tree, apply_norm, init_tree, norm_defs,
-                     tree_leaves, tree_map)
+from .common import (ParamDef, Tree, apply_mlp, apply_norm, init_tree,
+                     mlp_defs, norm_defs, tree_leaves, tree_map)
 from .config import ModelConfig
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md A.17)"
@@ -38,15 +39,21 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 def _layer_defs(cfg: ModelConfig, kind: str, j: int) -> Tree:
-    """One layer's params.  kind: 'M' mamba ('A' attention is not ported);
-    j = index in the superblock pattern (controls MoE placement)."""
-    if kind != "M":
-        raise NotImplementedError(f"layer kind {kind!r} {_NOT_PORTED}")
+    """One layer's params.  kind: 'A' attention or 'M' mamba; j = index in
+    the superblock pattern (controls MoE placement)."""
     if cfg.is_moe_layer(j):
         raise NotImplementedError(f"MoE layers {_NOT_PORTED}")
+    defs: Tree = {"norm1": norm_defs(cfg)}
+    if kind == "A":
+        defs["attn"] = attn.attn_defs(cfg)
+        defs["norm2"] = norm_defs(cfg)
+        if cfg.d_ff > 0:
+            defs["mlp"] = mlp_defs(cfg)
+        return defs
     if cfg.d_ff > 0 and cfg.family == "hybrid":
         raise NotImplementedError(f"the hybrid MLP {_NOT_PORTED}")
-    return {"norm1": norm_defs(cfg), "ssm": ssm_mod.ssm_defs(cfg)}
+    defs["ssm"] = ssm_mod.ssm_defs(cfg)
+    return defs
 
 
 def model_defs(cfg: ModelConfig) -> Tree:
@@ -118,12 +125,22 @@ def _index(tree: Tree, i: int) -> Tree:
 # Layer application
 # ---------------------------------------------------------------------------
 
+def _mlp_residual(cfg: ModelConfig, p: Tree, x):
+    """The attention layer's second half: pre-norm MLP residual."""
+    if "mlp" not in p:
+        return x
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+
+
 def _apply_layer(cfg: ModelConfig, kind: str, j: int, p: Tree, x, positions):
-    """One layer of a prompt pass.  Returns (x, aux_loss)."""
-    if kind != "M":
-        raise NotImplementedError(f"layer kind {kind!r} {_NOT_PORTED}")
+    """One layer of a prompt pass (pre-norm residual blocks).  Returns (x,
+    aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg, p["norm1"], x)
+    if kind == "A":
+        x = x + attn.attention(cfg, p["attn"], h, positions, causal=True,
+                               window=cfg.window)
+        return _mlp_residual(cfg, p, x), aux
     y, _state = ssm_mod.mamba_block(cfg, p["ssm"], h)
     return x + y, aux
 
@@ -176,13 +193,20 @@ def forward(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> Tree:
-    """Per-pattern-position carries stacked over superblocks (an SSM layer
-    keeps O(1) state, so ``max_len`` sets nothing yet)."""
+    """Per-pattern-position caches stacked over superblocks: an attention
+    layer's ring-buffer k / v [n_sup, batch, S, KV, hd] with S = max_len
+    (min(max_len, window) for sliding-window attention), an SSM layer's
+    O(1) carry.  ``pos`` is the next write position."""
     n_sup = cfg.n_superblocks
     state: Tree = {"pos": 0, "layers": {}}
     for j, kind in enumerate(cfg.pattern()):
-        if kind != "M":
-            raise NotImplementedError(f"layer kind {kind!r} {_NOT_PORTED}")
+        if kind == "A":
+            S = max_len if cfg.window is None else min(max_len, cfg.window)
+            shape = (n_sup, batch, S, cfg.n_kv_heads, cfg.head_dim)
+            state["layers"][f"pos{j}"] = {
+                c: torch.zeros(shape, dtype=cfg.dtype, device=device)
+                for c in ("k", "v")}
+            continue
         s = ssm_mod.init_ssm_state(cfg, batch, device=device)
         state["layers"][f"pos{j}"] = {
             k: a[None].repeat(n_sup, *([1] * a.dim())) for k, a in s.items()}
@@ -197,12 +221,19 @@ def decode_step(cfg: ModelConfig, params: Tree, state: Tree,
     it): its carries are updated in place and it is returned with ``pos``
     advanced."""
     x, _positions = embed_inputs(cfg, params, {"tokens": tokens})
+    pos = state["pos"]
     for i in range(cfg.n_superblocks):
         params_sb = _index(params["layers"], i)
         for j, kind in enumerate(cfg.pattern()):
             p = params_sb[f"pos{j}"]
             carry = state["layers"][f"pos{j}"]
             h = apply_norm(cfg, p["norm1"], x)
+            if kind == "A":
+                y, _k, _v = attn.decode_attention(
+                    cfg, p["attn"], h, carry["k"][i], carry["v"][i], pos,
+                    window=cfg.window)
+                x = _mlp_residual(cfg, p, x + y)
+                continue
             y, new = ssm_mod.mamba_block(
                 cfg, p["ssm"], h, state={k: a[i] for k, a in carry.items()})
             x = x + y
@@ -210,5 +241,5 @@ def decode_step(cfg: ModelConfig, params: Tree, state: Tree,
                 carry[k][i].copy_(a)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = (x @ _unembed(cfg, params)).float()
-    state["pos"] = state["pos"] + 1
+    state["pos"] = pos + 1
     return logits, state

@@ -41,7 +41,12 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.launch.serve, repro_torch.serving.batching, "
         "repro_torch.launch.query_serve, repro_torch.core.delta, "
         "repro_torch.core.faults, repro_torch.ckpt.checkpoint, "
-        "repro_torch.launch.elastic\n"
+        "repro_torch.launch.elastic, repro_torch.obs.comm, "
+        "repro_torch.obs.report, repro_torch.obs.feedback, "
+        "repro_torch.models.attention, repro_torch.configs.qwen3_14b, "
+        "repro_torch.configs.starcoder2_3b, "
+        "repro_torch.configs.deepseek_coder_33b, "
+        "repro_torch.configs.h2o_danube_1_8b\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -115,6 +120,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
         faults._main(["--P", "5", "--modes", "batched"])
     with pytest.raises(RuntimeError, match="CUDA"):
         faults.DenseReduceWorkload(4)
+    from repro_torch.obs import comm as obs_comm, feedback
+    with pytest.raises(RuntimeError, match="CUDA"):
+        obs_comm._main(["--P", "5"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        feedback._main(["--P", "5"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.serve("qwen3_14b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "h2o_danube_1_8b", "--smoke"])
     assert comm.SingleProcessComm(4, "cpu").device.type == "cpu"
 
 
