@@ -105,6 +105,29 @@ beside the script).  Phases:
      decode == prefill at 1,024 tokens;
  25. qwen3-14b serving: ``serve()`` at batch 4, prompt 16, 32 generated
      tokens (no B9 launch: decode attention is a plain product);
+ 26. jamba-v0.1-52b at full width, depth cut from 32 to 16 layers (its
+     bf16 parameters do not fit the card), prefill of 1 x 32,768 tokens
+     (B9 in its 2 attention layers, B10 in its 14 Mamba layers, MoE in
+     every other layer), a profiled second prefill split into B9, B10,
+     GEMMs, the sort / scan / index kernels of the MoE dispatch and the
+     rest; B10 on layer 0's real inputs and B9 on the attention layer's
+     real q / k / v against their plain versions; one MoE layer on 4,096
+     real rows against the port's plain path on the CPU (routing exact
+     outside the router's tie margin); decode == prefill at 1,024 tokens
+     at one superblock with the capacity raised so nothing drops;
+ 27. jamba serving: ``serve()``'s loop (``lm.init_decode_state``,
+     ``build_serve_step``) on the 16-layer config at batch 4, prompt 16,
+     32 generated tokens, 14 B10 launches a step;
+ 28. llama4-scout at full width and 2 layers (top-1 + shared expert):
+     prefill of 1 x 32,768 tokens, decode == prefill at 1,024;
+ 29. whisper-large-v3 in full: ``build_prefill_step`` on 8 x 1,500 frames
+     and 187 decoder tokens (B9 64 times: 32 full, 32 causal), 32 decode
+     steps against the cached cross K / V, B9 on the encoder's layer-0
+     q / k / v against the plain attention, decode == the teacher-forced
+     forward at 2 + 2 layers;
+ 30. qwen2-vl-72b at full width and 2 layers: 1,024 vision embeddings +
+     31,744 text tokens through M-RoPE and B9, and the B9 route against
+     the plain attention at T = 4,096;
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
@@ -112,18 +135,21 @@ beside the script).  Phases:
 Kernel launch counts are set to 0 just before each main path (n-body,
 PCIT, serving, join, k-NN graph, quantized join, quantized k-NN, quorum
 attention, mamba2 prefill and serving, the batching drain, qwen3-14b
-prefill and serving) is driven and read just after it, so comparison
+prefill and serving, jamba prefill and serving, llama4-scout, whisper
+and qwen2-vl prefill) is driven and read just after it, so comparison
 launches do not count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -197,6 +223,30 @@ QWEN_CHECK_LAYERS, QWEN_CHECK_T, QWEN_DECODE_T = 2, (4096, 4000), 1024
 # B9 on the prefill's layer-0 q / k / v is checked on the first, middle
 # and last QWEN_SAMPLE query rows
 QWEN_SAMPLE = 256
+# jamba-v0.1-52b at full width, its depth cut from 32 to JAMBA_LAYERS layers
+# (2 of 4 superblocks: the full model's 51,460,000,640 bf16 parameters,
+# 95.85 GiB, do not fit the card) and prefill_32k's batch from 32 to
+# JAMBA_B; one MoE layer held against the CPU on JAMBA_MOE_ROWS rows, and
+# decode == prefill at JAMBA_DECODE_T tokens.  The counts are the JAX
+# package's count_params.  Router ties: k-th and (k+1)-th probabilities
+# within MOE_TIE * max(1, p) may route otherwise on the two devices.
+JAMBA_FULL_PARAMS, JAMBA_PARAMS = 51_460_000_640, 25_998_437_824
+JAMBA_LAYERS, JAMBA_B, JAMBA_T = 16, 1, 32_768
+JAMBA_MOE_ROWS, JAMBA_DECODE_T, MOE_TIE = 4096, 1024, 1e-5
+# llama4-scout at full width, 2 of its 48 layers (top-1 routing with the
+# shared expert); llama4-maverick runs in the CPU tests only (its 128
+# experts take 32 GiB a layer)
+LLAMA4_LAYERS, LLAMA4_PARAMS = 2, 6_473_180_160
+LLAMA4_T, LLAMA4_DECODE_T = 32_768, 1024
+# whisper-large-v3 in full: 8 x 1,500 frames (its 30 s window), 187 decoder
+# tokens (dec_ratio 8), then WHISPER_DEC_STEPS decode steps
+WHISPER_PARAMS, WHISPER_B, WHISPER_FRAMES = 1_534_809_600, 8, 1500
+WHISPER_DEC_STEPS = 32
+# qwen2-vl-72b at full width, 2 of its 80 layers: 1,024 vision embeddings
+# + 31,744 text tokens; the B9 route against the plain attention at
+# QWEN2VL_CHECK_T positions
+QWEN2VL_LAYERS, QWEN2VL_PARAMS = 2, 4_246_773_760
+QWEN2VL_T, QWEN2VL_CHECK_T = 32_768, 4096
 # the observability phase: dense and quantized comm checks at the churn
 # phases' block size (N = 65,536 x 128 at P = 8) and P = 13
 OBS_BLOCK, OBS_DIM, OBS_P = 8192, 128, (8, 13)
@@ -1942,6 +1992,23 @@ def out_err(got, want) -> tuple[float, float]:
             float((d / (rel * want.abs() + FLASH_ATOL)).max()))
 
 
+def b9_sampled_rows(q, k, v) -> tuple:
+    """B9 (causal) on a prefill's q / k / v against kernels/ref.py's f32
+    plain attention on the first, middle and last QWEN_SAMPLE query rows,
+    under phase 16's rule (2^-7 |want| + 1e-5).  ref's causal mask is
+    end-aligned, so rows r0:r1 against keys :r1 are rows r0:r1 of the
+    whole sequence.  Returns (B9's output, max abs err, worst ratio)."""
+    from repro_torch.kernels import ops
+    out = ops.flash_attention(q, k, v, causal=True)
+    T = q.shape[1]
+    errs = [out_err(out[:, r0:r0 + QWEN_SAMPLE],
+                    ref_attention(q[:, r0:r0 + QWEN_SAMPLE],
+                                  k[:, :r0 + QWEN_SAMPLE],
+                                  v[:, :r0 + QWEN_SAMPLE], True))
+            for r0 in (0, (T - QWEN_SAMPLE) // 2, T - QWEN_SAMPLE)]
+    return out, max(e[0] for e in errs), max(e[1] for e in errs)
+
+
 def sampled_err(out, ranges, want) -> tuple[float, float]:
     errs = [out_err(out[:, r0:r1], w) for (r0, r1), w in zip(ranges, want)]
     return max(e[0] for e in errs), max(e[1] for e in errs)
@@ -2794,10 +2861,12 @@ def phase_observability() -> None:
 
 def device_breakdown(fn) -> dict:
     """Device ms by kernel family over one call of ``fn``, from
-    torch.profiler (CUPTI): B9 (``flash``), GEMMs, everything else, the
-    ten costliest kernels by name, and ``wall`` the host clock around
-    that same call (synchronized), against which the kernels' sum gives
-    the card's idle share of the window."""
+    torch.profiler (CUPTI): B9 (``flash``), B10 (``ssd_``), GEMMs, the
+    sort / scan / index / gather kernels (the MoE dispatch, with the
+    embedding gather), everything else, the ten costliest kernels by name,
+    and ``wall`` the host clock around that same call (synchronized),
+    against which the kernels' sum gives the card's idle share of the
+    window."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2805,7 +2874,8 @@ def device_breakdown(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    fam = {"b9": 0.0, "gemm": 0.0, "other": 0.0}
+    fam = {"b9": 0.0, "b10": 0.0, "gemm": 0.0, "dispatch": 0.0,
+           "other": 0.0}
     top = []
     for e in prof.key_averages():
         if e.device_time_total <= 0 or e.key.startswith("cuda"):
@@ -2814,9 +2884,14 @@ def device_breakdown(fn) -> dict:
         key = e.key.lower()
         if "flash" in key:
             fam["b9"] += ms
+        elif "ssd_" in key:
+            fam["b10"] += ms
         elif any(w in key for w in ("gemm", "gemv", "nvjet", "xmma",
                                     "cutlass", "sm90_")):
             fam["gemm"] += ms
+        elif any(w in key for w in ("sort", "scan", "index", "gather",
+                                    "scatter", "histogram")):
+            fam["dispatch"] += ms
         else:
             fam["other"] += ms
         name = e.key.replace("(anonymous namespace)::", "")
@@ -2825,6 +2900,32 @@ def device_breakdown(fn) -> dict:
     fam["top"] = sorted(top, reverse=True)[:10]
     fam["wall"] = wall
     return fam
+
+
+def say_breakdown(what: str, split: dict, counts: dict) -> float:
+    """Print a profiled call's idle share and device split; returns the
+    summed device ms (0 where the profiler showed none)."""
+    fams = ("b9", "b10", "gemm", "dispatch", "other")
+    dev_ms = sum(split[f] for f in fams)
+    if dev_ms <= 0:
+        say(f"{what} device time: not measured (the profiler showed no "
+            "device time)")
+        return 0.0
+    idle = max(0.0, 1.0 - dev_ms / split["wall"])
+    names = {"b9": f"B9 ({counts.get('flash_attention', 0)} launches)",
+             "b10": f"B10 ({counts.get('ssd_chunk', 0)} launches)",
+             "gemm": "GEMMs", "dispatch": "sort / scan / index kernels (MoE "
+             "dispatch, with the embedding gather)", "other": "the rest"}
+    say(f"{what}, a second one under torch.profiler: host clock "
+        f"{split['wall']:.1f} ms (synchronized), kernels' summed device "
+        f"time {dev_ms:.1f} ms, so the card idles {100 * idle:.2f} % of that "
+        "window; device split: " + ", ".join(
+            f"{names[f]} {split[f]:.1f} ms ({100 * split[f] / dev_ms:.1f} %)"
+            for f in fams if split[f] > 0 or f in ("b9", "gemm", "other")))
+    say("  costliest kernels: " + "; ".join(
+        f"{name} {ms:.1f} ms (x{cnt})" for ms, cnt, name in split["top"]))
+    split["idle"] = idle
+    return dev_ms
 
 
 def phase_qwen_prefill(report: dict) -> None:
@@ -2877,51 +2978,23 @@ def phase_qwen_prefill(report: dict) -> None:
         f"{QWEN_B * QWEN_T / secs:.0f} tokens/s, peak "
         f"{peak / 2**30:.3f} GiB above the parameters, B9 launches {n}")
     split = device_breakdown(lambda: prefill(params, {"tokens": toks}))
-    dev_ms = split["b9"] + split["gemm"] + split["other"]
+    dev_ms = say_breakdown("qwen3-14b prefill", split,
+                           {"flash_attention": n})
     if dev_ms > 0:
-        idle = max(0.0, 1.0 - dev_ms / split["wall"])
         report["flash_attention"].update(
             prefill_ms=split["b9"] / n, prefill_share=split["b9"] / dev_ms,
-            prefill_idle_share=idle)
-        say(f"qwen3-14b prefill, a second one under torch.profiler: host "
-            f"clock {split['wall']:.1f} ms (synchronized), kernels' summed "
-            f"device time {dev_ms:.1f} ms, so the card idles "
-            f"{100 * idle:.2f} % of that window")
-        say(f"qwen3-14b prefill device time (torch.profiler, a second "
-            f"prefill) {dev_ms:.1f} ms: B9 {split['b9']:.1f} ms "
-            f"({split['b9'] / n:.3f} ms a layer, "
-            f"{100 * split['b9'] / dev_ms:.1f} %), GEMMs "
-            f"{split['gemm']:.1f} ms ({100 * split['gemm'] / dev_ms:.1f} %),"
-            f" the rest {split['other']:.1f} ms "
-            f"({100 * split['other'] / dev_ms:.1f} %)")
-        say("  costliest kernels: " + "; ".join(
-            f"{name} {ms:.1f} ms (x{cnt})" for ms, cnt, name in split["top"]))
-    else:
-        say("qwen3-14b prefill device time: not measured (the profiler "
-            "showed no device time)")
+            prefill_idle_share=split["idle"])
     # B9 alone on this prefill's first-layer q / k / v, and on N(0, 1)
     # tensors of the same shapes (phase 17's inputs); its output on the
-    # real q / k / v against the f32 plain attention (kernels/ref.py) on
-    # the first, middle and last QWEN_SAMPLE query rows, under phase 16's
-    # rule (2^-7 |want| + 1e-5).  ref's causal mask is end-aligned, so
-    # rows r0:r1 against keys :r1 are rows r0:r1 of the whole sequence.
+    # real q / k / v against the f32 plain attention on sampled rows
     with torch.inference_mode():
         p0 = tree_map(lambda a: a[0], params["layers"]["pos0"])
         x, positions = lm.embed_inputs(cfg, params, {"tokens": toks})
         qkv = attn_mod.qkv_project(cfg, p0["attn"], apply_norm(
             cfg, p0["norm1"], x), positions)
         del x
-        out = ops.flash_attention(*qkv, causal=True)
-        errs = []
-        for r0 in (0, (QWEN_T - QWEN_SAMPLE) // 2, QWEN_T - QWEN_SAMPLE):
-            r1 = r0 + QWEN_SAMPLE
-            q, k, v = qkv
-            want = ref.flash_attention(q[:, r0:r1].float(), k[:, :r1].float(),
-                                       v[:, :r1].float(), causal=True)
-            errs.append(out_err(out[:, r0:r1], want))
-            del want
+        out, err, ratio = b9_sampled_rows(*qkv)
         del out
-        err, ratio = max(e[0] for e in errs), max(e[1] for e in errs)
         check(ratio <= 1.0, f"B9 on the prefill's layer-0 q / k / v "
               f"(T = {QWEN_T}): max abs err {err:.3e}, {ratio:.3f} of the "
               "limit 2^-7 |want| + 1e-5")
@@ -3047,6 +3120,709 @@ def phase_qwen_serve() -> None:
         f"{out.getvalue().strip()}")
 
 
+# ---------------------------------------------------------------------------
+# The MoE, hybrid, encoder-decoder and vision families
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def first_args(module, name: str, store: dict):
+    """Within the block, ``module.name`` keeps the arguments of its first
+    call in ``store[name]`` (as (args, kwargs)); every call goes through."""
+    fn = getattr(module, name)
+
+    def kept(*args, **kw):
+        store.setdefault(name, (args, kw))
+        return fn(*args, **kw)
+
+    with mock.patch.object(module, name, kept):
+        yield store
+
+
+def params_bytes(tree) -> int:
+    return sum(params_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def first_layers(tree, n: int):
+    """The first ``n`` entries of every stacked layer leaf (views)."""
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda a: a[:n], tree)
+
+
+def timed_prefill(prefill, params, batch, counted: tuple):
+    """One main-path prefill: launch counts set to 0 just before, read just
+    after.  Returns (logits, seconds on the host clock, synchronized,
+    {kernel: launches}, peak bytes above what was allocated before)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: ops.launch_counts()[k] for k in counted}
+    return logits, secs, counts, torch.cuda.max_memory_allocated() - base
+
+
+def b10_ops(Bsz: int, T: int, H: int, Pd: int, N: int, L: int) -> float:
+    """B10's operations, C B^T counted once per (batch row, chunk) (phase
+    16's count)."""
+    nc = T // L
+    tri = L * (L + 1) // 2
+    cells = Bsz * H * nc
+    return (Bsz * nc * 2.0 * N * tri
+            + cells * (2.0 * Pd * tri + 2.0 * L * N * Pd))
+
+
+def ref_attention(q, k, v, causal: bool):
+    """kernels/ref.py's plain attention in float32."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal)
+
+
+def plain_ssd_pieces(x, dt, A, Bm, Cm, chunk: int, pieces: int = 4):
+    """ref.ssd_intra_chunk over ``pieces`` runs of whole chunks (each chunk
+    is independent), so its [B, nc, L, L, H] decays fit beside a model."""
+    from repro_torch.kernels import ref
+    T = x.shape[1]
+    step = T // pieces
+    outs = [ref.ssd_intra_chunk(x[:, t:t + step], dt[:, t:t + step], A,
+                                Bm[:, t:t + step], Cm[:, t:t + step],
+                                chunk=chunk)
+            for t in range(0, T, step)]
+    return (torch.cat([o[0] for o in outs], 1),
+            torch.cat([o[1] for o in outs], 1),
+            torch.cat([o[2] for o in outs], 1))
+
+
+def greedy_decode(cfg, params, state, batch: int, prompt_len: int,
+                  gen_len: int, seed: int):
+    """``launch/serve.py``'s loop over the serve step of ``cfg`` (the
+    teacher-forced prompt from ``seed``, then greedy tokens), on the card.
+    Returns (sequences [batch, prompt_len + gen_len] numpy, ms a step on
+    the host clock, synchronized)."""
+    from repro_torch.launch.steps import build_serve_step
+    step = build_serve_step(cfg)
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(batch, prompt_len))
+    prompt_t = torch.as_tensor(prompt, dtype=torch.int32, device=DEVICE)
+    toks = prompt_t[:, :1]
+    out = [toks]
+    n = prompt_len + gen_len - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n):
+        logits, state = step(params, state, toks)
+        if t + 1 < prompt_len:
+            toks = prompt_t[:, t + 1:t + 2]
+        else:
+            toks = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+        out.append(toks)
+    seqs = torch.cat(out, dim=1).cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    check(seqs.shape == (batch, prompt_len + gen_len)
+          and ((seqs >= 0) & (seqs < cfg.vocab_size)).all()
+          and (seqs[:, :prompt_len] == prompt).all(),
+          f"{cfg.name}: greedy decode gave sequences of the wrong shape, "
+          "outside the vocabulary or without the prompt")
+    return seqs, ms
+
+
+def decode_vs_prefill(what: str, cfg, params, toks) -> str:
+    """Decode ``toks`` [B, T] one by one through the serve step and hold the
+    last position's logits to the prefill step's, within 2e-2 of max(1,
+    max |logit|) (tests/test_models.py's 2e-2, scaled).  Returns the
+    printed summary."""
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import lm
+    from repro_torch.kernels import ops
+    want = build_prefill_step(cfg)(params, {"tokens": toks})
+    state = lm.init_decode_state(cfg, toks.shape[0], toks.shape[1],
+                                 device=DEVICE)
+    step = build_serve_step(cfg)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(toks.shape[1]):
+        lg, state = step(params, state, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / toks.shape[1]
+    n9 = ops.launch_counts()["flash_attention"]
+    check(n9 == 0, f"{what}: decode launched B9 {n9} times (its attention "
+          "is a plain product)")
+    d = float((lg[:, -1] - want).abs().max())
+    lim = 2e-2 * max(1.0, float(want.abs().max()))
+    check(bool(torch.isfinite(lg).all()) and d < lim,
+          f"{what}: decode vs prefill at {toks.shape[1]} tokens max abs diff"
+          f" {d:.3e} >= {lim:.3e}")
+    return (f"decode vs prefill at {toks.shape[1]} tokens ({toks.shape[0]} "
+            f"rows): last-position logits max abs diff {d:.3e} (< {lim:.3e})"
+            f", max |logit| {float(want.abs().max()):.3f}; {step_ms:.3f} ms "
+            f"per step, {ops.launch_counts()['ssd_chunk']} B10 launches")
+
+
+def no_drop_config(cfg, n_max: int):
+    """``cfg`` with ``capacity_factor`` raised to E / k: then C = n at every
+    n, and no expert can hold more than n choices (a token picks an expert
+    once), so nothing drops at prefill or decode."""
+    import dataclasses
+    from repro_torch.models import moe
+    big = dataclasses.replace(
+        cfg, capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    check(all(moe.capacity(big, n) >= n for n in (1, 2, 4, n_max)),
+          f"{cfg.name}: the raised capacity still drops")
+    return big
+
+
+def moe_card_vs_cpu(cfg, p, h) -> str:
+    """One MoE layer on the card (bf16) against the port's plain path on
+    the CPU (float32 copies of the same bf16 parameters and rows): routing
+    index-exact except at tokens whose k-th and (k+1)-th router
+    probabilities lie within MOE_TIE * max(1, p) (the repo's tie rule),
+    rows whose routing agrees within 2e-2 of max(1, their max |value|)."""
+    import dataclasses
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+    n, d = h.shape[0] * h.shape[1], h.shape[-1]
+    k = cfg.moe_top_k
+    out_g, aux_g = moe.apply_moe(cfg, p, h)
+    _pg, _vg, idx_g = moe.route(cfg, p["router"], h.reshape(n, d))
+    flat_g, keep_g, _cg, C = moe.dispatch(cfg, idx_g)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p_cpu = tree_map(lambda a: a.cpu().float(), p)
+    h_cpu = h.cpu().float()
+    t0 = time.perf_counter()
+    out_c, aux_c = moe.apply_moe(cfg32, p_cpu, h_cpu)
+    cpu_s = time.perf_counter() - t0
+    probs_c, _vc, idx_c = moe.route(cfg32, p_cpu["router"],
+                                    h_cpu.reshape(n, d))
+    flat_c, keep_c, _cc, _C = moe.dispatch(cfg32, idx_c)
+    top = torch.sort(probs_c, dim=-1, descending=True).values
+    margin = (top[:, k - 1] - top[:, k]) <= MOE_TIE * top[:, k - 1].clamp_min(
+        1.0)
+    flipped = (idx_g.cpu() != idx_c).any(-1)
+    check(not bool((flipped & ~margin).any()),
+          f"MoE card vs CPU: {int((flipped & ~margin).sum())} tokens route "
+          f"to other experts outside the tie margin")
+    same = ~flipped & (keep_g.cpu() == keep_c).view(n, k).all(-1)
+    if not bool(flipped.any()):
+        check(torch.equal(keep_g.cpu(), keep_c)
+              and torch.equal(flat_g.cpu(), flat_c),
+              "MoE card vs CPU: same experts, other slots or drops")
+    rows_g = out_g.reshape(n, d).float().cpu()
+    rows_c = out_c.reshape(n, d)
+    diff = (rows_g - rows_c).abs().amax(-1)
+    lim = 2e-2 * rows_c.abs().amax(-1).clamp_min(1.0)
+    worst = float((diff / lim)[same].max())
+    check(worst <= 1.0, f"MoE card vs CPU: a row at {worst:.3f} of its "
+          "limit")
+    d_aux = abs(float(aux_g) - float(aux_c))
+    check(d_aux <= 1e-4 * max(1.0, float(aux_c))
+          + cfg.moe_experts * int(flipped.sum()) / (n * k),
+          f"MoE card vs CPU: aux {float(aux_g):.6f} vs {float(aux_c):.6f}")
+    return (f"one MoE layer ({n} rows, E {cfg.moe_experts}, top-{k}, C {C}) "
+            f"on the card vs the port's plain path on the CPU (float32 "
+            f"copies, {cpu_s:.1f} s): {int(margin.sum())} tokens within the "
+            f"tie margin ({MOE_TIE:g} * max(1, p)), {int(flipped.sum())} "
+            f"routed otherwise; {int((~keep_c).sum())} of {n * k} choices "
+            f"dropped on both, keep masks "
+            f"{'index-exact' if not bool(flipped.any()) else 'exact where the experts agree'}"
+            f"; rows max abs diff {float(diff[same].max()):.3e}, worst row at "
+            f"{worst:.3f} of its limit (2e-2 max(1, |row|)); aux "
+            f"{float(aux_g):.6f} vs {float(aux_c):.6f}")
+
+
+def phase_jamba_prefill(report: dict, held: dict) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import lm, moe
+
+    full = get_config("jamba_v0_1_52b")
+    check(lm.count_params(full) == JAMBA_FULL_PARAMS,
+          f"jamba-v0.1-52b has {lm.count_params(full)} parameters")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    n_params = lm.count_params(cfg)
+    check(n_params == JAMBA_PARAMS, f"jamba x{JAMBA_LAYERS} has {n_params} "
+          f"parameters, the JAX package's count_params {JAMBA_PARAMS}")
+    pat = cfg.pattern()
+    n_attn = pat.count("A") * cfg.n_superblocks
+    n_ssm = pat.count("M") * cfg.n_superblocks
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    say(f"jamba-v0.1-52b at full width (d_model {cfg.d_model}, {cfg.n_heads}"
+        f" heads / KV {cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.moe_experts} experts top-{cfg.moe_top_k}, capacity_factor "
+        f"{cfg.capacity_factor}, SSM state {cfg.ssm_state} x head dim "
+        f"{cfg.ssm_head_dim} ({cfg.ssm_heads} heads), chunk {cfg.ssm_chunk},"
+        f" vocab {cfg.vocab_size}); cuts: depth {full.n_layers} -> "
+        f"{cfg.n_layers} layers ({cfg.n_superblocks} of "
+        f"{full.n_superblocks} superblocks: the full model's "
+        f"{JAMBA_FULL_PARAMS} parameters, {JAMBA_FULL_PARAMS * 2 / 2**30:.2f}"
+        f" GiB in bf16, do not fit the card), prefill_32k batch 32 -> "
+        f"{JAMBA_B}; {n_params} random bf16 parameters from a seed, "
+        f"{params_bytes(params) / 2**30:.3f} GiB, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prefill = build_prefill_step(cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(26)
+    toks = torch.randint(0, cfg.vocab_size, (JAMBA_B, JAMBA_T), generator=g,
+                         device=DEVICE)
+    prefill(params, {"tokens": toks[:, :2 * cfg.ssm_chunk]})      # warm-up
+    logits, secs, n, peak = timed_prefill(
+        prefill, params, {"tokens": toks}, ("flash_attention", "ssd_chunk"))
+    report["flash_attention"]["jamba_launches"] = n["flash_attention"]
+    report["ssd_chunk"]["jamba_launches"] = n["ssd_chunk"]
+    check(n["flash_attention"] == n_attn and n["ssd_chunk"] == n_ssm,
+          f"jamba prefill: B9 launched {n['flash_attention']} times, B10 "
+          f"{n['ssd_chunk']}, expected {n_attn} and {n_ssm}")
+    check(logits.shape == (JAMBA_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "jamba prefill: logits of the wrong shape or not finite")
+    del logits
+    say(f"jamba x{cfg.n_layers} prefill {JAMBA_B} x {JAMBA_T} tokens (depth "
+        f"cut 32 -> {cfg.n_layers}, batch cut 32 -> {JAMBA_B}): "
+        f"{secs * 1e3:.1f} ms (host clock, synchronized), "
+        f"{JAMBA_B * JAMBA_T / secs:.0f} tokens/s, peak {peak / 2**30:.3f} "
+        f"GiB above the parameters, B9 launches {n['flash_attention']}, B10 "
+        f"launches {n['ssd_chunk']}; {lm.count_active_params(cfg)} parameters"
+        f" active a token")
+    split = device_breakdown(lambda: prefill(params, {"tokens": toks}))
+    if say_breakdown(f"jamba x{cfg.n_layers} prefill", split, n) > 0:
+        report["flash_attention"].update(
+            jamba_ms=split["b9"] / n_attn, jamba_idle_share=split["idle"])
+        report["ssd_chunk"].update(jamba_ms=split["b10"] / n_ssm,
+                                   jamba_idle_share=split["idle"])
+
+    # (a) B10 and (b) B9 on the real inputs of the first M layer and of the
+    # first attention layer (the first calls while layers 0-4 run on the
+    # whole prompt)
+    kept: dict = {}
+    with torch.inference_mode(), first_args(ops, "ssd_intra_chunk", kept), \
+            first_args(ops, "flash_attention", kept):
+        x, positions = lm.embed_inputs(cfg, params, {"tokens": toks})
+        sb0 = lm._index(params["layers"], 0)
+        for j in range(pat.index("A") + 1):
+            x, _ = lm._apply_layer(cfg, pat[j], j, sb0[f"pos{j}"], x,
+                                   positions)
+        del x
+    (xs, dt, A, Bm, Cm), kw = kept["ssd_intra_chunk"]
+    L = kw["chunk"]
+    got = ops.ssd_intra_chunk(xs, dt, A, Bm, Cm, chunk=L)
+    want = plain_ssd_pieces(xs, dt, A, Bm, Cm, L)
+    errs = []
+    for name, gt, wt in zip(("y", "S", "cd"), got, want):
+        check(gt.shape == wt.shape and bool(torch.isfinite(gt).all())
+              and torch.allclose(gt, wt, rtol=1e-4, atol=1e-4),
+              f"B10 on jamba layer 0's inputs: {name} not within rtol / atol"
+              f" 1e-4 (max abs err {float((gt - wt).abs().max()):.3e})")
+        errs.append(float((gt - wt).abs().max()))
+    del want
+    ms = cuda_ms(lambda: ops.ssd_intra_chunk(xs, dt, A, Bm, Cm, chunk=L))
+    plain_ms = cuda_ms(lambda: plain_ssd_pieces(xs, dt, A, Bm, Cm, L),
+                       reps=1, warmup=0)
+    Bsz, T, H, Pd = xs.shape
+    N = Bm.shape[-1]
+    n_ops = b10_ops(Bsz, T, H, Pd, N, L)
+    b_ms, b_by = bound(nbytes(xs, dt, A, Bm, Cm, *got), n_ops)
+    report["ssd_chunk"].update(
+        jamba_alone_ms=ms, jamba_plain_ms=plain_ms, jamba_bound_ms=b_ms,
+        jamba_bound_by=b_by, jamba_max_abs_err=max(errs))
+    say(f"(a) B10 on jamba layer 0's x {tuple(xs.shape)} / dt / A / B / C "
+        f"{tuple(Bm.shape)} (chunk {L}, {Bsz * H * (T // L)} cells): max_abs"
+        f"_err y {errs[0]:.3e}, S {errs[1]:.3e}, cd {errs[2]:.3e} (rtol / "
+        f"atol 1e-4); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (4 pieces),"
+        f" bound {b_ms:.4f} ms ({b_by}, {n_ops:.4e} operations)")
+    del got, xs, dt, A, Bm, Cm
+
+    (q, k, v), kw = kept["flash_attention"]
+    check(kw.get("causal") is True and q.shape == (JAMBA_B, JAMBA_T,
+                                                   cfg.n_heads, cfg.head_dim),
+          f"jamba's attention layer called B9 with q {tuple(q.shape)}")
+    out, err, ratio = b9_sampled_rows(q, k, v)
+    check(ratio <= 1.0, f"(b) B9 on jamba's attention layer: max abs err "
+          f"{err:.3e}, {ratio:.3f} of the limit 2^-7 |want| + 1e-5")
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    n_ops = flash_ops(JAMBA_B, JAMBA_T, JAMBA_T, cfg.n_heads, cfg.head_dim,
+                      True)
+    b_ms, b_by = bound(nbytes(q, k, v, out), n_ops, PEAK_BF16_FLOPS)
+    report["flash_attention"].update(
+        jamba_alone_ms=ms, jamba_bound_ms=b_ms, jamba_max_abs_err=err)
+    say(f"(b) B9 on jamba's attention layer q {tuple(q.shape)} k / v "
+        f"{tuple(k.shape)} (groups of {cfg.n_heads // cfg.n_kv_heads}, "
+        f"causal) vs the f32 plain attention on the first, middle and last "
+        f"{QWEN_SAMPLE} rows: max abs err {err:.3e}, {ratio:.3f} of the "
+        f"limit; alone {ms:.3f} ms (CUDA events), bound {b_ms:.3f} ms "
+        f"({b_by}, {n_ops:.3e} operations on bf16 tensor cores)")
+    del q, k, v, out, kept
+
+    # (c) the first MoE layer on the card against the CPU, on its real
+    # input rows (the first JAMBA_MOE_ROWS tokens through layers 0-1)
+    kept = {}
+    with torch.inference_mode(), first_args(moe, "apply_moe", kept):
+        lm.forward_hidden(dataclasses.replace(cfg, n_layers=len(pat)),
+                          dict(params, layers=first_layers(params["layers"],
+                                                           1)),
+                          {"tokens": toks[:, :JAMBA_MOE_ROWS]})
+        (_c, p_moe, h), _kw = kept["apply_moe"]
+        say("(c) " + moe_card_vs_cpu(cfg, p_moe, h))
+    del kept, p_moe, h
+
+    # (d) decode == prefill at JAMBA_DECODE_T tokens, one superblock, with
+    # the capacity raised so nothing drops (at decode n = B)
+    cfg1 = no_drop_config(dataclasses.replace(cfg, n_layers=len(pat)),
+                          2 * JAMBA_DECODE_T)
+    short = toks[:, :JAMBA_DECODE_T].repeat(2, 1)
+    short[1] = short[1].roll(7)
+    say(f"(d) jamba 1 superblock ({len(pat)} layers), capacity_factor raised"
+        f" {cfg.capacity_factor} -> {cfg1.capacity_factor} (C = n: nothing "
+        "drops), " + decode_vs_prefill(
+            "jamba", cfg1, dict(params, layers=first_layers(
+                params["layers"], 1)), short))
+    held["jamba"] = (cfg, params)
+
+
+def phase_jamba_serve(report: dict, held: dict) -> None:
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import lm
+    cfg, params = held.pop("jamba")
+    n_ssm = cfg.pattern().count("M") * cfg.n_superblocks
+    state = lm.init_decode_state(cfg, SERVE_LM_BATCH, 8, device=DEVICE)
+    greedy_decode(cfg, params, state, SERVE_LM_BATCH, 4, 4, 1)   # warm-up
+    state = lm.init_decode_state(cfg, SERVE_LM_BATCH,
+                                 SERVE_LM_PROMPT + SERVE_LM_GEN,
+                                 device=DEVICE)
+    ops.reset_launch_counts()
+    _seqs, ms = greedy_decode(cfg, params, state, SERVE_LM_BATCH,
+                              SERVE_LM_PROMPT, SERVE_LM_GEN, 0)
+    steps = SERVE_LM_PROMPT + SERVE_LM_GEN - 1
+    n10 = ops.launch_counts()["ssd_chunk"]
+    n9 = ops.launch_counts()["flash_attention"]
+    check(n10 == steps * n_ssm and n9 == 0,
+          f"jamba serve: {n10} B10 launches over {steps} steps (expected "
+          f"{n_ssm} a step), B9 {n9}")
+    report["ssd_chunk"]["jamba_decode_launches_per_step"] = n10 // steps
+    report["ssd_chunk"]["jamba_decode_step_ms"] = ms
+    say(f"jamba x{cfg.n_layers} serving (depth cut 32 -> {cfg.n_layers}; "
+        f"lm.init_decode_state + build_serve_step, serve()'s loop) batch "
+        f"{SERVE_LM_BATCH}, prompt {SERVE_LM_PROMPT}, gen {SERVE_LM_GEN}: "
+        f"{ms:.3f} ms per step (host clock, synchronized), {n10 // steps} "
+        f"B10 launches per step over {steps} steps, B9 launches {n9}")
+    del state
+
+    # B10's L = 1 route on the first M layer's real inputs of a decode
+    # step, against its plain version
+    kept: dict = {}
+    state = lm.init_decode_state(cfg, SERVE_LM_BATCH, 8, device=DEVICE)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_LM_BATCH, 1),
+                         generator=torch.Generator(device=DEVICE)
+                         .manual_seed(30), device=DEVICE)
+    with torch.inference_mode(), first_args(ops, "ssd_intra_chunk", kept):
+        build_serve_step(cfg)(params, state, toks)
+    (xs, dt, A, Bm, Cm), kw = kept["ssd_intra_chunk"]
+    check(kw["chunk"] == 1 and xs.shape == (SERVE_LM_BATCH, 1, cfg.ssm_heads,
+                                             cfg.ssm_head_dim),
+          f"jamba decode called B10 with x {tuple(xs.shape)}, chunk "
+          f"{kw['chunk']}")
+    got = ops.ssd_intra_chunk(xs, dt, A, Bm, Cm, chunk=1)
+    want = ref.ssd_intra_chunk(xs, dt, A, Bm, Cm, chunk=1)
+    errs = []
+    for name, gt, wt in zip(("y", "S", "cd"), got, want):
+        check(gt.shape == wt.shape and bool(torch.isfinite(gt).all())
+              and torch.allclose(gt, wt, rtol=1e-4, atol=1e-4),
+              f"B10 (L = 1) on jamba's decode inputs: {name} not within rtol"
+              f" / atol 1e-4 (max abs err {float((gt - wt).abs().max()):.3e})")
+        errs.append(float((gt - wt).abs().max()))
+    report["ssd_chunk"]["jamba_decode_max_abs_err"] = max(errs)
+    say(f"B10's L = 1 route on jamba's decode-step x {tuple(xs.shape)} / dt "
+        f"/ A / B / C {tuple(Bm.shape)} (the first M layer's real inputs) vs "
+        f"the plain version: max_abs_err y {errs[0]:.3e}, S {errs[1]:.3e}, "
+        f"cd {errs[2]:.3e} (rtol / atol 1e-4)")
+    del params, state, kept, got, want
+
+
+def phase_llama4(report: dict) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import lm
+
+    full = get_config("llama4_scout_17b_a16e")
+    cfg = dataclasses.replace(full, n_layers=LLAMA4_LAYERS)
+    n_params = lm.count_params(cfg)
+    check(n_params == LLAMA4_PARAMS, f"llama4-scout x{LLAMA4_LAYERS} has "
+          f"{n_params} parameters, the JAX package's count {LLAMA4_PARAMS}")
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    prefill = build_prefill_step(cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(27)
+    toks = torch.randint(0, cfg.vocab_size, (1, LLAMA4_T), generator=g,
+                         device=DEVICE)
+    prefill(params, {"tokens": toks[:, :512]})                  # warm-up
+    logits, secs, n, peak = timed_prefill(prefill, params, {"tokens": toks},
+                                          ("flash_attention",))
+    report["flash_attention"]["llama4_launches"] = n["flash_attention"]
+    check(n["flash_attention"] == cfg.n_layers,
+          f"llama4-scout prefill: B9 launched {n['flash_attention']} times")
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "llama4-scout prefill: logits of the wrong shape or not finite")
+    del logits
+    say(f"llama4-scout at full width (d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads / KV {cfg.n_kv_heads}, {cfg.moe_experts} experts top-"
+        f"{cfg.moe_top_k} + shared, d_ff {cfg.d_ff}, rope_theta "
+        f"{cfg.rope_theta:g}, vocab {cfg.vocab_size}); cuts: depth "
+        f"{full.n_layers} -> {cfg.n_layers} layers, prefill_32k batch 32 -> "
+        f"1; {n_params} random bf16 parameters; prefill 1 x {LLAMA4_T} "
+        f"tokens: {secs * 1e3:.1f} ms (host clock, synchronized), "
+        f"{LLAMA4_T / secs:.0f} tokens/s, peak {peak / 2**30:.3f} GiB above "
+        f"the parameters, B9 launches {n['flash_attention']}")
+    big = no_drop_config(cfg, 2 * LLAMA4_DECODE_T)
+    short = toks[:, :LLAMA4_DECODE_T].repeat(2, 1)
+    short[1] = short[1].roll(5)
+    say(f"llama4-scout x{cfg.n_layers}, capacity_factor raised "
+        f"{cfg.capacity_factor} -> {big.capacity_factor} (nothing drops), "
+        + decode_vs_prefill("llama4-scout", big, params, short))
+    del params
+
+
+def phase_whisper(report: dict) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import whisper
+
+    cfg = get_config("whisper_large_v3")
+    n_params = whisper.count_params(cfg)
+    check(n_params == WHISPER_PARAMS, f"whisper-large-v3 has {n_params} "
+          f"parameters, the JAX package's count_params {WHISPER_PARAMS}")
+    params = whisper.init_params(cfg, seed=0, device=DEVICE)
+    t_dec = WHISPER_FRAMES // cfg.dec_ratio
+    g = torch.Generator(device=DEVICE).manual_seed(28)
+    frames = torch.randn(WHISPER_B, WHISPER_FRAMES, cfg.d_model, generator=g,
+                         device=DEVICE).to(cfg.dtype)
+    toks = torch.randint(0, cfg.vocab_size, (WHISPER_B, t_dec), generator=g,
+                         device=DEVICE)
+    batch = {"frames": frames, "tokens": toks}
+    prefill = build_prefill_step(cfg)
+    # warm-up at the main path's own shapes: at 1 x 64 frames the first
+    # timed call still paid for choosing the GEMMs of these shapes
+    prefill(params, batch)
+    logits, secs, n, peak = timed_prefill(prefill, params, batch,
+                                          ("flash_attention",))
+    n_b9 = cfg.n_enc_layers + cfg.n_layers
+    report["flash_attention"]["whisper_launches"] = n["flash_attention"]
+    check(n["flash_attention"] == n_b9, f"whisper prefill: B9 launched "
+          f"{n['flash_attention']} times, expected {n_b9}")
+    check(logits.shape == (WHISPER_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "whisper prefill: logits of the wrong shape or not finite")
+    del logits
+    say(f"whisper-large-v3 (full config, {cfg.n_enc_layers} + {cfg.n_layers}"
+        f" layers, {n_params} random bf16 parameters, no cut) prefill "
+        f"{WHISPER_B} x {WHISPER_FRAMES} frames + {t_dec} decoder tokens: "
+        f"{secs * 1e3:.1f} ms (host clock, synchronized), peak "
+        f"{peak / 2**30:.3f} GiB above the parameters, B9 launches "
+        f"{n['flash_attention']} ({cfg.n_enc_layers} full in the encoder, "
+        f"{cfg.n_layers} causal in the decoder)")
+    split = device_breakdown(lambda: prefill(params, batch))
+    if say_breakdown("whisper prefill", split, n) > 0:
+        report["flash_attention"].update(whisper_ms=split["b9"] / n_b9,
+                                         whisper_idle_share=split["idle"])
+
+    # decoding against the precomputed cross K / V
+    memory = whisper.encode(cfg, params, frames)
+    state = whisper.init_decode_state(cfg, params, WHISPER_B,
+                                      WHISPER_DEC_STEPS, memory)
+    step = build_serve_step(cfg)
+    lg, state = step(params, state, toks[:, :1])                  # warm-up
+    state["pos"] = 0
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cur = toks[:, :1]
+    for _ in range(WHISPER_DEC_STEPS):
+        lg, state = step(params, state, cur)
+        cur = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / WHISPER_DEC_STEPS
+    check(ops.launch_counts()["flash_attention"] == 0
+          and bool(torch.isfinite(lg).all()),
+          "whisper decode launched B9 or gave non-finite logits")
+    say(f"whisper decode {WHISPER_DEC_STEPS} greedy steps at batch "
+        f"{WHISPER_B} against the cross K / V of {WHISPER_FRAMES} frames: "
+        f"{step_ms:.3f} ms per step (host clock, synchronized), B9 launches "
+        f"0")
+    del state
+
+    # B9 on the encoder's layer-0 q / k / v (hd 64, KV = H = 20, T = 1,500,
+    # full) and on the decoder's layer-0 self-attention q / k / v (T = 187,
+    # causal), each against the f32 plain attention on every row
+    enc: dict = {}
+    dec: dict = {}
+    with torch.inference_mode():
+        with first_args(ops, "flash_attention", enc):
+            whisper.encode(dataclasses.replace(cfg, n_enc_layers=1), params,
+                           frames)
+        with first_args(ops, "flash_attention", dec):
+            whisper.decode_train(dataclasses.replace(cfg, n_layers=1),
+                                 params, toks, memory)
+    del memory
+    for part, kept, causal, T, key in (
+            ("encoder", enc, False, WHISPER_FRAMES, "whisper_enc"),
+            ("decoder", dec, True, t_dec, "whisper_dec")):
+        (q, k, v), kw = kept["flash_attention"]
+        check(kw.get("causal") is causal and q.shape == (
+            WHISPER_B, T, cfg.n_heads, cfg.head_dim),
+            f"whisper's {part} called B9 with q {tuple(q.shape)}, "
+            f"causal {kw.get('causal')}")
+        out = ops.flash_attention(q, k, v, causal=causal)
+        err, ratio = out_err(out, ref_attention(q, k, v, causal))
+        check(ratio <= 1.0, f"B9 on whisper's {part} layer 0: max abs err "
+              f"{err:.3e}, {ratio:.3f} of the limit 2^-7 |want| + 1e-5")
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+        n_ops = flash_ops(WHISPER_B, T, T, cfg.n_heads, cfg.head_dim, causal)
+        b_ms, b_by = bound(nbytes(q, k, v, out), n_ops, PEAK_BF16_FLOPS)
+        report["flash_attention"].update({
+            f"{key}_alone_ms": ms, f"{key}_bound_ms": b_ms,
+            f"{key}_max_abs_err": err})
+        say(f"B9 on whisper's {part} layer-0 q {tuple(q.shape)} k / v "
+            f"{tuple(k.shape)} ({'causal' if causal else 'full'}, T = {T}"
+            f"{' not a multiple of 64' if T % 64 else ''}) vs the f32 plain "
+            f"attention on every row:"
+            f" max abs err {err:.3e}, {ratio:.3f} of the limit; alone "
+            f"{ms:.3f} ms (CUDA events), bound {b_ms:.3f} ms ({b_by})")
+        del q, k, v, out
+    del enc, dec
+
+    # decode == teacher-forced forward at 2 + 2 layers of the full width
+    cfg2 = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2)
+    params2 = dict(params, enc_layers=first_layers(params["enc_layers"], 2),
+                   dec_layers=first_layers(params["dec_layers"], 2))
+    fwd, _ = whisper.forward(cfg2, params2, batch)
+    memory = whisper.encode(cfg2, params2, frames)
+    state = whisper.init_decode_state(cfg2, params2, WHISPER_B, t_dec, memory)
+    step = build_serve_step(cfg2)
+    worst = 0.0
+    dmax = 0.0
+    for t in range(t_dec):
+        lg, state = step(params2, state, toks[:, t:t + 1])
+        want = fwd[:, t]
+        d = (lg[:, 0] - want).abs().amax(-1)
+        worst = max(worst, float((d / (2e-2 * want.abs().amax(-1)
+                                       .clamp_min(1.0))).max()))
+        dmax = max(dmax, float(d.max()))
+    check(worst < 1.0, f"whisper 2 + 2 layers: decode vs forward, worst "
+          f"position at {worst:.3f} of its limit")
+    say(f"whisper 2 + 2 layers of the full width: decode vs the "
+        f"teacher-forced forward at all {t_dec} positions x {WHISPER_B} rows:"
+        f" max abs diff {dmax:.3e}, worst position at {worst:.3f} of its "
+        "limit (2e-2 max(1, max |logit|))")
+    del params, params2, state, fwd, memory
+
+
+def phase_qwen2_vl(report: dict) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import lm
+
+    full = get_config("qwen2_vl_72b")
+    cfg = dataclasses.replace(full, n_layers=QWEN2VL_LAYERS)
+    n_params = lm.count_params(cfg)
+    check(n_params == QWEN2VL_PARAMS, f"qwen2-vl x{QWEN2VL_LAYERS} has "
+          f"{n_params} parameters, the JAX package's count {QWEN2VL_PARAMS}")
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(29)
+    n_text = QWEN2VL_T - cfg.vis_tokens
+    vis = torch.randn(1, cfg.vis_tokens, cfg.d_model, generator=g,
+                      device=DEVICE).to(cfg.dtype)
+    toks = torch.randint(0, cfg.vocab_size, (1, n_text), generator=g,
+                         device=DEVICE)
+    prefill = build_prefill_step(cfg)
+    prefill(params, {"tokens": toks[:, :256], "vision_embeds": vis[:, :256]})
+    logits, secs, n, peak = timed_prefill(
+        prefill, params, {"tokens": toks, "vision_embeds": vis},
+        ("flash_attention",))
+    report["flash_attention"]["qwen2vl_launches"] = n["flash_attention"]
+    check(n["flash_attention"] == cfg.n_layers,
+          f"qwen2-vl prefill: B9 launched {n['flash_attention']} times")
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "qwen2-vl prefill: logits of the wrong shape or not finite")
+    del logits
+    say(f"qwen2-vl-72b at full width (d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads / KV {cfg.n_kv_heads}, d_ff {cfg.d_ff}, M-RoPE "
+        f"{cfg.mrope_sections}, vocab {cfg.vocab_size}); cuts: depth "
+        f"{full.n_layers} -> {cfg.n_layers} layers, prefill_32k batch 32 -> "
+        f"1; {n_params} random bf16 parameters; prefill {cfg.vis_tokens} "
+        f"vision embeddings + {n_text} text tokens: {secs * 1e3:.1f} ms (host"
+        f" clock, synchronized), {QWEN2VL_T / secs:.0f} tokens/s, peak "
+        f"{peak / 2**30:.3f} GiB above the parameters, B9 launches "
+        f"{n['flash_attention']}")
+    # (a) B9 on this prefill's layer-0 q / k / v (after M-RoPE; groups of
+    # 8) against the f32 plain attention on sampled rows
+    kept: dict = {}
+    with torch.inference_mode(), first_args(ops, "flash_attention", kept):
+        prefill(params, {"tokens": toks, "vision_embeds": vis})
+    (q, k, v), kw = kept["flash_attention"]
+    check(kw.get("causal") is True and q.shape == (
+        1, QWEN2VL_T, cfg.n_heads, cfg.head_dim),
+        f"qwen2-vl's first layer called B9 with q {tuple(q.shape)}")
+    out, err, ratio = b9_sampled_rows(q, k, v)
+    check(ratio <= 1.0, f"(a) B9 on qwen2-vl's layer 0: max abs err "
+          f"{err:.3e}, {ratio:.3f} of the limit 2^-7 |want| + 1e-5")
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    n_ops = flash_ops(1, QWEN2VL_T, QWEN2VL_T, cfg.n_heads, cfg.head_dim,
+                      True)
+    b_ms, b_by = bound(nbytes(q, k, v, out), n_ops, PEAK_BF16_FLOPS)
+    report["flash_attention"].update(
+        qwen2vl_alone_ms=ms, qwen2vl_bound_ms=b_ms, qwen2vl_max_abs_err=err)
+    say(f"(a) B9 on qwen2-vl's layer-0 q {tuple(q.shape)} k / v "
+        f"{tuple(k.shape)} (groups of {cfg.n_heads // cfg.n_kv_heads}, "
+        f"causal) vs the f32 plain attention on the first, middle and last "
+        f"{QWEN_SAMPLE} rows: max abs err {err:.3e}, {ratio:.3f} of the "
+        f"limit; alone {ms:.3f} ms (CUDA events), bound {b_ms:.3f} ms "
+        f"({b_by})")
+    del q, k, v, out, kept
+    # (b) the B9 route against the plain attention (patched in by this script,
+    # never a route of the entry point) at QWEN2VL_CHECK_T positions
+    short = {"tokens": toks[:, :QWEN2VL_CHECK_T - cfg.vis_tokens],
+             "vision_embeds": vis}
+    ops.reset_launch_counts()
+    got = prefill(params, short)
+    got_all, _ = lm.forward(cfg, params, short)
+    n_b9 = ops.launch_counts()["flash_attention"]
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention):
+        want = prefill(params, short)
+        want_all, _ = lm.forward(cfg, params, short)
+    check(n_b9 == 2 * cfg.n_layers, f"qwen2-vl check: B9 launches {n_b9}")
+    d = float((got - want).abs().max())
+    lim = 2e-2 * max(1.0, float(want.abs().max()))
+    d_all = (got_all - want_all).abs().amax(-1)
+    worst = float((d_all / (2e-2 * want_all.abs().amax(-1).clamp_min(1.0)))
+                  .max())
+    check(bool(torch.isfinite(got_all).all()) and d < lim and worst < 1.0,
+          f"qwen2-vl x{cfg.n_layers} at T = {QWEN2VL_CHECK_T}: B9 route vs "
+          f"plain attention max abs diff {d:.3e} (limit {lim:.3e}), worst "
+          f"position at {worst:.3f} of its limit")
+    say(f"(b) qwen2-vl {cfg.n_layers} layers, T = {QWEN2VL_CHECK_T} "
+        f"({cfg.vis_tokens} vision + {QWEN2VL_CHECK_T - cfg.vis_tokens} "
+        f"text): last-position logits through B9 vs the plain attention on "
+        f"the card max abs diff {d:.3e} (< {lim:.3e}); all positions' logits"
+        f" (lm.forward) max abs diff {float(d_all.max()):.3e}, worst position"
+        f" at {worst:.3f} of its limit")
+    del params, got_all, want_all
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -3101,6 +3877,7 @@ def main() -> int:
     check_sass(lib)
 
     report: dict = {}
+    held: dict = {}            # the jamba model, from its prefill to serving
     phases = [("kernels B1-B3 vs plain versions",
                lambda: phase_kernels(report)),
               ("kernels B4, B5 vs plain versions",
@@ -3132,7 +3909,15 @@ def main() -> int:
                phase_observability),
               ("qwen3-14b prefill main path",
                lambda: phase_qwen_prefill(report)),
-              ("qwen3-14b serving", phase_qwen_serve)]
+              ("qwen3-14b serving", phase_qwen_serve),
+              ("jamba-v0.1 prefill main path",
+               lambda: phase_jamba_prefill(report, held)),
+              ("jamba-v0.1 serving", lambda: phase_jamba_serve(report, held)),
+              ("llama4-scout prefill main path",
+               lambda: phase_llama4(report)),
+              ("whisper-large-v3 prefill and decode main path",
+               lambda: phase_whisper(report)),
+              ("qwen2-vl prefill main path", lambda: phase_qwen2_vl(report))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")
@@ -3153,7 +3938,8 @@ def main() -> int:
                      **{k: v for k, v in r.items()
                         if k.startswith(("bf16_", "gemm_only", "simt_",
                                          "f32_", "decode_", "quorum_",
-                                         "prefill_"))}})
+                                         "prefill_", "jamba_", "llama4_",
+                                         "whisper_", "qwen2vl_"))}})
     say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

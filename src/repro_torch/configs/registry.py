@@ -1,10 +1,7 @@
 """Registry: arch id -> (full config, reduced smoke config), shape cells
 (port of ``repro/configs/registry.py``).
 
-Every architecture of the reference is listed; only the configs the port
-has resolve (mamba2 and the dense attention family).  The others (MoE,
-hybrid, encoder-decoder, vision) raise ``NotImplementedError`` until their
-model families are ported (ROADMAP.md A.17 items 2-3).
+Every architecture of the reference is listed, and each resolves.
 """
 
 from __future__ import annotations
@@ -28,9 +25,8 @@ ARCHS: List[str] = [
     "qwen2_vl_72b",
 ]
 
-# the configs whose model family the port runs
-PORTED = ("mamba2_130m", "qwen3_14b", "starcoder2_3b", "deepseek_coder_33b",
-          "h2o_danube_1_8b")
+# the configs whose model family the port runs: all of them
+PORTED = tuple(ARCHS)
 
 # canonical ids with dashes also accepted
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
@@ -60,10 +56,6 @@ def _module(arch: str):
     arch = _ALIAS.get(arch, arch)
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; one of {ARCHS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP.md A.17); the port "
-            f"has {list(PORTED)}")
     return importlib.import_module(f".{arch}", package=__package__)
 
 

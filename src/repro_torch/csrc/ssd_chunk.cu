@@ -23,9 +23,10 @@
 // groups of G = 8 (P <= 64; G * P_pad = 512 output columns, a warp per 64
 // of them); where (b, chunk) cells are too few to fill the card, each
 // group gets its own block instead.
-//   * cums: per group, each warp scans one head's dt * A over the chunk (a
-//     lane runs a contiguous stretch, then a shuffle scan of the lane
-//     totals); a head with some dt * A > 0 is marked "explicit".
+//   * cums: per group, one lane a head scans its dt * A over the chunk in
+//     order, with the plain version's float32 roundings (a difference
+//     cums_i - cums_j then carries only the roundings between j and i);
+//     a head with some dt * A > 0 is marked "explicit".
 //   * y in i-tiles of 64 rows.  The strip C_i B_j^T, j < i0 + 64, is formed
 //     once into shared memory (fp32 tile: 8 x 8 a thread, 16-byte loads
 //     along N through a 2-stage cp.async ring), zero above the diagonal,
@@ -144,34 +145,26 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           h0 + g < H ? dt[((size_t)b * T + t0 + l) * H + h0 + g] : 0.f;
     }
     __syncthreads();
+    // one lane per head, in order: cums_l = fl(cums_{l-1} + fl(dt_l A)),
+    // the plain version's float32 product and sequential scan, so that
+    // cums_i - cums_j carries only the roundings between j and i.  (A scan
+    // of lane stretches plus a base adds independent roundings of |cums|
+    // to every difference, even of neighbours; where a chunk's cumsum
+    // spans hundreds, as a Mamba layer's real dt and A give, that error
+    // reaches y at its 1e-4 tolerance.)
     for (int g = warp; g < G; g += kWarps) {
-      const float ah = h0 + g < H ? A[h0 + g] : 0.f;
-      const int per = (L + 31) / 32, l0 = lane * per;
-      float run = 0.f;
-      bool pos = false;
-      for (int e = 0; e < per; ++e) {
-        const int l = l0 + e;
-        if (l < L) {
-          const float a = dts[g * kMaxL + l] * ah;
+      if (lane == 0) {
+        const float ah = h0 + g < H ? A[h0 + g] : 0.f;
+        float run = 0.f;
+        bool pos = false;
+        for (int l = 0; l < L; ++l) {
+          const float a = __fmul_rn(dts[g * kMaxL + l], ah);
           pos |= a > 0.f;
-          run += a;
+          run = __fadd_rn(run, a);
           cums[g * kMaxL + l] = run;
         }
+        expl[g] = pos;
       }
-      float incl = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += v;
-      }
-      float base = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) base = 0.f;
-      for (int e = 0; e < per; ++e) {
-        const int l = l0 + e;
-        if (l < L) cums[g * kMaxL + l] += base;
-      }
-      const bool any = __any_sync(0xffffffffu, pos);
-      if (lane == 0) expl[g] = any;
     }
     __syncthreads();
     if (write_cd)

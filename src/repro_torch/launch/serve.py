@@ -3,6 +3,7 @@
 
     python -m repro_torch.launch.serve --arch mamba2_130m [--smoke] [--device cpu]
     python -m repro_torch.launch.serve --arch qwen3_14b [--smoke] [--device cpu]
+    python -m repro_torch.launch.serve --arch jamba_v0_1_52b --smoke --device cpu
 
 The prompt is teacher-forced token by token, then ``gen_len`` tokens are
 decoded greedily.  Runs on the CUDA device unless ``device`` says
@@ -33,7 +34,9 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     the token sequences [batch, prompt_len + gen_len] as numpy."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if cfg.encdec:
-        raise SystemExit("enc-dec serving is not ported yet")
+        # as the reference: whisper decodes through models/whisper.py
+        # (tests/test_torch_whisper.py), not through this loop
+        raise SystemExit("enc-dec serving is exercised in tests (whisper)")
     dev = resolve_device(device)
     if params is None:
         params = lm.init_params(cfg, seed, device=dev)

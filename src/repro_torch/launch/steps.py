@@ -9,15 +9,25 @@ from __future__ import annotations
 
 import torch
 
-from ..models import lm
+from ..models import lm, whisper
 from ..models.config import ModelConfig
+
+
+def model_module(cfg: ModelConfig):
+    """The model family module (lm or whisper) for this config."""
+    return whisper if cfg.encdec else lm
 
 
 def build_prefill_step(cfg: ModelConfig):
     """Returns last-position logits (the sampled-token distribution)."""
     if cfg.encdec:
-        raise NotImplementedError("encoder-decoder prefill is not ported yet "
-                                  "(ROADMAP.md A.17)")
+        @torch.inference_mode()
+        def prefill_step(params, batch):
+            memory = whisper.encode(cfg, params, batch["frames"])
+            logits = whisper.decode_train(cfg, params, batch["tokens"],
+                                          memory)
+            return logits[:, -1]
+        return prefill_step
 
     @torch.inference_mode()
     def prefill_step(params, batch):
@@ -30,11 +40,9 @@ def build_prefill_step(cfg: ModelConfig):
 
 def build_serve_step(cfg: ModelConfig):
     """One-token decode step closure over the model family."""
-    if cfg.encdec:
-        raise NotImplementedError("encoder-decoder decoding is not ported "
-                                  "yet (ROADMAP.md A.17)")
+    mod = model_module(cfg)
 
     def serve_step(params, state, tokens):
-        return lm.decode_step(cfg, params, state, tokens)
+        return mod.decode_step(cfg, params, state, tokens)
 
     return serve_step

@@ -50,6 +50,29 @@ def tree_map(fn, tree: Tree) -> Tree:
             for k, v in tree.items()}
 
 
+def tree_from_numpy(defs: Tree, tree: Tree, dtype, device=None) -> Tree:
+    """Tensors of ``dtype`` on ``device`` from a nested dict of numpy
+    arrays (the reference's parameters), checked against the ParamDef tree
+    ``defs`` key for key and shape for shape."""
+    want = dict(tree_leaves(defs))
+    got = dict(tree_leaves(tree))
+    if set(want) != set(got):
+        raise ValueError(f"parameter trees differ: missing "
+                         f"{sorted(set(want) - set(got))}, unexpected "
+                         f"{sorted(set(got) - set(want))}")
+    out: Tree = {}
+    for path, d in want.items():
+        a = np.array(got[path], dtype=np.float32)
+        if a.shape != tuple(d.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {a.shape}, expected "
+                             f"{d.shape}")
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.as_tensor(a).to(device=device, dtype=dtype)
+    return out
+
+
 def init_tree(defs: Tree, generator: torch.Generator, dtype,
               device=None) -> Tree:
     """Materialize a ParamDef tree into tensors, drawing every "normal" /
@@ -78,6 +101,14 @@ def init_tree(defs: Tree, generator: torch.Generator, dtype,
             node = node.setdefault(key, {})
         node[path[-1]] = a
     return out
+
+
+def embed_tokens(cfg, params: Tree, tokens):
+    """Token ids [B, T] -> ``params["embed"]`` rows * sqrt(d_model), in
+    the config's dtype, on the embedding's device."""
+    tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    return (params["embed"][tokens.long()]
+            * math.sqrt(cfg.d_model)).to(cfg.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -16,10 +16,11 @@ class ModelConfig:
     (dense / ssm / hybrid / moe / audio / vlm), with the reference's
     fields that a model's function depends on.
 
-    The port runs the dense attention family (layer kind "A") and the
-    Mamba2 family (kind "M").  The MoE, encoder-decoder and vision fields
-    are read by families not ported yet (ROADMAP.md A.17 items 2-3), which
-    raise ``NotImplementedError``.  The reference's sharding and
+    The port runs every family of the reference: layer kinds "A"
+    (attention) and "M" (Mamba2) with their MLP or MoE blocks
+    (``models/lm.py``, ``models/moe.py``), the encoder-decoder
+    (``models/whisper.py``) and the vision-patch frontend.  The
+    reference's sharding and
     compilation fields (``remat``, ``scan_layers``, ``fsdp``, ``attn_sp``,
     ``seq_shard``, ``dp_axes``, ``tp_axis``, ``unroll_inner``,
     ``moe_ec_constraint``) are left out: the port runs on one device,

@@ -1,64 +1,60 @@
-"""Decoder-only LM stack (port of ``repro/models/lm.py`` for layer kinds
-"A", dense GQA attention with its MLP, and "M", the Mamba2 block).
+"""Decoder-only LM stack covering dense / GQA / MoE / SSM / hybrid / VLM
+(port of ``repro/models/lm.py``): layer kinds "A", GQA attention with its
+MLP or MoE block, and "M", the Mamba2 block with an optional MoE block or
+(hybrid stacks) MLP after it.
 
-The layer stack is a repeating "superblock" pattern whose parameters are
-stacked over ``n_superblocks`` on a leading axis, as in the reference; the
-port walks the superblocks in a plain loop under ``torch.inference_mode()``
-(no remat: it serves, it does not train).  Parameters are nested dicts of
-tensors built from the ParamDef tables.  MoE layers, the hybrid MLP and
-encoder-decoder models are not ported yet (ROADMAP.md A.17 items 2-3) and
-raise ``NotImplementedError``.
+The layer stack is a repeating "superblock" pattern (e.g. Jamba's 7 Mamba
++ 1 attention) whose parameters are stacked over ``n_superblocks`` on a
+leading axis, as in the reference; the port walks the superblocks in a
+plain loop under ``torch.inference_mode()`` (no remat: it serves, it does
+not train).  Parameters are nested dicts of tensors built from the
+ParamDef tables.  Encoder-decoder models are ``models/whisper.py``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import (ParamDef, Tree, apply_mlp, apply_norm, init_tree,
-                     mlp_defs, norm_defs, tree_leaves, tree_map)
+from .common import (ParamDef, Tree, apply_mlp, apply_norm, embed_tokens,
+                     init_tree, mlp_defs, norm_defs, tree_from_numpy,
+                     tree_leaves, tree_map)
 from .config import ModelConfig
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md A.17)"
 
 
 # ---------------------------------------------------------------------------
 # Parameter tables
 # ---------------------------------------------------------------------------
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.encdec:
-        raise NotImplementedError(f"encoder-decoder models {_NOT_PORTED}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"the {cfg.frontend} frontend {_NOT_PORTED}")
-
-
 def _layer_defs(cfg: ModelConfig, kind: str, j: int) -> Tree:
     """One layer's params.  kind: 'A' attention or 'M' mamba; j = index in
     the superblock pattern (controls MoE placement)."""
-    if cfg.is_moe_layer(j):
-        raise NotImplementedError(f"MoE layers {_NOT_PORTED}")
     defs: Tree = {"norm1": norm_defs(cfg)}
     if kind == "A":
         defs["attn"] = attn.attn_defs(cfg)
         defs["norm2"] = norm_defs(cfg)
-        if cfg.d_ff > 0:
+        if cfg.is_moe_layer(j):
+            defs["moe"] = moe_mod.moe_defs(cfg)
+        elif cfg.d_ff > 0:
             defs["mlp"] = mlp_defs(cfg)
-        return defs
-    if cfg.d_ff > 0 and cfg.family == "hybrid":
-        raise NotImplementedError(f"the hybrid MLP {_NOT_PORTED}")
-    defs["ssm"] = ssm_mod.ssm_defs(cfg)
+    else:  # Mamba layer: its block includes gating; optional MoE/MLP after
+        defs["ssm"] = ssm_mod.ssm_defs(cfg)
+        if cfg.is_moe_layer(j):
+            defs["norm2"] = norm_defs(cfg)
+            defs["moe"] = moe_mod.moe_defs(cfg)
+        elif cfg.d_ff > 0 and cfg.family == "hybrid":
+            defs["norm2"] = norm_defs(cfg)
+            defs["mlp"] = mlp_defs(cfg)
     return defs
 
 
 def model_defs(cfg: ModelConfig) -> Tree:
     """The full LM ParamDef tree (embed, layers, final norm)."""
-    _check_ported(cfg)
     V, d = cfg.vocab_size, cfg.d_model
     defs: Tree = {
         "embed": ParamDef((V, d), ("T", "F"), "embed"),
@@ -89,28 +85,24 @@ def count_params(cfg: ModelConfig) -> int:
                    for _path, d in tree_leaves(model_defs(cfg))))
 
 
+def count_active_params(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE experts counted at top_k of E)."""
+    total = count_params(cfg)
+    if cfg.moe_experts == 0:
+        return total
+    n_moe_layers = sum(cfg.n_superblocks for j in range(len(cfg.pattern()))
+                       if cfg.is_moe_layer(j))
+    per_expert = 3 * cfg.d_model * cfg.d_ff  # wi, wg, wo
+    return total - n_moe_layers * (cfg.moe_experts - cfg.moe_top_k) \
+        * per_expert
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Tree, device=None) -> Tree:
     """The port's parameters from the reference's ``lm.init_params`` tree
     as numpy arrays (stacked ``[n_superblocks, ...]`` layer leaves), cast
     to ``cfg.dtype`` on ``device``.  The tree must match
     :func:`model_defs` key for key and shape for shape."""
-    defs = dict(tree_leaves(model_defs(cfg)))
-    got = dict(tree_leaves(tree))
-    if set(defs) != set(got):
-        raise ValueError(f"parameter trees differ: missing "
-                         f"{sorted(set(defs) - set(got))}, unexpected "
-                         f"{sorted(set(got) - set(defs))}")
-    out: Tree = {}
-    for path, d in defs.items():
-        a = np.array(got[path], dtype=np.float32)
-        if a.shape != tuple(d.shape):
-            raise ValueError(f"{'/'.join(path)}: shape {a.shape}, expected "
-                             f"{d.shape}")
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = torch.as_tensor(a).to(device=device, dtype=cfg.dtype)
-    return out
+    return tree_from_numpy(model_defs(cfg), tree, cfg.dtype, device)
 
 
 def _unembed(cfg: ModelConfig, params: Tree):
@@ -125,31 +117,38 @@ def _index(tree: Tree, i: int) -> Tree:
 # Layer application
 # ---------------------------------------------------------------------------
 
-def _mlp_residual(cfg: ModelConfig, p: Tree, x):
-    """The attention layer's second half: pre-norm MLP residual."""
-    if "mlp" not in p:
-        return x
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+def _ffn_residual(cfg: ModelConfig, p: Tree, x):
+    """A layer's second half, after either kind: the pre-norm MoE or MLP
+    residual where the layer has one.  Returns (x, aux_loss or None)."""
+    if "moe" in p:
+        y, aux = moe_mod.apply_moe(cfg, p["moe"],
+                                   apply_norm(cfg, p["norm2"], x))
+        return x + y, aux
+    if "mlp" in p:
+        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x)), \
+            None
+    return x, None
 
 
 def _apply_layer(cfg: ModelConfig, kind: str, j: int, p: Tree, x, positions):
     """One layer of a prompt pass (pre-norm residual blocks).  Returns (x,
-    aux_loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_loss or None)."""
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "A":
         x = x + attn.attention(cfg, p["attn"], h, positions, causal=True,
                                window=cfg.window)
-        return _mlp_residual(cfg, p, x), aux
-    y, _state = ssm_mod.mamba_block(cfg, p["ssm"], h)
-    return x + y, aux
+    else:
+        y, _state = ssm_mod.mamba_block(cfg, p["ssm"], h)
+        x = x + y
+    return _ffn_residual(cfg, p, x)
 
 
 def _superblock(cfg: ModelConfig, params_sb: Tree, x, positions):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, kind in enumerate(cfg.pattern()):
         x, a = _apply_layer(cfg, kind, j, params_sb[f"pos{j}"], x, positions)
-        aux = aux + a
+        if a is not None:
+            aux = aux + a
     return x, aux
 
 
@@ -158,10 +157,19 @@ def _superblock(cfg: ModelConfig, params_sb: Tree, x, positions):
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
-    """Token embedding.  Returns (x [B, T, d], positions [B, T])."""
-    _check_ported(cfg)
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    x = (params["embed"][tokens.long()] * math.sqrt(cfg.d_model)).to(cfg.dtype)
+    """Token (+ optional modality-stub) embedding.  Returns (x [B, T, d],
+    positions [B, T]).  ``audio_frames``: the frames [B, T, d] are already
+    d_model embeddings (the conv stub); ``vision_patches``: the patch
+    embeddings ``vision_embeds`` [B, vis, d], where given, go in front of
+    the text tokens (early fusion), and the positions count both."""
+    if cfg.frontend == "audio_frames":
+        x = torch.as_tensor(batch["frames"], device=params["embed"].device)
+        x = x.to(cfg.dtype)
+    else:
+        x = embed_tokens(cfg, params, batch["tokens"])
+        if cfg.frontend == "vision_patches" and "vision_embeds" in batch:
+            vis = torch.as_tensor(batch["vision_embeds"], device=x.device)
+            x = torch.cat([vis.to(cfg.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     return x, positions
 
@@ -220,7 +228,7 @@ def decode_step(cfg: ModelConfig, params: Tree, state: Tree,
     state).  The state is donated (as the reference's serve loop donates
     it): its carries are updated in place and it is returned with ``pos``
     advanced."""
-    x, _positions = embed_inputs(cfg, params, {"tokens": tokens})
+    x = embed_tokens(cfg, params, tokens)
     pos = state["pos"]
     for i in range(cfg.n_superblocks):
         params_sb = _index(params["layers"], i)
@@ -232,13 +240,13 @@ def decode_step(cfg: ModelConfig, params: Tree, state: Tree,
                 y, _k, _v = attn.decode_attention(
                     cfg, p["attn"], h, carry["k"][i], carry["v"][i], pos,
                     window=cfg.window)
-                x = _mlp_residual(cfg, p, x + y)
-                continue
-            y, new = ssm_mod.mamba_block(
-                cfg, p["ssm"], h, state={k: a[i] for k, a in carry.items()})
-            x = x + y
-            for k, a in new.items():
-                carry[k][i].copy_(a)
+            else:
+                y, new = ssm_mod.mamba_block(
+                    cfg, p["ssm"], h,
+                    state={k: a[i] for k, a in carry.items()})
+                for k, a in new.items():
+                    carry[k][i].copy_(a)
+            x, _aux = _ffn_residual(cfg, p, x + y)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = (x @ _unembed(cfg, params)).float()
     state["pos"] = pos + 1

@@ -1,0 +1,122 @@
+"""Mixture-of-experts layer: top-k routing with capacity, scatter/gather
+dispatch (port of ``repro/models/moe.py``).  No [n_tokens, E, capacity]
+one-hot cube is formed.
+
+Routing: the router runs in float32; each token takes its top-k experts,
+the lower expert index first among equal probabilities (``jax.lax.top_k``'s
+order, which ``torch.topk`` does not promise: a stable descending sort
+gives it).  Each (token, choice) gets a slot, its rank among the choices
+of the same expert in token-major, then choice order; a slot at or past
+the capacity C is dropped (gate weight 0).
+
+Dispatch: every kept slot is unique, so the expert buffer [E * C, d] is a
+gather of token rows through a slot -> token table (empty slots read a
+zero row) and needs no float atomics.  The experts run as batched
+products [E, C, d] x [E, d, f] (``torch.bmm``: the reference computes
+them as plain einsums, outside any Pallas kernel), and each (token,
+choice) gathers its expert's output back, weighted by its normalized
+gate.  The reference's sharding annotations (``moe_ec_constraint``) are
+not ported: the port runs on one device.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .common import ParamDef, Tree
+
+
+def moe_defs(cfg) -> Tree:
+    """MoE block ParamDefs (router + expert-stacked MLPs)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
+    defs = {
+        "router": ParamDef((d, E), (None, None), scale=0.1),
+        "wi": ParamDef((E, d, f), ("T", "F", None)),
+        "wg": ParamDef((E, d, f), ("T", "F", None)),
+        "wo": ParamDef((E, f, d), ("T", None, "F"), scale=cfg.out_scale),
+    }
+    if cfg.moe_shared:
+        defs["shared"] = {
+            "wi": ParamDef((d, f), ("F", "T")),
+            "wg": ParamDef((d, f), ("F", "T")),
+            "wo": ParamDef((f, d), ("T", "F"), scale=cfg.out_scale),
+        }
+    return defs
+
+
+def capacity(cfg, n_tokens: int) -> int:
+    """Slots per expert for ``n_tokens`` tokens: the reference's
+    ``int(max(1, round(cf * n * k / E)))`` on Python numbers (``round``
+    takes a half to the even neighbour)."""
+    return int(max(1, round(cfg.capacity_factor * n_tokens * cfg.moe_top_k
+                            / cfg.moe_experts)))
+
+
+def route(cfg, router, xt):
+    """Router of ``xt`` [n, d] -> (probs [n, E] float32, gate values
+    [n, k] normalized, gate experts [n, k] int64), the lower expert index
+    first among ties."""
+    logits = xt.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe_top_k
+    vals, idx = vals[:, :k], idx[:, :k]
+    return probs, vals / vals.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def dispatch(cfg, gate_idx):
+    """Slots of the flattened (token, choice) pairs -> (flat_idx [n * k]
+    row of the [E * C + 1] buffer, E * C for a dropped choice; keep
+    [n * k] bool; counts [E] choices per expert; C)."""
+    n, k = gate_idx.shape
+    E = cfg.moe_experts
+    C = capacity(cfg, n)
+    eidx = gate_idx.reshape(-1)
+    # an integer scatter-add (torch.bincount would wait for the device to
+    # size its output)
+    counts = torch.zeros(E, dtype=torch.long, device=eidx.device)
+    counts.scatter_add_(0, eidx, torch.ones_like(eidx))
+    # a stable sort by expert keeps the token-major, then choice, order
+    # within each expert, so a choice's place in its group is its slot
+    order = torch.argsort(eidx, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.empty_like(eidx)
+    slot[order] = torch.arange(n * k, device=eidx.device) - starts[eidx[order]]
+    keep = slot < C
+    flat_idx = torch.where(keep, eidx * C + slot.clamp_max(C - 1), E * C)
+    return flat_idx, keep, counts, C
+
+
+def apply_moe(cfg, p: Tree, x):
+    """x: [B, T, d] -> ([B, T, d], aux load-balance loss, float32 scalar)."""
+    B, T, d = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    n = B * T
+    xt = x.reshape(n, d)
+    probs, gate_vals, gate_idx = route(cfg, p["router"], xt)
+    flat_idx, keep, counts, C = dispatch(cfg, gate_idx)
+
+    # Switch-style aux loss: E * sum_e (token fraction_e * mean prob_e)
+    aux = E * torch.sum(probs.mean(dim=0) * (counts.float() / (n * k)))
+
+    # slot -> token (n: the zero row) for every buffer row; the overflow
+    # row E * C takes every dropped choice and is cut off
+    tok = torch.arange(n * k, device=x.device) // k
+    src = torch.full((E * C + 1,), n, dtype=torch.long, device=x.device)
+    src.index_copy_(0, flat_idx, tok)
+    xz = torch.cat([xt, xt.new_zeros(1, d)])
+    expert_in = xz[src[:E * C]].view(E, C, d)
+
+    h = F.silu(torch.bmm(expert_in, p["wg"])) * torch.bmm(expert_in, p["wi"])
+    expert_out = torch.bmm(h, p["wo"]).view(E * C, d)
+    del h, expert_in
+    expert_out = torch.cat([expert_out, expert_out.new_zeros(1, d)])
+
+    w = (gate_vals.reshape(-1) * keep).to(x.dtype)[:, None]
+    out = (expert_out[flat_idx] * w).view(n, k, d).sum(dim=1)
+
+    if cfg.moe_shared:
+        s = p["shared"]
+        out = out + (F.silu(xt @ s["wg"]) * (xt @ s["wi"])) @ s["wo"]
+    return out.view(B, T, d), aux

@@ -1,0 +1,188 @@
+"""Whisper-large-v3 backbone: encoder-decoder transformer (port of
+``repro/models/whisper.py``).
+
+The conv audio frontend is a stub, as in the reference: the caller gives
+precomputed frame embeddings [B, T_enc, d_model] (post-conv).  Sinusoidal
+positions on the encoder and the decoder (no RoPE).  The encoder's self
+attention (full) and the decoder's (causal) are unwindowed, so
+``attention.attention`` runs both through ``ops.flash_attention``: kernel
+B9 on a CUDA tensor.  Cross-attention is the plain product the reference
+uses.  The layers are walked in a plain loop under
+``torch.inference_mode()`` (no remat: the port serves, it does not train).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import attention as attn
+from .common import (ParamDef, Tree, apply_mlp, apply_norm, embed_tokens,
+                     init_tree, mlp_defs, norm_defs, sincos_positions,
+                     tree_from_numpy, tree_leaves, tree_map)
+from .config import ModelConfig
+
+
+def _enc_layer_defs(cfg) -> Tree:
+    return {"norm1": norm_defs(cfg), "attn": attn.attn_defs(cfg),
+            "norm2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
+
+
+def _dec_layer_defs(cfg) -> Tree:
+    return {"norm1": norm_defs(cfg), "self_attn": attn.attn_defs(cfg),
+            "norm2": norm_defs(cfg), "cross_attn": attn.attn_defs(cfg),
+            "norm3": norm_defs(cfg), "mlp": mlp_defs(cfg)}
+
+
+def _n_enc(cfg: ModelConfig) -> int:
+    return cfg.n_enc_layers or cfg.n_layers
+
+
+def model_defs(cfg: ModelConfig) -> Tree:
+    """Encoder-decoder ParamDef tree (embed, enc/dec stacks, norms)."""
+    def lead(defs, n):
+        return tree_map(lambda pd: pd.with_leading(n), defs)
+    return {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("T", "F"), "embed"),
+        "enc_layers": lead(_enc_layer_defs(cfg), _n_enc(cfg)),
+        "enc_norm": norm_defs(cfg),
+        "dec_layers": lead(_dec_layer_defs(cfg), cfg.n_layers),
+        "final_norm": norm_defs(cfg),
+    }
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
+    """Materialize model_defs with the config init recipes, drawn from a
+    ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    dev = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return init_tree(model_defs(cfg), gen, cfg.dtype, device=dev)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Exact parameter count from the def tree (no allocation)."""
+    return int(sum(int(np.prod(d.shape))
+                   for _path, d in tree_leaves(model_defs(cfg))))
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Tree, device=None) -> Tree:
+    """The port's parameters from the reference's ``whisper.init_params``
+    tree as numpy arrays, cast to ``cfg.dtype`` on ``device``; the tree
+    must match :func:`model_defs` key for key and shape for shape."""
+    return tree_from_numpy(model_defs(cfg), tree, cfg.dtype, device)
+
+
+def _positions(x):
+    return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+
+
+def _sincos(T: int, cfg: ModelConfig, device):
+    return torch.as_tensor(sincos_positions(T, cfg.d_model),
+                           device=device).to(cfg.dtype)
+
+
+@torch.inference_mode()
+def encode(cfg: ModelConfig, params: Tree, frames) -> torch.Tensor:
+    """frames: [B, T_enc, d] (conv-stub output) -> encoder states."""
+    dev = params["embed"].device
+    frames = torch.as_tensor(frames, device=dev)
+    x = frames.to(cfg.dtype) + _sincos(frames.shape[1], cfg, dev)
+    positions = _positions(x)
+    layers = params["enc_layers"]
+    for i in range(_n_enc(cfg)):
+        p = tree_map(lambda a: a[i], layers)
+        h = apply_norm(cfg, p["norm1"], x)
+        x = x + attn.attention(cfg, p["attn"], h, positions, causal=False)
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
+@torch.inference_mode()
+def decode_train(cfg: ModelConfig, params: Tree, tokens,
+                 memory) -> torch.Tensor:
+    """Teacher-forced decoder: tokens [B, T_dec], memory [B, T_enc, d] ->
+    logits [B, T_dec, V] float32 (tied embedding)."""
+    x = embed_tokens(cfg, params, tokens)
+    x = x + _sincos(x.shape[1], cfg, x.device)
+    positions = _positions(x)
+    layers = params["dec_layers"]
+    for i in range(cfg.n_layers):
+        p = tree_map(lambda a: a[i], layers)
+        h = apply_norm(cfg, p["norm1"], x)
+        x = x + attn.attention(cfg, p["self_attn"], h, positions, causal=True)
+        h = apply_norm(cfg, p["norm2"], x)
+        mem_kv = attn.cross_kv(cfg, p["cross_attn"], memory)
+        x = x + attn.cross_attention(cfg, p["cross_attn"], h, mem_kv)
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], x))
+    x = apply_norm(cfg, params["final_norm"], x)
+    return (x @ params["embed"].T).float()
+
+
+def forward(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
+    """Encode frames, teacher-forced decode; returns (logits, aux)."""
+    memory = encode(cfg, params, batch["frames"])
+    logits = decode_train(cfg, params, batch["tokens"], memory)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+# ---------------------------------------------------------------------------
+# Cached decode (serve_step): self-attn KV cache + precomputed cross KV
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def init_decode_state(cfg: ModelConfig, params: Tree, batch: int,
+                      max_dec: int, memory) -> Tree:
+    """Allocate self-attn KV caches and precompute per-layer cross K/V
+    ([L, B, T_enc, KV, hd]) so decode steps never re-project the memory."""
+    n_dec, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    dev = memory.device
+    cross = params["dec_layers"]["cross_attn"]
+    kvs = [attn.cross_kv(cfg, tree_map(lambda a: a[i], cross), memory)
+           for i in range(n_dec)]
+    shape = (n_dec, batch, max_dec, KV, hd)
+    return {
+        "pos": 0,
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "xk": torch.stack([k for k, _ in kvs]),
+        "xv": torch.stack([v for _, v in kvs]),
+    }
+
+
+def _position_embedding(cfg: ModelConfig, pos: int, device):
+    """The sin / cos embedding of decode position ``pos`` [1, 1, d], formed
+    in float32 as the reference forms it."""
+    d = cfg.d_model
+    i = torch.arange(d // 2, device=device)
+    ang = torch.tensor(pos, dtype=torch.float32, device=device) \
+        / (10_000 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :]
+
+
+@torch.inference_mode()
+def decode_step(cfg: ModelConfig, params: Tree, state: Tree,
+                tokens) -> Tuple[torch.Tensor, Tree]:
+    """One decoder token against the cached self K/V and the encoder
+    memory's cross K/V: tokens [B, 1] -> (logits [B, 1, V] float32, new
+    state).  The state is donated: its caches are updated in place and it
+    is returned with ``pos`` advanced."""
+    pos = state["pos"]
+    x = embed_tokens(cfg, params, tokens)
+    x = x + _position_embedding(cfg, pos, x.device).to(cfg.dtype)
+    layers = params["dec_layers"]
+    for i in range(cfg.n_layers):
+        p = tree_map(lambda a: a[i], layers)
+        h = apply_norm(cfg, p["norm1"], x)
+        y, _k, _v = attn.decode_attention(cfg, p["self_attn"], h,
+                                          state["k"][i], state["v"][i], pos)
+        x = x + y
+        h = apply_norm(cfg, p["norm2"], x)
+        x = x + attn.cross_attention(cfg, p["cross_attn"], h,
+                                     (state["xk"][i], state["xv"][i]))
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], x))
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = (x @ params["embed"].T).float()
+    state["pos"] = pos + 1
+    return logits, state

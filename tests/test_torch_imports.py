@@ -46,7 +46,12 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.models.attention, repro_torch.configs.qwen3_14b, "
         "repro_torch.configs.starcoder2_3b, "
         "repro_torch.configs.deepseek_coder_33b, "
-        "repro_torch.configs.h2o_danube_1_8b\n"
+        "repro_torch.configs.h2o_danube_1_8b, repro_torch.models.moe, "
+        "repro_torch.models.whisper, repro_torch.configs.jamba_v0_1_52b, "
+        "repro_torch.configs.llama4_scout_17b_a16e, "
+        "repro_torch.configs.llama4_maverick_400b_a17b, "
+        "repro_torch.configs.whisper_large_v3, "
+        "repro_torch.configs.qwen2_vl_72b\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -129,6 +134,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         serve.serve("qwen3_14b", smoke=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "h2o_danube_1_8b", "--smoke"])
+    for arch in ("jamba_v0_1_52b", "llama4_scout_17b_a16e", "qwen2_vl_72b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.serve(arch, smoke=True)
     assert comm.SingleProcessComm(4, "cpu").device.type == "cpu"
 
 

@@ -10,6 +10,8 @@ import or collection), so every worker collects the same tests; without a
 card they skip with the reason.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1103,3 +1105,46 @@ def test_b9_b10_count_launches(cuda):
     ops.ssd_intra_chunk(*args, chunk=4)
     counts = ops.launch_counts()
     assert counts["flash_attention"] == 2 and counts["ssd_chunk"] == 2
+
+
+# the MoE / hybrid / encoder-decoder models' shapes: B10 at jamba's
+# widths (H = 128 heads of P = 64, state N = 16), B9 at whisper's
+# (hd 64, KV = H = 20, T = 1,500, not a multiple of 64) and jamba's
+# grouping (H = 32 over KV = 8)
+@pytest.mark.parametrize("L", [1, 256])
+def test_ssd_chunk_jamba_widths(cuda, L):
+    T = 3 if L == 1 else 2 * L
+    _ssd_close(_ssd_inputs(cuda, 1, T, 128, 64, 16, 11 + L), L)
+
+
+def test_ssd_chunk_real_span(cuda):
+    """jamba's widths with a Mamba layer's real range of decays: dt up to
+    5.3, not dyadic, and A = -e, so a chunk's cumsum spans hundreds and
+    every cums_i - cums_j carries roundings of |cums|.  A scan that adds
+    a lane stretch's sum to a shuffle-scanned base rounds each difference
+    independently of the plain version's sequential cumsum, and y then
+    leaves the 1e-4 tolerance (ROADMAP.md C.5)."""
+    L = 256
+    x, _dt, _A, Bm, Cm = _ssd_inputs(cuda, 1, 2 * L, 128, 64, 16, 22)
+    rng = np.random.default_rng(23)
+    dt = torch.as_tensor(np.minimum(rng.exponential(0.8, size=(1, 2 * L,
+                                                                128)), 5.3)
+                         + 0.005, dtype=torch.float32, device=cuda)
+    A = torch.full((128,), -math.e, dtype=torch.float32, device=cuda)
+    cums = torch.cumsum((dt * A).view(1, 2, L, 128), dim=2)
+    assert float((cums[:, :, 0] - cums[:, :, -1]).min()) > 300
+    _ssd_close((x, dt, A, Bm, Cm), L)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,KV,G,hd", [(1, 1500, 1500, 20, 1, 64),
+                                              (1, 700, 700, 8, 4, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_model_shapes(cuda, B, Tq, Tk, KV, G, hd, causal):
+    """bf16 against the plain softmax, one bf16 ulp of the value (2^-7
+    relative) plus 1e-5, as test_flash_attention holds it."""
+    q, k, v = _qkv(cuda, B, Tq, Tk, KV, G, hd, torch.bfloat16, Tq + G)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-5)

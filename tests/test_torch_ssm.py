@@ -242,31 +242,59 @@ def test_mamba2_130m_config_matches_reference():
 
 
 def test_registry_refuses_unported_archs():
+    """Every arch of the reference resolves in the port now (ROADMAP.md
+    A.17 items 2-3 are done): PORTED holds all ten, and only an unknown
+    name is refused."""
     assert registry.ARCHS[0] == "mamba2_130m" and len(registry.ARCHS) == 10
     assert registry.SHAPES["prefill_32k"].seq_len == 32_768
     assert "mamba2_130m" in registry.LONG_OK
-    unported = [a for a in registry.ARCHS if a not in registry.PORTED]
-    # MoE, hybrid, encoder-decoder and vision wait for A.17 items 2-3
-    assert unported == ["jamba_v0_1_52b", "whisper_large_v3",
-                        "llama4_scout_17b_a16e", "llama4_maverick_400b_a17b",
-                        "qwen2_vl_72b"]
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="A.17"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="A.17"):
-            get_smoke_config(arch)
+    assert set(registry.PORTED) == set(registry.ARCHS)
+    for arch in registry.ARCHS:
+        assert get_config(arch).name == arch
+        assert get_smoke_config(arch).dtype == torch.bfloat16
+        assert get_config(arch.replace("_", "-")) is get_config(arch)
     with pytest.raises(KeyError):
         get_config("gpt2")
+    with pytest.raises(KeyError):
+        get_smoke_config("gpt2")
 
 
 def test_unported_layer_kinds_raise():
-    with pytest.raises(NotImplementedError, match="A.17"):
-        lm.model_defs(ModelConfig(moe_experts=4, moe_top_k=2))   # MoE
-    with pytest.raises(NotImplementedError, match="A.17"):
-        lm.model_defs(ModelConfig(encdec=True))
-    with pytest.raises(NotImplementedError, match="A.17"):
-        lm.model_defs(ModelConfig(family="hybrid", layer_pattern=("M", "A"),
-                                  n_layers=4, ssm_state=16))
+    """The layer kinds that raised before A.17 item 2 (MoE after either
+    layer kind, the hybrid MLP after a Mamba layer) now build, and their
+    ParamDef trees match the reference's key for key and shape for
+    shape; the encoder-decoder tree is ``models/whisper.py``'s."""
+    from repro.models import common as r_common
+    from repro.models import whisper as r_whisper
+    from repro_torch.models import common, whisper
+    cases = [dict(moe_experts=4, moe_top_k=2),
+             dict(moe_experts=4, moe_top_k=1, moe_shared=True, moe_every=2),
+             dict(family="hybrid", layer_pattern=("M", "A"), n_layers=4,
+                  ssm_state=16, ssm_head_dim=16),
+             dict(family="hybrid", layer_pattern=("M", "M", "A", "M"),
+                  n_layers=4, ssm_state=16, ssm_head_dim=16, moe_experts=4,
+                  moe_top_k=2, moe_every=2)]
+
+    def flat(defs):
+        return {"/".join(p): (d.shape, d.spec, d.init, d.scale, d.fan_in)
+                for p, d in common.tree_leaves(defs)}
+
+    for kw in cases:
+        rc = RConfig(dtype=jnp.float32, **kw)
+        tc = ModelConfig(dtype=torch.float32, **kw)
+        want = flat(r_lm.model_defs(rc))
+        assert all(isinstance(d, r_common.ParamDef) for _p, d in
+                   common.tree_leaves(r_lm.model_defs(rc)))
+        assert flat(lm.model_defs(tc)) == want, kw
+        assert lm.count_params(tc) == r_lm.count_params(rc)
+    kinds = lm.model_defs(ModelConfig(**cases[3]))["layers"]
+    assert set(kinds["pos0"]) == {"norm1", "ssm", "norm2", "mlp"}
+    assert set(kinds["pos1"]) == {"norm1", "ssm", "norm2", "moe"}
+    assert set(kinds["pos2"]) == {"norm1", "attn", "norm2", "mlp"}
+    assert set(kinds["pos3"]) == {"norm1", "ssm", "norm2", "moe"}
+    enc = dict(encdec=True, n_layers=2, n_enc_layers=3)
+    assert whisper.count_params(ModelConfig(**enc)) == \
+        r_whisper.count_params(RConfig(**enc))
 
 
 def test_params_from_numpy_checks_the_tree():
