@@ -128,6 +128,22 @@ beside the script).  Phases:
  30. qwen2-vl-72b at full width and 2 layers: 1,024 vision embeddings +
      31,744 text tokens through M-RoPE and B9, and the B9 route against
      the plain attention at T = 4,096;
+ 31. B9's backward (``csrc/flash_attention_bwd.cu``) against its plain
+     version (``kernels/ref.py``, f32) at starcoder2-3b's training shape
+     q [2, 4096, 24, 128], k / v [2, 4096, 2, 128] causal in bf16 and f32,
+     whisper's encoder shape [8, 1500, 20, 64] full and an hd 256 cell,
+     each gradient within its rule (f32 1e-4 max(1, max |want|), bf16
+     2^-6 |want| + 2^-8 max |want|), bit-equal across two launches, the
+     forward's o with lse bit-equal to it without, timed beside
+     scaled_dot_product_attention's backward;
+ 32. starcoder2-3b training at full width and depth (3,180,705,792 random
+     bf16 parameters, AdamW in f32): ``build_train_step`` on train_4k with
+     the global batch cut from 256 to 4 (2 microbatches of 2 x 4,096
+     tokens from ``data/pipeline.py``, remat on), a warm-up step and 3
+     timed steps (B9 forward 120 and backward 60 launches a step), a
+     profiled step split by kernel family, AdamW alone; (a) at 2 layers
+     the loss and every gradient through B9 against the plain attention,
+     (b) a train step through a Mamba layer on the card raises;
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
@@ -136,8 +152,8 @@ Kernel launch counts are set to 0 just before each main path (n-body,
 PCIT, serving, join, k-NN graph, quantized join, quantized k-NN, quorum
 attention, mamba2 prefill and serving, the batching drain, qwen3-14b
 prefill and serving, jamba prefill and serving, llama4-scout, whisper
-and qwen2-vl prefill) is driven and read just after it, so comparison
-launches do not count.
+and qwen2-vl prefill, the starcoder2-3b train steps) is driven and read
+just after it, so comparison launches do not count.
 """
 
 from __future__ import annotations
@@ -2861,7 +2877,8 @@ def phase_observability() -> None:
 
 def device_breakdown(fn) -> dict:
     """Device ms by kernel family over one call of ``fn``, from
-    torch.profiler (CUPTI): B9 (``flash``), B10 (``ssd_``), GEMMs, the
+    torch.profiler (CUPTI): B9 (``flash``), its backward (``dq[_tc]_kernel``,
+    ``dkv[_tc]_kernel``), B10 (``ssd_``), GEMMs, the
     sort / scan / index / gather kernels (the MoE dispatch, with the
     embedding gather), everything else, the ten costliest kernels by name,
     and ``wall`` the host clock around that same call (synchronized),
@@ -2874,15 +2891,17 @@ def device_breakdown(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    fam = {"b9": 0.0, "b10": 0.0, "gemm": 0.0, "dispatch": 0.0,
-           "other": 0.0}
+    fam = {"b9": 0.0, "b9_bwd": 0.0, "b10": 0.0, "gemm": 0.0,
+           "dispatch": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
         if e.device_time_total <= 0 or e.key.startswith("cuda"):
             continue
         ms = e.device_time_total / 1e3
         key = e.key.lower()
-        if "flash" in key:
+        if re.search(r"\bd(q|kv)(_tc)?_kernel", key):
+            fam["b9_bwd"] += ms
+        elif "flash" in key:
             fam["b9"] += ms
         elif "ssd_" in key:
             fam["b10"] += ms
@@ -2905,7 +2924,7 @@ def device_breakdown(fn) -> dict:
 def say_breakdown(what: str, split: dict, counts: dict) -> float:
     """Print a profiled call's idle share and device split; returns the
     summed device ms (0 where the profiler showed none)."""
-    fams = ("b9", "b10", "gemm", "dispatch", "other")
+    fams = ("b9", "b9_bwd", "b10", "gemm", "dispatch", "other")
     dev_ms = sum(split[f] for f in fams)
     if dev_ms <= 0:
         say(f"{what} device time: not measured (the profiler showed no "
@@ -2913,6 +2932,8 @@ def say_breakdown(what: str, split: dict, counts: dict) -> float:
         return 0.0
     idle = max(0.0, 1.0 - dev_ms / split["wall"])
     names = {"b9": f"B9 ({counts.get('flash_attention', 0)} launches)",
+             "b9_bwd": f"B9 backward ({counts.get('flash_attention_bwd', 0)}"
+             " calls of two kernels)",
              "b10": f"B10 ({counts.get('ssd_chunk', 0)} launches)",
              "gemm": "GEMMs", "dispatch": "sort / scan / index kernels (MoE "
              "dispatch, with the embedding gather)", "other": "the rest"}
@@ -3823,6 +3844,278 @@ def phase_qwen2_vl(report: dict) -> None:
     del params, got_all, want_all
 
 
+# phase 31: B9's backward at starcoder2-3b's training shape (H 24 / KV 2,
+# hd 128, T 4,096, batch 2 a microbatch) in bf16 and f32, whisper's encoder
+# shape (full), and an hd 256 cell; each gradient within its rule against
+# kernels/ref.py's f32 plain backward
+FLASH_BWD_CELLS = (("starcoder2 train", 2, 4096, 24, 2, 128, True,
+                    torch.bfloat16),
+                   ("starcoder2 train f32", 2, 4096, 24, 2, 128, True,
+                    torch.float32),
+                   ("whisper encoder", 8, 1500, 20, 20, 64, False,
+                    torch.bfloat16),
+                   ("hd 256", 1, 4096, 8, 2, 256, True, torch.bfloat16))
+# phase 32: starcoder2-3b at full width and depth (3,180,705,792 random bf16
+# parameters from a seed, the JAX package's count_params), train_4k with
+# the global batch cut from 256 to STAR_B = STAR_ACCUM microbatches of
+# STAR_B / STAR_ACCUM x 4,096 tokens, remat on; one warm-up step, then
+# STAR_STEPS timed; check (a) at STAR_CHECK_LAYERS layers, one microbatch
+STAR_PARAMS, STAR_B, STAR_T, STAR_ACCUM = 3_180_705_792, 4, 4096, 2
+STAR_STEPS, STAR_CHECK_LAYERS = 3, 2
+
+
+def flash_bwd_ratio(got, want) -> float:
+    """Worst share of its rule over a gradient's elements: f32 1e-4 *
+    max(1, max |want|); bf16 2^-6 |want| + 2^-8 max |want|."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    top = float(want.abs().max())
+    if got.dtype == torch.float32:
+        return float(err.max()) / (1e-4 * max(1.0, top))
+    return float((err / (2.0 ** -6 * want.abs() + 2.0 ** -8 * top)).max())
+
+
+def phase_flash_bwd(report: dict) -> None:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        bwd_route_of, flash_attention_bwd_cuda, flash_attention_cuda)
+    F = torch.nn.functional
+    for name, B, T, H, KV, hd, causal, dtype in FLASH_BWD_CELLS:
+        g = torch.Generator(device=DEVICE).manual_seed(31 + hd)
+        q, do = (torch.randn(B, T, H, hd, generator=g, device=DEVICE)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, T, KV, hd, generator=g, device=DEVICE)
+                .to(dtype) for _ in range(2))
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+        check(torch.equal(o, flash_attention_cuda(q, k, v, causal=causal)),
+              f"B9 backward, {name}: the forward's o with lse differs from "
+              "the forward without it")
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        ratios = [flash_bwd_ratio(a, w) for a, w in zip(got, want)]
+        errs = [float((a.float() - w).abs().max()) for a, w in zip(got, want)]
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"B9 backward, {name}: non-finite gradient")
+        check(max(ratios) <= 1.0, f"B9 backward, {name}: dq / dk / dv at "
+              f"{ratios} of their rules (max abs err {errs})")
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"B9 backward, {name}: two launches differ")
+        del again, want
+        ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                      causal=causal))
+        plain_ms = cuda_ms(lambda: ref.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal), reps=1, warmup=0)
+        # scaled_dot_product_attention's backward on the same tensors (its
+        # [B, H, T, hd] layout), the yardstick; TF32 off
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                             enable_gqa=True)
+        dos = do.transpose(1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), dos, retain_graph=True))
+        del out, qs, ks, vs, dos
+        # 10 hd operations per visible pair (S, dP, dV, dQ, dK), each input
+        # read once, each gradient written once
+        n_ops = 2.5 * flash_ops(B, T, T, H, hd, causal)
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
+            else PEAK_FP32_FLOPS
+        b_ms, b_by = bound(nbytes(q, k, v, o, lse, do, *got), n_ops, peak)
+        say(f"B9 backward {name} ({str(dtype)[6:]}, "
+            f"{bwd_route_of(dtype, hd)} route) q {tuple(q.shape)} kv "
+            f"{tuple(k.shape)} causal={causal}: dq / dk / dv max abs err "
+            f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}, "
+            f"{ratios[0]:.3f} / {ratios[1]:.3f} / {ratios[2]:.3f} of the "
+            f"rule; o with lse bit-equal, two launches bit-equal; kernel "
+            f"{ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}, {n_ops:.3e} operations on "
+            f"{'bf16 tensor cores' if peak == PEAK_BF16_FLOPS else 'fp32'})")
+        cell = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        if name == "starcoder2 train":
+            report["flash_attention_bwd"] = dict(cell, launches=0)
+        else:
+            tag = {"starcoder2 train f32": "f32_",
+                   "whisper encoder": "whisper_", "hd 256": "hd256_"}[name]
+            report["flash_attention_bwd"].update(
+                {tag + k: cell[k] for k in ("ms", "library_ms", "bound_ms",
+                                            "max_abs_err")})
+        del q, k, v, o, lse, do, got
+
+
+def loss_and_grads(cfg, params, batch):
+    """(loss, {leaf path: gradient}) of ``lm.loss_fn`` through
+    torch.autograd (the plain route or B9, whichever ops.flash_attention
+    is)."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    paths, leaves = zip(*tree_leaves(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, _metrics = lm.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(loss.detach()), dict(zip(paths, grads))
+
+
+def phase_starcoder2_train(report: dict) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch, make_pipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    cfg = get_config("starcoder2_3b")
+    n_params = lm.count_params(cfg)
+    check(n_params == STAR_PARAMS and cfg.n_layers == 30 and cfg.remat,
+          f"starcoder2-3b: {n_params} parameters, {cfg.n_layers} layers, "
+          f"remat {cfg.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    base0 = torch.cuda.memory_allocated()
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    opt_cfg = AdamWConfig()
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base0
+    say(f"starcoder2-3b: {n_params} random bf16 parameters from a seed and "
+        f"their f32 AdamW moments, {state_bytes / 2**30:.3f} GiB on the "
+        f"card; train_4k cut to a batch of {STAR_B} x {STAR_T} tokens in "
+        f"{STAR_ACCUM} microbatches, remat on")
+    step = build_train_step(cfg, opt_cfg, accum=STAR_ACCUM)
+    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, batch=STAR_B,
+                      seq_len=STAR_T)
+    pipe = make_pipeline(dcfg, device=DEVICE)
+    try:
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, next(pipe))      # warm-up
+        warm_loss = float(met["loss"])
+        say(f"warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+            f"loss {warm_loss:.4f}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        times, losses, gnorms = [], [], []
+        for _ in range(STAR_STEPS):
+            batch = next(pipe)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        fwd, bwd = counts["flash_attention"], counts["flash_attention_bwd"]
+        want_fwd = 2 * cfg.n_layers * STAR_ACCUM * STAR_STEPS
+        want_bwd = cfg.n_layers * STAR_ACCUM * STAR_STEPS
+        check(fwd == want_fwd and bwd == want_bwd,
+              f"train steps: B9 forward {fwd} / backward {bwd} launches, "
+              f"expected {want_fwd} / {want_bwd} (remat runs each forward "
+              "twice)")
+        check(all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+              and min(gnorms) > 0, f"train steps: loss {losses}, grad norm "
+              f"{gnorms}")
+        step_ms = 1e3 * sum(times) / len(times)
+        tps = STAR_B * STAR_T / (step_ms / 1e3)
+        report["flash_attention"]["train_launches"] = fwd // STAR_STEPS
+        report["flash_attention_bwd"]["launches"] = bwd
+        report["flash_attention_bwd"].update(
+            train_step_ms=step_ms, train_tokens_per_s=tps)
+        say(f"starcoder2-3b train step ({STAR_B} x {STAR_T} tokens, "
+            f"accum {STAR_ACCUM}): {step_ms:.1f} ms a step (host clock, "
+            f"synchronized; steps {', '.join(f'{1e3 * t:.1f}' for t in times)}"
+            f" ms), {tps:.0f} tokens/s, peak {peak / 2**30:.3f} GiB above the "
+            f"parameters and optimizer state; B9 launches a step: forward "
+            f"{fwd // STAR_STEPS}, backward {bwd // STAR_STEPS}; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}, grad norms "
+            f"{', '.join(f'{x:.4f}' for x in gnorms)}")
+        split = device_breakdown(lambda: step(params, opt, next(pipe)))
+    finally:
+        pipe.close()
+    dev_ms = say_breakdown("starcoder2-3b train step", split,
+                           {"flash_attention": fwd // STAR_STEPS,
+                            "flash_attention_bwd": bwd // STAR_STEPS})
+    if dev_ms > 0:
+        report["flash_attention_bwd"].update(
+            train_ms=split["b9_bwd"] / (bwd // STAR_STEPS),
+            train_share=split["b9_bwd"] / dev_ms,
+            train_idle_share=split["idle"])
+    # AdamW alone over the whole model (zero bf16 gradients, the same work)
+    zeros = tree_map(torch.zeros_like, params)
+    adam_ms = cuda_ms(lambda: adamw_update(opt_cfg, zeros, opt, params),
+                      reps=2)
+    say(f"AdamW update alone over {n_params} parameters: {adam_ms:.1f} ms "
+        "(CUDA events)")
+    report["flash_attention_bwd"]["train_adamw_ms"] = adam_ms
+    del zeros, opt
+
+    # (a) at STAR_CHECK_LAYERS layers of the same widths, one microbatch:
+    # the loss and every parameter gradient through B9 (forward and
+    # backward kernels) against the plain attention of kernels/ref.py
+    # patched in by this script (never a route of the entry point)
+    cfg2 = dataclasses.replace(cfg, n_layers=STAR_CHECK_LAYERS)
+    params2 = dict(params, layers=tree_map(
+        lambda a: a[:STAR_CHECK_LAYERS].clone(), params["layers"]))
+    mb = {k: torch.as_tensor(v[:STAR_B // STAR_ACCUM], device=DEVICE)
+          for k, v in make_batch(dcfg, 9).items()}
+    ops.reset_launch_counts()
+    loss_k, g_k = loss_and_grads(cfg2, params2, mb)
+    counts = ops.launch_counts()
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention):
+        loss_p, g_p = loss_and_grads(cfg2, params2, mb)
+    check(counts["flash_attention"] == 2 * STAR_CHECK_LAYERS
+          and counts["flash_attention_bwd"] == STAR_CHECK_LAYERS,
+          f"check (a): B9 launches {counts}")
+    d_loss = abs(loss_k - loss_p)
+    check(d_loss <= 2e-2 * max(1.0, abs(loss_p)), f"check (a): loss through "
+          f"B9 {loss_k:.6f}, plain {loss_p:.6f}")
+    worst, worst_rel, worst_leaf = 0.0, 0.0, ""
+    for path, gp in g_p.items():
+        gk = g_k[path]
+        check(bool(torch.isfinite(gk).all()), f"check (a): {path} not finite")
+        d = float((gk.float() - gp.float()).abs().max())
+        top = float(gp.abs().max())
+        r = d / (2e-2 * max(1.0, top))
+        if r > worst:
+            worst, worst_leaf = r, "/".join(path)
+        worst_rel = max(worst_rel, d / max(top, 1e-30))
+    check(worst <= 1.0, f"check (a): gradient of {worst_leaf} at {worst:.3f}"
+          " of 2e-2 max(1, max |g|)")
+    say(f"(a) starcoder2-3b {STAR_CHECK_LAYERS} layers, one microbatch of "
+        f"{STAR_B // STAR_ACCUM} x {STAR_T}: loss through B9 {loss_k:.6f}, "
+        f"plain attention {loss_p:.6f} (diff {d_loss:.3e}); all "
+        f"{len(g_p)} gradient leaves within {worst:.4f} of 2e-2 max(1, "
+        f"max |g|) (worst {worst_leaf}); largest difference relative to "
+        f"its leaf's max |g| {worst_rel:.3e}")
+    del params, params2, g_k, g_p
+
+    # (b) a train step through a Mamba layer on the card raises: B10 has no
+    # backward kernel yet (ROADMAP.md A.17 item 4b); nothing on the main
+    # path catches it
+    from repro_torch.configs import get_smoke_config
+    scfg = get_smoke_config("mamba2_130m")
+    sp = lm.init_params(scfg, seed=0, device=DEVICE)
+    sstep = build_train_step(scfg, AdamWConfig())
+    toks = torch.randint(0, scfg.vocab_size, (2, 64), device=DEVICE)
+    try:
+        sstep(sp, adamw_init(sp), {"tokens": toks, "labels": toks})
+    except NotImplementedError as e:
+        say(f"(b) mamba2-130m (smoke) train step on the card raises "
+            f"NotImplementedError: {e}")
+    else:
+        raise CheckFailed("(b) a train step through B10 on the card did "
+                          "not raise")
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -3843,6 +4136,12 @@ KERNELS = {
     # the row's launch is bf16 (wgmma); f32 runs csrc/flash_attention.cu
     "flash_attention": ("src/repro_torch/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:103"),
+    # B9's gradient: no Pallas backward exists (the JAX package's train
+    # step differentiates its plain attention with XLA); it is the backward
+    # of the kernel above.  The row's launch is bf16 at hd 128 (mma.sync);
+    # f32 and the other widths run csrc/flash_attention_bwd.cu
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd_tc.cu",
+                            "src/repro/kernels/flash_attention.py:103"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk.py:60"),
 }
@@ -3917,7 +4216,11 @@ def main() -> int:
                lambda: phase_llama4(report)),
               ("whisper-large-v3 prefill and decode main path",
                lambda: phase_whisper(report)),
-              ("qwen2-vl prefill main path", lambda: phase_qwen2_vl(report))]
+              ("qwen2-vl prefill main path", lambda: phase_qwen2_vl(report)),
+              ("kernel B9 backward vs its plain version",
+               lambda: phase_flash_bwd(report)),
+              ("starcoder2-3b train step main path",
+               lambda: phase_starcoder2_train(report))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")
@@ -3939,7 +4242,8 @@ def main() -> int:
                         if k.startswith(("bf16_", "gemm_only", "simt_",
                                          "f32_", "decode_", "quorum_",
                                          "prefill_", "jamba_", "llama4_",
-                                         "whisper_", "qwen2vl_"))}})
+                                         "whisper_", "qwen2vl_",
+                                         "hd256_", "train_"))}})
     say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

@@ -14,7 +14,9 @@
 //
 // Two epilogues:
 //   * normalized (partial = 0): o = acc / max(l, 1e-30) in q's type, the
-//     TPU kernel's output;
+//     TPU kernel's output, and where lse is given the row's log-sum-exp
+//     m + log(l) [B, Tq, H] float32 for the backward
+//     (flash_attention_bwd.cu);
 //   * partial (partial = 1): the unnormalized acc [B, Tq, H, hd] and the
 //     row statistics m, l [B, Tq, H] in float32 — apps/attention.py's
 //     flash_block, merged by the (o, m, l) monoid.
@@ -59,6 +61,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, void* __restrict__ o_out,
              float* __restrict__ m_out, float* __restrict__ l_out,
+             float* __restrict__ lse_out,
              const int* __restrict__ row_valid, int BH, int nqt, int Tq,
              int Tk, int H, int G, int hd, long long sq_b, long long sq_t,
              long long sq_h, long long sk_b, long long sk_t, long long sk_h,
@@ -234,16 +237,18 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m_out[row] = m_i[r];
       l_out[row] = l_i[r];
     }
+    if (lse_out != nullptr && tx == 0)
+      lse_out[row] = m_i[r] + logf(l_i[r]);
   }
 }
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* o, float* m,
-           float* l, const int* row_valid, int B, int Tq, int Tk, int H,
-           int KV, int hd, long long sq_b, long long sq_t, long long sq_h,
-           long long sk_b, long long sk_t, long long sk_h, long long sv_b,
-           long long sv_t, long long sv_h, int causal, int partial,
-           cudaStream_t stream) {
+           float* l, float* lse, const int* row_valid, int B, int Tq, int Tk,
+           int H, int KV, int hd, long long sq_b, long long sq_t,
+           long long sq_h, long long sk_b, long long sk_t, long long sk_h,
+           long long sv_b, long long sv_t, long long sv_h, int causal,
+           int partial, cudaStream_t stream) {
   const int bytes = smem_floats<HDP>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -253,30 +258,31 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
   const long long blocks = (long long)nqt * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   flash_kernel<HDP><<<(unsigned)blocks, kThreads, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, o, m, l, row_valid,
-      B * H, nqt, Tq, Tk, H, H / KV, hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h,
-      sv_b, sv_t, sv_h, causal, partial, 1.f / sqrtf((float)hd));
+      (const float*)q, (const float*)k, (const float*)v, o, m, l, lse,
+      row_valid, B * H, nqt, Tq, Tk, H, H / KV, hd, sq_b, sq_t, sq_h, sk_b,
+      sk_t, sk_h, sv_b, sv_t, sv_h, causal, partial,
+      1.f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, float* m,
-             float* l, const int* row_valid, int B, int Tq, int Tk, int H,
-             int KV, int hd, long long sq_b, long long sq_t, long long sq_h,
-             long long sk_b, long long sk_t, long long sk_h, long long sv_b,
-             long long sv_t, long long sv_h, int causal, int partial,
-             cudaStream_t stream) {
+             float* l, float* lse, const int* row_valid, int B, int Tq,
+             int Tk, int H, int KV, int hd, long long sq_b, long long sq_t,
+             long long sq_h, long long sk_b, long long sk_t, long long sk_h,
+             long long sv_b, long long sv_t, long long sv_h, int causal,
+             int partial, cudaStream_t stream) {
   if (hd <= 64)
-    return launch<64>(q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd,
-                      sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
-                      causal, partial, stream);
+    return launch<64>(q, k, v, o, m, l, lse, row_valid, B, Tq, Tk, H, KV,
+                      hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t,
+                      sv_h, causal, partial, stream);
   if (hd <= 128)
-    return launch<128>(q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd,
-                       sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
-                       causal, partial, stream);
+    return launch<128>(q, k, v, o, m, l, lse, row_valid, B, Tq, Tk, H, KV,
+                       hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t,
+                       sv_h, causal, partial, stream);
   if (hd <= 256)
-    return launch<256>(q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd,
-                       sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h,
-                       causal, partial, stream);
+    return launch<256>(q, k, v, o, m, l, lse, row_valid, B, Tq, Tk, H, KV,
+                       hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t,
+                       sv_h, causal, partial, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -284,11 +290,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* m,
 
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
-    const void* row_valid, int B, int Tq, int Tk, int H, int KV, int hd,
-    long long sq_b, long long sq_t, long long sq_h, long long sk_b,
+    void* lse, const void* row_valid, int B, int Tq, int Tk, int H, int KV,
+    int hd, long long sq_b, long long sq_t, long long sq_h, long long sk_b,
     long long sk_t, long long sk_h, long long sv_b, long long sv_t,
     long long sv_h, int causal, int partial, void* stream) {
-  return dispatch(q, k, v, o, (float*)m, (float*)l, (const int*)row_valid, B,
-                  Tq, Tk, H, KV, hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b,
-                  sv_t, sv_h, causal, partial, (cudaStream_t)stream);
+  return dispatch(q, k, v, o, (float*)m, (float*)l, (float*)lse,
+                  (const int*)row_valid, B, Tq, Tk, H, KV, hd, sq_b, sq_t,
+                  sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h, causal, partial,
+                  (cudaStream_t)stream);
 }

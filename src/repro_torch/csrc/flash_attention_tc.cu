@@ -8,7 +8,8 @@
 // contiguous last axis, head h reads kv head h / G, end-aligned causality
 // (key j visible to query i iff j <= i + Tk - Tq) with the finite
 // NEG_INF = -1e30 on masked keys (a row that sees no key gets p = 1),
-// -inf for keys past Tk, the normalized bf16 output or the f32 (o, m, l)
+// -inf for keys past Tk, the normalized bf16 output (with, where lse is
+// given, the row's m + log(l) for the backward) or the f32 (o, m, l)
 // partial, and rows with row_valid 0 written as the merge identity
 // without computing.  m stays in natural-log units: exp(x) is computed as
 // ex2((x - m) * log2 e), so a row that sees no key keeps m = -1e30 and
@@ -164,6 +165,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, void* __restrict__ o_out,
                 float* __restrict__ m_out, float* __restrict__ l_out,
+                float* __restrict__ lse_out,
                 const int* __restrict__ row_valid, int BH, int nqt, int Tq,
                 int Tk, int H, int G, int hd, long long sq_b, long long sq_t,
                 long long sq_h, long long sk_b, long long sk_t,
@@ -396,16 +398,18 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m_out[row] = m_i[r];
       l_out[row] = l_i[r];
     }
+    if (lse_out != nullptr && tig == 0)
+      lse_out[row] = m_i[r] + logf(l_i[r]);
   }
 }
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* o, float* m,
-           float* l, const int* row_valid, int B, int Tq, int Tk, int H,
-           int KV, int hd, long long sq_b, long long sq_t, long long sq_h,
-           long long sk_b, long long sk_t, long long sk_h, long long sv_b,
-           long long sv_t, long long sv_h, int causal, int partial,
-           cudaStream_t stream) {
+           float* l, float* lse, const int* row_valid, int B, int Tq, int Tk,
+           int H, int KV, int hd, long long sq_b, long long sq_t,
+           long long sq_h, long long sk_b, long long sk_t, long long sk_h,
+           long long sv_b, long long sv_t, long long sv_h, int causal,
+           int partial, cudaStream_t stream) {
   const int bytes = Cfg<HDP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -422,7 +426,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
   const long long blocks = (long long)nqt * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   flash_tc_kernel<HDP><<<(unsigned)blocks, kThreads, bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, o, m, l, row_valid,
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, o, m, l, lse, row_valid,
       B * H, nqt, Tq, Tk, H, H / KV, hd, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h,
       sv_b, sv_t, sv_h, causal, partial, vec, 1.f / sqrtf((float)hd));
   return (int)cudaGetLastError();
@@ -433,24 +437,25 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
 // bf16 q / k / v only; hd in 1..256 (padded to 64, 128 or 256)
 extern "C" int repro_flash_attention_tc(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
-    const void* row_valid, int B, int Tq, int Tk, int H, int KV, int hd,
-    long long sq_b, long long sq_t, long long sq_h, long long sk_b,
+    void* lse, const void* row_valid, int B, int Tq, int Tk, int H, int KV,
+    int hd, long long sq_b, long long sq_t, long long sq_h, long long sk_b,
     long long sk_t, long long sk_h, long long sv_b, long long sv_t,
     long long sv_h, int causal, int partial, void* stream) {
   auto* mm = (float*)m;
   auto* ll = (float*)l;
+  auto* ls = (float*)lse;
   auto* rv = (const int*)row_valid;
   auto* st = (cudaStream_t)stream;
   if (hd <= 64)
-    return launch<64>(q, k, v, o, mm, ll, rv, B, Tq, Tk, H, KV, hd, sq_b,
+    return launch<64>(q, k, v, o, mm, ll, ls, rv, B, Tq, Tk, H, KV, hd, sq_b,
                       sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h, causal,
                       partial, st);
   if (hd <= 128)
-    return launch<128>(q, k, v, o, mm, ll, rv, B, Tq, Tk, H, KV, hd, sq_b,
+    return launch<128>(q, k, v, o, mm, ll, ls, rv, B, Tq, Tk, H, KV, hd, sq_b,
                        sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h, causal,
                        partial, st);
   if (hd <= 256)
-    return launch<256>(q, k, v, o, mm, ll, rv, B, Tq, Tk, H, KV, hd, sq_b,
+    return launch<256>(q, k, v, o, mm, ll, ls, rv, B, Tq, Tk, H, KV, hd, sq_b,
                        sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h, causal,
                        partial, st);
   return (int)cudaErrorInvalidValue;

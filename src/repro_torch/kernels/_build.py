@@ -27,10 +27,12 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
            "query_topk.cu", "pairwise_threshold.cu", "pairwise_topk.cu",
            "pairwise_threshold_q.cu", "pairwise_topk_q.cu",
-           "flash_attention.cu", "flash_attention_tc.cu", "ssd_chunk.cu")
+           "flash_attention.cu", "flash_attention_tc.cu",
+           "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
+           "ssd_chunk.cu")
 # headers the sources include (part of the build key)
 HEADERS = ("pair_tile.cuh", "hopper.cuh", "topk_select.cuh",
-           "compact.cuh", "row_norms.cuh")
+           "compact.cuh", "row_norms.cuh", "flash_bwd.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the PCIT filter's output is a threshold decision: no FMA contraction and
@@ -76,13 +78,19 @@ SIGNATURES = {
     # threshold, capacity, l2, bf16, route, stream
     "repro_pairwise_threshold_q": [_vp] * 15 + [_i] * 6 + [_f, _ll]
     + [_i] * 3 + [_vp],
-    # q, k, v, o, m, l, row_valid, B, Tq, Tk, H, KV, hd, the (batch, time,
-    # head) strides of q, k and v, causal, partial, stream: float32 (SIMT)
-    "repro_flash_attention": [_vp] * 7 + [_i] * 6 + [_ll] * 9 + [_i] * 2
+    # q, k, v, o, m, l, lse, row_valid, B, Tq, Tk, H, KV, hd, the (batch,
+    # time, head) strides of q, k and v, causal, partial, stream: float32
+    # (SIMT)
+    "repro_flash_attention": [_vp] * 8 + [_i] * 6 + [_ll] * 9 + [_i] * 2
     + [_vp],
     # the same for bfloat16 (wgmma)
-    "repro_flash_attention_tc": [_vp] * 7 + [_i] * 6 + [_ll] * 9 + [_i] * 2
+    "repro_flash_attention_tc": [_vp] * 8 + [_i] * 6 + [_ll] * 9 + [_i] * 2
     + [_vp],
+    # q, k, v, o, lse, do, D, dq, dk, dv, B, Tq, Tk, H, KV, hd, causal,
+    # bf16, stream: B9's backward (SIMT)
+    "repro_flash_attention_bwd": [_vp] * 10 + [_i] * 8 + [_vp],
+    # the same without the dtype flag (bfloat16, mma.sync)
+    "repro_flash_attention_bwd_tc": [_vp] * 10 + [_i] * 7 + [_vp],
     # x, dt, A, B, C, y, S, cd, batch, T, H, P, N, chunk, the (batch, time,
     # head) strides of x, the (batch, time) strides of B and C, stream
     "repro_ssd_chunk": [_vp] * 8 + [_i] * 6 + [_ll] * 7 + [_vp],

@@ -26,9 +26,26 @@ max and row sum (the (o, m, l) partial of ``apps/attention.py``) instead
 of the normalized output, and ``row_valid`` turns whole batch rows into
 the merge identity without computing them.
 
-The plain versions beside it are :func:`flash_attention_plain` and
-:func:`flash_block_plain`; the device dispatch is
-:func:`repro_torch.kernels.ops.flash_attention` / ``ops.flash_block``.
+The normalized epilogue can also write the row's log-sum-exp
+(``with_lse``: m + log l [B, Tq, H] float32), which the backward needs.
+
+The backward (:func:`flash_attention_bwd_cuda`) has no Pallas
+counterpart: the JAX package differentiates its plain attention with XLA,
+and these kernels compute that gradient (dq, dk, dv) from q, k, v, o, lse
+and dO in two launches (dq with the D = rowsum(dO * O) prologue, then
+dk / dv a block per kv-head key tile walking its G query heads), no
+atomics.  Two routes, by dtype and head width (:func:`bwd_route_of`):
+``"mma"`` (``csrc/flash_attention_bwd_tc.cu``, bf16 with hd a multiple of
+8 up to 128: every product on ``mma.sync`` bf16 tensor cores, P and dS
+rounded to bf16 as their products' operands) and ``"simt"``
+(``csrc/flash_attention_bwd.cu``, float32 arithmetic; float32 inputs and
+the other bf16 widths).  ``ops.flash_attention`` reaches them through a
+``torch.autograd.Function`` on a CUDA tensor that needs a gradient.
+
+The plain versions beside them are :func:`flash_attention_plain`,
+:func:`flash_block_plain` and :func:`flash_attention_bwd_plain`; the
+device dispatch is :func:`repro_torch.kernels.ops.flash_attention` /
+``ops.flash_block``.
 """
 
 from __future__ import annotations
@@ -37,13 +54,18 @@ import torch
 
 from . import _build
 from .ref import flash_attention as flash_attention_plain
+from .ref import flash_attention_bwd as flash_attention_bwd_plain
 from .ref import flash_block as flash_block_plain
 
-__all__ = ["flash_attention_cuda", "flash_attention_plain",
-           "flash_block_plain", "launches", "route_of"]
+__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
+           "flash_attention_plain", "flash_attention_bwd_plain",
+           "flash_block_plain", "launches", "bwd_launches", "route_of",
+           "bwd_route_of"]
 
-#: kernel launches since the count was last set to 0 (both routes)
+#: forward kernel launches since the count was last set to 0 (both routes)
 launches = 0
+#: backward calls (two kernel launches each: dq, then dk / dv)
+bwd_launches = 0
 
 
 def route_of(dtype: torch.dtype) -> str:
@@ -51,6 +73,13 @@ def route_of(dtype: torch.dtype) -> str:
     bfloat16 (every hd in 1..256, padded to 64, 128 or 256), ``"simt"`` for
     float32."""
     return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def bwd_route_of(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernels a CUDA call launches: ``"mma"`` for bfloat16
+    with hd a multiple of 8 up to 128, else ``"simt"``."""
+    return "mma" if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= 128 \
+        else "simt"
 
 
 def _check(q, k, v):
@@ -76,17 +105,24 @@ def _last_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, partial: bool = False,
-                         row_valid: torch.Tensor | None = None):
+                         row_valid: torch.Tensor | None = None,
+                         with_lse: bool = False):
     """q [B, Tq, H, hd], k / v [B, Tk, KV, hd] (float32 or bfloat16, one
     CUDA device).  ``partial=False``: the normalized output [B, Tq, H, hd]
     in q's dtype, as ``ref.flash_attention``.  ``partial=True``: ``(o, m,
     l)`` float32 — o [B, Tq, H, hd] unnormalized, m / l [B, Tq, H] — as
     ``ref.flash_block``.  ``row_valid`` [B] (bool or integer): rows whose
     flag is 0 are written as the merge identity (o = 0, m = NEG_INF,
-    l = 0).  bfloat16 launches the ``wgmma`` kernel, float32 the SIMT one
-    (:func:`route_of`); either way one launch, counted in ``launches``."""
+    l = 0).  ``with_lse`` (normalized output only): also the row
+    log-sum-exp [B, Tq, H] float32, returned as ``(o, lse)``; ``o`` is the
+    same either way.  bfloat16 launches the ``wgmma`` kernel, float32 the
+    SIMT one (:func:`route_of`); either way one launch, counted in
+    ``launches``."""
     global launches
     _check(q, k, v)
+    if with_lse and (partial or row_valid is not None):
+        raise ValueError("with_lse is for the normalized output of every "
+                         "row (no partial, no row_valid)")
     _build.require_cuda("flash_attention", q, k, v)
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
     B, Tq, H, hd = q.shape
@@ -99,6 +135,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         o = torch.empty(B, Tq, H, hd, dtype=q.dtype, device=dev)
         m = l = None
+    lse = (torch.empty(B, Tq, H, dtype=torch.float32, device=dev)
+           if with_lse else None)
     valid = None
     if row_valid is not None:
         valid = torch.as_tensor(row_valid, device=dev).reshape(-1)
@@ -106,13 +144,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"row_valid has {valid.numel()} flags for "
                              f"{B} rows")
         valid = valid.to(torch.int32).contiguous()
+    out = (o, m, l) if partial else (o, lse) if with_lse else o
     if o.numel() == 0:
-        return (o, m, l) if partial else o
+        return out
     if Tk == 0:
         raise ValueError("flash_attention needs at least one key")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             m.data_ptr() if partial else None,
             l.data_ptr() if partial else None,
+            lse.data_ptr() if with_lse else None,
             valid.data_ptr() if valid is not None else None,
             B, Tq, Tk, H, KV, hd, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], int(causal), int(partial))
@@ -123,4 +163,51 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = fn(*args, _build.stream_of(q))
     _build.check(rc, "flash_attention")
     launches += 1
-    return (o, m, l) if partial else o
+    return out
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
+    """The gradient of :func:`flash_attention_cuda`'s normalized output:
+    q / o / do [B, Tq, H, hd], k / v [B, Tk, KV, hd] (one dtype, float32 or
+    bfloat16), lse [B, Tq, H] float32 from the forward's ``with_lse`` ->
+    (dq, dk, dv) in q's dtype, dk / dv summed over each kv head's G query
+    heads.  Two kernel launches on the current stream (dq with the D
+    prologue, then dk / dv) of the route :func:`bwd_route_of` names,
+    counted once in ``bwd_launches``."""
+    global bwd_launches
+    _check(q, k, v)
+    _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"o and do must match q {tuple(q.shape)} "
+                         f"{q.dtype}, got {tuple(o.shape)} {o.dtype} and "
+                         f"{tuple(do.shape)} {do.dtype}")
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    if lse.shape != (B, Tq, H) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be [B, Tq, H] = {(B, Tq, H)} float32, "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    # contiguous, and 16-byte aligned for the mma route's vector loads (a
+    # fresh copy is)
+    q, k, v, o, lse, do = (
+        t if t.is_contiguous() and t.data_ptr() % 16 == 0
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (q, k, v, o, lse, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    D = torch.empty(B, Tq, H, dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), D.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, KV, hd, int(causal))
+    with torch.cuda.device(q.device):
+        if bwd_route_of(q.dtype, hd) == "mma":
+            rc = lib.repro_flash_attention_bwd_tc(*args, _build.stream_of(q))
+        else:
+            rc = lib.repro_flash_attention_bwd(
+                *args, int(q.dtype == torch.bfloat16), _build.stream_of(q))
+    _build.check(rc, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -8,6 +8,13 @@ Dispatch is by the device of the input tensors, and by nothing else:
     kernel that fails to build, load or launch raises — there is no path
     that falls back to the plain version on the card.
 
+B9 has a gradient on the card: ``flash_attention`` on a CUDA tensor that
+needs one goes through :class:`FlashAttention`, whose backward is the
+hand-written kernel of ``csrc/flash_attention_bwd.cu``.  B10 has none yet
+(ROADMAP.md A.17 item 4b): ``ssd_intra_chunk`` refuses a CUDA tensor
+that needs a gradient.  On the CPU autograd differentiates the plain
+versions.
+
 The CUDA kernels mask their own ragged edges, so nothing is padded here.
 Entry points take a leading batch axis (simulated devices or stacked
 tiles), so one launch covers a whole batched step.
@@ -35,6 +42,7 @@ KERNEL_MODULES = {
     "pairwise_threshold_q": (_q_mod, "threshold_launches"),
     "pairwise_topk_q": (_q_mod, "topk_launches"),
     "flash_attention": (_flash_mod, "launches"),
+    "flash_attention_bwd": (_flash_mod, "bwd_launches"),
     "ssd_chunk": (_ssd_mod, "launches"),
 }
 
@@ -140,12 +148,40 @@ def pairwise_topk_q(q, sd, sq, lo, hi, meta, *, topk: int, block_rows: int,
                                        block_rows=block_rows, metric=metric)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class FlashAttention(torch.autograd.Function):
+    """B9 with its gradient on the card: the forward launches B9 with the
+    row log-sum-exp and saves (q, k, v, o, lse); the backward launches
+    the B9 backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = _flash_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                                 with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_mod.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """4-d attention entry point (GQA): q [B, Tq, H, hd], k / v [B, Tk,
     KV, hd] -> [B, Tq, H, hd] in q's dtype; head h reads kv head h // G,
-    causal masking is end-aligned; see ``kernels/flash_attention.py``."""
+    causal masking is end-aligned; see ``kernels/flash_attention.py``.
+    Differentiable on either device (the kernel pair on CUDA)."""
     if _on_cpu(q):
         return ref.flash_attention(q, k, v, causal=causal)
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal)
     return _flash_mod.flash_attention_cuda(q, k, v, causal=causal)
 
 
@@ -170,9 +206,16 @@ def flash_block(q, k, v, *, causal: bool, row_valid=None):
 def ssd_intra_chunk(x, dt, A, Bm, Cm, *, chunk: int):
     """The SSD intra-chunk step: x [B, T, H, P], dt [B, T, H], A [H], Bm /
     Cm [B, T, N] -> (y_intra [B, T, H, P], S [B, nc, H, N, P], cd [B, T,
-    H]) float32; see ``kernels/ssd_chunk.py``."""
+    H]) float32; see ``kernels/ssd_chunk.py``.  On the CPU autograd
+    differentiates the plain version; B10 has no backward kernel yet, so a
+    CUDA call whose inputs need a gradient raises."""
     if _on_cpu(x):
         return ref.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=chunk)
+    if _needs_grad(x, dt, A, Bm, Cm):
+        raise NotImplementedError(
+            "ssd_intra_chunk (B10) has no backward kernel on CUDA yet "
+            "(ROADMAP.md A.17 item 4b): Mamba layers cannot train on the "
+            "card")
     return _ssd_mod.ssd_chunk_cuda(x, dt, A, Bm, Cm, chunk=chunk)
 
 

@@ -467,6 +467,40 @@ def flash_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     return o.reshape(B, H, Tq, hd).permute(0, 2, 1, 3).to(q.dtype)
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool):
+    """Plain gradient of :func:`flash_attention` (B9's backward): q / o /
+    do [B, Tq, H, hd], k / v [B, Tk, KV, hd], lse [B, Tq, H] the forward's
+    row log-sum-exp -> (dq, dk, dv) float32, dk / dv summed over each kv
+    head's G query heads.  With the scale c = hd^-1/2 and S the masked
+    scores of :func:`flash_attention`: D = rowsum(dO * O), P = exp(S -
+    lse), dV = P^T dO, dS = P * (dO V^T - D), dQ = c dS K, dK = c dS^T Q.
+    Masked scores get no gradient (dS = 0 there), and a row that sees no
+    key (causal, Tq > Tk) has P = 1 / Tk on every key, as its forward
+    averaged v."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    c = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, Tq, KV, G, hd)
+    dog = do.float().reshape(B, Tq, KV, G, hd)
+    lse_g = lse.float().reshape(B, Tq, KV, G).permute(0, 2, 3, 1)
+    D = torch.sum(do.float() * o.float(), dim=-1)
+    D = D.reshape(B, Tq, KV, G).permute(0, 2, 3, 1)          # [B, KV, G, Tq]
+    p = torch.exp(_gqa_scores(q, k, causal) - lse_g[..., None])
+    if causal:
+        vis = causal_visible(Tq, Tk, q.device)
+        none = ~vis.any(dim=-1)                              # [Tq]
+        p = torch.where(none[:, None], 1.0 / Tk, torch.where(vis, p, 0.0))
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.float())
+    ds = p * (dp - D[..., None])
+    if causal:
+        ds = torch.where(vis, ds, 0.0)
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.float()) * c
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * c
+    return dq.reshape(B, Tq, H, hd), dk, dv
+
+
 def flash_block(q, k, v, *, causal: bool):
     """Plain partial attention (B9's partial epilogue;
     ``repro/apps/attention.py:flash_block``): q [B, Tq, H, hd], k / v

@@ -112,23 +112,41 @@ def ssd_inter_chunk(y_intra: torch.Tensor, S: torch.Tensor, cd: torch.Tensor,
     intra-chunk step's outputs), Cm [B, T, N], h0 [B, H, N, P] or None.
     With h_0 = h0 (zeros) and h_{c+1} = cd_{c, L-1} h_c + S_c, chunk c
     adds C_t cd_t h_c at each of its positions t.  Returns ``(y [B, T, H,
-    P], h_nc [B, H, N, P])`` float32; y is ``y_intra`` updated in place.
+    P], h_nc [B, H, N, P])`` float32; y is ``y_intra`` updated in place,
+    except where an input needs a gradient: then the same arithmetic runs
+    out of place, for autograd.
     """
     Bsz, T, H, P = y_intra.shape
     nc = T // chunk
     N = Cm.shape[-1]
     cd_c = cd.reshape(Bsz, nc, chunk, H)
     cd_last = cd_c[:, :, -1, :, None, None]                 # [B, nc, H, 1, 1]
-    hs = torch.empty(nc + 1, Bsz, H, N, P, dtype=torch.float32,
-                     device=y_intra.device)
-    if h0 is None:
-        hs[0].zero_()
+    grad = torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad
+        for t in (y_intra, S, cd, Cm, h0))
+    if grad:
+        h = (torch.zeros(Bsz, H, N, P, dtype=torch.float32,
+                         device=y_intra.device) if h0 is None else h0.float())
+        states = [h]
+        for c in range(nc):
+            h = torch.addcmul(S[:, c], cd_last[:, c], h)
+            states.append(h)
+        hs = torch.stack(states)
     else:
-        hs[0].copy_(h0)
-    for c in range(nc):
-        torch.addcmul(S[:, c], cd_last[:, c], hs[c], out=hs[c + 1])
+        hs = torch.empty(nc + 1, Bsz, H, N, P, dtype=torch.float32,
+                         device=y_intra.device)
+        if h0 is None:
+            hs[0].zero_()
+        else:
+            hs[0].copy_(h0)
+        for c in range(nc):
+            torch.addcmul(S[:, c], cd_last[:, c], hs[c], out=hs[c + 1])
     h_prev = hs[:-1].permute(1, 0, 3, 2, 4).reshape(Bsz * nc, N, H * P)
     y_inter = torch.bmm(Cm.float().reshape(Bsz * nc, chunk, N), h_prev)
-    y_inter = y_inter.view(Bsz, nc, chunk, H, P).mul_(cd_c[..., None])
+    y_inter = y_inter.view(Bsz, nc, chunk, H, P)
+    if grad:
+        y_inter = y_inter * cd_c[..., None]
+        return y_intra + y_inter.view(Bsz, T, H, P), hs[-1]
+    y_inter.mul_(cd_c[..., None])
     y = y_intra.add_(y_inter.view(Bsz, T, H, P))
     return y, hs[-1].clone()

@@ -2,7 +2,8 @@
 of ``repro/models/common.py``).
 
 Sharding placeholders in ParamDef specs are kept as data ("T" the tensor
-axis, "F" the fsdp axis, None replicated); nothing resolves them yet.
+axis, "F" the fsdp axis, None replicated); ``launch/mesh.py`` resolves
+them against a mesh record.
 """
 
 from __future__ import annotations
@@ -48,6 +49,11 @@ def tree_map(fn, tree: Tree) -> Tree:
     """Apply ``fn`` to every leaf of a nested dict."""
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def spec_tree(defs: Tree) -> Tree:
+    """The placeholder spec tree (same structure as the parameters)."""
+    return tree_map(lambda d: d.spec, defs)
 
 
 def tree_from_numpy(defs: Tree, tree: Tree, dtype, device=None) -> Tree:

@@ -19,12 +19,14 @@ class ModelConfig:
     The port runs every family of the reference: layer kinds "A"
     (attention) and "M" (Mamba2) with their MLP or MoE blocks
     (``models/lm.py``, ``models/moe.py``), the encoder-decoder
-    (``models/whisper.py``) and the vision-patch frontend.  The
-    reference's sharding and
-    compilation fields (``remat``, ``scan_layers``, ``fsdp``, ``attn_sp``,
-    ``seq_shard``, ``dp_axes``, ``tp_axis``, ``unroll_inner``,
-    ``moe_ec_constraint``) are left out: the port runs on one device,
-    eagerly, and nothing here would read them."""
+    (``models/whisper.py``) and the vision-patch frontend, and trains
+    them (``launch/train.py``).  ``remat`` recomputes each superblock's
+    (and, in a multi-layer pattern, each layer's) activations in the
+    backward pass, as the reference's ``jax.checkpoint`` does.  The
+    reference's sharding and compilation fields (``scan_layers``,
+    ``fsdp``, ``attn_sp``, ``seq_shard``, ``dp_axes``, ``tp_axis``,
+    ``unroll_inner``, ``moe_ec_constraint``) are left out: the port runs
+    on one device, eagerly, and nothing here would read them."""
     name: str = "model"
     family: str = "dense"          # dense | ssm | hybrid | moe | audio | vlm
     n_layers: int = 2
@@ -73,6 +75,7 @@ class ModelConfig:
 
     # numerics / execution
     dtype: object = torch.bfloat16
+    remat: bool = True              # recompute activations in backward
     attn_block_k: int = 1024        # kv-block size for blocked attention
     attn_block_threshold: int = 4096  # windowed attention: blocked path when
                                       # T >= this (models/attention.py)

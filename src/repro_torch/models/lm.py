@@ -6,9 +6,15 @@ MLP or MoE block, and "M", the Mamba2 block with an optional MoE block or
 The layer stack is a repeating "superblock" pattern (e.g. Jamba's 7 Mamba
 + 1 attention) whose parameters are stacked over ``n_superblocks`` on a
 leading axis, as in the reference; the port walks the superblocks in a
-plain loop under ``torch.inference_mode()`` (no remat: it serves, it does
-not train).  Parameters are nested dicts of tensors built from the
-ParamDef tables.  Encoder-decoder models are ``models/whisper.py``.
+plain loop.  With ``cfg.remat`` and grad enabled each superblock (and,
+in a pattern of more than one layer, each layer inside it) is recomputed
+in the backward pass (``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` with ``nothing_saveable``).  Training goes through
+:func:`loss_fn` (:func:`chunked_ce`: the [B, T, V] logits are never
+formed); the serving callers (``launch/steps.py``, :func:`decode_step`)
+run under ``torch.inference_mode()``.  Parameters are nested dicts of
+tensors built from the ParamDef tables.  Encoder-decoder models are
+``models/whisper.py``.
 """
 
 from __future__ import annotations
@@ -17,13 +23,14 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import (ParamDef, Tree, apply_mlp, apply_norm, embed_tokens,
-                     init_tree, mlp_defs, norm_defs, tree_from_numpy,
-                     tree_leaves, tree_map)
+                     init_tree, mlp_defs, norm_defs, spec_tree,
+                     tree_from_numpy, tree_leaves, tree_map)
 from .config import ModelConfig
 
 
@@ -77,6 +84,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
     dev = torch.device("cpu" if device is None else device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     return init_tree(model_defs(cfg), gen, cfg.dtype, device=dev)
+
+
+def param_specs(cfg: ModelConfig) -> Tree:
+    """Placeholder PartitionSpec tree matching model_defs."""
+    return spec_tree(model_defs(cfg))
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -143,17 +155,39 @@ def _apply_layer(cfg: ModelConfig, kind: str, j: int, p: Tree, x, positions):
     return _ffn_residual(cfg, p, x)
 
 
+def remat_active(cfg) -> bool:
+    """Recompute activations in the backward pass: ``cfg.remat`` and grad
+    enabled (serving and inference never recompute)."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def _layer_aux(cfg: ModelConfig, kind: str, j: int, p: Tree, x, positions):
+    """:func:`_apply_layer` with the aux loss as a tensor (0 where the
+    layer has none), the form a checkpointed function returns."""
+    x, a = _apply_layer(cfg, kind, j, p, x, positions)
+    return x, a if a is not None else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
+
+
 def _superblock(cfg: ModelConfig, params_sb: Tree, x, positions):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # nested per-layer remat: without it the backward of a long superblock
+    # (jamba: 8 layers) holds every layer's intermediates at once
+    nested = remat_active(cfg) and len(cfg.pattern()) > 1
     for j, kind in enumerate(cfg.pattern()):
-        x, a = _apply_layer(cfg, kind, j, params_sb[f"pos{j}"], x, positions)
+        p = params_sb[f"pos{j}"]
+        if nested:
+            x, a = checkpoint(_layer_aux, cfg, kind, j, p, x, positions,
+                              use_reentrant=False)
+        else:
+            x, a = _apply_layer(cfg, kind, j, p, x, positions)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Forward / loss
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
@@ -174,25 +208,89 @@ def embed_inputs(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor])
     return x, positions
 
 
-@torch.inference_mode()
 def forward_hidden(cfg: ModelConfig, params: Tree,
                    batch: Dict[str, torch.Tensor]):
-    """Forward up to (and incl.) the final norm -> (x [B, T, d], aux)."""
+    """Forward up to (and incl.) the final norm -> (x [B, T, d], aux);
+    each superblock recomputed in the backward pass where
+    :func:`remat_active`."""
     x, positions = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat_active(cfg)
     for i in range(cfg.n_superblocks):
-        x, a = _superblock(cfg, _index(params["layers"], i), x, positions)
+        sb = _index(params["layers"], i)
+        if remat:
+            x, a = checkpoint(_superblock, cfg, sb, x, positions,
+                              use_reentrant=False)
+        else:
+            x, a = _superblock(cfg, sb, x, positions)
         aux = aux + a
     return apply_norm(cfg, params["final_norm"], x), aux
 
 
-@torch.inference_mode()
 def forward(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
     """Forward -> (logits [B, T, V] float32, aux_loss scalar).  Materializes
     the full logits: use for short prompts (tests); prefill takes the last
-    position only (``launch/steps.py``)."""
+    position only (``launch/steps.py``), training :func:`loss_fn`."""
     x, aux = forward_hidden(cfg, params, batch)
     return (x @ _unembed(cfg, params)).float(), aux
+
+
+def _ce_chunk(xc, unembed, lc):
+    """One chunk's (nll sum, z sum, count) of :func:`chunked_ce`."""
+    logits = (xc @ unembed).float()                     # [B, chunk, V]
+    mask = (lc >= 0).float()
+    safe = torch.clamp(lc, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return (torch.sum((logz - gold) * mask), torch.sum((logz * mask) ** 2),
+            torch.sum(mask))
+
+
+def chunked_ce(x_final, unembed, labels, *, chunk: int = 512,
+               z_weight: float = 1e-4):
+    """Cross-entropy over T chunks, so that the full [B, T, V] logits are
+    never formed (V runs to 202k in the assigned archs): under grad each
+    chunk's logits are recomputed in the backward pass instead of kept.
+
+    x_final: [B, T, d] post-final-norm activations; labels [B, T] (< 0
+    masked).  Returns (nll_sum, z_weight * z_sum, count), float32."""
+    B, T, _d = x_final.shape
+    chunk = min(chunk, T)
+    if T % chunk:
+        raise ValueError(f"T = {T} is not a multiple of the chunk {chunk}")
+    labels = torch.as_tensor(labels, device=x_final.device).long()
+    zero = torch.zeros((), dtype=torch.float32, device=x_final.device)
+    nll_s, z_s, cnt = zero, zero, zero
+    remat = torch.is_grad_enabled()
+    for c0 in range(0, T, chunk):
+        xc, lc = x_final[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if remat:
+            n, z, k = checkpoint(_ce_chunk, xc, unembed, lc,
+                                 use_reentrant=False)
+        else:
+            n, z, k = _ce_chunk(xc, unembed, lc)
+        nll_s, z_s, cnt = nll_s + n, z_s + z, cnt + k
+    return nll_s, z_weight * z_s, cnt
+
+
+def loss_fn(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
+            *, aux_weight: float = 0.01, z_weight: float = 1e-4):
+    """Causal LM loss with label masking (labels < 0 are ignored) -> (loss,
+    {"ce", "aux", "zloss"}): ``ce + zloss + aux_weight * aux``.  With
+    vision embeddings in front of the text, their positions get label -1."""
+    x, aux = forward_hidden(cfg, params, batch)
+    labels = torch.as_tensor(batch["labels"], device=x.device).long()
+    if cfg.frontend == "vision_patches" and "vision_embeds" in batch:
+        pad = labels.new_full((labels.shape[0],
+                               x.shape[1] - labels.shape[1]), -1)
+        labels = torch.cat([pad, labels], dim=1)
+    nll_s, z_s, cnt = chunked_ce(x, _unembed(cfg, params), labels,
+                                 z_weight=z_weight)
+    denom = torch.clamp(cnt, min=1.0)
+    ce = nll_s / denom
+    zloss = z_s / denom
+    return ce + zloss + aux_weight * aux, {"ce": ce, "aux": aux,
+                                           "zloss": zloss}
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@ positions on the encoder and the decoder (no RoPE).  The encoder's self
 attention (full) and the decoder's (causal) are unwindowed, so
 ``attention.attention`` runs both through ``ops.flash_attention``: kernel
 B9 on a CUDA tensor.  Cross-attention is the plain product the reference
-uses.  The layers are walked in a plain loop under
-``torch.inference_mode()`` (no remat: the port serves, it does not train).
+uses.  The layers are walked in a plain loop; with ``cfg.remat`` and grad
+enabled each layer is recomputed in the backward pass (the reference's
+``jax.checkpoint`` per scanned layer).  :func:`loss_fn` trains it; the
+cached decode runs under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .common import (ParamDef, Tree, apply_mlp, apply_norm, embed_tokens,
                      init_tree, mlp_defs, norm_defs, sincos_positions,
-                     tree_from_numpy, tree_leaves, tree_map)
+                     spec_tree, tree_from_numpy, tree_leaves, tree_map)
 from .config import ModelConfig
+from .lm import remat_active
 
 
 def _enc_layer_defs(cfg) -> Tree:
@@ -61,6 +65,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
     return init_tree(model_defs(cfg), gen, cfg.dtype, device=dev)
 
 
+def param_specs(cfg: ModelConfig) -> Tree:
+    """Placeholder PartitionSpec tree matching model_defs."""
+    return spec_tree(model_defs(cfg))
+
+
 def count_params(cfg: ModelConfig) -> int:
     """Exact parameter count from the def tree (no allocation)."""
     return int(sum(int(np.prod(d.shape))
@@ -83,39 +92,52 @@ def _sincos(T: int, cfg: ModelConfig, device):
                            device=device).to(cfg.dtype)
 
 
-@torch.inference_mode()
+def _layers(cfg: ModelConfig, blk, layers: Tree, n: int, x, *args):
+    """x through ``blk(cfg, p_i, x, *args)`` for the n stacked layers,
+    each recomputed in the backward pass where ``remat_active``."""
+    remat = remat_active(cfg)
+    for i in range(n):
+        p = tree_map(lambda a: a[i], layers)
+        if remat:
+            x = checkpoint(blk, cfg, p, x, *args, use_reentrant=False)
+        else:
+            x = blk(cfg, p, x, *args)
+    return x
+
+
+def _enc_block(cfg: ModelConfig, p: Tree, x, positions):
+    h = apply_norm(cfg, p["norm1"], x)
+    x = x + attn.attention(cfg, p["attn"], h, positions, causal=False)
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+
+
+def _dec_block(cfg: ModelConfig, p: Tree, x, positions, memory):
+    h = apply_norm(cfg, p["norm1"], x)
+    x = x + attn.attention(cfg, p["self_attn"], h, positions, causal=True)
+    h = apply_norm(cfg, p["norm2"], x)
+    mem_kv = attn.cross_kv(cfg, p["cross_attn"], memory)
+    x = x + attn.cross_attention(cfg, p["cross_attn"], h, mem_kv)
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], x))
+
+
 def encode(cfg: ModelConfig, params: Tree, frames) -> torch.Tensor:
     """frames: [B, T_enc, d] (conv-stub output) -> encoder states."""
     dev = params["embed"].device
     frames = torch.as_tensor(frames, device=dev)
     x = frames.to(cfg.dtype) + _sincos(frames.shape[1], cfg, dev)
-    positions = _positions(x)
-    layers = params["enc_layers"]
-    for i in range(_n_enc(cfg)):
-        p = tree_map(lambda a: a[i], layers)
-        h = apply_norm(cfg, p["norm1"], x)
-        x = x + attn.attention(cfg, p["attn"], h, positions, causal=False)
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    x = _layers(cfg, _enc_block, params["enc_layers"], _n_enc(cfg), x,
+                _positions(x))
     return apply_norm(cfg, params["enc_norm"], x)
 
 
-@torch.inference_mode()
 def decode_train(cfg: ModelConfig, params: Tree, tokens,
                  memory) -> torch.Tensor:
     """Teacher-forced decoder: tokens [B, T_dec], memory [B, T_enc, d] ->
     logits [B, T_dec, V] float32 (tied embedding)."""
     x = embed_tokens(cfg, params, tokens)
     x = x + _sincos(x.shape[1], cfg, x.device)
-    positions = _positions(x)
-    layers = params["dec_layers"]
-    for i in range(cfg.n_layers):
-        p = tree_map(lambda a: a[i], layers)
-        h = apply_norm(cfg, p["norm1"], x)
-        x = x + attn.attention(cfg, p["self_attn"], h, positions, causal=True)
-        h = apply_norm(cfg, p["norm2"], x)
-        mem_kv = attn.cross_kv(cfg, p["cross_attn"], memory)
-        x = x + attn.cross_attention(cfg, p["cross_attn"], h, mem_kv)
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], x))
+    x = _layers(cfg, _dec_block, params["dec_layers"], cfg.n_layers, x,
+                _positions(x), memory)
     x = apply_norm(cfg, params["final_norm"], x)
     return (x @ params["embed"].T).float()
 
@@ -125,6 +147,21 @@ def forward(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
     memory = encode(cfg, params, batch["frames"])
     logits = decode_train(cfg, params, batch["tokens"], memory)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
+            **_):
+    """Masked cross-entropy over valid (label >= 0) positions -> (ce,
+    {"ce", "aux", "zloss"}), on the full teacher-forced logits (T_dec is
+    short), as the reference."""
+    logits, aux = forward(cfg, params, batch)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    mask = (labels >= 0).float()
+    safe = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce, {"ce": ce, "aux": aux, "zloss": torch.zeros_like(ce)}
 
 
 # ---------------------------------------------------------------------------

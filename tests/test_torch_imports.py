@@ -51,7 +51,10 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.configs.llama4_scout_17b_a16e, "
         "repro_torch.configs.llama4_maverick_400b_a17b, "
         "repro_torch.configs.whisper_large_v3, "
-        "repro_torch.configs.qwen2_vl_72b\n"
+        "repro_torch.configs.qwen2_vl_72b, repro_torch.optim, "
+        "repro_torch.optim.adamw, repro_torch.optim.compress, "
+        "repro_torch.data, repro_torch.data.pipeline, "
+        "repro_torch.launch.mesh, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -137,6 +140,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
     for arch in ("jamba_v0_1_52b", "llama4_scout_17b_a16e", "qwen2_vl_72b"):
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.serve(arch, smoke=True)
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.launch import mesh, train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train("starcoder2_3b", steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "starcoder2_3b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_pipeline(DataConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh((1,), ("data",))
     assert comm.SingleProcessComm(4, "cpu").device.type == "cpu"
 
 

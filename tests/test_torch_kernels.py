@@ -216,6 +216,8 @@ def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
                                       "repro_pairwise_threshold_q",
                                       "repro_flash_attention",
                                       "repro_flash_attention_tc",
+                                      "repro_flash_attention_bwd",
+                                      "repro_flash_attention_bwd_tc",
                                       "repro_ssd_chunk"}
     key = _build.build_key()
     assert key == _build.build_key() and len(key) == 16
@@ -238,7 +240,8 @@ def test_launch_counts_reset():
                                    "pairwise_topk": 0,
                                    "pairwise_threshold_q": 0,
                                    "pairwise_topk_q": 0,
-                                   "flash_attention": 0, "ssd_chunk": 0}
+                                   "flash_attention": 0,
+                                   "flash_attention_bwd": 0, "ssd_chunk": 0}
     # the plain path on the CPU launches nothing
     ops.pairwise_corr(torch.zeros(1, 2, 3), torch.zeros(1, 2, 3))
     assert sum(ops.launch_counts().values()) == 0

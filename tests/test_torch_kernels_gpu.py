@@ -984,6 +984,114 @@ def test_flash_strided_views(cuda, dtype):
         assert torch.equal(a, b)
 
 
+# B9 backward (csrc/flash_attention_bwd{,_tc}.cu): chip_smoke.py phase
+# 31's cells (starcoder2's training shape in bf16 and f32, whisper's
+# encoder shape, hd 256), ragged Tq / Tk off the 64- / 32-row tiles, G = 8,
+# hd 64, 80, 128, 256 and 36 (bf16 on the SIMT route), both routes
+FLASH_BWD_CELLS = [(2, 4096, 4096, 2, 12, 128, True, torch.bfloat16),
+                   (2, 4096, 4096, 2, 12, 128, True, torch.float32),
+                   (8, 1500, 1500, 20, 1, 64, False, torch.bfloat16),
+                   (1, 1024, 1024, 2, 4, 256, True, torch.bfloat16),
+                   (2, 100, 100, 2, 8, 64, True, torch.float32),
+                   (1, 70, 200, 1, 8, 80, True, torch.bfloat16),
+                   (1, 96, 40, 1, 5, 64, True, torch.float32),
+                   (1, 130, 97, 2, 3, 80, False, torch.float32),
+                   (2, 129, 129, 1, 8, 128, True, torch.bfloat16),
+                   (1, 33, 65, 2, 2, 256, True, torch.float32),
+                   (1, 257, 129, 1, 8, 256, False, torch.bfloat16),
+                   (1, 129, 100, 2, 2, 36, True, torch.bfloat16),
+                   (2, 63, 65, 1, 8, 128, True, torch.bfloat16),
+                   (1, 40, 96, 2, 1, 64, False, torch.bfloat16)]
+
+
+def flash_bwd_rule(got, want):
+    """Largest share of the rule over the elements: f32 1e-4 * max(1,
+    max |want|); bf16 2^-6 |want| + 2^-8 max |want|."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    if got.dtype == torch.float32:
+        return float(err.max()) / (1e-4 * max(1.0, float(want.abs().max())))
+    lim = 2.0 ** -6 * want.abs() + 2.0 ** -8 * float(want.abs().max())
+    return float((err / lim).max())
+
+
+@pytest.mark.parametrize("B,Tq,Tk,KV,G,hd,causal,dtype", FLASH_BWD_CELLS)
+def test_flash_attention_bwd(cuda, B, Tq, Tk, KV, G, hd, causal, dtype):
+    """dq / dk / dv of the kernel pair against ``ref.flash_attention_bwd``
+    in f32 on the same q, k, v, o, lse, dO, each within its rule; the
+    forward's o with lse is bit-equal to the forward without it."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(cuda, B, Tq, Tk, KV, G, hd, dtype, Tq + Tk + hd)
+    do = torch.randn(q.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(5)
+                     ).to(dtype)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+    assert torch.equal(o, flash_attention_cuda(q, k, v, causal=causal))
+    _wo, wm, wl = ref.flash_block(q, k, v, causal=causal)
+    seen = wm > -1e29           # rows that see a key
+    torch.testing.assert_close(lse[seen], (wm + torch.log(wl))[seen],
+                               rtol=1e-5, atol=1e-5)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        assert flash_bwd_rule(g, w) <= 1.0, name
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    for g, a in zip(got, again):       # no atomics: the same bits
+        assert torch.equal(g, a)
+
+
+def test_flash_attention_bwd_routes_and_alignment(cuda):
+    """bf16 with hd % 8 == 0 up to 128 takes the mma route, the rest the
+    SIMT one; tensors off a 16-byte boundary (views at an odd offset) give
+    the aligned call's bits."""
+    from repro_torch.kernels.flash_attention import (
+        bwd_route_of, flash_attention_bwd_cuda, flash_attention_cuda)
+    assert [bwd_route_of(torch.bfloat16, hd) for hd in (64, 80, 128, 36,
+                                                        256)] == \
+        ["mma", "mma", "mma", "simt", "simt"]
+    assert bwd_route_of(torch.float32, 64) == "simt"
+    q, k, v = _qkv(cuda, 1, 70, 70, 2, 3, 64, torch.bfloat16, 4)
+    do = torch.randn_like(q)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    want = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 3, dtype=t.dtype, device=t.device)
+        out = buf[3:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 != 0
+        return out
+
+    got = flash_attention_bwd_cuda(*(shifted(t) for t in (q, k, v, o)), lse,
+                                   shifted(do), causal=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_autograd_route(cuda, causal):
+    """``ops.flash_attention`` on CUDA tensors that need a gradient: the
+    kernel pair's gradients against autograd of the plain attention at a
+    tiny f32 shape (1e-5), one forward with lse and one backward counted."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(cuda, 2, 37, 53, 2, 3, 16, torch.float32, 11))
+    do = torch.randn(2, 37, 6, 16, device=cuda)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=causal),
+                              (q, k, v), do)
+    assert flash_mod.launches == 1 and flash_mod.bwd_launches == 1
+    want = torch.autograd.grad(ref.flash_attention(q, k, v, causal=causal),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, float(w.abs().max())))
+
+
 def _ssd_inputs(cuda, B, T, H, P, N, seed):
     rng = np.random.default_rng(seed)
     # x, B and C as strided views into one projection, as in the model
