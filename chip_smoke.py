@@ -10,11 +10,12 @@ beside the script).  Phases:
 
   1. the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel); read
-     the library's SASS with ``cuobjdump``: the bf16 B9 kernel must issue
-     HGMMA (``wgmma``), B7's and B8's tensor-core kernels IMMA / HMMA
-     (``mma.sync``), B2, B5 and B7 no atomics, B3, B4, B6 and B8 no float
-     atomics; and count the SASS instructions of B3's one-trio probes (the
-     exact chain, the prefilter);
+     the library's SASS with ``cuobjdump``: the bf16 B9 kernel and every
+     instantiation of its backward's tensor-core kernel must issue HGMMA
+     (``wgmma``), B7's and B8's tensor-core kernels IMMA / HMMA
+     (``mma.sync``), B2, B5 and B7 no atomics, B3, B4, B6, B8 and B9's
+     backward no float atomics; and count the SASS instructions of B3's
+     one-trio probes (the exact chain, the prefilter);
   2. B1 pairwise_batch (bit-equal across two launches, timed by kernel:
      plan, side pass, reduction), B2 pairwise_corr and B3 pcit_filter
      (with the deciles of its search lengths, the useful share of its
@@ -128,14 +129,16 @@ beside the script).  Phases:
  30. qwen2-vl-72b at full width and 2 layers: 1,024 vision embeddings +
      31,744 text tokens through M-RoPE and B9, and the B9 route against
      the plain attention at T = 4,096;
- 31. B9's backward (``csrc/flash_attention_bwd.cu``) against its plain
-     version (``kernels/ref.py``, f32) at starcoder2-3b's training shape
-     q [2, 4096, 24, 128], k / v [2, 4096, 2, 128] causal in bf16 and f32,
-     whisper's encoder shape [8, 1500, 20, 64] full and an hd 256 cell,
-     each gradient within its rule (f32 1e-4 max(1, max |want|), bf16
-     2^-6 |want| + 2^-8 max |want|), bit-equal across two launches, the
-     forward's o with lse bit-equal to it without, timed beside
-     scaled_dot_product_attention's backward;
+ 31. B9's backward (bf16 ``wgmma`` route ``csrc/flash_attention_bwd_tc.cu``,
+     f32 and hd 256 on the SIMT ``csrc/flash_attention_bwd.cu``) against
+     its plain version (``kernels/ref.py``, f32) at starcoder2-3b's
+     training shape q [2, 4096, 24, 128], k / v [2, 4096, 2, 128] causal in
+     bf16 and f32, whisper's encoder shape [8, 1500, 20, 64] full and an
+     hd 256 cell, each gradient within its rule (f32 1e-4 max(1, max
+     |want|), bf16 2^-6 |want| + 2^-8 max |want|), bit-equal across two
+     launches, the forward's o with lse bit-equal to it without, timed
+     beside scaled_dot_product_attention's backward (route, ms, issued and
+     counted TFLOP/s, share of the bound);
  32. starcoder2-3b training at full width and depth (3,180,705,792 random
      bf16 parameters, AdamW in f32): ``build_train_step`` on train_4k with
      the global batch cut from 256 to 4 (2 microbatches of 2 x 4,096
@@ -419,15 +422,31 @@ ANY_ATOMIC = re.compile(r"(?<![\w.])(?:ATOMG?|ATOMS|RED)\.[A-Z0-9_.]*")
 
 
 def check_sass(lib: Path) -> None:
-    """The bf16 B9 kernel runs on the tensor cores (every instantiation
-    issues HGMMA, the SASS of ``wgmma``); B7's and B8's tensor-core routes
-    issue IMMA (int8) and HMMA (bf16), the SASS of ``mma.sync``; B2, B5
-    and B7 issue no atomics, and B3, B4, B6 and B8 no float atomics."""
+    """The bf16 B9 kernel and its backward's tensor-core kernel run on the
+    tensor cores (every instantiation issues HGMMA, the SASS of
+    ``wgmma``); B7's and B8's tensor-core routes issue IMMA (int8) and HMMA
+    (bf16), the SASS of ``mma.sync``; B2, B5 and B7 issue no atomics, and
+    B3, B4, B6, B8 and B9's backward no float atomics."""
     funcs = sass_functions(lib)
     tc = {n: f.count("HGMMA") for n, f in funcs.items()
           if "flash_tc_kernel" in n}
     check(len(tc) == 3 and all(c > 0 for c in tc.values()),
           f"B9 bf16: HGMMA counts per instantiation {sorted(tc.values())}")
+    # B9's backward: bwd_tc_kernel<64 | 128> on wgmma; it, its prologue
+    # and slice sum (flash_attention_bwd_tc.cu) and the SIMT pair
+    # (flash_attention_bwd.cu; the anonymous namespace puts the file's
+    # name in every kernel's) issue no float atomic (the dQ chain passes
+    # an integer counter)
+    bwd_tc = {n: f.count("HGMMA") for n, f in funcs.items()
+              if "bwd_tc_kernel" in n}
+    check(len(bwd_tc) == 2 and all(c > 0 for c in bwd_tc.values()),
+          f"B9 backward bf16: HGMMA counts per instantiation "
+          f"{sorted(bwd_tc.values())}")
+    bwd = {n: f for n, f in funcs.items() if "flash_attention_bwd" in n}
+    bwd_float = sum(len(FLOAT_ATOMIC.findall(f)) for f in bwd.values())
+    check(len(bwd) >= 6 and bwd_float == 0,
+          f"B9 backward: {len(bwd)} kernels, {bwd_float} float atomics: "
+          f"{sorted(bwd)}")
     # B2: the 16-byte-copy and the plain-load instantiations
     corr = [f for n, f in funcs.items() if "corr_kernel" in n]
     atomics = sum(f.count("ATOM") + f.count("RED.") for f in corr)
@@ -501,7 +520,10 @@ def check_sass(lib: Path) -> None:
         f"prefilter {sass_ops['prefilter_probe'][0]} "
         f"({sass_ops['prefilter_probe'][1]})")
     say(f"SASS: bf16 B9 (flash_tc_kernel, hd padded to 64 / 128 / 256) "
-        f"HGMMA instructions {sorted(tc.values())}; B2 (corr_kernel, two "
+        f"HGMMA instructions {sorted(tc.values())}; B9 backward "
+        f"(bwd_tc_kernel, hd padded to 64 / 128) HGMMA "
+        f"{sorted(bwd_tc.values())}, float atomics {bwd_float} in its "
+        f"{len(bwd)} kernels; B2 (corr_kernel, two "
         f"instantiations) atomics {atomics}; B8 (topk_tc_kernel) IMMA "
         f"{imma} int8, HMMA {hmma} bf16; B4 / B8 ({len(sel)} kernels) float "
         f"atomics {f_atomics}; B7 (band_tc_kernel) IMMA {imma7} int8, HMMA "
@@ -2877,8 +2899,9 @@ def phase_observability() -> None:
 
 def device_breakdown(fn) -> dict:
     """Device ms by kernel family over one call of ``fn``, from
-    torch.profiler (CUPTI): B9 (``flash``), its backward (``dq[_tc]_kernel``,
-    ``dkv[_tc]_kernel``), B10 (``ssd_``), GEMMs, the
+    torch.profiler (CUPTI): B9 (``flash``), its backward (the SIMT pair's
+    ``dq_kernel`` / ``dkv_kernel``, the wgmma route's ``bwd_*_kernel``s),
+    B10 (``ssd_``), GEMMs, the
     sort / scan / index / gather kernels (the MoE dispatch, with the
     embedding gather), everything else, the ten costliest kernels by name,
     and ``wall`` the host clock around that same call (synchronized),
@@ -2899,7 +2922,8 @@ def device_breakdown(fn) -> dict:
             continue
         ms = e.device_time_total / 1e3
         key = e.key.lower()
-        if re.search(r"\bd(q|kv)(_tc)?_kernel", key):
+        if re.search(r"\bd(q|kv)_kernel|\bbwd_(tc|prologue|slices)_kernel",
+                     key):
             fam["b9_bwd"] += ms
         elif "flash" in key:
             fam["b9"] += ms
@@ -2933,7 +2957,7 @@ def say_breakdown(what: str, split: dict, counts: dict) -> float:
     idle = max(0.0, 1.0 - dev_ms / split["wall"])
     names = {"b9": f"B9 ({counts.get('flash_attention', 0)} launches)",
              "b9_bwd": f"B9 backward ({counts.get('flash_attention_bwd', 0)}"
-             " calls of two kernels)",
+             " calls)",
              "b10": f"B10 ({counts.get('ssd_chunk', 0)} launches)",
              "gemm": "GEMMs", "dispatch": "sort / scan / index kernels (MoE "
              "dispatch, with the embedding gather)", "other": "the rest"}
@@ -3878,7 +3902,8 @@ def flash_bwd_ratio(got, want) -> float:
 def phase_flash_bwd(report: dict) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        bwd_route_of, flash_attention_bwd_cuda, flash_attention_cuda)
+        bwd_plan, bwd_route_of, flash_attention_bwd_cuda,
+        flash_attention_cuda)
     F = torch.nn.functional
     for name, B, T, H, KV, hd, causal, dtype in FLASH_BWD_CELLS:
         g = torch.Generator(device=DEVICE).manual_seed(31 + hd)
@@ -3917,31 +3942,43 @@ def phase_flash_bwd(report: dict) -> None:
             out, (qs, ks, vs), dos, retain_graph=True))
         del out, qs, ks, vs, dos
         # 10 hd operations per visible pair (S, dP, dV, dQ, dK), each input
-        # read once, each gradient written once
+        # read once, each gradient written once; issued: what the route's
+        # kernels compute (wgmma: whole tiles, BwdPlan.issued_ops; SIMT: S
+        # and dP in both launches, 14 hd)
         n_ops = 2.5 * flash_ops(B, T, T, H, hd, causal)
+        route = bwd_route_of(dtype, hd)
+        issued = (bwd_plan(B, T, T, H, KV, hd, causal).issued_ops()
+                  if route == "wgmma" else 1.4 * n_ops)
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
             else PEAK_FP32_FLOPS
         b_ms, b_by = bound(nbytes(q, k, v, o, lse, do, *got), n_ops, peak)
-        say(f"B9 backward {name} ({str(dtype)[6:]}, "
-            f"{bwd_route_of(dtype, hd)} route) q {tuple(q.shape)} kv "
-            f"{tuple(k.shape)} causal={causal}: dq / dk / dv max abs err "
-            f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}, "
-            f"{ratios[0]:.3f} / {ratios[1]:.3f} / {ratios[2]:.3f} of the "
-            f"rule; o with lse bit-equal, two launches bit-equal; kernel "
-            f"{ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), plain "
-            f"{plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by}, {n_ops:.3e} operations on "
+        say(f"B9 backward {name} ({str(dtype)[6:]}, {route} route) q "
+            f"{tuple(q.shape)} kv {tuple(k.shape)} causal={causal}: dq / dk "
+            f"/ dv max abs err {errs[0]:.3e} / {errs[1]:.3e} / "
+            f"{errs[2]:.3e}, {ratios[0]:.3f} / {ratios[1]:.3f} / "
+            f"{ratios[2]:.3f} of the rule; o with lse bit-equal, two "
+            f"launches bit-equal; kernel {ms:.3f} ms ({issued / ms / 1e9:.1f}"
+            f" TFLOP/s issued, {n_ops / ms / 1e9:.1f} counted at 10 hd a "
+            f"pair; {b_ms / ms:.3f} of the bound), plain {plain_ms:.3f} ms, "
+            f"sdpa backward {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
+            f"{n_ops:.3e} operations on "
             f"{'bf16 tensor cores' if peak == PEAK_BF16_FLOPS else 'fp32'})")
         cell = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    route=route, tflops_issued=issued / ms / 1e9,
+                    tflops=n_ops / ms / 1e9, bound_share=b_ms / ms)
         if name == "starcoder2 train":
-            report["flash_attention_bwd"] = dict(cell, launches=0)
+            report["flash_attention_bwd"] = dict(
+                cell, launches=0, **{"bwd_" + k: cell[k] for k in (
+                    "route", "tflops_issued", "tflops", "bound_share")})
         else:
             tag = {"starcoder2 train f32": "f32_",
                    "whisper encoder": "whisper_", "hd 256": "hd256_"}[name]
             report["flash_attention_bwd"].update(
                 {tag + k: cell[k] for k in ("ms", "library_ms", "bound_ms",
-                                            "max_abs_err")})
+                                            "max_abs_err", "route",
+                                            "tflops_issued", "tflops",
+                                            "bound_share")})
         del q, k, v, o, lse, do, got
 
 
@@ -4138,7 +4175,7 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:103"),
     # B9's gradient: no Pallas backward exists (the JAX package's train
     # step differentiates its plain attention with XLA); it is the backward
-    # of the kernel above.  The row's launch is bf16 at hd 128 (mma.sync);
+    # of the kernel above.  The row's launch is bf16 at hd 128 (wgmma);
     # f32 and the other widths run csrc/flash_attention_bwd.cu
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd_tc.cu",
                             "src/repro/kernels/flash_attention.py:103"),
@@ -4243,7 +4280,7 @@ def main() -> int:
                                          "f32_", "decode_", "quorum_",
                                          "prefill_", "jamba_", "llama4_",
                                          "whisper_", "qwen2vl_",
-                                         "hd256_", "train_"))}})
+                                         "hd256_", "train_", "bwd_"))}})
     say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

@@ -4,9 +4,9 @@
 // XLA, so this kernel is the counterpart of that autodiff, for the forward
 // kernels of flash_attention.cu / flash_attention_tc.cu (which replace
 // repro/kernels/flash_attention.py:flash_attention_pallas).  It runs
-// float32 inputs, and bfloat16 at the head widths the mma.sync pair of
-// flash_attention_bwd_tc.cu does not take (hd not a multiple of 8, or
-// above 128).
+// float32 inputs, and bfloat16 at the head widths the wgmma kernels of
+// flash_attention_bwd_tc.cu do not take (hd not a multiple of 8, or above
+// 128).
 //
 // q, o, do [B, Tq, H, hd], k / v [B, Tk, KV, hd], all contiguous, in one
 // type (float32 or bfloat16); lse [B, Tq, H] float32 is the forward's

@@ -89,8 +89,10 @@ SIGNATURES = {
     # q, k, v, o, lse, do, D, dq, dk, dv, B, Tq, Tk, H, KV, hd, causal,
     # bf16, stream: B9's backward (SIMT)
     "repro_flash_attention_bwd": [_vp] * 10 + [_i] * 8 + [_vp],
-    # the same without the dtype flag (bfloat16, mma.sync)
-    "repro_flash_attention_bwd_tc": [_vp] * 10 + [_i] * 7 + [_vp],
+    # q, k, v, o, lse, do, D, lse rows, dq accumulator, chain counters, dk
+    # and dv slice partials, dq, dk, dv, B, Tq, Tk, H, KV, hd, causal,
+    # slices, stream: B9's backward in bfloat16 (wgmma)
+    "repro_flash_attention_bwd_tc": [_vp] * 15 + [_i] * 8 + [_vp],
     # x, dt, A, B, C, y, S, cd, batch, T, H, P, N, chunk, the (batch, time,
     # head) strides of x, the (batch, time) strides of B and C, stream
     "repro_ssd_chunk": [_vp] * 8 + [_i] * 6 + [_ll] * 7 + [_vp],

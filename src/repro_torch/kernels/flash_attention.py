@@ -32,15 +32,22 @@ The normalized epilogue can also write the row's log-sum-exp
 The backward (:func:`flash_attention_bwd_cuda`) has no Pallas
 counterpart: the JAX package differentiates its plain attention with XLA,
 and these kernels compute that gradient (dq, dk, dv) from q, k, v, o, lse
-and dO in two launches (dq with the D = rowsum(dO * O) prologue, then
-dk / dv a block per kv-head key tile walking its G query heads), no
-atomics.  Two routes, by dtype and head width (:func:`bwd_route_of`):
-``"mma"`` (``csrc/flash_attention_bwd_tc.cu``, bf16 with hd a multiple of
-8 up to 128: every product on ``mma.sync`` bf16 tensor cores, P and dS
-rounded to bf16 as their products' operands) and ``"simt"``
-(``csrc/flash_attention_bwd.cu``, float32 arithmetic; float32 inputs and
-the other bf16 widths).  ``ops.flash_attention`` reaches them through a
-``torch.autograd.Function`` on a CUDA tensor that needs a gradient.
+and dO, no float atomics, every sum in a fixed order.  Two routes, by
+dtype and head width (:func:`bwd_route_of`):
+
+* ``"wgmma"`` (``csrc/flash_attention_bwd_tc.cu``, bf16 with hd a
+  multiple of 8 up to 128): a prologue (D = rowsum(dO * O)), one fused
+  launch of a block per (128-key tile, b, kv head, slice of the kv head's
+  G query heads) that forms S and dP once per visible pair on ``wgmma``
+  and passes each query tile's dQ from key tile to key tile through an
+  integer counter, and, when the heads are cut into s > 1 slices, a sum of
+  the slices' dK / dV partials.  :func:`bwd_plan` is its launch plan.
+* ``"simt"`` (``csrc/flash_attention_bwd.cu``, float32 arithmetic; float32
+  inputs and the other bf16 widths): dq with the D prologue, then dk / dv
+  a block per kv-head key tile walking its G query heads.
+
+``ops.flash_attention`` reaches them through a ``torch.autograd.Function``
+on a CUDA tensor that needs a gradient.
 
 The plain versions beside them are :func:`flash_attention_plain`,
 :func:`flash_block_plain` and :func:`flash_attention_bwd_plain`; the
@@ -49,6 +56,9 @@ device dispatch is :func:`repro_torch.kernels.ops.flash_attention` /
 """
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -60,12 +70,17 @@ from .ref import flash_block as flash_block_plain
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "flash_attention_plain", "flash_attention_bwd_plain",
            "flash_block_plain", "launches", "bwd_launches", "route_of",
-           "bwd_route_of"]
+           "bwd_route_of", "BwdPlan", "bwd_plan"]
 
 #: forward kernel launches since the count was last set to 0 (both routes)
 launches = 0
-#: backward calls (two kernel launches each: dq, then dk / dv)
+#: backward calls (each two or three kernel launches of one route)
 bwd_launches = 0
+
+#: query rows a unit and keys a block of the ``"wgmma"`` backward
+BWD_BQ, BWD_BK = 64, 128
+#: streaming multiprocessors of the H100 SXM, for the slice count
+SMS = 132
 
 
 def route_of(dtype: torch.dtype) -> str:
@@ -76,10 +91,135 @@ def route_of(dtype: torch.dtype) -> str:
 
 
 def bwd_route_of(dtype: torch.dtype, hd: int) -> str:
-    """The backward kernels a CUDA call launches: ``"mma"`` for bfloat16
+    """The backward kernels a CUDA call launches: ``"wgmma"`` for bfloat16
     with hd a multiple of 8 up to 128, else ``"simt"``."""
-    return "mma" if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= 128 \
-        else "simt"
+    return "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 \
+        and hd <= 128 else "simt"
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """The launch plan of the ``"wgmma"`` backward (what
+    ``csrc/flash_attention_bwd_tc.cu`` computes from the same numbers).
+
+    Block ``i`` of the fused launch owns key tile ``kt = i // ncol`` (keys
+    ``[kt * bk, kt * bk + bk)``) of batch row ``b``, kv head ``kvh`` and head
+    slice ``sl``, with ``i % ncol = (b * KV + kvh) * slices + sl``: blocks
+    are numbered key-tile-major.  It walks its units (:meth:`units`): the
+    query tiles of ``bq`` rows from the last down to :meth:`qt0`, and in
+    each the slice's heads in order.  Query tile ``qt`` of head ``h`` sums
+    its dQ over key tiles ``0 .. chain_len[qt] - 1`` in that order: a block
+    only ever waits on the block ``ncol`` indices before it."""
+
+    B: int
+    Tq: int
+    Tk: int
+    H: int
+    KV: int
+    hd: int
+    causal: bool
+    slices: int
+    bq: int = BWD_BQ
+    bk: int = BWD_BK
+
+    @property
+    def G(self) -> int:
+        return self.H // self.KV
+
+    @property
+    def hdp(self) -> int:
+        """hd padded to the kernel's tile width (64 or 128)."""
+        return 64 if self.hd <= 64 else 128
+
+    @property
+    def nqt(self) -> int:
+        return -(-self.Tq // self.bq)
+
+    @property
+    def nkt(self) -> int:
+        return -(-self.Tk // self.bk)
+
+    @property
+    def ncol(self) -> int:
+        return self.B * self.KV * self.slices
+
+    @property
+    def blocks(self) -> int:
+        return self.nkt * self.ncol
+
+    def head_slice(self, sl: int) -> range:
+        """The query heads (0 .. G - 1 within the kv head) of slice sl."""
+        return range(sl * self.G // self.slices,
+                     (sl + 1) * self.G // self.slices)
+
+    def block(self, i: int) -> tuple[int, int, int, int]:
+        """(kt, b, kvh, sl) of block i."""
+        kt, c = divmod(i, self.ncol)
+        bk, sl = divmod(c, self.slices)
+        b, kvh = divmod(bk, self.KV)
+        return kt, b, kvh, sl
+
+    def qt0(self, kt: int) -> int:
+        """The first query tile with a row that sees a key of tile kt (with
+        causal Tq > Tk the first rows see no key and weigh every key)."""
+        off = self.Tk - self.Tq
+        if self.causal and off >= 0:
+            return max(0, kt * self.bk - off) // self.bq
+        return 0
+
+    def units(self, kt: int, sl: int) -> list[tuple[int, int]]:
+        """(query tile, head within the kv head) of a block, in its order."""
+        return [(qt, g) for qt in range(self.nqt - 1, self.qt0(kt) - 1, -1)
+                for g in self.head_slice(sl)]
+
+    def skips(self, kt: int, w: int, qt: int) -> bool:
+        """Whether warpgroup w (keys ``kt * bk + 64 w ..``) of a block skips
+        query tile qt: none of its keys is visible to the tile's rows (and
+        no row sees no key), so its P and dS are 0."""
+        kw0, q0, off = kt * self.bk + 64 * w, qt * self.bq, self.Tk - self.Tq
+        return kw0 >= self.Tk or (self.causal and q0 + off >= 0 and
+                                  kw0 > min(q0 + self.bq, self.Tq) - 1 + off)
+
+    def issued_ops(self) -> int:
+        """Tensor-core operations the fused launch issues (padding and
+        masked entries included): per unit, each warpgroup that does not
+        skip forms S^T, dP^T, dV and dK (2 * 64 * bq * hdp each), and the
+        block forms dQ (2 * bq * bk * hdp)."""
+        per_wg = 4 * 2 * 64 * self.bq * self.hdp
+        dq = 2 * self.bq * self.bk * self.hdp
+        total = 0
+        for kt in range(self.nkt):
+            for qt in range(self.qt0(kt), self.nqt):
+                total += dq + per_wg * sum(not self.skips(kt, w, qt)
+                                           for w in range(self.bk // 64))
+        return total * self.B * self.H
+
+    @property
+    def chain_len(self) -> tuple[int, ...]:
+        """Key tiles in each query tile's dQ chain (tiles 0 .. n - 1)."""
+        off = self.Tk - self.Tq
+        if self.causal and off >= 0:
+            return tuple(min(self.nkt - 1,
+                             (qt * self.bq + self.bq - 1 + off) // self.bk)
+                         + 1 for qt in range(self.nqt))
+        return (self.nkt,) * self.nqt
+
+
+def bwd_plan(B: int, Tq: int, Tk: int, H: int, KV: int, hd: int,
+             causal: bool, *, slices: int | None = None,
+             sms: int = SMS) -> BwdPlan:
+    """The ``"wgmma"`` backward's launch plan.  The slice count (unless
+    given) is the least that gives the fused launch about three blocks per
+    SM, ``B * KV * nkt * s >= 3 * sms``, at most G: starcoder2's training
+    shape (B 2, KV 2, Tk 4,096: 128 key tiles) takes 4, whisper's encoder
+    (B 8, KV 20, Tk 1,500: 1,920) 1."""
+    G = H // KV
+    if slices is None:
+        tiles = B * KV * -(-Tk // BWD_BK)
+        slices = min(G, max(1, math.ceil(3 * sms / max(tiles, 1))))
+    if not 1 <= slices <= G:
+        raise ValueError(f"slices must be in 1..{G}, got {slices}")
+    return BwdPlan(B, Tq, Tk, H, KV, hd, bool(causal), slices)
 
 
 def _check(q, k, v):
@@ -171,9 +311,11 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
     q / o / do [B, Tq, H, hd], k / v [B, Tk, KV, hd] (one dtype, float32 or
     bfloat16), lse [B, Tq, H] float32 from the forward's ``with_lse`` ->
     (dq, dk, dv) in q's dtype, dk / dv summed over each kv head's G query
-    heads.  Two kernel launches on the current stream (dq with the D
-    prologue, then dk / dv) of the route :func:`bwd_route_of` names,
-    counted once in ``bwd_launches``."""
+    heads.  The kernels of the route :func:`bwd_route_of` names, on the
+    current stream: ``"wgmma"`` the prologue, the fused launch and (with
+    s > 1 head slices) the slice sum, as :func:`bwd_plan` lays them out;
+    ``"simt"`` dq with the D prologue, then dk / dv.  Counted once in
+    ``bwd_launches``."""
     global bwd_launches
     _check(q, k, v)
     _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
@@ -187,8 +329,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
     if lse.shape != (B, Tq, H) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be [B, Tq, H] = {(B, Tq, H)} float32, "
                          f"got {tuple(lse.shape)} {lse.dtype}")
-    # contiguous, and 16-byte aligned for the mma route's vector loads (a
-    # fresh copy is)
+    # contiguous, and 16-byte aligned for the wgmma route's 16-byte copies
+    # (a fresh copy is)
     q, k, v, o, lse, do = (
         t if t.is_contiguous() and t.data_ptr() % 16 == 0
         else t.clone(memory_format=torch.contiguous_format)
@@ -197,17 +339,40 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
         torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    D = torch.empty(B, Tq, H, dtype=torch.float32, device=q.device)
     lib = _build.library()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), D.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, KV, hd, int(causal))
-    with torch.cuda.device(q.device):
-        if bwd_route_of(q.dtype, hd) == "mma":
-            rc = lib.repro_flash_attention_bwd_tc(*args, _build.stream_of(q))
+    f32, dev = torch.float32, q.device
+    with torch.cuda.device(dev):
+        if bwd_route_of(q.dtype, hd) == "wgmma":
+            plan = bwd_plan(B, Tq, Tk, H, KV, hd, causal,
+                            sms=torch.cuda.get_device_properties(
+                                dev).multi_processor_count)
+            TqP = plan.nqt * plan.bq
+            D = torch.empty(B, H, TqP, dtype=f32, device=dev)
+            lse_rows = torch.empty(B, H, TqP, dtype=f32, device=dev)
+            dq_acc = torch.empty(B, H, TqP, plan.hdp, dtype=f32, device=dev)
+            counters = torch.empty(B, H, plan.nqt, dtype=torch.int32,
+                                   device=dev)
+            dkp = dvp = None
+            if plan.slices > 1:
+                dkp, dvp = (torch.empty(plan.slices, B, Tk, KV, hd,
+                                        dtype=f32, device=dev)
+                            for _ in range(2))
+            rc = lib.repro_flash_attention_bwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), do.data_ptr(), D.data_ptr(),
+                lse_rows.data_ptr(), dq_acc.data_ptr(), counters.data_ptr(),
+                None if dkp is None else dkp.data_ptr(),
+                None if dvp is None else dvp.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, KV, hd,
+                int(causal), plan.slices, _build.stream_of(q))
         else:
+            D = torch.empty(B, Tq, H, dtype=f32, device=dev)
             rc = lib.repro_flash_attention_bwd(
-                *args, int(q.dtype == torch.bfloat16), _build.stream_of(q))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), do.data_ptr(), D.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, KV, hd,
+                int(causal), int(q.dtype == torch.bfloat16),
+                _build.stream_of(q))
     _build.check(rc, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv

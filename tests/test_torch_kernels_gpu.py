@@ -986,8 +986,11 @@ def test_flash_strided_views(cuda, dtype):
 
 # B9 backward (csrc/flash_attention_bwd{,_tc}.cu): chip_smoke.py phase
 # 31's cells (starcoder2's training shape in bf16 and f32, whisper's
-# encoder shape, hd 256), ragged Tq / Tk off the 64- / 32-row tiles, G = 8,
-# hd 64, 80, 128, 256 and 36 (bf16 on the SIMT route), both routes
+# encoder shape, hd 256), ragged Tq / Tk off the 64- / 128-row tiles, G = 8,
+# hd 64, 80, 128, 256 and 36 (bf16 on the SIMT route), both routes; and
+# the wgmma route's dQ chains and head slices at their edges: Tq > Tk with
+# G = 12 cut into slices (rows that see no key), a ragged T = 1,000 at
+# hd 64, and qwen3-14b's G = 5 (slices of 1, 2 and 2 heads)
 FLASH_BWD_CELLS = [(2, 4096, 4096, 2, 12, 128, True, torch.bfloat16),
                    (2, 4096, 4096, 2, 12, 128, True, torch.float32),
                    (8, 1500, 1500, 20, 1, 64, False, torch.bfloat16),
@@ -1001,7 +1004,10 @@ FLASH_BWD_CELLS = [(2, 4096, 4096, 2, 12, 128, True, torch.bfloat16),
                    (1, 257, 129, 1, 8, 256, False, torch.bfloat16),
                    (1, 129, 100, 2, 2, 36, True, torch.bfloat16),
                    (2, 63, 65, 1, 8, 128, True, torch.bfloat16),
-                   (1, 40, 96, 2, 1, 64, False, torch.bfloat16)]
+                   (1, 40, 96, 2, 1, 64, False, torch.bfloat16),
+                   (1, 300, 130, 2, 12, 128, True, torch.bfloat16),
+                   (2, 1000, 1000, 2, 12, 64, True, torch.bfloat16),
+                   (1, 2048, 2048, 8, 5, 128, True, torch.bfloat16)]
 
 
 def flash_bwd_rule(got, want):
@@ -1045,14 +1051,14 @@ def test_flash_attention_bwd(cuda, B, Tq, Tk, KV, G, hd, causal, dtype):
 
 
 def test_flash_attention_bwd_routes_and_alignment(cuda):
-    """bf16 with hd % 8 == 0 up to 128 takes the mma route, the rest the
+    """bf16 with hd % 8 == 0 up to 128 takes the wgmma route, the rest the
     SIMT one; tensors off a 16-byte boundary (views at an odd offset) give
     the aligned call's bits."""
     from repro_torch.kernels.flash_attention import (
         bwd_route_of, flash_attention_bwd_cuda, flash_attention_cuda)
     assert [bwd_route_of(torch.bfloat16, hd) for hd in (64, 80, 128, 36,
                                                         256)] == \
-        ["mma", "mma", "mma", "simt", "simt"]
+        ["wgmma", "wgmma", "wgmma", "simt", "simt"]
     assert bwd_route_of(torch.float32, 64) == "simt"
     q, k, v = _qkv(cuda, 1, 70, 70, 2, 3, 64, torch.bfloat16, 4)
     do = torch.randn_like(q)
