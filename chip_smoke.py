@@ -14,7 +14,7 @@ beside the script).  Phases:
      instantiation of its backward's tensor-core kernel must issue HGMMA
      (``wgmma``), B7's and B8's tensor-core kernels IMMA / HMMA
      (``mma.sync``), B2, B5 and B7 no atomics, B3, B4, B6, B8 and B9's
-     backward no float atomics; and count the SASS instructions of B3's
+     and B10's backward no float atomics; and count the SASS instructions of B3's
      one-trio probes (the exact chain, the prefilter);
   2. B1 pairwise_batch (bit-equal across two launches, timed by kernel:
      plan, side pass, reduction), B2 pairwise_corr and B3 pcit_filter
@@ -145,8 +145,27 @@ beside the script).  Phases:
      tokens from ``data/pipeline.py``, remat on), a warm-up step and 3
      timed steps (B9 forward 120 and backward 60 launches a step), a
      profiled step split by kernel family, AdamW alone; (a) at 2 layers
-     the loss and every gradient through B9 against the plain attention,
-     (b) a train step through a Mamba layer on the card raises;
+     the loss and every gradient through B9 against the plain attention;
+ 33. B10's backward (``csrc/ssd_chunk_bwd.cu``) against its plain version
+     (``kernels/ref.py``, f32) with fixed random cotangents from a seed, at
+     mamba2-130m's training shape (layer 0's real inputs on a train_4k
+     microbatch, x [8, 4096, 24, 64], N 128, chunk 256) and on jamba-v0.1's
+     layer 0 at full width (x [1, 4096, 128, 64], N 16, from 4,096 prompt
+     tokens through its projection and convolution), both at real dt
+     spans and also against a float64 gradient (the kernel's error at most
+     twice the plain f32 version's), and on a dyadic cell with dt * A > 0;
+     each gradient within 1e-4 max(1, max |want|), bit-equal across two
+     launches, timed beside the plain version (no PyTorch call computes
+     this gradient); jamba's layer-0 ``mamba_block`` forward and backward
+     (its input and parameters) through B10 and its backward against the
+     plain step's autograd;
+ 34. mamba2-130m training at full width and depth (128,983,488 random bf16
+     parameters, AdamW in f32): ``build_train_step`` on train_4k with the
+     global batch cut from 256 to 16 (2 microbatches of 8 x 4,096 tokens,
+     remat on), a warm-up step and 3 timed steps (B10 forward 96 and
+     backward 48 launches a step), a profiled step split by kernel family;
+     (a) at 2 layers the loss and every gradient through B10 and its
+     backward against the plain intra-chunk step and its autograd;
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
@@ -155,8 +174,8 @@ Kernel launch counts are set to 0 just before each main path (n-body,
 PCIT, serving, join, k-NN graph, quantized join, quantized k-NN, quorum
 attention, mamba2 prefill and serving, the batching drain, qwen3-14b
 prefill and serving, jamba prefill and serving, llama4-scout, whisper
-and qwen2-vl prefill, the starcoder2-3b train steps) is driven and read
-just after it, so comparison launches do not count.
+and qwen2-vl prefill, the starcoder2-3b and mamba2-130m train steps) is
+driven and read just after it, so comparison launches do not count.
 """
 
 from __future__ import annotations
@@ -426,7 +445,7 @@ def check_sass(lib: Path) -> None:
     tensor cores (every instantiation issues HGMMA, the SASS of
     ``wgmma``); B7's and B8's tensor-core routes issue IMMA (int8) and HMMA
     (bf16), the SASS of ``mma.sync``; B2, B5 and B7 issue no atomics, and
-    B3, B4, B6, B8 and B9's backward no float atomics."""
+    B3, B4, B6, B8 and B9's and B10's backward no float atomics."""
     funcs = sass_functions(lib)
     tc = {n: f.count("HGMMA") for n, f in funcs.items()
           if "flash_tc_kernel" in n}
@@ -447,6 +466,15 @@ def check_sass(lib: Path) -> None:
     check(len(bwd) >= 6 and bwd_float == 0,
           f"B9 backward: {len(bwd)} kernels, {bwd_float} float atomics: "
           f"{sorted(bwd)}")
+    # B10's backward (ssd_chunk_bwd.cu: ssd_bwd_kernel<1 | 2> and
+    # ssd_bwd_bc_kernel): no float atomics (dA leaves as partials, the
+    # groups' dB / dC partials sum in order in the second kernel)
+    b10b = {n: f for n, f in funcs.items() if "ssd_chunk_bwd" in n}
+    b10b_float = sum(len(FLOAT_ATOMIC.findall(f)) for f in b10b.values())
+    b10b_any = sum(len(ANY_ATOMIC.findall(f)) for f in b10b.values())
+    check(len(b10b) == 3 and b10b_float == 0,
+          f"B10 backward: {len(b10b)} kernels, {b10b_float} float atomics: "
+          f"{sorted(b10b)}")
     # B2: the 16-byte-copy and the plain-load instantiations
     corr = [f for n, f in funcs.items() if "corr_kernel" in n]
     atomics = sum(f.count("ATOM") + f.count("RED.") for f in corr)
@@ -523,7 +551,9 @@ def check_sass(lib: Path) -> None:
         f"HGMMA instructions {sorted(tc.values())}; B9 backward "
         f"(bwd_tc_kernel, hd padded to 64 / 128) HGMMA "
         f"{sorted(bwd_tc.values())}, float atomics {bwd_float} in its "
-        f"{len(bwd)} kernels; B2 (corr_kernel, two "
+        f"{len(bwd)} kernels; B10 backward ({len(b10b)} kernels) float "
+        f"atomics {b10b_float}, atomics of any kind {b10b_any}; B2 "
+        f"(corr_kernel, two "
         f"instantiations) atomics {atomics}; B8 (topk_tc_kernel) IMMA "
         f"{imma} int8, HMMA {hmma} bf16; B4 / B8 ({len(sel)} kernels) float "
         f"atomics {f_atomics}; B7 (band_tc_kernel) IMMA {imma7} int8, HMMA "
@@ -2901,7 +2931,7 @@ def device_breakdown(fn) -> dict:
     """Device ms by kernel family over one call of ``fn``, from
     torch.profiler (CUPTI): B9 (``flash``), its backward (the SIMT pair's
     ``dq_kernel`` / ``dkv_kernel``, the wgmma route's ``bwd_*_kernel``s),
-    B10 (``ssd_``), GEMMs, the
+    B10 (``ssd_``; its backward, ``ssd_bwd_*``, apart), GEMMs, the
     sort / scan / index / gather kernels (the MoE dispatch, with the
     embedding gather), everything else, the ten costliest kernels by name,
     and ``wall`` the host clock around that same call (synchronized),
@@ -2914,8 +2944,8 @@ def device_breakdown(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    fam = {"b9": 0.0, "b9_bwd": 0.0, "b10": 0.0, "gemm": 0.0,
-           "dispatch": 0.0, "other": 0.0}
+    fam = {"b9": 0.0, "b9_bwd": 0.0, "b10": 0.0, "b10_bwd": 0.0,
+           "gemm": 0.0, "dispatch": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
         if e.device_time_total <= 0 or e.key.startswith("cuda"):
@@ -2927,6 +2957,8 @@ def device_breakdown(fn) -> dict:
             fam["b9_bwd"] += ms
         elif "flash" in key:
             fam["b9"] += ms
+        elif "ssd_bwd" in key:
+            fam["b10_bwd"] += ms
         elif "ssd_" in key:
             fam["b10"] += ms
         elif any(w in key for w in ("gemm", "gemv", "nvjet", "xmma",
@@ -2948,7 +2980,7 @@ def device_breakdown(fn) -> dict:
 def say_breakdown(what: str, split: dict, counts: dict) -> float:
     """Print a profiled call's idle share and device split; returns the
     summed device ms (0 where the profiler showed none)."""
-    fams = ("b9", "b9_bwd", "b10", "gemm", "dispatch", "other")
+    fams = ("b9", "b9_bwd", "b10", "b10_bwd", "gemm", "dispatch", "other")
     dev_ms = sum(split[f] for f in fams)
     if dev_ms <= 0:
         say(f"{what} device time: not measured (the profiler showed no "
@@ -2959,6 +2991,8 @@ def say_breakdown(what: str, split: dict, counts: dict) -> float:
              "b9_bwd": f"B9 backward ({counts.get('flash_attention_bwd', 0)}"
              " calls)",
              "b10": f"B10 ({counts.get('ssd_chunk', 0)} launches)",
+             "b10_bwd": f"B10 backward ({counts.get('ssd_chunk_bwd', 0)} "
+             "calls)",
              "gemm": "GEMMs", "dispatch": "sort / scan / index kernels (MoE "
              "dispatch, with the embedding gather)", "other": "the rest"}
     say(f"{what}, a second one under torch.profiler: host clock "
@@ -4135,22 +4169,368 @@ def phase_starcoder2_train(report: dict) -> None:
         f"its leaf's max |g| {worst_rel:.3e}")
     del params, params2, g_k, g_p
 
-    # (b) a train step through a Mamba layer on the card raises: B10 has no
-    # backward kernel yet (ROADMAP.md A.17 item 4b); nothing on the main
-    # path catches it
-    from repro_torch.configs import get_smoke_config
-    scfg = get_smoke_config("mamba2_130m")
-    sp = lm.init_params(scfg, seed=0, device=DEVICE)
-    sstep = build_train_step(scfg, AdamWConfig())
-    toks = torch.randint(0, scfg.vocab_size, (2, 64), device=DEVICE)
+
+# phase 33: B10's backward against its plain version (kernels/ref.py,
+# f32) at mamba2-130m's training shape (layer 0's real inputs on a train_4k
+# microbatch of MAMBA_B / MAMBA_ACCUM x MAMBA_T tokens) and on jamba's
+# layer 0 at full width (JAMBA_BWD_T prompt tokens through its projection
+# and convolution), both at real dt spans and also against a float64
+# gradient, and on a
+# dyadic cell with dt * A > 0; jamba's layer-0 mamba_block forward and
+# backward through B10 against the plain version's autograd.  Phase 34:
+# mamba2-130m at full width and depth (the JAX package's count_params),
+# train_4k with the global batch cut from 256 to MAMBA_B in MAMBA_ACCUM
+# microbatches, remat on; one warm-up step, then MAMBA_STEPS timed; check
+# (a) at MAMBA_CHECK_LAYERS layers, one microbatch
+MAMBA_PARAMS, MAMBA_B, MAMBA_T, MAMBA_ACCUM = 128_983_488, 16, 4096, 2
+MAMBA_STEPS, MAMBA_CHECK_LAYERS = 3, 2
+JAMBA_BWD_T = 4096
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def b10_bwd_ops(Bsz: int, T: int, H: int, Pd: int, N: int, L: int) -> float:
+    """B10 backward's operations: per visible pair (j <= i) and head 4 Pd
+    (G = dy x^T, dx += W^T dy), per position and head 4 N Pd (u = B dS and
+    dB's S term), per visible pair 6 N once per (batch row, chunk) (C B^T,
+    dC, dB)."""
+    nc, tri = T // L, L * (L + 1) // 2
+    return Bsz * nc * (H * (4.0 * Pd * tri + 4.0 * N * Pd * L)
+                       + 6.0 * N * tri)
+
+
+def b10_bwd_issued(Bsz: int, T: int, H: int, Pd: int, N: int,
+                   L: int) -> float:
+    """The operations csrc/ssd_chunk_bwd.cu issues: whole 64 x 64 x 64 tile
+    products (2 a multiply-add); per (row, chunk, 8-head group) the C B^T
+    strip, per head the S term and the i-tiles' G and dx; per (row, chunk,
+    64 of N) dC, dB and dB's S term."""
+    nc, t = T // L, -(-L // 64)
+    kn, kp, groups = -(-N // 64), -(-Pd // 64), -(-H // 8)
+    tri = t * (t + 1) // 2
+    main = groups * tri * kn + H * (t * kp * kn + 2 * tri * kp)
+    second = kn * (t * (t + 1) + t * H * kp)
+    return 2.0 * 64 ** 3 * Bsz * nc * (main + second)
+
+
+def ssd_cotangents(x, Bm, L: int, seed: int):
+    """Fixed random dy, dS, dcd from a seed, at the shapes of B10's
+    outputs for these inputs."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    Bsz, T, H, Pd = x.shape
+    return (torch.randn(Bsz, T, H, Pd, generator=g, device=DEVICE),
+            torch.randn(Bsz, T // L, H, Bm.shape[-1], Pd, generator=g,
+                        device=DEVICE),
+            torch.randn(Bsz, T, H, generator=g, device=DEVICE))
+
+
+def b10_bwd_cell(name: str, args, L: int, seed: int,
+                 exact: bool = False) -> dict:
+    """B10's backward on ``args`` with fixed random cotangents: each
+    gradient within 1e-4 max(1, max |want|) of the plain version's, two
+    launches bit-equal, timed beside the plain version; with ``exact``,
+    the kernel's and the plain version's errors against a float64
+    gradient."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_cuda
+    x, dt, A, Bm, Cm = args
+    cot = ssd_cotangents(x, Bm, L, seed)
+    got = ssd_chunk_bwd_cuda(*args, *cot, chunk=L)
+    want = ref.ssd_intra_chunk_bwd(*args, *cot, chunk=L)
+    errs, ratios = [], []
+    for n, g, w in zip(SSD_BWD_NAMES, got, want):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"B10 backward, {name}: {n} of the wrong shape or not finite")
+        errs.append(float((g - w).abs().max()))
+        ratios.append(errs[-1] / (1e-4 * max(1.0, float(w.abs().max()))))
+    check(max(ratios) <= 1.0, f"B10 backward, {name}: gradients at "
+          f"{[round(r, 4) for r in ratios]} of 1e-4 max(1, max |want|)")
+    again = ssd_chunk_bwd_cuda(*args, *cot, chunk=L)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"B10 backward, {name}: two launches differ")
+    del again
+    note = ""
+    if exact:
+        e64 = ref.ssd_intra_chunk_bwd(*args, *cot, chunk=L,
+                                      dtype=torch.float64)
+        vs = []
+        for n, g, w, e in zip(SSD_BWD_NAMES, got, want, e64):
+            err_k = float((g.double() - e).abs().max())
+            err_p = float((w.double() - e).abs().max())
+            check(err_k <= 2 * err_p, f"B10 backward, {name}: {n} is "
+                  f"{err_k:.3e} from the float64 gradient, the plain f32 "
+                  f"version {err_p:.3e}")
+            vs.append(f"{n} {err_k:.3e} / {err_p:.3e}")
+        note = ("; against the float64 gradient, kernel / plain f32 max abs "
+                "err " + ", ".join(vs))
+        del e64
+    del want
+    ms = cuda_ms(lambda: ssd_chunk_bwd_cuda(*args, *cot, chunk=L))
+    plain_ms = cuda_ms(lambda: ref.ssd_intra_chunk_bwd(*args, *cot,
+                                                       chunk=L),
+                       reps=1, warmup=0)
+    Bsz, T, H, Pd = x.shape
+    N = Bm.shape[-1]
+    n_ops = b10_bwd_ops(Bsz, T, H, Pd, N, L)
+    issued = b10_bwd_issued(Bsz, T, H, Pd, N, L)
+    b_ms, b_by = bound(nbytes(x, dt, A, Bm, Cm, *cot, *got), n_ops)
+    say(f"B10 backward {name}: x {tuple(x.shape)} B / C {tuple(Bm.shape)} "
+        f"chunk {L}, dt span per chunk up to "
+        f"{float(-(dt * A).view(Bsz, T // L, L, H).sum(2).min()):.1f}: max "
+        "abs err " + ", ".join(f"{n} {e:.3e}" for n, e in
+                               zip(SSD_BWD_NAMES, errs))
+        + f" ({max(ratios):.4f} of 1e-4 max(1, max |want|) at worst), two "
+        f"launches bit-equal{note}; kernel {ms:.3f} ms ({n_ops / ms / 1e9:.2f}"
+        f" TFLOP/s counted, {issued / ms / 1e9:.2f} issued: {issued:.4e} "
+        f"operations as built), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}, {n_ops:.4e} fp32 operations; {b_ms / ms:.4f} of it)")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bound_share=b_ms / ms, issued_tflops=issued / ms / 1e9)
+
+
+def jamba_layer0(seed: int):
+    """jamba-v0.1's layer 0 (a Mamba layer) at full width: its embedding,
+    norm and Mamba2 parameters, random bf16 from a seed (``init_tree``'s
+    recipes), and the normed embeddings of JAMBA_BWD_T prompt tokens, its
+    input.  Returns (cfg, ssm parameters, input [1, T, d])."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, ssm
+    from repro_torch.models.common import (apply_norm, embed_tokens,
+                                           init_tree, norm_defs)
+    cfg = get_config("jamba_v0_1_52b")
+    check(cfg.pattern()[0] == "M", f"jamba's pattern {cfg.pattern()}")
+    defs = {"embed": lm.model_defs(cfg)["embed"], "norm1": norm_defs(cfg),
+            "ssm": ssm.ssm_defs(cfg)}
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    p = init_tree(defs, g, cfg.dtype, device=DEVICE)
+    toks = torch.randint(0, cfg.vocab_size, (1, JAMBA_BWD_T), generator=g,
+                         device=DEVICE)
+    with torch.no_grad():
+        h = apply_norm(cfg, p["norm1"], embed_tokens(cfg, p, toks))
+    return cfg, p["ssm"], h
+
+
+def phase_ssd_bwd(report: dict) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm, ssm
+
+    # mamba2-130m's training shape: layer 0's inputs on a microbatch
+    cfg = get_config("mamba2_130m")
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    params = lm.init_params(cfg1, seed=0, device=DEVICE)
+    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                      batch=MAMBA_B // MAMBA_ACCUM, seq_len=MAMBA_T)
+    toks = torch.as_tensor(make_batch(dcfg, 0)["tokens"], device=DEVICE)
+    kept: dict = {}
+    with torch.no_grad(), first_args(ops, "ssd_intra_chunk", kept):
+        x, positions = lm.embed_inputs(cfg1, params, {"tokens": toks})
+        lm._apply_layer(cfg1, "M", 0, lm._index(params["layers"], 0)["pos0"],
+                        x, positions)
+    (args, kw), = kept.values()
+    check(tuple(args[0].shape) == (MAMBA_B // MAMBA_ACCUM, MAMBA_T,
+                                   SSM_HEADS, SSM_HEAD_DIM),
+          f"mamba2-130m layer 0 called B10 with x {tuple(args[0].shape)}")
+    del params, x, kept
+    report["ssd_chunk_bwd"] = b10_bwd_cell(
+        "mamba2-130m train_4k microbatch, layer 0's inputs", args,
+        kw["chunk"], 33, exact=True)
+    del args
+
+    # jamba's layer 0 on its real inputs, and the dyadic growth cell
+    cfg_j, p0, h = jamba_layer0(34)
+    kept = {}
+    with torch.no_grad(), first_args(ops, "ssd_intra_chunk", kept):
+        ssm.mamba_block(cfg_j, p0, h)
+    (args, kw), = kept.values()
+    check(tuple(args[0].shape) == (1, JAMBA_BWD_T, cfg_j.ssm_heads,
+                                   cfg_j.ssm_head_dim)
+          and args[3].shape[-1] == cfg_j.ssm_state,
+          f"jamba layer 0 called B10 with x {tuple(args[0].shape)}")
+    cell = b10_bwd_cell("jamba-v0.1 layer 0, real inputs", args,
+                        kw["chunk"], 35, exact=True)
+    report["ssd_chunk_bwd"].update(
+        {"jamba_" + k: cell[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "max_abs_err", "bound_share")})
+    del args, kept
+    L, H = 96, SSM_HEADS
+    x, _dt, _A, Bm, Cm = ssd_inputs(36, 2, 2 * L)
+    g = torch.Generator(device=DEVICE).manual_seed(37)
+    dt = torch.randint(1, 9, (2, 2 * L, H), generator=g,
+                       device=DEVICE).float() / 32
+    A = torch.tensor([0.125, -1.0, 0.0625, -2.0, -0.5, 0.125, -1.5, -0.75,
+                      0.0625, -1.0] * 3, device=DEVICE)[:H]
+    b10_bwd_cell("dyadic dt, A > 0 on some heads", (x, dt, A, Bm, Cm), L,
+                 38)
+    del x, dt, A, Bm, Cm
+
+    # jamba's layer-0 mamba_block, forward and backward with respect to its
+    # parameters and its input: B10 and its backward against the plain
+    # intra-chunk step and its autograd (patched in by this script, never
+    # a route of the entry point), 2e-2 max(1, max |.|) (bf16 block)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in p0.items()}
+    hh = h.detach().clone().requires_grad_(True)
+    g = torch.Generator(device=DEVICE).manual_seed(39)
+    dout = torch.randn(h.shape, generator=g, device=DEVICE).to(h.dtype)
+
+    def block_grads():
+        out, _state = ssm.mamba_block(cfg_j, leaves, hh)
+        return out.detach(), torch.autograd.grad(
+            out, [hh, *leaves.values()], dout)
+
+    ops.reset_launch_counts()
+    out_k, g_k = block_grads()
+    counts = ops.launch_counts()
+    check(counts["ssd_chunk"] == 1 and counts["ssd_chunk_bwd"] == 1,
+          f"jamba mamba_block: launches {counts}")
+    with mock.patch.object(ops, "ssd_intra_chunk", ref.ssd_intra_chunk):
+        out_p, g_p = block_grads()
+    worst, worst_name = 0.0, ""
+    for n, a, b in zip(["out", "input", *leaves], [out_k, *g_k],
+                       [out_p, *g_p]):
+        check(bool(torch.isfinite(a).all()), f"jamba mamba_block: {n} not "
+              "finite")
+        r = float((a.float() - b.float()).abs().max()) / (
+            2e-2 * max(1.0, float(b.float().abs().max())))
+        if r >= worst:
+            worst, worst_name = r, n
+    check(worst <= 1.0, f"jamba mamba_block through B10: {worst_name} at "
+          f"{worst:.3f} of 2e-2 max(1, max |.|)")
+    say(f"jamba-v0.1 layer-0 mamba_block on {JAMBA_BWD_T} prompt tokens "
+        f"(bf16, d_model {cfg_j.d_model}, {cfg_j.ssm_heads} heads): output "
+        f"and the gradients of its input and {len(leaves)} parameters "
+        f"through B10 and its backward vs the plain step's autograd within "
+        f"{worst:.4f} of 2e-2 max(1, max |.|) (worst {worst_name})")
+    del p0, h, leaves, hh, g_k, g_p, out_k, out_p
+
+
+def phase_mamba2_train(report: dict) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch, make_pipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_config("mamba2_130m")
+    n_params = lm.count_params(cfg)
+    check(n_params == MAMBA_PARAMS and cfg.n_layers == 24 and cfg.remat,
+          f"mamba2-130m: {n_params} parameters, {cfg.n_layers} layers, "
+          f"remat {cfg.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    base0 = torch.cuda.memory_allocated()
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base0
+    say(f"mamba2-130m: {n_params} random bf16 parameters from a seed and "
+        f"their f32 AdamW moments, {state_bytes / 2**30:.3f} GiB on the "
+        f"card; train_4k cut to a batch of {MAMBA_B} x {MAMBA_T} tokens in "
+        f"{MAMBA_ACCUM} microbatches, remat on")
+    step = build_train_step(cfg, AdamWConfig(), accum=MAMBA_ACCUM)
+    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, batch=MAMBA_B,
+                      seq_len=MAMBA_T)
+    pipe = make_pipeline(dcfg, device=DEVICE)
     try:
-        sstep(sp, adamw_init(sp), {"tokens": toks, "labels": toks})
-    except NotImplementedError as e:
-        say(f"(b) mamba2-130m (smoke) train step on the card raises "
-            f"NotImplementedError: {e}")
-    else:
-        raise CheckFailed("(b) a train step through B10 on the card did "
-                          "not raise")
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, next(pipe))      # warm-up
+        say(f"warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
+            f"{float(met['loss']):.4f}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        times, losses, gnorms = [], [], []
+        for _ in range(MAMBA_STEPS):
+            batch = next(pipe)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        fwd, bwd = counts["ssd_chunk"], counts["ssd_chunk_bwd"]
+        want_fwd = 2 * cfg.n_layers * MAMBA_ACCUM * MAMBA_STEPS
+        want_bwd = cfg.n_layers * MAMBA_ACCUM * MAMBA_STEPS
+        check(fwd == want_fwd and bwd == want_bwd,
+              f"train steps: B10 {fwd} / backward {bwd} launches, expected "
+              f"{want_fwd} / {want_bwd} (remat runs each forward twice)")
+        check(all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+              and min(gnorms) > 0, f"train steps: loss {losses}, grad norm "
+              f"{gnorms}")
+        step_ms = 1e3 * sum(times) / len(times)
+        tps = MAMBA_B * MAMBA_T / (step_ms / 1e3)
+        report["ssd_chunk"]["train_launches"] = fwd // MAMBA_STEPS
+        report["ssd_chunk_bwd"].update(
+            launches=bwd, train_step_ms=step_ms, train_tokens_per_s=tps,
+            train_peak_gib=peak / 2**30)
+        say(f"mamba2-130m train step ({MAMBA_B} x {MAMBA_T} tokens, accum "
+            f"{MAMBA_ACCUM}): {step_ms:.1f} ms a step (host clock, "
+            f"synchronized; steps {', '.join(f'{1e3 * t:.1f}' for t in times)}"
+            f" ms), {tps:.0f} tokens/s, peak {peak / 2**30:.3f} GiB above the "
+            f"parameters and optimizer state; B10 launches a step: forward "
+            f"{fwd // MAMBA_STEPS}, backward {bwd // MAMBA_STEPS}; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}, grad norms "
+            f"{', '.join(f'{x:.4f}' for x in gnorms)}")
+        split = device_breakdown(lambda: step(params, opt, next(pipe)))
+    finally:
+        pipe.close()
+    dev_ms = say_breakdown("mamba2-130m train step", split,
+                           {"ssd_chunk": fwd // MAMBA_STEPS,
+                            "ssd_chunk_bwd": bwd // MAMBA_STEPS})
+    if dev_ms > 0:
+        report["ssd_chunk_bwd"].update(
+            train_ms=split["b10_bwd"] / (bwd // MAMBA_STEPS),
+            train_share=split["b10_bwd"] / dev_ms,
+            train_idle_share=split["idle"])
+    del opt
+
+    # (a) at MAMBA_CHECK_LAYERS layers of the same widths, one microbatch:
+    # the loss and every parameter gradient through B10 and its backward
+    # against the plain intra-chunk step of kernels/ref.py and its autograd
+    # (patched in by this script, never a route of the entry point)
+    cfg2 = dataclasses.replace(cfg, n_layers=MAMBA_CHECK_LAYERS)
+    params2 = dict(params, layers=tree_map(
+        lambda a: a[:MAMBA_CHECK_LAYERS].clone(), params["layers"]))
+    mb = {k: torch.as_tensor(v[:MAMBA_B // MAMBA_ACCUM], device=DEVICE)
+          for k, v in make_batch(dcfg, 9).items()}
+    ops.reset_launch_counts()
+    loss_k, g_k = loss_and_grads(cfg2, params2, mb)
+    counts = ops.launch_counts()
+    with mock.patch.object(ops, "ssd_intra_chunk", ref.ssd_intra_chunk):
+        loss_p, g_p = loss_and_grads(cfg2, params2, mb)
+    check(counts["ssd_chunk"] == 2 * MAMBA_CHECK_LAYERS
+          and counts["ssd_chunk_bwd"] == MAMBA_CHECK_LAYERS,
+          f"check (a): B10 launches {counts}")
+    d_loss = abs(loss_k - loss_p)
+    check(d_loss <= 2e-2 * max(1.0, abs(loss_p)), f"check (a): loss through "
+          f"B10 {loss_k:.6f}, plain {loss_p:.6f}")
+    worst, worst_rel, worst_leaf = 0.0, 0.0, ""
+    for path, gp in g_p.items():
+        gk = g_k[path]
+        check(bool(torch.isfinite(gk).all()), f"check (a): {path} not finite")
+        d = float((gk.float() - gp.float()).abs().max())
+        top = float(gp.abs().max())
+        r = d / (2e-2 * max(1.0, top))
+        if r >= worst:
+            worst, worst_leaf = r, "/".join(path)
+        worst_rel = max(worst_rel, d / max(top, 1e-30))
+    check(worst <= 1.0, f"check (a): gradient of {worst_leaf} at {worst:.3f}"
+          " of 2e-2 max(1, max |g|)")
+    say(f"(a) mamba2-130m {MAMBA_CHECK_LAYERS} layers, one microbatch of "
+        f"{MAMBA_B // MAMBA_ACCUM} x {MAMBA_T}: loss through B10 "
+        f"{loss_k:.6f}, plain step {loss_p:.6f} (diff {d_loss:.3e}); all "
+        f"{len(g_p)} gradient leaves within {worst:.4f} of 2e-2 max(1, "
+        f"max |g|) (worst {worst_leaf}); largest difference relative to "
+        f"its leaf's max |g| {worst_rel:.3e}")
+    del params, params2, g_k, g_p
 
 
 KERNELS = {
@@ -4181,6 +4561,11 @@ KERNELS = {
                             "src/repro/kernels/flash_attention.py:103"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk.py:60"),
+    # B10's gradient: no Pallas backward exists (the JAX package's train
+    # step differentiates its plain scan with XLA); it is the backward of
+    # the kernel above
+    "ssd_chunk_bwd": ("src/repro_torch/csrc/ssd_chunk_bwd.cu",
+                      "src/repro/kernels/ssd_chunk.py:60"),
 }
 
 
@@ -4257,7 +4642,11 @@ def main() -> int:
               ("kernel B9 backward vs its plain version",
                lambda: phase_flash_bwd(report)),
               ("starcoder2-3b train step main path",
-               lambda: phase_starcoder2_train(report))]
+               lambda: phase_starcoder2_train(report)),
+              ("kernel B10 backward vs its plain version",
+               lambda: phase_ssd_bwd(report)),
+              ("mamba2-130m train step main path",
+               lambda: phase_mamba2_train(report))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")

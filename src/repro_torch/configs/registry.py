@@ -1,5 +1,6 @@
 """Registry: arch id -> (full config, reduced smoke config), shape cells
-(port of ``repro/configs/registry.py``).
+(port of ``repro/configs/registry.py``; :func:`shape_cells` gates the
+long-context cell as the reference does).
 
 Every architecture of the reference is listed, and each resolves.
 """
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, List
+from typing import Dict, Iterator, List, Tuple
 
 from ..models.config import ModelConfig
 
@@ -67,3 +68,18 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     """The tiny smoke-test variant of ``arch`` (same topology)."""
     return _module(arch).SMOKE
+
+
+def shape_cells(arch: str) -> Iterator[Shape]:
+    """The benchmark shapes ``arch`` runs: every shape, except long_500k
+    for an arch outside :data:`LONG_OK` (pure full attention)."""
+    arch = _ALIAS.get(arch, arch)
+    for s in SHAPES.values():
+        if s.name == "long_500k" and arch not in LONG_OK:
+            continue
+        yield s
+
+
+def all_cells() -> List[Tuple[str, Shape]]:
+    """Every (arch, shape) benchmark cell in the matrix."""
+    return [(a, s) for a in ARCHS for s in shape_cells(a)]

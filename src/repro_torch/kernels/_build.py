@@ -29,7 +29,7 @@ SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
            "pairwise_threshold_q.cu", "pairwise_topk_q.cu",
            "flash_attention.cu", "flash_attention_tc.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
-           "ssd_chunk.cu")
+           "ssd_chunk.cu", "ssd_chunk_bwd.cu")
 # headers the sources include (part of the build key)
 HEADERS = ("pair_tile.cuh", "hopper.cuh", "topk_select.cuh",
            "compact.cuh", "row_norms.cuh", "flash_bwd.cuh")
@@ -96,6 +96,10 @@ SIGNATURES = {
     # x, dt, A, B, C, y, S, cd, batch, T, H, P, N, chunk, the (batch, time,
     # head) strides of x, the (batch, time) strides of B and C, stream
     "repro_ssd_chunk": [_vp] * 8 + [_i] * 6 + [_ll] * 7 + [_vp],
+    # x, dt, A, B, C, dy, dS, dcd, dx, ddt, dA partials, dB, dC, dCB
+    # partials, e dt, batch, T, H, P, N, chunk, the strides as above, stream:
+    # B10's backward
+    "repro_ssd_chunk_bwd": [_vp] * 15 + [_i] * 6 + [_ll] * 7 + [_vp],
 }
 
 

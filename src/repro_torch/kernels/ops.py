@@ -8,12 +8,12 @@ Dispatch is by the device of the input tensors, and by nothing else:
     kernel that fails to build, load or launch raises — there is no path
     that falls back to the plain version on the card.
 
-B9 has a gradient on the card: ``flash_attention`` on a CUDA tensor that
-needs one goes through :class:`FlashAttention`, whose backward is the
-hand-written kernel of ``csrc/flash_attention_bwd.cu``.  B10 has none yet
-(ROADMAP.md A.17 item 4b): ``ssd_intra_chunk`` refuses a CUDA tensor
-that needs a gradient.  On the CPU autograd differentiates the plain
-versions.
+B9 and B10 have their gradients on the card: ``flash_attention`` on a
+CUDA tensor that needs one goes through :class:`FlashAttention`, whose
+backward is the hand-written kernel of ``csrc/flash_attention_bwd*.cu``,
+and ``ssd_intra_chunk`` through :class:`SsdIntraChunk`, whose backward is
+that of ``csrc/ssd_chunk_bwd.cu``.  On the CPU autograd differentiates
+the plain versions.
 
 The CUDA kernels mask their own ragged edges, so nothing is padded here.
 Entry points take a leading batch axis (simulated devices or stacked
@@ -44,6 +44,7 @@ KERNEL_MODULES = {
     "flash_attention": (_flash_mod, "launches"),
     "flash_attention_bwd": (_flash_mod, "bwd_launches"),
     "ssd_chunk": (_ssd_mod, "launches"),
+    "ssd_chunk_bwd": (_ssd_mod, "bwd_launches"),
 }
 
 
@@ -203,19 +204,37 @@ def flash_block(q, k, v, *, causal: bool, row_valid=None):
     return o * w[..., None], m, l * w
 
 
+class SsdIntraChunk(torch.autograd.Function):
+    """B10 with its gradient on the card: the forward launches B10 and
+    saves its inputs (nothing of size L^2, not y); the backward launches
+    B10's backward kernel, which recomputes the cumsum and the decays.  An
+    output whose gradient is absent (cd where only y is used) comes as
+    None and counts as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return _ssd_mod.ssd_chunk_cuda(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dS, dcd):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        return (*_ssd_mod.ssd_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy, dS, dcd,
+                                             chunk=ctx.chunk), None)
+
+
 def ssd_intra_chunk(x, dt, A, Bm, Cm, *, chunk: int):
     """The SSD intra-chunk step: x [B, T, H, P], dt [B, T, H], A [H], Bm /
     Cm [B, T, N] -> (y_intra [B, T, H, P], S [B, nc, H, N, P], cd [B, T,
-    H]) float32; see ``kernels/ssd_chunk.py``.  On the CPU autograd
-    differentiates the plain version; B10 has no backward kernel yet, so a
-    CUDA call whose inputs need a gradient raises."""
+    H]) float32; see ``kernels/ssd_chunk.py``.  Differentiable on either
+    device (the kernel pair on CUDA, autograd of the plain version on the
+    CPU)."""
     if _on_cpu(x):
         return ref.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=chunk)
     if _needs_grad(x, dt, A, Bm, Cm):
-        raise NotImplementedError(
-            "ssd_intra_chunk (B10) has no backward kernel on CUDA yet "
-            "(ROADMAP.md A.17 item 4b): Mamba layers cannot train on the "
-            "card")
+        return SsdIntraChunk.apply(x, dt, A, Bm, Cm, chunk)
     return _ssd_mod.ssd_chunk_cuda(x, dt, A, Bm, Cm, chunk=chunk)
 
 

@@ -537,12 +537,81 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm, *, chunk: int):
     CB = torch.einsum("bcln,bcmn->bclm", Cc, Bc)            # [B, nc, L, L]
     seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]   # [B, nc, L, L, H]
     tril = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(tril[None, None, :, :, None], torch.exp(seg), 0.0)
+    # masked before the exponent: above the diagonal seg may exceed 88, and
+    # exp's gradient there would be 0 * inf (the decays are the same)
+    decay = torch.exp(torch.where(tril[None, None, :, :, None], seg,
+                                  -math.inf))
     W = CB[..., None] * decay * dtc[:, :, None, :, :]
     y = torch.einsum("bclmh,bcmhp->bclhp", W, xc).reshape(Bsz, T, H, P)
     dend = torch.exp(cums[:, :, -1:, :] - cums) * dtc
     S = torch.einsum("bclh,bcln,bclhp->bchnp", dend, Bc, xc)
     return y, S, torch.exp(cums).reshape(Bsz, T, H)
+
+
+def ssd_intra_chunk_bwd(x, dt, A, Bm, Cm, dy, dS, dcd, *, chunk: int,
+                        dtype=torch.float32):
+    """Plain gradient of :func:`ssd_intra_chunk` (B10's backward): the
+    forward's inputs, and the gradients dy [B, T, H, P], dS [B, nc, H, N,
+    P] and dcd [B, T, H] of its outputs (None: zero).  Per (b, chunk, head)
+    with W_ij = (C_i . B_j) exp(cums_i - cums_j) dt_j (j <= i), G = dy
+    x^T, e_j = exp(cums_last - cums_j) and u_j = dS^T B_j:
+
+      dx_j   = sum_{i>=j} W_ij dy_i + e_j dt_j u_j
+      dCB_ij = sum_h G_ij exp(cums_i - cums_j) dt_j    (B, C are shared)
+      dC = dCB B,  dB = dCB^T C + sum_h e_j dt_j dS x_j
+      ddt_j  = sum_{i>=j} G_ij CB_ij exp(.) + e_j u_j . x_j + dla_j A
+      dcums  = rowsum(G W) - colsum(G W) - e dt (u . x) (+ its sum on the
+               last row) + dcd cd,   dla_k = sum_{i>=k} dcums_i,
+      dA     = sum dla dt.
+
+    Returns (dx [B, T, H, P], ddt [B, T, H], dA [H], dB [B, T, N], dC [B,
+    T, N]) in ``dtype`` (float32; float64 for a reference gradient)."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = T // chunk
+    xc = x.to(dtype).reshape(Bsz, nc, chunk, H, P)
+    dtc = dt.to(dtype).reshape(Bsz, nc, chunk, H)
+    Bc = Bm.to(dtype).reshape(Bsz, nc, chunk, N)
+    Cc = Cm.to(dtype).reshape(Bsz, nc, chunk, N)
+    Af = A.to(dtype)
+    cums = torch.cumsum(dtc * Af, dim=2)                    # [B, nc, L, H]
+    CB = torch.einsum("bcln,bcmn->bclm", Cc, Bc)            # [B, nc, L, L]
+    seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]   # [B, nc, L, L, H]
+    tril = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(tril[None, None, :, :, None], torch.exp(seg), 0.0)
+    dyc = (torch.zeros_like(xc) if dy is None
+           else dy.to(dtype).reshape(Bsz, nc, chunk, H, P))
+    G = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)         # dy_i . x_j
+    GD = G * decay
+    dCB = torch.einsum("bcijh,bcjh->bcij", GD, dtc)
+    Q = GD * CB[..., None]                                  # G CB exp(.)
+    M = Q * dtc[:, :, None, :, :]                           # G W
+    W = CB[..., None] * decay * dtc[:, :, None, :, :]
+    dx = torch.einsum("bcijh,bcihp->bcjhp", W, dyc)
+    ddt = Q.sum(2)
+    dcums = M.sum(3) - M.sum(2)
+    dC = torch.einsum("bcij,bcjn->bcin", dCB, Bc)
+    dB = torch.einsum("bcij,bcin->bcjn", dCB, Cc)
+    if dS is not None:
+        dSf = dS.to(dtype)
+        e = torch.exp(cums[:, :, -1:, :] - cums)
+        dend = e * dtc
+        u = torch.einsum("bcjn,bchnp->bcjhp", Bc, dSf)
+        ux = (u * xc).sum(-1)                               # [B, nc, L, H]
+        dx = dx + dend[..., None] * u
+        dB = dB + torch.einsum("bcjh,bchnp,bcjhp->bcjn", dend, dSf, xc)
+        ddt = ddt + e * ux
+        s = dend * ux
+        dcums = dcums - s
+        dcums[:, :, -1] += s.sum(2)
+    if dcd is not None:
+        dcums = dcums + dcd.to(dtype).reshape(Bsz, nc, chunk, H) \
+            * torch.exp(cums)
+    dla = torch.flip(torch.cumsum(torch.flip(dcums, [2]), 2), [2])
+    ddt = ddt + dla * Af
+    dA = (dla * dtc).sum((0, 1, 2))
+    return (dx.reshape(Bsz, T, H, P), ddt.reshape(Bsz, T, H), dA,
+            dB.reshape(Bsz, T, N), dC.reshape(Bsz, T, N))
 
 
 def ssd_chunk(x, dt, A, Bm, Cm) -> torch.Tensor:

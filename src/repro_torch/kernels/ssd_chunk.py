@@ -21,6 +21,17 @@ masked exponent on the diagonal tile and for any head with some dt * A >
 0, and forms S as one product over the chunk; every product runs on an
 8 x 16 register tile a thread (the file's header has the design).
 
+Its gradient, "B10 bwd" (:func:`ssd_chunk_bwd_cuda`, source
+``repro_torch/csrc/ssd_chunk_bwd.cu``), has no Pallas counterpart: the
+JAX package's train step differentiates its plain scan with XLA.  It is
+bound the same way (4 P operations per visible pair and head, 4 N P per
+position and head, 6 N per visible pair once per (batch row, chunk)); a
+block owns a (batch row, chunk, 8 heads), recomputes the cumsum with the
+forward's roundings, forms C B^T once per column strip for its heads and
+sums dC B^T's gradient over them; a second launch sums the groups'
+partials in order into dB and dC.  No atomics: two launches give the same
+bits.  Its plain version is :func:`ssd_intra_chunk_bwd_plain`.
+
 The O(nc) inter-chunk recurrence is framework code, as in the
 reference's ``ops.ssd_chunk``: :func:`ssd_inter_chunk` walks the chunk
 states with one fused multiply-add per chunk and forms every chunk's
@@ -36,12 +47,19 @@ import torch
 
 from . import _build
 from .ref import ssd_intra_chunk as ssd_intra_chunk_plain
+from .ref import ssd_intra_chunk_bwd as ssd_intra_chunk_bwd_plain
 
-__all__ = ["ssd_chunk_cuda", "ssd_intra_chunk_plain", "ssd_inter_chunk",
-           "launches"]
+__all__ = ["ssd_chunk_cuda", "ssd_chunk_bwd_cuda", "ssd_intra_chunk_plain",
+           "ssd_intra_chunk_bwd_plain", "ssd_inter_chunk", "launches",
+           "bwd_launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: backward kernel launches (a call of ``ssd_chunk_bwd_cuda``) since then
+bwd_launches = 0
+
+#: heads of a block of the backward kernel (its dB / dC partials)
+BWD_HEADS = 8
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 128, 256
 
@@ -64,6 +82,13 @@ def _check_args(x, dt, A, Bm, Cm, chunk: int) -> None:
         raise ValueError(f"T={T} does not divide into chunks of {chunk}")
 
 
+def _check_cuda_f32(name: str, tensors: dict) -> None:
+    _build.require_cuda(name, *tensors.values())
+    for what, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} takes float32, got {what} {t.dtype}")
+
+
 def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int):
     """x [B, T, H, P], dt [B, T, H], A [H], Bm / Cm [B, T, N], float32 on
@@ -72,11 +97,7 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     H])`` float32, as ``ref.ssd_intra_chunk``."""
     global launches
     _check_args(x, dt, A, Bm, Cm, chunk)
-    _build.require_cuda("ssd_chunk", x, dt, A, Bm, Cm)
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", Bm), ("C", Cm)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"ssd_chunk takes float32, got {name} "
-                             f"{t.dtype}")
+    _check_cuda_f32("ssd_chunk", dict(x=x, dt=dt, A=A, B=Bm, C=Cm))
     Bsz, T, H, P = x.shape
     N = Bm.shape[-1]
     if chunk > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
@@ -102,6 +123,68 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.check(rc, "ssd_chunk")
     launches += 1
     return y, S, cd
+
+
+def ssd_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy, dS, dcd, *, chunk: int):
+    """B10's backward: the forward's inputs (as :func:`ssd_chunk_cuda`
+    takes them) and the gradients dy [B, T, H, P], dS [B, nc, H, N, P],
+    dcd [B, T, H] of its outputs (each may be None: zero), float32 on one
+    CUDA device.  Returns ``(dx, ddt, dA, dB, dC)`` float32, as
+    ``ref.ssd_intra_chunk_bwd``; dA is the sum of the kernel's [B, nc, H]
+    partials."""
+    global bwd_launches
+    _check_args(x, dt, A, Bm, Cm, chunk)
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = T // chunk
+    grads = {}
+    for name, t, shape in (("dy", dy, (Bsz, T, H, P)),
+                           ("dS", dS, (Bsz, nc, H, N, P)),
+                           ("dcd", dcd, (Bsz, T, H))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape:
+            raise ValueError(f"ssd_chunk_bwd: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        grads[name] = t
+    _check_cuda_f32("ssd_chunk_bwd", dict(x=x, dt=dt, A=A, B=Bm, C=Cm,
+                                          **grads))
+    if chunk > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
+        raise ValueError(f"ssd_chunk_bwd supports chunk <= {MAX_CHUNK}, "
+                         f"P <= {MAX_HEAD_DIM}, N <= {MAX_STATE}; got "
+                         f"{chunk}, {P}, {N}")
+    x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
+                 for t in (x, Bm, Cm))
+    dt, A = dt.contiguous(), A.contiguous()
+    dev = x.device
+    dy = torch.zeros_like(x, memory_format=torch.contiguous_format) \
+        if dy is None else dy.contiguous()
+    dS = None if dS is None else dS.contiguous()
+    dcd = None if dcd is None else dcd.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty(Bsz, T, H, P, **f32)
+    ddt = torch.empty(Bsz, T, H, **f32)
+    dB = torch.empty(Bsz, T, N, **f32)
+    dC = torch.empty(Bsz, T, N, **f32)
+    if dx.numel() == 0:
+        return (dx.zero_(), ddt.zero_(), torch.zeros(H, **f32), dB.zero_(),
+                dC.zero_())
+    groups = -(-H // BWD_HEADS)
+    dA_part = torch.empty(Bsz, nc, H, **f32)
+    dcb_part = torch.empty(Bsz, nc, groups, chunk, chunk, **f32)
+    dend = torch.empty(Bsz, T, H, **f32)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        rc = _build.library().repro_ssd_chunk_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(), ptr(dS), ptr(dcd), dx.data_ptr(),
+            ddt.data_ptr(), dA_part.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dcb_part.data_ptr(), dend.data_ptr(), Bsz, T, H, P, N, chunk,
+            *x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2],
+            _build.stream_of(x))
+    _build.check(rc, "ssd_chunk_bwd")
+    bwd_launches += 1
+    return dx, ddt, dA_part.sum((0, 1)), dB, dC
 
 
 def ssd_inter_chunk(y_intra: torch.Tensor, S: torch.Tensor, cd: torch.Tensor,

@@ -22,7 +22,7 @@ from ..kernels.ssd_chunk import ssd_inter_chunk
 from .common import ParamDef, Tree, rmsnorm
 
 __all__ = ["MambaBlock", "ssm_defs", "ssd_chunked", "mamba_block",
-           "init_ssm_state"]
+           "init_ssm_state", "mamba_decode_step"]
 
 
 def ssm_defs(cfg) -> Tree:
@@ -117,6 +117,12 @@ def init_ssm_state(cfg, batch: int, device=None) -> Tree:
         "ssm": torch.zeros(batch, H, N, Pd, dtype=torch.float32,
                            device=device),
     }
+
+
+def mamba_decode_step(cfg, p: Tree, x, state: Tree):
+    """One-token decode [B, 1, d] with carried (conv, ssm) state ->
+    (out [B, 1, d], new state)."""
+    return mamba_block(cfg, p, x, state=state)
 
 
 class MambaBlock(nn.Module):

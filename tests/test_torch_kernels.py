@@ -31,7 +31,7 @@ from repro_torch.kernels.pairwise_topk import pairwise_topk_cuda
 from repro_torch.kernels.pcit_filter import pcit_filter_cuda
 from repro_torch.kernels.query_score import query_topk_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_cuda, ssd_chunk_cuda
 from repro_torch.apps import attention as attn
 
 
@@ -195,6 +195,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ssd_chunk_cuda(x, dt, A, Bm, Bm, chunk=3)
     with pytest.raises(ValueError, match="disagree"):
         ssd_chunk_cuda(x, dt[:, :, :1], A, Bm, Bm, chunk=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk_bwd_cuda(x, dt, A, Bm, Bm, x, None, None, chunk=4)
+    with pytest.raises(ValueError, match="dS has shape"):
+        ssd_chunk_bwd_cuda(x, dt, A, Bm, Bm, x, torch.zeros(1, 2, 2, 3, 3),
+                           None, chunk=4)
+    with pytest.raises(ValueError, match="chunks of 3"):
+        ssd_chunk_bwd_cuda(x, dt, A, Bm, Bm, None, None, None, chunk=3)
 
 
 def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
@@ -218,7 +225,8 @@ def test_build_is_keyed_and_needs_nvcc(monkeypatch, tmp_path):
                                       "repro_flash_attention_tc",
                                       "repro_flash_attention_bwd",
                                       "repro_flash_attention_bwd_tc",
-                                      "repro_ssd_chunk"}
+                                      "repro_ssd_chunk",
+                                      "repro_ssd_chunk_bwd"}
     key = _build.build_key()
     assert key == _build.build_key() and len(key) == 16
     monkeypatch.setitem(_build.FILE_FLAGS, "pcit_filter.cu", ())
@@ -241,7 +249,8 @@ def test_launch_counts_reset():
                                    "pairwise_threshold_q": 0,
                                    "pairwise_topk_q": 0,
                                    "flash_attention": 0,
-                                   "flash_attention_bwd": 0, "ssd_chunk": 0}
+                                   "flash_attention_bwd": 0, "ssd_chunk": 0,
+                                   "ssd_chunk_bwd": 0}
     # the plain path on the CPU launches nothing
     ops.pairwise_corr(torch.zeros(1, 2, 3), torch.zeros(1, 2, 3))
     assert sum(ops.launch_counts().values()) == 0

@@ -1238,7 +1238,12 @@ def test_ssd_chunk_real_span(cuda):
     a lane stretch's sum to a shuffle-scanned base rounds each difference
     independently of the plain version's sequential cumsum, and y then
     leaves the 1e-4 tolerance (ROADMAP.md C.5)."""
-    L = 256
+    _ssd_close(_real_span_args(cuda), 256)
+
+
+def _real_span_args(cuda, L=256):
+    """jamba's widths (H 128, P 64, N 16) over two chunks of L with dt up
+    to 5.3 (not dyadic) and A = -e: a chunk's cumsum spans hundreds."""
     x, _dt, _A, Bm, Cm = _ssd_inputs(cuda, 1, 2 * L, 128, 64, 16, 22)
     rng = np.random.default_rng(23)
     dt = torch.as_tensor(np.minimum(rng.exponential(0.8, size=(1, 2 * L,
@@ -1247,7 +1252,7 @@ def test_ssd_chunk_real_span(cuda):
     A = torch.full((128,), -math.e, dtype=torch.float32, device=cuda)
     cums = torch.cumsum((dt * A).view(1, 2, L, 128), dim=2)
     assert float((cums[:, :, 0] - cums[:, :, -1]).min()) > 300
-    _ssd_close((x, dt, A, Bm, Cm), L)
+    return x, dt, A, Bm, Cm
 
 
 @pytest.mark.parametrize("B,Tq,Tk,KV,G,hd", [(1, 1500, 1500, 20, 1, 64),
@@ -1262,3 +1267,170 @@ def test_flash_attention_model_shapes(cuda, B, Tq, Tk, KV, G, hd, causal):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B10's backward (csrc/ssd_chunk_bwd.cu) against ref.ssd_intra_chunk_bwd:
+# each gradient within 1e-4 max(1, max |want|) (ddt and dA are sums of
+# terms that cancel, so the rule is per tensor, never per element)
+# ---------------------------------------------------------------------------
+
+def _ssd_cotangents(args, L, seed):
+    x, _dt, _A, Bm, _Cm = args
+    Bsz, T, H, P = x.shape
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.as_tensor(rng.normal(size=(Bsz, T, H, P)), **f32),
+            torch.as_tensor(rng.normal(size=(Bsz, T // L, H, Bm.shape[-1],
+                                              P)), **f32),
+            torch.as_tensor(rng.normal(size=(Bsz, T, H)), **f32))
+
+
+def _ssd_bwd_close(args, L, seed=0, drop=()):
+    """The kernel's gradients against the plain version's on the same
+    inputs; cotangents named in ``drop`` are None (zero)."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_cuda
+    cot = [None if n in drop else c for n, c in
+           zip(("dy", "dS", "dcd"), _ssd_cotangents(args, L, seed))]
+    got = ssd_chunk_bwd_cuda(*args, *cot, chunk=L)
+    want = ref.ssd_intra_chunk_bwd(*args, *cot, chunk=L)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        lim = 1e-4 * max(1.0, float(w.abs().max()))
+        err = float((g - w).abs().max())
+        assert err <= lim, f"{name}: max abs err {err:.3e} > {lim:.3e}"
+    return got, cot
+
+
+@pytest.mark.parametrize("L", [1, 16, 256])
+@pytest.mark.parametrize("N", [16, 128])
+@pytest.mark.parametrize("P", [16, 64])
+def test_ssd_chunk_bwd(cuda, L, N, P):
+    T = 5 if L == 1 else 2 * L
+    _ssd_bwd_close(_ssd_inputs(cuda, 2, T, 3, P, N, L + N + P), L)
+
+
+@pytest.mark.parametrize("L", [1, 16, 96, 256])
+@pytest.mark.parametrize("H", [3, 24, 25])
+def test_ssd_chunk_bwd_head_groups(cuda, L, H):
+    """mamba2-130m's widths with H not a multiple of the 8 heads a block
+    owns (dB / dC partials of several groups); L = 96 leaves a ragged
+    64-row tile."""
+    T = 3 if L == 1 else 2 * L
+    _ssd_bwd_close(_ssd_inputs(cuda, 1, T, H, 64, 128, 100 * L + H), L)
+
+
+@pytest.mark.parametrize("L", [16, 64])
+@pytest.mark.parametrize("H", [3, 25])
+def test_ssd_chunk_bwd_many_cells(cuda, L, H):
+    _ssd_bwd_close(_ssd_inputs(cuda, 2, 300 * L, H, 64, 128, 5 * L + H), L)
+
+
+@pytest.mark.parametrize("P,N", [(30, 50), (100, 37), (128, 256),
+                                 (128, 128)])
+def test_ssd_chunk_bwd_widths(cuda, P, N):
+    """P past 64 (two 64-column pieces) and widths not multiples of 4."""
+    _ssd_bwd_close(_ssd_inputs(cuda, 2, 192, 5, P, N, P + N), 96)
+
+
+@pytest.mark.parametrize("L", [16, 96])
+def test_ssd_chunk_bwd_positive_a(cuda, L):
+    """dt * A > 0 on some heads, dyadic so every cumsum is exact (as
+    test_ssd_chunk_positive_a draws it)."""
+    x, _dt, _A, Bm, Cm = _ssd_inputs(cuda, 2, 2 * L, 10, 64, 128, 3 * L)
+    rng = np.random.default_rng(L + 1)
+    dt = torch.as_tensor(rng.integers(1, 9, size=(2, 2 * L, 10)) / 32,
+                         dtype=torch.float32, device=cuda)
+    A = torch.tensor([0.125, -1.0, 0.0625, -2.0, -0.5, 0.125, -1.5, -0.75,
+                      0.0625, -1.0], device=cuda)
+    _ssd_bwd_close((x, dt, A, Bm, Cm), L)
+
+
+@pytest.mark.parametrize("drop", [("dcd",), ("dS", "dcd"), ("dy",)])
+def test_ssd_chunk_bwd_absent_gradients(cuda, drop):
+    """An output whose gradient is absent counts as zero."""
+    _ssd_bwd_close(_ssd_inputs(cuda, 1, 128, 9, 64, 32, 4), 64, drop=drop)
+
+
+def test_ssd_chunk_bwd_real_span(cuda):
+    """jamba's real spans (ROADMAP.md C.5): against a float64 gradient the
+    kernel's error is at most twice the plain float32 version's, per
+    gradient."""
+    args = _real_span_args(cuda)
+    got, cot = _ssd_bwd_close(args, 256)
+    plain = ref.ssd_intra_chunk_bwd(*args, *cot, chunk=256)
+    exact = ref.ssd_intra_chunk_bwd(*args, *cot, chunk=256,
+                                    dtype=torch.float64)
+    for name, g, p, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, plain,
+                             exact):
+        err_k = float((g.double() - e).abs().max())
+        err_p = float((p.double() - e).abs().max())
+        assert err_k <= 2 * err_p, (name, err_k, err_p)
+
+
+def test_ssd_chunk_bwd_bit_equal(cuda):
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_cuda
+    args = _ssd_inputs(cuda, 2, 192, 25, 64, 128, 5)
+    first, cot = _ssd_bwd_close(args, 96)
+    again = ssd_chunk_bwd_cuda(*args, *cot, chunk=96)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_ssd_intra_chunk_autograd_route(cuda):
+    """``ops.ssd_intra_chunk`` on CUDA tensors that need a gradient: one
+    forward and one backward launch, the plain version's gradients."""
+    from repro_torch.kernels import ssd_chunk as ssd_mod
+    args = [t.clone().requires_grad_(True)
+            for t in _ssd_inputs(cuda, 2, 128, 5, 16, 32, 9)]
+    cot = _ssd_cotangents(args, 64, 1)
+    ops.reset_launch_counts()
+    out = ops.ssd_intra_chunk(*args, chunk=64)
+    got = torch.autograd.grad(out, args, cot)
+    assert ssd_mod.launches == 1 and ssd_mod.bwd_launches == 1
+    want = torch.autograd.grad(ref.ssd_intra_chunk(*args, chunk=64), args,
+                               cot)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-4 * max(
+            1.0, float(w.abs().max()))
+
+
+def test_mamba2_train_step_matches_plain_route(cuda):
+    """mamba2-130m at full width and 2 layers (bf16, remat on), one batch
+    of 2 x 512 tokens: the loss and every parameter gradient through B10
+    and its backward against the same model with the plain intra-chunk
+    step and its autograd, within 2e-2 max(1, |.|) (the training limits
+    of PERF.md section 2)."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    cfg = dataclasses.replace(get_config("mamba2_130m"), n_layers=2)
+    params = lm.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 512)),
+                           device=cuda)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    paths, leaves = zip(*tree_leaves(params))
+
+    def loss_grads():
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = lm.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        return float(loss.detach()), grads
+
+    ops.reset_launch_counts()
+    loss_k, g_k = loss_grads()
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk"] == 4 and counts["ssd_chunk_bwd"] == 2
+    with mock.patch.object(ops, "ssd_intra_chunk", ref.ssd_intra_chunk):
+        loss_p, g_p = loss_grads()
+    assert abs(loss_k - loss_p) <= 2e-2 * max(1.0, abs(loss_p))
+    for path, gk, gp in zip(paths, g_k, g_p):
+        assert bool(torch.isfinite(gk).all()), path
+        err = float((gk.float() - gp.float()).abs().max())
+        assert err <= 2e-2 * max(1.0, float(gp.abs().max())), (path, err)

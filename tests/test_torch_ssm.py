@@ -259,6 +259,53 @@ def test_registry_refuses_unported_archs():
         get_smoke_config("gpt2")
 
 
+@pytest.mark.parametrize("arch", ["mamba2_130m", "mamba2-130m",
+                                  "jamba_v0_1_52b", "qwen3_14b",
+                                  "whisper_large_v3"])
+def test_shape_cells_match_reference(arch):
+    """The shapes an arch runs, long_500k gated to the sub-quadratic archs
+    (``repro.configs.registry.shape_cells``)."""
+    from repro.configs import registry as r_registry
+    want = [(c.name, c.kind, c.seq_len, c.global_batch)
+            for c in r_registry.shape_cells(arch)]
+    got = [(c.name, c.kind, c.seq_len, c.global_batch)
+           for c in registry.shape_cells(arch)]
+    assert got == want
+    assert ("long_500k" in [c[0] for c in got]) == (
+        arch.replace("-", "_") in registry.LONG_OK)
+
+
+def test_all_cells_match_reference():
+    from repro.configs import registry as r_registry
+    want = [(a, c.name) for a, c in r_registry.all_cells()]
+    got = [(a, c.name) for a, c in registry.all_cells()]
+    assert got == want and len(got) == 3 * len(registry.ARCHS) + 3
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mamba_decode_step_matches_jax(name, dtype):
+    """A prompt through the block, then one-token steps with the carried
+    (conv, ssm) state, against ``repro.models.ssm.mamba_decode_step``."""
+    rc, tc = configs(name, dtype)
+    rp = jax.tree.map(lambda a: a[0], jax_params(rc)["layers"]["pos0"]["ssm"])
+    p0 = {k: torch.tensor(v).to(tc.dtype) for k, v in to_numpy(rp).items()}
+    x = np.random.default_rng(6).normal(size=(2, 8, rc.d_model))
+    _, wst = r_ssm.mamba_block(rc, rp, jnp.asarray(x[:, :4], rc.dtype))
+    _, st = ssm.mamba_block(tc, p0, torch.tensor(x[:, :4]).to(tc.dtype))
+    for t in range(4, 8):
+        want, wst = r_ssm.mamba_decode_step(
+            rc, rp, jnp.asarray(x[:, t:t + 1], rc.dtype), wst)
+        got, st = ssm.mamba_decode_step(
+            tc, p0, torch.tensor(x[:, t:t + 1]).to(tc.dtype), st)
+        assert got.shape == (2, 1, rc.d_model)
+        assert_near(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                    dtype)
+        assert_near(st["ssm"].numpy(), np.asarray(wst["ssm"]), dtype)
+        assert_near(st["conv"].float().numpy(),
+                    np.asarray(wst["conv"].astype(jnp.float32)), dtype)
+
+
 def test_unported_layer_kinds_raise():
     """The layer kinds that raised before A.17 item 2 (MoE after either
     layer kind, the hybrid MLP after a Mamba layer) now build, and their

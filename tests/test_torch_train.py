@@ -345,7 +345,8 @@ def test_train_refuses_encdec_and_meshes():
 
 
 # ---------------------------------------------------------------------------
-# B10 refuses a gradient on the card
+# B10's gradient: autograd of the plain version on the CPU, the kernel pair
+# (ops.SsdIntraChunk) on the card
 # ---------------------------------------------------------------------------
 
 def _ssd_inputs(device="cpu", grad=True):
@@ -357,25 +358,49 @@ def _ssd_inputs(device="cpu", grad=True):
                                                              generator=g)
     out = [t.to(device) for t in (x, dt, A, Bm, Cm)]
     if grad:
-        out[0].requires_grad_(True)
+        for t in out:
+            t.requires_grad_(True)
     return out
 
 
-def test_ssd_intra_chunk_grad_on_cpu_and_refused_off_it(monkeypatch):
+def test_ssd_intra_chunk_grad_on_cpu_and_through_the_kernel_pair_off_it(
+        monkeypatch):
     """On the CPU autograd differentiates B10's plain version; on a CUDA
-    tensor that needs a gradient ``ops.ssd_intra_chunk`` raises before any
-    launch (modelled here by taking the CUDA branch on CPU tensors), and
-    without one it goes to the kernel wrapper."""
-    x, dt, A, Bm, Cm = _ssd_inputs()
-    y, S, cd = ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=4)
-    (gx,) = torch.autograd.grad(y.sum() + S.sum(), (x,))
-    assert gx.shape == x.shape and bool(torch.isfinite(gx).all())
-    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
-    with pytest.raises(NotImplementedError, match="4b"):
-        ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=4)
+    tensor that needs a gradient ``ops.ssd_intra_chunk`` goes through
+    ``ops.SsdIntraChunk`` (modelled here by taking the CUDA branch on CPU
+    tensors with the kernel wrappers replaced by their plain versions),
+    whose backward launches B10's backward with the outputs' gradients and
+    gives the plain version's; without one it goes to the forward wrapper
+    alone (the real one refuses CPU tensors)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd_mod
+    args = _ssd_inputs()
+    y, S, cd = ops.ssd_intra_chunk(*args, chunk=4)
+    want = torch.autograd.grad(y.sum() + S.sum(), args)
+    assert all(bool(torch.isfinite(g).all()) for g in want)
     with torch.no_grad():
+        monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
         with pytest.raises(ValueError, match="CUDA"):
-            ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=4)
+            ops.ssd_intra_chunk(*args, chunk=4)
+    calls = []
+
+    def fwd(*a, chunk):
+        calls.append("fwd")
+        return ref.ssd_intra_chunk(*a, chunk=chunk)
+
+    def bwd(*a, chunk):
+        calls.append(("bwd", tuple(t is None for t in a[5:])))
+        return ref.ssd_intra_chunk_bwd(*a, chunk=chunk)
+
+    monkeypatch.setattr(ssd_mod, "ssd_chunk_cuda", fwd)
+    monkeypatch.setattr(ssd_mod, "ssd_chunk_bwd_cuda", bwd)
+    y, S, cd = ops.ssd_intra_chunk(*args, chunk=4)
+    assert "SsdIntraChunk" in type(y.grad_fn).__name__
+    got = torch.autograd.grad(y.sum() + S.sum(), args)
+    assert calls == ["fwd", ("bwd", (False, False, True))]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-5 * max(
+            1.0, float(w.abs().max())))
 
 
 @pytest.fixture
@@ -386,9 +411,18 @@ def cuda():
 
 
 @pytest.mark.gpu
-def test_ssd_intra_chunk_refuses_grad_on_cuda(cuda):
-    x, dt, A, Bm, Cm = _ssd_inputs(cuda)
-    with pytest.raises(NotImplementedError, match="4b"):
-        ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=4)
-    y, _S, _cd = ops.ssd_intra_chunk(x.detach(), dt, A, Bm, Cm, chunk=4)
-    assert y.shape == x.shape
+def test_ssd_intra_chunk_grad_on_cuda_equals_plain(cuda):
+    """A CUDA gradient through B10 and its backward kernel equals the plain
+    version's autograd (1e-4 max(1, max |g|), B10's kernel tolerance)."""
+    from repro_torch.kernels import ref
+    args = _ssd_inputs(cuda)
+    ops.reset_launch_counts()
+    y, S, cd = ops.ssd_intra_chunk(*args, chunk=4)
+    got = torch.autograd.grad(y.sum() + S.sum() + cd.sum(), args)
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk"] == 1 and counts["ssd_chunk_bwd"] == 1
+    y, S, cd = ref.ssd_intra_chunk(*args, chunk=4)
+    want = torch.autograd.grad(y.sum() + S.sum() + cd.sum(), args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(
+            1.0, float(w.abs().max())))
