@@ -156,9 +156,10 @@ beside the script).  Phases:
      twice the plain f32 version's), and on a dyadic cell with dt * A > 0;
      each gradient within 1e-4 max(1, max |want|), bit-equal across two
      launches, timed beside the plain version (no PyTorch call computes
-     this gradient); jamba's layer-0 ``mamba_block`` forward and backward
-     (its input and parameters) through B10 and its backward against the
-     plain step's autograd;
+     this gradient), with its device time by kernel and the operations
+     the kernels issue against those counted; jamba's layer-0
+     ``mamba_block`` forward and backward (its input and parameters)
+     through B10 and its backward against the plain step's autograd;
  34. mamba2-130m training at full width and depth (128,983,488 random bf16
      parameters, AdamW in f32): ``build_train_step`` on train_4k with the
      global batch cut from 256 to 16 (2 microbatches of 8 x 4,096 tokens,
@@ -378,11 +379,15 @@ def nbytes(*ts) -> int:
 def kernel_split(fn, calls: int = 3) -> str:
     """Mean device ms of each kernel that ``calls`` calls of ``fn`` launch,
     from torch.profiler (CUPTI), as "name ms (xN captured), ..." in launch
-    order; N tells how many of the launches the trace kept."""
+    order; N tells how many of the launches the trace kept.  Late in a
+    run, after many traces in one process, the profiler was seen to miss
+    the kernels launched just after it starts, so the host waits a moment
+    before the first call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -466,15 +471,21 @@ def check_sass(lib: Path) -> None:
     check(len(bwd) >= 6 and bwd_float == 0,
           f"B9 backward: {len(bwd)} kernels, {bwd_float} float atomics: "
           f"{sorted(bwd)}")
-    # B10's backward (ssd_chunk_bwd.cu: ssd_bwd_kernel<1 | 2> and
-    # ssd_bwd_bc_kernel): no float atomics (dA leaves as partials, the
-    # groups' dB / dC partials sum in order in the second kernel)
+    # B10's backward (ssd_chunk_bwd.cu: ssd_bwd_cb_kernel<vec> x 2,
+    # ssd_bwd_dx_kernel<64 | 128, vec> x 4, ssd_bwd_g_kernel<vec> x 2,
+    # ssd_bwd_bc_kernel<CL, KS, vec> x 8 and ssd_bwd_sum_kernel): no float
+    # atomics (dA leaves as partials; the dCB and dB partials sum in order)
     b10b = {n: f for n, f in funcs.items() if "ssd_chunk_bwd" in n}
     b10b_float = sum(len(FLOAT_ATOMIC.findall(f)) for f in b10b.values())
     b10b_any = sum(len(ANY_ATOMIC.findall(f)) for f in b10b.values())
-    check(len(b10b) == 3 and b10b_float == 0,
-          f"B10 backward: {len(b10b)} kernels, {b10b_float} float atomics: "
-          f"{sorted(b10b)}")
+    kinds = {k: sum(k in n for n in b10b)
+             for k in ("ssd_bwd_cb_kernel", "ssd_bwd_dx_kernel",
+                       "ssd_bwd_g_kernel", "ssd_bwd_bc_kernel",
+                       "ssd_bwd_sum_kernel")}
+    check(len(b10b) == 17 and list(kinds.values()) == [2, 4, 2, 8, 1]
+          and b10b_float == 0,
+          f"B10 backward: {len(b10b)} kernels {kinds}, {b10b_float} float "
+          f"atomics: {sorted(b10b)}")
     # B2: the 16-byte-copy and the plain-load instantiations
     corr = [f for n, f in funcs.items() if "corr_kernel" in n]
     atomics = sum(f.count("ATOM") + f.count("RED.") for f in corr)
@@ -4200,16 +4211,37 @@ def b10_bwd_ops(Bsz: int, T: int, H: int, Pd: int, N: int, L: int) -> float:
 
 def b10_bwd_issued(Bsz: int, T: int, H: int, Pd: int, N: int,
                    L: int) -> float:
-    """The operations csrc/ssd_chunk_bwd.cu issues: whole 64 x 64 x 64 tile
-    products (2 a multiply-add); per (row, chunk, 8-head group) the C B^T
-    strip, per head the S term and the i-tiles' G and dx; per (row, chunk,
-    64 of N) dC, dB and dB's S term."""
-    nc, t = T // L, -(-L // 64)
-    kn, kp, groups = -(-N // 64), -(-Pd // 64), -(-H // 8)
-    tri = t * (t + 1) // 2
-    main = groups * tri * kn + H * (t * kp * kn + 2 * tri * kp)
-    second = kn * (t * (t + 1) + t * H * kp)
-    return 2.0 * 64 ** 3 * Bsz * nc * (main + second)
+    """The operations csrc/ssd_chunk_bwd.cu issues (2 a multiply-add), its
+    loops' trip counts: C B^T in 64 x 64 tiles of each column strip, N in
+    stages of 32; per group of 8 heads and 64-column j-tile, u over N in
+    stages of 16 and W^T dy in 16-row slices, both on 8 P_pad (64 or 128)
+    columns, and G on each 64 x 64 tile (i >= j) over P in stages of 8; dC,
+    dB and dB's S term on warp tiles of 256 / CL rows x 16 CL columns (CL 1,
+    2 or 4 by N), their stages of KD (16 KS, or 8 KS for KS > 2) as the
+    kernel walks them."""
+    def up(a: int, m: int) -> int:
+        return -(-a // m) * m
+    nc, nt, groups = T // L, -(-L // 64), -(-H // 8)
+    pp = 64 if Pd <= 64 else 128
+    cb = dx = g = 0
+    for jt in range(nt):
+        ni = L - 64 * jt
+        cb += -(-ni // 64) * 64 * 64 * up(N, 32)
+        dx += 8 * pp * 64 * (up(N, 16) + up(ni, 16))
+        g += (nt - jt) * 8 * 64 * 64 * up(Pd, 8)
+    CL = 1 if N <= 16 else 2 if N <= 32 else 4
+    KS = {1: 8, 2: 4}.get(CL, 2 if N <= 64 else 1)
+    ns, KD = 8 // CL // KS, (16 if KS <= 2 else 8) * KS
+    RW, NW = 256 // CL, 16 * CL
+    stages = 0
+    for rt in range(CL):
+        if rt * RW >= L:
+            continue
+        stages += sum(s * KD < rt * RW + RW for s in range(-(-L // KD)))
+        stages += sum((s + 1) * KD > rt * RW for s in range(-(-L // KD)))
+        stages += H * -(-Pd // KD)
+    bc = stages * KD * RW * NW * ns * -(-N // (ns * NW))
+    return 2.0 * Bsz * nc * (cb + groups * (dx + g) + bc)
 
 
 def ssd_cotangents(x, Bm, L: int, seed: int):
@@ -4227,9 +4259,9 @@ def b10_bwd_cell(name: str, args, L: int, seed: int,
                  exact: bool = False) -> dict:
     """B10's backward on ``args`` with fixed random cotangents: each
     gradient within 1e-4 max(1, max |want|) of the plain version's, two
-    launches bit-equal, timed beside the plain version; with ``exact``,
-    the kernel's and the plain version's errors against a float64
-    gradient."""
+    launches bit-equal, timed (also by kernel) beside the plain version;
+    with ``exact``, the kernel's and the plain version's errors against a
+    float64 gradient."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_cuda
     x, dt, A, Bm, Cm = args
@@ -4265,6 +4297,8 @@ def b10_bwd_cell(name: str, args, L: int, seed: int,
         del e64
     del want
     ms = cuda_ms(lambda: ssd_chunk_bwd_cuda(*args, *cot, chunk=L))
+    split = kernel_split(lambda: ssd_chunk_bwd_cuda(*args, *cot, chunk=L),
+                         calls=10)
     plain_ms = cuda_ms(lambda: ref.ssd_intra_chunk_bwd(*args, *cot,
                                                        chunk=L),
                        reps=1, warmup=0)
@@ -4281,7 +4315,8 @@ def b10_bwd_cell(name: str, args, L: int, seed: int,
         + f" ({max(ratios):.4f} of 1e-4 max(1, max |want|) at worst), two "
         f"launches bit-equal{note}; kernel {ms:.3f} ms ({n_ops / ms / 1e9:.2f}"
         f" TFLOP/s counted, {issued / ms / 1e9:.2f} issued: {issued:.4e} "
-        f"operations as built), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+        f"operations as built, {issued / n_ops:.3f}x those counted; by "
+        f"kernel: {split}), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
         f"({b_by}, {n_ops:.4e} fp32 operations; {b_ms / ms:.4f} of it)")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,

@@ -24,380 +24,835 @@
 // Bound on the H100: fp32 arithmetic outside the tensor cores (67 TFLOP/s;
 // no TF32, the step is held to 1e-4): per visible pair (j <= i) and head
 // 4 P operations (G and dx), per position and head 4 N P (u and the S term
-// of dB), per visible pair 6 N once per (b, chunk) (C B^T, dC, dB).
+// of dB), per visible pair 6 N once per (b, chunk) (C B^T, dC, dB).  An SM
+// issues four warp FFMAs a cycle and serves one shared-memory wavefront a
+// cycle, so a product nears the fp32 rate only when every operand value it
+// loads from shared memory feeds many FFMAs.
 //
-// Design (correct first; every product is an fp32 SIMT tile, 4 x 4 a
-// thread of a 64 x 64 output, operands in shared memory):
-//   * ssd_bwd_kernel: a block owns (b, chunk, a group of 8 heads).  Its
-//     warps scan each head's dt * A in one lane, in order, with the
-//     forward's float32 roundings (ssd_chunk.cu's prep), so every
-//     exp(cums_i - cums_j) here has the forward's bits.  Then, per
-//     64-column j-tile: the strip C_i B_j^T (i >= the tile's first row) is
-//     formed once into shared memory for every head of the group; per head
-//     the S term of dx (B_j dS_h, a product over N), then per i-tile
-//     (i >= j) W (the explicit masked exponent, no factoring: at a real
-//     layer's spans a factor about a reference row underflows), G = dy x^T
-//     and dx += W^T dy over P, and G's row and column sums into dcums and
-//     ddt; dCB sums over the group's heads in a shared strip, written out
-//     as the group's partial [B, nc, groups, L, L] when the j-tile is done.
-//     Last, one lane a head adds the cd term and takes the reverse cumsum
-//     of dcums in order (the plain version's), giving ddt and dA's partial.
-//     dcums and what sums it (the row and column sums, the reverse cumsum,
-//     dA's partial) are doubles: at a layer's real spans (hundreds) its
-//     terms are large and cancel, and float32 sums in a lane's serial order
-//     lose more than the plain version's pairwise ones.
-//   * ssd_bwd_bc_kernel: a block per (b, chunk, 64 rows, 64 of N) sums the
-//     groups' dCB partials in group order and forms dC = dCB B and dB =
-//     dCB^T C + the S term (e dt x) dS^T, a product over the heads and P.
+// Design: every product runs on a register tile of 8 x 16 outputs a thread
+// (a warp's 64 x 64; 256 / CL rows x 16 CL columns in the dB / dC kernel),
+// its operands read as 16-byte shared loads along the axis the thread
+// walks, "nt" (A [row][k], B [col][k]) or "nn" (A [row][k], B [k][col]):
+// 8 + 16 loads per 4 k and 512 FFMA.  Operands that lie in memory with k
+// contiguous come through a two-stage cp.async ring (zero fill at ragged
+// edges; 4-byte loads where a row is not 16-byte aligned), so the next
+// stage's copies run under this stage's FFMAs; operands that must be
+// transposed or summed are loaded 16 bytes at a time into registers first.
+// Four launches, each with its own registers (one kernel holding every
+// phase runs out of registers and spills in its hot loops), and a fifth
+// where the fourth splits its depth over blocks:
+//   * ssd_bwd_cb_kernel: C B^T of each (b, chunk) once, the lower 64 x 64
+//     tiles of each column strip into a [L, L] scratch (nt; the warps split
+//     the i-tiles and the two halves of each N stage, summed in order).
+//   * ssd_bwd_dx_kernel: a block per (b, chunk, 8 heads) (a block walking
+//     every group of a (b, chunk) read slower at both real shapes, whose
+//     cells are fewer than the SMs); the forward's layout, a warp per 64 of
+//     the 512 columns heads x P.  Per 64-row j-tile: u = B_j dS_h over N's
+//     own width (nn, B rows and dS rows in the ring), u . x_j (handed to the
+//     G kernel in ddt) and e_j dt_j (dend); the rows scaled by e_j dt_j;
+//     then W^T dy in 16-row slices of i >= j, each warp writing its head's
+//     W (the explicit masked exponent) into its own [j][i] buffer.
+//   * ssd_bwd_g_kernel: the same blocks; a warp per head, per 64 x 64 tile
+//     (i >= j) G = dy x^T over P (nt, 8-deep P stages of all 8 heads), then
+//     at each thread's own (i, j) the decay, Q = G o CB o decay summed down
+//     the columns (ddt; times dt_j, G o W's column sums) and Q dt_j along
+//     the rows (G o W's row sums), into dcums in doubles from Q's float
+//     terms (float partial sums lose an order of magnitude in dA at real
+//     spans); G decay dt summed over the heads in warp order (two 32-row
+//     halves through shared memory) into the block's dCB partial, which the
+//     dB / dC kernel sums in group order.  Below the diagonal tile, for a
+//     head whose dt * A <= 0 everywhere, the decay is u_i v_j about the
+//     reference row r = j0 + 63 between i and j: both factors <= 1, so
+//     neither overflows and one underflows only where the decay itself is
+//     below float's range; on the diagonal tile, and for any head with some
+//     dt * A > 0, the explicit masked exponent.  Every exponent takes the
+//     forward's cumsum: per group, one lane a head scans dt * A in order
+//     with its float32 roundings (ssd_chunk.cu's prep).  Last, one lane a
+//     head takes the S terms and the cd term and the reverse cumsum of
+//     dcums in order (the plain version's), giving ddt and dA's [B, nc, H]
+//     partial; dcums and what sums it are doubles (at a layer's real spans
+//     its terms are large and cancel), and the per-position inputs of these
+//     serial loops are staged in shared memory by every thread first.
+//   * ssd_bwd_bc_kernel<CL, KS>: a block per (b, chunk, N tiles at N's own
+//     width, 16 CL columns; K block), all L rows, 8 warps over (row tile, N
+//     tile, K split KS): dC = dCB B and dB = dCB^T C (nt, the dCB partials
+//     summed in order as they load, B^T and C^T transposed as they are
+//     stored) and dB's S term, one product of depth H P over (e dt x) and
+//     dS streamed through the ring, a thread's x row scaled by its e dt as
+//     the row lands.  Where the cells are too few to fill the card (jamba's
+//     N = 16: a 256 x 16 output a cell), K blocks split the S term by
+//     heads and write partials;
+//   * ssd_bwd_sum_kernel (with K blocks): their dB partials summed in
+//     order.
 // No atomics: every sum runs in a fixed order, and two launches give the
 // same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16 threads, a 4 x 4 output tile each
-constexpr int kT = 64;          // rows and columns of a tile, depth of a stage
-constexpr int kLd = kT + 1;     // row stride of a shared tile (odd, so column
-                                // reads spread over the banks)
+using namespace hopper;
+
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kGH = 8;          // heads of a group: a warp each in the G pass
+constexpr int kCols = 512;      // columns of the dx pass: heads x P_pad
+constexpr int kT = 64;          // tile rows and columns
 constexpr int kMaxL = 256;
-constexpr int kG = kThreads / 32;   // heads of a block: a warp scans each
+constexpr int kSLd = kT + 4;    // row stride of the strip, G stages, dCB sums
+constexpr int kNd = 32;         // N depth of a C B^T stage
+constexpr int kCbLd = kNd + 4;
+constexpr int kUn = 16;         // N depth of a u stage
+constexpr int kUnLd = kUn + 4;
+constexpr int kIs = 16;         // i depth of a dx slice
+constexpr int kWLd = kIs + 4;
+constexpr int kGp = 8;          // P depth of a G stage, per head
+constexpr int kGLd = kGH * kGp + 4;   // row stride of a G stage
 
-// dynamic shared memory of ssd_bwd_kernel, in floats
-struct Lay {
-  static constexpr int cums = 0;                    // [kG][kMaxL]
-  static constexpr int dts = cums + kG * kMaxL;     // [kG][kMaxL]
-  static constexpr int ddq = dts + kG * kMaxL;      // [kG][kMaxL] ddt, direct
-  static constexpr int red = ddq + kG * kMaxL;      // [kT] a tile's s_j
-  static constexpr int cb = red + kT;               // [kMaxL][kLd] C B^T strip
-  static constexpr int dcb = cb + kMaxL * kLd;      // [kMaxL][kLd] dCB strip
-  static constexpr int t0 = dcb + kMaxL * kLd;      // three [kT][kLd] tiles
-  static constexpr int t1 = t0 + kT * kLd;
-  static constexpr int t2 = t1 + kT * kLd;
-  static constexpr int dcm = t2 + kT * kLd;         // [kG][kMaxL] dcums, as
-                                                    // doubles (2 floats each)
-  static constexpr int total = dcm + 2 * kG * kMaxL;
-};
+constexpr int kCbStage = (kMaxL + kT) * kCbLd;   // C rows, then B rows
+constexpr int kDxStage = kIs * kCols;            // a dy slice (or a u stage)
+constexpr int kGStage = 2 * kT * kGLd;           // dy rows, then x rows
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
 
-// dst[r][c] = src[r * rs + c] for r < nr, c < ncol, else 0
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long rs, int nr, int ncol) {
-#pragma unroll 4
-  for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
-    const int r = e / kT, c = e % kT;
-    dst[r * kLd + c] = r < nr && c < ncol ? src[r * rs + c] : 0.f;
+// 16 bytes of a stage: dst[0..4) = src[0..n) (n <= 4 valid floats), zero
+// past them.  kVec: every row is 16-byte aligned and n is 0 or 4, so one
+// cp.async (src is not read when n is 0); else four 4-byte loads.
+template <bool kVec>
+__device__ __forceinline__ void stage16(float* dst, const float* src, int n) {
+  if constexpr (kVec) {
+    cp_async16(smem_u32(dst), src, n > 0 ? 16 : 0);
+  } else {
+    float4 v;
+    v.x = n > 0 ? src[0] : 0.f;
+    v.y = n > 1 ? src[1] : 0.f;
+    v.z = n > 2 ? src[2] : 0.f;
+    v.w = n > 3 ? src[3] : 0.f;
+    *reinterpret_cast<float4*>(dst) = v;
+  }
+}
+// the same into registers (for a stage that is summed or transposed)
+template <bool kVec>
+__device__ __forceinline__ float4 ldg16(const float* src, int n) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kVec) {
+    if (n > 0) v = *reinterpret_cast<const float4*>(src);
+  } else {
+    v.x = n > 0 ? src[0] : 0.f;
+    v.y = n > 1 ? src[1] : 0.f;
+    v.z = n > 2 ? src[2] : 0.f;
+    v.w = n > 3 ? src[3] : 0.f;
+  }
+  return v;
+}
+__device__ __forceinline__ int nvalid(bool ok, int left) {
+  return ok ? (left < 4 ? (left > 0 ? left : 0) : 4) : 0;
+}
+
+// acc[r][q] += sum_{k < 4} A[row r][k] B[col q][k] ("nt"): a0 = A's row 0 at
+// k, rows RS apart (lda floats each); b0 = B's column 0 at k, CS apart
+template <int RS, int CS>
+__device__ __forceinline__ void nt4(float (&acc)[8][16], const float* a0,
+                                    int lda, const float* b0, int ldb) {
+  float4 a[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) a[r] = lds4(a0 + r * RS * lda);
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const float4 bv = lds4(b0 + q * CS * ldb);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) acc[r][q] = dot4(a[r], bv, acc[r][q]);
   }
 }
 
-// acc[r][q] (row ty + 16 r, column tx + 16 q) += sum_k A(row, k) B(k, col),
-// A and B tiles of stride kLd:
-//   nt: A = a[row][k], B = b[col][k];  nn: A = a[row][k], B = b[k][col];
-//   tn: A = a[k][row], B = b[k][col]
-__device__ __forceinline__ void mm_nt(float (&acc)[4][4], const float* a,
-                                      const float* b, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < kT; ++k) {
-    float av[4], bv[4];
+// acc[r][4 q4 + e] += sum_{k < 4} A[row r][k] B[k][col 4 q4 + e] ("nn"):
+// a0 = A's row 0 at k, rows 8 apart; b0 = B's row k at the thread's first
+// column, its 16 columns in four runs of 4, 16 apart
+__device__ __forceinline__ void nn4(float (&acc)[8][16], const float* a0,
+                                    int lda, const float* b0, int ldb) {
+  float4 a[8];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = a[(ty + 16 * r) * kLd + k];
+  for (int r = 0; r < 8; ++r) a[r] = lds4(a0 + r * 8 * lda);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) bv[q] = b[(tx + 16 * q) * kLd + k];
+  for (int k = 0; k < 4; ++k) {
+    float4 bq[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int q4 = 0; q4 < 4; ++q4) bq[q4] = lds4(b0 + k * ldb + 16 * q4);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+    for (int r = 0; r < 8; ++r) {
+      const float av = comp(a[r], k);
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+        acc[r][4 * q4 + 0] = fmaf(av, bq[q4].x, acc[r][4 * q4 + 0]);
+        acc[r][4 * q4 + 1] = fmaf(av, bq[q4].y, acc[r][4 * q4 + 1]);
+        acc[r][4 * q4 + 2] = fmaf(av, bq[q4].z, acc[r][4 * q4 + 2]);
+        acc[r][4 * q4 + 3] = fmaf(av, bq[q4].w, acc[r][4 * q4 + 3]);
+      }
+    }
   }
 }
 
-__device__ __forceinline__ void mm_nn(float (&acc)[4][4], const float* a,
-                                      const float* b, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < kT; ++k) {
-    float av[4], bv[4];
+__device__ __forceinline__ void zero(float (&acc)[8][16]) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = a[(ty + 16 * r) * kLd + k];
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) bv[q] = b[k * kLd + tx + 16 * q];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
-  }
+    for (int q = 0; q < 16; ++q) acc[r][q] = 0.f;
 }
 
-__device__ __forceinline__ void mm_tn(float (&acc)[4][4], const float* a,
-                                      const float* b, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < kT; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = a[k * kLd + ty + 16 * r];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) bv[q] = b[k * kLd + tx + 16 * q];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
-  }
-}
-
-// NPC: 64-column pieces of P (1 for P <= 64, else 2)
-template <int NPC>
+// C B^T of one (b, chunk, 64-column j-tile): rows i >= the tile's first,
+// zero above the diagonal, into the cell's [L, ldc] cb_part (nt; warp w:
+// rows [64 (w % 4), +64), the half w / 4 of each N stage; the halves summed
+// in order through cb_part)
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const float* __restrict__ Bm,
-               const float* __restrict__ Cm, const float* __restrict__ dy,
-               const float* __restrict__ dS, const float* __restrict__ dcd,
-               float* __restrict__ dx, float* __restrict__ ddt,
-               float* __restrict__ dA_part, float* __restrict__ dcb_part,
-               float* __restrict__ dend, int T, int H, int P, int N, int L,
-               int nc, int ngroups, long long sx_b, long long sx_t,
-               long long sx_h, long long sb_b, long long sb_t,
-               long long sc_b, long long sc_t) {
+ssd_bwd_cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
+                  float* __restrict__ cb_part, int N, int L, int nc, int ldc,
+                  long long sb_b, long long sb_t, long long sc_b,
+                  long long sc_t) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ double stot[kG];         // per head: sum_j e_j dt_j u_j . x_j
-  float* cums = smem + Lay::cums;
-  float* dts = smem + Lay::dts;
-  double* dcm = reinterpret_cast<double*>(smem + Lay::dcm);
-  float* ddq = smem + Lay::ddq;
-  float* red = smem + Lay::red;
-  float* cbs = smem + Lay::cb;
-  float* dcbs = smem + Lay::dcb;
-  float* t0s = smem + Lay::t0;
-  float* t1s = smem + Lay::t1;
-  float* t2s = smem + Lay::t2;
+  const int nt = (L + kT - 1) / kT;
+  const int jt = blockIdx.x % nt, c = (blockIdx.x / nt) % nc;
+  const int b = blockIdx.x / nt / nc;
+  const int j0 = jt * kT, nj = min(kT, L - j0), ni = L - j0;
+  const int t0 = c * L;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tr = lane / 4, tc = lane % 4;
+  const int iw = warp & 3, kh = warp >> 2;
+  const bool active = iw * kT < ni;
+  const float* bb = Bm + b * sb_b + (long long)t0 * sb_t;
+  const float* cb = Cm + b * sc_b + (long long)t0 * sc_t;
+  float* out = cb_part + ((size_t)b * nc + c) * (size_t)L * ldc +
+               (size_t)j0 * ldc + j0;
+  auto load = [&](int s) {
+    float* st = smem + (s & 1) * kCbStage;
+    const int n0 = s * kNd;
+    for (int idx = tid; idx < (ni + kT) * (kNd / 4); idx += kThreads) {
+      const int r = idx / (kNd / 4), k = n0 + 4 * (idx % (kNd / 4));
+      const bool isc = r < ni;
+      const int row = isc ? r : r - ni;
+      const bool ok = (isc || row < nj) && k < N;
+      const float* src =
+          isc ? cb + (long long)(j0 + row) * sc_t + (ok ? k : 0)
+              : bb + (long long)(j0 + (ok ? row : 0)) * sb_t + (ok ? k : 0);
+      stage16<kVec>(st + (isc ? row : kMaxL + row) * kCbLd + (k - n0), src,
+                    nvalid(ok, N - k));
+    }
+  };
+  float acc[8][16];
+  zero(acc);
+  const int ns = (N + kNd - 1) / kNd;
+  load(0);
+  cp_async_commit();
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (s + 1 < ns) load(s + 1);
+    cp_async_commit();
+    if (active) {
+      const float* st = smem + (s & 1) * kCbStage;
+      const float* Cs = st + (iw * kT + tr) * kCbLd + kh * (kNd / 2);
+      const float* Bs = st + (kMaxL + tc) * kCbLd + kh * (kNd / 2);
+#pragma unroll
+      for (int k = 0; k < kNd / 2; k += 4)
+        nt4<8, 4>(acc, Cs + k, kCbLd, Bs + k, kCbLd);
+    }
+  }
+  // the second halves first, then the first halves add theirs
+  for (int pass = 1; pass >= 0; --pass) {
+    if (active && kh == pass)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int ii = iw * kT + tr + 8 * r;
+        if (ii >= ni) continue;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int j = tc + 4 * q;
+          if (j >= nj) continue;
+          float* o = out + (size_t)ii * ldc + j;
+          *o = pass == 1 ? acc[r][q] : j <= ii ? acc[r][q] + *o : 0.f;
+        }
+      }
+    __syncthreads();
+  }
+}
+
+// A group's dt and the inclusive cumsum of dt * A, one lane a head, in
+// order: fl(cums_{l-1} + fl(dt_l A)), the forward's roundings (ssd_chunk.cu's
+// prep), so every exp(cums_i - cums_j) here has the forward's bits; expl
+// marks a head with some dt * A > 0
+__device__ __forceinline__ void prep_group(const float* __restrict__ dt,
+                                           const float* __restrict__ A,
+                                           float* cums, float* dts, int* expl,
+                                           int b, int t0, int T, int H,
+                                           int L, int h0, int nh) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int idx = tid; idx < kGH * L; idx += kThreads) {
+    const int l = idx / kGH, g = idx % kGH;
+    dts[g * kMaxL + l] =
+        g < nh ? dt[((size_t)b * T + t0 + l) * H + h0 + g] : 0.f;
+  }
+  __syncthreads();
+  if (lane == 0) {
+    const float ah = warp < nh ? A[h0 + warp] : 0.f;
+    float run = 0.f;
+    bool pos = false;
+    for (int l = 0; l < L; ++l) {
+      const float a = __fmul_rn(dts[warp * kMaxL + l], ah);
+      pos |= a > 0.f;
+      run = __fadd_rn(run, a);
+      cums[warp * kMaxL + l] = run;
+    }
+    if (expl != nullptr) expl[warp] = pos;
+  }
+  __syncthreads();
+}
+
+// the strip strip[ii][j] = C_{j0+ii} . B_{j0+j} (ii < ni) from the first
+// launch's [L, ldc] C B^T; it lands with the caller's next wait
+__device__ __forceinline__ void copy_strip(float* strip, const float* cbp,
+                                           int ldc, int j0, int nj, int ni) {
+  const float* src = cbp + (size_t)j0 * ldc + j0;
+  for (int idx = threadIdx.x; idx < ni * (kT / 4); idx += kThreads) {
+    const int ii = idx / (kT / 4), j = 4 * (idx % (kT / 4));
+    stage16<true>(strip + ii * kSLd + j, src + (size_t)ii * ldc + j,
+                  j < nj ? 4 : 0);
+  }
+  cp_async_commit();
+}
+
+// dynamic shared memory of ssd_bwd_dx_kernel, in floats
+struct DxLay {
+  static constexpr int cums = 0;                    // [kGH][kMaxL]
+  static constexpr int dts = cums + kGH * kMaxL;    // [kGH][kMaxL]
+  static constexpr int ux = dts + kGH * kMaxL;      // [kWarps][kT] u . x parts
+  static constexpr int dsc = ux + kWarps * kT;      // [kGH][kT] e dt of a tile
+  static constexpr int strip = dsc + kGH * kT;      // [kMaxL][kSLd] C B^T
+  static constexpr int ring = strip + kMaxL * kSLd; // 2 dy slices / dS stages
+  static constexpr int wb = ring + 2 * kDxStage;    // per warp W [kT][kWLd];
+                                                    // the u stages' B rows
+  static constexpr int total = wb + kWarps * kT * kWLd;
+};
+static_assert(DxLay::total * 4 <= 227 * 1024, "shared memory");
+static_assert(2 * kT * kUnLd <= kWarps * kT * kWLd, "u stages' B rows");
+
+// dx of one (b, chunk, group of 8 heads), the forward's layout: a warp per
+// 64 of the 512 columns heads x P_pad (PP: P padded to 64 or 128, 512 / PP
+// heads a sub-pass).  Per 64-row j-tile: u_j = B_j dS_h over N (nn), u . x_j
+// (left in ddt for the G kernel) and e_j dt_j (dend); the rows scaled by e_j
+// dt_j; then W^T dy in 16-row slices of i >= j, each warp's W (the explicit
+// masked exponent) in its own [j][i] buffer
+template <int PP, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const float* __restrict__ Bm,
+                  const float* __restrict__ cb_part,
+                  const float* __restrict__ dy, const float* __restrict__ dS,
+                  float* __restrict__ dx, float* __restrict__ uxo,
+                  float* __restrict__ dend, int T, int H, int P, int N, int L,
+                  int nc, int ngroups, int ldc, long long sx_b,
+                  long long sx_t, long long sx_h, long long sb_b,
+                  long long sb_t) {
+  constexpr int HS = kCols / PP;      // heads of a sub-pass
+  constexpr int WPH = PP / 64;        // warps per head
+  extern __shared__ __align__(16) float smem[];
+  float* cums = smem + DxLay::cums;
+  float* dts = smem + DxLay::dts;
+  float* uxs = smem + DxLay::ux;
+  float* dsc = smem + DxLay::dsc;
+  float* strip = smem + DxLay::strip;
+  float* ring = smem + DxLay::ring;
+  float* wball = smem + DxLay::wb;
 
   const int grp = blockIdx.x % ngroups;
   const int c = (blockIdx.x / ngroups) % nc;
   const int b = blockIdx.x / ngroups / nc;
-  const int h0 = grp * kG, nh = min(kG, H - h0);
   const int t0 = c * L;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tr = lane / 4, tc = lane % 4;
+  const int cw = warp * 64;           // this warp's first column
+  const int gl = cw / PP;             // its head in a sub-pass
+  const int pw = cw - gl * PP;        // ... and its first p
   const float* xb = x + b * sx_b + (long long)t0 * sx_t;
   const float* bb = Bm + b * sb_b + (long long)t0 * sb_t;
-  const float* cb = Cm + b * sc_b + (long long)t0 * sc_t;
+  const float* cbp = cb_part + ((size_t)b * nc + c) * (size_t)L * ldc;
   const long long HP = (long long)H * P;
   const long long row0 = ((long long)b * T + t0) * HP;   // dy / dx at (b, t0)
+  float* wb = wball + warp * kT * kWLd;
+  const int nt = (L + kT - 1) / kT;
+  float acc[8][16];
 
-  // ---- dt of the group and the inclusive cumsum of dt * A, one lane a
-  // head, in order: fl(cums_{l-1} + fl(dt_l A)), the forward's roundings --
-  for (int idx = tid; idx < kG * L; idx += kThreads) {
-    const int l = idx / kG, g = idx % kG;
-    dts[g * kMaxL + l] =
-        g < nh ? dt[((size_t)b * T + t0 + l) * H + h0 + g] : 0.f;
+  const int h0 = grp * kGH, nh = min(kGH, H - h0);
+  prep_group(dt, A, cums, dts, nullptr, b, t0, T, H, L, h0, nh);
+
+  for (int jt = 0; jt < nt; ++jt) {
+    const int j0 = jt * kT, nj = min(kT, L - j0), ni = L - j0;
+    __syncthreads();   // the previous tile's strip is read
+    copy_strip(strip, cbp, ldc, j0, nj, ni);
+
+    for (int hs0 = 0; hs0 < kGH; hs0 += HS) {
+      const int gme = hs0 + gl;             // this warp's head in the group
+      const int h = h0 + gme;
+      const float* cg = cums + gme * kMaxL;
+      const float* dg = dts + gme * kMaxL;
+      zero(acc);
+
+      // u_j = B_j dS_h over N, rows j of the tile; u . x_j; the rows
+      // scaled by e_j dt_j
+      if (dS != nullptr) {
+        auto load_u = [&](int s) {
+          float* dst = ring + (s & 1) * kDxStage;          // dS [kUn][kCols]
+          float* bst = wball + (s & 1) * kT * kUnLd;       // B [kT][kUnLd]
+          const int n0 = s * kUn;
+          for (int idx = tid; idx < kT * (kUn / 4) + kUn * (kCols / 4);
+               idx += kThreads) {
+            if (idx < kT * (kUn / 4)) {
+              const int j = idx / (kUn / 4), k = n0 + 4 * (idx % (kUn / 4));
+              const bool ok = j < nj && k < N;
+              stage16<kVec>(bst + j * kUnLd + (k - n0),
+                            bb + (long long)(j0 + (ok ? j : 0)) * sb_t +
+                                (ok ? k : 0),
+                            nvalid(ok, N - k));
+            } else {
+              const int e = idx - kT * (kUn / 4);
+              const int n = n0 + e / (kCols / 4);
+              const int col = 4 * (e % (kCols / 4));
+              const int hh = h0 + hs0 + col / PP, p = col % PP;
+              const bool ok = n < N && hh < H && p < P;
+              const float* src =
+                  ok ? dS + (((size_t)b * nc + c) * H + hh) * (size_t)N * P +
+                           (size_t)n * P + p
+                     : dS;
+              stage16<kVec>(dst + (n - n0) * kCols + col, src,
+                            nvalid(ok, P - p));
+            }
+          }
+        };
+        const int ns = (N + kUn - 1) / kUn;
+        __syncthreads();   // the ring and W buffers are free
+        load_u(0);
+        cp_async_commit();
+        for (int s = 0; s < ns; ++s) {
+          cp_async_wait<0>();
+          __syncthreads();
+          if (s + 1 < ns) load_u(s + 1);
+          cp_async_commit();
+          const float* Bs = wball + (s & 1) * kT * kUnLd + tr * kUnLd;
+          const float* Ds = ring + (s & 1) * kDxStage + cw + 4 * tc;
+#pragma unroll
+          for (int k = 0; k < kUn; k += 4)
+            nn4(acc, Bs + k, kUnLd, Ds + k * kCols, kCols);
+        }
+        // u . x_j over this warp's columns, then over its 4 lanes tc
+        float ux[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int j = tr + 8 * r;
+          float s = 0.f;
+          if (j < nj && h < H) {
+            const float* xr =
+                xb + (long long)(j0 + j) * sx_t + (long long)h * sx_h;
+#pragma unroll
+            for (int q4 = 0; q4 < 4; ++q4) {
+              const int p = pw + 4 * tc + 16 * q4;
+              const float4 xv = ldg16<kVec>(xr + p, nvalid(p < P, P - p));
+              s = fmaf(acc[r][4 * q4 + 0], xv.x, s);
+              s = fmaf(acc[r][4 * q4 + 1], xv.y, s);
+              s = fmaf(acc[r][4 * q4 + 2], xv.z, s);
+              s = fmaf(acc[r][4 * q4 + 3], xv.w, s);
+            }
+          }
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          ux[r] = s;
+        }
+        if (tc == 0)
+#pragma unroll
+          for (int r = 0; r < 8; ++r) uxs[warp * kT + tr + 8 * r] = ux[r];
+        __syncthreads();
+        for (int idx = tid; idx < HS * kT; idx += kThreads) {
+          const int g2 = idx / kT, j = idx % kT;
+          const int gg = hs0 + g2, hh = h0 + gg;
+          float u = 0.f;
+          for (int w2 = 0; w2 < WPH; ++w2) u += uxs[(g2 * WPH + w2) * kT + j];
+          const bool ok = j < nj && hh < H;
+          const float e =
+              ok ? expf(cums[gg * kMaxL + L - 1] - cums[gg * kMaxL + j0 + j])
+                 : 0.f;
+          const float de = ok ? e * dts[gg * kMaxL + j0 + j] : 0.f;
+          dsc[g2 * kT + j] = de;
+          if (ok) {
+            const size_t at = ((size_t)b * T + t0 + j0 + j) * H + hh;
+            uxo[at] = u;
+            dend[at] = de;
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float de = dsc[gl * kT + tr + 8 * r];
+#pragma unroll
+          for (int q = 0; q < 16; ++q) acc[r][q] *= de;
+        }
+      }
+
+      // dx += W^T dy in 16-row slices of i in [j0, L)
+      auto load_dy = [&](int s) {
+        float* st = ring + (s & 1) * kDxStage;
+        const int i0 = j0 + s * kIs;
+        for (int idx = tid; idx < kIs * (kCols / 4); idx += kThreads) {
+          const int ii = idx / (kCols / 4), col = 4 * (idx % (kCols / 4));
+          const int hh = h0 + hs0 + col / PP, p = col % PP;
+          const bool ok = i0 + ii < L && hh < H && p < P;
+          stage16<kVec>(st + ii * kCols + col,
+                        ok ? dy + row0 + (long long)(i0 + ii) * HP +
+                                 (long long)hh * P + p
+                           : dy,
+                        nvalid(ok, P - p));
+        }
+      };
+      const int nsl = (ni + kIs - 1) / kIs;
+      __syncthreads();   // the u stages and u . x sums are read
+      load_dy(0);
+      cp_async_commit();
+      for (int s = 0; s < nsl; ++s) {
+        cp_async_wait<0>();
+        __syncthreads();
+        if (s + 1 < nsl) load_dy(s + 1);
+        cp_async_commit();
+        // this warp's head: wb[j][ii] = W_{i, j0+j}, i = i0 + ii
+        const int i0 = j0 + s * kIs;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int j = lane + 32 * hf, J = j0 + j;
+          const bool jok = j < nj;
+          const float cj = jok ? cg[J] : 0.f;
+          const float dj = jok ? dg[J] : 0.f;
+#pragma unroll
+          for (int i4 = 0; i4 < kIs / 4; ++i4) {
+            float w[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = i0 + 4 * i4 + e;
+              const bool ok = jok && J <= i && i < L;
+              const int ic = min(i, L - 1);
+              const float v =
+                  strip[(ic - j0) * kSLd + j] * expf(cg[ic] - cj) * dj;
+              w[e] = ok ? v : 0.f;
+            }
+            *reinterpret_cast<float4*>(wb + j * kWLd + 4 * i4) =
+                make_float4(w[0], w[1], w[2], w[3]);
+          }
+        }
+        __syncwarp();
+        const float* st = ring + (s & 1) * kDxStage;
+#pragma unroll
+        for (int k = 0; k < kIs; k += 4)
+          nn4(acc, wb + tr * kWLd + k, kWLd, st + k * kCols + cw + 4 * tc,
+              kCols);
+        __syncwarp();   // wb is read before the next slice's W
+      }
+
+      // dx rows j0 + j, this warp's columns
+      if (h < H)
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int j = tr + 8 * r;
+          if (j >= nj) continue;
+          float* o = dx + row0 + (long long)(j0 + j) * HP + (long long)h * P;
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4) {
+            const int p = pw + 4 * tc + 16 * q4;
+            if constexpr (kVec) {
+              if (p < P)
+                *reinterpret_cast<float4*>(o + p) =
+                    make_float4(acc[r][4 * q4], acc[r][4 * q4 + 1],
+                                acc[r][4 * q4 + 2], acc[r][4 * q4 + 3]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (p + e < P) o[p + e] = acc[r][4 * q4 + e];
+            }
+          }
+        }
+    }
   }
-  for (int idx = tid; idx < kG * kMaxL; idx += kThreads) {
+}
+
+// The G tile's epilogue, at (i, j) = (i0 + tr + 8 r, j0 + tc + 4 q) of one
+// head (cg / dg its cumsum and dt; cbt the tile of C B^T): the decay exp(cums_i - cums_j), masked to
+// j <= i; Q = G o CB o decay summed down each column (ddt; times dt_j, G o
+// W's column sums out of dcums) and Q dt_j along each row (G o W's row sums
+// into dcums), in doubles from Q's float terms; acc becomes G decay dt, the
+// head's part of dCB.  kFact (a tile below the diagonal tile, the head's dt
+// * A <= 0 everywhere): decay = u_i v_j about the reference row r = j0 + 63
+// between them, u_i = exp(cums_i - cums_r) and v_j = exp(cums_r - cums_j),
+// both <= 1, so neither overflows and one underflows only where the decay
+// itself is below float's range; else the explicit exponent.
+template <bool kFact>
+__device__ __forceinline__ void g_epilogue(float (&acc)[8][16],
+                                           const float* cg, const float* dg,
+                                           const float* cbt, float* ddq,
+                                           double* dcm, int i0, int j0,
+                                           int nit, int nj, int L,
+                                           bool live) {
+  const int lane = threadIdx.x % 32, tr = lane / 4, tc = lane % 4;
+  const float cr = kFact ? cg[j0 + kT - 1] : 0.f;
+  if (kFact)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float u = expf(cg[min(i0 + tr + 8 * r, L - 1)] - cr);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) acc[r][q] *= u;
+    }
+  double rs[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) rs[r] = 0.0;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int j = tc + 4 * q, J = j0 + j;
+    const bool jok = j < nj && live;
+    const float cj = cg[min(J, L - 1)];
+    const float dj = jok ? dg[J] : 0.f;
+    const float v = kFact ? expf(cr - cj) : 0.f;
+    const double djd = dj;
+    double cq = 0.0;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int i = tr + 8 * r, I = i0 + i;
+      const bool ok = jok && i < nit && J <= I;
+      const int Ic = min(I, L - 1);
+      const float gd = acc[r][q] * (kFact ? v : expf(cg[Ic] - cj));
+      const float qv = ok ? gd * cbt[(Ic - i0) * kSLd + j] : 0.f;
+      const double qd = qv;
+      cq += qd;
+      rs[r] = fma(qd, djd, rs[r]);
+      acc[r][q] = ok ? gd * dj : 0.f;
+    }
+    // the column over the 8 lanes tr
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) cq += __shfl_xor_sync(0xffffffffu, cq, o);
+    if (tr == 0 && jok) {
+      ddq[J] += (float)cq;
+      dcm[J] -= cq * djd;
+    }
+  }
+  __syncwarp();   // column sums land before the row sums (diagonal)
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    double d = rs[r];
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    const int i = tr + 8 * r;
+    if (tc == 0 && i < nit && live) dcm[i0 + i] += d;
+  }
+}
+
+// dynamic shared memory of ssd_bwd_g_kernel, in floats
+struct GLay {
+  static constexpr int cums = 0;                    // [kGH][kMaxL]
+  static constexpr int dts = cums + kGH * kMaxL;    // [kGH][kMaxL]
+  static constexpr int ddq = dts + kGH * kMaxL;     // [kGH][kMaxL] ddt, direct
+  static constexpr int pos = ddq + kGH * kMaxL;     // [kGH][kMaxL] u . x, dcd
+  static constexpr int cbt = pos + kGH * kMaxL;     // [kT][kSLd] C B^T tile
+  static constexpr int work = cbt + kT * kSLd;      // the ring; dCB sums
+  static constexpr int dcm = work + (2 * kGStage > kWarps * 32 * kSLd
+                                         ? 2 * kGStage
+                                         : kWarps * 32 * kSLd);
+  static constexpr int total = dcm + 2 * kGH * kMaxL;   // dcums, doubles
+};
+static_assert(GLay::dcm % 2 == 0, "dcums must be 8-byte aligned");
+static_assert(GLay::total * 4 <= 227 * 1024, "shared memory");
+
+// G of one (b, chunk, group of 8 heads): a warp per head, per 64-row i-tile
+// (i >= j) of each j-tile, G = dy x^T over P (nt, 8-deep P stages for all 8
+// heads), its sums and dCB; the S terms from the dx kernel's u . x (left in
+// ddt); then per head the reverse cumsum of dcums
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_bwd_g_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const float* __restrict__ cb_part,
+                 const float* __restrict__ dy, const float* __restrict__ dcd,
+                 float* __restrict__ ddt, float* __restrict__ dA_part,
+                 float* __restrict__ dcb_part, int has_s, int T, int H, int P,
+                 int L, int nc, int ngroups, int ldc, long long sx_b,
+                 long long sx_t, long long sx_h) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ double stot[kGH];        // per head: sum_j e_j dt_j u_j . x_j
+  __shared__ int expl[kGH];           // per head: some dt * A > 0
+  float* cums = smem + GLay::cums;
+  float* dts = smem + GLay::dts;
+  float* ddq = smem + GLay::ddq;
+  float* pos = smem + GLay::pos;
+  float* cbt = smem + GLay::cbt;
+  float* work = smem + GLay::work;
+  double* dcm = reinterpret_cast<double*>(smem + GLay::dcm);
+
+  const int grp = blockIdx.x % ngroups;
+  const int c = (blockIdx.x / ngroups) % nc;
+  const int b = blockIdx.x / ngroups / nc;
+  const int t0 = c * L;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tr = lane / 4, tc = lane % 4;
+  const float* xb = x + b * sx_b + (long long)t0 * sx_t;
+  const float* cbp = cb_part + ((size_t)b * nc + c) * (size_t)L * ldc;
+  const long long HP = (long long)H * P;
+  const long long row0 = ((long long)b * T + t0) * HP;   // dy at (b, t0)
+  float* dcbp =
+      dcb_part + (((size_t)b * nc + c) * ngroups + grp) * (size_t)L * ldc;
+  const int nt = (L + kT - 1) / kT;
+  const int g = warp;
+  const float* cg = cums + g * kMaxL;
+  const float* dg = dts + g * kMaxL;
+  float acc[8][16];
+
+  const int h0 = grp * kGH, nh = min(kGH, H - h0), h = h0 + g;
+  for (int idx = tid; idx < kGH * kMaxL; idx += kThreads) {
     dcm[idx] = 0.0;
     ddq[idx] = 0.f;
   }
-  if (tid < kG) stot[tid] = 0.0;
-  __syncthreads();
-  if (tid % 32 == 0) {
-    const int g = tid / 32;
-    const float ah = g < nh ? A[h0 + g] : 0.f;
-    float run = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const float a = __fmul_rn(dts[g * kMaxL + l], ah);
-      run = __fadd_rn(run, a);
-      cums[g * kMaxL + l] = run;
-    }
-  }
-  __syncthreads();
+  prep_group(dt, A, cums, dts, expl, b, t0, T, H, L, h0, nh);
 
-  const int nt = (L + kT - 1) / kT;
+  // the S terms: u . x_j (the dx kernel's, fetched by every thread) times
+  // e_j into ddt, times e_j dt_j out of dcums, and their sum, in order,
+  // onto row L-1
+  auto fetch = [&](const float* src) {   // pos[g][l] = src[b, t0 + l, h]
+    for (int idx = tid; idx < kGH * L; idx += kThreads) {
+      const int l = idx / kGH, g2 = idx % kGH;
+      if (g2 < nh)
+        pos[g2 * kMaxL + l] = src[((size_t)b * T + t0 + l) * H + h0 + g2];
+    }
+    __syncthreads();
+  };
+  if (has_s) fetch(ddt);
+  if (lane == 0) {
+    double tot = 0.0;
+    if (has_s && warp < nh)
+      for (int j = 0; j < L; ++j) {
+        const float u = pos[g * kMaxL + j];
+        const float e = expf(cg[L - 1] - cg[j]);
+        const float s = e * dg[j] * u;
+        ddq[g * kMaxL + j] += e * u;
+        dcm[g * kMaxL + j] -= s;
+        tot += s;
+      }
+    stot[g] = tot;
+  }
+
   for (int jt = 0; jt < nt; ++jt) {
     const int j0 = jt * kT, nj = min(kT, L - j0);
-
-    // ---- the strip cbs[i][j] = C_i . B_{j0+j}, i in [j0, L) (64-row tiles),
-    // and the dCB strip zeroed -------------------------------------------
     for (int it = jt; it < nt; ++it) {
-      const int i0 = it * kT, ni = min(kT, L - i0);
-      float acc[4][4] = {};
-      for (int n0 = 0; n0 < N; n0 += kT) {
-        __syncthreads();
-        load_tile(t0s, cb + (long long)i0 * sc_t + n0, sc_t, ni,
-                  min(kT, N - n0));
-        load_tile(t1s, bb + (long long)j0 * sb_t + n0, sb_t, nj,
-                  min(kT, N - n0));
-        __syncthreads();
-        mm_nt(acc, t0s, t1s, ty, tx);
+      const int i0 = it * kT, nit = min(kT, L - i0);
+      auto load_g = [&](int s) {
+        float* st = work + (s & 1) * kGStage;
+        const int p0 = s * kGp;
+        constexpr int per = kT * kGH * (kGp / 4);   // chunks of dy (or x)
+        for (int idx = tid; idx < 2 * per; idx += kThreads) {
+          const bool isx = idx >= per;
+          const int e = isx ? idx - per : idx;
+          const int row = e / (kGH * (kGp / 4)), rem = e % (kGH * (kGp / 4));
+          const int gg = rem / (kGp / 4), p = p0 + 4 * (rem % (kGp / 4));
+          const int hh = h0 + gg;
+          const bool ok = (isx ? row < nj : row < nit) && hh < H && p < P;
+          const float* src =
+              !ok ? dy
+              : isx ? xb + (long long)(j0 + row) * sx_t +
+                          (long long)hh * sx_h + p
+                    : dy + row0 + (long long)(i0 + row) * HP +
+                          (long long)hh * P + p;
+          stage16<kVec>(st + (isx ? kT * kGLd : 0) + row * kGLd + gg * kGp +
+                            (p - p0),
+                        src, nvalid(ok, P - p));
+        }
+      };
+      zero(acc);
+      const int nps = (P + kGp - 1) / kGp;
+      __syncthreads();   // the ring and the C B^T tile are free
+      // the tile C_i . B_j (i in [i0, i0 + nit), j in [j0, j0 + nj)) of
+      // the first launch's C B^T, with the first stage
+      for (int idx = tid; idx < nit * (kT / 4); idx += kThreads) {
+        const int ii = idx / (kT / 4), j = 4 * (idx % (kT / 4));
+        stage16<true>(cbt + ii * kSLd + j,
+                      cbp + (size_t)(i0 + ii) * ldc + j0 + j,
+                      j < nj ? 4 : 0);
       }
+      load_g(0);
+      cp_async_commit();
+      for (int s = 0; s < nps; ++s) {
+        cp_async_wait<0>();
+        __syncthreads();
+        if (s + 1 < nps) load_g(s + 1);
+        cp_async_commit();
+        const float* st = work + (s & 1) * kGStage;
+        const float* Ys = st + tr * kGLd + g * kGp;
+        const float* Xs = st + kT * kGLd + tc * kGLd + g * kGp;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = i0 + ty + 16 * r, j = tx + 16 * q;
-          cbs[i * kLd + j] = acc[r][q];
-          dcbs[i * kLd + j] = 0.f;
-        }
-    }
+        for (int k = 0; k < kGp; k += 4)
+          nt4<8, 4>(acc, Ys + k, kGLd, Xs + k, kGLd);
+      }
+      // the decay, sums and this head's dCB part (g_epilogue)
+      if (it > jt && !expl[g])
+        g_epilogue<true>(acc, cg, dg, cbt, ddq + g * kMaxL,
+                         dcm + g * kMaxL, i0, j0, nit, nj, L, h < H);
+      else
+        g_epilogue<false>(acc, cg, dg, cbt, ddq + g * kMaxL,
+                          dcm + g * kMaxL, i0, j0, nit, nj, L, h < H);
 
-    for (int g = 0; g < nh; ++g) {
-      const int h = h0 + g;
-      const float* cg = cums + g * kMaxL;
-      const float* dg = dts + g * kMaxL;
-      float dxa[NPC][4][4] = {};       // dx rows j0 + ty + 16 r, columns p
-
-      // ---- the S term: u_j = B_j dS_h (over N), u . x_j, dx = e dt u ----
-      if (dS != nullptr) {
-        const float* dsh = dS + (((size_t)b * nc + c) * H + h) * (size_t)N * P;
+      // dCB: the 8 heads summed in warp order, two 32-row halves through
+      // shared memory, added to the block's partial in group order
+      __syncthreads();   // the ring is read
 #pragma unroll
-        for (int pc = 0; pc < NPC; ++pc)
-          for (int n0 = 0; n0 < N; n0 += kT) {
-            __syncthreads();
-            load_tile(t0s, bb + (long long)j0 * sb_t + n0, sb_t, nj,
-                      min(kT, N - n0));
-            load_tile(t1s, dsh + (size_t)n0 * P + pc * kT, P,
-                      min(kT, N - n0), min(kT, P - pc * kT));
-            __syncthreads();
-            mm_nn(dxa[pc], t0s, t1s, ty, tx);
-          }
-        float ux[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int hf = 0; hf < 2; ++hf) {
+        float* red = work;   // [kWarps][32][kSLd]
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int j = ty + 16 * r;
+        for (int r = 4 * hf; r < 4 * hf + 4; ++r) {
+          const int i = tr + 8 * r - 32 * hf;
 #pragma unroll
-          for (int pc = 0; pc < NPC; ++pc)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int p = pc * kT + tx + 16 * q;
-              if (j < nj && p < P)
-                ux[r] = fmaf(dxa[pc][r][q],
-                             xb[(long long)(j0 + j) * sx_t + h * sx_h + p],
-                             ux[r]);
-            }
+          for (int q = 0; q < 16; ++q)
+            red[(warp * 32 + i) * kSLd + tc + 4 * q] = acc[r][q];
         }
-        // sum over the 16 lanes of a row (tx), a fixed butterfly
+        __syncthreads();
+        for (int e = tid; e < 32 * kT; e += kThreads) {
+          const int row = e / kT, col = e % kT;
+          float v = 0.f;
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int o = 8; o > 0; o >>= 1)
-            ux[r] += __shfl_xor_sync(0xffffffffu, ux[r], o);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int j = ty + 16 * r;
-          const bool ok = j < nj;
-          const float e = ok ? expf(cg[L - 1] - cg[j0 + j]) : 0.f;
-          const float de = ok ? e * dg[j0 + j] : 0.f;
-#pragma unroll
-          for (int pc = 0; pc < NPC; ++pc)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) dxa[pc][r][q] *= de;
-          if (tx == 0 && ok) {
-            const float s = de * ux[r];
-            ddq[g * kMaxL + j0 + j] += e * ux[r];
-            dcm[g * kMaxL + j0 + j] -= s;
-            red[j] = s;
-            dend[((size_t)b * T + t0 + j0 + j) * H + h] = de;
+          for (int w2 = 0; w2 < kWarps; ++w2)
+            v += red[(w2 * 32 + row) * kSLd + col];
+          if (32 * hf + row < nit && col < nj) {
+            float* o = dcbp + (size_t)(i0 + 32 * hf + row) * ldc + j0 + col;
+            *o = v;
           }
         }
         __syncthreads();
-        if (tid == 0) {
-          double s = 0.0;
-          for (int j = 0; j < nj; ++j) s += red[j];
-          stot[g] += s;
-        }
       }
-
-      // ---- per i-tile (i >= j): W, G = dy x^T, dx += W^T dy, the sums ----
-      for (int it = jt; it < nt; ++it) {
-        const int i0 = it * kT, ni = min(kT, L - i0);
-        float dec[4][4];
-        __syncthreads();   // the tiles of the last step are read
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int i = ty + 16 * r, j = tx + 16 * q;
-            const bool ok = i < ni && j < nj && j0 + j <= i0 + i;
-            dec[r][q] = ok ? expf(cg[i0 + i] - cg[j0 + j]) : 0.f;
-            t2s[i * kLd + j] =
-                ok ? cbs[(i0 + i) * kLd + j] * dec[r][q] * dg[j0 + j] : 0.f;
-          }
-        float ga[4][4] = {};
-#pragma unroll
-        for (int pc = 0; pc < NPC; ++pc) {
-          if (pc > 0) __syncthreads();
-          load_tile(t0s, dy + row0 + (long long)i0 * HP + (long long)h * P +
-                             pc * kT,
-                    HP, ni, min(kT, P - pc * kT));
-          load_tile(t1s, xb + (long long)j0 * sx_t + (long long)h * sx_h +
-                             pc * kT,
-                    sx_t, nj, min(kT, P - pc * kT));
-          __syncthreads();
-          mm_nt(ga, t0s, t1s, ty, tx);         // G_ij += dy_i . x_j
-          mm_tn(dxa[pc], t2s, t0s, ty, tx);    // dx_jp += W_ij dy_ip
-        }
-        __syncthreads();   // t0s / t1s are read
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int i = ty + 16 * r, j = tx + 16 * q;
-            const float d = j < nj ? dg[j0 + j] : 0.f;
-            const float gd = ga[r][q] * dec[r][q];
-            const float qv = gd * cbs[(i0 + i) * kLd + j];
-            t0s[i * kLd + j] = qv * d;         // G o W
-            t1s[i * kLd + j] = qv;             // G o CB o exp(.)
-            dcbs[(i0 + i) * kLd + j] += gd * d;
-          }
-        __syncthreads();
-        if (tid < ni) {
-          double s = 0.0;
-          for (int j = 0; j < kT; ++j) s += t0s[tid * kLd + j];
-          dcm[g * kMaxL + i0 + tid] += s;
-        }
-        __syncthreads();   // the diagonal tile's rows and columns meet
-        if (tid < nj) {
-          double s = 0.0;
-          for (int i = 0; i < kT; ++i) s += t0s[i * kLd + tid];
-          dcm[g * kMaxL + j0 + tid] -= s;
-        } else if (tid >= kT && tid - kT < nj) {
-          const int j = tid - kT;
-          float s = 0.f;
-          for (int i = 0; i < kT; ++i) s += t1s[i * kLd + j];
-          ddq[g * kMaxL + j0 + j] += s;
-        }
-      }
-
-#pragma unroll
-      for (int pc = 0; pc < NPC; ++pc)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int j = ty + 16 * r, p = pc * kT + tx + 16 * q;
-            if (j < nj && p < P)
-              dx[row0 + (long long)(j0 + j) * HP + (long long)h * P + p] =
-                  dxa[pc][r][q];
-          }
-    }
-
-    // ---- the group's dCB partial: rows [j0, L), columns [j0, j0 + nj) ----
-    __syncthreads();
-    float* dcbp =
-        dcb_part + (((size_t)b * nc + c) * ngroups + grp) * (size_t)L * L;
-    for (int idx = tid; idx < (L - j0) * kT; idx += kThreads) {
-      const int i = j0 + idx / kT, j = idx % kT;
-      if (j < nj) dcbp[(size_t)i * L + j0 + j] = dcbs[i * kLd + j];
     }
   }
 
   // ---- per head, one lane, in order: dcums += dcd o exp(cums) (and the S
-  // term's sum on the last row); dla = reverse cumsum; ddt; dA's partial --
+  // term's sum on the last row); dla = reverse cumsum; ddt; dA's partial
   __syncthreads();
-  if (tid % 32 == 0 && tid / 32 < nh) {
-    const int g = tid / 32, h = h0 + g;
+  if (dcd != nullptr) fetch(dcd);
+  if (lane == 0 && warp < nh) {
     const float ah = A[h];
-    const float* cg = cums + g * kMaxL;
-    const float* dg = dts + g * kMaxL;
     dcm[g * kMaxL + L - 1] += stot[g];
     double run = 0.0, da = 0.0;
     for (int l = L - 1; l >= 0; --l) {
       const size_t at = ((size_t)b * T + t0 + l) * H + h;
       double dc = dcm[g * kMaxL + l];
-      if (dcd != nullptr) dc += dcd[at] * expf(cg[l]);
+      if (dcd != nullptr) dc += pos[g * kMaxL + l] * expf(cg[l]);
       run += dc;
       ddt[at] = (float)(ddq[g * kMaxL + l] + run * ah);
       da += run * dg[l];
@@ -406,160 +861,410 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-// dC and dB of one (b, chunk, 64 rows, 64 columns of N)
-__global__ void __launch_bounds__(kThreads)
+// dC and dB of one (b, chunk, ns N tiles of 16 CL columns), all L rows.
+// Warp w: row tile w % CL (256 / CL rows), N tile (w / CL) % ns, K split
+// w / CL / ns of KS; lanes: CL along the columns, 32 / CL along the rows.
+// Each stage holds KD = 8 KS (16 KS for KS <= 2) of the depth, kw a split;
+// A operands [256][ld], B operands [ns 16 CL][ld], ld = KD + 4.
+constexpr int kBcWork = 2 * (kMaxL + 16) * 68 > kWarps * 128 * 32
+                            ? 2 * (kMaxL + 16) * 68
+                            : kWarps * 128 * 32;
+
+template <int CL, int KS, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
 ssd_bwd_bc_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
                   const float* __restrict__ Cm, const float* __restrict__ dS,
                   const float* __restrict__ dend,
                   const float* __restrict__ dcb_part, float* __restrict__ dB,
                   float* __restrict__ dC, int T, int H, int P, int N, int L,
-                  int nc, int ngroups, long long sx_b, long long sx_t,
-                  long long sx_h, long long sb_b, long long sb_t,
-                  long long sc_b, long long sc_t) {
-  __shared__ float s0[kT * kLd], s1[kT * kLd];
-  const int nnk = (N + kT - 1) / kT, nt = (L + kT - 1) / kT;
-  int id = blockIdx.x;
-  const int nk = id % nnk;
-  id /= nnk;
-  const int rt = id % nt;
-  id /= nt;
-  const int c = id % nc, b = id / nc;
-  const int r0 = rt * kT, nr = min(kT, L - r0);
-  const int n0 = nk * kT, nn = min(kT, N - n0);
-  const int t0 = c * L;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float* dcbp = dcb_part + ((size_t)b * nc + c) * ngroups * (size_t)L * L;
+                  int nc, int nparts, int ldc, int kbs,
+                  long long sx_b, long long sx_t, long long sx_h,
+                  long long sb_b, long long sb_t, long long sc_b,
+                  long long sc_t) {
+  constexpr int RW = 8 * 32 / CL;     // rows of a warp tile
+  constexpr int NW = 16 * CL;         // columns of an N tile
+  constexpr int LR = 32 / CL;         // lanes along the rows
+  constexpr int ns = kWarps / CL / KS;
+  constexpr int kw = KS <= 2 ? 16 : 8;
+  constexpr int KD = kw * KS, ld = KD + 4;
+  constexpr int NWb = ns * NW;        // the block's columns
+  constexpr int stage_f = (kMaxL + NWb) * ld;
+  static_assert(2 * stage_f <= kBcWork, "stages");
+  extern __shared__ __align__(16) float smem[];
 
-  // dst[i][j] = sum over groups, in order, of dCB[i0 + i][j0 + j] (j <= i)
-  auto load_dcb = [&](float* dst, int i0, int ni, int j0, int nj) {
-    for (int e = tid; e < kT * kT; e += kThreads) {
-      const int i = e / kT, j = e % kT;
-      float v = 0.f;
-      if (i < ni && j < nj && j0 + j <= i0 + i)
-        for (int g = 0; g < ngroups; ++g)
-          v += dcbp[((size_t)g * L + i0 + i) * L + j0 + j];
-      dst[i * kLd + j] = v;
+  // block: (b, chunk, N tiles, K block kbi of kbs: the heads [hb0, hb1) of
+  // the S term; the first also takes dC and dB's dCB term).  kbs > 1: dB
+  // holds kbs partials [kbs][B, T, N], summed in order by the last launch
+  const int nnb = (N + NWb - 1) / NWb;
+  const int kbi = blockIdx.x % kbs;
+  const int nb = blockIdx.x / kbs % nnb;
+  const int c = (blockIdx.x / kbs / nnb) % nc;
+  const int b = blockIdx.x / kbs / nnb / nc;
+  const int hpb = (H + kbs - 1) / kbs;
+  const int hb0 = min(H, kbi * hpb), hb1 = min(H, hb0 + hpb);
+  const int n0 = nb * NWb;
+  const int t0 = c * L;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rt = warp % CL, sl = warp / CL, ntl = sl % ns, ks = sl / ns;
+  const int lc = lane % CL, lr = lane / CL;
+  const int rbase = rt * RW;
+  const bool rows_live = rbase < L;
+  const float* dcbp = dcb_part + ((size_t)b * nc + c) * nparts * (size_t)L * ldc;
+  const size_t part = (size_t)L * ldc;
+  const float* xb = x + b * sx_b + (long long)t0 * sx_t;
+  const float* bb = Bm + b * sb_b + (long long)t0 * sb_t;
+  const float* cbm = Cm + b * sc_b + (long long)t0 * sc_t;
+  float acc[8][16];
+
+  // dCB[i][j0 .. j0 + 4) summed over the partials in order, 0 where j > i
+  // or j >= L or i >= L
+  auto dcb4 = [&](int i, int j0) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < L && j0 <= i) {
+      for (int pt = 0; pt < nparts; ++pt) {
+        const float4 w =
+            *reinterpret_cast<const float4*>(dcbp + pt * part + (size_t)i * ldc + j0);
+        v.x += w.x;
+        v.y += w.y;
+        v.z += w.z;
+        v.w += w.w;
+      }
+      v.y = j0 + 1 <= i && j0 + 1 < L ? v.y : 0.f;
+      v.z = j0 + 2 <= i && j0 + 2 < L ? v.z : 0.f;
+      v.w = j0 + 3 <= i && j0 + 3 < L ? v.w : 0.f;
+    }
+    return v;
+  };
+  // a row of B / C, transposed into dst[n][kk] for the block's n
+  auto load_bt = [&](float* dst, const float* rows, long long rs, int r0,
+                     int nrow) {
+    for (int idx = tid; idx < KD * (NWb / 4); idx += kThreads) {
+      const int kk = idx % KD, n4 = 4 * (idx / KD);
+      const int n = n0 + n4;
+      const bool ok = kk < nrow && r0 + kk < L && n < N;
+      const float4 v = ldg16<kVec>(rows + (long long)(ok ? r0 + kk : 0) * rs +
+                                       (ok ? n : 0),
+                                   nvalid(ok, N - n));
+      dst[(n4 + 0) * ld + kk] = v.x;
+      dst[(n4 + 1) * ld + kk] = v.y;
+      dst[(n4 + 2) * ld + kk] = v.z;
+      dst[(n4 + 3) * ld + kk] = v.w;
     }
   };
-
-  float ac[4][4] = {}, ab[4][4] = {};
-  // dC rows r0 + i: sum_j dCB_ij B_j
-  for (int jt = 0; jt <= rt; ++jt) {
-    const int j0 = jt * kT, nj = min(kT, L - j0);
-    __syncthreads();
-    load_dcb(s0, r0, nr, j0, nj);
-    load_tile(s1, Bm + b * sb_b + (long long)(t0 + j0) * sb_t + n0, sb_t, nj,
-              nn);
-    __syncthreads();
-    mm_nn(ac, s0, s1, ty, tx);
-  }
-  // dB rows r0 + j: sum_i dCB_ij C_i
-  for (int it = rt; it < nt; ++it) {
-    const int i0 = it * kT, ni = min(kT, L - i0);
-    __syncthreads();
-    load_dcb(s0, i0, ni, r0, nr);
-    load_tile(s1, Cm + b * sc_b + (long long)(t0 + i0) * sc_t + n0, sc_t, ni,
-              nn);
-    __syncthreads();
-    mm_tn(ab, s0, s1, ty, tx);
-  }
-  // ... + sum_{h, p} e_j dt_j x_jhp dS_h[n][p]
-  if (dS != nullptr)
-    for (int h = 0; h < H; ++h)
-      for (int p0 = 0; p0 < P; p0 += kT) {
-        const int np = min(kT, P - p0);
-        __syncthreads();
-        for (int e = tid; e < kT * kT; e += kThreads) {
-          const int j = e / kT, p = e % kT;
-          const int t = t0 + r0 + j;
-          s0[j * kLd + p] =
-              j < nr && p < np
-                  ? dend[((size_t)b * T + t) * H + h] *
-                        x[b * sx_b + (long long)t * sx_t + h * sx_h + p0 + p]
-                  : 0.f;
-        }
-        load_tile(s1,
-                  dS + (((size_t)b * nc + c) * H + h) * (size_t)N * P +
-                      (size_t)n0 * P + p0,
-                  P, nn, np);
-        __syncthreads();
-        mm_nt(ab, s0, s1, ty, tx);
-      }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = ty + 16 * r, n = tx + 16 * q;
-      if (i < nr && n < nn) {
-        const size_t at = ((size_t)b * T + t0 + r0 + i) * N + n0 + n;
-        dC[at] = ac[r][q];
-        dB[at] = ab[r][q];
-      }
+  // one stage of the product: rows rbase + lr + LR r, columns ntl NW + lc +
+  // CL q, this split's kw of the stage's depth
+  auto fma_stage = [&](const float* st) {
+    const float* As = st + (rbase + lr) * ld + ks * kw;
+    const float* Bs = st + kMaxL * ld + (ntl * NW + lc) * ld + ks * kw;
+    for (int k8 = 0; k8 < kw; k8 += 8) {
+      nt4<LR, CL>(acc, As + k8, ld, Bs + k8, ld);
+      nt4<LR, CL>(acc, As + k8 + 4, ld, Bs + k8 + 4, ld);
     }
+  };
+  // stages 0 .. n-1 through the two-stage ring; load(st, s) fills stage s,
+  // land(st, s) runs on a thread's own copies once they have arrived, use(s)
+  // says whether this warp's rows take stage s
+  auto ring = [&](int n, auto&& load, auto&& land, auto&& use) {
+    __syncthreads();   // the work area is free
+    load(smem, 0);
+    cp_async_commit();
+    for (int s = 0; s < n; ++s) {
+      float* st = smem + (s & 1) * stage_f;
+      cp_async_wait<0>();
+      land(st, s);
+      __syncthreads();
+      if (s + 1 < n) load(smem + ((s + 1) & 1) * stage_f, s + 1);
+      cp_async_commit();
+      if (rows_live && use(s)) fma_stage(st);
+    }
+    __syncthreads();   // the ring is read
+  };
+  auto none = [](float*, int) {};
+  // the K splits summed in order in shared memory, then stored
+  auto finish = [&](float* out) {
+    if (KS > 1) {
+      float* red = smem;   // [kWarps][8 * 16][32]
+      if (ks > 0)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int q = 0; q < 16; ++q)
+            red[(warp * 128 + r * 16 + q) * 32 + lane] = acc[r][q];
+      __syncthreads();
+      if (ks == 0)
+        for (int k2 = 1; k2 < KS; ++k2) {
+          const int w2 = warp + CL * ns * k2;
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int q = 0; q < 16; ++q)
+              acc[r][q] += red[(w2 * 128 + r * 16 + q) * 32 + lane];
+        }
+      __syncthreads();
+    }
+    if (ks == 0 && rows_live)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = rbase + lr + LR * r;
+        if (row >= L) continue;
+        float* o = out + ((size_t)b * T + t0 + row) * N;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int n = n0 + ntl * NW + lc + CL * q;
+          if (n < N) o[n] = acc[r][q];
+        }
+      }
+  };
+
+  // ---- dC[i][n] = sum_{j <= i} dCB[i][j] B[j][n] -------------------------
+  if (kbi == 0) {
+    zero(acc);
+    ring((L + KD - 1) / KD,
+         [&](float* st, int s) {
+           const int j0 = s * KD;
+           for (int idx = tid; idx < kMaxL * (KD / 4); idx += kThreads) {
+             const int i = idx / (KD / 4), k4 = 4 * (idx % (KD / 4));
+             *reinterpret_cast<float4*>(st + i * ld + k4) = dcb4(i, j0 + k4);
+           }
+           load_bt(st + kMaxL * ld, bb, sb_t, j0, KD);
+         },
+         none, [&](int s) { return s * KD < rbase + RW; });
+    finish(dC);
+  }
+  // ---- dB[j][n] = sum_{i >= j} dCB[i][j] C[i][n] + sum_k xs[j][k] dS[n][k]
+  zero(acc);
+  if (kbi == 0) {
+    ring((L + KD - 1) / KD,
+         [&](float* st, int s) {
+           const int i0 = s * KD;
+           for (int idx = tid; idx < KD * (kMaxL / 4); idx += kThreads) {
+             const int kk = idx % KD, j4 = 4 * (idx / KD);
+             const float4 v = dcb4(i0 + kk, j4);
+             st[(j4 + 0) * ld + kk] = v.x;
+             st[(j4 + 1) * ld + kk] = v.y;
+             st[(j4 + 2) * ld + kk] = v.z;
+             st[(j4 + 3) * ld + kk] = v.w;
+           }
+           load_bt(st + kMaxL * ld, cbm, sc_t, i0, KD);
+         },
+         none, [&](int s) { return (s + 1) * KD > rbase; });
+  }
+  if (dS != nullptr) {
+    // stage s: head hb0 + s / sph, p from (s % sph) KD; x rows [256][KD]
+    // (thread t copies row t, and fetches its e_t dt_t as it issues the
+    // copy), dS rows [NWb][KD]
+    static_assert(kThreads == kMaxL, "a thread a row");
+    const int sph = (P + KD - 1) / KD;
+    const int row = tid;
+    float dnext = 0.f;   // e dt of this thread's row, for the stage in flight
+    ring((hb1 - hb0) * sph,
+         [&](float* st, int s) {
+           const int hh = hb0 + s / sph, p0 = (s % sph) * KD;
+#pragma unroll
+           for (int k4 = 0; k4 < KD / 4; ++k4) {
+             const int p = p0 + 4 * k4;
+             const bool ok = row < L && p < P;
+             stage16<kVec>(st + row * ld + 4 * k4,
+                           ok ? xb + (long long)row * sx_t +
+                                    (long long)hh * sx_h + p
+                              : x,
+                           nvalid(ok, P - p));
+           }
+           dnext = row < L ? dend[((size_t)b * T + t0 + row) * H + hh] : 0.f;
+           for (int idx = tid; idx < NWb * (KD / 4); idx += kThreads) {
+             const int n = idx / (KD / 4), p = p0 + 4 * (idx % (KD / 4));
+             const bool ok = n0 + n < N && p < P;
+             stage16<kVec>(st + (kMaxL + n) * ld + (p - p0),
+                           ok ? dS + (((size_t)b * nc + c) * H + hh) *
+                                         (size_t)N * P +
+                                    (size_t)(n0 + n) * P + p
+                              : dS,
+                           nvalid(ok, P - p));
+           }
+         },
+         // e_j dt_j scales this thread's own x row once it has landed
+         [&](float* st, int) {
+           float* xr = st + row * ld;
+#pragma unroll
+           for (int k4 = 0; k4 < KD / 4; ++k4) {
+             float4 w = *reinterpret_cast<float4*>(xr + 4 * k4);
+             w.x *= dnext;
+             w.y *= dnext;
+             w.z *= dnext;
+             w.w *= dnext;
+             *reinterpret_cast<float4*>(xr + 4 * k4) = w;
+           }
+         },
+         [](int) { return true; });
+  }
+  finish(kbs == 1 ? dB
+                  : dB + (size_t)kbi * (gridDim.x / (kbs * nnb)) * L * N);
 }
 
-template <int NPC>
-int launch_main(dim3 grid, cudaStream_t s, const float* x, const float* dt,
-                const float* A, const float* Bm, const float* Cm,
-                const float* dy, const float* dS, const float* dcd, float* dx,
-                float* ddt, float* dA_part, float* dcb_part, float* dend,
-                int T, int H, int P, int N, int L, int nc, int ngroups,
-                long long sx_b, long long sx_t, long long sx_h,
-                long long sb_b, long long sb_t, long long sc_b,
-                long long sc_t) {
-  const int bytes = Lay::total * (int)sizeof(float);
+// out[e] = sum over k < parts, in order, of part[k][e]
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                   long long n, int parts) {
+  for (long long e = blockIdx.x * (long long)kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    float v = part[e];
+    for (int k = 1; k < parts; ++k) v += part[k * n + e];
+    out[e] = v;
+  }
+}
+
+template <int PP, bool kVec>
+int launch_dx(unsigned blocks, cudaStream_t s, const float* x,
+              const float* dt, const float* A, const float* Bm,
+              const float* cb_part, const float* dy, const float* dS,
+              float* dx, float* uxo, float* dend, int T, int H, int P, int N,
+              int L, int nc, int ngroups, int ldc, long long sx_b,
+              long long sx_t, long long sx_h, long long sb_b,
+              long long sb_t) {
+  const int bytes = DxLay::total * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_kernel<NPC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_bwd_dx_kernel<PP, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_dx_kernel<PP, kVec><<<blocks, kThreads, bytes, s>>>(
+      x, dt, A, Bm, cb_part, dy, dS, dx, uxo, dend, T, H, P, N, L, nc,
+      ngroups, ldc, sx_b, sx_t, sx_h, sb_b, sb_t);
+  return (int)cudaGetLastError();
+}
+
+template <bool kVec>
+int launch_g(unsigned blocks, cudaStream_t s, const float* x,
+             const float* dt, const float* A, const float* cb_part,
+             const float* dy, const float* dcd, float* ddt, float* dA_part,
+             float* dcb_part, int has_s, int T, int H, int P, int L, int nc,
+             int ngroups, int ldc, long long sx_b, long long sx_t,
+             long long sx_h) {
+  const int bytes = GLay::total * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_g_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
-  ssd_bwd_kernel<NPC><<<grid, kThreads, bytes, s>>>(
-      x, dt, A, Bm, Cm, dy, dS, dcd, dx, ddt, dA_part, dcb_part, dend, T, H,
-      P, N, L, nc, ngroups, sx_b, sx_t, sx_h, sb_b, sb_t, sc_b, sc_t);
+  ssd_bwd_g_kernel<kVec><<<blocks, kThreads, bytes, s>>>(
+      x, dt, A, cb_part, dy, dcd, ddt, dA_part, dcb_part, has_s, T, H, P, L,
+      nc, ngroups, ldc, sx_b, sx_t, sx_h);
+  return (int)cudaGetLastError();
+}
+
+template <int CL, int KS, bool kVec>
+int launch_bc(int cells, cudaStream_t s, const float* x, const float* Bm,
+              const float* Cm, const float* dS, const float* dend,
+              const float* dcb_part, float* dB, float* dC, int T, int H,
+              int P, int N, int L, int nc, int nparts, int ldc, int kbs,
+              long long sx_b, long long sx_t, long long sx_h, long long sb_b,
+              long long sb_t, long long sc_b, long long sc_t) {
+  constexpr int NWb = kWarps / CL / KS * 16 * CL;
+  const long long blocks = (long long)cells * ((N + NWb - 1) / NWb) * kbs;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int bytes = kBcWork * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_bc_kernel<CL, KS, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_bc_kernel<CL, KS, kVec><<<(unsigned)blocks, kThreads, bytes, s>>>(
+      x, Bm, Cm, dS, dend, dcb_part, dB, dC, T, H, P, N, L, nc, nparts, ldc,
+      kbs, sx_b, sx_t, sx_h, sb_b, sb_t, sc_b, sc_t);
+  return (int)cudaGetLastError();
+}
+
+template <bool kVec>
+int launch_cb(int cells, cudaStream_t s, const float* Bm, const float* Cm,
+              float* cb_part, int N, int L, int nc, int ldc, long long sb_b,
+              long long sb_t, long long sc_b, long long sc_t) {
+  const long long blocks = (long long)cells * ((L + kT - 1) / kT);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int bytes = 2 * kCbStage * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_cb_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_cb_kernel<kVec><<<(unsigned)blocks, kThreads, bytes, s>>>(
+      Bm, Cm, cb_part, N, L, nc, ldc, sb_b, sb_t, sc_b, sc_t);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Launches: C B^T into cb_part ([B, nc, L, ldc], ldc = L rounded up to 4);
+// dx, then G (a block per (b, chunk, group of 8 heads); dcb_part holds one
+// [L, ldc] dCB partial per block); dB and dC (kbs blocks a (b, chunk, N
+// tiles) split dB's S term by heads; kbs > 1: their partials in db_part
+// [kbs, B, T, N]), and then the partials' sum in order.  kbs is the
+// wrapper's choice.
 extern "C" int repro_ssd_chunk_bwd(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* dy, const void* dS, const void* dcd,
     void* dx, void* ddt, void* dA_part, void* dB, void* dC, void* dcb_part,
-    void* dend, int Bsz, int T, int H, int P, int N, int L, long long sx_b,
-    long long sx_t, long long sx_h, long long sb_b, long long sb_t,
-    long long sc_b, long long sc_t, void* stream) {
-  if (L < 1 || L > kMaxL || T % L || P < 1 || P > 2 * kT || N < 1 ||
-      N > 256 || H < 1 || Bsz < 1)
+    void* cb_part, void* db_part, void* dend, int Bsz, int T, int H, int P,
+    int N, int L, int kbs, long long sx_b, long long sx_t,
+    long long sx_h, long long sb_b, long long sb_t, long long sc_b,
+    long long sc_t, void* stream) {
+  if (L < 1 || L > kMaxL || T % L || P < 1 || P > 128 || N < 1 ||
+      N > 256 || H < 1 || Bsz < 1 || kbs < 1 || kbs > H ||
+      (kbs > 1 && db_part == nullptr))
     return (int)cudaErrorInvalidValue;
   const int nc = T / L;
-  const int ngroups = (H + kG - 1) / kG;
-  const long long blocks = (long long)Bsz * nc * ngroups;
-  const long long blocks2 = (long long)Bsz * nc * ((L + kT - 1) / kT) *
-                            ((N + kT - 1) / kT);
-  if (blocks > 0x7fffffffLL || blocks2 > 0x7fffffffLL)
+  const int ngroups = (H + kGH - 1) / kGH;
+  const int ldc = (L + 3) / 4 * 4;
+  const long long cells = (long long)Bsz * nc;
+  if (cells * ngroups > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
+  // 16-byte copies where every row of x, B, C, dy, dS and dx starts on 16
+  // bytes, else 4-byte loads
+  const bool vec =
+      P % 4 == 0 && N % 4 == 0 &&
+      ((sx_b | sx_t | sx_h | sb_b | sb_t | sc_b | sc_t) & 3) == 0 &&
+      (((uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm | (uintptr_t)dy |
+        (uintptr_t)dS | (uintptr_t)dx) & 15) == 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  const float* xf = (const float*)x;
-  const float* bf = (const float*)Bm;
-  const float* cf = (const float*)Cm;
-  const float* sf = (const float*)dS;
-  const int rc =
-      P <= kT
-          ? launch_main<1>(dim3((unsigned)blocks), s, xf, (const float*)dt,
-                           (const float*)A, bf, cf, (const float*)dy, sf,
-                           (const float*)dcd, (float*)dx, (float*)ddt,
-                           (float*)dA_part, (float*)dcb_part, (float*)dend,
-                           T, H, P, N, L, nc, ngroups, sx_b, sx_t, sx_h,
-                           sb_b, sb_t, sc_b, sc_t)
-          : launch_main<2>(dim3((unsigned)blocks), s, xf, (const float*)dt,
-                           (const float*)A, bf, cf, (const float*)dy, sf,
-                           (const float*)dcd, (float*)dx, (float*)ddt,
-                           (float*)dA_part, (float*)dcb_part, (float*)dend,
-                           T, H, P, N, L, nc, ngroups, sx_b, sx_t, sx_h,
-                           sb_b, sb_t, sc_b, sc_t);
+  const float *xf = (const float*)x, *bf = (const float*)Bm,
+              *cf = (const float*)Cm, *sf = (const float*)dS;
+  int rc = vec ? launch_cb<true>((int)cells, s, bf, cf, (float*)cb_part, N,
+                                 L, nc, ldc, sb_b, sb_t, sc_b, sc_t)
+               : launch_cb<false>((int)cells, s, bf, cf, (float*)cb_part, N,
+                                  L, nc, ldc, sb_b, sb_t, sc_b, sc_t);
   if (rc) return rc;
-  ssd_bwd_bc_kernel<<<(unsigned)blocks2, kThreads, 0, s>>>(
-      xf, bf, cf, sf, (const float*)dend, (const float*)dcb_part, (float*)dB,
-      (float*)dC, T, H, P, N, L, nc, ngroups, sx_b, sx_t, sx_h, sb_b, sb_t,
-      sc_b, sc_t);
+  // dx (u . x left in ddt for the G kernel), then G
+#define DX_ARGS (unsigned)(cells * ngroups), s, xf, (const float*)dt,          \
+    (const float*)A, bf, (const float*)cb_part, (const float*)dy, sf,         \
+    (float*)dx, (float*)ddt, (float*)dend, T, H, P, N, L, nc, ngroups, ldc,   \
+    sx_b, sx_t, sx_h, sb_b, sb_t
+  if (P <= 64)
+    rc = vec ? launch_dx<64, true>(DX_ARGS) : launch_dx<64, false>(DX_ARGS);
+  else
+    rc = vec ? launch_dx<128, true>(DX_ARGS) : launch_dx<128, false>(DX_ARGS);
+#undef DX_ARGS
+  if (rc) return rc;
+#define G_ARGS (unsigned)(cells * ngroups), s, xf, (const float*)dt,           \
+    (const float*)A, (const float*)cb_part, (const float*)dy,                 \
+    (const float*)dcd, (float*)ddt, (float*)dA_part, (float*)dcb_part,        \
+    dS != nullptr, T, H, P, L, nc, ngroups, ldc, sx_b, sx_t, sx_h
+  rc = vec ? launch_g<true>(G_ARGS) : launch_g<false>(G_ARGS);
+#undef G_ARGS
+  if (rc) return rc;
+  // the N tiles at N's own width: 16, 32 or 64 columns (two a block past 64)
+  float* dbo = kbs > 1 ? (float*)db_part : (float*)dB;
+#define BC_ARGS (int)cells, s, xf, bf, cf, sf, (const float*)dend,           \
+    (const float*)dcb_part, dbo, (float*)dC, T, H, P, N, L, nc, ngroups,     \
+    ldc, kbs, sx_b, sx_t, sx_h, sb_b, sb_t, sc_b, sc_t
+  if (N <= 16)
+    rc = vec ? launch_bc<1, 8, true>(BC_ARGS) : launch_bc<1, 8, false>(BC_ARGS);
+  else if (N <= 32)
+    rc = vec ? launch_bc<2, 4, true>(BC_ARGS) : launch_bc<2, 4, false>(BC_ARGS);
+  else if (N <= 64)
+    rc = vec ? launch_bc<4, 2, true>(BC_ARGS) : launch_bc<4, 2, false>(BC_ARGS);
+  else
+    rc = vec ? launch_bc<4, 1, true>(BC_ARGS) : launch_bc<4, 1, false>(BC_ARGS);
+#undef BC_ARGS
+  if (rc || kbs == 1) return rc;
+  const long long n = (long long)Bsz * T * N;
+  const long long sum_blocks = (n + kThreads - 1) / kThreads;
+  ssd_bwd_sum_kernel<<<(unsigned)(sum_blocks < 4096 ? sum_blocks : 4096),
+                       kThreads, 0, s>>>((const float*)db_part, (float*)dB,
+                                         n, kbs);
   return (int)cudaGetLastError();
 }

@@ -97,9 +97,9 @@ SIGNATURES = {
     # head) strides of x, the (batch, time) strides of B and C, stream
     "repro_ssd_chunk": [_vp] * 8 + [_i] * 6 + [_ll] * 7 + [_vp],
     # x, dt, A, B, C, dy, dS, dcd, dx, ddt, dA partials, dB, dC, dCB
-    # partials, e dt, batch, T, H, P, N, chunk, the strides as above, stream:
-    # B10's backward
-    "repro_ssd_chunk_bwd": [_vp] * 15 + [_i] * 6 + [_ll] * 7 + [_vp],
+    # partials, C B^T, dB partials, e dt, batch, T, H, P, N, chunk, K
+    # blocks of dB's S term, the strides as above, stream: B10's backward
+    "repro_ssd_chunk_bwd": [_vp] * 17 + [_i] * 7 + [_ll] * 7 + [_vp],
 }
 
 

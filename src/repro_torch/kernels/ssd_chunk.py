@@ -25,12 +25,16 @@ Its gradient, "B10 bwd" (:func:`ssd_chunk_bwd_cuda`, source
 ``repro_torch/csrc/ssd_chunk_bwd.cu``), has no Pallas counterpart: the
 JAX package's train step differentiates its plain scan with XLA.  It is
 bound the same way (4 P operations per visible pair and head, 4 N P per
-position and head, 6 N per visible pair once per (batch row, chunk)); a
-block owns a (batch row, chunk, 8 heads), recomputes the cumsum with the
-forward's roundings, forms C B^T once per column strip for its heads and
-sums dC B^T's gradient over them; a second launch sums the groups'
-partials in order into dB and dC.  No atomics: two launches give the same
-bits.  Its plain version is :func:`ssd_intra_chunk_bwd_plain`.
+position and head, 6 N per visible pair once per (batch row, chunk)), and
+every product runs on the forward's 8 x 16 register tile with 16-byte
+operand loads through a two-stage cp.async ring.  Four launches (the file's
+header has the design): C B^T once per (batch row, chunk); dx (u = B dS at
+N's own width, then W^T dy) and G (G = dy x^T, its row and column sums in
+doubles, dCB summed over the heads) with a block per 8 heads; dB and dC,
+whose S term is one product over the heads and P, split by heads over
+blocks where the cells are too few (:func:`bwd_s_splits`, then a fifth
+launch sums the partials in order).  No atomics: two launches give the
+same bits.  Its plain version is :func:`ssd_intra_chunk_bwd_plain`.
 
 The O(nc) inter-chunk recurrence is framework code, as in the
 reference's ``ops.ssd_chunk``: :func:`ssd_inter_chunk` walks the chunk
@@ -58,8 +62,24 @@ launches = 0
 #: backward kernel launches (a call of ``ssd_chunk_bwd_cuda``) since then
 bwd_launches = 0
 
-#: heads of a block of the backward kernel (its dB / dC partials)
+#: heads of a group of the backward kernel (a warp each in its G pass)
 BWD_HEADS = 8
+#: blocks (batch row, chunk, N tiles) per SM of the last kernel below which
+#: blocks split dB's S term by heads
+BWD_S_SPLIT_BELOW = 0.5
+
+
+def bwd_s_splits(cells: int, N: int, H: int, sms: int) -> int:
+    """Blocks that split dB's S term by heads for each (batch row, chunk, N
+    tiles) of the dB / dC kernel: 1 where those fill half the card, else
+    enough for about two blocks per SM, each a whole number of heads."""
+    tile = 16 if N <= 16 else 32 if N <= 32 else 64 if N <= 64 else 128
+    blocks = cells * -(-N // tile)
+    if blocks >= BWD_S_SPLIT_BELOW * sms:
+        return 1
+    per = -(-H // -(-2 * sms // blocks))
+    return -(-H // per)
+
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 128, 256
 
@@ -170,16 +190,24 @@ def ssd_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy, dS, dcd, *, chunk: int):
         return (dx.zero_(), ddt.zero_(), torch.zeros(H, **f32), dB.zero_(),
                 dC.zero_())
     groups = -(-H // BWD_HEADS)
-    dA_part = torch.empty(Bsz, nc, H, **f32)
-    dcb_part = torch.empty(Bsz, nc, groups, chunk, chunk, **f32)
-    dend = torch.empty(Bsz, T, H, **f32)
-    ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        kbs = 1 if dS is None else bwd_s_splits(Bsz * nc, N, H, sms)
+        db_part = torch.empty(kbs, Bsz, T, N, **f32) if kbs > 1 else None
+        # C B^T of each (batch row, chunk), and a dCB partial per group of
+        # heads, [chunk, chunk] with rows padded to 16 bytes
+        ldc = -(-chunk // 4) * 4
+        cb_part = torch.empty(Bsz, nc, chunk, ldc, **f32)
+        dcb_part = torch.empty(Bsz, nc, groups, chunk, ldc, **f32)
+        dA_part = torch.empty(Bsz, nc, H, **f32)
+        dend = torch.empty(Bsz, T, H, **f32)
+        ptr = (lambda t: None if t is None else t.data_ptr())
         rc = _build.library().repro_ssd_chunk_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), dy.data_ptr(), ptr(dS), ptr(dcd), dx.data_ptr(),
             ddt.data_ptr(), dA_part.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            dcb_part.data_ptr(), dend.data_ptr(), Bsz, T, H, P, N, chunk,
+            dcb_part.data_ptr(), cb_part.data_ptr(), ptr(db_part),
+            dend.data_ptr(), Bsz, T, H, P, N, chunk, kbs,
             *x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2],
             _build.stream_of(x))
     _build.check(rc, "ssd_chunk_bwd")

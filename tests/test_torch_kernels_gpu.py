@@ -1346,6 +1346,32 @@ def test_ssd_chunk_bwd_positive_a(cuda, L):
     _ssd_bwd_close((x, dt, A, Bm, Cm), L)
 
 
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("L", [96, 256])
+@pytest.mark.parametrize("H", [24, 25])
+def test_ssd_chunk_bwd_s_split(cuda, split, L, H):
+    """Both sides of the dB / dC launch's switch, as the input's size sets
+    it: few (batch row, chunk) cells, where blocks split dB's S term by
+    heads and a last launch sums their partials in order, and cells that
+    fill half the SMs, where one block takes it whole; L = 96 leaves a
+    ragged 64-row tile."""
+    from repro_torch.kernels.ssd_chunk import bwd_s_splits
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nc = 1 if split else -(-sms // 4)
+    assert (bwd_s_splits(2 * nc, 128, H, sms) > 1) == split
+    _ssd_bwd_close(_ssd_inputs(cuda, 2, nc * L, H, 64, 128, 7 * L + H), L)
+
+
+@pytest.mark.parametrize("N", [16, 18, 70])
+@pytest.mark.parametrize("P", [64, 128])
+def test_ssd_chunk_bwd_state_widths(cuda, N, P):
+    """The S terms at N's own width: N 16 (16-column tiles of the second
+    launch), 18 and 70 (not multiples of 4: 4-byte loads; 32- and
+    64-column tiles), with P up to 64 and P = 128 (a head over two warps
+    of the dx pass), at a ragged L = 96."""
+    _ssd_bwd_close(_ssd_inputs(cuda, 2, 192, 9, P, N, 11 * N + P), 96)
+
+
 @pytest.mark.parametrize("drop", [("dcd",), ("dS", "dcd"), ("dy",)])
 def test_ssd_chunk_bwd_absent_gradients(cuda, drop):
     """An output whose gradient is absent counts as zero."""

@@ -39,6 +39,16 @@ from repro_torch.kernels import ssd_chunk as ssd_mod
 from repro_torch.models import ssm
 
 NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Thousands of small float64 steps: one intra-op thread a test process
+    keeps parallel test workers from thrashing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 GRID = [(L, N, H, m) for L in (1, 16, 64, 256) for N in (16, 128)
         for H in (1, 3, 8) for m in (1, 4)]
 P = 8
@@ -95,20 +105,23 @@ def strided(x, Bm, Cm):
 
 def recurrence64(x, dt, A, Bm, Cm, L):
     """(y, S, cd) of the intra-chunk step by its per-chunk recurrence, in
-    float64."""
+    float64: every chunk's state walks its L positions in order, all chunks
+    at once."""
     Bsz, T, H, Pd = x.shape
     N = Bm.shape[-1]
-    ys, Ss = [], []
-    for c0 in range(0, T, L):
-        h = torch.zeros(Bsz, H, N, Pd, dtype=torch.float64)
-        for t in range(c0, c0 + L):
-            a = torch.exp(dt[:, t] * A)                           # [B, H]
-            h = a[:, :, None, None] * h + torch.einsum(
-                "bh,bn,bhp->bhnp", dt[:, t], Bm[:, t], x[:, t])
-            ys.append(torch.einsum("bn,bhnp->bhp", Cm[:, t], h))
-        Ss.append(h)
-    cums = torch.cumsum((dt * A).reshape(Bsz, T // L, L, H), dim=2)
-    return (torch.stack(ys, 1), torch.stack(Ss, 1),
+    nc = T // L
+    xc = x.reshape(Bsz, nc, L, H, Pd)
+    dtc = dt.reshape(Bsz, nc, L, H)
+    Bc, Cc = Bm.reshape(Bsz, nc, L, N), Cm.reshape(Bsz, nc, L, N)
+    h = torch.zeros(Bsz, nc, H, N, Pd, dtype=torch.float64)
+    ys = []
+    for t in range(L):
+        a = torch.exp(dtc[:, :, t] * A)                           # [B, nc, H]
+        h = a[..., None, None] * h + torch.einsum(
+            "bch,bcn,bchp->bchnp", dtc[:, :, t], Bc[:, :, t], xc[:, :, t])
+        ys.append(torch.einsum("bcn,bchnp->bchp", Cc[:, :, t], h))
+    cums = torch.cumsum(dtc * A, dim=2)
+    return (torch.stack(ys, 2).reshape(Bsz, T, H, Pd), h,
             torch.exp(cums).reshape(Bsz, T, H))
 
 
@@ -249,3 +262,27 @@ def test_cuda_branch_without_grad_launches_the_forward_alone(cuda_branch):
     with torch.no_grad():
         y, S, cd = ops.ssd_intra_chunk(x, dt, A, Bm, Cm, chunk=16)
     assert cuda_branch == ["fwd"] and not y.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's launch split (chosen by the wrapper on the host)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cells,N,H,sms,want", [
+    (16, 16, 128, 132, 16),  # jamba's layer 0: 8 heads a block, 256 blocks
+    (128, 128, 24, 132, 1),  # mamba2-130m's microbatch fills the card
+    (2, 128, 9, 132, 9),     # a head a block
+    (4, 18, 25, 132, 25),
+    (66, 128, 24, 132, 1),   # half the SMs: no split
+    (40, 50, 24, 132, 6),    # 4 heads a block
+    (8, 32, 24, 132, 24),    # 32-column N tiles
+    (20, 64, 24, 132, 12),   # 64-column N tiles, 2 heads a block
+    (33, 200, 24, 132, 1),   # two 128-column N tiles a cell fill half
+    (32, 200, 24, 132, 5)])  # ... just short of it
+def test_bwd_s_splits(cells, N, H, sms, want):
+    """Blocks that split dB's S term: a whole number of heads each, every
+    head in exactly one block."""
+    kbs = ssd_mod.bwd_s_splits(cells, N, H, sms)
+    assert kbs == want
+    per = -(-H // kbs)
+    assert (kbs - 1) * per < H <= kbs * per
