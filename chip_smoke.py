@@ -167,6 +167,18 @@ beside the script).  Phases:
      backward 48 launches a step), a profiled step split by kernel family;
      (a) at 2 layers the loss and every gradient through B10 and its
      backward against the plain intra-chunk step and its autograd;
+ 35. the dry run (``launch/dryrun.py``) against the card: (a) ``--all`` on
+     both production meshes (66 records, no error) leaves the card's
+     allocator untouched, and in a fresh process leaves CUDA
+     uninitialised; (b) on a one-device mesh at phases 32, 34 and 24's cut
+     shapes, its predicted bytes of starcoder2-3b's and mamba2-130m's
+     parameters and AdamW moments and qwen3-14b's parameters equal the
+     bytes those tensors asked the allocator for; ``memory_allocated``
+     rose by the blocks the allocator's snapshot gives those tensors, each
+     the tensor rounded up to 512 bytes plus, in the large pool, an
+     unsplit tail of at most 1 MiB; (c) model
+     flops over each measured step as TFLOP/s and a share of the dense
+     bf16 peak;
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
@@ -3018,6 +3030,49 @@ def say_breakdown(what: str, split: dict, counts: dict) -> float:
     return dev_ms
 
 
+def alloc_counters() -> tuple[int, int, frozenset]:
+    """(bytes the caching allocator holds for tensors, in its blocks;
+    bytes the tensors asked it for; the addresses of its segments), on
+    the card, after a synchronize."""
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats()["requested_bytes.all.current"],
+            frozenset(seg["address"] for seg in torch.cuda.memory_snapshot()))
+
+
+def record_resident(report: dict, arch: str, before: tuple, **trees) -> int:
+    """Keep for phase 35 what the allocator's two counters rose by since
+    ``before``, every leaf of ``trees`` (argument name -> tree of
+    tensors): its shape, dtype and device type, and, for a leaf on the
+    card, the block the allocator gave its storage, from the allocator's
+    own snapshot: (block bytes, pool, whether its segment is new since
+    ``before``, address).  Returns the rise of ``memory_allocated``."""
+    from repro_torch.models.common import tree_leaves
+    after = alloc_counters()
+    owner = {}     # block address -> (bytes, pool, new segment, address)
+    expandable = False
+    for seg in torch.cuda.memory_snapshot():
+        expandable |= bool(seg.get("is_expandable"))
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated":
+                at = blk.get("address", addr)
+                owner[at] = (blk["size"], seg["segment_type"],
+                             seg["address"] not in before[2], at)
+            addr += blk["size"]
+    leaves, blocks = {}, {}
+    for name, tree in trees.items():
+        for path, t in tree_leaves(tree):
+            key = "/".join((name,) + path)
+            leaves[key] = (tuple(t.shape), t.dtype, t.device.type)
+            if t.is_cuda:
+                blocks[key] = owner.get(t.untyped_storage().data_ptr())
+    report.setdefault("dry_run", {})[arch] = {
+        "alloc": after[0] - before[0], "requested": after[1] - before[1],
+        "leaves": leaves, "blocks": blocks, "expandable": expandable}
+    return after[0] - before[0]
+
+
 def phase_qwen_prefill(report: dict) -> None:
     import dataclasses
     from unittest import mock
@@ -3032,11 +3087,11 @@ def phase_qwen_prefill(report: dict) -> None:
     n_params = lm.count_params(cfg)
     check(n_params == QWEN_PARAMS, f"qwen3-14b has {n_params} parameters, "
           f"the JAX package's count_params {QWEN_PARAMS}")
-    base = torch.cuda.memory_allocated()
+    before = alloc_counters()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device=DEVICE)
-    torch.cuda.synchronize()
-    param_bytes = torch.cuda.memory_allocated() - base
+    param_bytes = record_resident(report, "qwen3_14b", before,
+                                  params=params)
     say(f"qwen3-14b: {n_params} random bf16 parameters from a seed, "
         f"{param_bytes / 2**30:.3f} GiB on the card, made in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3063,6 +3118,8 @@ def phase_qwen_prefill(report: dict) -> None:
           and bool(torch.isfinite(logits).all()),
           "prefill: logits of the wrong shape or not finite")
     del logits
+    report["dry_run"]["qwen3_14b"].update(kind="prefill", batch=QWEN_B,
+                                          seq=QWEN_T, ms=secs * 1e3)
     say(f"qwen3-14b prefill {QWEN_B} x {QWEN_T} tokens ({cfg.n_layers} "
         f"layers, bf16): {secs * 1e3:.1f} ms (host clock, synchronized), "
         f"{QWEN_B * QWEN_T / secs:.0f} tokens/s, peak "
@@ -4061,12 +4118,12 @@ def phase_starcoder2_train(report: dict) -> None:
           f"starcoder2-3b: {n_params} parameters, {cfg.n_layers} layers, "
           f"remat {cfg.remat}")
     torch.cuda.reset_peak_memory_stats()
-    base0 = torch.cuda.memory_allocated()
+    before = alloc_counters()
     params = lm.init_params(cfg, seed=0, device=DEVICE)
     opt_cfg = AdamWConfig()
     opt = adamw_init(params)
-    torch.cuda.synchronize()
-    state_bytes = torch.cuda.memory_allocated() - base0
+    state_bytes = record_resident(report, "starcoder2_3b", before,
+                                  params=params, opt=opt)
     say(f"starcoder2-3b: {n_params} random bf16 parameters from a seed and "
         f"their f32 AdamW moments, {state_bytes / 2**30:.3f} GiB on the "
         f"card; train_4k cut to a batch of {STAR_B} x {STAR_T} tokens in "
@@ -4112,6 +4169,8 @@ def phase_starcoder2_train(report: dict) -> None:
         report["flash_attention_bwd"]["launches"] = bwd
         report["flash_attention_bwd"].update(
             train_step_ms=step_ms, train_tokens_per_s=tps)
+        report["dry_run"]["starcoder2_3b"].update(
+            kind="train", batch=STAR_B, seq=STAR_T, ms=step_ms)
         say(f"starcoder2-3b train step ({STAR_B} x {STAR_T} tokens, "
             f"accum {STAR_ACCUM}): {step_ms:.1f} ms a step (host clock, "
             f"synchronized; steps {', '.join(f'{1e3 * t:.1f}' for t in times)}"
@@ -4458,11 +4517,11 @@ def phase_mamba2_train(report: dict) -> None:
           f"mamba2-130m: {n_params} parameters, {cfg.n_layers} layers, "
           f"remat {cfg.remat}")
     torch.cuda.reset_peak_memory_stats()
-    base0 = torch.cuda.memory_allocated()
+    before = alloc_counters()
     params = lm.init_params(cfg, seed=0, device=DEVICE)
     opt = adamw_init(params)
-    torch.cuda.synchronize()
-    state_bytes = torch.cuda.memory_allocated() - base0
+    state_bytes = record_resident(report, "mamba2_130m", before,
+                                  params=params, opt=opt)
     say(f"mamba2-130m: {n_params} random bf16 parameters from a seed and "
         f"their f32 AdamW moments, {state_bytes / 2**30:.3f} GiB on the "
         f"card; train_4k cut to a batch of {MAMBA_B} x {MAMBA_T} tokens in "
@@ -4506,6 +4565,8 @@ def phase_mamba2_train(report: dict) -> None:
         report["ssd_chunk_bwd"].update(
             launches=bwd, train_step_ms=step_ms, train_tokens_per_s=tps,
             train_peak_gib=peak / 2**30)
+        report["dry_run"]["mamba2_130m"].update(
+            kind="train", batch=MAMBA_B, seq=MAMBA_T, ms=step_ms)
         say(f"mamba2-130m train step ({MAMBA_B} x {MAMBA_T} tokens, accum "
             f"{MAMBA_ACCUM}): {step_ms:.1f} ms a step (host clock, "
             f"synchronized; steps {', '.join(f'{1e3 * t:.1f}' for t in times)}"
@@ -4566,6 +4627,161 @@ def phase_mamba2_train(report: dict) -> None:
         f"max |g|) (worst {worst_leaf}); largest difference relative to "
         f"its leaf's max |g| {worst_rel:.3e}")
     del params, params2, g_k, g_p
+
+
+# phase 35: the dry run (launch/dryrun.py) on a host with the card.  (a)
+# the whole sweep on both production meshes: 66 records, no error, and
+# the card's allocator untouched (a fresh process running the same sweep
+# leaves CUDA uninitialised); (b) on a one-device mesh at each phase's own
+# cut shape, its predicted bytes of the resident state of phases 24, 32
+# and 34 against the allocator's counters: the bytes asked for exactly,
+# and the bytes it holds: the tensors' blocks in its snapshot, each the
+# tensor rounded up to 512 bytes plus at most a 1 MiB unsplit tail in the
+# large pool, summing to the rise exactly; (c) model flops a step over
+# the measured step time, as a share of the dense bf16 tensor-core peak
+DRY_RUN_CELLS = ("starcoder2_3b", "mamba2_130m", "qwen3_14b")
+PEAK_BF16_FLOPS = 989e12     # one H100 SXM, dense bf16 tensor cores
+ALLOC_BLOCK = 512            # the caching allocator's block rounding
+ALLOC_TAIL = 2**20           # the largest rest it leaves unsplit in a block
+
+
+def dry_run_bytes(report: dict) -> None:
+    """Phase 35 (b): the dry run's bytes of each resident state that
+    ``record_resident`` kept in ``report["dry_run"]``, on a one-device
+    mesh at the phase's own cut shape, against the allocator's counters
+    and its snapshot of the tensors' blocks."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import Shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    one = Mesh(("data", "model"), (1, 1))
+    for arch in DRY_RUN_CELLS:
+        rec = report["dry_run"][arch]
+        cfg = get_config(arch)
+        shape = Shape(f"{rec['kind']}_cut", rec["kind"], rec["seq"],
+                      rec["batch"])
+        groups = {path.split("/", 1)[0] for path in rec["leaves"]}
+        leaves = {leaf.path: leaf for leaf in dryrun.cell_leaves(
+            cfg, shape, one) if leaf.path.split("/", 1)[0] in groups}
+        check({p: (leaf.shape, leaf.dtype) for p, leaf in leaves.items()}
+              == {p: v[:2] for p, v in rec["leaves"].items()},
+              f"{arch}: the dry run's leaves are not the card's")
+        on_card = [leaves[p].nbytes(one) for p, v in rec["leaves"].items()
+                   if v[2] == "cuda"]
+        host = sorted(p for p, v in rec["leaves"].items() if v[2] != "cuda")
+        raw = sum(on_card)
+        blocks = sum(-(-n // ALLOC_BLOCK) * ALLOC_BLOCK for n in on_card)
+        check(raw == rec["requested"], f"{arch}: predicted {raw} bytes, the"
+              f" card's tensors asked for {rec['requested']}")
+        # memory_allocated counts whole blocks.  The allocator rounds a
+        # request up to 512 bytes and splits the rest of the block it takes
+        # off, except, in its large pool (requests over 1 MiB), a rest of
+        # at most 1 MiB: that unsplit tail stays in the tensor's block.
+        # Whether a tensor gets one depends on the free block it lands in
+        # (a new segment is the request rounded up to 2 MiB, or 20 MiB
+        # below 10 MiB), so the rise is held to the blocks the allocator
+        # reports for these tensors, and each tail to that rule
+        held_at = rec["blocks"]
+        check(None not in held_at.values() and len(
+            {b[3] for b in held_at.values()}) == len(on_card),
+            f"{arch}: a tensor's storage is not the start of an allocator "
+            f"block: {[p for p, b in held_at.items() if b is None][:3]}")
+        tails = {p: b[0] - -(-leaves[p].nbytes(one) // ALLOC_BLOCK)
+                 * ALLOC_BLOCK for p, b in held_at.items()}
+        bad = [p for p, t in tails.items() if t < 0 or t > (
+            ALLOC_TAIL if held_at[p][1] == "large" else 0)]
+        check(not bad, f"{arch}: blocks against the 512-byte rule: "
+              f"{[(p, held_at[p], tails[p]) for p in bad][:3]}")
+        in_blocks = sum(b[0] for b in held_at.values())
+        check(in_blocks == rec["alloc"], f"{arch}: the tensors' blocks hold"
+              f" {in_blocks} bytes, memory_allocated rose by {rec['alloc']}")
+        large = [p for p, b in held_at.items() if b[1] == "large"]
+        tailed = [p for p in large if tails[p]]
+        fresh = [p for p in large if held_at[p][2]]
+        say(f"(b) {arch} {' + '.join(sorted(groups))} ({len(on_card)} "
+            f"tensors on the card{', host: ' + ', '.join(host) if host else ''}"
+            f"): predicted {raw} bytes ({raw / 2**30:.4f} GiB), requested "
+            f"from the allocator {rec['requested']}; predicted in 512-byte "
+            f"blocks {blocks}, memory_allocated rose by {rec['alloc']} "
+            f"(+{rec['alloc'] - blocks}): the allocator's snapshot gives "
+            f"these tensors {in_blocks} bytes of blocks; {len(large)} in its "
+            f"large pool, {len(fresh)} of them in a segment new since "
+            f"before the state was made, {len(tailed)} with an unsplit tail "
+            f"({sum(tails[p] for p in tailed)} bytes"
+            f"{': ' + ', '.join(tailed) if tailed else ''}); expandable "
+            f"segments {rec['expandable']}")
+
+
+def phase_dry_run(report: dict, smi: str) -> None:
+    import io
+    import os
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import Shape, all_cells
+    from repro_torch.launch import dryrun
+
+    # (a) the sweep, in this process and in a fresh one
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    held = alloc_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, fresh = Path(tmp) / "dryrun.json", Path(tmp) / "fresh.json"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            records = dryrun.main(["--all", "--out", str(out)])
+        secs = time.perf_counter() - t0
+        written = json.loads(out.read_text())
+        code = ("import sys, torch\n"
+                "from repro_torch.launch import dryrun\n"
+                "dryrun.main(['--all', '--out', sys.argv[1]])\n"
+                "print('CUDA initialised:', torch.cuda.is_initialized())\n")
+        r = subprocess.run(
+            [sys.executable, "-c", code, str(fresh)], capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        check(r.returncode == 0, f"dry run in a fresh process: "
+              f"{r.stderr[-2000:]}")
+        fresh_records = json.loads(fresh.read_text())
+    cells = {(a, s.name, mp) for a, s in all_cells() for mp in (False, True)}
+    check(written == json.loads(json.dumps(records)) == fresh_records,
+          "dry run: the records written, returned and made in a fresh "
+          "process differ")
+    check(len(written) == len(cells) == 66 and not [
+        c for c in written if "error" in c] and {
+        (c["arch"], c["shape"], c["multi_pod"]) for c in written} == cells,
+        f"dry run: {len(written)} records, errors "
+        f"{[c for c in written if 'error' in c][:3]}")
+    check(alloc_counters() == held and torch.cuda.memory_stats()[
+        "allocation.all.allocated"] == allocs,
+        "dry run: the card's allocator moved")
+    check("CUDA initialised: False" in r.stdout,
+          f"dry run in a fresh process initialised CUDA: {r.stdout[-500:]}")
+    big = max(written, key=lambda c: c["memory"]["argument_bytes"])
+    say(f"(a) dry run --all: {len(written)} records (33 cells x 2 "
+        f"production meshes), no error, in {secs:.2f} s on the host; the "
+        f"card's allocator unchanged ({held[0]} bytes held, {allocs} "
+        f"allocations before and after); a fresh process running the same "
+        f"sweep left CUDA uninitialised and wrote the same records; largest"
+        f" per-device arguments {big['arch']} x {big['shape']} mp="
+        f"{big['multi_pod']}: {big['memory']['argument_bytes'] / 2**30:.3f}"
+        " GiB")
+
+    # (b) predicted bytes of the resident state against the allocator
+    dry_run_bytes(report)
+
+    # (c) model flops over the measured step
+    for arch in DRY_RUN_CELLS:
+        rec = report["dry_run"][arch]
+        shape = Shape(f"{rec['kind']}_cut", rec["kind"], rec["seq"],
+                      rec["batch"])
+        flops, tokens = dryrun.model_flops(get_config(arch), shape)
+        rate = flops / (rec["ms"] / 1e3)
+        rec.update(model_flops=flops, tflops=rate / 1e12,
+                   peak_share=rate / PEAK_BF16_FLOPS)
+        say(f"(c) {arch} {rec['kind']} {rec['batch']} x {rec['seq']} "
+            f"({tokens} tokens): {flops:.4e} model flops in {rec['ms']:.1f} "
+            f"ms = {rate / 1e12:.1f} TFLOP/s, {rate / PEAK_BF16_FLOPS:.4f} of"
+            f" the 989 TFLOP/s dense bf16 peak; card {smi}")
 
 
 KERNELS = {
@@ -4681,7 +4897,9 @@ def main() -> int:
               ("kernel B10 backward vs its plain version",
                lambda: phase_ssd_bwd(report)),
               ("mamba2-130m train step main path",
-               lambda: phase_mamba2_train(report))]
+               lambda: phase_mamba2_train(report)),
+              ("dry run against the card",
+               lambda: phase_dry_run(report, smi))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")

@@ -15,6 +15,7 @@ CONFIG = ModelConfig(
     d_ff=19_200,
     vocab_size=32_256,
     rope_theta=1e5,
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(

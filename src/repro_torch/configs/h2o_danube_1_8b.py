@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     d_ff=6912,
     vocab_size=32_000,
     window=4096,
+    fsdp=False,
 )
 
 SMOKE = ModelConfig(

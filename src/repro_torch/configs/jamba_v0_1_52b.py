@@ -20,6 +20,7 @@ CONFIG = ModelConfig(
     layer_pattern=("M", "M", "M", "M", "A", "M", "M", "M"),
     moe_experts=16, moe_top_k=2, moe_every=2,
     ssm_state=16, ssm_conv=4, ssm_expand=2, ssm_head_dim=64, ssm_chunk=256,
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(

@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     vocab_size=202_048,
     moe_experts=128, moe_top_k=1, moe_every=2, moe_shared=True,
     rope_theta=5e5,
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(

@@ -18,6 +18,7 @@ CONFIG = ModelConfig(
     vocab_size=202_048,
     moe_experts=16, moe_top_k=1, moe_every=1, moe_shared=True,
     rope_theta=5e5,
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(

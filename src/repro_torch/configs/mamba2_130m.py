@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     layer_pattern=("M",),
     ssm_state=128, ssm_conv=4, ssm_expand=2, ssm_head_dim=64, ssm_chunk=256,
     tie_embeddings=True,
+    fsdp=False,
 )
 
 SMOKE = ModelConfig(

@@ -20,6 +20,7 @@ CONFIG = ModelConfig(
     pos="mrope", mrope_sections=(16, 24, 24),
     frontend="vision_patches", vis_tokens=1024,
     rope_theta=1e6,
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(

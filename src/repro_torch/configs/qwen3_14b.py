@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     vocab_size=151_936,
     qk_norm=True,
     rope_theta=1e6,
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(

@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     vocab_size=49_152,
     norm="layernorm", mlp="gelu",
     rope_theta=1e5,
+    fsdp=False,
 )
 
 SMOKE = ModelConfig(

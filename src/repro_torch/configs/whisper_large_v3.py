@@ -22,6 +22,7 @@ CONFIG = ModelConfig(
     frontend="audio_frames",
     tie_embeddings=True,
     dec_ratio=8,
+    fsdp=False,
 )
 
 SMOKE = ModelConfig(

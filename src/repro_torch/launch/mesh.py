@@ -8,10 +8,10 @@ dimension (an axis name, a tuple of axis names, or None); a dimension
 that does not divide by its axes' extent hands them to another dimension
 of the tensor that does, else drops them.  The port's mesh is a record of
 axis names and sizes: the arithmetic needs nothing else, so the
-production meshes (``(data=16, model=16)``, ``(pod=2, data=16,
-model=16)``) resolve here without devices.  The port's ``ModelConfig``
-carries no sharding fields: ``fsdp`` (the reference config's flag) comes
-as an argument, and "T" is the reference config's default tensor axis.
+production meshes (:func:`make_production_mesh`: ``(data=16,
+model=16)``, ``(pod=2, data=16, model=16)``) resolve here without
+devices.  ``fsdp`` comes as an argument (the caller passes the config's
+``fsdp``), and "T" is the reference config's default tensor axis.
 
 :func:`make_mesh` binds a mesh to devices and takes only a mesh of one
 device: ``torch.distributed`` and ``DeviceMesh`` come with the
@@ -55,6 +55,16 @@ class Mesh:
     def size(self) -> int:
         """Devices in the mesh."""
         return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production dry-run mesh as a record with no device: 256
+    devices ``(data=16, model=16)``, or 512 over two pods ``(pod=2,
+    data=16, model=16)``, "pod" extending data parallelism across the
+    pods."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16))
+    return Mesh(("data", "model"), (16, 16))
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
@@ -105,7 +115,9 @@ def resolve_spec_tree(placeholders: Tree, mesh: Mesh, *, fsdp: bool = False,
                     placeholders)
 
 
-def _axis_size(mesh: Mesh, axis) -> int:
+def axis_size(mesh: Mesh, axis) -> int:
+    """Devices along a spec entry: an axis name, a tuple of names (their
+    product), or None (1)."""
     if axis is None:
         return 1
     if isinstance(axis, tuple):
@@ -125,7 +137,7 @@ def fix_spec_for_shape(shape: Tuple[int, ...], spec: Spec,
     for i, ax in enumerate(entries):
         if ax is None:
             continue
-        size = _axis_size(mesh, ax)
+        size = axis_size(mesh, ax)
         if shape[i] % size == 0:
             continue
         out[i] = None

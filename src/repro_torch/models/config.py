@@ -22,9 +22,11 @@ class ModelConfig:
     (``models/whisper.py``) and the vision-patch frontend, and trains
     them (``launch/train.py``).  ``remat`` recomputes each superblock's
     (and, in a multi-layer pattern, each layer's) activations in the
-    backward pass, as the reference's ``jax.checkpoint`` does.  The
-    reference's sharding and compilation fields (``scan_layers``,
-    ``fsdp``, ``attn_sp``, ``seq_shard``, ``dp_axes``, ``tp_axis``,
+    backward pass, as the reference's ``jax.checkpoint`` does.  ``fsdp``
+    shards the parameters' "F" dimensions over the data axes in the spec
+    arithmetic of ``launch/mesh.py`` (the dry run reads it).  The
+    reference's other sharding and compilation fields (``scan_layers``,
+    ``attn_sp``, ``seq_shard``, ``dp_axes``, ``tp_axis``,
     ``unroll_inner``, ``moe_ec_constraint``) are left out: the port runs
     on one device, eagerly, and nothing here would read them."""
     name: str = "model"
@@ -76,6 +78,7 @@ class ModelConfig:
     # numerics / execution
     dtype: object = torch.bfloat16
     remat: bool = True              # recompute activations in backward
+    fsdp: bool = False              # shard params along the data axes too
     attn_block_k: int = 1024        # kv-block size for blocked attention
     attn_block_threshold: int = 4096  # windowed attention: blocked path when
                                       # T >= this (models/attention.py)

@@ -54,7 +54,8 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.configs.qwen2_vl_72b, repro_torch.optim, "
         "repro_torch.optim.adamw, repro_torch.optim.compress, "
         "repro_torch.data, repro_torch.data.pipeline, "
-        "repro_torch.launch.mesh, repro_torch.launch.train\n"
+        "repro_torch.launch.mesh, repro_torch.launch.train, "
+        "repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -63,6 +64,26 @@ def test_port_imports_no_jax_and_no_reference():
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_dry_run_initialises_no_cuda():
+    """The dry run runs on the meta device: it imports neither JAX nor
+    the JAX package and leaves CUDA uninitialised."""
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.launch import dryrun\n"
+        "rec, = dryrun.main(['--arch', 'mamba2_130m', '--shape', "
+        "'train_4k'])\n"
+        "assert rec['memory']['argument_bytes'] > 0, rec\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('DRYRUN-OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "DRYRUN-OK" in r.stdout, r.stdout + r.stderr
 
 
 @pytest.mark.parametrize(

@@ -500,14 +500,15 @@ def test_config_and_param_count_match_reference(arch):
     """Field for field (dtype aside) and the exact parameter count, from
     the def trees alone (no allocation).  The port leaves out only the
     reference's sharding and compilation fields, which it has nothing to
-    read with; ``remat`` it keeps (it trains)."""
+    read with; ``remat`` it keeps (it trains), and ``fsdp`` (the dry run
+    reads it)."""
     rc, tc = r_get_config(arch), get_config(arch)
     for f in dataclasses.fields(ModelConfig):
         if f.name != "dtype":
             assert getattr(tc, f.name) == getattr(rc, f.name), f.name
     left_out = {f.name for f in dataclasses.fields(RConfig)} - {
         f.name for f in dataclasses.fields(ModelConfig)}
-    assert left_out == {"scan_layers", "fsdp", "attn_sp",
+    assert left_out == {"scan_layers", "attn_sp",
                         "seq_shard", "dp_axes", "tp_axis", "unroll_inner",
                         "moe_ec_constraint"}
     assert {f.name for f in dataclasses.fields(ModelConfig)} <= {
