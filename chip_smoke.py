@@ -179,6 +179,18 @@ beside the script).  Phases:
      unsplit tail of at most 1 MiB; (c) model
      flops over each measured step as TFLOP/s and a share of the dense
      bf16 peak;
+ 36. the distributed backend on the card: 8 spawned ranks, each a process
+     on cuda:0 with ``DistributedComm`` over gloo, every shift staged
+     through pinned host memory (NCCL refuses two ranks on one card; gloo
+     carries no CUDA tensor through send / recv), run the engine
+     selfcheck at P = 8 (every mode), n-body at N = 65,536 (quorum with
+     B1, and atom), PCIT at 8,192 x 512 (B2, B3) and bf16 quorum / ring
+     attention at phase 17's widths and inputs (B9); each rank's rows
+     bit-equal to this process's single-process run of the same inputs,
+     its traced bytes equal to the predictor's, its resident quorum input
+     bytes k/P of the atom's, B1, B2, B3 and B9 launched in every rank;
+     per-rank wall times and ``max_memory_allocated``, labelled "gloo,
+     host-staged, one card";
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
@@ -188,7 +200,9 @@ PCIT, serving, join, k-NN graph, quantized join, quantized k-NN, quorum
 attention, mamba2 prefill and serving, the batching drain, qwen3-14b
 prefill and serving, jamba prefill and serving, llama4-scout, whisper
 and qwen2-vl prefill, the starcoder2-3b and mamba2-130m train steps) is
-driven and read just after it, so comparison launches do not count.
+driven and read just after it, so comparison launches do not count;
+phase 36's ranks do the same in each rank and report them as
+``dist_launches`` (the fewest over the ranks).
 """
 
 from __future__ import annotations
@@ -2016,14 +2030,15 @@ def phase_quant_serving() -> None:
 # B9 flash attention, quorum / ring attention; B10, mamba2-130m
 # ---------------------------------------------------------------------------
 
-def attn_inputs(dtype, seed: int):
+def attn_inputs(dtype, seed: int, T: int = ATTN_T, device=None):
     """q [B, T, H, hd], k / v [B, T, KV, hd] of N(0, 1) values, made on
-    the card from a seed."""
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    the card (``device``, default DEVICE) from a seed."""
+    device = device or DEVICE
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(heads):
-        return torch.randn(ATTN_B, ATTN_T, heads, ATTN_HD, generator=g,
-                           device=DEVICE).to(dtype)
+        return torch.randn(ATTN_B, T, heads, ATTN_HD, generator=g,
+                           device=device).to(dtype)
     return rnd(ATTN_H), rnd(ATTN_KV), rnd(ATTN_KV)
 
 
@@ -4784,6 +4799,341 @@ def phase_dry_run(report: dict, smi: str) -> None:
             f" the 989 TFLOP/s dense bf16 peak; card {smi}")
 
 
+# phase 36: the distributed backend on the card.  P ranks, each a process
+# of its own on cuda:0 (``DistributedComm`` over gloo, every shift staged
+# through pinned host memory: the machine has one card, NCCL refuses two
+# ranks on one card, and gloo carries no CUDA tensor through send / recv),
+# run the engine selfcheck (every mode), n-body (quorum with B1, and atom),
+# PCIT (B2, B3) and bf16 quorum / ring attention (B9) on phases 4, 6, 7 and
+# 17's inputs and seeds.  Each rank's rows are held bit for bit to this
+# process's single-process run of the same inputs (no path's arithmetic
+# depends on the leading axis: the kernels and the plain reductions work
+# per device), its traced comm bytes to the predictor's, and its resident
+# quorum input bytes to k/P of the atom's.
+DIST_JOIN_S = 420            # the ranks' deadline, start-up included
+DIST_TIMEOUT_S = 300         # a collective's wait for a peer
+DIST_COUNTERS = ("comm.ppermute.gather_bytes", "comm.ppermute.gather_hops",
+                 "comm.ppermute.scatter_bytes", "comm.ppermute.scatter_hops",
+                 "comm.allgather.bytes", "comm.ppermute.ring_bytes",
+                 "comm.ppermute.ring_hops")
+DIST_LABEL = "gloo, host-staged, one card"
+
+
+def dist_rank(rank: int, cfg: dict) -> None:
+    """One rank of phase 36, in a spawned process of its own: the paths of
+    phases 4, 6, 7 and 17 on a ``DistributedComm``; its rows and figures
+    go to ``cfg["out"]/rank<r>.pt`` for the parent to check.  It loads the
+    kernel library the parent built and never builds one."""
+    import datetime
+    from repro_torch.apps.attention import distributed_attention
+    from repro_torch.apps.nbody import _blocks, distributed_forces
+    from repro_torch.apps.pcit import run_quorum_pcit
+    from repro_torch.core import selfcheck
+    from repro_torch.core.comm import DistributedComm
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.core.sweep import quorum_gather
+    from repro_torch.kernels import _build, ops
+    from repro_torch.obs import trace as obs_trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    comm = DistributedComm("gloo", rank=rank, world_size=cfg["P"],
+                           init_method=f"file://{cfg['store']}",
+                           device=cfg["device"],
+                           timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    dev = comm.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        lib = _build.BUILD_ROOT / _build.build_key() / _build.LIB_NAME
+        check(lib == Path(cfg["lib"]) and lib.exists(),
+              f"rank {rank}: no kernel library at {cfg['lib']} ({lib})")
+        _build.library()
+    rows: dict = {}
+    stats: dict = {"transport": comm.transport, "device": str(dev)}
+
+    def run(name, fn):
+        """``fn`` run twice: the first warms up (its wall ms kept as
+        ``first_ms``), the second under a fresh tracer with the launch
+        counts and the peak reset: its result, and its wall ms, peak
+        bytes above the bytes held before it, launches and traced
+        counters into ``stats``."""
+        t0 = time.perf_counter()
+        fn()
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        base = torch.cuda.memory_allocated(dev) if cuda else 0
+        tr = obs_trace.configure(metrics_only=True)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize(dev)
+        finally:
+            obs_trace.reset()
+        stats[name] = {
+            "first_ms": first_ms, "ms": (time.perf_counter() - t0) * 1e3,
+            "peak": (torch.cuda.max_memory_allocated(dev) - base) if cuda
+            else 0,
+            "launches": ops.launch_counts(),
+            "counters": {c: int(tr.counter_total(c)) for c in DIST_COUNTERS}}
+        return out
+
+    try:
+        for name, out in run("selfcheck", lambda: selfcheck.main(
+                cfg["P"], comm=comm)).items():
+            rows[f"selfcheck_{name}"] = torch.as_tensor(out)
+
+        bodies = make_bodies(cfg["nbody_n"], 2)       # on the host
+        rows["nbody_quorum"] = run("nbody_quorum", lambda: distributed_forces(
+            bodies, comm, use_kernel=True)).cpu()
+        rows["nbody_atom"] = run("nbody_atom", lambda: distributed_forces(
+            bodies, comm, strategy="atom")).cpu()
+        xb = _blocks(bodies, comm)
+        stats["resident_quorum"] = quorum_gather(
+            xb, build_schedule(cfg["P"]), comm).nbytes
+        stats["resident_atom"] = comm.all_gather(xb).nbytes
+        del xb
+
+        X = make_expression(*cfg["pcit"], 1)
+        corr, keep = run("pcit", lambda: run_quorum_pcit(
+            X, comm, use_kernels=True))
+        rows["pcit_corr"], rows["pcit_keep"] = corr.cpu(), keep.cpu()
+        del corr, keep
+
+        # phase 17's inputs, made on the card from its seed and kept on
+        # the host: each rank moves only its own blocks to the card
+        q, k, v = (t.cpu() for t in attn_inputs(
+            torch.bfloat16, 23, T=cfg["attn_t"], device=dev))
+        if cuda:
+            torch.cuda.empty_cache()
+        for strategy in ("quorum", "ring"):
+            rows[f"attention_{strategy}"] = run(
+                f"attention_{strategy}", lambda: distributed_attention(
+                    q, k, v, comm, strategy=strategy)).cpu()
+        torch.save({"rows": rows, "stats": stats},
+                   Path(cfg["out"]) / f"rank{rank}.pt")
+    finally:
+        comm.close()
+
+
+def dist_nccl_rank(rank: int, store: str) -> None:
+    """One of two ranks asking for NCCL on the one card: NCCL refuses two
+    ranks on one card, and the refusal must reach the caller."""
+    import datetime
+    from repro_torch.core.comm import DistributedComm
+    DistributedComm("nccl", rank=rank, world_size=2,
+                    init_method=f"file://{store}",
+                    timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+
+
+def dist_nccl_refused() -> None:
+    """Two ranks asking for NCCL on the one card: NCCL refuses, and the
+    refusal must reach the caller (nothing falls back to gloo)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(dist_nccl_rank, args=(f"{tmp}/store",),
+                                 nprocs=2, join=False, start_method="spawn")
+        refusal = ""
+        try:
+            join_ranks(ctx, DIST_JOIN_S)
+        except mp.ProcessRaisedException as e:
+            refusal = str(e)
+    secs = time.perf_counter() - t0
+    check("NCCL error" in refusal,
+          f"phase 36: two nccl ranks on one card did not raise {refusal}")
+    last = refusal.strip().splitlines()[-1].strip()
+    say(f"two nccl ranks on cuda:0: NCCL refused in {secs:.1f} s and the "
+        f"error reached the caller ({last[:160]}); the spawned ranks' "
+        "tracebacks on stderr are this check's")
+
+
+def dist_single(cfg: dict) -> dict:
+    """The single-process rows phase 36's ranks are held to: the same
+    paths on the same inputs on a ``SingleProcessComm``, on the host."""
+    from repro_torch.apps.attention import distributed_attention
+    from repro_torch.apps.nbody import distributed_forces
+    from repro_torch.apps.pcit import run_quorum_pcit
+    from repro_torch.core import selfcheck
+    from repro_torch.core.comm import SingleProcessComm
+
+    comm = SingleProcessComm(cfg["P"], DEVICE)
+    out = {f"selfcheck_{name}": torch.as_tensor(v) for name, v in
+           selfcheck.main(cfg["P"], device=DEVICE).items()}
+    bodies = make_bodies(cfg["nbody_n"], 2)
+    out["nbody_quorum"] = distributed_forces(bodies, comm,
+                                             use_kernel=True).cpu()
+    out["nbody_atom"] = distributed_forces(bodies, comm,
+                                           strategy="atom").cpu()
+    corr, keep = run_quorum_pcit(make_expression(*cfg["pcit"], 1), comm,
+                                 use_kernels=True)
+    out["pcit_corr"], out["pcit_keep"] = corr.cpu(), keep.cpu()
+    del corr, keep
+    q, k, v = attn_inputs(torch.bfloat16, 23, T=cfg["attn_t"])
+    for strategy in ("quorum", "ring"):
+        out[f"attention_{strategy}"] = distributed_attention(
+            q, k, v, comm, strategy=strategy).cpu()
+    return out
+
+
+def dist_predicted(cfg: dict) -> dict:
+    """Each rank's comm bytes and hops by the predictor
+    (``obs/comm.py``), per path, from the shapes of this run."""
+    from repro_torch.core.placement import resolve_placement
+    from repro_torch.obs.comm import (predict_ring_gather_comm,
+                                      predict_sweep_comm)
+
+    P_ = cfg["P"]
+    plc = resolve_placement("cyclic", P_)
+    nb = cfg["nbody_n"] // P_                      # bodies a device
+    pn, pg = cfg["pcit"][0] // P_, cfg["pcit"][1]  # genes a device, samples
+    tq = ATTN_B * cfg["attn_t"] // P_              # positions a device
+    bf16, f32 = 2, 4
+
+    def sweep(*pairs):
+        preds = [predict_sweep_comm(plc, b, partial_bytes=p) for b, p in pairs]
+        return {f"comm.ppermute.{f}": sum(getattr(x, f) for x in preds)
+                for f in ("gather_bytes", "gather_hops", "scatter_bytes",
+                          "scatter_hops")}
+
+    ring = predict_ring_gather_comm(P_, 2 * tq * ATTN_KV * ATTN_HD * bf16)
+    return {
+        "nbody_quorum": sweep((nb * 4 * f32, nb * 3 * f32)),
+        "nbody_atom": {"comm.allgather.bytes": (P_ - 1) * nb * 4 * f32},
+        # correlation tiles: the rows' blocks out, [block, N] strips back;
+        # the filter: the correlation rows out, the keep strips back
+        "pcit": sweep((pn * pg * f32, pn * cfg["pcit"][0] * f32),
+                      (pn * cfg["pcit"][0] * f32, pn * cfg["pcit"][0] * f32)),
+        # (q, k, v) blocks out, the (o, m, l) f32 partials back
+        "attention_quorum": sweep(
+            (tq * (ATTN_H + 2 * ATTN_KV) * ATTN_HD * bf16,
+             tq * ATTN_H * (ATTN_HD + 2) * f32)),
+        "attention_ring": {"comm.ppermute.ring_bytes": ring["bytes"],
+                           "comm.ppermute.ring_hops": ring["hops"]}}
+
+
+def join_ranks(ctx, seconds: float) -> None:
+    """Wait for every rank; a rank that raised fails the phase (its
+    context ends the others), and ranks still running at the deadline are
+    killed and fail it."""
+    deadline = time.monotonic() + seconds
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline,
+                  f"phase 36: ranks still running after {seconds} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+
+
+def phase_distributed(report: dict, smi: str) -> None:
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.kernels import _build
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    cfg = dict(P=P, nbody_n=NBODY_N, pcit=(PCIT_N, PCIT_G, PCIT_RANK),
+               attn_t=ATTN_T, device=DEVICE, lib=str(_build.build()))
+    dist_nccl_refused()
+    t0 = time.perf_counter()
+    single = dist_single(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.update(store=str(Path(tmp) / "store"), out=tmp)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(dist_rank, args=(cfg,), nprocs=P,
+                                 join=False, start_method="spawn")
+        join_ranks(ctx, DIST_JOIN_S)
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=True)
+                 for r in range(P)]
+    say(f"{P} ranks ({DIST_LABEL}; compute mode {mode}): spawned, ran and "
+        f"joined in {wall_s:.1f} s wall; the single-process rows took "
+        f"{single_s:.1f} s")
+
+    want = dist_predicted(cfg)
+    k = build_schedule(P).k
+    for r, res in enumerate(ranks):
+        rows, st = res["rows"], res["stats"]
+        check(st["transport"] == "gloo, host-staged"
+              and st["device"].startswith("cuda"),
+              f"rank {r}: transport {st['transport']} on {st['device']}")
+        for key, got in rows.items():
+            full = single[key]
+            axis = 1 if key.startswith("attention") else 0
+            n = full.shape[axis] // P
+            mine = full.narrow(axis, r * n, n)
+            check(got.shape == mine.shape and got.dtype == mine.dtype,
+                  f"rank {r} {key}: {tuple(got.shape)} {got.dtype}, single "
+                  f"process {tuple(mine.shape)} {mine.dtype}")
+            check(torch.equal(got, mine), f"rank {r} {key}: differs from "
+                  f"the single-process rows (max abs "
+                  f"{float((got.float() - mine.float()).abs().max()):.3e})")
+        for path, kern in (("nbody_quorum", ("pairwise_batch",)),
+                           ("pcit", ("pairwise_corr", "pcit_filter")),
+                           ("attention_quorum", ("flash_attention",)),
+                           ("attention_ring", ("flash_attention",))):
+            for name in kern:
+                check(st[path]["launches"][name] > 0,
+                      f"rank {r} {path}: {name} was never launched")
+        for path, counters in want.items():
+            got = {c: v for c, v in st[path]["counters"].items() if v}
+            check(got == counters, f"rank {r} {path}: traced {got}, "
+                  f"predicted {counters}")
+        check(st["resident_quorum"] * P == st["resident_atom"] * k,
+              f"rank {r}: resident quorum bytes {st['resident_quorum']}, "
+              f"atom {st['resident_atom']}: not k/P = {k}/{P}")
+
+    def each(path, field, scale=1.0):
+        return " / ".join(f"{res['stats'][path][field] * scale:.1f}"
+                          for res in ranks)
+
+    mib = 1 / 2**20
+    st0 = ranks[0]["stats"]
+    say(f"selfcheck P={P} every mode ({DIST_LABEL}), ranks 0-{P - 1}: "
+        f"first run (the rank's start-up costs included) "
+        f"{each('selfcheck', 'first_ms')} ms, second "
+        f"{each('selfcheck', 'ms')} ms")
+    say(f"n-body N={NBODY_N} P={P} ({DIST_LABEL}; the second of two "
+        f"runs, as below), ranks 0-{P - 1}: quorum "
+        f"(B1) {each('nbody_quorum', 'ms')} ms, peak "
+        f"{each('nbody_quorum', 'peak', mib)} MiB; atom "
+        f"{each('nbody_atom', 'ms')} ms, peak "
+        f"{each('nbody_atom', 'peak', mib)} MiB "
+        f"(torch.cuda.max_memory_allocated above the rank's held "
+        f"bytes); resident input bytes a rank: quorum "
+        f"{st0['resident_quorum']}, atom {st0['resident_atom']} (k/P = "
+        f"{k}/{P})")
+    say(f"PCIT N={PCIT_N} G={PCIT_G} P={P} ({DIST_LABEL}), ranks 0-{P - 1}: "
+        f"{each('pcit', 'ms')} ms, peak {each('pcit', 'peak', mib)} MiB")
+    for strategy in ("quorum", "ring"):
+        path = f"attention_{strategy}"
+        moved = sum(v for c, v in st0[path]["counters"].items()
+                    if c.endswith("bytes"))
+        say(f"{strategy} attention bf16 T={ATTN_T} P={P} ({DIST_LABEL}), "
+            f"ranks 0-{P - 1}: {each(path, 'ms')} ms, peak "
+            f"{each(path, 'peak', mib)} MiB, comm {moved * mib:.1f} MiB a "
+            f"rank")
+    say(f"every rank's rows bit-equal to the single-process run ("
+        f"{', '.join(ranks[0]['rows'])}); traced bytes == predicted on "
+        f"every rank; B1, B2, B3 and B9 launched on every rank; card {smi}")
+    for name, path in (("pairwise_batch", "nbody_quorum"),
+                       ("pairwise_corr", "pcit"), ("pcit_filter", "pcit"),
+                       ("flash_attention", "attention_quorum")):
+        report[name]["dist_launches"] = min(
+            res["stats"][path]["launches"][name] for res in ranks)
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -4899,7 +5249,9 @@ def main() -> int:
               ("mamba2-130m train step main path",
                lambda: phase_mamba2_train(report)),
               ("dry run against the card",
-               lambda: phase_dry_run(report, smi))]
+               lambda: phase_dry_run(report, smi)),
+              ("the distributed backend on the card",
+               lambda: phase_distributed(report, smi))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")
@@ -4922,7 +5274,8 @@ def main() -> int:
                                          "f32_", "decode_", "quorum_",
                                          "prefill_", "jamba_", "llama4_",
                                          "whisper_", "qwen2vl_",
-                                         "hd256_", "train_", "bwd_"))}})
+                                         "hd256_", "train_", "bwd_",
+                                         "dist_"))}})
     say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

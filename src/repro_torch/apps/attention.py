@@ -10,11 +10,12 @@ shifts (DESIGN.md section 2).  Partials combine under the exact flash
 monoid on (o, m, l) — associative and commutative, so the order of the
 scatter does not matter.
 
-The P devices are the leading axis of the single-process comm layer
-(:mod:`repro_torch.core.comm`): a per-device block is ``[P, B, T/P, H|KV,
-hd]``, and one block pair runs for all P devices at once, as one launch of
-kernel B9 (``kernels/flash_attention.py``) over the flattened ``[P*B]``
-rows on a CUDA device.  The schedule's invalid (device, pair) slots — a
+The devices this process holds are the leading axis of the comm layer
+(:mod:`repro_torch.core.comm`; L = P in one process, 1 a rank under
+``DistributedComm``): a per-device block is ``[L, B, T/P, H|KV, hd]``, and
+one block pair runs for all L devices at once, as one launch of kernel B9
+(``kernels/flash_attention.py``) over the flattened ``[L*B]`` rows on a
+CUDA device.  The schedule's invalid (device, pair) slots — a
 pair whose kv block lies after its q block — are the merge identity; the
 kernel writes the identity for them without computing them.
 """
@@ -26,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.comm import SingleProcessComm
+from ..core.comm import Comm
 from ..core.scheduler import CausalSchedule, build_causal_schedule
 from ..core.sweep import quorum_gather, quorum_scatter
 from ..kernels import ops
@@ -83,7 +84,7 @@ def _normalize(part: Partial, dtype) -> torch.Tensor:
 
 
 def _pair(q, k, v, *, causal_diag: bool, valid) -> Partial:
-    """flash_block over the [P, B, ...] device axis as one [P*B] batch."""
+    """flash_block over the [L, B, ...] device axis as one [L*B] batch."""
     P, B = q.shape[:2]
     flat = [t.reshape(P * B, *t.shape[2:]) for t in (q, k, v)]
     rows = torch.as_tensor(valid, device=q.device).repeat_interleave(B)
@@ -95,22 +96,25 @@ def _pair(q, k, v, *, causal_diag: bool, valid) -> Partial:
 # Quorum attention
 # ---------------------------------------------------------------------------
 
-def quorum_attention(q, k, v, comm: SingleProcessComm, *,
+def quorum_attention(q, k, v, comm: Comm, *,
                      schedule: Optional[CausalSchedule] = None):
     """The counterpart of the reference's ``quorum_attention_local``, for
-    all P devices at once.  q: [P, B, T/P, H, hd] (device i holds sequence
-    block i); k / v: [P, B, T/P, KV, hd].  Returns the normalized context
-    [P, B, T/P, H, hd] in q's dtype.
+    the L = ``len(comm.local)`` devices this process holds at once.  q:
+    [L, B, T/P, H, hd] (local device i holds sequence block
+    ``comm.local[i]``); k / v: [L, B, T/P, KV, hd].  Returns the normalized
+    context [L, B, T/P, H, hd] in q's dtype.
     """
-    P, B, Tq, H, hd = q.shape
+    L, B, Tq, H, hd = q.shape
+    P = comm.P
     sched = build_causal_schedule(P) if schedule is None else schedule
-    if sched.P != P or comm.P != P:
-        raise ValueError(f"schedule P={sched.P}, comm P={comm.P} and the "
-                         f"blocks' P={P} differ")
-    # the k resident (q, k, v) blocks, one [P, ...] tuple per slot
+    if sched.P != P or L != len(comm.local):
+        raise ValueError(f"schedule P={sched.P} and comm P={P} differ, or "
+                         f"the blocks' leading {L} is not the comm's "
+                         f"{len(comm.local)} local device(s)")
+    # the k resident (q, k, v) blocks, one [L, ...] tuple per slot
     slots = quorum_gather((q, k, v), sched, comm,
                           overlap_fn=lambda _slot, blk: blk)
-    valid = torch.as_tensor(sched.valid, device=q.device)
+    valid = comm.local_rows(torch.as_tensor(sched.valid)).to(q.device)
     acc: list = [None] * sched.k
     for s in range(sched.n_pairs):   # ~P pairs, each one batched launch
         lo, hi = (int(x) for x in sched.pair_slots[s])
@@ -122,7 +126,7 @@ def quorum_attention(q, k, v, comm: SingleProcessComm, *,
     del slots
     for s, part in enumerate(acc):
         if part is None:
-            acc[s] = empty_partial((P, B, Tq, hd), H, device=q.device)
+            acc[s] = empty_partial((L, B, Tq, hd), H, device=q.device)
     # route partials back to the q-block owners under the flash monoid
     total = quorum_scatter(acc, sched, comm, reduce_fn=merge_partials)
     return _normalize(total, q.dtype)
@@ -132,15 +136,15 @@ def quorum_attention(q, k, v, comm: SingleProcessComm, *,
 # Ring attention baseline (P - 1 shifts)
 # ---------------------------------------------------------------------------
 
-def ring_attention(q, k, v, comm: SingleProcessComm):
+def ring_attention(q, k, v, comm: Comm):
     """Classic ring: rotate (k, v) P - 1 times, accumulating causal
-    partials.  q: [P, B, T/P, H, hd]; k / v: [P, B, T/P, KV, hd].  At step
-    t device i holds kv block (i - t) % P: the diagonal block at t = 0,
-    a visible block at t > 0 iff i >= t.  Returns [P, B, T/P, H, hd] in
-    q's dtype.
+    partials.  q: [L, B, T/P, H, hd]; k / v: [L, B, T/P, KV, hd] (the L
+    devices this process holds).  At step t device i holds kv block
+    (i - t) % P: the diagonal block at t = 0, a visible block at t > 0 iff
+    i >= t.  Returns [L, B, T/P, H, hd] in q's dtype.
     """
-    P = q.shape[0]
-    i = comm.axis_index()
+    P, L = comm.P, q.shape[0]
+    i = comm.axis_index()                       # [L] global device ids
     tr = obs_trace.get_tracer()
     acc = None
     kc, vc = k, v
@@ -153,7 +157,7 @@ def ring_attention(q, k, v, comm: SingleProcessComm):
                 tr.count("comm.ppermute.ring_hops")
                 tr.count("comm.ppermute.ring_bytes",
                          (obs_trace.nbytes_of(kc) + obs_trace.nbytes_of(vc))
-                         // P)
+                         // L)
             kc, vc = comm.ppermute(kc, -1), comm.ppermute(vc, -1)
     return _normalize(acc, q.dtype)
 
@@ -162,12 +166,16 @@ def ring_attention(q, k, v, comm: SingleProcessComm):
 # Entry points
 # ---------------------------------------------------------------------------
 
-def distributed_attention(q, k, v, comm: SingleProcessComm, *,
+def distributed_attention(q, k, v, comm: Comm, *,
                           strategy: str = "quorum"):
     """q: [B, T, H, hd]; k / v: [B, T, KV, hd]; T split over the comm's P
     devices block-major (device i holds tokens [i*T/P, (i+1)*T/P)), so
-    cyclic block indices coincide with position order.  Returns the causal
-    attention output [B, T, H, hd] in q's dtype on the comm's device.
+    cyclic block indices coincide with position order.  Each process moves
+    only its own devices' blocks to its device.  Returns the causal
+    attention output of this process's positions in q's dtype on the
+    comm's device: [B, T, H, hd] under ``SingleProcessComm``, positions
+    ``[r*T/P, (r+1)*T/P)`` ([B, T/P, H, hd]) on rank r under
+    ``DistributedComm``.
     """
     P = comm.P
     B, T, H, hd = q.shape
@@ -178,9 +186,9 @@ def distributed_attention(q, k, v, comm: SingleProcessComm, *,
                          f"{tuple(q.shape)}")
 
     def blocks(t):
-        t = t.to(comm.device)
-        return t.reshape(B, P, T // P, *t.shape[2:]).transpose(0, 1) \
-            .contiguous()
+        t = comm.local_rows(t.reshape(B, P, T // P, *t.shape[2:])
+                            .transpose(0, 1))
+        return t.to(comm.device).contiguous()
 
     qb, kb, vb = blocks(q), blocks(k), blocks(v)
     if strategy == "quorum":
@@ -189,7 +197,7 @@ def distributed_attention(q, k, v, comm: SingleProcessComm, *,
         out = ring_attention(qb, kb, vb, comm)
     else:
         raise ValueError(f"unknown strategy {strategy!r}: quorum or ring")
-    return out.transpose(0, 1).reshape(B, T, H, hd)
+    return out.transpose(0, 1).reshape(B, -1, H, hd)
 
 
 def reference_attention(q, k, v):

@@ -5,7 +5,9 @@ section 1.2); counterpart of ``repro/apps/nbody.py``.
 The ``quorum`` strategy runs the engine (k*N/P bodies resident per
 device); ``atom`` is the all-gather baseline (N bodies per device).
 ``use_kernel=True`` routes the batched step through the fused B1 kernel
-(``kernels/pairwise_batch.py``).
+(``kernels/pairwise_batch.py``).  Under either comm backend the entry
+points return the forces on the bodies of the devices this process holds
+([N, 3] in one process, [N/P, 3] a rank under ``DistributedComm``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from ..core.allpairs import (allgather_allpairs, pair_mask_table,
                              quorum_allpairs)
-from ..core.comm import SingleProcessComm
+from ..core.comm import Comm
 from ..core.scheduler import build_schedule
 from ..kernels import ref as kref
 
@@ -40,15 +42,17 @@ def forces_reference(bodies: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def forces_fn(comm: SingleProcessComm, strategy: str = "quorum",
+def forces_fn(comm: Comm, strategy: str = "quorum",
               mode: str = "auto", use_kernel: bool = False):
-    """The distributed-forces callable ``f(bodies [N, 4]) -> forces
-    [N, 3]`` for ``comm``'s P devices, cached per (comm, strategy, mode,
-    use_kernel) so simulation steps reuse one schedule and mask table."""
+    """The distributed-forces callable ``f(bodies [N, 4]) -> forces`` on
+    this process's bodies (``[N * len(comm.local) / P, 3]``) for
+    ``comm``'s P devices, cached per (comm, strategy, mode, use_kernel) so
+    simulation steps reuse one schedule and mask table."""
     P = comm.P
     if strategy == "quorum":
         sched = build_schedule(P)
-        masks = torch.as_tensor(pair_mask_table(sched), device=comm.device)
+        masks = comm.local_rows(torch.as_tensor(
+            pair_mask_table(sched))).to(comm.device)
         batch_fn = None
         if use_kernel:
             if mode not in ("batched", "auto"):
@@ -76,20 +80,25 @@ def forces_fn(comm: SingleProcessComm, strategy: str = "quorum",
     raise ValueError(f"unknown strategy {strategy!r}")
 
 
-def _blocks(bodies, comm: SingleProcessComm) -> torch.Tensor:
-    """[N, 4] bodies -> the [P, N // P, 4] device layout (a view)."""
-    bodies = torch.as_tensor(bodies, device=comm.device)
+def _blocks(bodies, comm: Comm) -> torch.Tensor:
+    """[N, 4] bodies -> this process's [len(local), N // P, 4] blocks on
+    its device; the rows are taken where the bodies lie (on the host, for
+    host bodies) before the move, so a rank's device holds N/P bodies."""
+    bodies = torch.as_tensor(bodies)
     if bodies.dim() != 2 or bodies.shape[1] != 4 or bodies.shape[0] % comm.P:
         raise ValueError(f"bodies must be [N, 4] with N divisible by "
                          f"P={comm.P}, got {tuple(bodies.shape)}")
-    return bodies.reshape(comm.P, -1, 4)
+    return comm.local_rows(bodies.reshape(comm.P, -1, 4)).to(comm.device)
 
 
-def distributed_forces(bodies, comm: SingleProcessComm, *,
+def distributed_forces(bodies, comm: Comm, *,
                        strategy: str = "quorum", mode: str = "auto",
                        use_kernel: bool = False) -> torch.Tensor:
     """bodies: [N, 4] (x, y, z, mass), device i holding rows
-    ``i*N/P : (i+1)*N/P``.  Returns forces [N, 3] on ``comm.device``.
+    ``i*N/P : (i+1)*N/P``.  Returns the forces on the rows of the devices
+    this process holds, on ``comm.device``: [N, 3] under
+    ``SingleProcessComm``, rows ``r*N/P : (r+1)*N/P`` ([N/P, 3]) on rank r
+    under ``DistributedComm``.
 
     ``mode`` selects the engine mode (batched / overlap / scan / auto);
     ``use_kernel`` routes the batched mode through the fused B1 kernel.

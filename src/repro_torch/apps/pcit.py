@@ -11,7 +11,9 @@ engine — the paper's section 5 application; counterpart of
            ``kernels/pcit_filter.py``), then the same strip / scatter route
            returns the keep rows to each block owner.
 
-Every per-device tensor carries the leading ``[P]`` axis of the comm layer.
+Every per-device tensor carries the comm layer's leading axis over the L
+devices this process holds (L = P in one process, 1 a rank under
+``DistributedComm``).
 Oracle: :func:`pcit_reference`, the direct O(N^3) numpy implementation of
 Reverter & Chan (2008).
 """
@@ -23,7 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..core.comm import SingleProcessComm, shard, unshard
+from ..core.comm import Comm, shard, unshard
 from ..core.scheduler import PairSchedule, build_schedule
 from ..core.sweep import (env_mode_override, pair_mask_table,
                           pair_ready_order, quorum_gather, quorum_scatter)
@@ -109,15 +111,15 @@ def pcit_tile(r_xy, rows_x, rows_y, gx, gy) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _tile_strips(make_tile, source: torch.Tensor, *, schedule: PairSchedule,
-                 comm: SingleProcessComm, mask: torch.Tensor, mode: str,
+                 comm: Comm, mask: torch.Tensor, mode: str,
                  out_dtype) -> torch.Tensor:
-    """Gather ``source`` [P, block, F] over the quorum and assemble the
-    masked per-slot [P, k, block, N] tile strips (DESIGN.md 3.2), under the
-    engine's modes:
+    """Gather ``source`` [L, block, F] (the L = ``len(comm.local)`` local
+    devices' blocks) over the quorum and assemble the masked per-slot
+    [L, k, block, N] tile strips (DESIGN.md 3.2), under the engine's modes:
 
       * ``batched`` — every (device, pair) tile in one ``make_tile`` call
         over the gathered stack (one kernel launch for all of them),
-      * ``overlap`` — each pair's tiles (all P devices at once) as soon as
+      * ``overlap`` — each pair's tiles (all L devices at once) as soon as
         its later slot lands,
       * ``scan``    — one pair at a time over the gathered stack.
 
@@ -125,22 +127,24 @@ def _tile_strips(make_tile, source: torch.Tensor, *, schedule: PairSchedule,
     [B, block, F] blocks and their [B] global block ids.  The (lo, hi)
     pair's tile lands at strip[lo][:, ghi*block:...] and its transpose at
     strip[hi][:, glo*block:...]; the column offsets differ from device to
-    device (glo = (i + shifts[lo]) % P).  Self pairs write once.
+    device (glo = (i + shifts[lo]) % P, i the global device id).  Self
+    pairs write once.
     """
     P, k, n_pairs = schedule.P, schedule.k, schedule.n_pairs
-    block = source.shape[1]
+    L, block = source.shape[:2]
     dev = source.device
-    ar = torch.arange(P, device=dev)
+    ar = torch.arange(L, device=dev)                  # local positions
+    gid = comm.axis_index().to(dev)                   # their global ids
     lo_np = schedule.pair_slots[:, 0]
     hi_np = schedule.pair_slots[:, 1]
     shifts = torch.as_tensor(schedule.shifts, dtype=torch.long, device=dev)
     lo_t = torch.as_tensor(lo_np, dtype=torch.long, device=dev)
     hi_t = torch.as_tensor(hi_np, dtype=torch.long, device=dev)
-    glo = (ar[None, :] + shifts[lo_t][:, None]) % P         # [n_pairs, P]
-    ghi = (ar[None, :] + shifts[hi_t][:, None]) % P
+    glo = (gid[None, :] + shifts[lo_t][:, None]) % P        # [n_pairs, L]
+    ghi = (gid[None, :] + shifts[hi_t][:, None]) % P
 
-    strips = torch.zeros(P, k, block, P * block, dtype=out_dtype, device=dev)
-    tiles5 = strips.view(P, k, block, P, block)  # column blocks split out
+    strips = torch.zeros(L, k, block, P * block, dtype=out_dtype, device=dev)
+    tiles5 = strips.view(L, k, block, P, block)  # column blocks split out
 
     def put(idx: int, tile: torch.Tensor) -> None:
         lo, hi = int(lo_np[idx]), int(hi_np[idx])
@@ -150,12 +154,12 @@ def _tile_strips(make_tile, source: torch.Tensor, *, schedule: PairSchedule,
             tiles5[ar, hi, :, glo[idx]] += tile.transpose(1, 2)
 
     if mode == "batched":
-        xq = quorum_gather(source, schedule, comm)      # [P, k, block, F]
+        xq = quorum_gather(source, schedule, comm)      # [L, k, block, F]
         F = xq.shape[-1]
-        tiles = make_tile(xq[:, lo_t].reshape(P * n_pairs, block, F),
-                          xq[:, hi_t].reshape(P * n_pairs, block, F),
+        tiles = make_tile(xq[:, lo_t].reshape(L * n_pairs, block, F),
+                          xq[:, hi_t].reshape(L * n_pairs, block, F),
                           glo.T.reshape(-1), ghi.T.reshape(-1))
-        tiles = tiles.reshape(P, n_pairs, block, block)
+        tiles = tiles.reshape(L, n_pairs, block, block)
         for idx in range(n_pairs):
             put(idx, tiles[:, idx])
     elif mode == "overlap":
@@ -181,16 +185,17 @@ def _tile_strips(make_tile, source: torch.Tensor, *, schedule: PairSchedule,
 
 
 def quorum_pcit_local(xs_blocks: torch.Tensor, mask: torch.Tensor, *,
-                      schedule: PairSchedule, comm: SingleProcessComm,
+                      schedule: PairSchedule, comm: Comm,
                       use_kernels: bool = False,
                       mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """The per-device pipeline for all P devices: xs_blocks [P, block, G]
-    standardized rows (device i's block i), mask [P, n_pairs] the dedup
-    mask.  ``mode`` is the engine mode of both tile phases; ``auto`` is the
+    """The per-device pipeline for the L = ``len(comm.local)`` devices this
+    process holds: xs_blocks [L, block, G] standardized rows (local device
+    i's block, global block ``comm.local[i]``), mask [L, n_pairs] those
+    devices' rows of the dedup mask.  ``mode`` is the engine mode of both tile phases; ``auto`` is the
     environment override, else batched while the pair count is small
     (<= 32) and scan beyond.
 
-    Returns (corr_rows [P, block, N] float32, keep_rows [P, block, N] bool).
+    Returns (corr_rows [L, block, N] float32, keep_rows [L, block, N] bool).
     """
     if use_kernels:
         from ..kernels import ops as kops
@@ -205,15 +210,15 @@ def quorum_pcit_local(xs_blocks: torch.Tensor, mask: torch.Tensor, *,
         raise ValueError(f"unknown mode {mode!r}")
 
     P = schedule.P
-    block = xs_blocks.shape[1]
-    mask = mask.reshape(P, schedule.n_pairs).to(xs_blocks.device)
+    L, block = xs_blocks.shape[:2]
+    mask = mask.reshape(L, schedule.n_pairs).to(xs_blocks.device)
     base_ids = torch.arange(block, device=xs_blocks.device)
 
     # ---- phase 2+3: correlation tiles -> row strips ----------------------
     strips = _tile_strips(lambda bx, by, glo, ghi: _corr(bx, by), xs_blocks,
                           schedule=schedule, comm=comm, mask=mask, mode=mode,
                           out_dtype=xs_blocks.dtype)
-    corr_rows = quorum_scatter(strips, schedule, comm)       # [P, block, N]
+    corr_rows = quorum_scatter(strips, schedule, comm)       # [L, block, N]
     del strips
 
     # ---- phase 4: PCIT filter tiles -> keep strips -----------------------
@@ -232,20 +237,23 @@ def quorum_pcit_local(xs_blocks: torch.Tensor, mask: torch.Tensor, *,
     return corr_rows, keep_rows
 
 
-def run_quorum_pcit(X: np.ndarray, comm: SingleProcessComm,
+def run_quorum_pcit(X: np.ndarray, comm: Comm,
                     use_kernels: bool = False, mode: str = "auto"):
     """Driver: standardize on the host, shard rows over ``comm``'s P
-    devices, run the quorum pipeline.
+    devices (each process moves only its own rows to its device), run the
+    quorum pipeline.
 
-    X: [N, G] expression matrix; N must divide by P.  Returns (corr [N, N]
-    float32, keep [N, N] bool) on ``comm.device``.
+    X: [N, G] expression matrix; N must divide by P.  Returns (corr, keep)
+    on ``comm.device``: the rows of the devices this process holds,
+    [N, N] float32 and bool in one process, rows ``r*N/P : (r+1)*N/P``
+    ([N/P, N]) on rank r under ``DistributedComm``.
     """
     P = comm.P
     N = X.shape[0]
     if N % P:
         raise ValueError(f"N={N} does not divide by P={P}")
     sched = build_schedule(P)
-    masks = torch.as_tensor(pair_mask_table(sched), device=comm.device)
+    masks = comm.local_rows(torch.as_tensor(pair_mask_table(sched)))
     Xs = standardize(np.asarray(X, np.float32))
     corr, keep = quorum_pcit_local(shard(Xs, comm), masks, schedule=sched,
                                    comm=comm, use_kernels=use_kernels,

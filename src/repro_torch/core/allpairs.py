@@ -13,8 +13,9 @@
 Plus :func:`allgather_allpairs`, the "all data everywhere" baseline used as
 the oracle.  ``pair_fn(bi, bj) -> (out_i, out_j)`` acts on blocks with any
 leading batch dimensions (``[..., block, F]``): the engine calls it on
-``[P, block, F]`` slots, and in the batched mode on ``[P, n_pairs, block,
-F]`` stacks.
+``[L, block, F]`` slots, and in the batched mode on ``[L, n_pairs, block,
+F]`` stacks, where L = ``len(comm.local)`` is the number of devices this
+process holds (P in one process, 1 a rank under ``DistributedComm``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from ..obs import trace as obs_trace
 from . import sweep as sweep_mod
-from .comm import SingleProcessComm
+from .comm import Comm
 from .scheduler import PairSchedule
 from .sweep import (ENGINE_MODES, SweepEmitter, auto_batch_bytes,
                     env_mode_override, mark_varying, pair_mask_table,
@@ -77,8 +78,10 @@ class DenseReduceEmitter(SweepEmitter):
     section 12.2, the ``quorum_allpairs`` workload).
 
     Every pair's ``pair_fn(bi, bj) -> (out_i, out_j)`` is weighted by the
-    [P, n_pairs] ownership mask and accumulated into per-slot
-    ``[P, k, block, ...]`` partials; self pairs keep only ``out_i``.
+    [L, n_pairs] ownership mask (this process's rows) and accumulated into
+    per-slot ``[L, k, block, ...]`` partials; self pairs keep only
+    ``out_i``.  Its leading size comes from the tensors, never from the
+    schedule's P.
     """
 
     def __init__(self, pair_fn, schedule: PairSchedule, mask: torch.Tensor,
@@ -141,11 +144,11 @@ class DenseReduceEmitter(SweepEmitter):
         return acc.to(self.probe.dtype)
 
     def scan_init(self):
-        """Zeroed ``[P, k, block, ...]`` slot accumulator."""
+        """Zeroed ``[L, k, block, ...]`` slot accumulator."""
         return self._zeros(self.mask.shape[0], self.schedule.k)
 
     def scan_items(self):
-        """(lo_slot, hi_slot, is_self, mask column [P]) per pair."""
+        """(lo_slot, hi_slot, is_self, mask column [L]) per pair."""
         return (self.lo_slots, self.hi_slots, self.is_self, self.mask.T)
 
     def scan_emit(self, acc, quorum, item):
@@ -184,7 +187,7 @@ def quorum_allpairs(
     pair_fn: Callable[[torch.Tensor, torch.Tensor],
                       tuple[torch.Tensor, torch.Tensor]],
     x: torch.Tensor,
-    comm: SingleProcessComm,
+    comm: Comm,
     *,
     schedule: PairSchedule | None = None,
     mask: torch.Tensor | None = None,
@@ -194,29 +197,33 @@ def quorum_allpairs(
 ) -> torch.Tensor:
     """A symmetric all-pairs reduction with quorum replication.
 
-    ``x`` is ``[P, block, ...]`` on ``comm.device`` (device i's block is
-    ``x[i]``).  ``pair_fn(bi, bj) -> (out_i, out_j)`` gives the
-    interaction's contribution to each side, with ``out_j(bi, bj) ==
-    out_i(bj, bi)``; self pairs keep only ``out_i``.  ``mask`` is the
-    ``[P, n_pairs]`` dedup / validity mask (default: the schedule's
+    ``x`` is ``[L, block, ...]`` on ``comm.device``: the blocks of the
+    L = ``len(comm.local)`` devices this process holds (device
+    ``comm.local[i]``'s block is ``x[i]``).  ``pair_fn(bi, bj) -> (out_i,
+    out_j)`` gives the interaction's contribution to each side, with
+    ``out_j(bi, bj) == out_i(bj, bi)``; self pairs keep only ``out_i``.
+    ``mask`` is those devices' rows ``[L, n_pairs]`` of the dedup /
+    validity mask (default: ``comm.local_rows`` of the schedule's
     :func:`pair_mask_table`, which dedups the d = P/2 orbit on even P).
 
     ``mode``: ``batched`` (all pairs in one step), ``overlap`` (each pair at
     its ready slot), ``scan`` (one pair at a time) or ``auto`` (the shared
     heuristic, overridable with ``REPRO_ALLPAIRS_MODE``).  ``batch_fn(quorum,
-    lo_slots, hi_slots, wi, wj) -> [P, k, block, ...]`` is an optional fused
+    lo_slots, hi_slots, wi, wj) -> [L, k, block, ...]`` is an optional fused
     replacement of the batched step (e.g.
     ``kernels.ops.pairwise_batch_forces``) and implies ``batched`` under
     ``auto``.  ``placement`` selects the block placement; a full-replication
     placement routes to :func:`allgather_allpairs`.  With neither schedule
     nor placement, ``REPRO_PLACEMENT`` decides.
 
-    Returns the per-block reduced output ``[P, block, ...]``.
+    Returns the per-block reduced output ``[L, block, ...]``.
     """
     sweep_mod.validate_mode(mode, batch_fn)
-    if x.shape[0] != comm.P:
+    L = len(comm.local)
+    if x.shape[0] != L:
         raise ValueError(f"x must carry the device axis first: "
-                         f"{tuple(x.shape)} for P={comm.P}")
+                         f"{tuple(x.shape)} for {L} local device(s) of "
+                         f"P={comm.P}")
     schedule, placement = sweep_mod.resolve_sweep_placement(
         schedule, comm.P, placement)
     if placement is not None and placement.full:
@@ -236,8 +243,8 @@ def quorum_allpairs(
         schedule = placement.schedule()
 
     if mask is None:
-        mask = torch.as_tensor(pair_mask_table(schedule), device=x.device)
-    mask = mask.to(x.device).reshape(comm.P, schedule.n_pairs)
+        mask = comm.local_rows(torch.as_tensor(pair_mask_table(schedule)))
+    mask = mask.to(x.device).reshape(L, schedule.n_pairs)
 
     probe = _probe(pair_fn, x)
     if mode == "auto":
@@ -254,23 +261,23 @@ def allgather_allpairs(
     pair_fn: Callable[[torch.Tensor, torch.Tensor],
                       tuple[torch.Tensor, torch.Tensor]],
     x: torch.Tensor,
-    comm: SingleProcessComm,
+    comm: Comm,
 ) -> torch.Tensor:
     """Baseline: every device holds ALL blocks (paper section 1.1) and
     computes every interaction of its own block — the oracle and the
     memory baseline.  Same ``pair_fn`` contract as
     :func:`quorum_allpairs`."""
-    P = comm.P
+    P, L = comm.P, x.shape[0]
     tr = obs_trace.get_tracer()
     if tr:  # (P-1) peer blocks land per device
         tr.count("comm.allgather.bytes",
-                 (P - 1) * obs_trace.nbytes_of(x) // P)
-    i = comm.axis_index()
-    allblocks = comm.all_gather(x)           # [P, P, block, ...]
+                 (P - 1) * obs_trace.nbytes_of(x) // L)
+    i = comm.axis_index()                    # [L] global device ids
+    allblocks = comm.all_gather(x)           # [L, P, block, ...]
     self_out, _ = pair_fn(x, x)
     acc = torch.zeros_like(self_out)
     for j in range(P):
         out_i, _ = pair_fn(x, allblocks[:, j])
-        own = (i == j).reshape((P,) + (1,) * (out_i.dim() - 1))
+        own = (i == j).reshape((L,) + (1,) * (out_i.dim() - 1))
         acc = acc + torch.where(own, torch.zeros_like(out_i), out_i)
     return acc + self_out

@@ -1,31 +1,45 @@
-"""The comm layer: a single-process stand-in for the reference's mesh.
+"""The comm layer: the port's stand-in for the reference's mesh.
 
 The JAX package runs the P devices of a quorum axis as ``jax.shard_map``
 over a mesh and moves blocks with ``lax.ppermute`` / ``lax.all_gather``
-(``lax.axis_index`` names the device).  The port's first backend keeps all
-P devices in one process on one torch device: every per-device tensor
-carries a leading ``[P, ...]`` axis, and each collective is an index
-permutation of that axis.  It runs the same way on the CPU and on one GPU.
+(``lax.axis_index`` names the device).  The port has two backends with one
+interface:
 
-:class:`SingleProcessComm` takes the place of the reference's ``mesh``
-argument; :func:`shard` / :func:`unshard` move ``[N, ...]`` data in and out
-of the ``[P, block, ...]`` layout, and :func:`schedule_from_numpy` carries a
-schedule across from the reference so tests feed both packages the same
-inputs.
+  * :class:`SingleProcessComm` keeps all P devices in one process on one
+    torch device; each collective is an index permutation of the leading
+    axis.  It runs the same way on the CPU and on one GPU.
+  * :class:`DistributedComm` runs one process per device over
+    ``torch.distributed`` (rank r is device r), so each process holds only
+    its own device's blocks.
+
+``comm.P`` is the global device count and ``comm.local`` the global
+indices of the devices this process holds (``range(P)``, or the rank's
+own).  Every per-device tensor carries a leading axis of length
+``len(comm.local)``, so call sites have one code path for both backends.
+
+:func:`shard` / :func:`unshard` move ``[N, ...]`` data in and out of the
+``[len(local), block, ...]`` layout, and :func:`schedule_from_numpy`
+carries a schedule across from the reference so tests feed both packages
+the same inputs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import datetime
+import os
+from typing import Any, Callable, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .scheduler import PairSchedule
 
 __all__ = [
     "resolve_device",
     "SingleProcessComm",
+    "DistributedComm",
+    "Comm",
     "tree_map",
     "shard",
     "unshard",
@@ -71,7 +85,13 @@ class SingleProcessComm:
         if int(P) < 1:
             raise ValueError(f"P must be >= 1, got {P}")
         self.P = int(P)
+        self.local = range(self.P)
         self.device = resolve_device(device)
+
+    def local_rows(self, table):
+        """The rows of a ``[P, ...]`` per-device table that this process
+        holds: all of them."""
+        return table
 
     def axis_index(self) -> torch.Tensor:
         """``lax.axis_index``: device i's own index, as a [P] tensor."""
@@ -95,18 +115,163 @@ class SingleProcessComm:
         return f"SingleProcessComm(P={self.P}, device={self.device})"
 
 
-def shard(x_np, comm: SingleProcessComm, dtype=None) -> torch.Tensor:
-    """``[N, ...]`` array -> ``[P, N // P, ...]`` tensor on the comm's
-    device: device i holds rows ``i*block : (i+1)*block``."""
+#: how long a collective waits for a peer before the run fails
+DIST_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+class DistributedComm:
+    """One process per device over ``torch.distributed`` (ROADMAP A.15):
+    rank r is device r, ``P`` is the world size, and every per-device
+    tensor carries a leading axis of length 1.
+
+    The caller names the transport, and nothing chooses another:
+
+      * ``backend="gloo"`` moves CPU tensors as they are, and stages CUDA
+        tensors through pinned host buffers (``transport`` says
+        ``gloo, host-staged``): gloo carries no CUDA tensor through
+        ``send`` / ``recv``, and it is the one way several ranks share one
+        card, where NCCL refuses;
+      * ``backend="nccl"`` moves CUDA tensors; where NCCL refuses (two
+        ranks on one card, no CUDA) its error propagates.
+
+    The device follows :func:`resolve_device`: the CUDA device unless the
+    caller passes ``device="cpu"``; with several cards rank r takes
+    ``cuda:(local_rank % count)``.  The process group is made here with an
+    explicit ``timeout``, so a dead peer fails the run instead of hanging
+    it; :meth:`close` destroys it.  :meth:`from_env` reads torchrun's
+    environment; the constructor takes an explicit ``init_method`` (e.g. a
+    ``file://`` store).
+    """
+
+    def __init__(self, backend: str, *, rank: int, world_size: int,
+                 init_method: str, device=None, local_rank: int | None = None,
+                 timeout: datetime.timedelta = DIST_TIMEOUT):
+        if backend not in ("gloo", "nccl"):
+            raise ValueError(f"backend must be 'gloo' or 'nccl', got "
+                             f"{backend!r}")
+        if not 0 <= int(rank) < int(world_size):
+            raise ValueError(f"rank {rank} is not in [0, {world_size})")
+        dev = resolve_device(device)
+        if backend == "nccl" and dev.type != "cuda":
+            raise ValueError(f"backend 'nccl' moves CUDA tensors; the device "
+                             f"is {dev}")
+        if dev.type == "cuda" and dev.index is None:
+            lr = int(rank) if local_rank is None else int(local_rank)
+            dev = torch.device("cuda", lr % torch.cuda.device_count())
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=init_method, rank=int(rank),
+            world_size=int(world_size), timeout=timeout,
+            **({"device_id": dev} if backend == "nccl" else {}))
+        self.rank = int(rank)
+        self.P = int(world_size)
+        self.local = range(self.rank, self.rank + 1)
+        self.device = dev
+        self.staged = backend == "gloo" and dev.type == "cuda"
+        self.transport = "gloo, host-staged" if self.staged else backend
+
+    @classmethod
+    def from_env(cls, backend: str, device=None,
+                 timeout: datetime.timedelta = DIST_TIMEOUT
+                 ) -> "DistributedComm":
+        """The comm of a process that torchrun started: ``RANK``,
+        ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR`` /
+        ``MASTER_PORT`` from the environment."""
+        env = os.environ
+        missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                               "MASTER_PORT") if k not in env]
+        if missing:
+            raise RuntimeError(f"not started by torchrun: {missing} unset")
+        return cls(backend, rank=int(env["RANK"]),
+                   world_size=int(env["WORLD_SIZE"]), init_method="env://",
+                   device=device,
+                   local_rank=int(env.get("LOCAL_RANK", env["RANK"])),
+                   timeout=timeout)
+
+    def close(self) -> None:
+        """Destroy the process group."""
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def local_rows(self, table):
+        """``table[local]`` of a ``[P, ...]`` per-device table: the rank's
+        own row, the counterpart of ``jnp.take(table, axis_index)``."""
+        return table[self.rank:self.rank + 1]
+
+    def axis_index(self) -> torch.Tensor:
+        """``lax.axis_index``: this rank's index, as a [1] tensor."""
+        return torch.tensor([self.rank], device=self.device)
+
+    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s bytes as a flat uint8 tensor the transport carries: a
+        view where it can, else a copy (into pinned host memory for a
+        host-staged CUDA tensor)."""
+        flat = x.contiguous().reshape(-1).view(torch.uint8)
+        if not self.staged:
+            return flat
+        host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(flat)
+        return host
+
+    def _unwire(self, buf: torch.Tensor, dtype, shape) -> torch.Tensor:
+        """The inverse of :meth:`_wire`, on the comm's device."""
+        out = buf.view(dtype).reshape(shape)
+        return out.to(self.device) if self.staged else out
+
+    def _buffer(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8,
+                           device="cpu" if self.staged else self.device,
+                           pin_memory=self.staged)
+
+    def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        """The cyclic shift of ``core/sweep.py:_shift_perm``: device i
+        receives device ``(i + shift) % P``'s tensor.  Rank r sends to
+        ``(r - shift) % P`` and receives from ``(r + shift) % P`` in one
+        ``batch_isend_irecv``."""
+        s = int(shift) % self.P
+        if s == 0:
+            return x
+        send = self._wire(x)
+        recv = self._buffer(send.numel())
+        ops = [dist.P2POp(dist.isend, send, (self.rank - s) % self.P),
+               dist.P2POp(dist.irecv, recv, (self.rank + s) % self.P)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return self._unwire(recv, x.dtype, x.shape)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.all_gather``: x ``[1, ...]`` -> ``[1, P (block), ...]``,
+        every device's block in device order."""
+        send = self._wire(x)
+        recv = self._buffer(self.P * send.numel())
+        dist.all_gather(list(recv.chunk(self.P)), send)
+        return self._unwire(recv, x.dtype, (1, self.P, *x.shape[1:]))
+
+    def __repr__(self) -> str:
+        return (f"DistributedComm(P={self.P}, rank={self.rank}, "
+                f"device={self.device}, transport={self.transport})")
+
+
+#: either backend: the type the engine's ``comm`` arguments take
+Comm = Union[SingleProcessComm, DistributedComm]
+
+
+def shard(x_np, comm: Comm, dtype=None) -> torch.Tensor:
+    """``[N, ...]`` array -> this process's ``[len(local), N // P, ...]``
+    blocks on the comm's device: device i holds rows ``i*block :
+    (i+1)*block``.  The rows are taken on the host, so a rank never puts
+    the other ranks' rows on its device."""
     t = torch.as_tensor(np.asarray(x_np))
     if t.shape[0] % comm.P:
         raise ValueError(f"N={t.shape[0]} does not divide by P={comm.P}")
-    t = t.to(device=comm.device, dtype=dtype)
-    return t.reshape(comm.P, t.shape[0] // comm.P, *t.shape[1:])
+    t = t.reshape(comm.P, t.shape[0] // comm.P, *t.shape[1:])
+    return comm.local_rows(t).to(device=comm.device, dtype=dtype)
 
 
 def unshard(t: torch.Tensor) -> torch.Tensor:
-    """The inverse of :func:`shard`: ``[P, block, ...]`` -> ``[N, ...]``."""
+    """The inverse of :func:`shard`: ``[len(local), block, ...]`` ->
+    this process's ``[len(local) * block, ...]`` rows."""
     return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
 
 

@@ -1,15 +1,21 @@
 """Self-check of the port's quorum all-pairs engine.
 
 Run as ``python -m repro_torch.core.selfcheck [P] [modes] [placement]
-[--device cpu]`` (counterpart of ``repro/core/selfcheck.py``).  ``modes`` is
-a comma-separated subset of the engine modes (default: all of batched,
-overlap, scan); ``placement`` is a placement spec (a registered name,
-``auto`` or ``plane``; unset defers to ``REPRO_PLACEMENT``).  It runs on the
-CUDA device unless ``--device cpu`` is given.
+[--device cpu] [--dist gloo|nccl]`` (counterpart of
+``repro/core/selfcheck.py``).  ``modes`` is a comma-separated subset of the
+engine modes (default: all of batched, overlap, scan); ``placement`` is a
+placement spec (a registered name, ``auto`` or ``plane``; unset defers to
+``REPRO_PLACEMENT``).  It runs on the CUDA device unless ``--device cpu``
+is given.  Without ``--dist`` the P devices share one process
+(``SingleProcessComm``); with it, each of P processes started by torchrun
+is one device (``DistributedComm`` over that backend), e.g.
+``torchrun --standalone --nproc-per-node 8 -m repro_torch.core.selfcheck 8
+--dist gloo --device cpu``.
 
 Checks, for a toy n-body-style interaction: every engine mode under the
 selected placement == allgather_allpairs == the numpy O(N^2) oracle, with
-the reference's tolerances (rtol 2e-4, atol 2e-5).
+the reference's tolerances (rtol 2e-4, atol 2e-5).  Each process checks the
+rows of the devices it holds.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 
 from .allpairs import (ENGINE_MODES, allgather_allpairs, pair_mask_table,
                        quorum_allpairs)
-from .comm import SingleProcessComm, shard, unshard
+from .comm import Comm, DistributedComm, SingleProcessComm, shard, unshard
 from .placement import placement_from_env, resolve_placement
 
 
@@ -43,12 +49,17 @@ def oracle(x: np.ndarray) -> np.ndarray:
 
 
 def main(nblocks: int = 8, modes: tuple[str, ...] = ENGINE_MODES,
-         placement: str | None = None, device=None) -> dict:
-    """Run the engine self-check; returns ``{"allgather": out, mode: out,
-    ...}`` as [N, 3] numpy arrays (the tests hold them against the JAX
-    package)."""
+         placement: str | None = None, device=None,
+         comm: Comm | None = None) -> dict:
+    """Run the engine self-check on ``comm`` (default: a
+    ``SingleProcessComm`` of ``nblocks`` devices on ``device``); returns
+    ``{"allgather": out, mode: out, ...}`` as numpy arrays of the rows of
+    the devices this process holds ([N, 3] in one process; the tests hold
+    them against the JAX package)."""
     Pn = int(nblocks)
-    comm = SingleProcessComm(Pn, device)
+    comm = SingleProcessComm(Pn, device) if comm is None else comm
+    if comm.P != Pn:
+        raise ValueError(f"the comm has P={comm.P} devices, not {Pn}")
     plc = (placement_from_env(Pn) if placement is None
            else resolve_placement(placement, Pn))
     sched = None if plc.full else plc.schedule()
@@ -56,8 +67,8 @@ def main(nblocks: int = 8, modes: tuple[str, ...] = ENGINE_MODES,
     rng = np.random.default_rng(0)
     x = rng.normal(size=(Pn * block, 3)).astype(np.float32)
     xs = shard(x, comm)
-    masks = None if sched is None else torch.as_tensor(
-        pair_mask_table(sched), device=comm.device)
+    masks = None if sched is None else comm.local_rows(torch.as_tensor(
+        pair_mask_table(sched))).to(comm.device)
 
     def run_quorum(mode):
         if plc.full:  # the engine routes to allgather; no mask applies
@@ -68,7 +79,7 @@ def main(nblocks: int = 8, modes: tuple[str, ...] = ENGINE_MODES,
                                   mask=masks, mode=mode, placement=plc)
         return unshard(out).cpu().numpy()
 
-    want = oracle(x)
+    want = oracle(x)[comm.local.start * block:comm.local.stop * block]
     got_a = unshard(allgather_allpairs(pairwise_force, xs, comm)).cpu().numpy()
     np.testing.assert_allclose(got_a, want, rtol=2e-4, atol=2e-5)
     outs = {"allgather": got_a}
@@ -82,9 +93,11 @@ def main(nblocks: int = 8, modes: tuple[str, ...] = ENGINE_MODES,
         max_err = max(max_err, float(np.abs(got_q - want).max()))
         outs[mode] = got_q
     pairs = "P" if plc.full else str(sched.n_pairs)
+    where = (f" rank={comm.rank} transport={comm.transport}"
+             if isinstance(comm, DistributedComm) else "")
     print(f"selfcheck OK: P={Pn} placement={plc.describe()} "
           f"k={plc.replication} pairs/dev={pairs} "
-          f"modes={','.join(modes)} device={comm.device} "
+          f"modes={','.join(modes)} device={comm.device}{where} "
           f"max|err|={max_err:.2e}")
     return outs
 
@@ -96,5 +109,16 @@ if __name__ == "__main__":
     ap.add_argument("placement", nargs="?", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--dist", choices=("gloo", "nccl"), default=None,
+                    help="one process per device over torch.distributed "
+                         "with this backend (start under torchrun)")
     args = ap.parse_args()
-    main(args.P, tuple(args.modes.split(",")), args.placement, args.device)
+    modes = tuple(args.modes.split(","))
+    if args.dist is None:
+        main(args.P, modes, args.placement, args.device)
+    else:
+        dcomm = DistributedComm.from_env(args.dist, args.device)
+        try:
+            main(args.P, modes, args.placement, comm=dcomm)
+        finally:
+            dcomm.close()

@@ -1,10 +1,12 @@
 """The pair-sweep runtime of the port: schedule -> gather -> pair compute
--> emit, over the single-process comm layer.
+-> emit, over the comm layer.
 
 Port of ``repro/core/sweep.py`` (DESIGN.md section 12).  Every per-device
-tensor carries a leading ``[P, ...]`` axis (:mod:`repro_torch.core.comm`),
-so the gathered quorum stack is ``[P, k, block, ...]`` and a pair's compute
-runs for all P devices at once:
+tensor carries a leading axis over the devices this process holds
+(:mod:`repro_torch.core.comm`: all P in one process, or one per rank), so
+the gathered quorum stack is ``[L, k, block, ...]`` (``L =
+len(comm.local)``; written ``[P, ...]`` below, as in one process) and a
+pair's compute runs for all L devices at once:
 
   * data plane — :func:`quorum_gather` pulls the k resident blocks with
     k-1 cyclic shifts; :func:`quorum_scatter` routes per-slot partials back
@@ -36,7 +38,7 @@ from ..kernels.ref import sort_by_score_index as _sort2
 from ..kernels.ref import topk_by_score_index
 from ..obs import trace as obs_trace
 from . import env as env_mod
-from .comm import SingleProcessComm, tree_map
+from .comm import Comm, tree_map
 from .scheduler import PairSchedule
 
 __all__ = [
@@ -151,12 +153,15 @@ def _leaves(tree) -> list:
     return out
 
 
-def _device_nbytes(tree, P: int) -> int:
-    """Payload bytes per device of a ``[P, ...]`` pytree."""
-    return sum(obs_trace.nbytes_of(leaf) for leaf in _leaves(tree)) // P
+def _device_nbytes(tree) -> int:
+    """Payload bytes per device of a pytree whose leaves carry the leading
+    per-device axis (divided by its length, not by the global P)."""
+    leaves = _leaves(tree)
+    return sum(obs_trace.nbytes_of(leaf) for leaf in leaves) \
+        // leaves[0].shape[0]
 
 
-def quorum_gather(x, schedule: PairSchedule, comm: SingleProcessComm,
+def quorum_gather(x, schedule: PairSchedule, comm: Comm,
                   *, overlap_fn: Callable[[int, Any], Any] | None = None):
     """Gather every device's quorum blocks (DESIGN.md section 2, phase 1).
 
@@ -173,7 +178,7 @@ def quorum_gather(x, schedule: PairSchedule, comm: SingleProcessComm,
     if tr:
         nz = sum(1 for a in shifts if a % P != 0)
         tr.count("comm.ppermute.gather_hops", nz)
-        tr.count("comm.ppermute.gather_bytes", nz * _device_nbytes(x, P))
+        tr.count("comm.ppermute.gather_bytes", nz * _device_nbytes(x))
     span = tr.span("sweep.gather", P=P, k=len(shifts)) if tr \
         else obs_trace.NOOP.span("")
     with span:
@@ -190,7 +195,7 @@ def quorum_gather(x, schedule: PairSchedule, comm: SingleProcessComm,
         return tree_map(lambda *leaves: torch.stack(leaves, dim=1), *blocks)
 
 
-def quorum_scatter(partials, schedule: PairSchedule, comm: SingleProcessComm,
+def quorum_scatter(partials, schedule: PairSchedule, comm: Comm,
                    *, reduce_fn: Callable[[Any, Any], Any] = torch.add):
     """Route per-slot partials back to the block owners and reduce
     (DESIGN.md section 2, phase 3).
@@ -218,7 +223,7 @@ def quorum_scatter(partials, schedule: PairSchedule, comm: SingleProcessComm,
                 if tr:
                     tr.count("comm.ppermute.scatter_hops")
                     tr.count("comm.ppermute.scatter_bytes",
-                             _device_nbytes(part, P))
+                             _device_nbytes(part))
                 arrived = tree_map(lambda leaf: comm.ppermute(leaf, -a), part)
             acc = arrived if acc is None else reduce_fn(acc, arrived)
         return acc
@@ -393,7 +398,7 @@ class SweepEmitter(abc.ABC):
 
 
 def pair_sweep(emitter: SweepEmitter, *, schedule: PairSchedule,
-               comm: SingleProcessComm, mode: str, x=None, stack=None):
+               comm: Comm, mode: str, x=None, stack=None):
     """Run one emitter over the schedule under a concrete engine mode —
     the single home of the schedule -> gather -> pair-compute -> emit
     loop.  Exactly one of ``x`` (``[P, block, ...]`` blocks, gathered here)
@@ -412,7 +417,7 @@ def pair_sweep(emitter: SweepEmitter, *, schedule: PairSchedule,
 
 
 def _pair_sweep_impl(emitter: SweepEmitter, *, schedule: PairSchedule,
-                     comm: SingleProcessComm, mode: str, x=None, stack=None):
+                     comm: Comm, mode: str, x=None, stack=None):
     if (x is None) == (stack is None):
         raise ValueError("need exactly one of x / stack")
     if mode not in ENGINE_MODES:

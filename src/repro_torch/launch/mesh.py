@@ -14,8 +14,9 @@ devices.  ``fsdp`` comes as an argument (the caller passes the config's
 ``fsdp``), and "T" is the reference config's default tensor axis.
 
 :func:`make_mesh` binds a mesh to devices and takes only a mesh of one
-device: ``torch.distributed`` and ``DeviceMesh`` come with the
-multi-device backend (ROADMAP.md A.15).
+device: the engine path has its ``torch.distributed`` backend
+(``core.comm.DistributedComm``, ROADMAP.md A.15a), and the LM steps get a
+``DeviceMesh`` in A.15c.
 """
 
 from __future__ import annotations
@@ -71,13 +72,15 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
               device=None) -> Mesh:
     """A mesh of ``shape`` over ``axes`` on ``device`` (the CUDA device
     unless the caller says otherwise).  Only one device: a larger mesh
-    raises, as the multi-device backend is ROADMAP.md A.15."""
+    raises.  The engine path has its multi-device backend
+    (``core.comm.DistributedComm``, ROADMAP.md A.15a); the LM steps do not
+    yet (no ``DeviceMesh``, A.15c)."""
     mesh = Mesh(tuple(axes), tuple(int(s) for s in shape))
     if mesh.size != 1:
         raise NotImplementedError(
-            f"a mesh of {mesh.size} devices {mesh.shape}: the port runs on "
-            f"one device until torch.distributed / DeviceMesh land "
-            f"(ROADMAP.md A.15)")
+            f"a mesh of {mesh.size} devices {mesh.shape}: the LM steps run "
+            f"on one device until they get a DeviceMesh (ROADMAP.md A.15c; "
+            f"the engine path has core.comm.DistributedComm, A.15a)")
     return dataclasses.replace(mesh, device=resolve_device(device))
 
 

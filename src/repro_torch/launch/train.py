@@ -5,7 +5,7 @@ checkpointing and resume (port of ``repro/launch/train.py``).
         --steps 20 --device cpu [--ckpt-dir DIR]
 
 Runs on the CUDA device unless ``--device`` says otherwise, on one device
-(a larger ``--mesh`` raises until ROADMAP.md A.15).  A resume from the
+(a larger ``--mesh`` raises until ROADMAP.md A.15c).  A resume from the
 checkpoint of step k regenerates the batches k, k+1, ... (the data
 pipeline seeds each batch by (seed, step)).  Encoder-decoder archs are
 refused, as the reference refuses them.
@@ -102,7 +102,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--mesh", dest="mesh_spec", default=None,
-                    help='e.g. "data=1" (one device until ROADMAP A.15)')
+                    help='e.g. "data=1" (one device until ROADMAP A.15c)')
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")

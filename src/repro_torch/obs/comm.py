@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.comm import SingleProcessComm, shard
+from ..core.comm import Comm, SingleProcessComm, shard
 from ..core.placement import (Placement, resolve_placement,
                               supported_placements)
 from . import trace as trace_mod
@@ -183,21 +183,25 @@ def verify_dense_comm(P: int = 8,
                       placements: Optional[Sequence[str]] = None,
                       *, block: int = 4, dim: int = 3,
                       mode: str = "batched", dtype: str = "float32",
-                      device=None,
+                      device=None, comm: Optional[Comm] = None,
                       verbose: bool = True) -> List[Dict[str, int]]:
     """Run one dense sweep per registered placement under a fresh tracer
     and assert the traced ppermute / all-gather bytes equal the analytical
     prediction **exactly**.
 
-    The P devices are a :class:`SingleProcessComm` on ``device`` (default
-    the CUDA device).  The toy pair function emits block-shaped partials,
-    so ``partial_bytes == block_bytes`` and the default prediction is
-    exact.  ``dtype`` sets the block itemsize (:func:`block_bytes_of`).
+    The P devices are ``comm`` (default a :class:`SingleProcessComm` on
+    ``device``, itself defaulting to the CUDA device); under a
+    ``DistributedComm`` each rank checks its own device's counters.  The
+    toy pair function emits block-shaped partials, so ``partial_bytes ==
+    block_bytes`` and the default prediction is exact.  ``dtype`` sets the
+    block itemsize (:func:`block_bytes_of`).
     Returns one traced-actuals dict per placement checked.
     """
     from ..core.allpairs import quorum_allpairs
 
-    comm = SingleProcessComm(P, device)
+    comm = SingleProcessComm(P, device) if comm is None else comm
+    if comm.P != P:
+        raise ValueError(f"the comm has P={comm.P} devices, not {P}")
     rng = np.random.default_rng(0)
     x = shard(rng.normal(size=(P * block, dim)) * 10, comm).to(
         getattr(torch, dtype))

@@ -86,6 +86,25 @@ def test_dry_run_initialises_no_cuda():
     assert r.returncode == 0 and "DRYRUN-OK" in r.stdout, r.stdout + r.stderr
 
 
+def test_comm_backend_import_starts_nothing():
+    """``core.comm`` with ``DistributedComm`` imports neither JAX nor the
+    JAX package, and importing it initialises no process group and no
+    CUDA."""
+    code = (
+        "import sys, torch, torch.distributed as dist\n"
+        "from repro_torch.core.comm import DistributedComm\n"
+        "assert not dist.is_initialized()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('COMM-OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "COMM-OK" in r.stdout, r.stdout + r.stderr
+
+
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
@@ -104,6 +123,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         comm.SingleProcessComm(4)
     with pytest.raises(RuntimeError, match="CUDA"):
         comm.SingleProcessComm(4, "cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        comm.DistributedComm("gloo", rank=0, world_size=1,
+                             init_method="file:///nonexistent/store")
     with pytest.raises(RuntimeError, match="CUDA"):
         selfcheck.main(2)
     with pytest.raises(RuntimeError, match="CUDA"):
