@@ -191,6 +191,24 @@ beside the script).  Phases:
      bytes k/P of the atom's, B1, B2, B3 and B9 launched in every rank;
      per-rank wall times and ``max_memory_allocated``, labelled "gloo,
      host-staged, one card";
+ 37. the serving, join and k-NN paths under the distributed backend: 8
+     spawned ranks as in phase 36, the corpora on the host, each rank's
+     own blocks on the card: serving on phase 8's 1,000,000 x 128 corpus
+     (8 microbatches of 256 l2 top-10 queries through B4, phase 8's range
+     query escalated from capacity 16, a block replace), int8 serving of
+     it (before and after the replace), the batcher with rank 0 as the
+     front end and ranks 1-7 following its broadcast launches (8
+     microbatches with a stream update, a heterogeneous pack with
+     escalations, a partial result under a stepping clock), the join
+     (B5) and the k-NN graph (B6) of phase 9's 262,144 x 128 corpus and
+     their int8 and bf16 paths (B7, B8); the parent runs the same calls
+     on one process and every rank's rows equal its share of them (its
+     block's k-NN rows, the pairs its device owns, the same answers
+     otherwise), bit for bit except the quantized paths' rescored
+     scores, which may differ within 1e-5; traced bytes equal the
+     predictor's on every rank, B4-B8 launched in every rank; per rank
+     and path: wall time, peak memory, and the resident bytes (serving
+     state, quantized stacks, sweep quorums) against one process's (1/P);
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
@@ -201,8 +219,9 @@ attention, mamba2 prefill and serving, the batching drain, qwen3-14b
 prefill and serving, jamba prefill and serving, llama4-scout, whisper
 and qwen2-vl prefill, the starcoder2-3b and mamba2-130m train steps) is
 driven and read just after it, so comparison launches do not count;
-phase 36's ranks do the same in each rank and report them as
-``dist_launches`` (the fewest over the ranks).
+phase 36's and 37's ranks do the same in each rank and report them as
+``dist_launches`` (the fewest over the ranks; phase 37 also ``dist_ms``,
+the slowest rank's wall time on the kernel's paths).
 """
 
 from __future__ import annotations
@@ -4824,30 +4843,18 @@ def dist_rank(rank: int, cfg: dict) -> None:
     phases 4, 6, 7 and 17 on a ``DistributedComm``; its rows and figures
     go to ``cfg["out"]/rank<r>.pt`` for the parent to check.  It loads the
     kernel library the parent built and never builds one."""
-    import datetime
     from repro_torch.apps.attention import distributed_attention
     from repro_torch.apps.nbody import _blocks, distributed_forces
     from repro_torch.apps.pcit import run_quorum_pcit
     from repro_torch.core import selfcheck
-    from repro_torch.core.comm import DistributedComm
     from repro_torch.core.scheduler import build_schedule
     from repro_torch.core.sweep import quorum_gather
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ops
     from repro_torch.obs import trace as obs_trace
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    comm = DistributedComm("gloo", rank=rank, world_size=cfg["P"],
-                           init_method=f"file://{cfg['store']}",
-                           device=cfg["device"],
-                           timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    comm = rank_comm(rank, cfg)
     dev = comm.device
     cuda = dev.type == "cuda"
-    if cuda:
-        lib = _build.BUILD_ROOT / _build.build_key() / _build.LIB_NAME
-        check(lib == Path(cfg["lib"]) and lib.exists(),
-              f"rank {rank}: no kernel library at {cfg['lib']} ({lib})")
-        _build.library()
     rows: dict = {}
     stats: dict = {"transport": comm.transport, "device": str(dev)}
 
@@ -5024,7 +5031,7 @@ def join_ranks(ctx, seconds: float) -> None:
     try:
         while not ctx.join(timeout=1):
             check(time.monotonic() < deadline,
-                  f"phase 36: ranks still running after {seconds} s")
+                  f"ranks still running after {seconds} s")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
@@ -5132,6 +5139,525 @@ def phase_distributed(report: dict, smi: str) -> None:
                        ("flash_attention", "attention_quorum")):
         report[name]["dist_launches"] = min(
             res["stats"][path]["launches"][name] for res in ranks)
+
+
+# phase 37: the serving tier, the join, the k-NN graph and the quantized
+# paths under the distributed backend.  P ranks on cuda:0 over gloo,
+# host-staged (as phase 36), at the single-process phases' shapes, nothing
+# cut: serving on phase 8's 1,000,000 x 128 corpus (D37_SERVE_BATCHES
+# microbatches of SERVE_Q l2 top-10 through B4, phase 8's range query
+# escalated from THR_CAP0, a replace_block), int8 serving of the same
+# corpus (D37_QSERVE_BATCHES microbatches before and after the replace),
+# the batcher on the f32 corpus with rank 0 as the front end (D37_BATCHES
+# microbatches with a stream update every D37_STREAM_EVERY, a
+# heterogeneous pack, an escalation, a partial result under a stepping
+# clock), the join and the k-NN graph of phase 9's 262,144 x 128 corpus
+# (B5, B6) and their int8 and bf16 paths (B7, B8).  The parent runs the
+# same calls on a SingleProcessComm on the card; every rank's rows are held
+# to its share of them (a rank's k-NN rows: its block's; its join pairs:
+# the ones its device owns).  Each rank keeps the corpora on the host and
+# moves only its own blocks (and the rows a rescoring pass reads) to the
+# card.
+D37_SERVE_BATCHES, D37_QSERVE_BATCHES = 8, 2
+D37_BATCHES, D37_STREAM_EVERY = 8, 4
+D37_PACK_CAPS = (16, 8, 32, 1, 64, 2)  # below THR_HITS: the pack escalates
+# the rows whose scores the quantized paths rescore with torch.sum over the
+# rows a pass gathers: equal to SCORE_TOL where CUDA's reduction plan
+# follows the gathered shape, which differs between a rank and one process
+RESCORED = ("qserve", "qjoin_", "qknn_")
+D37_COUNTERS = DIST_COUNTERS + ("comm.ppermute.merge_bytes",
+                                "comm.ppermute.merge_hops")
+# the path of each kernel of the slice, for its per-rank launch count
+D37_KERNEL_PATHS = (("query_topk", ("serve_topk", "batcher")),
+                    ("pairwise_threshold", ("join",)),
+                    ("pairwise_topk", ("knn",)),
+                    ("pairwise_threshold_q", ("qjoin_int8", "qjoin_bf16")),
+                    ("pairwise_topk_q", ("qknn_int8", "qknn_bf16")))
+
+
+def rank_comm(rank: int, cfg: dict):
+    """Rank ``rank``'s ``DistributedComm`` over gloo on ``cfg["device"]``,
+    with the kernel library the parent built loaded (a rank never builds
+    one)."""
+    import datetime
+    from repro_torch.core.comm import DistributedComm
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    comm = DistributedComm("gloo", rank=rank, world_size=cfg["P"],
+                           init_method=f"file://{cfg['store']}",
+                           device=cfg["device"],
+                           timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    if comm.device.type == "cuda":
+        lib = _build.BUILD_ROOT / _build.build_key() / _build.LIB_NAME
+        check(lib == Path(cfg["lib"]) and lib.exists(),
+              f"rank {rank}: no kernel library at {cfg['lib']} ({lib})")
+        _build.library()
+    return comm
+
+
+@contextlib.contextmanager
+def recorded_quorums(store: list):
+    """Record the bytes of every quorum the pair sweeps gather."""
+    from repro_torch.core import sweep
+    gather = sweep.quorum_gather
+
+    def recording(x, schedule, comm, **kw):
+        got = gather(x, schedule, comm, **kw)
+        store.append(sum(t.nbytes for t in sweep._leaves(got)))
+        return got
+    sweep.quorum_gather = recording
+    try:
+        yield
+    finally:
+        sweep.quorum_gather = gather
+
+
+def d37_data(dirname: str) -> dict:
+    """Phase 8's and phase 9's corpora from their seeds, with the range
+    query's per-query thresholds (midway between the THR_HITS-th and the
+    next l2 score over the corpus), on the card; a host copy of each goes
+    to ``dirname`` for the ranks."""
+    X, queries, fresh, thr_q = serving_data()
+    n_q = max(D37_SERVE_BATCHES, D37_QSERVE_BATCHES, D37_BATCHES + 1)
+    queries = queries[:n_q].contiguous()
+    top = torch.topk(l2_scores(thr_q, X, (X * X).sum(-1)),
+                     THR_HITS + 1).values
+    thr_vec = (top[:, THR_HITS - 1] + top[:, THR_HITS]) / 2
+    Xj, _xn, thr = join_data()
+    data = dict(X=X, queries=queries, fresh=fresh, thr_q=thr_q,
+                thr_vec=thr_vec, Xj=Xj, join_thr=torch.tensor(thr))
+    torch.save({k: v.cpu() for k, v in data.items()},
+               Path(dirname) / "d37_data.pt")
+    return data
+
+
+def d37_batcher(sc, data) -> dict:
+    """Rank 0's (or the one process's) front-end traffic: ``serve_queries``
+    through ``BatchScheduler`` with stream updates, a heterogeneous pack
+    (k = 1..100 in both metrics, range queries with capacities 1..256),
+    and a range query whose deadline passes mid-escalation; every
+    resolved request's rows, and the launch and escalation counts."""
+    from repro_torch.launch.query_serve import serve_queries
+    from repro_torch.serving.batching import BatchScheduler
+
+    out: dict = {}
+    sched = BatchScheduler(sc, max_batch=SERVE_Q, pad_queries_to=SERVE_Q,
+                           use_kernel=True)
+    try:
+        vals, idx, _qps = serve_queries(
+            sc, data["queries"][:D37_BATCHES].reshape(-1, SERVE_D),
+            microbatch=SERVE_Q, topk=SERVE_TOPK, metric="l2",
+            use_kernel=True, stream_every=D37_STREAM_EVERY,
+            rng=np.random.default_rng(20), scheduler=sched)
+        out["drain_v"], out["drain_i"] = (torch.from_numpy(vals),
+                                          torch.from_numpy(idx))
+        hq = data["queries"][D37_BATCHES]
+        pack = BatchScheduler(sc, max_batch=64, use_kernel=True)
+        reqs = [pack.submit(hq[2 * j + (m == "dot")], kind="topk", topk=k,
+                            metric=m)
+                for j, k in enumerate(BATCH_TOPKS) for m in ("l2", "dot")]
+        reqs += [pack.submit(data["thr_q"][j], kind="threshold",
+                             threshold=float(data["thr_vec"][j]),
+                             capacity=cap, metric="l2")
+                 for j, cap in enumerate(D37_PACK_CAPS)]
+        pack.drain()
+        for n, r in enumerate(reqs):
+            res = r.result(0)
+            check(res.ok, f"batcher pack: request {n} {res.status}")
+            out[f"pack{n}_v"] = torch.from_numpy(res.scores)
+            out[f"pack{n}_i"] = torch.from_numpy(res.indices)
+            out[f"pack{n}_n"] = torch.tensor(-1 if res.count is None
+                                             else res.count)
+        t = [0.0]
+
+        def stepping_clock():
+            t[0] += 0.4
+            return t[0]
+        late = BatchScheduler(sc, max_batch=8, clock=stepping_clock)
+        part = late.submit(hq[-1], kind="threshold", threshold=-1e30,
+                           capacity=1, deadline_s=0.5, metric="l2")
+        late.step()
+        res = part.result(0)
+        check(res.status == "partial" and res.count == sc.n_valid,
+              f"batcher: {res.status}, count {res.count} of {sc.n_valid}")
+        out["partial_i"] = torch.from_numpy(res.indices)
+        out["counts"] = torch.tensor([sched.counters["launches"],
+                                      pack.counters["launches"],
+                                      pack.counters["escalations"]])
+        check(int(out["counts"][2]) > 0, "batcher pack: no escalation")
+    finally:
+        sched.close()
+    return out
+
+
+def d37_paths(comm, data: dict, run) -> tuple[dict, dict]:
+    """Phase 37's calls on ``comm`` (a rank's or the single process's),
+    each through ``run(name, fn)``: (rows as host tensors, figures)."""
+    from repro_torch.core.comm import DistributedComm
+    from repro_torch.core.knn import knn_graph
+    from repro_torch.core.quant import (quant_knn_graph,
+                                        quant_similarity_join)
+    from repro_torch.core.sparse import similarity_join
+    from repro_torch.serving import ServingCorpus
+    from repro_torch.serving.batching import follow_launches
+
+    rows: dict = {}
+    fig: dict = {}
+    follower = isinstance(comm, DistributedComm) and comm.rank != 0
+
+    def state_bytes(*ts):
+        return sum(t.nbytes for t in ts)
+
+    sc = run("serve_build", lambda: ServingCorpus.build(
+        data["X"], comm, placement="cyclic", quant="off"))
+    fig["serve_resident"] = state_bytes(*sc.state)
+
+    def serve_topk():
+        for b in range(D37_SERVE_BATCHES):
+            v, i = sc.query(data["queries"][b], topk=SERVE_TOPK,
+                            metric="l2", use_kernel=True)
+            rows[f"serve{b}_v"], rows[f"serve{b}_i"] = v.cpu(), i.cpu()
+    run("serve_topk", serve_topk)
+
+    def serve_range():
+        v, i, n = sc.query_threshold(data["thr_q"],
+                                     threshold=data["thr_vec"],
+                                     capacity=THR_CAP0, mode="batched",
+                                     metric="l2")
+        rows["range_v"], rows["range_i"], rows["range_n"] = (
+            v.cpu(), i.cpu(), n.cpu())
+    run("serve_range", serve_range)
+
+    def serve_replace():
+        sc.replace_block(REPLACED_BLOCK, data["fresh"])
+        v, i = sc.query(data["queries"][0], topk=SERVE_TOPK, metric="l2",
+                        use_kernel=True)
+        rows["replaced_v"], rows["replaced_i"] = v.cpu(), i.cpu()
+    run("serve_replace", serve_replace)
+
+    def batcher():
+        if follower:
+            return {"followed": torch.tensor(follow_launches(sc))}
+        return d37_batcher(sc, data)
+    rows.update({f"batcher_{k}": v for k, v in run("batcher",
+                                                   batcher).items()})
+    del sc
+
+    scq = run("qserve_build", lambda: ServingCorpus.build(
+        data["X"], comm, placement="cyclic", quant="int8"))
+    fig["qserve_resident"] = state_bytes(*scq.quant.stacks)
+    fig["qserve_mirror_on_device"] = scq.quant.mirror.resident
+
+    def qserve():
+        for b in range(2 * D37_QSERVE_BATCHES):
+            if b == D37_QSERVE_BATCHES:
+                scq.replace_block(REPLACED_BLOCK, data["fresh"])
+            v, i = scq.query(data["queries"][b], topk=SERVE_TOPK,
+                             metric="l2")
+            rows[f"qserve{b}_v"], rows[f"qserve{b}_i"] = v.cpu(), i.cpu()
+    run("qserve", qserve)
+    del scq
+
+    Xj, thr = data["Xj"], float(data["join_thr"])
+    quorums: list = []
+
+    def join():
+        r = similarity_join(Xj, comm, threshold=thr, metric="l2",
+                            mode="batched", placement="cyclic",
+                            capacity=JOIN_CAP0, use_kernel=True)
+        rows["join_i"], rows["join_j"] = (torch.from_numpy(r.i),
+                                          torch.from_numpy(r.j))
+        rows["join_s"] = torch.from_numpy(r.scores)
+        fig["join_sweeps"] = 1 + r.escalations
+        fig["join_counts"] = r.counts.tolist()
+
+    def knn():
+        g = knn_graph(Xj, comm, topk=KNN_TOPK, metric="l2", mode="batched",
+                      placement="cyclic", use_kernel=True, quant="off")
+        rows["knn_i"], rows["knn_v"] = (torch.from_numpy(g.indices),
+                                        torch.from_numpy(g.scores))
+        fig["knn_row0"] = g.row0
+
+    def qjoin(qm):
+        st: dict = {}
+        r = quant_similarity_join(Xj, comm, threshold=thr, quant=qm,
+                                  metric="l2", mode="batched",
+                                  placement="cyclic", capacity=JOIN_CAP0,
+                                  use_kernel=True, stats=st)
+        rows[f"qjoin_{qm}_i"] = torch.from_numpy(r.i)
+        rows[f"qjoin_{qm}_j"] = torch.from_numpy(r.j)
+        rows[f"qjoin_{qm}_s"] = torch.from_numpy(r.scores)
+        fig[f"qjoin_{qm}_sweeps"] = 1 + r.escalations
+
+    def qknn(qm):
+        st: dict = {}
+        g = quant_knn_graph(Xj, comm, topk=KNN_TOPK, quant=qm, metric="l2",
+                            mode="batched", placement="cyclic",
+                            use_kernel=True, stats=st)
+        rows[f"qknn_{qm}_i"] = torch.from_numpy(g.indices)
+        rows[f"qknn_{qm}_v"] = torch.from_numpy(g.scores)
+        fig[f"qknn_{qm}_passes"] = st["passes"]
+
+    with recorded_quorums(quorums):
+        for name, fn in (("join", join), ("knn", knn)):
+            run(name, fn)
+            fig[f"{name}_quorum"] = max(quorums)
+            quorums.clear()
+        for qm in ("int8", "bf16"):
+            for name, fn in ((f"qjoin_{qm}", qjoin), (f"qknn_{qm}", qknn)):
+                run(name, lambda: fn(qm))
+                fig[f"{name}_quorum"] = max(quorums)
+                quorums.clear()
+    return rows, fig
+
+
+def d37_rank(rank: int, cfg: dict) -> None:
+    """One rank of phase 37, in a spawned process of its own: its rows
+    and figures go to ``cfg["out"]/d37_rank<r>.pt``."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace as obs_trace
+
+    comm = rank_comm(rank, cfg)
+    dev = comm.device
+    cuda = dev.type == "cuda"
+    stats: dict = {"transport": comm.transport, "device": str(dev)}
+
+    def run(name, fn):
+        """``fn`` once under a fresh tracer, with the launch counts and
+        the peak reset: its wall ms (first use included), peak bytes above
+        the bytes held before it, launches and traced counters."""
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if cuda else 0
+        tr = obs_trace.configure(metrics_only=True)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize(dev)
+        finally:
+            obs_trace.reset()
+        stats[name] = {
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "peak": (torch.cuda.max_memory_allocated(dev) - base) if cuda
+            else 0,
+            "launches": ops.launch_counts(),
+            "counters": {c: int(tr.counter_total(c)) for c in D37_COUNTERS}}
+        return out
+
+    try:
+        data = torch.load(Path(cfg["out"]) / "d37_data.pt", mmap=True,
+                          weights_only=True)
+        rows, fig = d37_paths(comm, data, run)
+        torch.save({"rows": rows, "fig": fig, "stats": stats},
+                   Path(cfg["out"]) / f"d37_rank{rank}.pt")
+    finally:
+        comm.close()
+
+
+def d37_predicted(fig: dict) -> dict:
+    """A rank's comm bytes and hops by the predictor (``obs/comm.py``),
+    per path, from this run's shapes, escalations and M passes."""
+    from repro_torch.core.placement import resolve_placement
+    from repro_torch.obs.comm import (predict_sweep_comm,
+                                      predict_tree_merge_comm,
+                                      quant_block_bytes)
+
+    plc = resolve_placement("cyclic", P)
+    block = JOIN_N // P
+
+    def sweeps(n, block_bytes, partial_bytes=None):
+        p = predict_sweep_comm(plc, block_bytes, partial_bytes=partial_bytes)
+        out = {"comm.ppermute.gather_bytes": n * p.gather_bytes,
+               "comm.ppermute.gather_hops": n * p.gather_hops}
+        if partial_bytes is not None:
+            out.update({"comm.ppermute.scatter_bytes": n * p.scatter_bytes,
+                        "comm.ppermute.scatter_hops": n * p.scatter_hops})
+        return out
+
+    # the tree merge of each microbatch's (vals f32, ids i32) [Q, 16]
+    merge = predict_tree_merge_comm(P, SERVE_Q * 16 * 8)
+    want = {"serve_topk": {
+        "comm.ppermute.merge_bytes": D37_SERVE_BATCHES * merge["bytes"],
+        "comm.ppermute.merge_hops": D37_SERVE_BATCHES * merge["hops"]},
+        "join": sweeps(fig["join_sweeps"], block * JOIN_D * 4),
+        "knn": sweeps(1, block * JOIN_D * 4, block * KNN_TOPK * 8)}
+    for qm in ("int8", "bf16"):
+        qbb = quant_block_bytes(block, JOIN_D, qm)
+        want[f"qjoin_{qm}"] = sweeps(fig[f"qjoin_{qm}_sweeps"], qbb)
+        passes = [sweeps(1, qbb, block * m * 8)
+                  for m, _n in fig[f"qknn_{qm}_passes"]]
+        want[f"qknn_{qm}"] = {c: sum(p[c] for p in passes)
+                              for c in passes[0]}
+    return want
+
+
+def phase_distributed_serving(report: dict, smi: str) -> None:
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.placement import get_placement
+    from repro_torch.core.sparse import owned_pairs
+    from repro_torch.kernels import _build, ops
+
+    sched = get_placement("cyclic", P).schedule()
+    k = sched.k
+    with tempfile.TemporaryDirectory() as tmp:
+        data = d37_data(tmp)
+        # the single process, the same calls on the card
+        single_ms: dict = {}
+        single_peak: dict = {}
+
+        cuda = torch.device(DEVICE).type == "cuda"
+
+        def run(name, fn):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() if cuda else 0
+            t0 = time.perf_counter()
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize()
+            single_ms[name] = (time.perf_counter() - t0) * 1e3
+            single_peak[name] = (torch.cuda.max_memory_allocated() - base
+                                 if cuda else 0)
+            return out
+        single, sfig = d37_paths(SingleProcessComm(P, DEVICE), data, run)
+        del data
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+        cfg = dict(P=P, device=DEVICE, lib=str(_build.build()),
+                   store=str(Path(tmp) / "store37"), out=tmp)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(d37_rank, args=(cfg,), nprocs=P,
+                                 join=False, start_method="spawn")
+        join_ranks(ctx, DIST_JOIN_S)
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"d37_rank{r}.pt",
+                            weights_only=True) for r in range(P)]
+    say(f"{P} ranks ({DIST_LABEL}): spawned, ran and joined in "
+        f"{wall_s:.1f} s wall; the single-process calls took "
+        f"{sum(single_ms.values()) / 1e3:.1f} s")
+
+    block = JOIN_N // P
+    not_bit_equal: dict = {}
+    for r, res in enumerate(ranks):
+        rows, fig, st = res["rows"], res["fig"], res["stats"]
+        check(st["transport"] == "gloo, host-staged"
+              and st["device"].startswith("cuda"),
+              f"rank {r}: transport {st['transport']} on {st['device']}")
+        mine = {}
+        for key, want in single.items():
+            if key.startswith(("join_", "qjoin_")):
+                continue
+            if key.startswith(("knn_", "qknn_")):
+                want = want[r * block:(r + 1) * block]
+            if key.startswith("batcher_") and r:
+                continue
+            mine[key] = want
+        for base in ("join", "qjoin_int8", "qjoin_bf16"):
+            own = torch.from_numpy(owned_pairs(
+                single[f"{base}_i"].numpy(), single[f"{base}_j"].numpy(),
+                block, sched, [r]))
+            for f in "ijs":
+                mine[f"{base}_{f}"] = single[f"{base}_{f}"][own]
+        expect = set(mine) | ({"batcher_followed"} if r else set())
+        check(set(rows) == expect,
+              f"rank {r}: rows {sorted(set(rows) ^ expect)} unmatched")
+        for key, want in mine.items():
+            got = rows[key]
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"rank {r} {key}: {tuple(got.shape)} {got.dtype}, single "
+                  f"process {tuple(want.shape)} {want.dtype}")
+            if torch.equal(got, want):
+                continue
+            check(key.startswith(RESCORED) and key.endswith(("_v", "_s"))
+                  and torch.allclose(got, want, rtol=SCORE_TOL,
+                                     atol=SCORE_TOL),
+                  f"rank {r} {key}: differs from the single-process rows "
+                  f"(max abs {float((got.float() - want.float()).abs().max()):.3e})")
+            not_bit_equal[key] = max(not_bit_equal.get(key, 0.0), float(
+                (got - want).abs().max()))
+        if r:
+            n_launch = int(single["batcher_counts"][0]
+                           + single["batcher_counts"][1]) + 1 + \
+                len(range(D37_STREAM_EVERY, D37_BATCHES, D37_STREAM_EVERY))
+            check(int(rows["batcher_followed"]) == n_launch,
+                  f"rank {r}: followed {int(rows['batcher_followed'])} "
+                  f"launches, rank 0 made {n_launch}")
+        for name, paths in D37_KERNEL_PATHS:
+            for path in paths:
+                check(st[path]["launches"][name] > 0,
+                      f"rank {r} {path}: {name} was never launched")
+        for path, counters in d37_predicted(fig).items():
+            got = {c: v for c, v in st[path]["counters"].items() if v}
+            check(got == counters, f"rank {r} {path}: traced {got}, "
+                  f"predicted {counters}")
+        check(fig["serve_resident"] * P == sfig["serve_resident"]
+              and fig["qserve_resident"] * P == sfig["qserve_resident"],
+              f"rank {r}: resident serving bytes {fig['serve_resident']} / "
+              f"{fig['qserve_resident']}, one process "
+              f"{sfig['serve_resident']} / {sfig['qserve_resident']}")
+        check(not fig["qserve_mirror_on_device"],
+              f"rank {r}: the f32 mirror is on the device")
+        for path in ("join", "knn", "qjoin_int8", "qjoin_bf16", "qknn_int8",
+                     "qknn_bf16"):
+            check(fig[f"{path}_quorum"] * P == sfig[f"{path}_quorum"],
+                  f"rank {r} {path}: quorum {fig[f'{path}_quorum']} bytes, "
+                  f"one process {sfig[f'{path}_quorum']}")
+        check(fig["join_counts"] == sfig["join_counts"],
+              f"rank {r}: join counts {fig['join_counts']}")
+
+    mib = 1 / 2**20
+
+    def each(path, field, scale=1.0):
+        return " / ".join(f"{res['stats'][path][field] * scale:.1f}"
+                          for res in ranks)
+
+    paths = ("serve_build", "serve_topk", "serve_range", "serve_replace",
+             "batcher", "qserve_build", "qserve", "join", "knn",
+             "qjoin_int8", "qjoin_bf16", "qknn_int8", "qknn_bf16")
+    for path in paths:
+        moved = sum(v for c, v in ranks[0]["stats"][path]["counters"].items()
+                    if c.endswith("bytes"))
+        say(f"phase 37 {path} ({DIST_LABEL}), ranks 0-{P - 1}: "
+            f"{each(path, 'ms')} ms, peak {each(path, 'peak', mib)} MiB, "
+            f"comm {moved * mib:.1f} MiB a rank (traced); one process "
+            f"{single_ms[path]:.1f} ms, peak "
+            f"{single_peak[path] * mib:.1f} MiB")
+    f0 = ranks[0]["fig"]
+    say(f"phase 37 resident a rank vs one process: serving f32 state "
+        f"{f0['serve_resident'] * mib:.1f} vs {sfig['serve_resident'] * mib:.1f}"
+        f" MiB, int8 stacks {f0['qserve_resident'] * mib:.1f} vs "
+        f"{sfig['qserve_resident'] * mib:.1f} MiB (f32 mirror on the host; "
+        f"one process keeps it on the card), sweep quorums: "
+        + ", ".join(f"{p} {f0[f'{p}_quorum'] * mib:.1f} vs "
+                    f"{sfig[f'{p}_quorum'] * mib:.1f} MiB"
+                    for p in ("join", "knn", "qjoin_int8", "qknn_int8"))
+        + f" (k/P = {k}/{P} of the corpus, 1/P of one process's)")
+    say(f"phase 37: join {sum(f0['join_counts'])} pairs in "
+        f"{f0['join_sweeps']} sweeps; quantized k-NN passes int8 "
+        f"{f0['qknn_int8_passes']}, bf16 {f0['qknn_bf16_passes']}; every "
+        f"rank's rows equal its share of the single process's, "
+        + ("bit for bit" if not not_bit_equal else
+           "bit for bit except rescored scores within "
+           f"{SCORE_TOL} (max abs {max(not_bit_equal.values()):.3e}: "
+           f"{', '.join(sorted(not_bit_equal))})")
+        + f"; traced bytes == predicted on every rank; B4-B8 launched in "
+        f"every rank; card {smi}")
+    for name, paths in D37_KERNEL_PATHS:
+        report[name]["dist_launches"] = min(
+            sum(res["stats"][p]["launches"][name] for p in paths)
+            for res in ranks)
+        report[name]["dist_ms"] = max(
+            sum(res["stats"][p]["ms"] for p in paths) for res in ranks)
 
 
 KERNELS = {
@@ -5251,7 +5777,9 @@ def main() -> int:
               ("dry run against the card",
                lambda: phase_dry_run(report, smi)),
               ("the distributed backend on the card",
-               lambda: phase_distributed(report, smi))]
+               lambda: phase_distributed(report, smi)),
+              ("the serving, join and k-NN paths under the distributed "
+               "backend", lambda: phase_distributed_serving(report, smi))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")

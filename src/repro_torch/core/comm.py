@@ -16,11 +16,17 @@ interface:
 indices of the devices this process holds (``range(P)``, or the rank's
 own).  Every per-device tensor carries a leading axis of length
 ``len(comm.local)``, so call sites have one code path for both backends.
+A host decision every device must share (an escalation, another pass)
+reads every device's figures through ``comm.all_rows``; a one-to-all
+send (the batcher's launches) is ``comm.broadcast``.  Both are the
+identity in one process.
 
-:func:`shard` / :func:`unshard` move ``[N, ...]`` data in and out of the
-``[len(local), block, ...]`` layout, and :func:`schedule_from_numpy`
-carries a schedule across from the reference so tests feed both packages
-the same inputs.
+:func:`shard` / :func:`unshard` / :func:`pad_local` move ``[N, ...]`` data
+in and out of the ``[len(local), block, ...]`` layout (a rank moves only
+its own rows to its device), :func:`run_main` starts a selfcheck in one
+process or as a torchrun rank, and :func:`schedule_from_numpy` carries a
+schedule across from the reference so tests feed both packages the same
+inputs.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ __all__ = [
     "shard",
     "unshard",
     "pad_blocks",
+    "pad_local",
+    "run_main",
     "schedule_from_numpy",
 ]
 
@@ -96,6 +104,17 @@ class SingleProcessComm:
     def axis_index(self) -> torch.Tensor:
         """``lax.axis_index``: device i's own index, as a [P] tensor."""
         return torch.arange(self.P, device=self.device)
+
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every device's row of a small ``[P, ...]`` per-device tensor
+        (counts, flags): the figures a host decision shared by all
+        devices reads.  One process holds them all: ``x`` itself."""
+        return x
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Process ``src``'s ``x`` on every process: one process is its
+        own source, so ``x`` itself."""
+        return x
 
     def ppermute(self, x: torch.Tensor, shift: int) -> torch.Tensor:
         """The cyclic shift of ``core/sweep.py:_shift_perm``: device i
@@ -219,6 +238,21 @@ class DistributedComm:
         out = buf.view(dtype).reshape(shape)
         return out.to(self.device) if self.staged else out
 
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every device's row of a small per-device tensor: this rank's
+        ``[1, ...]`` -> ``[P, ...]`` in device order, through
+        :meth:`all_gather`, so every rank takes a shared host decision
+        (an escalation, another pass) on the same figures."""
+        return self.all_gather(x)[0]
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank (``dist.broadcast``, staged
+        like :meth:`ppermute`); the other ranks pass a tensor of the same
+        shape and dtype, whose values are not read."""
+        buf = self._wire(x)
+        dist.broadcast(buf, int(src))
+        return self._unwire(buf, x.dtype, x.shape)
+
     def _buffer(self, nbytes: int) -> torch.Tensor:
         return torch.empty(nbytes, dtype=torch.uint8,
                            device="cpu" if self.staged else self.device,
@@ -284,6 +318,37 @@ def pad_blocks(corpus, P: int, device) -> torch.Tensor:
     x = torch.zeros(P * block, d, dtype=torch.float32, device=device)
     x[:N] = corpus.to(device)
     return x.reshape(P, block, d)
+
+
+def pad_local(corpus, comm: Comm, block: int | None = None) -> torch.Tensor:
+    """This process's blocks ``[len(local), block, d]`` float32 on
+    ``comm.device`` of the [N, d] corpus (numpy or tensor) zero-padded to
+    P blocks of ``block`` rows (default ceil(N / P)): the rows are taken
+    where the corpus lies, so a rank moves only its own to its device."""
+    corpus = torch.as_tensor(corpus, dtype=torch.float32)
+    N, d = corpus.shape
+    block = -(-N // comm.P) if block is None else int(block)
+    L = len(comm.local)
+    r0 = comm.local.start * block
+    n = max(0, min(N, comm.local.stop * block) - r0)
+    x = torch.zeros(L * block, d, dtype=torch.float32, device=comm.device)
+    x[:n] = corpus[r0:r0 + n].to(comm.device)
+    return x.reshape(L, block, d)
+
+
+def run_main(main: Callable[..., Any], *args, device=None,
+             dist: str | None = None, **kw):
+    """Run a selfcheck's ``main(*args, device=..., comm=...)`` from its
+    CLI: without ``dist`` in one process (``main`` makes its
+    ``SingleProcessComm`` on ``device``); with it as one rank of a
+    torchrun job on :meth:`DistributedComm.from_env`, closed after."""
+    if dist is None:
+        return main(*args, device=device, **kw)
+    comm = DistributedComm.from_env(dist, device)
+    try:
+        return main(*args, comm=comm, **kw)
+    finally:
+        comm.close()
 
 
 def schedule_from_numpy(P, A, shifts, pair_slots, pair_diff) -> PairSchedule:

@@ -28,8 +28,9 @@ the scatter order give identical indices.  l2 scores use the
 orientation-consistent order ``(2 dot - |cand|^2) - |row|^2`` on both
 sides of a tile.
 
-Every per-device tensor carries the leading ``[P, ...]`` axis of
-:class:`~repro_torch.core.comm.SingleProcessComm`.
+Every per-device tensor carries the comm layer's leading axis over the L
+devices this process holds (L = P in one process, 1 a rank under
+``DistributedComm``; written ``[P, ...]`` below, as in one process).
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ import torch
 from ..kernels.ref import IDX_SENTINEL, NEG_INF, topk_by_score_index
 from ..kernels.ref import QUERY_METRICS as KNN_METRICS
 from . import sweep as sweep_mod
-from .comm import SingleProcessComm, pad_blocks, tree_map
+from .comm import (Comm, DistributedComm, SingleProcessComm, pad_local,
+                   run_main, tree_map)
 from .scheduler import PairSchedule
 from .sparse import _pair_meta, _pair_score_matrix
 from .sweep import ENGINE_MODES, SweepEmitter, pair_mask_table, quorum_scatter
@@ -258,7 +260,7 @@ class KnnEmitter(SweepEmitter):
 
 def quorum_allpairs_knn(
     x: torch.Tensor,
-    comm: SingleProcessComm,
+    comm: Comm,
     *,
     topk: int,
     schedule: PairSchedule | None = None,
@@ -272,8 +274,9 @@ def quorum_allpairs_knn(
     """Distributed all-pairs k-NN graph construction (DESIGN.md section
     12.3).
 
-    ``x`` is ``[P, block, d]`` on ``comm.device``.  Returns ``(scores [P,
-    block, topk], indices [P, block, topk])`` — each *valid* row's top-k
+    ``x`` is ``[L, block, d]`` on ``comm.device``, the blocks of the L
+    devices this process holds.  Returns ``(scores [L, block, topk],
+    indices [L, block, topk])`` — each *valid* row's top-k
     nearest other valid rows (self excluded) by the (-score, index) total
     order, with (NEG_INF, IDX_SENTINEL) sentinels when fewer than
     ``topk`` candidates exist; rows beyond ``n_valid`` carry unspecified
@@ -288,9 +291,11 @@ def quorum_allpairs_knn(
     if topk < 1:
         raise ValueError(f"topk must be >= 1, got {topk}")
     sweep_mod.validate_mode(mode, batch_fn)
-    if x.shape[0] != comm.P:
+    L = len(comm.local)
+    if x.shape[0] != L:
         raise ValueError(f"x must carry the device axis first: "
-                         f"{tuple(x.shape)} for P={comm.P}")
+                         f"{tuple(x.shape)} for {L} local device(s) of "
+                         f"P={comm.P}")
     schedule, placement = sweep_mod.resolve_sweep_placement(
         schedule, comm.P, placement)
     if schedule is None:
@@ -298,8 +303,8 @@ def quorum_allpairs_knn(
 
     block = x.shape[1]
     if mask is None:
-        mask = torch.as_tensor(pair_mask_table(schedule), device=x.device)
-    mask = mask.to(x.device).reshape(comm.P, schedule.n_pairs)
+        mask = comm.local_rows(torch.as_tensor(pair_mask_table(schedule)))
+    mask = mask.to(x.device).reshape(L, schedule.n_pairs)
     if mode == "auto":
         mode = _select_mode(schedule, block, batch_fn)
 
@@ -324,15 +329,18 @@ def quorum_allpairs_knn(
 class KnnResult:
     """Host-side k-NN graph (:func:`knn_graph`).
 
-    ``indices[r]`` lists row r's ``topk`` nearest other rows (best first
-    by the (-score, index) order); ``scores`` the matching scores.  When
-    the corpus has fewer than ``topk`` other rows, the tail is
-    (IDX_SENTINEL, NEG_INF) padding.
+    ``indices[r]`` lists row ``row0 + r``'s ``topk`` nearest other rows
+    (best first by the (-score, index) order); ``scores`` the matching
+    scores.  When the corpus has fewer than ``topk`` other rows, the tail
+    is (IDX_SENTINEL, NEG_INF) padding.  ``row0`` is 0 in one process,
+    where the graph has every row; under ``DistributedComm`` a rank holds
+    the rows of its own block, from ``row0 = rank * block``.
     """
 
     indices: np.ndarray
     scores: np.ndarray
     topk: int
+    row0: int = 0
 
     @property
     def n_rows(self) -> int:
@@ -341,13 +349,14 @@ class KnnResult:
 
 
 @functools.lru_cache(maxsize=64)
-def _knn_fn(comm: SingleProcessComm, N: int, block: int, topk: int,
+def _knn_fn(comm: Comm, N: int, block: int, topk: int,
             metric: str, mode: str, use_kernel: bool, placement):
     """Build (and cache) the distributed k-NN callable ``f(x [P, block,
     d]) -> (vals, idx [P, block, topk])`` per (comm, shape, topk, ...)
     key."""
     sched = placement.schedule()
-    mask_table = torch.as_tensor(pair_mask_table(sched), device=comm.device)
+    mask_table = comm.local_rows(
+        torch.as_tensor(pair_mask_table(sched))).to(comm.device)
     batch_fn = None
     if use_kernel:
         if mode not in ("batched", "auto"):
@@ -365,7 +374,7 @@ def _knn_fn(comm: SingleProcessComm, N: int, block: int, topk: int,
     return run
 
 
-def knn_graph(corpus, comm: SingleProcessComm, *, topk: int,
+def knn_graph(corpus, comm: Comm, *, topk: int,
               metric: str = "dot", mode: str = "auto", placement=None,
               use_kernel: bool = False,
               quant: str | None = None) -> KnnResult:
@@ -373,9 +382,11 @@ def knn_graph(corpus, comm: SingleProcessComm, *, topk: int,
     12.3).
 
     The host entry point: pads the [N, d] corpus (numpy or tensor) into P
-    quorum blocks on ``comm.device``, runs :func:`quorum_allpairs_knn`
-    under the selected placement (None defers to ``REPRO_PLACEMENT``), and
-    slices the padding rows off.  ``use_kernel`` routes the batched step
+    quorum blocks, puts this process's on ``comm.device``, runs
+    :func:`quorum_allpairs_knn` under the selected placement (None defers
+    to ``REPRO_PLACEMENT``), and slices the padding rows off: every row in
+    one process, the rank's own block's rows under ``DistributedComm``
+    (``KnnResult.row0``).  ``use_kernel`` routes the batched step
     through the B6 kernel.  ``quant`` selects the quantized candidate
     generation with certified rescoring (DESIGN.md section 17): ``"int8"``
     / ``"bf16"`` route through :func:`core.quant.quant_knn_graph`
@@ -393,14 +404,22 @@ def knn_graph(corpus, comm: SingleProcessComm, *, topk: int,
     from .placement import placement_from_env, resolve_placement
     plc = (placement_from_env(P) if placement is None
            else resolve_placement(placement, P))
-    xs = pad_blocks(corpus, P, comm.device)
+    xs = pad_local(corpus, comm)
     N = int(torch.as_tensor(corpus).shape[0])
     run = _knn_fn(comm, N, xs.shape[1], int(topk), metric, mode,
                   use_kernel, plc)
     vals, idx = run(xs)
-    return KnnResult(indices=idx.reshape(-1, topk)[:N].cpu().numpy(),
-                     scores=vals.reshape(-1, topk)[:N].cpu().numpy(),
-                     topk=int(topk))
+    row0, n = local_row_span(comm, xs.shape[1], N)
+    return KnnResult(indices=idx.reshape(-1, topk)[:n].cpu().numpy(),
+                     scores=vals.reshape(-1, topk)[:n].cpu().numpy(),
+                     topk=int(topk), row0=row0)
+
+
+def local_row_span(comm: Comm, block: int, N: int) -> tuple[int, int]:
+    """(first global row, valid row count) of the blocks this process
+    holds, of an N-row corpus in blocks of ``block`` rows."""
+    row0 = comm.local.start * block
+    return row0, max(0, min(N, comm.local.stop * block) - row0)
 
 
 def brute_force_knn(corpus: np.ndarray, topk: int,
@@ -427,20 +446,26 @@ def brute_force_knn(corpus: np.ndarray, topk: int,
 
 def selfcheck_main(nblocks: int = 8,
                    modes: Sequence[str] = ENGINE_MODES + ("kernel",),
-                   placement: str | None = None, device=None) -> None:
-    """Distributed k-NN graph selfcheck, on the CUDA device unless
-    ``device`` says otherwise.
+                   placement: str | None = None, device=None,
+                   comm: Comm | None = None) -> None:
+    """Distributed k-NN graph selfcheck on ``comm`` (default: a
+    ``SingleProcessComm`` of ``nblocks`` devices on ``device``, itself
+    defaulting to the CUDA device).
 
     Run as ``python -m repro_torch.core.knn [P] [modes] [placement]
-    [--device cpu]``.  Asserts exact neighbour-index equality with the
-    dense brute-force oracle for every requested mode (``kernel`` is the
-    batched path through the B6 hook), both metrics, a ragged corpus tail,
-    and an underfull (topk > N - 1) list with sentinel padding.
+    [--device cpu] [--dist gloo|nccl]`` (``--dist``: one device a
+    torchrun process).  Asserts exact neighbour-index equality with the
+    dense brute-force oracle's rows (a rank's: its own block's) for every
+    requested mode (``kernel`` is the batched path through the B6 hook),
+    both metrics, a ragged corpus tail, and an underfull (topk > N - 1)
+    list with sentinel padding.
     """
     from .placement import placement_from_env, resolve_placement
 
     Pn = int(nblocks)
-    comm = SingleProcessComm(Pn, device)
+    comm = SingleProcessComm(Pn, device) if comm is None else comm
+    if comm.P != Pn:
+        raise ValueError(f"the comm has P={comm.P} devices, not {Pn}")
     plc = (placement_from_env(Pn) if placement is None
            else resolve_placement(placement, Pn))
     block, d, topk = 8, 16, 4
@@ -456,10 +481,11 @@ def selfcheck_main(nblocks: int = 8,
             got = knn_graph(corpus, comm, topk=topk, metric=metric,
                             mode=mode, placement=plc, use_kernel=uk,
                             quant="off")
+            rows = slice(got.row0, got.row0 + got.n_rows)
             np.testing.assert_array_equal(
-                got.indices, want.indices, err_msg=f"{label} mode={m}")
+                got.indices, want.indices[rows], err_msg=f"{label} mode={m}")
             np.testing.assert_allclose(
-                got.scores, want.scores, rtol=1e-5, atol=1e-5,
+                got.scores, want.scores[rows], rtol=1e-5, atol=1e-5,
                 err_msg=f"{label} mode={m}")
 
     # underfull lists: topk exceeds the candidate count; the tail must be
@@ -470,12 +496,15 @@ def selfcheck_main(nblocks: int = 8,
         mode, uk = ("batched", True) if m == "kernel" else (m, False)
         got = knn_graph(tiny, comm, topk=Pn + 4, mode=mode, placement=plc,
                         use_kernel=uk, quant="off")
-        np.testing.assert_array_equal(got.indices, want.indices,
-                                      err_msg=f"underfull mode={m}")
+        np.testing.assert_array_equal(
+            got.indices, want.indices[got.row0:got.row0 + got.n_rows],
+            err_msg=f"underfull mode={m}")
 
+    where = (f" rank={comm.rank} transport={comm.transport}"
+             if isinstance(comm, DistributedComm) else "")
     print(f"knn selfcheck OK: P={Pn} placement={plc.describe()} "
-          f"modes={','.join(modes)} device={comm.device} N={N} topk={topk} "
-          f"metrics={','.join(KNN_METRICS)}")
+          f"modes={','.join(modes)} device={comm.device}{where} N={N} "
+          f"topk={topk} metrics={','.join(KNN_METRICS)}")
 
 
 if __name__ == "__main__":
@@ -487,6 +516,9 @@ if __name__ == "__main__":
     ap.add_argument("placement", nargs="?", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--dist", choices=("gloo", "nccl"), default=None,
+                    help="one process per device over torch.distributed "
+                         "with this backend (start under torchrun)")
     args = ap.parse_args()
-    selfcheck_main(args.P, tuple(args.modes.split(",")), args.placement,
-                   args.device)
+    run_main(selfcheck_main, args.P, tuple(args.modes.split(",")),
+             args.placement, device=args.device, dist=args.dist)

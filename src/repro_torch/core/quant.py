@@ -22,10 +22,17 @@ an exact rescoring pass:
 
 The reference rescores and certifies on the host, row by row; the port
 does both on the device, vectorised over the pending rows, with the same
-rule.  ``REPRO_QUANT`` (core/env.py) selects the mode (``off`` / ``int8``
-/ ``bf16``) wherever a workload's ``quant=None`` defers to the
-environment.  Every per-device tensor carries the leading ``[P, ...]``
-axis of :class:`~repro_torch.core.comm.SingleProcessComm`.
+rule.  The f32 rows it rescores come from :class:`RescoreRows`: in one
+process the padded corpus stays on the device; a rank of
+``DistributedComm`` keeps it on the host and moves only the rows each
+pass rescores, so its device holds its quantized quorum and no f32
+corpus.  Decisions every device must share (escalation, another M pass)
+read every device's figures through ``comm.all_rows``.  ``REPRO_QUANT``
+(core/env.py) selects the mode (``off`` / ``int8`` / ``bf16``) wherever a
+workload's ``quant=None`` defers to the environment.  Every per-device
+tensor carries the comm layer's leading axis over the L devices this
+process holds (L = P in one process, 1 a rank; written ``[P, ...]``
+below, as in one process).
 """
 
 from __future__ import annotations
@@ -41,13 +48,16 @@ from ..kernels import ref as kref
 from ..kernels.ref import FP_REL, IDX_SENTINEL, NEG_INF, QUERY_METRICS
 from . import env as env_mod
 from . import sweep as sweep_mod
-from .comm import SingleProcessComm, pad_blocks
-from .knn import KNN_METRICS, KnnEmitter, KnnResult, _merge_lists
+from .comm import (Comm, DistributedComm, SingleProcessComm, pad_blocks,
+                   run_main)
+from .knn import (KNN_METRICS, KnnEmitter, KnnResult, _merge_lists,
+                  local_row_span)
 from .scheduler import PairSchedule
 from .sparse import (JOIN_METRICS, MAX_ROWS_F32_EXACT, JoinResult,
                      SparseHits, ThresholdJoinEmitter, _pair_meta,
                      default_capacity)
-from .sweep import ENGINE_MODES, pair_mask_table, quorum_scatter
+from .sweep import (ENGINE_MODES, agreed, pair_mask_table, quorum_gather,
+                    quorum_scatter)
 from ..serving.cover import build_cover
 from ..serving.engine import (QueryTopKEmitter, _query_geometry,
                               quantize_pow2, tree_merge_topk)
@@ -72,6 +82,7 @@ __all__ = [
     "quant_similarity_join",
     "quant_knn_graph",
     "QuantServing",
+    "RescoreRows",
     "serving_query",
 ]
 
@@ -240,27 +251,38 @@ def eps_pairs(qc: QuantizedCorpus, ai, aj, metric: str) -> torch.Tensor:
     """Per-pair bound ``|score_q(i, j) - score_f32(i, j)| <= eps`` for
     global row-id vectors ``ai`` / ``aj`` — the twin of
     ``kernels/ref.py:quant_eps_tile``; l2 doubles it.  float64."""
-    dim = qc.q.shape[1]
     ai = torch.as_tensor(ai, device=qc.l1.device).long()
     aj = torch.as_tensor(aj, device=qc.l1.device).long()
-    delta = qc.delta.double()
+    return _eps_pair_rows(qc.delta.double(), qc.block, qc.q.shape[1], ai,
+                          qc.l1[ai], aj, qc.l1[aj], metric)
+
+
+def _eps_pair_rows(delta, block: int, dim: int, ai, l1_i, aj, l1_j,
+                   metric: str) -> torch.Tensor:
+    """:func:`eps_pairs` from every block's float64 ``delta`` and the two
+    rows' L1 norms."""
     # float64 deltas against float32 norms, promoting as the reference's
     # numpy does (the FP_REL term stays float32)
-    eps = _eps_terms(delta[ai // qc.block], qc.l1[ai],
-                     delta[aj // qc.block], qc.l1[aj], dim)
+    eps = _eps_terms(delta[ai // block], l1_i, delta[aj // block], l1_j, dim)
     return 2.0 * eps if metric == "l2" else eps
 
 
 def eps_rows_upper(qc: QuantizedCorpus, metric: str,
-                   n: Optional[int] = None) -> torch.Tensor:
+                   n: Optional[int] = None,
+                   maxima: Optional[tuple] = None) -> torch.Tensor:
     """Per-row bound over *any* partner row (the k-NN certification
     margin): the partner's delta and L1 norm are the corpus maxima, which
     is safe because all-zero padding blocks carry delta 0 and l1 0.
-    float64 [n]."""
+    float64 [n], for the first n rows of ``qc``.  ``maxima`` gives
+    (max_l1, max_delta) where ``qc`` holds only some devices' blocks
+    (:func:`corpus_maxima`)."""
     n = qc.n_valid if n is None else int(n)
     dim = qc.q.shape[1]
-    max_l1 = float(qc.l1[:n].max()) if n else 0.0
-    max_delta = float(qc.delta.max())
+    if maxima is None:
+        max_l1 = float(qc.l1[:n].max()) if n else 0.0
+        max_delta = float(qc.delta.max())
+    else:
+        max_l1, max_delta = maxima
     bi = torch.arange(n, device=qc.l1.device) // qc.block
     eps = _eps_terms(qc.delta.double()[bi], qc.l1[:n].double(), max_delta,
                      max_l1, dim)
@@ -268,18 +290,85 @@ def eps_rows_upper(qc: QuantizedCorpus, metric: str,
 
 
 def eps_queries(qc: QuantizedCorpus, queries, metric: str,
-                n: Optional[int] = None) -> torch.Tensor:
+                n: Optional[int] = None,
+                maxima: Optional[tuple] = None) -> torch.Tensor:
     """Per-query bound for f32 queries against the quantized corpus (only
     the corpus side is quantized): ``max_delta * |q|_1 + FP_REL * (|q|_1 *
-    max_l1 + 1)``, l2 doubled.  float64 [Q]."""
+    max_l1 + 1)``, l2 doubled.  float64 [Q].  ``maxima`` gives (max_l1,
+    max_delta) where ``qc`` holds only some devices' blocks
+    (:func:`corpus_maxima`)."""
     n = qc.n_valid if n is None else int(n)
     queries = torch.as_tensor(queries, dtype=torch.float32,
                               device=qc.l1.device)
-    max_l1 = float(qc.l1[:n].max()) if n else 0.0
-    max_delta = float(qc.delta.max())
+    if maxima is None:
+        max_l1 = float(qc.l1[:n].max()) if n else 0.0
+        max_delta = float(qc.delta.max())
+    else:
+        max_l1, max_delta = maxima
     l1_q = row_sum(queries.abs()).double()
     eps = max_delta * l1_q + FP_REL * (l1_q * max_l1 + 1.0)
     return 2.0 * eps if metric == "l2" else eps
+
+
+def corpus_maxima(qc: QuantizedCorpus, n: int, comm: Comm) -> tuple:
+    """(max L1 norm over the first ``n`` rows of ``qc``, max block delta)
+    over every device: ``qc`` holds this process's blocks, and each
+    device's two maxima are gathered, so every process takes the same
+    bounds.  (0, 0) rows of a device without valid rows change
+    nothing: both are >= 0."""
+    l1 = qc.l1[:n].max() if n else torch.zeros((), device=qc.l1.device)
+    mine = torch.stack([l1, qc.delta.max()]).reshape(1, 2)
+    both = comm.all_rows(mine).amax(dim=0)
+    return float(both[0]), float(both[1])
+
+
+class RescoreRows:
+    """The f32 rows the exact rescoring reads: the padded [P * block, d]
+    corpus, its squared norms and L1 norms by global row id.
+
+    With every device in this process (``SingleProcessComm``) the rows
+    stay on ``comm.device`` and the norms are the quantized corpus's
+    exact ``sq`` / ``l1`` (the rescoring as it always was).  A rank of
+    ``DistributedComm`` keeps the rows on the host, as the reference
+    rescores on the host: :meth:`take` moves only the rows a pass asks
+    for, and the norms are formed on the host from them with the same
+    float32 operations (:func:`row_sum`), so they are the same bits.
+    """
+
+    def __init__(self, rows: torch.Tensor, comm: Comm,
+                 sq: Optional[torch.Tensor] = None,
+                 l1: Optional[torch.Tensor] = None):
+        self.device = comm.device
+        self.resident = len(comm.local) == comm.P
+        self.rows = rows.to(self.device if self.resident else "cpu")
+        self.sq = row_sum(self.rows * self.rows) if sq is None else sq
+        self._l1 = l1
+
+    def _host_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        return ids if self.resident else ids.cpu()
+
+    def _dev(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.resident else t.to(self.device)
+
+    def take(self, ids: torch.Tensor) -> torch.Tensor:
+        """``rows[ids]`` on the device (any shape of int64 ids)."""
+        return self._dev(self.rows[self._host_ids(ids)])
+
+    def norms(self, ids: torch.Tensor) -> torch.Tensor:
+        """Squared L2 norms ``sq[ids]`` on the device."""
+        return self._dev(self.sq[self._host_ids(ids)])
+
+    def l1(self, ids: torch.Tensor) -> torch.Tensor:
+        """L1 norms of ``rows[ids]`` on the device."""
+        if self._l1 is not None:
+            return self._l1[ids]
+        return self._dev(row_sum(self.rows[self._host_ids(ids)].abs()))
+
+    def update(self, r0: int, block_rows: torch.Tensor) -> None:
+        """Overwrite rows ``r0 : r0 + len(block_rows)`` and their norms."""
+        blk = block_rows.to(self.rows.device)
+        self.rows[r0:r0 + blk.shape[0]] = blk
+        self.sq[r0:r0 + blk.shape[0]] = row_sum(blk * blk)
 
 
 # ---------------------------------------------------------------------------
@@ -370,19 +459,21 @@ def _qmode(qb: QuantBlocks) -> str:
     return "int8" if qb.q.dtype == torch.int8 else "bf16"
 
 
-def _sweep_setup(qb: QuantBlocks, comm: SingleProcessComm, schedule, mask,
+def _sweep_setup(qb: QuantBlocks, comm: Comm, schedule, mask,
                  mode: str, batch_fn, plane_bytes: int, n_valid):
     """The shared prologue of the two quantized pair sweeps: the mask
     table, the ``mode="auto"`` choice (score / id planes per tile entry
     plus the resident quantized stack) and the pair metadata."""
     sweep_mod.validate_mode(mode, batch_fn)
-    if qb.q.shape[0] != comm.P:
+    L = len(comm.local)
+    if qb.q.shape[0] != L:
         raise ValueError(f"the blocks must carry the device axis first: "
-                         f"{tuple(qb.q.shape)} for P={comm.P}")
-    P, block, d = qb.q.shape
+                         f"{tuple(qb.q.shape)} for {L} local device(s) of "
+                         f"P={comm.P}")
+    _L, block, d = qb.q.shape
     if mask is None:
-        mask = torch.as_tensor(pair_mask_table(schedule), device=qb.q.device)
-    mask = mask.to(qb.q.device).reshape(P, schedule.n_pairs)
+        mask = comm.local_rows(torch.as_tensor(pair_mask_table(schedule)))
+    mask = mask.to(qb.q.device).reshape(L, schedule.n_pairs)
     if mode == "auto":
         mode = sweep_mod.select_mode(
             schedule, schedule.n_pairs * block * block * plane_bytes
@@ -394,7 +485,7 @@ def _sweep_setup(qb: QuantBlocks, comm: SingleProcessComm, schedule, mask,
 
 def quorum_allpairs_threshold_q(
     qb: QuantBlocks,
-    comm: SingleProcessComm,
+    comm: Comm,
     *,
     threshold: float,
     capacity: int,
@@ -427,7 +518,7 @@ def quorum_allpairs_threshold_q(
 
 def quorum_allpairs_knn_q(
     qb: QuantBlocks,
-    comm: SingleProcessComm,
+    comm: Comm,
     *,
     topk: int,
     schedule: PairSchedule,
@@ -462,13 +553,24 @@ def quorum_allpairs_knn_q(
 # Drivers: quantize, sweep, certify, rescore (DESIGN.md section 17.4)
 # ---------------------------------------------------------------------------
 
-def _shard_quant(corpus, P: int, mode: str, device):
-    """Pad to P blocks on ``device`` and quantize: (qc, the padded f32
-    rows [P * block, d], their squared norms)."""
-    x = pad_blocks(corpus, P, device)
+def _shard_quant(corpus, comm: Comm, mode: str):
+    """Pad to P blocks and quantize this process's: (qc of its L blocks
+    on ``comm.device``, the :class:`RescoreRows` of the padded f32
+    corpus).  In one process the padded rows are made on the device and
+    quantized there, as they always were; a rank pads on the host and
+    moves only its own blocks to its device."""
+    P, L = comm.P, len(comm.local)
+    resident = L == P
+    x = pad_blocks(corpus, P, comm.device if resident else "cpu")
+    block = x.shape[1]
     x = x.reshape(-1, x.shape[-1])
-    qc = quantize_corpus(x, P, x.shape[0] // P, mode)
-    return qc, x, qc.sq
+    if resident:
+        qc = quantize_corpus(x, P, block, mode)
+        return qc, RescoreRows(x, comm, sq=qc.sq, l1=qc.l1)
+    r0 = comm.local.start * block
+    qc = quantize_corpus(x[r0:r0 + L * block].to(comm.device), L, block,
+                         mode)
+    return qc, RescoreRows(x, comm)
 
 
 def _resolve_placement(placement, P: int):
@@ -485,13 +587,14 @@ def _require_kernel_mode(mode: str) -> None:
 
 
 @functools.lru_cache(maxsize=64)
-def _qjoin_fn(comm: SingleProcessComm, N: int, block: int, threshold: float,
+def _qjoin_fn(comm: Comm, N: int, block: int, threshold: float,
               metric: str, mode: str, capacity: int, use_kernel: bool,
               placement):
     """Build (and cache) the quantized band join ``f(QuantBlocks) ->
     SparseHits`` per (comm, shape, threshold, capacity, ...) key."""
     sched = placement.schedule()
-    mask_table = torch.as_tensor(pair_mask_table(sched), device=comm.device)
+    mask_table = comm.local_rows(
+        torch.as_tensor(pair_mask_table(sched))).to(comm.device)
     batch_fn = None
     if use_kernel:
         _require_kernel_mode(mode)
@@ -512,12 +615,13 @@ def _qjoin_fn(comm: SingleProcessComm, N: int, block: int, threshold: float,
 
 
 @functools.lru_cache(maxsize=64)
-def _qknn_fn(comm: SingleProcessComm, N: int, block: int, topk: int,
+def _qknn_fn(comm: Comm, N: int, block: int, topk: int,
              metric: str, mode: str, use_kernel: bool, placement):
     """Build (and cache) the quantized top-M sweep ``f(QuantBlocks) ->
     (vals, idx [P, block, topk])``."""
     sched = placement.schedule()
-    mask_table = torch.as_tensor(pair_mask_table(sched), device=comm.device)
+    mask_table = comm.local_rows(
+        torch.as_tensor(pair_mask_table(sched))).to(comm.device)
     batch_fn = None
     if use_kernel:
         _require_kernel_mode(mode)
@@ -535,17 +639,17 @@ def _qknn_fn(comm: SingleProcessComm, N: int, block: int, topk: int,
     return run
 
 
-def _pair_dots(x: torch.Tensor, ai: torch.Tensor, aj: torch.Tensor):
+def _pair_dots(rows: RescoreRows, ai: torch.Tensor, aj: torch.Tensor):
     """f32 dots of the row pairs (x[ai[n]], x[aj[n]]), in chunks."""
-    out = torch.empty(ai.shape[0], dtype=torch.float32, device=x.device)
-    step = max(1, _RESCORE_ELEMS // max(1, x.shape[1]))
+    out = torch.empty(ai.shape[0], dtype=torch.float32, device=rows.device)
+    step = max(1, _RESCORE_ELEMS // max(1, rows.rows.shape[1]))
     for s in range(0, ai.shape[0], step):
-        out[s:s + step] = torch.sum(x[ai[s:s + step]] * x[aj[s:s + step]],
-                                    dim=-1)
+        out[s:s + step] = torch.sum(rows.take(ai[s:s + step])
+                                    * rows.take(aj[s:s + step]), dim=-1)
     return out
 
 
-def quant_similarity_join(corpus, comm: SingleProcessComm, *,
+def quant_similarity_join(corpus, comm: Comm, *,
                           threshold: float, quant: str, metric: str = "dot",
                           mode: str = "auto", placement=None,
                           capacity: int | None = None,
@@ -560,9 +664,12 @@ def quant_similarity_join(corpus, comm: SingleProcessComm, *,
     capacity / overflow escalation contract (counts are *band* counts);
     every emitted pair is rescored against the f32 rows and kept when
     ``score_f32 >= threshold``.  The result equals
-    :func:`core.sparse.similarity_join`'s (pairs sorted by (i, j)).
-    ``stats`` (optional dict) receives ``emitted``, ``kept``, ``certain``
-    (pairs the bound alone proves in), ``borderline`` and ``escalations``.
+    :func:`core.sparse.similarity_join`'s (pairs sorted by (i, j); under
+    ``DistributedComm`` the pairs this rank's device owns, and every
+    device's band counts).  ``stats`` (optional dict) receives
+    ``emitted``, ``kept``, ``certain`` (pairs the bound alone proves in),
+    ``borderline`` (those four of this process's devices) and
+    ``escalations``.
     """
     _check_quant(quant)
     if metric not in JOIN_METRICS:
@@ -575,7 +682,7 @@ def quant_similarity_join(corpus, comm: SingleProcessComm, *,
             "float32 exactness in the fused kernel's compaction")
     P = comm.P
     plc = _resolve_placement(placement, P)
-    qc, x, n2 = _shard_quant(corpus, P, quant, comm.device)
+    qc, rows = _shard_quant(corpus, comm, quant)
     qb = qc.blocks()
     block = qc.block
     sched = plc.schedule()
@@ -588,7 +695,7 @@ def quant_similarity_join(corpus, comm: SingleProcessComm, *,
         run = _qjoin_fn(comm, N, block, thr, metric, mode, cap, use_kernel,
                         plc)
         hits = run(qb)
-        counts = hits.count.cpu().numpy().reshape(-1)
+        counts = comm.all_rows(hits.count).cpu().numpy().reshape(-1)
         overflow = bool((counts > cap).any())
         if not overflow or not escalate or escalations >= max_doublings:
             break
@@ -603,11 +710,14 @@ def quant_similarity_join(corpus, comm: SingleProcessComm, *,
     used = (torch.arange(cap, device=comm.device)[None]
             < torch.clamp(hits.count, max=cap)[:, None])
     ai, aj, band_v = hits.i[used].long(), hits.j[used].long(), hits.vals[used]
-    dots = _pair_dots(x, ai, aj)
-    rescored = (2.0 * dots - n2[aj]) - n2[ai] if metric == "l2" else dots
+    dots = _pair_dots(rows, ai, aj)
+    rescored = ((2.0 * dots - rows.norms(aj)) - rows.norms(ai)
+                if metric == "l2" else dots)
     keep = rescored >= thr
     if stats is not None:
-        eps = eps_pairs(qc, ai, aj, metric)
+        eps = _eps_pair_rows(comm.all_rows(qc.delta).double(), block,
+                             qc.q.shape[1], ai, rows.l1(ai), aj, rows.l1(aj),
+                             metric)
         certain = int((keep & (band_v.double() >= thr + eps)).sum())
         stats.update(emitted=int(ai.shape[0]), kept=int(keep.sum()),
                      certain=certain, borderline=int(ai.shape[0]) - certain,
@@ -652,7 +762,7 @@ def _certify(rows: torch.Tensor, cand: torch.Tensor, c_m: torch.Tensor,
             vals, idx)
 
 
-def quant_knn_graph(corpus, comm: SingleProcessComm, *, topk: int,
+def quant_knn_graph(corpus, comm: Comm, *, topk: int,
                     quant: str, metric: str = "dot", mode: str = "auto",
                     placement=None, use_kernel: bool = False,
                     stats: dict | None = None) -> KnnResult:
@@ -666,8 +776,11 @@ def quant_knn_graph(corpus, comm: SingleProcessComm, *, topk: int,
     (:func:`eps_rows_upper`), so no row outside the list can enter the
     true top-k.  Uncertified rows double M and rerun (the list is
     exhaustive once M >= N - 1).  ``stats`` (optional dict) receives
-    ``passes``, a list of ``(M, rows still pending)``.  Returns a
-    :class:`core.knn.KnnResult` equal to :func:`core.knn.knn_graph`'s.
+    ``passes``, a list of ``(M, rows still pending)``, counted over every
+    device: every process runs every pass, also with none of its own rows
+    pending, since each pass is a collective sweep.  Returns a
+    :class:`core.knn.KnnResult` equal to :func:`core.knn.knn_graph`'s (a
+    rank's: its own block's rows).
     """
     _check_quant(quant)
     if metric not in KNN_METRICS:
@@ -678,36 +791,40 @@ def quant_knn_graph(corpus, comm: SingleProcessComm, *, topk: int,
     N = int(torch.as_tensor(corpus).shape[0])
     P = comm.P
     plc = _resolve_placement(placement, P)
-    qc, x, n2 = _shard_quant(corpus, P, quant, comm.device)
+    qc, src = _shard_quant(corpus, comm, quant)
     qb = qc.blocks()
     block = qc.block
-    eps_row = eps_rows_upper(qc, metric, N)
+    row0, n = local_row_span(comm, block, N)
+    # this process's rows against every device's maxima
+    eps_row = eps_rows_upper(qc, metric, n,
+                             maxima=corpus_maxima(qc, n, comm))
     dev = comm.device
 
     def rescore(r, ids):
         # the reference's order: (2 dot - |row|^2) - |cand|^2
-        dots = torch.sum(x[ids] * x[r][:, None, :], dim=-1)
+        dots = torch.sum(src.take(ids) * src.take(r)[:, None, :], dim=-1)
         if metric == "l2":
-            return (2.0 * dots - n2[r][:, None]) - n2[ids]
+            return (2.0 * dots - src.norms(r)[:, None]) - src.norms(ids)
         return dots
 
-    out_v = torch.full((N, topk), NEG_INF, dtype=torch.float32, device=dev)
-    out_i = torch.full((N, topk), IDX_SENTINEL, dtype=torch.int64,
+    out_v = torch.full((n, topk), NEG_INF, dtype=torch.float32, device=dev)
+    out_i = torch.full((n, topk), IDX_SENTINEL, dtype=torch.int64,
                        device=dev)
     M = quantize_pow2(topk)
-    pending = torch.ones(N, dtype=torch.bool, device=dev)
+    pending = torch.ones(n, dtype=torch.bool, device=dev)
     passes = []
     while True:
         run = _qknn_fn(comm, N, block, int(M), metric, mode, use_kernel, plc)
-        vals_q, idx_q = (t.reshape(-1, M)[:N] for t in run(qb))
+        vals_q, idx_q = (t.reshape(-1, M)[:n] for t in run(qb))
         rows = torch.nonzero(pending).reshape(-1)
-        ok, v, i = _certify(rows, idx_q[rows], vals_q[rows, M - 1],
+        ok, v, i = _certify(rows + row0, idx_q[rows], vals_q[rows, M - 1],
                             eps_row[rows], M >= N - 1, topk, rescore,
-                            x.shape[1])
+                            src.rows.shape[1])
         done = rows[ok]
         out_v[done], out_i[done] = v[ok], i[ok].long()
         pending[done] = False
-        n_pending = int(pending.sum())
+        n_pending = int(comm.all_rows(
+            pending.sum().reshape(1, 1)).sum())     # over every device
         passes.append((int(M), n_pending))
         if n_pending == 0:
             break
@@ -715,7 +832,7 @@ def quant_knn_graph(corpus, comm: SingleProcessComm, *, topk: int,
     if stats is not None:
         stats.update(passes=passes)
     return KnnResult(indices=out_i.cpu().numpy(),
-                     scores=out_v.cpu().numpy(), topk=int(topk))
+                     scores=out_v.cpu().numpy(), topk=int(topk), row0=row0)
 
 
 # ---------------------------------------------------------------------------
@@ -761,7 +878,7 @@ class QuantQueryEmitter(QueryTopKEmitter):
 
 
 def quorum_query_topk_q(queries, qstack: QuantBlocks, stack_valid, mask_row,
-                        *, topk: int, comm: SingleProcessComm,
+                        *, topk: int, comm: Comm,
                         schedule: PairSchedule, mode: str = "auto",
                         metric: str = "dot"):
     """Quantized query top-M over the resident stack —
@@ -770,14 +887,14 @@ def quorum_query_topk_q(queries, qstack: QuantBlocks, stack_valid, mask_row,
     ``(scores [P, Q, M], global ids [P, Q, M])``, the same on every
     device."""
     sweep_mod.validate_mode(mode, None)
-    P, k, block, d = qstack.q.shape
+    L, k, block, d = qstack.q.shape
     if mode == "auto":
         Q = queries.shape[0]
         mode = sweep_mod.select_mode(
             schedule, 2 * Q * k * block * 4
             + k * _gather_payload_bytes(block, d, _qmode(qstack)), None)
     gidx, mask = _query_geometry(schedule, comm, block,
-                                 mask_row.reshape(P, k), stack_valid)
+                                 mask_row.reshape(L, k), stack_valid)
     emitter = QuantQueryEmitter(schedule, queries, mask, gidx, topk, metric)
     vals, idx = sweep_mod.pair_sweep(emitter, schedule=schedule, comm=comm,
                                      mode=mode, stack=qstack)
@@ -785,13 +902,13 @@ def quorum_query_topk_q(queries, qstack: QuantBlocks, stack_valid, mask_row,
 
 
 @functools.lru_cache(maxsize=64)
-def _query_q_fn(comm: SingleProcessComm, topk: int, mode: str, metric: str,
+def _query_q_fn(comm: Comm, topk: int, mode: str, metric: str,
                 placement):
     """Build (and cache) the quantized serving query ``f(queries [Q, d],
     QuantBlocks stack, stack_valid) -> (scores [Q, M], ids [Q, M])``."""
     sched = placement.schedule()
-    mask_table = torch.as_tensor(build_cover(comm.P, placement).mask_table(),
-                                 device=comm.device)
+    mask_table = comm.local_rows(torch.as_tensor(
+        build_cover(comm.P, placement).mask_table())).to(comm.device)
 
     def run(queries, stacks: QuantBlocks, stack_valid):
         vals, idx = quorum_query_topk_q(
@@ -805,15 +922,18 @@ class QuantServing:
     """The quantized resident state of a serving corpus, owned by
     ``serving.engine.ServingCorpus`` when built with ``quant != "off"``.
 
-    Keeps a [P * block, d] f32 mirror of the corpus on the device (the
-    exact rescoring source), the :class:`QuantizedCorpus` made from it,
-    and the quantized stacks in the streaming layout (device i's slot s
-    holds block ``(i + shifts[s]) % P``) as a :class:`QuantBlocks` of
-    ``[P, k, ...]`` leaves.  A streamed block update re-quantizes from the
-    mirror and rebuilds the stacks, as the reference does.
+    Keeps a [P * block, d] f32 mirror of the corpus (the exact rescoring
+    source, a :class:`RescoreRows`: on the device in one process, on the
+    host for a rank of ``DistributedComm``), the :class:`QuantizedCorpus`
+    of this process's blocks made from it, and the quantized stacks in
+    the streaming layout (device i's slot s holds block ``(i + shifts[s])
+    % P``) as a :class:`QuantBlocks` of ``[L, k, ...]`` leaves, gathered
+    over the quorum as the f32 state is.  A streamed block update
+    re-quantizes from the mirror and regathers the stacks, as the
+    reference does.
     """
 
-    def __init__(self, mode: str, comm: SingleProcessComm,
+    def __init__(self, mode: str, comm: Comm,
                  schedule: PairSchedule, block: int, rows):
         _check_quant(mode)
         self.mode = mode
@@ -821,37 +941,43 @@ class QuantServing:
         self.schedule = schedule
         self.block = block
         self.P = schedule.P
-        self.rows = torch.as_tensor(rows, dtype=torch.float32).to(
-            comm.device).clone()                           # [P * block, d]
+        self.mirror = RescoreRows(
+            torch.as_tensor(rows, dtype=torch.float32).clone(), comm)
         self._requant()
 
+    @property
+    def rows(self) -> torch.Tensor:
+        """The [P * block, d] f32 mirror."""
+        return self.mirror.rows
+
     def _requant(self) -> None:
-        """Rebuild the quantized corpus and the device-major stacks."""
-        P, block = self.P, self.block
-        self.n2 = row_sum(self.rows * self.rows)
-        self.qc = quantize_corpus(self.rows, P, block, self.mode)
-        qb = self.qc.blocks()
-        order = ((torch.arange(P)[:, None]
-                  + torch.as_tensor(self.schedule.shifts, dtype=torch.long))
-                 % P).to(self.comm.device)                 # [P, k]
-        self.stacks = QuantBlocks(q=qb.q[order], scale=qb.scale[order],
-                                  delta=qb.delta[order], l1=qb.l1[order],
-                                  sq=qb.sq[order])
+        """Quantize this process's blocks from the mirror and gather the
+        quorum stacks; the bounds' corpus maxima over every device."""
+        L, block = len(self.comm.local), self.block
+        r0 = self.comm.local.start * block
+        self.qc = quantize_corpus(
+            self.rows[r0:r0 + L * block].to(self.comm.device), L, block,
+            self.mode)
+        self.stacks = quorum_gather(self.qc.blocks(), self.schedule,
+                                    self.comm)
+        self.maxima = corpus_maxima(self.qc, L * block, self.comm)
 
     def update_block(self, b: int, data, nvalid: int) -> None:
-        """Apply a streamed block replace to the mirror and re-quantize."""
+        """Apply a streamed block replace to the mirror and re-quantize
+        (every process: the regather is collective)."""
         data = torch.as_tensor(data, dtype=torch.float32)
         blk = torch.zeros(self.block, self.rows.shape[1], dtype=torch.float32,
                           device=self.rows.device)
         blk[:data.shape[0]] = data.to(self.rows.device)
         blk[nvalid:] = 0.0
-        self.rows[b * self.block:(b + 1) * self.block] = blk
+        self.mirror.update(b * self.block, blk)
         self._requant()
 
     def stack_bytes_per_device(self) -> int:
         """Bytes of the resident quantized stack and its side arrays on
         one device."""
-        return sum(t.numel() * t.element_size() for t in self.stacks) // self.P
+        return (sum(t.numel() * t.element_size() for t in self.stacks)
+                // self.stacks.q.shape[0])
 
 
 def serving_query(corpus, queries, *, topk: int, mode: str = "auto",
@@ -867,7 +993,9 @@ def serving_query(corpus, queries, *, topk: int, mode: str = "auto",
     otherwise M doubles and the device pass reruns.  ``stats`` (optional
     dict) receives ``passes``, a list of ``(M, queries still pending)``.
     Returns ``(scores [Q, topk], global row ids [Q, topk] int64)`` on the
-    device, equal to the f32 ``ServingCorpus.query``'s.
+    device, equal to the f32 ``ServingCorpus.query``'s.  Every process
+    passes the same queries (SPMD) and takes the same answer; the pending
+    counts are gathered and must agree before another pass.
     """
     qs = corpus.quant
     if qs is None:
@@ -876,18 +1004,18 @@ def serving_query(corpus, queries, *, topk: int, mode: str = "auto",
             "with quant='int8'/'bf16'); use ServingCorpus.query for f32")
     if topk < 1:
         raise ValueError(f"topk must be >= 1, got {topk}")
-    dev = qs.rows.device
+    dev = qs.comm.device
     q = torch.as_tensor(queries, dtype=torch.float32).to(dev)
     Q = q.shape[0]
     total = qs.P * qs.block
     n_valid_rows = int(np.asarray(corpus.filled).sum())
-    eps_q = eps_queries(qs.qc, q, metric, total)
+    eps_q = eps_queries(qs.qc, q, metric, total, maxima=qs.maxima)
     qn2 = row_sum(q * q)
 
     def rescore(qi, ids):
-        dots = torch.sum(qs.rows[ids] * q[qi][:, None, :], dim=-1)
+        dots = torch.sum(qs.mirror.take(ids) * q[qi][:, None, :], dim=-1)
         if metric == "l2":
-            return (2.0 * dots - qs.n2[ids]) - qn2[qi][:, None]
+            return (2.0 * dots - qs.mirror.norms(ids)) - qn2[qi][:, None]
         return dots
 
     out_v = torch.full((Q, topk), NEG_INF, dtype=torch.float32, device=dev)
@@ -907,7 +1035,7 @@ def serving_query(corpus, queries, *, topk: int, mode: str = "auto",
         done = qids[ok]
         out_v[done], out_i[done] = v[ok], i[ok].long()
         pending[done] = False
-        n_pending = int(pending.sum())
+        n_pending = agreed(corpus.comm, int(pending.sum()), "pending queries")
         passes.append((int(M), n_pending))
         if n_pending == 0:
             break
@@ -944,23 +1072,30 @@ def _serving_topk_oracle(rows: np.ndarray, valid: np.ndarray,
 
 def selfcheck_main(nblocks: int = 8,
                    modes: Sequence[str] = ENGINE_MODES + ("kernel",),
-                   placement: str | None = None, device=None) -> None:
-    """Selfcheck of the whole quantized pipeline, on the CUDA device unless
-    ``device`` says otherwise.
+                   placement: str | None = None, device=None,
+                   comm: Comm | None = None) -> None:
+    """Selfcheck of the whole quantized pipeline on ``comm`` (default: a
+    ``SingleProcessComm`` of ``nblocks`` devices on ``device``, itself
+    defaulting to the CUDA device).
 
     Run as ``python -m repro_torch.core.quant [P] [modes] [placement]
-    [--device cpu]``.  For each quant mode and metric the rescored join,
-    k-NN graph and serving query must equal the f32 oracles in every
+    [--device cpu] [--dist gloo|nccl]`` (``--dist``: one device a
+    torchrun process).  For each quant mode and metric the rescored join,
+    k-NN graph and serving query must equal the f32 oracles (a rank's
+    join: the pairs its device owns; its graph: its block's rows) in every
     requested mode (``kernel`` is the batched path through B7 / B8),
     including after a streamed block replace on the serving side.
     ``REPRO_QUANT``, when not ``off``, restricts the quant modes swept.
     """
     from ..serving.engine import ServingCorpus
     from .knn import brute_force_knn
-    from .sparse import brute_force_join, threshold_for_selectivity
+    from .sparse import (brute_force_join, owned_pairs,
+                         threshold_for_selectivity)
 
     Pn = int(nblocks)
-    comm = SingleProcessComm(Pn, device)
+    comm = SingleProcessComm(Pn, device) if comm is None else comm
+    if comm.P != Pn:
+        raise ValueError(f"the comm has P={comm.P} devices, not {Pn}")
     plc = _resolve_placement(placement, Pn)
     block, d, topk = 8, 16, 4
     N = Pn * block - 3
@@ -975,6 +1110,9 @@ def selfcheck_main(nblocks: int = 8,
         for metric in ("dot", "l2"):
             thr = threshold_for_selectivity(corpus, 0.08, metric)
             ref_i, ref_j, ref_s = brute_force_join(corpus, thr, metric)
+            mine = owned_pairs(ref_i, ref_j, block, plc.schedule(),
+                               comm.local)
+            ref_i, ref_j, ref_s = ref_i[mine], ref_j[mine], ref_s[mine]
             ref_knn = brute_force_knn(corpus, topk, metric)
             for m in modes:
                 mode, uk = ("batched", True) if m == "kernel" else (m, False)
@@ -992,9 +1130,10 @@ def selfcheck_main(nblocks: int = 8,
                 knn = quant_knn_graph(
                     corpus, comm, topk=topk, quant=qm, metric=metric,
                     mode=mode, placement=plc, use_kernel=uk)
-                np.testing.assert_array_equal(knn.indices, ref_knn.indices,
-                                              err_msg=label)
-                np.testing.assert_allclose(knn.scores, ref_knn.scores,
+                rows = slice(knn.row0, knn.row0 + knn.n_rows)
+                np.testing.assert_array_equal(
+                    knn.indices, ref_knn.indices[rows], err_msg=label)
+                np.testing.assert_allclose(knn.scores, ref_knn.scores[rows],
                                            rtol=1e-5, atol=1e-5,
                                            err_msg=label)
         # serving: the quantized stack and a streamed replace (no kernel
@@ -1028,9 +1167,11 @@ def selfcheck_main(nblocks: int = 8,
                                       err_msg=f"serving quant={qm} replace")
         np.testing.assert_allclose(sv.cpu().numpy(), ref_v, rtol=1e-5,
                                    atol=1e-5)
+    where = (f" rank={comm.rank} transport={comm.transport}"
+             if isinstance(comm, DistributedComm) else "")
     print(f"quant selfcheck OK: P={Pn} placement={plc.describe()} "
           f"quant={','.join(qmodes)} modes={','.join(modes)} "
-          f"device={comm.device}")
+          f"device={comm.device}{where}")
 
 
 if __name__ == "__main__":
@@ -1042,6 +1183,9 @@ if __name__ == "__main__":
     ap.add_argument("placement", nargs="?", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--dist", choices=("gloo", "nccl"), default=None,
+                    help="one process per device over torch.distributed "
+                         "with this backend (start under torchrun)")
     args = ap.parse_args()
-    selfcheck_main(args.P, tuple(args.modes.split(",")), args.placement,
-                   args.device)
+    run_main(selfcheck_main, args.P, tuple(args.modes.split(",")),
+             args.placement, device=args.device, dist=args.dist)

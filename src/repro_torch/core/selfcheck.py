@@ -27,7 +27,8 @@ import torch
 
 from .allpairs import (ENGINE_MODES, allgather_allpairs, pair_mask_table,
                        quorum_allpairs)
-from .comm import Comm, DistributedComm, SingleProcessComm, shard, unshard
+from .comm import (Comm, DistributedComm, SingleProcessComm, run_main, shard,
+                   unshard)
 from .placement import placement_from_env, resolve_placement
 
 
@@ -113,12 +114,5 @@ if __name__ == "__main__":
                     help="one process per device over torch.distributed "
                          "with this backend (start under torchrun)")
     args = ap.parse_args()
-    modes = tuple(args.modes.split(","))
-    if args.dist is None:
-        main(args.P, modes, args.placement, args.device)
-    else:
-        dcomm = DistributedComm.from_env(args.dist, args.device)
-        try:
-            main(args.P, modes, args.placement, comm=dcomm)
-        finally:
-            dcomm.close()
+    run_main(main, args.P, tuple(args.modes.split(",")), args.placement,
+             device=args.device, dist=args.dist)

@@ -27,11 +27,12 @@ reordered, so ``count > capacity`` is an exact escalation signal and the
 kept prefix is valid either way.  :func:`similarity_join` doubles the
 capacity until the flag clears.
 
-Every per-device tensor carries the leading ``[P, ...]`` axis of
-:class:`~repro_torch.core.comm.SingleProcessComm`.  Where the reference
-skips a tile per device with ``lax.cond``, the port forms the tile for all
-P devices and masks by each device's flag, and skips it only where no
-device has it active: the results are identical.
+Every per-device tensor carries the comm layer's leading axis over the L
+devices this process holds (L = P in one process, 1 a rank under
+``DistributedComm``; written ``[P, ...]`` below, as in one process).
+Where the reference skips a tile per device with ``lax.cond``, the port
+forms the tile for all L devices and masks by each device's flag, and
+skips it only where no device has it active: the results are identical.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ from ..kernels.ref import IDX_SENTINEL, NEG_INF, tile_scores
 from ..obs import trace as obs_trace
 from . import env as env_mod
 from . import sweep as sweep_mod
-from .comm import SingleProcessComm, pad_blocks, tree_map
+from .comm import (Comm, DistributedComm, SingleProcessComm, pad_local,
+                   run_main, tree_map)
 from .scheduler import PairSchedule
 from .sweep import ENGINE_MODES, SweepEmitter, pair_mask_table
 
@@ -61,6 +63,7 @@ __all__ = [
     "ring_allgather_hits",
     "similarity_join",
     "brute_force_join",
+    "owned_pairs",
     "threshold_with_gap",
     "threshold_for_selectivity",
     "JOIN_METRICS",
@@ -203,7 +206,7 @@ def _select_mode(schedule: PairSchedule, block: int,
         schedule, schedule.n_pairs * block * block * 12, batch_fn)
 
 
-def _pair_meta(schedule: PairSchedule, comm: SingleProcessComm, block: int,
+def _pair_meta(schedule: PairSchedule, comm: Comm, block: int,
                n_valid: Optional[int]):
     """Per-pair metadata of every device: global block ids, valid row
     counts and self-pair flags.  ``n_valid`` marks trailing padding rows
@@ -414,7 +417,7 @@ class ThresholdJoinEmitter(SweepEmitter):
 
 def quorum_allpairs_threshold(
     x: torch.Tensor,
-    comm: SingleProcessComm,
+    comm: Comm,
     *,
     threshold: float,
     capacity: int,
@@ -429,10 +432,11 @@ def quorum_allpairs_threshold(
 ) -> SparseHits:
     """Distributed thresholded similarity join (DESIGN.md section 11).
 
-    ``x`` is ``[P, block, d]`` on ``comm.device`` (device i's block is
-    ``x[i]``).  Emits every global pair ``i < j`` with ``score(x_i, x_j)
-    >= threshold`` exactly once across devices and returns every device's
-    :class:`SparseHits` under the overflow contract.
+    ``x`` is ``[L, block, d]`` on ``comm.device``: the blocks of the L =
+    ``len(comm.local)`` devices this process holds.  Emits every global
+    pair ``i < j`` with ``score(x_i, x_j) >= threshold`` exactly once
+    across devices and returns those devices' :class:`SparseHits` under
+    the overflow contract; ``mask`` is their rows of the dedup mask.
 
     ``placement`` / ``schedule`` select the residency layer as in
     :func:`core.allpairs.quorum_allpairs` (``REPRO_PLACEMENT`` consulted
@@ -450,9 +454,11 @@ def quorum_allpairs_threshold(
     sweep_mod.validate_mode(mode, batch_fn)
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
-    if x.shape[0] != comm.P:
+    L = len(comm.local)
+    if x.shape[0] != L:
         raise ValueError(f"x must carry the device axis first: "
-                         f"{tuple(x.shape)} for P={comm.P}")
+                         f"{tuple(x.shape)} for {L} local device(s) of "
+                         f"P={comm.P}")
     schedule, placement = sweep_mod.resolve_sweep_placement(
         schedule, comm.P, placement)
     if schedule is None:
@@ -460,8 +466,8 @@ def quorum_allpairs_threshold(
 
     block = x.shape[1]
     if mask is None:
-        mask = torch.as_tensor(pair_mask_table(schedule), device=x.device)
-    mask = mask.to(x.device).reshape(comm.P, schedule.n_pairs)
+        mask = comm.local_rows(torch.as_tensor(pair_mask_table(schedule)))
+    mask = mask.to(x.device).reshape(L, schedule.n_pairs)
 
     if mode == "auto":
         mode = _select_mode(schedule, block, batch_fn)
@@ -477,32 +483,34 @@ def quorum_allpairs_threshold(
 
 
 def ring_allgather_hits(hits: SparseHits,
-                        comm: SingleProcessComm) -> SparseHits:
+                        comm: Comm) -> SparseHits:
     """Replicate every device's sparse buffers with a shift ring
     (DESIGN.md section 11.3).
 
     P - 1 single-step shifts rotate each device's (vals, i, j, count) past
     every other device; arrivals are placed at their source device's row,
     so all devices end with the identical device-ordered [P, capacity]
-    stack: fields ``[P (device), P (source), ...]``.  The pair-ownership
-    partition guarantees the union of rows lists every passing pair
-    exactly once.
+    stack: fields ``[L (device), P (source), ...]`` for the L devices this
+    process holds.  The pair-ownership partition guarantees the union of
+    rows lists every passing pair exactly once.
     """
     P = comm.P
-    fields = [hits.vals, hits.i, hits.j, hits.count.reshape(P, 1)]
-    dev_ids = comm.axis_index()
-    out = [torch.zeros((P, P) + f.shape[1:], dtype=f.dtype, device=f.device)
+    L = hits.vals.shape[0]
+    fields = [hits.vals, hits.i, hits.j, hits.count.reshape(L, 1)]
+    dev_ids = comm.axis_index().to(hits.vals.device)    # global ids [L]
+    ar = torch.arange(L, device=hits.vals.device)       # local positions
+    out = [torch.zeros((L, P) + f.shape[1:], dtype=f.dtype, device=f.device)
            for f in fields]
     for o, f in zip(out, fields):
-        o[dev_ids, dev_ids] = f
+        o[ar, dev_ids] = f
     cur = fields
     for step in range(1, P):
         cur = [comm.ppermute(c, -1) for c in cur]   # from device i - 1
         src = (dev_ids - step) % P
         for o, c in zip(out, cur):
-            o[dev_ids, src] = c
+            o[ar, src] = c
     vals, ei, ej, count = out
-    return SparseHits(vals=vals, i=ei, j=ej, count=count.reshape(P, P))
+    return SparseHits(vals=vals, i=ei, j=ej, count=count.reshape(L, P))
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +522,9 @@ class JoinResult:
     """Host-side similarity-join output (:func:`similarity_join`).
 
     i, j, scores : the passing pairs, sorted by (i, j); i < j, each pair
-        exactly once.  ``counts`` is the per-device true passing totals,
+        exactly once (under ``DistributedComm``: the pairs this rank's
+        device owns, which the other ranks' complete).  ``counts`` is
+        every device's true passing total ([P] on every process),
         ``capacity`` the final per-device buffer size, ``escalations`` how
         many capacity doublings the overflow contract forced, and
         ``overflow`` whether the final pass still overflowed (only with
@@ -536,14 +546,15 @@ class JoinResult:
 
 
 @functools.lru_cache(maxsize=64)
-def _join_fn(comm: SingleProcessComm, N: int, block: int, threshold: float,
+def _join_fn(comm: Comm, N: int, block: int, threshold: float,
              metric: str, mode: str, capacity: int, prefilter: bool,
              use_kernel: bool, placement):
     """Build (and cache) the distributed join callable ``f(x [P, block,
     d]) -> SparseHits`` — one per (comm, shape, threshold, capacity, ...)
     key, reused across escalation retries and repeated joins."""
     sched = placement.schedule()
-    mask_table = torch.as_tensor(pair_mask_table(sched), device=comm.device)
+    mask_table = comm.local_rows(
+        torch.as_tensor(pair_mask_table(sched))).to(comm.device)
     batch_fn = None
     if use_kernel:
         if mode not in ("batched", "auto"):
@@ -563,7 +574,7 @@ def _join_fn(comm: SingleProcessComm, N: int, block: int, threshold: float,
     return run
 
 
-def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
+def similarity_join(corpus, comm: Comm, *, threshold: float,
                     metric: str = "dot", mode: str = "auto", placement=None,
                     capacity: int | None = None, prefilter: bool = True,
                     use_kernel: bool = False, escalate: bool = True,
@@ -572,12 +583,16 @@ def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
     """All pairs of ``corpus`` rows with score >= threshold, exactly once.
 
     The host entry point (DESIGN.md section 11): pads the [N, d] corpus
-    (numpy or tensor) into P quorum blocks on ``comm.device``, runs
-    :func:`quorum_allpairs_threshold` under the selected placement (None
-    defers to ``REPRO_PLACEMENT``), and applies the capacity escalation —
-    whenever any device's overflow flag is set, the per-device
-    ``capacity`` doubles and the join re-runs.  With ``escalate=False`` an
-    overflowing pass returns its valid prefix with ``overflow=True``.
+    (numpy or tensor) into P quorum blocks, puts this process's on
+    ``comm.device``, runs :func:`quorum_allpairs_threshold` under the
+    selected placement (None defers to ``REPRO_PLACEMENT``), and applies
+    the capacity escalation — whenever any device's overflow flag is set
+    (every device's count, gathered: all ranks double together), the
+    per-device ``capacity`` doubles and the join re-runs.  With
+    ``escalate=False`` an overflowing pass returns its valid prefix with
+    ``overflow=True``.  Under ``DistributedComm`` each rank returns the
+    pairs its device owns (:func:`owned_pairs`); their union over the
+    ranks, sorted, is the single process's result.
 
     ``use_kernel`` routes the batched step through the B5 kernel
     (kernels/pairwise_threshold.py); ``prefilter`` toggles the norm-bound
@@ -606,7 +621,7 @@ def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
     from .placement import placement_from_env, resolve_placement
     plc = (placement_from_env(P) if placement is None
            else resolve_placement(placement, P))
-    xs = pad_blocks(corpus, P, dev)
+    xs = pad_local(corpus, comm)
     block = xs.shape[1]
     sched = plc.schedule()
     n_cand = sched.n_pairs * block * block
@@ -622,7 +637,7 @@ def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
             run = _join_fn(comm, N, block, float(threshold), metric, mode,
                            cap, prefilter, use_kernel, plc)
             hits = run(xs)
-            counts = hits.count.cpu().numpy().reshape(-1)
+            counts = comm.all_rows(hits.count).cpu().numpy().reshape(-1)
             overflow = bool((counts > cap).any())
             if (not overflow or not escalate
                     or escalations >= max_doublings):
@@ -630,12 +645,13 @@ def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
             cap = 2 * cap
             escalations += 1
     if tr:
-        tr.count("sparse.tiles_scheduled", P * sched.n_pairs)
-        tr.count("sparse.candidates", P * n_cand)
+        L = len(comm.local)
+        tr.count("sparse.tiles_scheduled", L * sched.n_pairs)
+        tr.count("sparse.candidates", L * n_cand)
         if prefilter:
             tr.count("sparse.tiles_pruned",
                      _count_pruned_tiles(xs, N, block, sched,
-                                         float(threshold), metric))
+                                         float(threshold), metric, comm))
         tr.count("sparse.escalations", escalations)
     if overflow and escalate:
         raise RuntimeError(
@@ -658,15 +674,18 @@ def similarity_join(corpus, comm: SingleProcessComm, *, threshold: float,
 
 def _count_pruned_tiles(x: torch.Tensor, N: int, block: int,
                         sched: PairSchedule, threshold: float,
-                        metric: str) -> int:
-    """Replay of the DESIGN.md 11.1 interval bound over every device's
-    scheduled tiles — the ``sparse.tiles_pruned`` counter."""
+                        metric: str, comm: Comm) -> int:
+    """Replay of the DESIGN.md 11.1 interval bound over the scheduled
+    tiles of the devices this process holds (``x`` their [L, block, d]
+    blocks; every block's norm extrema gathered) — the
+    ``sparse.tiles_pruned`` counter."""
     P = sched.P
-    xb = x.reshape(P, block, -1)
-    valid = (torch.arange(P * block, device=x.device).reshape(P, block) < N)
-    maxn, minn = _norm_extrema(xb, valid)                        # [P]
+    gid = comm.axis_index().to(x.device)
+    valid = (gid[:, None] * block
+             + torch.arange(block, device=x.device)[None]) < N
+    maxn, minn = (comm.all_rows(e) for e in _norm_extrema(x, valid))  # [P]
     shifts = torch.as_tensor(sched.shifts, dtype=torch.long, device=x.device)
-    dev_ids = torch.arange(P, device=x.device)[:, None]
+    dev_ids = gid[:, None]
     a = (dev_ids + shifts[torch.as_tensor(sched.pair_slots[:, 0],
                                           device=x.device).long()]) % P
     b = (dev_ids + shifts[torch.as_tensor(sched.pair_slots[:, 1],
@@ -698,6 +717,26 @@ def brute_force_join(corpus: np.ndarray, threshold: float,
     iu, ju = np.triu_indices(s.shape[0], k=1)
     keep = s[iu, ju] >= threshold
     return iu[keep], ju[keep], s[iu, ju][keep]
+
+
+def owned_pairs(i, j, block: int, schedule: PairSchedule,
+                devices) -> np.ndarray:
+    """Which of the global row pairs ``(i, j)`` (numpy, i < j) the given
+    devices emit: the ownership rule and dedup mask give each unordered
+    block pair to exactly one (device, scheduled pair), so a pair is
+    owned where its two blocks are.  A [n] bool mask; the pairs a rank of
+    ``DistributedComm`` returns are those owned by ``comm.local``."""
+    P = schedule.P
+    mask = pair_mask_table(schedule)
+    lo = schedule.shifts[schedule.pair_slots[:, 0]]
+    hi = schedule.shifts[schedule.pair_slots[:, 1]]
+    mine = np.zeros((P, P), bool)
+    for dev in devices:
+        on = mask[dev] > 0
+        a, b = (dev + lo[on]) % P, (dev + hi[on]) % P
+        mine[np.minimum(a, b), np.maximum(a, b)] = True
+    bi, bj = np.asarray(i) // block, np.asarray(j) // block
+    return mine[np.minimum(bi, bj), np.maximum(bi, bj)]
 
 
 def threshold_with_gap(scores, selectivity: float,
@@ -743,21 +782,27 @@ def threshold_for_selectivity(corpus: np.ndarray, selectivity: float,
 
 def selfcheck_main(nblocks: int = 8,
                    modes: Sequence[str] = ENGINE_MODES + ("kernel",),
-                   placement: str | None = None, device=None) -> None:
-    """Sparse-join selfcheck (DESIGN.md section 11.5), on the CUDA device
-    unless ``device`` says otherwise.
+                   placement: str | None = None, device=None,
+                   comm: Comm | None = None) -> None:
+    """Sparse-join selfcheck (DESIGN.md section 11.5) on ``comm`` (default:
+    a ``SingleProcessComm`` of ``nblocks`` devices on ``device``, itself
+    defaulting to the CUDA device).
 
     Run as ``python -m repro_torch.core.sparse [P] [modes] [placement]
-    [--device cpu]``.  Asserts index-level pair-set equality with the
-    dense brute-force oracle for every requested mode (``kernel`` is the
-    batched path through the B5 hook), both metrics, prefilter on / off,
-    plus the ring-gather replication and the overflow / escalation
-    contract.
+    [--device cpu] [--dist gloo|nccl]``; with ``--dist`` each of P
+    processes started by torchrun is one device (``DistributedComm``).
+    Asserts index-level pair-set equality with the dense brute-force
+    oracle (under ``DistributedComm``: its pairs the rank's device owns)
+    for every requested mode (``kernel`` is the batched path through the
+    B5 hook), both metrics, prefilter on / off, plus the ring-gather
+    replication and the overflow / escalation contract.
     """
     from .placement import placement_from_env, resolve_placement
 
     Pn = int(nblocks)
-    comm = SingleProcessComm(Pn, device)
+    comm = SingleProcessComm(Pn, device) if comm is None else comm
+    if comm.P != Pn:
+        raise ValueError(f"the comm has P={comm.P} devices, not {Pn}")
     plc = (placement_from_env(Pn) if placement is None
            else resolve_placement(placement, Pn))
     block, d = 8, 16
@@ -766,10 +811,16 @@ def selfcheck_main(nblocks: int = 8,
     corpus = rng.normal(size=(N, d)).astype(np.float32)
     # two low-norm block spans make whole tiles prunable for `dot`
     corpus[: 2 * block] *= 0.05
+    sched = plc.schedule()
+
+    def oracle(thr, metric):
+        wi, wj, wv = brute_force_join(corpus, thr, metric)
+        mine = owned_pairs(wi, wj, block, sched, comm.local)
+        return wi[mine], wj[mine], wv[mine], len(wi)
 
     for metric in JOIN_METRICS:
         thr = threshold_for_selectivity(corpus, 0.08, metric)
-        wi, wj, wv = brute_force_join(corpus, thr, metric)
+        wi, wj, wv, _n = oracle(thr, metric)
         label = f"P={Pn} metric={metric}"
         for m in modes:
             mode, uk = ("batched", True) if m == "kernel" else (m, False)
@@ -789,10 +840,13 @@ def selfcheck_main(nblocks: int = 8,
     # overflow contract: a capacity below the busiest device's true count
     # must flag, keep a valid prefix, and escalate back to the full answer
     thr = threshold_for_selectivity(corpus, 0.08, "dot")
-    wi, wj, _ = brute_force_join(corpus, thr, "dot")
+    wi, wj, _, n_all = oracle(thr, "dot")
     base = similarity_join(corpus, comm, threshold=thr, placement=plc)
     np.testing.assert_array_equal(base.i, wi)
     np.testing.assert_array_equal(base.j, wj)
+    if int(base.counts.sum()) != n_all:
+        raise AssertionError(f"device counts {base.counts} do not sum to "
+                             f"the oracle's {n_all} pairs")
     mx = int(base.counts.max())
     if mx < 2:
         raise AssertionError(f"corpus too small to exercise overflow: {mx}")
@@ -817,25 +871,31 @@ def selfcheck_main(nblocks: int = 8,
     np.testing.assert_array_equal(esc.i, wi)
     np.testing.assert_array_equal(esc.j, wj)
 
-    # ring gather: every device ends with the identical stack
-    sched = plc.schedule()
-    blockc = -(-N // Pn)
-    xs = torch.zeros(Pn * blockc, d, device=comm.device)
-    xs[:N] = torch.as_tensor(corpus, device=comm.device)
+    # ring gather: every device ends with the identical stack, whose row
+    # of each local device is that device's own buffers
     hits = quorum_allpairs_threshold(
-        xs.reshape(Pn, blockc, d), comm, threshold=thr, capacity=esc.capacity,
+        pad_local(corpus, comm), comm, threshold=thr, capacity=esc.capacity,
         schedule=sched, n_valid=N)
     g = ring_allgather_hits(hits, comm)
-    for dev in range(Pn):
-        if not (torch.equal(g.vals[dev], hits.vals)
-                and torch.equal(g.i[dev], hits.i)
-                and torch.equal(g.count[dev], hits.count)):
+    for pos, dev in enumerate(comm.local):
+        if not (torch.equal(g.vals[pos], g.vals[0])
+                and torch.equal(g.i[pos], g.i[0])
+                and torch.equal(g.count[pos], g.count[0])
+                and torch.equal(g.vals[pos, dev], hits.vals[pos])
+                and torch.equal(g.j[pos, dev], hits.j[pos])
+                and int(g.count[pos, dev]) == int(hits.count[pos])):
             raise AssertionError(f"ring gather: device {dev}'s copy differs")
+    if g.count[0].cpu().numpy().tolist() != esc.counts.tolist():
+        raise AssertionError(f"ring gather counts {g.count[0]} != the "
+                             f"join's {esc.counts}")
 
-    sel = len(wi) / max(1, N * (N - 1) // 2)
+    sel = n_all / max(1, N * (N - 1) // 2)
+    where = (f" rank={comm.rank} transport={comm.transport} "
+             f"pairs={len(wi)}" if isinstance(comm, DistributedComm) else "")
     print(f"sparse selfcheck OK: P={Pn} placement={plc.describe()} "
-          f"modes={','.join(modes)} device={comm.device} hits={len(wi)} "
-          f"selectivity={100 * sel:.1f}% capacity={esc.capacity}")
+          f"modes={','.join(modes)} device={comm.device}{where} "
+          f"hits={n_all} selectivity={100 * sel:.1f}% "
+          f"capacity={esc.capacity}")
 
 
 if __name__ == "__main__":
@@ -847,6 +907,9 @@ if __name__ == "__main__":
     ap.add_argument("placement", nargs="?", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--dist", choices=("gloo", "nccl"), default=None,
+                    help="one process per device over torch.distributed "
+                         "with this backend (start under torchrun)")
     args = ap.parse_args()
-    selfcheck_main(args.P, tuple(args.modes.split(",")), args.placement,
-                   args.device)
+    run_main(selfcheck_main, args.P, tuple(args.modes.split(",")),
+             args.placement, device=args.device, dist=args.dist)

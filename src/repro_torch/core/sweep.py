@@ -42,6 +42,7 @@ from .comm import Comm, tree_map
 from .scheduler import PairSchedule
 
 __all__ = [
+    "agreed",
     "ENGINE_MODES",
     "SweepEmitter",
     "pair_sweep",
@@ -247,6 +248,20 @@ def pair_mask_table(schedule: PairSchedule) -> np.ndarray:
                 hi = (lo + d_half) % P
                 mask[i, s] = 1.0 if lo == min(lo, hi) else 0.0
     return mask
+
+
+def agreed(comm: Comm, values, what: str):
+    """``values`` (an int or a sequence of ints), figures every process
+    computes from the same inputs (SPMD), checked equal on every process
+    (gathered through ``comm.all_rows``) before they act on them
+    together; a disagreement raises instead of letting the processes
+    issue different collectives."""
+    row = torch.as_tensor(values, dtype=torch.int64).reshape(1, -1)
+    got = comm.all_rows(row.to(comm.device)).cpu()
+    if not bool((got == got[0]).all()):
+        raise RuntimeError(f"the processes disagree on {what}: "
+                           f"{got.tolist()}")
+    return values
 
 
 def mark_varying(x, *_):

@@ -21,9 +21,15 @@ comes from the scheduler's latency trace.
 
 The corpus is resident over ``--P`` simulated devices of the
 single-process comm layer, on the CUDA device unless ``--device cpu``.
+With ``--dist gloo|nccl`` each of the P processes torchrun starts is one
+device (``DistributedComm``): rank 0 runs the scheduler and broadcasts
+every launch and stream update, the other ranks follow
+(``serving.batching.follow_launches``), and rank 0 prints the report.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.query_serve --requests 512
       [--P 8] [--kernel] [--device cpu]
+      PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+          -m repro_torch.launch.query_serve --P 4 --dist gloo --device cpu
 """
 
 from __future__ import annotations
@@ -34,10 +40,11 @@ import time
 import numpy as np
 import torch
 
-from ..core.comm import SingleProcessComm, resolve_device
+from ..core.comm import DistributedComm, SingleProcessComm, resolve_device
 from ..obs import trace as obs_trace
 from ..serving import ServingCorpus
-from ..serving.batching import BatchScheduler, latency_summary
+from ..serving.batching import (BatchScheduler, follow_launches,
+                                latency_summary)
 
 
 def serve_queries(sc: ServingCorpus, queries, *, microbatch: int,
@@ -56,7 +63,9 @@ def serve_queries(sc: ServingCorpus, queries, *, microbatch: int,
     after ``warmup_batches`` and excludes the separately-timed stream
     updates (DESIGN.md section 15.4); pass ``scheduler`` to reuse an
     externally-built :class:`BatchScheduler` (its latency trace then
-    covers this drain).
+    covers this drain).  Stream updates go through the scheduler, so
+    under ``DistributedComm`` (on rank 0) the follower ranks apply them
+    in the same order.
     """
     R, d = queries.shape
     rng = rng if rng is not None else np.random.default_rng(0)
@@ -78,8 +87,8 @@ def serve_queries(sc: ServingCorpus, queries, *, microbatch: int,
             # separately — the blocking push must not deflate query qps.
             ts = time.perf_counter()
             b = int(rng.integers(sc.P))
-            sc.replace_block(b, rng.normal(size=(sc.block, d))
-                             .astype(np.float32))
+            sched.replace_block(b, rng.normal(size=(sc.block, d))
+                                .astype(np.float32))
             if sc.comm.device.type == "cuda":   # the push runs async
                 torch.cuda.synchronize(sc.comm.device)
             dt_stream = time.perf_counter() - ts
@@ -134,15 +143,39 @@ def main(argv=None):
                     help="simulated devices the corpus is spread over")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--dist", choices=("gloo", "nccl"), default=None,
+                    help="one process per device over torch.distributed "
+                         "with this backend (start under torchrun with "
+                         "--P processes)")
     args = ap.parse_args(argv)
 
     P = args.P
-    comm = SingleProcessComm(P, resolve_device(args.device))
+    if args.dist is None:
+        return _serve(args, SingleProcessComm(P, resolve_device(args.device)))
+    comm = DistributedComm.from_env(args.dist, args.device)
+    try:
+        if comm.P != P:
+            raise ValueError(f"--P {P} but torchrun started {comm.P} "
+                             "processes")
+        return _serve(args, comm)
+    finally:
+        comm.close()
+
+
+def _serve(args, comm):
+    """The CLI's run on ``comm``: every process builds the same corpus;
+    rank 0 (or the one process) serves and reports, the other ranks
+    follow its launches."""
+    P = comm.P
     rng = np.random.default_rng(args.seed)
     corpus = rng.normal(size=(args.n, args.d)).astype(np.float32)
     queries = rng.normal(size=(args.requests, args.d)).astype(np.float32)
 
     sc = ServingCorpus.build(corpus, comm)
+    if isinstance(comm, DistributedComm) and comm.rank != 0:
+        n = follow_launches(sc)
+        print(f"rank {comm.rank}: followed {n} launches")
+        return None
     plan = sc.plan
     print(f"corpus N={args.n} d={args.d} -> P={P} blocks of {sc.block} "
           f"(quorum k={plan.k}, cover {plan.n_cover}/{P} devices)")
@@ -150,10 +183,13 @@ def main(argv=None):
                            use_kernel=args.kernel,
                            pad_queries_to=args.microbatch)
     t_start = time.perf_counter()
-    vals, idx, qps = serve_queries(
-        sc, queries, microbatch=args.microbatch, topk=args.topk,
-        mode=args.mode, metric=args.metric, use_kernel=args.kernel,
-        stream_every=args.stream_every, rng=rng, scheduler=sched)
+    try:
+        vals, idx, qps = serve_queries(
+            sc, queries, microbatch=args.microbatch, topk=args.topk,
+            mode=args.mode, metric=args.metric, use_kernel=args.kernel,
+            stream_every=args.stream_every, rng=rng, scheduler=sched)
+    finally:
+        sched.close()
     wall = time.perf_counter() - t_start
     print(f"served {args.requests} requests in microbatches of "
           f"{args.microbatch}: {qps:.1f} queries/sec steady-state "

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.comm import Comm, SingleProcessComm, shard
+from ..core.comm import Comm, SingleProcessComm, run_main, shard
 from ..core.placement import (Placement, resolve_placement,
                               supported_placements)
 from . import trace as trace_mod
@@ -247,22 +247,28 @@ def verify_quant_comm(P: int = 8,
                       placements: Optional[Sequence[str]] = None,
                       *, block: int = 4, dim: int = 3,
                       qmode: str = "int8", device=None,
+                      comm: Optional[Comm] = None,
                       verbose: bool = True) -> List[Dict[str, int]]:
     """Gather one quantized :class:`core.quant.QuantBlocks` stack per
     registered placement under a fresh tracer and assert the traced
     ppermute gather bytes equal ``nonzero_shifts * quant_block_bytes``
     exactly (DESIGN.md sections 14.3, 17.1) — the quantized twin of
     :func:`verify_dense_comm`, pinning the side arrays' payload to the
-    predictor formula.
+    predictor formula.  The P devices are ``comm`` (default a
+    :class:`SingleProcessComm` on ``device``); under a
+    ``DistributedComm`` each rank quantizes and gathers its own block and
+    checks its own device's counters.
     """
     from ..core import sweep as sweep_mod
     from ..core.quant import quantize_corpus
 
-    comm = SingleProcessComm(P, device)
+    comm = SingleProcessComm(P, device) if comm is None else comm
+    if comm.P != P:
+        raise ValueError(f"the comm has P={comm.P} devices, not {P}")
     rng = np.random.default_rng(0)
-    x = rng.normal(size=(P * block, dim)).astype(np.float32)
-    qb = quantize_corpus(torch.from_numpy(x).to(comm.device), P, block,
-                         qmode).blocks()
+    x = shard(rng.normal(size=(P * block, dim)).astype(np.float32), comm)
+    L = x.shape[0]
+    qb = quantize_corpus(x.reshape(L * block, dim), L, block, qmode).blocks()
     payload = quant_block_bytes(block, dim, qmode)
 
     out: List[Dict[str, int]] = []
@@ -274,7 +280,7 @@ def verify_quant_comm(P: int = 8,
             tracer = trace_mod.configure(metrics_only=True)
             g = sweep_mod.quorum_gather(qb, sched, comm)
             trace_mod.reset()
-            if g.q.shape != (P, len(sched.shifts), block, dim):
+            if g.q.shape != (L, len(sched.shifts), block, dim):
                 raise AssertionError(
                     f"{plc.name} P={P}: gathered codes {tuple(g.q.shape)}")
             got = traced_sweep_comm(tracer)
@@ -304,8 +310,10 @@ def verify_quant_comm(P: int = 8,
 def _main(argv=None) -> int:
     """CLI: ``python -m repro_torch.obs.comm [--P N] [--placements ...]
     [--mode batched] [--dtype float32] [--quant int8] [--block 4] [--dim 3]
-    [--device cpu]`` — the predictor-vs-traced equality check; with
-    ``--quant`` it also pins the quantized-stack gather payload."""
+    [--device cpu] [--dist gloo|nccl]`` — the predictor-vs-traced equality
+    check; with ``--quant`` it also pins the quantized-stack gather
+    payload; with ``--dist`` each of P torchrun processes is one device
+    and checks its own counters."""
     import argparse
     ap = argparse.ArgumentParser(
         description="assert traced ppermute bytes == analytical "
@@ -321,13 +329,20 @@ def _main(argv=None) -> int:
     ap.add_argument("--dim", type=int, default=3)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--dist", choices=("gloo", "nccl"), default=None,
+                    help="one process per device over torch.distributed "
+                         "with this backend (start under torchrun)")
     args = ap.parse_args(argv)
-    verify_dense_comm(args.P, args.placements, block=args.block,
-                      dim=args.dim, mode=args.mode, dtype=args.dtype,
-                      device=args.device)
-    if args.quant is not None:
-        verify_quant_comm(args.P, args.placements, block=args.block,
-                          dim=args.dim, qmode=args.quant, device=args.device)
+
+    def check(device=None, comm=None):
+        verify_dense_comm(args.P, args.placements, block=args.block,
+                          dim=args.dim, mode=args.mode, dtype=args.dtype,
+                          device=device, comm=comm)
+        if args.quant is not None:
+            verify_quant_comm(args.P, args.placements, block=args.block,
+                              dim=args.dim, qmode=args.quant, device=device,
+                              comm=comm)
+    run_main(check, device=args.device, dist=args.dist)
     return 0
 
 

@@ -35,6 +35,16 @@ deterministic given a deterministic clock, and every packed result is
 bit-identical to issuing the request alone through ``ServingCorpus.query``
 / ``query_threshold``; the selfcheck at the bottom proves it.
 
+Under ``DistributedComm`` (one process per device) every launch is a
+collective, so the ranks must issue the same launches in the same order.
+Rank 0 is the one controller: it owns ``submit``, admission, deadlines and
+packing, and before each launch (and each streamed block update through
+:meth:`BatchScheduler.replace_block`) broadcasts a :class:`LaunchChannel`
+descriptor and the packed rows.  Every other rank runs
+:func:`follow_launches`, which executes the same launches until rank 0's
+:meth:`BatchScheduler.close` sends the stop; results resolve on rank 0.
+A follower that is never stopped fails at the process group's timeout.
+
 Run:  PYTHONPATH=src python -m repro_torch.serving.batching [P] [--device cpu]
 """
 
@@ -52,7 +62,9 @@ import numpy as np
 import torch
 
 from ..core import env as env_mod
+from ..core.comm import DistributedComm
 from ..core.sparse import default_capacity as sparse_default_capacity
+from ..core.sweep import ENGINE_MODES
 from ..kernels.ref import IDX_SENTINEL, NEG_INF, QUERY_METRICS as METRICS
 from ..obs import trace as obs_trace
 from .engine import ServingCorpus, quantize_pow2
@@ -65,6 +77,8 @@ __all__ = [
     "percentile",
     "latency_summary",
     "to_host",
+    "LaunchChannel",
+    "follow_launches",
     "main",
 ]
 
@@ -204,6 +218,111 @@ def to_host(*outs: torch.Tensor) -> List[np.ndarray]:
     return host
 
 
+#: the launch descriptor's opcodes (:class:`LaunchChannel`)
+OP_STOP, OP_TOPK, OP_THRESHOLD, OP_REPLACE = range(4)
+_ENGINE_MODES = ("auto",) + ENGINE_MODES
+
+
+class LaunchChannel:
+    """Rank 0's launches, broadcast to the other ranks of a
+    ``DistributedComm`` (``comm.broadcast``).
+
+    Each launch is one int64 descriptor ``[op, rows, d, k, metric, mode,
+    kernel]`` (``k`` the top-k bucket's request, the range query's
+    capacity or the replaced block id; ``metric`` and ``mode`` as
+    indices), then its payload: the packed query rows ``[rows, d]``
+    float32, a range query's per-query thresholds ``[rows]``, or a
+    replaced block's data.  The stop is a descriptor alone.
+    """
+
+    WIDTH = 7
+
+    def __init__(self, comm):
+        self.comm = comm
+
+    def _desc(self, *fields) -> None:
+        d = torch.zeros(self.WIDTH, dtype=torch.int64)
+        d[:len(fields)] = torch.tensor(fields, dtype=torch.int64)
+        self.comm.broadcast(d.to(self.comm.device))
+
+    def _rows(self, x: torch.Tensor) -> None:
+        self.comm.broadcast(x.to(self.comm.device, torch.float32)
+                            .contiguous())
+
+    def topk(self, q, k: int, metric: str, mode: str, kernel: bool) -> None:
+        """Announce a top-k launch of rows ``q`` [Q, d]."""
+        self._desc(OP_TOPK, q.shape[0], q.shape[1], k,
+                   METRICS.index(metric), _ENGINE_MODES.index(mode),
+                   int(kernel))
+        self._rows(q)
+
+    def threshold(self, q, thr, capacity: int, metric: str,
+                  mode: str) -> None:
+        """Announce a range-query launch of rows ``q`` with thresholds
+        ``thr`` [Q] at ``capacity``."""
+        self._desc(OP_THRESHOLD, q.shape[0], q.shape[1], capacity,
+                   METRICS.index(metric), _ENGINE_MODES.index(mode))
+        self._rows(q)
+        self._rows(torch.as_tensor(thr))
+
+    def replace(self, b: int, data) -> None:
+        """Announce a streamed replace of block ``b``."""
+        data = torch.as_tensor(data, dtype=torch.float32)
+        self._desc(OP_REPLACE, data.shape[0], data.shape[1], b)
+        self._rows(data)
+
+    def stop(self) -> None:
+        """Release the followers."""
+        self._desc(OP_STOP)
+
+    def recv(self) -> tuple:
+        """A follower's next launch: ``(op, fields, payloads)``."""
+        d = self.comm.broadcast(torch.zeros(
+            self.WIDTH, dtype=torch.int64, device=self.comm.device)).cpu()
+        op, rows, dim = (int(v) for v in d[:3])
+        if op == OP_STOP:
+            return op, d, ()
+
+        def recv_rows(*shape):
+            return self.comm.broadcast(torch.empty(
+                shape, dtype=torch.float32, device=self.comm.device))
+        if op == OP_THRESHOLD:
+            return op, d, (recv_rows(rows, dim), recv_rows(rows))
+        return op, d, (recv_rows(rows, dim),)
+
+
+def follow_launches(corpus: ServingCorpus) -> int:
+    """A follower rank's loop under ``DistributedComm``: run every launch
+    rank 0's :class:`BatchScheduler` broadcasts, with the same arguments
+    on this rank's share of ``corpus``, until the stop.  Returns the
+    number of launches run (replaces included).  Rank 0 never calls it."""
+    comm = corpus.comm
+    if not isinstance(comm, DistributedComm) or comm.rank == 0:
+        raise ValueError("follow_launches runs on the ranks other than 0 of "
+                         "a DistributedComm")
+    channel = LaunchChannel(comm)
+    n = 0
+    while True:
+        op, d, payload = channel.recv()
+        if op == OP_STOP:
+            return n
+        k, metric, mode = int(d[3]), METRICS[int(d[4])], \
+            _ENGINE_MODES[int(d[5])]
+        if op == OP_TOPK:
+            corpus.query(payload[0], topk=k, mode=mode, metric=metric,
+                         use_kernel=bool(d[6]))
+        elif op == OP_THRESHOLD:
+            corpus.query_threshold(payload[0],
+                                   threshold=payload[1].cpu().numpy(),
+                                   capacity=k, mode=mode, metric=metric,
+                                   escalate=False)
+        elif op == OP_REPLACE:
+            corpus.replace_block(k, payload[0])
+        else:
+            raise RuntimeError(f"unknown launch descriptor {d.tolist()}")
+        n += 1
+
+
 class BatchScheduler:
     """Iteration-level continuous batcher over a :class:`ServingCorpus`
     (DESIGN.md section 15).
@@ -223,6 +342,11 @@ class BatchScheduler:
     group size.  ``max_batch``/``max_queue`` default from the
     ``REPRO_SERVE_MAX_BATCH`` / ``REPRO_SERVE_QUEUE_DEPTH`` env knobs.
     ``clock`` is injectable for deterministic deadline tests.
+
+    Under ``DistributedComm`` the scheduler lives on rank 0 only: it
+    broadcasts each launch (:class:`LaunchChannel`) before running it,
+    the other ranks run :func:`follow_launches`, and :meth:`close` stops
+    them.
     """
 
     def __init__(self, corpus: ServingCorpus, *,
@@ -250,6 +374,14 @@ class BatchScheduler:
                 "full batch")
         self.mode = mode
         self.use_kernel = use_kernel
+        comm = getattr(corpus, "comm", None)   # stand-ins may have none
+        self._channel = None
+        if isinstance(comm, DistributedComm):
+            if comm.rank != 0:
+                raise ValueError(
+                    f"rank {comm.rank} follows rank 0's launches: run "
+                    "follow_launches(corpus) there, not a BatchScheduler")
+            self._channel = LaunchChannel(comm)
         self.pad_queries_to = pad_queries_to
         self.max_escalations = max_escalations
         self._clock = clock
@@ -429,6 +561,8 @@ class BatchScheduler:
             ("topk", metric, self.mode, quantize_pow2(kmax),
              self.use_kernel))
         q = self._pack_queries(reqs)
+        if self._channel is not None:
+            self._channel.topk(q, kmax, metric, self.mode, self.use_kernel)
         vals, idx = to_host(*self.corpus.query(
             q, topk=kmax, mode=self.mode, metric=metric,
             use_kernel=self.use_kernel))
@@ -452,6 +586,8 @@ class BatchScheduler:
         thr = np.full((q.shape[0],), np.inf, np.float32)
         for i, r in enumerate(reqs):
             thr[i] = r.threshold
+        if self._channel is not None:
+            self._channel.threshold(q, thr, cap_req, metric, self.mode)
         vals, idx, cnt = to_host(*self.corpus.query_threshold(
             q, threshold=thr, capacity=cap_req, mode=self.mode,
             metric=metric, escalate=False))
@@ -491,6 +627,20 @@ class BatchScheduler:
             with self._lock:
                 self._queue.extendleft(reversed(requeue))
         return resolved
+
+    def replace_block(self, b: int, data) -> None:
+        """Stream a block replace into the corpus between launches (on
+        every rank: broadcast to the followers first)."""
+        if self._channel is not None:
+            self._channel.replace(b, data)
+        self.corpus.replace_block(b, data)
+
+    def close(self) -> None:
+        """Release the follower ranks (``DistributedComm``); a no-op in
+        one process."""
+        if self._channel is not None:
+            self._channel.stop()
+            self._channel = None
 
     # -------------------------------------------------------------- lifecycle
 

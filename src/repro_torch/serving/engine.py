@@ -28,8 +28,12 @@ already resident (no gather), and the shared mode surface applies:
     then batched while the score working set fits
     ``REPRO_BATCH_BYTES_LIMIT``, else overlap when k >= 3, else scan).
 
-Every per-device tensor carries the leading ``[P, ...]`` axis of
-:class:`~repro_torch.core.comm.SingleProcessComm`.
+Every per-device tensor carries the comm layer's leading axis over the L
+devices this process holds (L = P in one process, 1 a rank under
+``DistributedComm``; written ``[P, ...]`` below, as in one process).
+Under ``DistributedComm`` the engine is SPMD: every rank calls
+``ServingCorpus.query`` / ``query_threshold`` / ``replace_block`` with the
+same arguments in the same order, and every rank gets the same answer.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 
 from ..core import sweep as sweep_mod
-from ..core.comm import SingleProcessComm, tree_map
+from ..core.comm import Comm, tree_map
 from ..core.placement import (Placement, get_placement, placement_from_env,
                               resolve_placement)
 from ..core.scheduler import PairSchedule
@@ -121,7 +125,7 @@ def _scores(queries: torch.Tensor, blk: torch.Tensor,
     return kref.tile_scores(queries, blk, metric)
 
 
-def tree_merge_topk(vals, idx, *, comm: SingleProcessComm, topk: int):
+def tree_merge_topk(vals, idx, *, comm: Comm, topk: int):
     """Recursive-doubling merge of [P, Q, topk] lists: after ceil(log2 P)
     shift rounds every device holds the global top-k.  Round r pulls the
     running list from device i + 2^r; windows overlap when P is not a
@@ -135,7 +139,7 @@ def tree_merge_topk(vals, idx, *, comm: SingleProcessComm, topk: int):
             tr.count("comm.ppermute.merge_hops")
             tr.count("comm.ppermute.merge_bytes",
                      (obs_trace.nbytes_of(vals)
-                      + obs_trace.nbytes_of(idx)) // P)
+                      + obs_trace.nbytes_of(idx)) // vals.shape[0])
         ov = comm.ppermute(vals, shift)
         oi = comm.ppermute(idx, shift)
         vals, idx = merge_topk(vals, idx, ov, oi, topk)
@@ -154,7 +158,7 @@ def _select_mode(schedule: PairSchedule, queries, block: int,
         batch_fn)
 
 
-def _query_geometry(schedule: PairSchedule, comm: SingleProcessComm,
+def _query_geometry(schedule: PairSchedule, comm: Comm,
                     block: int, mask_row, stack_valid):
     """Shared geometry of both query paths: global row ids [P, k, block]
     int32 and the cover-dedup x validity mask [P, k, block] bool."""
@@ -256,7 +260,7 @@ def quorum_query_topk(
     mask_row: torch.Tensor,
     *,
     topk: int,
-    comm: SingleProcessComm,
+    comm: Comm,
     schedule: PairSchedule,
     mode: str = "auto",
     metric: str = "dot",
@@ -281,8 +285,8 @@ def quorum_query_topk(
     smaller indices, missing candidates are (NEG_INF, IDX_SENTINEL).
     """
     sweep_mod.validate_mode(mode, batch_fn)
-    P, k, block, d = stack.shape
-    mask_row = mask_row.reshape(P, k)
+    L, k, block, d = stack.shape
+    mask_row = mask_row.reshape(L, k)
     if mode == "auto":
         mode = _select_mode(schedule, queries, block, batch_fn)
 
@@ -414,7 +418,7 @@ def quorum_query_threshold(
     *,
     threshold,
     capacity: int,
-    comm: SingleProcessComm,
+    comm: Comm,
     schedule: PairSchedule,
     mode: str = "auto",
     metric: str = "dot",
@@ -438,9 +442,10 @@ def quorum_query_threshold(
     sweep_mod.validate_mode(mode, None)
     if metric not in METRICS:
         raise ValueError(f"metric must be one of {METRICS}, got {metric!r}")
-    P, k, block, d = stack.shape
+    P = comm.P
+    L, k, block, d = stack.shape
     Q = queries.shape[0]
-    mask_row = mask_row.reshape(P, k)
+    mask_row = mask_row.reshape(L, k)
     if mode == "auto":
         mode = _select_threshold_mode(schedule, queries, block)
 
@@ -461,7 +466,7 @@ def quorum_query_threshold(
         if tr:  # per hop and device: the three ring buffers
             tr.count("comm.ppermute.ring_hops")
             tr.count("comm.ppermute.ring_bytes",
-                     sum(obs_trace.nbytes_of(c) for c in cur) // P)
+                     sum(obs_trace.nbytes_of(c) for c in cur) // L)
         cur = tuple(comm.ppermute(c, -1) for c in cur)  # from device i - 1
         rv, ri, rc = cur
         valid_in = slot_iota < torch.clamp(rc, max=capacity)[..., None]
@@ -476,7 +481,7 @@ def quorum_query_threshold(
 
 
 @functools.lru_cache(maxsize=64)
-def threshold_fn(comm: SingleProcessComm, capacity: int, mode: str,
+def threshold_fn(comm: Comm, capacity: int, mode: str,
                  metric: str, placement: Placement | None = None):
     """Build (and cache) the distributed range-query callable ``f(queries
     [Q, d], threshold, state) -> (scores [Q, capacity], idx [Q, capacity],
@@ -489,7 +494,8 @@ def threshold_fn(comm: SingleProcessComm, capacity: int, mode: str,
         placement = get_placement("cyclic", P)
     sched = placement.schedule()
     plan = build_cover(P, placement)
-    mask_table = torch.as_tensor(plan.mask_table(), device=comm.device)
+    mask_table = comm.local_rows(
+        torch.as_tensor(plan.mask_table())).to(comm.device)
 
     def run(queries, threshold, state: ServingState):
         vals, idx, cnt = quorum_query_threshold(
@@ -502,7 +508,7 @@ def threshold_fn(comm: SingleProcessComm, capacity: int, mode: str,
 
 
 @functools.lru_cache(maxsize=64)
-def query_fn(comm: SingleProcessComm, topk: int, mode: str, metric: str,
+def query_fn(comm: Comm, topk: int, mode: str, metric: str,
              use_kernel: bool, placement: Placement | None = None):
     """Build (and cache) the distributed query callable ``f(queries [Q, d],
     state) -> (scores [Q, topk], idx [Q, topk])``.  ``placement`` selects
@@ -516,7 +522,8 @@ def query_fn(comm: SingleProcessComm, topk: int, mode: str, metric: str,
         placement = get_placement("cyclic", P)
     sched = placement.schedule()
     plan = build_cover(P, placement)
-    mask_table = torch.as_tensor(plan.mask_table(), device=comm.device)
+    mask_table = comm.local_rows(
+        torch.as_tensor(plan.mask_table())).to(comm.device)
     batch_fn = None
     if use_kernel:
         if mode not in ("batched", "auto"):
@@ -546,11 +553,11 @@ class ServingCorpus:
     >>> corpus.append_block(more_vectors)        # lands in empty capacity
     """
 
-    def __init__(self, comm: SingleProcessComm, state: ServingState,
+    def __init__(self, comm: Comm, state: ServingState,
                  filled: np.ndarray, placement: Placement | None = None):
         self.comm = comm
         self.state = state
-        self.filled = filled                 # [P] valid-row count per block
+        self.filled = filled  # [P] valid-row count per block, on every rank
         self.P = comm.P
         self.placement = (get_placement("cyclic", self.P)
                           if placement is None
@@ -562,10 +569,12 @@ class ServingCorpus:
         self.quant = None        # QuantServing when built with quant != off
 
     @classmethod
-    def build(cls, corpus, comm: SingleProcessComm, block: int | None = None,
+    def build(cls, corpus, comm: Comm, block: int | None = None,
               placement=None, quant: str | None = None) -> "ServingCorpus":
         """``corpus`` [N, d] (numpy or tensor) becomes resident on
-        ``comm.device``.  ``block`` (optional) reserves a larger per-block
+        ``comm.device`` (under ``DistributedComm``: each rank's shard and
+        quorum on its device; every rank passes the same corpus, and keeps
+        it on the host where it lies).  ``block`` (optional) reserves a larger per-block
         row capacity than ceil(N/P), leaving empty slots for streamed
         appends.  ``placement`` picks the residency layer (a Placement or
         spec name); None defers to ``REPRO_PLACEMENT`` (default auto ==
@@ -584,10 +593,12 @@ class ServingCorpus:
         from ..core.quant import QuantServing, quant_from_env
         qmode = quant_from_env() if quant is None else quant
         if qmode != "off":
+            # the f32 mirror: on the device in one process, on the host
+            # for a rank (QuantServing's RescoreRows)
+            where = comm.device if len(comm.local) == P else "cpu"
             rows = torch.zeros(P * block, out.d, dtype=torch.float32,
-                               device=comm.device)
-            rows[:N] = torch.as_tensor(corpus, dtype=torch.float32).to(
-                comm.device)
+                               device=where)
+            rows[:N] = torch.as_tensor(corpus, dtype=torch.float32).to(where)
             out.quant = QuantServing(qmode, comm, out.schedule, block, rows)
         return out
 
@@ -693,7 +704,10 @@ class ServingCorpus:
                     width=QUERY_CHUNK)
                 if not escalate:        # the caller reads the counts
                     break
-                counts = cnt.cpu().numpy()
+                # the ring gave every device every count: the processes
+                # must agree on them before they escalate together
+                counts = sweep_mod.agreed(self.comm, cnt.cpu().numpy(),
+                                          "range-query counts")
                 if (not (counts > cap).any() or cap >= total_rows
                         or escalations >= max_doublings):
                     break

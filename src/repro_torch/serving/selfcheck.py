@@ -1,7 +1,10 @@
 """Self-check of the port's online query serving subsystem.
 
 Run as ``python -m repro_torch.serving.selfcheck [P] [modes] [placement]
-[--device cpu]`` (counterpart of ``repro/serving/selfcheck.py``).
+[--device cpu] [--dist gloo|nccl]`` (counterpart of
+``repro/serving/selfcheck.py``; with ``--dist`` each of P processes
+started by torchrun is one device, ``DistributedComm``, and every rank
+checks the same answers).
 ``modes`` is a comma-separated subset of the engine modes plus ``kernel``
 (the batched path through the B4 hook; default: all of batched, overlap,
 scan, kernel); ``placement`` is a placement spec (unset defers to
@@ -28,7 +31,7 @@ import argparse
 
 import numpy as np
 
-from ..core.comm import SingleProcessComm
+from ..core.comm import Comm, DistributedComm, SingleProcessComm, run_main
 from ..core.placement import placement_from_env, resolve_placement
 from ..core.sparse import threshold_with_gap
 from ..core.sweep import ENGINE_MODES
@@ -136,10 +139,15 @@ def check_threshold(full: np.ndarray, valid: np.ndarray, sc: ServingCorpus,
 
 
 def main(nblocks: int = 8, modes: tuple[str, ...] = CHECK_MODES,
-         placement: str | None = None, device=None) -> None:
-    """Run the serving selfcheck (see the module docstring)."""
+         placement: str | None = None, device=None,
+         comm: Comm | None = None) -> None:
+    """Run the serving selfcheck (see the module docstring) on ``comm``
+    (default: a ``SingleProcessComm`` of ``nblocks`` devices on
+    ``device``)."""
     Pn = int(nblocks)
-    comm = SingleProcessComm(Pn, device)
+    comm = SingleProcessComm(Pn, device) if comm is None else comm
+    if comm.P != Pn:
+        raise ValueError(f"the comm has P={comm.P} devices, not {Pn}")
     plc = (placement_from_env(Pn) if placement is None
            else resolve_placement(placement, Pn))
     block, d, Q, topk = 16, 24, 12, 8
@@ -178,9 +186,12 @@ def main(nblocks: int = 8, modes: tuple[str, ...] = CHECK_MODES,
         check(full, valid, sc, queries, topk, modes, "append")
 
     plan = sc.plan
+    where = (f" rank={comm.rank} transport={comm.transport}"
+             if isinstance(comm, DistributedComm) else "")
     print(f"serving selfcheck OK: P={Pn} placement={plc.describe()} "
           f"k={plan.k} cover={plan.n_cover}/{Pn} modes={','.join(modes)} "
-          f"device={comm.device} topk={topk} N_valid={int(valid.sum())}")
+          f"device={comm.device}{where} topk={topk} "
+          f"N_valid={int(valid.sum())}")
 
 
 if __name__ == "__main__":
@@ -190,5 +201,9 @@ if __name__ == "__main__":
     ap.add_argument("placement", nargs="?", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--dist", choices=("gloo", "nccl"), default=None,
+                    help="one process per device over torch.distributed "
+                         "with this backend (start under torchrun)")
     args = ap.parse_args()
-    main(args.P, tuple(args.modes.split(",")), args.placement, args.device)
+    run_main(main, args.P, tuple(args.modes.split(",")), args.placement,
+             device=args.device, dist=args.dist)

@@ -15,10 +15,13 @@ which the stack invariant makes a no-op).  Shard and validity ride one
 gather as a two-leaf payload.  ``append_block`` is ``replace_block`` into
 the first empty block slot (tracked host-side).
 
-Every tensor carries the leading ``[P, ...]`` device axis of
-:class:`~repro_torch.core.comm.SingleProcessComm`; where the reference
-stacks the per-device quorums device-major as ``[P * k, block, d]``, the
-port keeps ``[P, k, block, d]`` (:func:`state_from_numpy` converts).
+Every tensor carries the comm layer's leading axis over the L devices
+this process holds (L = P in one process, 1 a rank under
+``DistributedComm``; written ``[P, ...]`` below, as in one process); where
+the reference stacks the per-device quorums device-major as ``[P * k,
+block, d]``, the port keeps ``[P, k, block, d]`` (:func:`state_from_numpy`
+converts).  A rank puts only its own shard on its device, then its quorum
+through the gather.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Callable, List, NamedTuple
 import numpy as np
 import torch
 
-from ..core.comm import SingleProcessComm
+from ..core.comm import Comm, pad_local
 from ..core.placement import Placement, placement_from_env, resolve_placement
 from ..core.sweep import quorum_gather
 
@@ -103,13 +106,14 @@ def state_from_numpy(shard, valid, stack, stack_valid, P: int,
 
 
 @functools.lru_cache(maxsize=32)
-def update_fn(comm: SingleProcessComm, placement: Placement):
+def update_fn(comm: Comm, placement: Placement):
     """The update program shared by replace and append, cached per (comm,
     placement).
 
     ``f(shard, valid, b, data, nvalid)``: the owner of block ``b``
-    (device b) overwrites its shard with ``data`` (rows >= nvalid
-    invalid), then the k cyclic shifts redistribute the updated shards —
+    (device b, in whichever process holds it) overwrites its shard with
+    ``data`` (rows >= nvalid invalid), then the k cyclic shifts, which
+    every process runs, redistribute the updated shards —
     each holder of b receives the new block at its matching slot, every
     other slot arrives unchanged (the stack invariant), so the gather *is*
     the propagation.  Works for any shift-structured placement, including
@@ -121,19 +125,21 @@ def update_fn(comm: SingleProcessComm, placement: Placement):
         block = shard.shape[1]
         shard = shard.clone()
         valid = valid.clone()
-        shard[b] = data
-        valid[b] = torch.arange(block, device=valid.device) < nvalid
+        if b in comm.local:                  # the owner's write
+            at = b - comm.local.start
+            shard[at] = data
+            valid[at] = torch.arange(block, device=valid.device) < nvalid
         stack, stack_valid = quorum_gather((shard, valid), sched, comm)
         return shard, valid, stack, stack_valid
 
     return f
 
 
-def build_state(corpus, comm: SingleProcessComm, block: int | None = None,
+def build_state(corpus, comm: Comm, block: int | None = None,
                 placement=None) -> ServingState:
     """Chunk ``corpus`` [N, d] into P blocks (zero-padded; padding rows
-    invalid) on ``comm.device`` and build the resident quorum stacks with
-    one gather.  ``block`` overrides the per-block row capacity (>=
+    invalid), put this process's on ``comm.device`` and build the
+    resident quorum stacks with one gather.  ``block`` overrides the per-block row capacity (>=
     ceil(N/P)) to leave empty slots for streamed appends.  ``placement``
     picks the residency layer (None defers to ``REPRO_PLACEMENT`` / auto
     == cyclic)."""
@@ -143,16 +149,17 @@ def build_state(corpus, comm: SingleProcessComm, block: int | None = None,
     corpus = torch.as_tensor(corpus, dtype=torch.float32)
     N, d = corpus.shape
     block = max(block or 1, 1, -(-N // P))
-    shard = torch.zeros(P * block, d, dtype=torch.float32, device=comm.device)
-    shard[:N] = corpus.to(comm.device)
-    valid = torch.arange(P * block, device=comm.device) < N
-    shard, valid = shard.reshape(P, block, d), valid.reshape(P, block)
+    shard = pad_local(corpus, comm, block)
+    L = shard.shape[0]
+    valid = (torch.arange(comm.local.start * block,
+                          comm.local.stop * block, device=comm.device)
+             < N).reshape(L, block)
     stack, stack_valid = quorum_gather((shard, valid), plc.schedule(), comm)
     return ServingState(shard=shard, valid=valid, stack=stack,
                         stack_valid=stack_valid)
 
 
-def replace_block(state: ServingState, comm: SingleProcessComm, b: int,
+def replace_block(state: ServingState, comm: Comm, b: int,
                   data, nvalid: int | None = None,
                   placement=None) -> ServingState:
     """Replace block ``b`` with ``data`` ([rows <= block, d]) and push it to

@@ -193,6 +193,21 @@ def test_entry_points_default_to_cuda(monkeypatch):
         make_pipeline(DataConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         mesh.make_mesh((1,), ("data",))
+    # the --dist paths (a torchrun rank): DistributedComm.from_env takes
+    # the CUDA device too, before any process group starts
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT="1").items():
+        monkeypatch.setenv(k, v)
+    for main in (sparse.selfcheck_main, knn.selfcheck_main,
+                 quant.selfcheck_main, serving_selfcheck.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            comm.run_main(main, 1, dist="gloo")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        query_serve.main(["--n", "16", "--requests", "4", "--P", "1",
+                          "--dist", "gloo"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        obs_comm._main(["--P", "1", "--quant", "int8", "--dist", "gloo"])
+    assert not torch.distributed.is_initialized()
     assert comm.SingleProcessComm(4, "cpu").device.type == "cpu"
 
 
