@@ -5660,6 +5660,413 @@ def phase_distributed_serving(report: dict, smi: str) -> None:
             sum(res["stats"][p]["ms"] for p in paths) for res in ranks)
 
 
+
+# phase 38: the LM train and prefill steps on a mesh of ranks (ROADMAP
+# A.15c).  Spawned ranks on the one card over gloo, host-staged (as phases
+# 36-37), each holding its shard of the parameters, the AdamW moments and
+# the batch as the reference's resolved specs lay them out
+# (launch/steps.py with mesh=).  Cell "qwen": qwen3-14b at full width,
+# depth cut from 40 to D38_QWEN_LAYERS layers (as phase 24's 2-layer
+# cells), fsdp on, random bf16 parameters from a seed, on a (data=2,
+# model=2) mesh of 4 ranks: train_4k at a global batch of D38_QWEN_B
+# (2 rows of 4,096 a dp rank, remat on), a warm-up step and D38_TIMED
+# timed steps, then the prefill step on D38_QWEN_B x 4,096.  Cell
+# "mamba": mamba2-130m at full width and depth, fsdp off, on a (data=4,
+# model=2) mesh of 8 ranks: train_4k at a global batch of 16 in 2
+# microbatches (phase 34's step).  The parent first runs the same
+# single-process step on the same parameters and batch, keeps samples of
+# its results on the host and frees the card.  Every rank's warm-up step
+# is held to it on D38_SAMPLES sampled elements of every leaf (each rank
+# checks the samples its shards hold): the loss within 2e-2 max(1, |loss|)
+# and the grad norm within 2e-2 of it (phase 32's bf16 rule; the dp sum
+# adds the rows' gradients in another order), the gradients the moments
+# imply (m / (1 - b1) / clip, sqrt(v / (1 - b2)) / clip) within 2e-2
+# max(1, max |g|) of the leaf (phase 32's rule for gradients), the
+# parameters within 2^-7 |p| + 2.5 lr (one bf16 rounding, and AdamW's first
+# step flips where a gradient's sign does); the prefill logits within
+# phase 24's 2e-2 max(1, max |logit|).
+D38_QWEN_LAYERS, D38_QWEN_B, D38_T = 2, 4, 4096
+D38_CELLS = {
+    "qwen": dict(arch="qwen3_14b", layers=D38_QWEN_LAYERS, fsdp=True,
+                 mesh=((2, 2), ("data", "model")), batch=D38_QWEN_B,
+                 accum=1, prefill=True),
+    "mamba": dict(arch="mamba2_130m", layers=None, fsdp=False,
+                  mesh=((4, 2), ("data", "model")), batch=MAMBA_B,
+                  accum=MAMBA_ACCUM, prefill=False),
+}
+D38_TIMED = 2
+D38_SAMPLES = 1 << 16
+D38_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_chunk",
+               "ssd_chunk_bwd")
+
+
+def d38_config(cell: dict):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(cell["arch"])
+    if cell["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=cell["layers"])
+    return dataclasses.replace(cfg, fsdp=cell["fsdp"])
+
+
+def d38_batch(cfg, cell: dict, step: int, prefill: bool = False) -> dict:
+    """The global batch of ``step`` (numpy, from the data pipeline's
+    (seed, step) draw); a prefill batch has no labels."""
+    from repro_torch.data import DataConfig, make_batch
+    b = make_batch(DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                              batch=cell["batch"], seq_len=D38_T), step)
+    return {"tokens": b["tokens"]} if prefill else b
+
+
+def d38_shape(cell: dict):
+    from repro_torch.configs.registry import Shape
+    return Shape("train_4k_cut", "train", D38_T, cell["batch"])
+
+
+def d38_samples(trees: dict) -> dict:
+    """Per leaf of each tree (name -> tree of full tensors): D38_SAMPLES
+    flat indices drawn from a seed, their float32 values, and the leaf's
+    max |x|."""
+    from repro_torch.models.common import tree_leaves
+    out = {}
+    for name, tree in trees.items():
+        for i, (path, t) in enumerate(tree_leaves(tree)):
+            g = torch.Generator().manual_seed(1000 + i)
+            idx = torch.unique(torch.randint(
+                t.numel(), (min(D38_SAMPLES, t.numel()),), generator=g))
+            flat = t.reshape(-1)
+            out[(name,) + path] = (
+                idx, flat[idx.to(t.device)].float().cpu(),
+                float(t.abs().max()))
+    return out
+
+
+def d38_state_bytes(params, opt) -> tuple[int, int]:
+    from repro_torch.models.common import tree_leaves
+    p = sum(t.nbytes for _p, t in tree_leaves(params))
+    o = sum(t.nbytes for n in ("m", "v")
+            for _p, t in tree_leaves(opt[n])) + opt["count"].nbytes
+    return p, o
+
+
+def d38_single(cell: dict, out: Path) -> dict:
+    """The single-process step (and prefill) of ``cell`` on the card; its
+    samples go to ``out`` for the ranks, its figures are returned."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = d38_config(cell)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    res: dict = {}
+    if cell["prefill"]:
+        pb = {k: torch.as_tensor(v, device=DEVICE) for k, v in d38_batch(
+            cfg, cell, 0, prefill=True).items()}
+        res["logits"] = steps.build_prefill_step(cfg)(params, pb).cpu()
+        del pb
+    opt = adamw_init(params)
+    res["bytes"] = d38_state_bytes(params, opt)
+    step = steps.build_train_step(cfg, AdamWConfig(), accum=cell["accum"])
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in d38_batch(cfg, cell, 0).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, met = step(params, opt, batch)
+    torch.cuda.synchronize()
+    res["ms"] = (time.perf_counter() - t0) * 1e3
+    res["peak"] = torch.cuda.max_memory_allocated() - base
+    res["metrics"] = {k: float(v) for k, v in met.items()}
+    res["samples"] = d38_samples({"p": params, "m": opt["m"],
+                                  "v": opt["v"]})
+    del params, opt, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.save({"samples": res["samples"], "logits": res.get("logits"),
+                "metrics": res["metrics"]}, out)
+    return res
+
+
+def d38_compare(shards: dict, specs: dict, full_shapes: dict, mesh,
+                want: dict, gnorm: float, lr: float) -> dict:
+    """Worst ratio to its limit (1 passes), per tensor kind, of this
+    rank's shards against the single process's samples that fall in
+    them (see the phase's comment for the limits)."""
+    from repro_torch.optim import AdamWConfig
+    o = AdamWConfig()
+    clip = min(1.0, o.clip_norm / max(gnorm, 1e-9))
+    worst = {"p": (0.0, ""), "m": (0.0, ""), "v": (0.0, "")}
+    covered = 0
+    for key, (idx, val, top) in want.items():
+        kind, path = key[0], key[1:]
+        shard = shards[kind][path]
+        spec = tuple(specs[kind][path]) + (None,) * shard.dim()
+        full = full_shapes[path]
+        coords = np.unravel_index(idx.numpy(), full)
+        keep = np.ones(len(idx), bool)
+        local = []
+        for d, n in enumerate(full):
+            size, i = mesh.index(spec[d])
+            blk = n // size
+            keep &= (coords[d] >= i * blk) & (coords[d] < (i + 1) * blk)
+            local.append(coords[d] - i * blk)
+        if not keep.any():
+            continue
+        covered += int(keep.sum())
+        flat = np.ravel_multi_index([c[keep] for c in local],
+                                    tuple(shard.shape))
+        got = shard.reshape(-1)[torch.as_tensor(flat, device=shard.device)
+                                ].float().cpu()
+        ref = val[torch.as_tensor(keep)]
+        if kind == "p":
+            lim = 2.0 ** -7 * ref.abs() + 2.5 * lr
+            r = float(((got - ref).abs() / lim).max())
+        else:
+            if kind == "m":
+                gg, gr = got / (1 - o.b1) / clip, ref / (1 - o.b1) / clip
+                gtop = top / (1 - o.b1) / clip
+            else:
+                gg = torch.sqrt(got.clamp_min(0) / (1 - o.b2)) / clip
+                gr = torch.sqrt(ref.clamp_min(0) / (1 - o.b2)) / clip
+                gtop = (top / (1 - o.b2)) ** 0.5 / clip
+            r = float((gg - gr).abs().max()) / (2e-2 * max(1.0, gtop))
+        if r >= worst[kind][0]:
+            worst[kind] = (r, "/".join(path))
+    return {"worst": worst, "covered": covered}
+
+
+def d38_rank(rank: int, cfg: dict) -> None:
+    """One rank of phase 38 cell ``cfg["cell"]``: its figures go to
+    ``cfg["out"]/d38_<cell>_rank<r>.pt``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig, cosine_lr
+
+    comm = rank_comm(rank, cfg)
+    dev = comm.device
+    cell = D38_CELLS[cfg["cell"]]
+    st: dict = {"transport": comm.transport, "device": str(dev)}
+    try:
+        mcfg = d38_config(cell)
+        mesh = make_mesh(*cell["mesh"], comm=comm)
+        single = torch.load(cfg["single"], weights_only=False)
+        full = lm.init_params(mcfg, seed=0, device=dev)
+        shapes = {p: tuple(t.shape) for p, t in tree_leaves(full)}
+        params, opt = steps.shard_state(mcfg, full, mesh)
+        del full
+        torch.cuda.empty_cache()
+        init_host = None
+        if cell["prefill"]:
+            init_host = {p: t.cpu() for p, t in tree_leaves(params)}
+        st["bytes"] = d38_state_bytes(params, opt)
+        want = dryrun.argument_bytes(mcfg, d38_shape(cell), mesh)
+        st["dry_run"] = (want["params"], want["opt"])
+        step = steps.build_train_step(mcfg, AdamWConfig(),
+                                      accum=cell["accum"], mesh=mesh)
+
+        def batch(s):
+            return {k: torch.as_tensor(v, device=dev) for k, v in
+                    steps.shard_batch(mcfg, d38_batch(mcfg, cell, s),
+                                      mesh).items()}
+
+        def timed(fn):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = dict(comm.bytes)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize(dev)
+            return out, {"ms": (time.perf_counter() - t0) * 1e3,
+                         "peak": torch.cuda.max_memory_allocated(dev),
+                         "launches": ops.launch_counts(),
+                         "gathered": comm.bytes["gathered"]
+                         - before["gathered"],
+                         "reduced": comm.bytes["reduced"] - before["reduced"]}
+
+        b0 = batch(0)
+        (params, opt, met), st["warmup"] = timed(
+            lambda: step(params, opt, b0))
+        del b0
+        st["metrics"] = {k: float(v) for k, v in met.items()}
+        p_specs, o_specs = steps.param_and_opt_specs(mcfg, mesh)
+        st["check"] = d38_compare(
+            {"p": dict(tree_leaves(params)), "m": dict(tree_leaves(opt["m"])),
+             "v": dict(tree_leaves(opt["v"]))},
+            {"p": dict(tree_leaves(p_specs)),
+             "m": dict(tree_leaves(o_specs["m"])),
+             "v": dict(tree_leaves(o_specs["v"]))},
+            shapes, mesh, single["samples"],
+            single["metrics"]["grad_norm"], cosine_lr(AdamWConfig(), 0))
+        st["steps"] = []
+        for s in range(1, 1 + D38_TIMED):
+            bs = batch(s)
+            (params, opt, met), fig = timed(lambda: step(params, opt, bs))
+            fig["loss"] = float(met["loss"])
+            fig["grad_norm"] = float(met["grad_norm"])
+            st["steps"].append(fig)
+            del bs
+        st["shard_shapes"] = {"/".join(p): tuple(t.shape)
+                              for p, t in tree_leaves(params)}
+        if cell["prefill"]:
+            del opt, params
+            torch.cuda.empty_cache()
+            init = {}
+            for path, t in init_host.items():
+                node = init
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = t.to(dev)
+            pb = {k: torch.as_tensor(v, device=dev) for k, v in
+                  steps.shard_batch(mcfg, d38_batch(mcfg, cell, 0, True),
+                                    mesh).items()}
+            logits, st["prefill"] = timed(
+                lambda: steps.build_prefill_step(mcfg, mesh=mesh)(init, pb))
+            ref = single["logits"].to(dev)
+            st["prefill"]["err"] = float((logits - ref).abs().max())
+            st["prefill"]["limit"] = 2e-2 * max(1.0, float(ref.abs().max()))
+            st["prefill"]["shape"] = tuple(logits.shape)
+        torch.save(st, Path(cfg["out"]) / f"d38_{cfg['cell']}_rank{rank}.pt")
+    finally:
+        comm.close()
+
+
+def phase_distributed_lm(report: dict, smi: str) -> None:
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import _build
+
+    gib = 1 / 2**30
+    for name in D38_KERNELS:
+        report[name].setdefault("dist_train_launches", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for cname, cell in D38_CELLS.items():
+            mcfg = d38_config(cell)
+            (sizes, axes) = cell["mesh"]
+            n = int(np.prod(sizes))
+            t0 = time.perf_counter()
+            single = d38_single(cell, Path(tmp) / f"d38_{cname}.pt")
+            single_s = time.perf_counter() - t0
+            cfg = dict(P=n, device=DEVICE, lib=str(_build.build()),
+                       store=str(Path(tmp) / f"store38{cname}"), out=tmp,
+                       cell=cname, single=str(Path(tmp) / f"d38_{cname}.pt"))
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(d38_rank, args=(cfg,), nprocs=n,
+                                     join=False, start_method="spawn")
+            join_ranks(ctx, DIST_JOIN_S)
+            wall_s = time.perf_counter() - t0
+            ranks = [torch.load(Path(tmp) / f"d38_{cname}_rank{r}.pt",
+                                weights_only=False) for r in range(n)]
+            mesh_s = ", ".join(f"{a}={s}" for a, s in zip(axes, sizes))
+            layers = mcfg.n_layers
+            say(f"{cell['arch']} ({layers} layers, fsdp {mcfg.fsdp}) on "
+                f"({mesh_s}): {n} ranks ({DIST_LABEL}) spawned, ran and "
+                f"joined in {wall_s:.1f} s wall; the single-process step "
+                f"(its first: first use included) took {single['ms']:.1f} ms"
+                f" (peak {single['peak'] * gib:.2f} GiB above the card's use "
+                f"before it), {single_s:.1f} s with its set-up")
+            sm = single["metrics"]
+            per_step = {"qwen": {"flash_attention": 2 * layers,
+                                 "flash_attention_bwd": layers},
+                        "mamba": {"ssd_chunk": 2 * layers * cell["accum"],
+                                  "ssd_chunk_bwd": layers * cell["accum"]}
+                        }[cname]
+            for r, st in enumerate(ranks):
+                check(st["transport"] == "gloo, host-staged"
+                      and st["device"].startswith("cuda"),
+                      f"rank {r}: transport {st['transport']} on "
+                      f"{st['device']}")
+                m = st["metrics"]
+                check(abs(m["loss"] - sm["loss"])
+                      <= 2e-2 * max(1.0, abs(sm["loss"])),
+                      f"{cname} rank {r}: loss {m['loss']:.6f}, single "
+                      f"process {sm['loss']:.6f}")
+                check(abs(m["grad_norm"] - sm["grad_norm"])
+                      <= 2e-2 * sm["grad_norm"],
+                      f"{cname} rank {r}: grad norm {m['grad_norm']:.6f}, "
+                      f"single process {sm['grad_norm']:.6f}")
+                for kind, (w, leaf) in st["check"]["worst"].items():
+                    check(w <= 1.0, f"{cname} rank {r}: {kind} of {leaf} at "
+                          f"{w:.3f} of its limit")
+                check(st["check"]["covered"] > 0,
+                      f"{cname} rank {r}: no sample in its shards")
+                check(tuple(st["bytes"]) == tuple(st["dry_run"]),
+                      f"{cname} rank {r}: resident parameter / moment bytes"
+                      f" {st['bytes']}, the dry run's {st['dry_run']}")
+                for fig in [st["warmup"]] + st["steps"]:
+                    for kname in D38_KERNELS:
+                        want = per_step.get(kname, 0)
+                        check(fig["launches"][kname] == want,
+                              f"{cname} rank {r}: {kname} launched "
+                              f"{fig['launches'][kname]} times a step, "
+                              f"expected {want}")
+                    check(np.isfinite(fig.get("loss", 0.0)),
+                          f"{cname} rank {r}: loss not finite")
+                if cell["prefill"]:
+                    pf = st["prefill"]
+                    check(pf["shape"] == tuple(single["logits"].shape)
+                          and pf["err"] <= pf["limit"],
+                          f"{cname} rank {r}: prefill logits {pf['shape']}, "
+                          f"max abs err {pf['err']:.4e} (limit "
+                          f"{pf['limit']:.4e})")
+                    check(pf["launches"]["flash_attention"] == layers,
+                          f"{cname} rank {r}: prefill B9 launches "
+                          f"{pf['launches']['flash_attention']}")
+
+            def each(fn, fmt="{:.1f}"):
+                return " / ".join(fmt.format(fn(st)) for st in ranks)
+            step_ms = [sum(f["ms"] for f in st["steps"]) / len(st["steps"])
+                       for st in ranks]
+            worst = {k: max(st["check"]["worst"][k] for st in ranks)
+                     for k in ("p", "m", "v")}
+            sb = single["bytes"]
+            say(f"{cname}: warm-up step vs the single process on every rank:"
+                f" loss {each(lambda s: s['metrics']['loss'], '{:.5f}')} "
+                f"(single {sm['loss']:.5f}), grad norm "
+                f"{each(lambda s: s['metrics']['grad_norm'], '{:.5f}')} "
+                f"(single {sm['grad_norm']:.5f}); the worst sample over the "
+                f"ranks " + ", ".join(f"{k} {w:.3f} of its limit ({leaf})"
+                                      for k, (w, leaf) in worst.items())
+                + f"; samples in the ranks' shards "
+                f"{each(lambda s: s['check']['covered'], '{}')}")
+            say(f"{cname} ({DIST_LABEL}; {cell['batch']} x {D38_T} tokens a "
+                f"step, accum {cell['accum']}), ranks 0-{n - 1}: step "
+                + " / ".join(f"{x:.1f}" for x in step_ms)
+                + f" ms (mean of {D38_TIMED}; warm-up "
+                f"{each(lambda s: s['warmup']['ms'])} ms; the single "
+                f"process's first step {single['ms']:.1f} ms), peak "
+                f"max_memory_allocated "
+                f"{each(lambda s: max(f['peak'] for f in s['steps']) * gib, '{:.2f}')}"
+                f" GiB, gathered {each(lambda s: s['steps'][-1]['gathered'] * gib, '{:.3f}')}"
+                f" GiB and reduced "
+                f"{each(lambda s: s['steps'][-1]['reduced'] * gib, '{:.3f}')}"
+                f" GiB a step; resident parameters / moments a rank "
+                f"{ranks[0]['bytes'][0] * gib:.3f} / "
+                f"{ranks[0]['bytes'][1] * gib:.3f} GiB (= the dry run's; one"
+                f" process {sb[0] * gib:.3f} / {sb[1] * gib:.3f} GiB: "
+                f"{ranks[0]['bytes'][0] / sb[0]:.4f} / "
+                f"{ranks[0]['bytes'][1] / sb[1]:.4f}); launches a step "
+                + ", ".join(f"{k} {v}" for k, v in per_step.items())
+                + f" in every rank; losses of the timed steps "
+                f"{', '.join(format(f['loss'], '.4f') for f in ranks[0]['steps'])}"
+                f"; card {smi}")
+            if cell["prefill"]:
+                say(f"{cname} prefill {cell['batch']} x {D38_T} on every "
+                    f"rank: [B, V] {ranks[0]['prefill']['shape']}, max abs "
+                    f"err vs the single process "
+                    f"{each(lambda s: s['prefill']['err'], '{:.4e}')} (limit"
+                    f" {ranks[0]['prefill']['limit']:.4e}), "
+                    f"{each(lambda s: s['prefill']['ms'])} ms")
+            for kname in per_step:
+                report[kname]["dist_train_launches"] = min(
+                    st["steps"][-1]["launches"][kname] for st in ranks)
+                report[kname]["dist_train_step_ms"] = max(step_ms)
+                report[kname]["dist_train_ranks"] = n
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -5779,7 +6186,9 @@ def main() -> int:
               ("the distributed backend on the card",
                lambda: phase_distributed(report, smi)),
               ("the serving, join and k-NN paths under the distributed "
-               "backend", lambda: phase_distributed_serving(report, smi))]
+               "backend", lambda: phase_distributed_serving(report, smi)),
+              ("the LM steps on a mesh of ranks",
+               lambda: phase_distributed_lm(report, smi))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")

@@ -15,6 +15,12 @@ target structure) and return onto the caller's device.
 The async mode snapshots the leaves to host memory synchronously (the
 device-to-host copy) and writes on a background thread, overlapping the
 I/O with the caller's next steps (DESIGN.md section 8).
+
+Under a mesh of ranks a checkpoint holds the global tree, so one written
+on one mesh resumes on another mesh or in one process: the save puts
+each leaf back together (``gather``, a leaf at a time, every rank taking
+part) and only the writer (rank 0) snapshots and writes it; a restore
+reads the global arrays and cuts the rank's shard (``cut``).
 """
 
 from __future__ import annotations
@@ -122,7 +128,7 @@ def _resolve_step(directory: Path, step: Optional[int]) -> int:
     return step
 
 
-def _restore_leaf(arr: np.ndarray, like, device):
+def _restore_leaf(arr, like, device):
     """A stored array in the form of ``like``: a tensor of like's dtype
     on ``device`` (default like's device), else a numpy array of like's
     dtype."""
@@ -136,18 +142,24 @@ def _restore_leaf(arr: np.ndarray, like, device):
 
 
 def load_checkpoint(directory: str | Path, tree_like: Tree,
-                    step: Optional[int] = None,
-                    device=None) -> tuple[Tree, int]:
+                    step: Optional[int] = None, device=None,
+                    cut: Optional[Callable[[str, Any], Any]] = None
+                    ) -> tuple[Tree, int]:
     """Restore into the structure of ``tree_like`` (the latest complete
     step unless ``step`` is given).  Tensor leaves come back as tensors
     of the template's dtype on its device, or on ``device`` when given;
-    other leaves as numpy arrays of the template's dtype."""
+    other leaves as numpy arrays of the template's dtype.  ``cut(name,
+    array)``, where given, takes each stored (global) array to the part
+    this process holds first."""
     directory = Path(directory)
     step = _resolve_step(directory, step)
     data = np.load(directory / f"step_{step}" / "arrays.npz")
-    out = _rebuild(tree_like,
-                   lambda name, like: _restore_leaf(data[name], like, device))
-    return out, step
+
+    def leaf(name, like):
+        arr = data[name]
+        return _restore_leaf(arr if cut is None else cut(name, arr), like,
+                             device)
+    return _rebuild(tree_like, leaf), step
 
 
 def load_named_tree(directory: str | Path, step: Optional[int] = None,
@@ -202,10 +214,22 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def save_async(self, step: int, tree: Tree):
-        """Snapshot to host now; write on a background thread."""
+    def save_async(self, step: int, tree: Tree, *,
+                   gather: Optional[Callable[[str, Any], Any]] = None,
+                   write: bool = True):
+        """Snapshot to host now; write on a background thread.  Under a
+        mesh every rank calls it with ``gather(name, shard)``, which puts
+        a leaf back together, and only the writer (``write``) keeps the
+        snapshot and writes it."""
         self.wait()
-        host_tree = _rebuild(tree, lambda _n, leaf: _to_numpy(leaf).copy())
+
+        def snap(name, leaf):
+            if gather is not None:
+                leaf = gather(name, leaf)
+            return _to_numpy(leaf).copy() if write else None
+        host_tree = _rebuild(tree, snap)
+        if not write:
+            return
 
         def work():
             try:
@@ -217,9 +241,11 @@ class CheckpointManager:
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 
-    def restore_latest(self, tree_like: Tree, device=None):
-        """Load the newest complete checkpoint into tree_like's shape."""
-        return load_checkpoint(self.directory, tree_like, device=device)
+    def restore_latest(self, tree_like: Tree, device=None, cut=None):
+        """Load the newest complete checkpoint into tree_like's shape
+        (``cut`` as in :func:`load_checkpoint`)."""
+        return load_checkpoint(self.directory, tree_like, device=device,
+                               cut=cut)
 
     def _gc(self):
         steps = sorted(

@@ -19,7 +19,9 @@ own).  Every per-device tensor carries a leading axis of length
 A host decision every device must share (an escalation, another pass)
 reads every device's figures through ``comm.all_rows``; a one-to-all
 send (the batcher's launches) is ``comm.broadcast``.  Both are the
-identity in one process.
+identity in one process.  The LM steps on a mesh (``launch/mesh.py``)
+move tensors over process groups of ranks (:meth:`DistributedComm.group`)
+with ``all_gather_group`` / ``reduce_scatter`` / ``all_reduce``.
 
 :func:`shard` / :func:`unshard` / :func:`pad_local` move ``[N, ...]`` data
 in and out of the ``[len(local), block, ...]`` layout (a rank moves only
@@ -189,6 +191,10 @@ class DistributedComm:
         self.device = dev
         self.staged = backend == "gloo" and dev.type == "cuda"
         self.transport = "gloo, host-staged" if self.staged else backend
+        self._groups: dict = {}
+        #: bytes this rank received in group gathers and sent into
+        #: reductions (``reduce_scatter`` / ``all_reduce``)
+        self.bytes = {"gathered": 0, "reduced": 0}
 
     @classmethod
     def from_env(cls, backend: str, device=None,
@@ -207,6 +213,10 @@ class DistributedComm:
                    device=device,
                    local_rank=int(env.get("LOCAL_RANK", env["RANK"])),
                    timeout=timeout)
+
+    def barrier(self) -> None:
+        """Wait until every rank gets here."""
+        dist.barrier()
 
     def close(self) -> None:
         """Destroy the process group."""
@@ -282,9 +292,87 @@ class DistributedComm:
         dist.all_gather(list(recv.chunk(self.P)), send)
         return self._unwire(recv, x.dtype, (1, self.P, *x.shape[1:]))
 
+    # -- process groups (the LM steps' mesh axes, launch/mesh.py) --------
+
+    def group(self, partition):
+        """This rank's process group of ``partition``, a list of disjoint
+        rank lists covering every rank (the ranks that share the
+        coordinates off some mesh axes).  Every rank makes every group of
+        the partition (``dist.new_group`` needs all of them, in one
+        order), once; a group lists its ranks in ascending order, which
+        is the order of its members' indices.  ``None`` stands for a
+        group of one rank (no transfer)."""
+        key = tuple(tuple(sorted(int(r) for r in g)) for g in partition)
+        if key not in self._groups:
+            mine = None
+            for ranks in key:
+                if len(ranks) == 1:
+                    g = None
+                elif len(ranks) == self.P:
+                    g = dist.group.WORLD
+                else:
+                    g = dist.new_group(list(ranks))
+                if self.rank in ranks:
+                    mine = g
+            self._groups[key] = mine
+        return self._groups[key]
+
+    def _host(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` where the transport reads it: a pinned host copy of a
+        host-staged CUDA tensor, else ``x`` made contiguous."""
+        if not self.staged:
+            return x.contiguous()
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        return host
+
+    def _back(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device) if self.staged else t
+
+    def all_gather_group(self, x: torch.Tensor, group, n: int
+                         ) -> torch.Tensor:
+        """The ``n`` members' ``x`` of ``group`` stacked on a new leading
+        axis in member order: ``[n, *x.shape]``."""
+        if group is None:
+            return x.unsqueeze(0)
+        send = self._wire(x)
+        recv = self._buffer(n * send.numel())
+        dist.all_gather(list(recv.chunk(n)), send, group=group)
+        self.bytes["gathered"] += (n - 1) * send.numel()
+        return self._unwire(recv, x.dtype, (n, *x.shape))
+
+    def reduce_scatter(self, x: torch.Tensor, group, n: int) -> torch.Tensor:
+        """Sum ``x`` over the ``n`` members of ``group`` and keep this
+        member's ``1/n`` of the leading axis (member i the i-th run of
+        rows)."""
+        if group is None:
+            return x
+        src = self._host(x)
+        out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                          pin_memory=self.staged)
+        _reduce_scatter(out, src, group=group)
+        self.bytes["reduced"] += src.numel() * src.element_size()
+        return self._back(out)
+
+    def all_reduce(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """The sum of ``x`` over ``group`` (every rank where ``None``)."""
+        if group is None and self.P == 1:
+            return x
+        buf = self._host(x)
+        if buf is x:
+            buf = x.clone()
+        dist.all_reduce(buf, group=group)
+        self.bytes["reduced"] += buf.numel() * buf.element_size()
+        return self._back(buf)
+
     def __repr__(self) -> str:
         return (f"DistributedComm(P={self.P}, rank={self.rank}, "
                 f"device={self.device}, transport={self.transport})")
+
+
+#: torch 2.13 names ``reduce_scatter_tensor`` ``reduce_scatter_single``
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 
 #: either backend: the type the engine's ``comm`` arguments take

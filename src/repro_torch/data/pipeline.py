@@ -10,7 +10,11 @@ files, with a background prefetch thread (port of
     (the CUDA device unless the caller says otherwise) from pinned host
     memory, on the prefetch thread, where the reference places it with
     the train step's shardings;
-  * the prefetch thread keeps ``prefetch`` batches ahead of the step loop.
+  * the prefetch thread keeps ``prefetch`` batches ahead of the step loop;
+  * under a mesh every rank draws the global batch from (seed, step), as
+    one process does, and keeps the shard its ``batch_specs`` name
+    (``shard=``, e.g. ``launch.steps.shard_batch``), cut on the host
+    before the copy to the device.
 
 The file kind reads a local ``.bin`` of uint16 tokens.
 """
@@ -20,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -110,23 +114,34 @@ def synthetic_batches(cfg: DataConfig, start_step: int = 0
 
 def _to_device(batch: Dict[str, np.ndarray], dev: torch.device
                ) -> Dict[str, torch.Tensor]:
-    out = {}
-    for k, v in batch.items():
+    def move(v):
         t = torch.from_numpy(np.ascontiguousarray(v))
         if dev.type == "cuda":
             t = t.pin_memory().to(dev, non_blocking=True)
-        out[k] = t
+        return t
+    out = {}
+    for k, v in batch.items():
+        if hasattr(v, "shard"):         # a stored shard (launch/steps.py)
+            v.shard = move(v.shard)
+            out[k] = v
+        else:
+            out[k] = move(v)
     return out
 
 
 def make_pipeline(cfg: DataConfig, device=None, start_step: int = 0,
-                  prefetch: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                  prefetch: int = 2, shard: Optional[Callable] = None
+                  ) -> Iterator[Dict[str, torch.Tensor]]:
     """Device-placed, background-prefetched batch stream (tensors on
-    ``device``, the CUDA device unless the caller says otherwise).  The
-    thread starts at the first batch and stops when the generator is
-    closed or collected."""
+    ``device``, the CUDA device unless the caller says otherwise); with
+    ``shard``, each numpy batch is replaced by ``shard(batch)`` (a rank's
+    shard of it) before the copy.  The thread starts at the first batch
+    and stops when the generator is closed or collected."""
     dev = resolve_device(device)
-    return _prefetched(synthetic_batches(cfg, start_step), dev, prefetch)
+    src = synthetic_batches(cfg, start_step)
+    if shard is not None:
+        src = map(shard, src)
+    return _prefetched(src, dev, prefetch)
 
 
 def _prefetched(src, dev: torch.device, prefetch: int):

@@ -13,10 +13,16 @@ model=16)``, ``(pod=2, data=16, model=16)``) resolve here without
 devices.  ``fsdp`` comes as an argument (the caller passes the config's
 ``fsdp``), and "T" is the reference config's default tensor axis.
 
-:func:`make_mesh` binds a mesh to devices and takes only a mesh of one
-device: the engine path has its ``torch.distributed`` backend
-(``core.comm.DistributedComm``, ROADMAP.md A.15a), and the LM steps get a
-``DeviceMesh`` in A.15c.
+:func:`make_mesh` binds a mesh to devices: one device as it is, or a
+mesh of more devices to a ``core.comm.DistributedComm`` of as many ranks
+(ROADMAP.md A.15c), rank r at the row-major coordinate of r in the mesh
+shape (the order ``jax.make_mesh`` gives devices).  A bound mesh moves a
+tensor laid out by a spec: :func:`shard_tree` cuts full tensors to the
+rank's shards, :func:`gather_leaf` puts a shard back together, and
+:meth:`Mesh.reduce_grad` sums a full-size gradient over the dp axes and
+keeps the rank's shard; an axis tuple shards in the tuple's row-major
+order, as XLA's does.  :attr:`Mesh.dp` is the data-parallel group the
+models' ``comm=`` arguments take.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ import dataclasses
 import math
 from typing import Any, Optional, Tuple
 
+import torch
+
 from ..core.comm import resolve_device
-from ..models.common import Tree, tree_map
+from ..models.common import Tree, tree_leaves, tree_map
 
 #: the reference config's tensor-parallel axis
 TP_AXIS = "model"
@@ -37,10 +45,13 @@ Spec = Tuple[Any, ...]
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Axis names and sizes of a device mesh (``device`` set where
-    :func:`make_mesh` bound it)."""
+    :func:`make_mesh` bound it; ``comm`` the ranks of a bound mesh of more
+    than one device)."""
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     device: Optional[Any] = None
+    comm: Optional[Any] = dataclasses.field(default=None, compare=False,
+                                            repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -57,6 +68,156 @@ class Mesh:
         """Devices in the mesh."""
         return math.prod(self.axis_sizes)
 
+    @property
+    def coords(self) -> dict:
+        """Axis name -> this rank's coordinate (row-major: the last axis
+        varies fastest); all 0 on a mesh without ranks."""
+        r = self.comm.rank if self.comm is not None else 0
+        out = {}
+        for name, size in reversed(list(zip(self.axis_names,
+                                            self.axis_sizes))):
+            out[name] = r % size
+            r //= size
+        return {a: out[a] for a in self.axis_names}
+
+    def _axes(self, entry) -> Tuple[str, ...]:
+        axes = () if entry is None else \
+            (entry if isinstance(entry, tuple) else (entry,))
+        order = [self.axis_names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"axes {axes} are not in the mesh's order "
+                             f"{self.axis_names}")
+        return axes
+
+    def index(self, entry) -> Tuple[int, int]:
+        """(devices along a spec entry, this rank's index among them:
+        row-major over the entry's axes in their order)."""
+        axes = self._axes(entry)
+        c = self.coords
+        index = 0
+        for a in axes:
+            index = index * self.shape[a] + c[a]
+        return axis_size(self, axes), index
+
+    def group(self, entry):
+        """(process group, size, this rank's index) of a spec entry: the
+        ranks that share this rank's coordinates off the entry's axes,
+        indexed as :meth:`index` does.  The group is None where the entry
+        spans one device."""
+        axes = self._axes(entry)
+        size, index = self.index(entry)
+        if size == 1 or self.comm is None:
+            return None, size, index
+        parts: dict = {}
+        for rank in range(self.size):
+            rest, r = [], rank
+            for name, sz in reversed(list(zip(self.axis_names,
+                                              self.axis_sizes))):
+                if name not in axes:
+                    rest.append(r % sz)
+                r //= sz
+            parts.setdefault(tuple(rest), []).append(rank)
+        return self.comm.group(list(parts.values())), size, index
+
+    def is_dp(self, entry) -> bool:
+        """True where a spec entry's axes are all data-parallel ones;
+        an entry mixing them with others raises."""
+        axes = self._axes(entry)
+        dp = [a in dp_axes(self) for a in axes]
+        if any(dp) and not all(dp):
+            raise ValueError(f"spec entry {entry} mixes data-parallel and "
+                             f"other axes")
+        return bool(axes) and all(dp)
+
+    def cut(self, t, spec: Spec):
+        """This rank's block of a full ``t`` (tensor or numpy array) laid
+        out by ``spec``: a view, on the host where ``t`` is."""
+        idx = []
+        for d, entry in enumerate(_entries(spec, t.ndim)):
+            size, i = self.index(entry)
+            n = t.shape[d] // size
+            if n * size != t.shape[d]:
+                raise ValueError(f"dimension {d} of {tuple(t.shape)} does "
+                                 f"not divide by {entry}'s {size}")
+            idx.append(slice(i * n, (i + 1) * n))
+        return t[tuple(idx)]
+
+    def gather(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """The inverse of :meth:`cut`: ``t`` put back together along every
+        dimension ``spec`` shards, a group all-gather per dimension."""
+        for d, entry in enumerate(_entries(spec, t.dim())):
+            g, size, _i = self.group(entry)
+            if g is None:
+                continue
+            parts = self.comm.all_gather_group(t, g, size)
+            t = torch.cat(list(parts.unbind(0)), dim=d)
+        return t
+
+    def reduce_grad(self, g: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """The rank's float32 shard, laid out by ``spec``, of the sum over
+        the dp axes of the ranks' full-size gradients ``g``.  Ranks along
+        the other axes compute the same rows, so those dimensions are cut
+        here; a dimension the dp axes shard is reduce-scattered over them,
+        and dp axes that shard no dimension are all-reduced."""
+        entries = _entries(spec, g.dim())
+        for d, entry in enumerate(entries):
+            if not self.is_dp(entry):
+                size, i = self.index(entry)
+                n = g.shape[d] // size
+                g = g.narrow(d, i * n, n)
+        g = g.float()
+        used = set()
+        for d, entry in enumerate(entries):
+            if not self.is_dp(entry):
+                continue
+            used.update(self._axes(entry))
+            grp, size, _i = self.group(entry)
+            if grp is not None:
+                g = self.comm.reduce_scatter(g.movedim(d, 0).contiguous(),
+                                             grp, size).movedim(0, d)
+        rest = tuple(a for a in dp_axes(self) if a not in used)
+        grp, _size, _i = self.group(rest)
+        if grp is not None:
+            g = self.comm.all_reduce(g.contiguous(), grp)
+        return g.contiguous()
+
+    @property
+    def dp(self) -> "DataParallel":
+        """The data-parallel group of this rank (``comm=`` of the
+        models' loss and MoE layer)."""
+        return DataParallel(self)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over every rank of the mesh."""
+        return t if self.comm is None else self.comm.all_reduce(t)
+
+
+class DataParallel:
+    """The ranks that hold other rows of the batch (the dp axes): their
+    number ``size``, this rank's ``index`` (its rows' place in the global
+    batch), ``sum`` (all-reduce) and ``gather`` (all-gather onto a new
+    leading axis in index order)."""
+
+    def __init__(self, mesh: Mesh):
+        self._group, self.size, self.index = mesh.group(dp_axes(mesh))
+        self._comm = mesh.comm
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group's ranks."""
+        if self._group is None:
+            return t
+        return self._comm.all_reduce(t, self._group)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``t`` on a new leading axis, in index order."""
+        if self._group is None:
+            return t.unsqueeze(0)
+        return self._comm.all_gather_group(t, self._group, self.size)
+
+
+def _entries(spec: Spec, ndim: int):
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The production dry-run mesh as a record with no device: 256
@@ -69,19 +230,39 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
-              device=None) -> Mesh:
-    """A mesh of ``shape`` over ``axes`` on ``device`` (the CUDA device
-    unless the caller says otherwise).  Only one device: a larger mesh
-    raises.  The engine path has its multi-device backend
-    (``core.comm.DistributedComm``, ROADMAP.md A.15a); the LM steps do not
-    yet (no ``DeviceMesh``, A.15c)."""
+              device=None, comm=None) -> Mesh:
+    """A mesh of ``shape`` over ``axes``.  One device: on ``device`` (the
+    CUDA device unless the caller says otherwise), with or without a
+    comm.  More: bound to ``comm``, a ``core.comm.DistributedComm`` with
+    as many ranks, on the rank's device (rank r at the row-major
+    coordinate of r).  A larger mesh without a comm, or sizes that
+    disagree, raise ``ValueError``."""
     mesh = Mesh(tuple(axes), tuple(int(s) for s in shape))
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"a mesh of {mesh.size} devices {mesh.shape}: the LM steps run "
-            f"on one device until they get a DeviceMesh (ROADMAP.md A.15c; "
-            f"the engine path has core.comm.DistributedComm, A.15a)")
-    return dataclasses.replace(mesh, device=resolve_device(device))
+    if mesh.size == 1:
+        return dataclasses.replace(mesh, device=resolve_device(
+            device if comm is None or device is not None else comm.device))
+    if comm is None or not hasattr(comm, "rank"):
+        raise ValueError(
+            f"a mesh of {mesh.size} devices {mesh.shape} runs one process "
+            f"per device: pass a core.comm.DistributedComm of "
+            f"{mesh.size} ranks")
+    if comm.P != mesh.size:
+        raise ValueError(f"a mesh of {mesh.size} devices {mesh.shape} on "
+                         f"a comm of {comm.P} ranks")
+    mesh = dataclasses.replace(mesh, device=comm.device, comm=comm)
+    # every group of every set of axes, made here in one order on every
+    # rank (``dist.new_group`` needs all ranks; a step's first use may be
+    # on the autograd or the data pipeline's thread)
+    names = mesh.axis_names
+    for bits in range(1, 1 << len(names)):
+        mesh.group(tuple(a for i, a in enumerate(names) if bits >> i & 1))
+    return mesh
+
+
+def parse_mesh(spec: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """``"data=2,model=2"`` -> ((2, 2), ("data", "model"))."""
+    names, sizes = zip(*(kv.split("=") for kv in spec.split(",")))
+    return tuple(int(s) for s in sizes), tuple(n.strip() for n in names)
 
 
 def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
@@ -161,3 +342,23 @@ def fix_spec_tree(shape_tree: Tree, spec_tree: Tree, mesh: Mesh) -> Tree:
         return fix_spec_for_shape(tuple(getattr(node, "shape", node)), spec,
                                   mesh)
     return fix(shape_tree, spec_tree)
+
+
+def shard_tree(tree: Tree, spec_tree: Tree, mesh: Mesh) -> Tree:
+    """The rank's shard of every leaf of a tree of full tensors, laid out
+    by the matching spec: cut where the leaf is, then a contiguous copy on
+    the mesh's device (never a view, which would keep the full leaf)."""
+    specs = dict(tree_leaves(spec_tree))
+    out: Tree = {}
+    for path, t in tree_leaves(tree):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = mesh.cut(torch.as_tensor(t), specs[path]).to(
+            mesh.device, copy=True, memory_format=torch.contiguous_format)
+    return out
+
+
+def gather_leaf(shard: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """A full tensor from the ranks' shards laid out by ``spec``."""
+    return mesh.gather(shard, spec)

@@ -18,10 +18,27 @@ them; a one-axis tuple is written as the axis's name, as jax's
 ported: it sets ``dp_axes``, ``seq_shard`` and ``unroll_inner``, fields
 the port's ``ModelConfig`` does not have, since nothing here reads them;
 nor is its ``_dp_size``, which nothing in the reference calls.
+
+Under a mesh of ranks (``mesh=``, ``launch.mesh.make_mesh`` bound to a
+``core.comm.DistributedComm``, ROADMAP A.15c) the train and prefill
+steps take and return the rank's shards: the parameters laid out by
+:func:`param_and_opt_specs`' parameter specs, the AdamW moments by its
+ZeRO-1 specs and the batch by :func:`batch_specs` (:func:`shard_batch`
+cuts it).  They compute what the reference's ``jax.jit`` of the same step
+with those ``in_shardings`` computes (``repro/launch/dryrun.py``
+``_jit_for_cell``).  The models get each parameter as a
+:class:`StoredLeaf`, gathered where it is used (``models.common.gathered``:
+a layer's parameters inside the layer, so under remat the recompute
+gathers again); the gather's backward sums the full-size gradient over
+the dp axes in float32 and keeps the rank's shard, so a layer's full
+gradient lives until its backward ends.  Ranks along "model" hold their
+shard of each parameter and compute the same rows (tensor-parallel
+compute is ROADMAP A.15d).
 """
 
 from __future__ import annotations
 
+import types
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -31,7 +48,7 @@ from ..models.common import Tree, init_tree, tree_leaves, tree_map
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from .mesh import Mesh, Spec, axis_size, dp_axes, fix_spec_tree, \
-    resolve_spec_tree
+    resolve_spec_tree, shard_tree
 
 #: the parameter subtrees whose leaves are stacked over layers
 STACKED = ("layers", "enc_layers", "dec_layers")
@@ -68,13 +85,16 @@ def _unflatten(like: Tree, leaves) -> Tree:
 
 
 def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
-                     accum: int = 1):
+                     accum: int = 1, mesh: Optional[Mesh] = None):
     """One optimizer step; ``accum`` > 1 accumulates the gradients of
     that many microbatches (the batch's rows split in order) in float32
     buffers, ``gacc + g.float() / accum``, the loss the same way, and
     averages the metrics over them, as the reference's ``scan`` does.
     The parameters and optimizer state are updated in place (the
-    reference donates them) and returned."""
+    reference donates them) and returned.  With a ``mesh`` of ranks the
+    step takes and returns the rank's shards (module docstring)."""
+    if _ranked(mesh):
+        return _sharded_train_step(cfg, opt_cfg, accum, mesh)
     mod = model_module(cfg)
 
     def grads_of(params, batch):
@@ -122,8 +142,13 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     return train_step
 
 
-def build_prefill_step(cfg: ModelConfig):
-    """Returns last-position logits (the sampled-token distribution)."""
+def build_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None):
+    """Returns last-position logits (the sampled-token distribution).
+    With a ``mesh`` of ranks the step takes the rank's shards of the
+    parameters and the batch, computes its rows and returns the global
+    ``[B, V]`` on every rank."""
+    if _ranked(mesh):
+        return _sharded_prefill_step(cfg, mesh)
     if cfg.encdec:
         @torch.inference_mode()
         def prefill_step(params, batch):
@@ -138,6 +163,240 @@ def build_prefill_step(cfg: ModelConfig):
         x, _aux = lm.forward_hidden(cfg, params, batch)
         unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         return (x[:, -1] @ unembed).float()
+
+    return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# The steps on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+def _ranked(mesh: Optional[Mesh]) -> bool:
+    """A mesh bound to ranks (``make_mesh`` binds only more than one)."""
+    return mesh is not None and mesh.comm is not None
+
+
+class StoredLeaf:
+    """A rank's shard of a tensor laid out by ``spec`` on ``mesh``, in
+    the place of the full tensor in a tree the models read: ``full()``
+    gathers it (``models.common.gathered``).  With a ``sink`` (a
+    parameter in a train step) the gather is :class:`_Gather`, whose
+    backward hands ``sink`` the rank's float32 shard of the gradient
+    summed over the dp axes."""
+
+    def __init__(self, shard, spec, mesh: Mesh, sink=None, anchor=None):
+        self.shard, self.spec, self.mesh = shard, tuple(spec), mesh
+        self.sink, self.anchor = sink, anchor
+
+    @property
+    def device(self):
+        """The device the full tensor is gathered on."""
+        return self.mesh.device
+
+    def full(self) -> torch.Tensor:
+        """The full tensor, gathered over the spec's axes."""
+        if self.sink is not None and torch.is_grad_enabled():
+            return _Gather.apply(self.anchor, self)
+        shard = torch.as_tensor(self.shard, device=self.mesh.device)
+        return self.mesh.gather(shard, self.spec)
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the all-gather of a :class:`StoredLeaf` over its spec's
+    axes.  Backward: ``Mesh.reduce_grad`` of the full-size gradient into
+    the leaf's sink (nothing flows to ``anchor``, the tensor that puts the
+    gather on the graph)."""
+
+    @staticmethod
+    def forward(ctx, anchor, leaf):
+        ctx.leaf = leaf
+        return leaf.mesh.gather(leaf.shard, leaf.spec).detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        leaf = ctx.leaf
+        leaf.sink(leaf.mesh.reduce_grad(g, leaf.spec))
+        return None, None
+
+
+def _shard_shapes(cfg: ModelConfig, spec_tree: Tree, mesh: Mesh) -> dict:
+    """Parameter path -> the shape of the rank's shard laid out by
+    ``spec_tree``."""
+    specs = dict(tree_leaves(spec_tree))
+    return {path: tuple(mesh.cut(t, specs[path]).shape)
+            for path, t in tree_leaves(param_shapes(cfg))}
+
+
+def _check_shards(cfg: ModelConfig, params: Tree, p_specs: Tree,
+                  mesh: Mesh) -> None:
+    """Every parameter is the rank's shard of its spec's layout."""
+    for path, spec in tree_leaves(p_specs):
+        if path[0] in STACKED and spec and spec[0] is not None:
+            raise NotImplementedError(
+                f"{'/'.join(path)}: the layer axis is sharded ({spec})")
+    for path, want in _shard_shapes(cfg, p_specs, mesh).items():
+        got = tuple(_find(params, path).shape)
+        if got != want:
+            raise ValueError(f"{'/'.join(path)}: a shard of {got}, its "
+                             f"layout gives {want}")
+
+
+def _find(tree: Tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _store(params: Tree, p_specs: Tree, mesh: Mesh, grads=None, anchor=None,
+           accum: int = 1) -> Tree:
+    """The tree the models read under a mesh: a :class:`StoredLeaf` for
+    every parameter (a list of them, one a layer, for a stacked leaf),
+    whose gradient shards are added, over ``accum``, into ``grads``."""
+    specs = dict(tree_leaves(p_specs))
+
+    def sink(acc):
+        if acc is None:
+            return None
+        if accum == 1:
+            return acc.add_
+        return lambda g: acc.add_(g / accum)
+
+    def leaf(path, t):
+        spec = specs[path]
+        acc = None if grads is None else _find(grads, path)
+        if path[0] not in STACKED:
+            return StoredLeaf(t, spec, mesh, sink(acc), anchor)
+        return [StoredLeaf(t[i], spec[1:], mesh,
+                           sink(None if acc is None else acc[i]), anchor)
+                for i in range(t.shape[0])]
+    return _unflatten(params, [leaf(path, t)
+                               for path, t in tree_leaves(params)])
+
+
+def _rows(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The rank's rows of a :func:`shard_batch` batch on its device, each
+    leaf sharded beyond its rows gathered."""
+    return {k: v.full() if isinstance(v, StoredLeaf)
+            else torch.as_tensor(v, device=mesh.device)
+            for k, v in batch.items()}
+
+
+def shard_batch(cfg: ModelConfig, batch: Dict[str, Any], mesh: Mesh):
+    """The rank's shard of a global batch (numpy arrays or tensors) laid
+    out by :func:`batch_specs`, cut on the host: its rows, and, for a leaf
+    also sharded along another dimension (whisper's frames over "model"
+    along time), a :class:`StoredLeaf` the step gathers.  A batch whose
+    rows do not divide by the dp extent raises."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    if cfg.frontend == "audio_frames":
+        T = batch["frames"].shape[1]
+    else:
+        T = tokens.shape[1] + (batch["vision_embeds"].shape[1]
+                               if "vision_embeds" in batch else 0)
+    _meta, specs = batch_specs(
+        cfg, types.SimpleNamespace(global_batch=B, seq_len=T), mesh,
+        with_labels="labels" in batch)
+    dp_size, _i = mesh.index(dp_axes(mesh))
+    if dp_size > 1 and specs["tokens"][0] is None:
+        raise ValueError(f"a batch of {B} rows does not divide by the "
+                         f"{dp_size} data-parallel ranks")
+    out: Dict[str, Any] = {}
+    for k, v in batch.items():
+        spec = specs[k]
+        shard = mesh.cut(v, spec)
+        rest = (None,) + tuple(spec[1:])
+        out[k] = StoredLeaf(shard, rest, mesh) \
+            if any(e is not None for e in rest) else shard
+    return out
+
+
+def shard_state(cfg: ModelConfig, params: Tree, mesh: Mesh):
+    """(the rank's parameter shards, fresh AdamW state on its moment
+    shards) from full parameters (on any device): the parameters cut by
+    :func:`param_and_opt_specs`' parameter specs, the float32 zero
+    moments made at their ZeRO-1 shard shapes on the mesh's device."""
+    p_specs, o_specs = param_and_opt_specs(cfg, mesh)
+    shapes = _shard_shapes(cfg, o_specs["m"], mesh)
+
+    def zeros():
+        return _unflatten(o_specs["m"], [
+            torch.zeros(shapes[path], dtype=torch.float32,
+                        device=mesh.device)
+            for path, _spec in tree_leaves(o_specs["m"])])
+    return shard_tree(params, p_specs, mesh), {
+        "m": zeros(), "v": zeros(), "count": adamw_init({})["count"]}
+
+
+def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int,
+                        mesh: Mesh):
+    mod = model_module(cfg)
+    p_specs, o_specs = param_and_opt_specs(cfg, mesh)
+    dp = mesh.dp
+
+    def microbatches(batch):
+        rows = _rows(batch, mesh)
+        if accum == 1:
+            return [rows]
+        b = rows["tokens"].shape[0]
+        B = b * dp.size
+        if B % accum or (B // accum) % dp.size:
+            raise ValueError(f"a global batch of {B} rows does not split "
+                             f"into {accum} microbatches of a multiple of "
+                             f"{dp.size} rows")
+        mb, share = B // accum, B // accum // dp.size
+        every = {k: dp.gather(v).reshape(B, *v.shape[1:])
+                 for k, v in rows.items()}
+        lo = dp.index * share
+        return [{k: v[i * mb + lo:i * mb + lo + share]
+                 for k, v in every.items()} for i in range(accum)]
+
+    def train_step(params, opt_state, batch):
+        _check_shards(cfg, params, p_specs, mesh)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        anchor = torch.zeros((), device=mesh.device, requires_grad=True)
+        store = _store(params, p_specs, mesh, grads, anchor, accum)
+        loss, metrics_all = None, []
+        for part in microbatches(batch):
+            l_i, m_i = mod.loss_fn(cfg, store, part, comm=dp)
+            torch.autograd.backward(l_i)
+            m_i = {k: v.detach() for k, v in m_i.items()}
+            g_loss = m_i.pop("loss")
+            loss = g_loss if accum == 1 else (
+                g_loss / accum if loss is None else loss + g_loss / accum)
+            metrics_all.append(m_i)
+        del store, anchor
+        metrics = metrics_all[0] if accum == 1 else {
+            k: torch.stack([m[k] for m in metrics_all]).mean()
+            for k in metrics_all[0]}
+        params, opt_state, gnorm = adamw_update(
+            opt_cfg, grads, opt_state, params, mesh=mesh,
+            specs=(p_specs, o_specs))
+        return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+    return train_step
+
+
+def _sharded_prefill_step(cfg: ModelConfig, mesh: Mesh):
+    p_specs, _o = param_and_opt_specs(cfg, mesh)
+    dp = mesh.dp
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        _check_shards(cfg, params, p_specs, mesh)
+        store = _store(params, p_specs, mesh)
+        rows = _rows(batch, mesh)
+        if cfg.encdec:
+            memory = whisper.encode(cfg, store, rows["frames"])
+            last = whisper.decode_train(cfg, store, rows["tokens"],
+                                        memory)[:, -1]
+        else:
+            x, _aux = lm.forward_hidden(cfg, store, rows, comm=dp)
+            last = (x[:, -1] @ lm._unembed(cfg, store)).float()
+        every = dp.gather(last)
+        return every.reshape(every.shape[0] * every.shape[1],
+                             *every.shape[2:])
 
     return prefill_step
 

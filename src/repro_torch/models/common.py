@@ -109,12 +109,24 @@ def init_tree(defs: Tree, generator: torch.Generator, dtype,
     return out
 
 
+def gathered(tree):
+    """``tree`` (a tensor or a dict of them) with every stored shard
+    replaced by its full tensor: under a mesh the train and prefill steps
+    (``launch/steps.py``) hand the models the rank's shards as objects
+    whose ``full()`` gathers them, and the models call this where a
+    parameter is used, so a layer's full parameters live only while the
+    layer runs.  Tensors pass as they are."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    return tree if isinstance(tree, torch.Tensor) else tree.full()
+
+
 def embed_tokens(cfg, params: Tree, tokens):
     """Token ids [B, T] -> ``params["embed"]`` rows * sqrt(d_model), in
     the config's dtype, on the embedding's device."""
-    tokens = torch.as_tensor(tokens, device=params["embed"].device)
-    return (params["embed"][tokens.long()]
-            * math.sqrt(cfg.d_model)).to(cfg.dtype)
+    embed = gathered(params["embed"])
+    tokens = torch.as_tensor(tokens, device=embed.device)
+    return (embed[tokens.long()] * math.sqrt(cfg.d_model)).to(cfg.dtype)
 
 
 # ---------------------------------------------------------------------------

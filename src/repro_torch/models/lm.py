@@ -29,7 +29,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import (ParamDef, Tree, apply_mlp, apply_norm, embed_tokens,
-                     init_tree, mlp_defs, norm_defs, spec_tree,
+                     gathered, init_tree, mlp_defs, norm_defs, spec_tree,
                      tree_from_numpy, tree_leaves, tree_map)
 from .config import ModelConfig
 
@@ -118,7 +118,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Tree, device=None) -> Tree:
 
 
 def _unembed(cfg: ModelConfig, params: Tree):
-    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return gathered(params["embed"]).T if cfg.tie_embeddings \
+        else gathered(params["unembed"])
 
 
 def _index(tree: Tree, i: int) -> Tree:
@@ -129,12 +130,12 @@ def _index(tree: Tree, i: int) -> Tree:
 # Layer application
 # ---------------------------------------------------------------------------
 
-def _ffn_residual(cfg: ModelConfig, p: Tree, x):
+def _ffn_residual(cfg: ModelConfig, p: Tree, x, comm=None):
     """A layer's second half, after either kind: the pre-norm MoE or MLP
     residual where the layer has one.  Returns (x, aux_loss or None)."""
     if "moe" in p:
         y, aux = moe_mod.apply_moe(cfg, p["moe"],
-                                   apply_norm(cfg, p["norm2"], x))
+                                   apply_norm(cfg, p["norm2"], x), comm=comm)
         return x + y, aux
     if "mlp" in p:
         return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x)), \
@@ -142,9 +143,12 @@ def _ffn_residual(cfg: ModelConfig, p: Tree, x):
     return x, None
 
 
-def _apply_layer(cfg: ModelConfig, kind: str, j: int, p: Tree, x, positions):
+def _apply_layer(cfg: ModelConfig, kind: str, j: int, p: Tree, x, positions,
+                 comm=None):
     """One layer of a prompt pass (pre-norm residual blocks).  Returns (x,
-    aux_loss or None)."""
+    aux_loss or None).  A layer's stored shards are gathered here, inside
+    any recomputed region, so the recompute gathers them again."""
+    p = gathered(p)
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "A":
         x = x + attn.attention(cfg, p["attn"], h, positions, causal=True,
@@ -152,7 +156,7 @@ def _apply_layer(cfg: ModelConfig, kind: str, j: int, p: Tree, x, positions):
     else:
         y, _state = ssm_mod.mamba_block(cfg, p["ssm"], h)
         x = x + y
-    return _ffn_residual(cfg, p, x)
+    return _ffn_residual(cfg, p, x, comm)
 
 
 def remat_active(cfg) -> bool:
@@ -161,15 +165,17 @@ def remat_active(cfg) -> bool:
     return cfg.remat and torch.is_grad_enabled()
 
 
-def _layer_aux(cfg: ModelConfig, kind: str, j: int, p: Tree, x, positions):
+def _layer_aux(cfg: ModelConfig, kind: str, j: int, p: Tree, x, positions,
+               comm=None):
     """:func:`_apply_layer` with the aux loss as a tensor (0 where the
     layer has none), the form a checkpointed function returns."""
-    x, a = _apply_layer(cfg, kind, j, p, x, positions)
+    x, a = _apply_layer(cfg, kind, j, p, x, positions, comm)
     return x, a if a is not None else torch.zeros(
         (), dtype=torch.float32, device=x.device)
 
 
-def _superblock(cfg: ModelConfig, params_sb: Tree, x, positions):
+def _superblock(cfg: ModelConfig, params_sb: Tree, x, positions,
+                comm=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     # nested per-layer remat: without it the backward of a long superblock
     # (jamba: 8 layers) holds every layer's intermediates at once
@@ -178,9 +184,9 @@ def _superblock(cfg: ModelConfig, params_sb: Tree, x, positions):
         p = params_sb[f"pos{j}"]
         if nested:
             x, a = checkpoint(_layer_aux, cfg, kind, j, p, x, positions,
-                              use_reentrant=False)
+                              comm, use_reentrant=False)
         else:
-            x, a = _apply_layer(cfg, kind, j, p, x, positions)
+            x, a = _apply_layer(cfg, kind, j, p, x, positions, comm)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -209,22 +215,24 @@ def embed_inputs(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor])
 
 
 def forward_hidden(cfg: ModelConfig, params: Tree,
-                   batch: Dict[str, torch.Tensor]):
+                   batch: Dict[str, torch.Tensor], *, comm=None):
     """Forward up to (and incl.) the final norm -> (x [B, T, d], aux);
     each superblock recomputed in the backward pass where
-    :func:`remat_active`."""
+    :func:`remat_active`.  ``comm`` (the data-parallel group of a mesh,
+    ``launch.mesh.DataParallel``) makes the MoE layers route the global
+    batch; ``aux`` is then this rank's share of it."""
     x, positions = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat_active(cfg)
     for i in range(cfg.n_superblocks):
         sb = _index(params["layers"], i)
         if remat:
-            x, a = checkpoint(_superblock, cfg, sb, x, positions,
+            x, a = checkpoint(_superblock, cfg, sb, x, positions, comm,
                               use_reentrant=False)
         else:
-            x, a = _superblock(cfg, sb, x, positions)
+            x, a = _superblock(cfg, sb, x, positions, comm)
         aux = aux + a
-    return apply_norm(cfg, params["final_norm"], x), aux
+    return apply_norm(cfg, gathered(params["final_norm"]), x), aux
 
 
 def forward(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
@@ -274,11 +282,17 @@ def chunked_ce(x_final, unembed, labels, *, chunk: int = 512,
 
 
 def loss_fn(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
-            *, aux_weight: float = 0.01, z_weight: float = 1e-4):
+            *, aux_weight: float = 0.01, z_weight: float = 1e-4, comm=None):
     """Causal LM loss with label masking (labels < 0 are ignored) -> (loss,
     {"ce", "aux", "zloss"}): ``ce + zloss + aux_weight * aux``.  With
-    vision embeddings in front of the text, their positions get label -1."""
-    x, aux = forward_hidden(cfg, params, batch)
+    vision embeddings in front of the text, their positions get label -1.
+
+    With ``comm`` (a mesh's data-parallel group, this rank's rows of the
+    batch) the mean is over the global batch, as the reference's one
+    program takes it: the loss returned is this rank's share, whose
+    gradients summed over the group are the reference's, and the metrics
+    (and ``"loss"``, the global loss) are the global ones."""
+    x, aux = forward_hidden(cfg, params, batch, comm=comm)
     labels = torch.as_tensor(batch["labels"], device=x.device).long()
     if cfg.frontend == "vision_patches" and "vision_embeds" in batch:
         pad = labels.new_full((labels.shape[0],
@@ -286,11 +300,26 @@ def loss_fn(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
         labels = torch.cat([pad, labels], dim=1)
     nll_s, z_s, cnt = chunked_ce(x, _unembed(cfg, params), labels,
                                  z_weight=z_weight)
+    if comm is not None:
+        return _global_loss(nll_s, z_s, cnt, aux, aux_weight, comm)
     denom = torch.clamp(cnt, min=1.0)
     ce = nll_s / denom
     zloss = z_s / denom
     return ce + zloss + aux_weight * aux, {"ce": ce, "aux": aux,
                                            "zloss": zloss}
+
+
+def _global_loss(nll_s, z_s, cnt, aux, aux_weight: float, comm):
+    """A rank's loss and the global metrics from its rows' sums: the
+    count is summed over the data-parallel group first (it carries no
+    gradient), so each rank's ``(nll + z) / count + aux_weight * aux``
+    sums over the group to the global loss."""
+    sums = comm.sum(torch.stack([cnt, nll_s, z_s, aux]).detach())
+    denom = torch.clamp(sums[0], min=1.0)
+    loss = (nll_s + z_s) / denom + aux_weight * aux
+    ce, zloss, aux_g = sums[1] / denom, sums[2] / denom, sums[3]
+    return loss, {"ce": ce, "aux": aux_g, "zloss": zloss,
+                  "loss": ce + zloss + aux_weight * aux_g}
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,15 @@ products [E, C, d] x [E, d, f] (``torch.bmm``: the reference computes
 them as plain einsums, outside any Pallas kernel), and each (token,
 choice) gathers its expert's output back, weighted by its normalized
 gate.  The reference's sharding annotations (``moe_ec_constraint``) are
-not ported: the port runs on one device.
+not ported.
+
+Under a mesh (``comm``, the data-parallel group of ``launch/mesh.py``;
+each rank holds other rows of the batch) the routing is the reference's
+one program over the global batch: the capacity counts the global
+tokens, a choice's slot is its rank within its expert in global token
+order (the counts of the ranks before this one come first), and the aux
+loss takes the global token fractions; each rank runs the experts on its
+own kept choices only, which is exact, since rows are independent.
 """
 
 from __future__ import annotations
@@ -65,13 +73,20 @@ def route(cfg, router, xt):
     return probs, vals / vals.sum(-1, keepdim=True).clamp_min(1e-9), idx
 
 
-def dispatch(cfg, gate_idx):
+def dispatch(cfg, gate_idx, comm=None):
     """Slots of the flattened (token, choice) pairs -> (flat_idx [n * k]
     row of the [E * C + 1] buffer, E * C for a dropped choice; keep
-    [n * k] bool; counts [E] choices per expert; C)."""
+    [n * k] bool; counts [E] choices per expert; C).
+
+    With ``comm`` the capacity is the global batch's and a choice is kept
+    where its global slot (its local one plus the earlier ranks' counts of
+    its expert) is below it; the buffer then holds this rank's kept
+    choices only, ``C`` slots an expert with ``C = min(capacity, n * k)``
+    (at most that many of the rank's choices can be kept), and ``counts``
+    are the global ones."""
     n, k = gate_idx.shape
     E = cfg.moe_experts
-    C = capacity(cfg, n)
+    C = capacity(cfg, n if comm is None else n * comm.size)
     eidx = gate_idx.reshape(-1)
     # an integer scatter-add (torch.bincount would wait for the device to
     # size its output)
@@ -83,22 +98,37 @@ def dispatch(cfg, gate_idx):
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.empty_like(eidx)
     slot[order] = torch.arange(n * k, device=eidx.device) - starts[eidx[order]]
-    keep = slot < C
+    if comm is None:
+        keep = slot < C
+    else:
+        every = comm.gather(counts)                   # [ranks, E]
+        before = every[:comm.index].sum(0)
+        keep = slot + before[eidx] < C
+        counts = every.sum(0)
+        C = min(C, n * k)
     flat_idx = torch.where(keep, eidx * C + slot.clamp_max(C - 1), E * C)
     return flat_idx, keep, counts, C
 
 
-def apply_moe(cfg, p: Tree, x):
-    """x: [B, T, d] -> ([B, T, d], aux load-balance loss, float32 scalar)."""
+def apply_moe(cfg, p: Tree, x, comm=None):
+    """x: [B, T, d] -> ([B, T, d], aux load-balance loss, float32 scalar).
+    With ``comm`` the aux loss is this rank's share of the global one:
+    its tokens' probabilities over the global token count, times the
+    global fractions (which carry no gradient), so the shares sum to it."""
     B, T, d = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     n = B * T
     xt = x.reshape(n, d)
     probs, gate_vals, gate_idx = route(cfg, p["router"], xt)
-    flat_idx, keep, counts, C = dispatch(cfg, gate_idx)
+    flat_idx, keep, counts, C = dispatch(cfg, gate_idx, comm)
 
     # Switch-style aux loss: E * sum_e (token fraction_e * mean prob_e)
-    aux = E * torch.sum(probs.mean(dim=0) * (counts.float() / (n * k)))
+    if comm is None:
+        aux = E * torch.sum(probs.mean(dim=0) * (counts.float() / (n * k)))
+    else:
+        n_all = n * comm.size
+        aux = E * torch.sum(probs.sum(dim=0) / n_all
+                            * (counts.float() / (n_all * k)))
 
     # slot -> token (n: the zero row) for every buffer row; the overflow
     # row E * C takes every dropped choice and is cut off

@@ -23,10 +23,11 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .common import (ParamDef, Tree, apply_mlp, apply_norm, embed_tokens,
-                     init_tree, mlp_defs, norm_defs, sincos_positions,
-                     spec_tree, tree_from_numpy, tree_leaves, tree_map)
+                     gathered, init_tree, mlp_defs, norm_defs,
+                     sincos_positions, spec_tree, tree_from_numpy,
+                     tree_leaves, tree_map)
 from .config import ModelConfig
-from .lm import remat_active
+from .lm import _global_loss, remat_active
 
 
 def _enc_layer_defs(cfg) -> Tree:
@@ -106,12 +107,14 @@ def _layers(cfg: ModelConfig, blk, layers: Tree, n: int, x, *args):
 
 
 def _enc_block(cfg: ModelConfig, p: Tree, x, positions):
+    p = gathered(p)     # a stored shard is gathered inside any recompute
     h = apply_norm(cfg, p["norm1"], x)
     x = x + attn.attention(cfg, p["attn"], h, positions, causal=False)
     return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
 
 
 def _dec_block(cfg: ModelConfig, p: Tree, x, positions, memory):
+    p = gathered(p)
     h = apply_norm(cfg, p["norm1"], x)
     x = x + attn.attention(cfg, p["self_attn"], h, positions, causal=True)
     h = apply_norm(cfg, p["norm2"], x)
@@ -127,7 +130,7 @@ def encode(cfg: ModelConfig, params: Tree, frames) -> torch.Tensor:
     x = frames.to(cfg.dtype) + _sincos(frames.shape[1], cfg, dev)
     x = _layers(cfg, _enc_block, params["enc_layers"], _n_enc(cfg), x,
                 _positions(x))
-    return apply_norm(cfg, params["enc_norm"], x)
+    return apply_norm(cfg, gathered(params["enc_norm"]), x)
 
 
 def decode_train(cfg: ModelConfig, params: Tree, tokens,
@@ -138,8 +141,8 @@ def decode_train(cfg: ModelConfig, params: Tree, tokens,
     x = x + _sincos(x.shape[1], cfg, x.device)
     x = _layers(cfg, _dec_block, params["dec_layers"], cfg.n_layers, x,
                 _positions(x), memory)
-    x = apply_norm(cfg, params["final_norm"], x)
-    return (x @ params["embed"].T).float()
+    x = apply_norm(cfg, gathered(params["final_norm"]), x)
+    return (x @ gathered(params["embed"]).T).float()
 
 
 def forward(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
@@ -150,16 +153,22 @@ def forward(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
 
 
 def loss_fn(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
-            **_):
+            *, comm=None, **_):
     """Masked cross-entropy over valid (label >= 0) positions -> (ce,
     {"ce", "aux", "zloss"}), on the full teacher-forced logits (T_dec is
-    short), as the reference."""
+    short), as the reference.  With ``comm`` (a mesh's data-parallel
+    group) the mean is over the global batch, as ``lm.loss_fn`` takes
+    it."""
     logits, aux = forward(cfg, params, batch)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if comm is not None:
+        zero = torch.zeros_like(aux)
+        return _global_loss(((logz - gold) * mask).sum(), zero, mask.sum(),
+                            aux, 0.0, comm)
     ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce, {"ce": ce, "aux": aux, "zloss": torch.zeros_like(ce)}
 

@@ -3,9 +3,17 @@
 
 The moments are float32 trees shaped like the parameters; ``count`` is a
 0-d int32 tensor on the host, so the schedule and the bias corrections
-are formed there without waiting for the device.  The reference's ZeRO-1
-note (moments sharded over the data axis) has no counterpart yet: the
-port trains on one device.
+are formed there without waiting for the device.
+
+Under a mesh (``mesh=`` and ``specs=``, ``launch/steps.py``) every tree
+holds the rank's shards: the parameters and gradients laid out by the
+parameter specs, the moments by the ZeRO-1 specs, which need not refine
+the parameters' (``fix_spec_for_shape`` may move the tensor axis to
+another dimension).  :func:`global_norm` counts a shard replicated over
+ranks once and sums over the mesh; the update runs where the moment's
+shard lives: the parameter and gradient are brought to the moment's
+layout over the dimensions where the two layouts differ, updated, and
+the parameter is written back into its own layout.
 
 :func:`adamw_update` updates the parameters and moments in place under
 ``torch.no_grad()`` (the reference donates them, ``donate_argnums``), a
@@ -76,29 +84,69 @@ def _slices(t: torch.Tensor):
     return [t]
 
 
-def global_norm(grads: Tree) -> torch.Tensor:
+def global_norm(grads: Tree, mesh=None, specs: Tree = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 squares, summed leaf by
-    leaf in flatten order (a 0-d float32 tensor on the leaves' device)."""
+    leaf in flatten order (a 0-d float32 tensor on the leaves' device).
+    Under a mesh ``grads`` are the rank's shards laid out by ``specs``: a
+    shard that ranks along some axes replicate is counted by the rank at
+    coordinate 0 along them only, and the sum is taken over the mesh."""
     total = None
-    for _path, g in tree_leaves(grads):
+    flat_specs = dict(tree_leaves(specs)) if mesh is not None else {}
+    for path, g in tree_leaves(grads):
+        if mesh is not None and not _counts_here(mesh, flat_specs[path]):
+            continue
         s = sum(torch.sum(torch.square(x.float())) for x in _slices(g))
         total = s if total is None else total + s
+    if mesh is not None:
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=mesh.device)
+        total = mesh.all_reduce(total)
     return torch.sqrt(total)
+
+
+def _counts_here(mesh, spec) -> bool:
+    """True where this rank is at coordinate 0 of every axis that does not
+    shard a leaf laid out by ``spec``."""
+    used = set()
+    for entry in spec:
+        if entry is not None:
+            used.update(entry if isinstance(entry, tuple) else (entry,))
+    c = mesh.coords
+    return all(c[a] == 0 for a in mesh.axis_names if a not in used)
+
+
+def _relayout(mesh, t: torch.Tensor, src, dst, dims) -> torch.Tensor:
+    """``t``, laid out by ``src`` on the dimensions ``dims``, laid out by
+    ``dst`` there instead: gathered over ``src``'s axes on those
+    dimensions, then cut by ``dst``'s."""
+    keep = [None] * t.dim()
+    for d in dims:
+        keep[d] = src[d]
+    t = mesh.gather(t, tuple(keep))
+    keep = [None] * t.dim()
+    for d in dims:
+        keep[d] = dst[d]
+    return mesh.cut(t, tuple(keep))
+
+
+def _runs(t: torch.Tensor, rows: int):
+    return list(torch.split(t, rows)) if rows else [t]
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Tree, opt_state: Dict[str, Any],
-                 params: Tree):
+                 params: Tree, *, mesh=None, specs=None):
     """One AdamW step.  Returns ``(params, opt_state, grad_norm)``; the
-    parameter and moment tensors are updated in place and returned."""
-    count = opt_state["count"] + 1
+    parameter and moment tensors are updated in place and returned.
+    Under a mesh (``mesh`` bound to ranks, ``specs`` the (parameter,
+    moment) spec trees of ``launch.steps.param_and_opt_specs``) the trees
+    hold the rank's shards."""
+    if mesh is not None and mesh.comm is not None:
+        return _sharded_update(cfg, grads, opt_state, params, mesh, specs)
+    count, lr, b1c, b2c = _schedule(cfg, opt_state)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    lr = cosine_lr(cfg, opt_state["count"])
-    c32 = _f32(float(count))
-    b1c = float(1 - _f32(cfg.b1) ** c32)
-    b2c = float(1 - _f32(cfg.b2) ** c32)
 
     flat_g = dict(tree_leaves(grads))
     flat_m = dict(tree_leaves(opt_state["m"]))
@@ -107,12 +155,59 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, opt_state: Dict[str, Any],
         for ps, gs, ms, vs in zip(_slices(p), _slices(flat_g[path]),
                                   _slices(flat_m[path]),
                                   _slices(flat_v[path])):
-            g32 = gs.float() * scale
-            ms.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
-            vs.mul_(cfg.b2).add_((1 - cfg.b2) * g32 * g32)
-            del g32
-            p32 = ps.float()
-            step = (ms / b1c) / (torch.sqrt(vs / b2c) + cfg.eps) \
-                + cfg.weight_decay * p32
-            ps.copy_(p32 - lr * step)
+            ps.copy_(_step(cfg, ps, gs, ms, vs, scale, lr, b1c, b2c))
+    return params, dict(opt_state, count=count), gnorm
+
+
+def _step(cfg: AdamWConfig, p, g, m, v, scale, lr: float, b1c: float,
+          b2c: float) -> torch.Tensor:
+    """One run's update: the moments ``m`` / ``v`` in place, and the new
+    parameter values in float32."""
+    g32 = g.float() * scale
+    m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+    v.mul_(cfg.b2).add_((1 - cfg.b2) * g32 * g32)
+    del g32
+    p32 = p.float()
+    step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+        + cfg.weight_decay * p32
+    return p32 - lr * step
+
+
+def _schedule(cfg: AdamWConfig, opt_state):
+    count = opt_state["count"] + 1
+    lr = cosine_lr(cfg, opt_state["count"])
+    c32 = _f32(float(count))
+    return (count, lr, float(1 - _f32(cfg.b1) ** c32),
+            float(1 - _f32(cfg.b2) ** c32))
+
+
+def _sharded_update(cfg, grads, opt_state, params, mesh, specs):
+    """:func:`adamw_update` on the rank's shards (see the module
+    docstring); one leaf at a time, a large one in runs of its leading
+    axis where that axis is whole in both layouts."""
+    p_specs, o_specs = specs
+    count, lr, b1c, b2c = _schedule(cfg, opt_state)
+    gnorm = global_norm(grads, mesh, p_specs)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    flat_g = dict(tree_leaves(grads))
+    flat_m = dict(tree_leaves(opt_state["m"]))
+    flat_v = dict(tree_leaves(opt_state["v"]))
+    flat_ps = dict(tree_leaves(p_specs))
+    flat_os = dict(tree_leaves(o_specs["m"]))
+    for path, p in tree_leaves(params):
+        ps = tuple(flat_ps[path]) + (None,) * (p.dim() - len(flat_ps[path]))
+        os_ = tuple(flat_os[path]) + (None,) * (p.dim() - len(flat_os[path]))
+        dims = [d for d in range(p.dim()) if ps[d] != os_[d]]
+        rows = 0
+        if p.dim() >= 2 and p.numel() > SLICE_ELEMENTS and 0 not in dims \
+                and ps[0] is None:
+            rows = max(1, SLICE_ELEMENTS // (p.numel() // p.shape[0]))
+        for pr, gr, mr, vr in zip(_runs(p, rows), _runs(flat_g[path], rows),
+                                  _runs(flat_m[path], rows),
+                                  _runs(flat_v[path], rows)):
+            pm = _relayout(mesh, pr, ps, os_, dims) if dims else pr
+            gm = _relayout(mesh, gr, ps, os_, dims) if dims else gr
+            new = _step(cfg, pm, gm, mr, vr, scale, lr, b1c, b2c).to(p.dtype)
+            pr.copy_(_relayout(mesh, new, os_, ps, dims) if dims else new)
     return params, dict(opt_state, count=count), gnorm

@@ -55,7 +55,8 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.optim.adamw, repro_torch.optim.compress, "
         "repro_torch.data, repro_torch.data.pipeline, "
         "repro_torch.launch.mesh, repro_torch.launch.train, "
-        "repro_torch.launch.dryrun\n"
+        "repro_torch.launch.dryrun, repro_torch.core.comm, "
+        "repro_torch.ckpt.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -193,6 +194,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         make_pipeline(DataConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         mesh.make_mesh((1,), ("data",))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train("qwen3_14b", steps=1, mesh_spec="data=2,model=2",
+                    dist="gloo")
     # the --dist paths (a torchrun rank): DistributedComm.from_env takes
     # the CUDA device too, before any process group starts
     for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",

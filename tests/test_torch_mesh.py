@@ -6,6 +6,8 @@ every arch's full config on the production meshes (data=16, model=16) and
 tuples (a ``PartitionSpec`` is one).  The port's ``ModelConfig`` carries
 no sharding fields, so the reference config's ``fsdp`` is passed."""
 
+import types
+
 import pytest
 import torch
 
@@ -72,9 +74,23 @@ def test_fix_spec_moves_or_drops_axes():
 
 
 def test_make_mesh_takes_one_device():
+    """One device binds as it is; a larger mesh binds only to a comm of as
+    many ranks (``core.comm.DistributedComm``), rank r at the row-major
+    coordinate of r, and raises ``ValueError`` without one or where the
+    sizes disagree."""
     m = mesh.make_mesh((1,), ("data",), device="cpu")
     assert m.shape == {"data": 1} and m.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A.15"):
+    with pytest.raises(ValueError, match="DistributedComm"):
         mesh.make_mesh((2, 2), ("data", "model"), device="cpu")
+    made = []
+    fake = types.SimpleNamespace(rank=3, P=4, device=torch.device("cpu"),
+                                 group=lambda part: made.append(part))
+    with pytest.raises(ValueError, match="a comm of 4 ranks"):
+        mesh.make_mesh((2, 2, 2), ("pod", "data", "model"), comm=fake)
+    bound = mesh.make_mesh((2, 2), ("data", "model"), comm=fake)
+    assert bound.comm is fake and bound.device == torch.device("cpu")
+    assert bound.coords == {"data": 1, "model": 1}
+    assert made == [[[0, 2], [1, 3]], [[0, 1], [2, 3]],
+                    [[0, 1, 2, 3]]]      # data, model, both: made at once
     with pytest.raises(ValueError, match="axis names"):
         mesh.Mesh(("data",), (1, 2))
