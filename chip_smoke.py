@@ -228,6 +228,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -5662,10 +5663,18 @@ def phase_distributed_serving(report: dict, smi: str) -> None:
 
 
 # phase 38: the LM train and prefill steps on a mesh of ranks (ROADMAP
-# A.15c).  Spawned ranks on the one card over gloo, host-staged (as phases
-# 36-37), each holding its shard of the parameters, the AdamW moments and
-# the batch as the reference's resolved specs lay them out
-# (launch/steps.py with mesh=).  Cell "qwen": qwen3-14b at full width,
+# A.15c-d).  Spawned ranks on the one card over gloo, host-staged (as
+# phases 36-37), each holding its shard of the parameters, the AdamW
+# moments and the batch as the reference's resolved specs lay them out
+# (launch/steps.py with mesh=), and computing on "model" as the
+# reference's sharded program does: its heads, MLP columns and vocabulary
+# slice, the residual stream its half of the sequence.  Every rank
+# records the shapes B9, B10 and their backward kernels were launched at
+# (B9 on H / model | KV / model heads, B10 on H / model SSD heads, checked
+# on every rank), and rank 0 holds the first launch of each on its real
+# inputs against the plain version (B9: phase 24's rule on sampled rows;
+# its backward: phase 31's; B10: rtol / atol 1e-4, phase 26's; its
+# backward: 1e-4 max(1, max |want|), phase 33's).  Cell "qwen": qwen3-14b at full width,
 # depth cut from 40 to D38_QWEN_LAYERS layers (as phase 24's 2-layer
 # cells), fsdp on, random bf16 parameters from a seed, on a (data=2,
 # model=2) mesh of 4 ranks: train_4k at a global batch of D38_QWEN_B
@@ -5836,9 +5845,199 @@ def d38_compare(shards: dict, specs: dict, full_shapes: dict, mesh,
     return {"worst": worst, "covered": covered}
 
 
+def d38_shapes(cfg, cell: dict) -> dict:
+    """The shapes each rank launches the cell's kernels at, as
+    ``d38_recorded`` notes them: B9 on the rank's H / model | KV / model
+    heads of the whole sequence, B10 on its H / model SSD heads."""
+    (sizes, axes) = cell["mesh"]
+    m = dict(zip(axes, sizes))["model"]
+    rows = cell["batch"] // (math.prod(sizes) // m) // cell["accum"]
+    if cfg.ssm_state:
+        x = (rows, D38_T, cfg.ssm_heads // m, cfg.ssm_head_dim)
+        return {"ssd_chunk": [(x,)], "ssd_chunk_bwd": [(x,)]}
+    q = (rows, D38_T, cfg.n_heads // m, cfg.head_dim)
+    kv = (rows, D38_T, cfg.n_kv_heads // m, cfg.head_dim)
+    return {"flash_attention": [(q, kv)], "flash_attention_bwd": [(q,)]}
+
+
+def d38_recorded(seen: dict, first: dict):
+    """A context in which each kernel wrapper of D38_KERNELS notes the
+    shapes of every launch's leading tensors in ``seen[kernel]`` and keeps
+    its first launch's arguments in ``first[kernel]``."""
+    from repro_torch.kernels import flash_attention as fa, ssd_chunk as sc
+    wrappers = {"flash_attention": (fa, "flash_attention_cuda", 2),
+                "flash_attention_bwd": (fa, "flash_attention_bwd_cuda", 1),
+                "ssd_chunk": (sc, "ssd_chunk_cuda", 1),
+                "ssd_chunk_bwd": (sc, "ssd_chunk_bwd_cuda", 1)}
+    stack = contextlib.ExitStack()
+    for name, (mod, attr, n) in wrappers.items():
+        real = getattr(mod, attr)
+
+        def kept(*a, _real=real, _name=name, _n=n, **kw):
+            shapes = tuple(tuple(t.shape) for t in a[:_n])
+            seen.setdefault(_name, [])
+            if shapes not in seen[_name]:
+                seen[_name].append(shapes)
+            first.setdefault(_name, (a, kw))
+            return _real(*a, **kw)
+        stack.enter_context(mock.patch.object(mod, attr, kept))
+    return stack
+
+
+def d38_drop_heads(t, dim: int, h0: int):
+    """``t`` with its heads from ``h0`` on (along ``dim``) set to zero: the
+    output of a kernel that skipped them."""
+    t = t.clone()
+    t.narrow(dim, h0, t.shape[dim] - h0).zero_()
+    return t
+
+
+def d38_kernel_checks(first: dict) -> dict:
+    """Rank 0's kernels of the path on their first launch's real inputs
+    against the plain versions: {kernel: {"ratio": worst share of the
+    rule, "err": max abs err, "ms", "plain_ms", "bound_ms", "bound_by",
+    "zeroed" / "dropped": the least share of the rule over the outputs
+    read by zeros in place of the kernel's outputs / by the plain outputs
+    with the last head group dropped (B10's ragged group of
+    ``BWD_HEADS``-head groups, B9's last K / V head and its query heads),
+    "top": max |want| of each output}}.  Each rule is scaled to its
+    output's own size, so ``zeroed`` and ``dropped`` must read above 1."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as fa, ssd_chunk as sc
+
+    def flash_bound(q, k, ops, *ts):
+        peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 \
+            else PEAK_FP32_FLOPS
+        return bound(nbytes(*ts), ops * flash_ops(
+            q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3],
+            True), peak)
+
+    def b10_shape(x, Bm, L):
+        return (*x.shape, Bm.shape[-1], L)
+
+    def entry(rule, got, want, dropped, times, bnd):
+        """The figures of outputs ``got`` against ``want`` under ``rule``
+        (got, want) -> worst share, with the mutated outputs ``dropped``."""
+        return {"ratio": max(rule(g, w) for g, w in zip(got, want)),
+                "err": max(float((g.float() - w.float()).abs().max())
+                           for g, w in zip(got, want)),
+                "zeroed": min(rule(torch.zeros_like(g), w)
+                              for g, w in zip(got, want)),
+                "dropped": min(rule(d.to(g.dtype), w)
+                               for d, g, w in zip(dropped, got, want)),
+                "top": [float(w.abs().max()) for w in want],
+                "ms": times[0], "plain_ms": times[1],
+                "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+    def b10_rule(g, w):
+        return float(((g - w).abs() / (1e-4 + 1e-4 * w.abs())).max())
+
+    def b10_bwd_rule(g, w):
+        return float((g - w).abs().max()) \
+            / (1e-4 * max(float(w.abs().max()), 1e-30))
+
+    out = {}
+    with torch.no_grad():
+        if "flash_attention" in first:
+            (q, k, v), _kw = first["flash_attention"]
+            o, _err, _ratio = b9_sampled_rows(q, k, v)
+            T, G = q.shape[1], q.shape[2] // k.shape[2]
+            rows = [slice(r0, r0 + QWEN_SAMPLE)
+                    for r0 in (0, (T - QWEN_SAMPLE) // 2, T - QWEN_SAMPLE)]
+            want = [ref_attention(q[:, r], k[:, :r.stop], v[:, :r.stop],
+                                  True) for r in rows]
+            got = [o[:, r] for r in rows]
+            out["flash_attention"] = entry(
+                lambda g, w: out_err(g, w)[1], got, want,
+                [d38_drop_heads(w, 2, q.shape[2] - G) for w in want],
+                (cuda_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                         causal=True)),
+                 cuda_ms(lambda: b9_sampled_rows(q, k, v), reps=1,
+                         warmup=0)),
+                flash_bound(q, k, 1.0, q, k, v, o))
+            del o, got, want
+        if "flash_attention_bwd" in first:
+            args, kw = first["flash_attention_bwd"]
+            got = fa.flash_attention_bwd_cuda(*args, **kw)
+            want = ref.flash_attention_bwd(*args, **kw)
+            H, KV = args[0].shape[2], args[1].shape[2]
+            out["flash_attention_bwd"] = entry(
+                flash_bwd_ratio, got, want,
+                [d38_drop_heads(w, 2, n - (H // KV if n == H else 1))
+                 for w, n in zip(want, (H, KV, KV))],
+                (cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args, **kw)),
+                 cuda_ms(lambda: ref.flash_attention_bwd(*args, **kw),
+                         reps=1, warmup=0)),
+                # 10 hd a visible pair: 2.5 times the forward's 4 hd
+                flash_bound(args[0], args[1], 2.5, *args, *got))
+            del got, want
+        if "ssd_chunk" in first:
+            (x, dt, A, Bm, Cm), kw = first["ssd_chunk"]
+            L = kw["chunk"]
+            h0 = sc.BWD_HEADS * ((x.shape[2] - 1) // sc.BWD_HEADS)
+            got = sc.ssd_chunk_cuda(x, dt, A, Bm, Cm, chunk=L)
+            want = plain_ssd_pieces(x, dt, A, Bm, Cm, L)
+            out["ssd_chunk"] = entry(
+                b10_rule, got, want,
+                [d38_drop_heads(w, 2, h0) for w in want],
+                (cuda_ms(lambda: sc.ssd_chunk_cuda(x, dt, A, Bm, Cm,
+                                                   chunk=L)),
+                 cuda_ms(lambda: plain_ssd_pieces(x, dt, A, Bm, Cm, L),
+                         reps=1, warmup=0)),
+                bound(nbytes(x, dt, A, Bm, Cm, *got),
+                      b10_ops(*b10_shape(x, Bm, L))))
+            del got, want
+        if "ssd_chunk_bwd" in first:
+            args, kw = first["ssd_chunk_bwd"]
+            x = args[0]
+            h0 = sc.BWD_HEADS * ((x.shape[2] - 1) // sc.BWD_HEADS)
+            got = sc.ssd_chunk_bwd_cuda(*args, **kw)
+            want = ref.ssd_intra_chunk_bwd(*args, **kw)
+            # the plain gradient of the first h0 heads only: dB / dC lack
+            # the last group's terms, dx / ddt / dA its heads
+            part = ref.ssd_intra_chunk_bwd(*[
+                a if a is None or i in (3, 4)
+                else a.narrow(0 if a.dim() == 1 else 2, 0, h0)
+                for i, a in enumerate(args)], **kw)
+            dropped = [torch.zeros_like(w) for w in want]
+            for d, p, dim in zip(dropped, part, (2, 2, 0, None, None)):
+                (d if dim is None else d.narrow(dim, 0, h0)).copy_(p)
+            out["ssd_chunk_bwd"] = entry(
+                b10_bwd_rule, got, want, dropped,
+                (cuda_ms(lambda: sc.ssd_chunk_bwd_cuda(*args, **kw)),
+                 cuda_ms(lambda: ref.ssd_intra_chunk_bwd(*args, **kw),
+                         reps=1, warmup=0)),
+                bound(nbytes(*(t for t in args if t is not None), *got),
+                      b10_bwd_ops(*b10_shape(args[0], args[3],
+                                             kw["chunk"]))))
+            del got, want, part, dropped
+    return out
+
+
 def d38_rank(rank: int, cfg: dict) -> None:
     """One rank of phase 38 cell ``cfg["cell"]``: its figures go to
     ``cfg["out"]/d38_<cell>_rank<r>.pt``."""
+    comm = rank_comm(rank, cfg)
+    dev = comm.device
+    cell = D38_CELLS[cfg["cell"]]
+    st: dict = {"transport": comm.transport, "device": str(dev),
+                "shapes": {}}
+    first: dict = {}
+    try:
+        with d38_recorded(st["shapes"], first):
+            d38_rank_steps(rank, cfg, comm, cell, st)
+        if rank == 0:
+            torch.cuda.empty_cache()
+            st["kernel_checks"] = d38_kernel_checks(first)
+        del first
+        torch.save(st, Path(cfg["out"]) / f"d38_{cfg['cell']}_rank{rank}.pt")
+    finally:
+        comm.close()
+
+
+def d38_rank_steps(rank: int, cfg: dict, comm, cell: dict, st: dict) -> None:
+    """Rank ``rank``'s steps of phase 38 cell ``cell``; its figures go to
+    ``st``."""
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun, steps
     from repro_torch.launch.mesh import make_mesh
@@ -5846,93 +6045,89 @@ def d38_rank(rank: int, cfg: dict) -> None:
     from repro_torch.models.common import tree_leaves
     from repro_torch.optim import AdamWConfig, cosine_lr
 
-    comm = rank_comm(rank, cfg)
     dev = comm.device
-    cell = D38_CELLS[cfg["cell"]]
-    st: dict = {"transport": comm.transport, "device": str(dev)}
-    try:
-        mcfg = d38_config(cell)
-        mesh = make_mesh(*cell["mesh"], comm=comm)
-        single = torch.load(cfg["single"], weights_only=False)
-        full = lm.init_params(mcfg, seed=0, device=dev)
-        shapes = {p: tuple(t.shape) for p, t in tree_leaves(full)}
-        params, opt = steps.shard_state(mcfg, full, mesh)
-        del full
+    mcfg = d38_config(cell)
+    mesh = make_mesh(*cell["mesh"], comm=comm)
+    single = torch.load(cfg["single"], weights_only=False)
+    full = lm.init_params(mcfg, seed=0, device=dev)
+    shapes = {p: tuple(t.shape) for p, t in tree_leaves(full)}
+    params, opt = steps.shard_state(mcfg, full, mesh)
+    del full
+    torch.cuda.empty_cache()
+    init_host = None
+    if cell["prefill"]:
+        init_host = {p: t.cpu() for p, t in tree_leaves(params)}
+    st["bytes"] = d38_state_bytes(params, opt)
+    want = dryrun.argument_bytes(mcfg, d38_shape(cell), mesh)
+    st["dry_run"] = (want["params"], want["opt"])
+    step = steps.build_train_step(mcfg, AdamWConfig(),
+                                  accum=cell["accum"], mesh=mesh)
+
+    def batch(s):
+        return {k: torch.as_tensor(v, device=dev) for k, v in
+                steps.shard_batch(mcfg, d38_batch(mcfg, cell, s),
+                                  mesh).items()}
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = dict(comm.bytes)
+        calls, secs = dict(comm.calls), comm.seconds
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, {"ms": (time.perf_counter() - t0) * 1e3,
+                     "peak": torch.cuda.max_memory_allocated(dev),
+                     "launches": ops.launch_counts(),
+                     "gathered": comm.bytes["gathered"]
+                     - before["gathered"],
+                     "reduced": comm.bytes["reduced"] - before["reduced"],
+                     "calls": {k: comm.calls[k] - calls[k] for k in calls},
+                     "comm_ms": (comm.seconds - secs) * 1e3}
+
+    b0 = batch(0)
+    (params, opt, met), st["warmup"] = timed(
+        lambda: step(params, opt, b0))
+    del b0
+    st["metrics"] = {k: float(v) for k, v in met.items()}
+    p_specs, o_specs = steps.param_and_opt_specs(mcfg, mesh)
+    st["check"] = d38_compare(
+        {"p": dict(tree_leaves(params)), "m": dict(tree_leaves(opt["m"])),
+         "v": dict(tree_leaves(opt["v"]))},
+        {"p": dict(tree_leaves(p_specs)),
+         "m": dict(tree_leaves(o_specs["m"])),
+         "v": dict(tree_leaves(o_specs["v"]))},
+        shapes, mesh, single["samples"],
+        single["metrics"]["grad_norm"], cosine_lr(AdamWConfig(), 0))
+    st["steps"] = []
+    for s in range(1, 1 + D38_TIMED):
+        bs = batch(s)
+        (params, opt, met), fig = timed(lambda: step(params, opt, bs))
+        fig["loss"] = float(met["loss"])
+        fig["grad_norm"] = float(met["grad_norm"])
+        st["steps"].append(fig)
+        del bs
+    st["shard_shapes"] = {"/".join(p): tuple(t.shape)
+                          for p, t in tree_leaves(params)}
+    if cell["prefill"]:
+        del opt, params
         torch.cuda.empty_cache()
-        init_host = None
-        if cell["prefill"]:
-            init_host = {p: t.cpu() for p, t in tree_leaves(params)}
-        st["bytes"] = d38_state_bytes(params, opt)
-        want = dryrun.argument_bytes(mcfg, d38_shape(cell), mesh)
-        st["dry_run"] = (want["params"], want["opt"])
-        step = steps.build_train_step(mcfg, AdamWConfig(),
-                                      accum=cell["accum"], mesh=mesh)
-
-        def batch(s):
-            return {k: torch.as_tensor(v, device=dev) for k, v in
-                    steps.shard_batch(mcfg, d38_batch(mcfg, cell, s),
-                                      mesh).items()}
-
-        def timed(fn):
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            before = dict(comm.bytes)
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize(dev)
-            return out, {"ms": (time.perf_counter() - t0) * 1e3,
-                         "peak": torch.cuda.max_memory_allocated(dev),
-                         "launches": ops.launch_counts(),
-                         "gathered": comm.bytes["gathered"]
-                         - before["gathered"],
-                         "reduced": comm.bytes["reduced"] - before["reduced"]}
-
-        b0 = batch(0)
-        (params, opt, met), st["warmup"] = timed(
-            lambda: step(params, opt, b0))
-        del b0
-        st["metrics"] = {k: float(v) for k, v in met.items()}
-        p_specs, o_specs = steps.param_and_opt_specs(mcfg, mesh)
-        st["check"] = d38_compare(
-            {"p": dict(tree_leaves(params)), "m": dict(tree_leaves(opt["m"])),
-             "v": dict(tree_leaves(opt["v"]))},
-            {"p": dict(tree_leaves(p_specs)),
-             "m": dict(tree_leaves(o_specs["m"])),
-             "v": dict(tree_leaves(o_specs["v"]))},
-            shapes, mesh, single["samples"],
-            single["metrics"]["grad_norm"], cosine_lr(AdamWConfig(), 0))
-        st["steps"] = []
-        for s in range(1, 1 + D38_TIMED):
-            bs = batch(s)
-            (params, opt, met), fig = timed(lambda: step(params, opt, bs))
-            fig["loss"] = float(met["loss"])
-            fig["grad_norm"] = float(met["grad_norm"])
-            st["steps"].append(fig)
-            del bs
-        st["shard_shapes"] = {"/".join(p): tuple(t.shape)
-                              for p, t in tree_leaves(params)}
-        if cell["prefill"]:
-            del opt, params
-            torch.cuda.empty_cache()
-            init = {}
-            for path, t in init_host.items():
-                node = init
-                for key in path[:-1]:
-                    node = node.setdefault(key, {})
-                node[path[-1]] = t.to(dev)
-            pb = {k: torch.as_tensor(v, device=dev) for k, v in
-                  steps.shard_batch(mcfg, d38_batch(mcfg, cell, 0, True),
-                                    mesh).items()}
-            logits, st["prefill"] = timed(
-                lambda: steps.build_prefill_step(mcfg, mesh=mesh)(init, pb))
-            ref = single["logits"].to(dev)
-            st["prefill"]["err"] = float((logits - ref).abs().max())
-            st["prefill"]["limit"] = 2e-2 * max(1.0, float(ref.abs().max()))
-            st["prefill"]["shape"] = tuple(logits.shape)
-        torch.save(st, Path(cfg["out"]) / f"d38_{cfg['cell']}_rank{rank}.pt")
-    finally:
-        comm.close()
+        init = {}
+        for path, t in init_host.items():
+            node = init
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = t.to(dev)
+        pb = {k: torch.as_tensor(v, device=dev) for k, v in
+              steps.shard_batch(mcfg, d38_batch(mcfg, cell, 0, True),
+                                mesh).items()}
+        logits, st["prefill"] = timed(
+            lambda: steps.build_prefill_step(mcfg, mesh=mesh)(init, pb))
+        ref = single["logits"].to(dev)
+        st["prefill"]["err"] = float((logits - ref).abs().max())
+        st["prefill"]["limit"] = 2e-2 * max(1.0, float(ref.abs().max()))
+        st["prefill"]["shape"] = tuple(logits.shape)
 
 
 def phase_distributed_lm(report: dict, smi: str) -> None:
@@ -5975,6 +6170,7 @@ def phase_distributed_lm(report: dict, smi: str) -> None:
                         "mamba": {"ssd_chunk": 2 * layers * cell["accum"],
                                   "ssd_chunk_bwd": layers * cell["accum"]}
                         }[cname]
+            shapes = d38_shapes(mcfg, cell)
             for r, st in enumerate(ranks):
                 check(st["transport"] == "gloo, host-staged"
                       and st["device"].startswith("cuda"),
@@ -6006,6 +6202,9 @@ def phase_distributed_lm(report: dict, smi: str) -> None:
                               f"expected {want}")
                     check(np.isfinite(fig.get("loss", 0.0)),
                           f"{cname} rank {r}: loss not finite")
+                check(st["shapes"] == shapes,
+                      f"{cname} rank {r}: kernels launched at "
+                      f"{st['shapes']}, the rank's heads give {shapes}")
                 if cell["prefill"]:
                     pf = st["prefill"]
                     check(pf["shape"] == tuple(single["logits"].shape)
@@ -6044,8 +6243,16 @@ def phase_distributed_lm(report: dict, smi: str) -> None:
                 f" GiB, gathered {each(lambda s: s['steps'][-1]['gathered'] * gib, '{:.3f}')}"
                 f" GiB and reduced "
                 f"{each(lambda s: s['steps'][-1]['reduced'] * gib, '{:.3f}')}"
-                f" GiB a step; resident parameters / moments a rank "
-                f"{ranks[0]['bytes'][0] * gib:.3f} / "
+                f" GiB a step in "
+                f"{each(lambda s: sum(s['steps'][-1]['calls'].values()), '{}')}"
+                f" collectives ("
+                + ", ".join(f"{k} {v}" for k, v in
+                            ranks[0]["steps"][-1]["calls"].items())
+                + " on rank 0), "
+                f"{each(lambda s: s['steps'][-1]['comm_ms'])} ms of the "
+                f"last step in them (host clock, from the end of the "
+                f"rank's queued device work); resident parameters / "
+                f"moments a rank {ranks[0]['bytes'][0] * gib:.3f} / "
                 f"{ranks[0]['bytes'][1] * gib:.3f} GiB (= the dry run's; one"
                 f" process {sb[0] * gib:.3f} / {sb[1] * gib:.3f} GiB: "
                 f"{ranks[0]['bytes'][0] / sb[0]:.4f} / "
@@ -6061,6 +6268,40 @@ def phase_distributed_lm(report: dict, smi: str) -> None:
                     f"{each(lambda s: s['prefill']['err'], '{:.4e}')} (limit"
                     f" {ranks[0]['prefill']['limit']:.4e}), "
                     f"{each(lambda s: s['prefill']['ms'])} ms")
+            say(f"{cname}: every rank launched "
+                + "; ".join(f"{k} at " + ", ".join(
+                    " x ".join(str(list(t)) for t in shp) for shp in v)
+                    for k, v in shapes.items())
+                + f" (model = {dict(zip(axes, sizes))['model']}); card {smi}")
+            kc = ranks[0]["kernel_checks"]
+            for kname, c in kc.items():
+                check(c["ratio"] <= 1.0, f"{cname} rank 0: {kname} on its "
+                      f"first launch's inputs at {c['ratio']:.4f} of its "
+                      f"rule (max abs err {c['err']:.3e})")
+                check(min(c["zeroed"], c["dropped"]) > 1.0,
+                      f"{cname} rank 0: {kname}'s rule reads zeroed outputs"
+                      f" at {c['zeroed']:.4g} and a dropped last head group"
+                      f" at {c['dropped']:.4g}: it could pass a wrong kernel")
+                report[kname].update(
+                    dist_tp_shape=str(shapes[kname][0]),
+                    dist_tp_max_abs_err=c["err"], dist_tp_ratio=c["ratio"],
+                    dist_tp_ms=c["ms"], dist_tp_plain_ms=c["plain_ms"],
+                    dist_tp_bound_ms=c["bound_ms"],
+                    dist_tp_bound_by=c["bound_by"])
+            check(set(kc) == set(per_step),
+                  f"{cname} rank 0: checked {sorted(kc)}, launched "
+                  f"{sorted(per_step)}")
+            say(f"{cname} rank 0, each kernel's first launch in the step on "
+                f"its real inputs vs the plain version: " + "; ".join(
+                    f"{k} {c['ratio']:.4f} of its rule (max abs err "
+                    f"{c['err']:.3e}; max |want| of each output "
+                    + ", ".join(f"{t:.3e}" for t in c["top"])
+                    + f"; zeroed outputs read {c['zeroed']:.4g}, the last "
+                    f"head group dropped {c['dropped']:.4g}), "
+                    f"{c['ms']:.3f} ms (plain {c['plain_ms']:.3f}, bound "
+                    f"{c['bound_ms']:.3f} by {c['bound_by']})"
+                    for k, c in kc.items())
+                + f"; card {smi}")
             for kname in per_step:
                 report[kname]["dist_train_launches"] = min(
                     st["steps"][-1]["launches"][kname] for st in ranks)

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import time
 from typing import Any, Callable, Union
 
 import numpy as np
@@ -195,6 +196,13 @@ class DistributedComm:
         #: bytes this rank received in group gathers and sent into
         #: reductions (``reduce_scatter`` / ``all_reduce``)
         self.bytes = {"gathered": 0, "reduced": 0}
+        #: how many of each of those collectives this rank took part in,
+        #: and the host seconds spent in them: from the end of the
+        #: device's queued work (host-staged) to the result, staging and
+        #: waiting for the other members included
+        self.calls = {"all_gather_group": 0, "reduce_scatter": 0,
+                      "all_reduce": 0}
+        self.seconds = 0.0
 
     @classmethod
     def from_env(cls, backend: str, device=None,
@@ -335,11 +343,14 @@ class DistributedComm:
         axis in member order: ``[n, *x.shape]``."""
         if group is None:
             return x.unsqueeze(0)
+        t0 = self._start()
         send = self._wire(x)
         recv = self._buffer(n * send.numel())
         dist.all_gather(list(recv.chunk(n)), send, group=group)
         self.bytes["gathered"] += (n - 1) * send.numel()
-        return self._unwire(recv, x.dtype, (n, *x.shape))
+        out = self._unwire(recv, x.dtype, (n, *x.shape))
+        self._count("all_gather_group", t0)
+        return out
 
     def reduce_scatter(self, x: torch.Tensor, group, n: int) -> torch.Tensor:
         """Sum ``x`` over the ``n`` members of ``group`` and keep this
@@ -347,23 +358,42 @@ class DistributedComm:
         rows)."""
         if group is None:
             return x
+        t0 = self._start()
         src = self._host(x)
         out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
                           pin_memory=self.staged)
         _reduce_scatter(out, src, group=group)
         self.bytes["reduced"] += src.numel() * src.element_size()
-        return self._back(out)
+        out = self._back(out)
+        self._count("reduce_scatter", t0)
+        return out
 
-    def all_reduce(self, x: torch.Tensor, group=None) -> torch.Tensor:
-        """The sum of ``x`` over ``group`` (every rank where ``None``)."""
+    def all_reduce(self, x: torch.Tensor, group=None,
+                   op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the maximum) of ``x`` over ``group``
+        (every rank where ``None``)."""
         if group is None and self.P == 1:
             return x
+        t0 = self._start()
         buf = self._host(x)
         if buf is x:
             buf = x.clone()
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, group=group, op={
+            "sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op])
         self.bytes["reduced"] += buf.numel() * buf.element_size()
-        return self._back(buf)
+        buf = self._back(buf)
+        self._count("all_reduce", t0)
+        return buf
+
+    def _start(self) -> float:
+        if self.staged:
+            # the staging copy waits for the stream anyway
+            torch.cuda.current_stream(self.device).synchronize()
+        return time.perf_counter()
+
+    def _count(self, kind: str, t0: float) -> None:
+        self.calls[kind] += 1
+        self.seconds += time.perf_counter() - t0
 
     def __repr__(self) -> str:
         return (f"DistributedComm(P={self.P}, rank={self.rank}, "

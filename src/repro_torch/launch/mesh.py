@@ -19,10 +19,22 @@ mesh of more devices to a ``core.comm.DistributedComm`` of as many ranks
 shape (the order ``jax.make_mesh`` gives devices).  A bound mesh moves a
 tensor laid out by a spec: :func:`shard_tree` cuts full tensors to the
 rank's shards, :func:`gather_leaf` puts a shard back together, and
-:meth:`Mesh.reduce_grad` sums a full-size gradient over the dp axes and
-keeps the rank's shard; an axis tuple shards in the tuple's row-major
-order, as XLA's does.  :attr:`Mesh.dp` is the data-parallel group the
-models' ``comm=`` arguments take.
+:meth:`Mesh.reduce_grad` sums a gradient over the ranks that computed
+parts of it and keeps the rank's shard; an axis tuple shards in the
+tuple's row-major order, as XLA's does.  :attr:`Mesh.dp` is the
+data-parallel group the models' ``comm=`` arguments take.
+
+Tensor-parallel compute (ROADMAP A.15d(1)): :func:`leaf_plan` says, from
+a leaf's path and resolved spec alone, whether a layer computes with the
+rank's own "model" shard of it (``"split"``: the shard falls on the
+dimension the layer splits, heads, MLP columns or rows, experts or the
+vocabulary), with the whole leaf gathered over "model" of which it takes
+its own part (``"gathered"``), or with a leaf the spec does not shard
+over "model" at all (``"replicated"``).  :attr:`Mesh.tp` is the rank's
+"model" group, whose autograd collectives (:class:`TensorParallel`) the
+models call: a gather along the sequence whose backward reduce-scatters,
+a reduce-scatter whose backward gathers, an all-reduce whose backward is
+the identity and the identity whose backward all-reduces.
 """
 
 from __future__ import annotations
@@ -153,19 +165,29 @@ class Mesh:
             t = torch.cat(list(parts.unbind(0)), dim=d)
         return t
 
-    def reduce_grad(self, g: torch.Tensor, spec: Spec) -> torch.Tensor:
+    def reduce_grad(self, g: torch.Tensor, spec: Spec,
+                    plan: str) -> torch.Tensor:
         """The rank's float32 shard, laid out by ``spec``, of the sum over
-        the dp axes of the ranks' full-size gradients ``g``.  Ranks along
-        the other axes compute the same rows, so those dimensions are cut
-        here; a dimension the dp axes shard is reduce-scattered over them,
-        and dp axes that shard no dimension are all-reduced."""
+        the ranks of their gradients ``g`` of a leaf the layers used as
+        ``plan`` (:func:`leaf_plan`) says.  A ``"split"`` leaf's ``g`` is
+        already the rank's "model" shard; a ``"gathered"`` leaf's is
+        full-size and partial over "model" (each rank used its own part),
+        so it is reduce-scattered over "model" first.  Then a dimension
+        the dp axes shard is reduce-scattered over them, and dp axes that
+        shard no dimension are all-reduced.  A ``"replicated"`` leaf's
+        "model" sum is left to the caller (:meth:`sum_flat`, many leaves
+        in one buffer)."""
         entries = _entries(spec, g.dim())
-        for d, entry in enumerate(entries):
-            if not self.is_dp(entry):
-                size, i = self.index(entry)
-                n = g.shape[d] // size
-                g = g.narrow(d, i * n, n)
         g = g.float()
+        if plan == "gathered":
+            for d, entry in enumerate(entries):
+                if entry is None or self.is_dp(entry):
+                    continue
+                grp, size, _i = self.group(entry)
+                if grp is not None:
+                    g = self.comm.reduce_scatter(
+                        g.movedim(d, 0).contiguous(), grp, size
+                    ).movedim(0, d)
         used = set()
         for d, entry in enumerate(entries):
             if not self.is_dp(entry):
@@ -181,11 +203,33 @@ class Mesh:
             g = self.comm.all_reduce(g.contiguous(), grp)
         return g.contiguous()
 
+    def sum_flat(self, tensors, axes: Tuple[str, ...]) -> None:
+        """Sum float32 ``tensors`` over the ranks along ``axes``, in place,
+        through one buffer and one all-reduce."""
+        grp, _size, _i = self.group(tuple(a for a in self.axis_names
+                                          if a in axes))
+        tensors = list(tensors)
+        if grp is None or not tensors:
+            return
+        flat = self.comm.all_reduce(
+            torch.cat([t.reshape(-1) for t in tensors]), grp)
+        for t, part in zip(tensors, flat.split([t.numel()
+                                                for t in tensors])):
+            t.copy_(part.view(t.shape))
+
     @property
     def dp(self) -> "DataParallel":
         """The data-parallel group of this rank (``comm=`` of the
         models' loss and MoE layer)."""
         return DataParallel(self)
+
+    @property
+    def tp(self) -> Optional["TensorParallel"]:
+        """The rank's "model" group (``tp=`` of the models), or None where
+        the mesh has no ranks or "model" spans one device."""
+        if self.comm is None or self.shape.get(TP_AXIS, 1) == 1:
+            return None
+        return TensorParallel(self)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over every rank of the mesh."""
@@ -213,6 +257,121 @@ class DataParallel:
         if self._group is None:
             return t.unsqueeze(0)
         return self._comm.all_gather_group(t, self._group, self.size)
+
+
+class TensorParallel:
+    """The ranks along "model" that share this rank's other coordinates:
+    their number ``size`` and this rank's ``index``.  Between blocks each
+    holds its ``1/size`` of the sequence (rows ``index * T / size`` on);
+    inside a block each computes its own heads, columns, experts or
+    vocabulary slice.  The collectives are autograd-aware: where a
+    block's replicated input feeds the rank's own part, its gradient
+    there is partial, and the conjugate collective sums it.  Partial sums
+    travel in their own dtype: a bf16 block's in bf16, which with two
+    ranks rounds the sum once, as a float32 sum cast back would."""
+
+    def __init__(self, mesh: Mesh):
+        self._group, self.size, self.index = mesh.group(TP_AXIS)
+        self._comm = mesh.comm
+
+    def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in index order;
+        backward: the reduce-scatter of the gradient along ``dim``."""
+        return _GatherSeq.apply(x, self, dim)
+
+    def scatter_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The rank's ``1/size`` along ``dim`` of the sum of the ranks'
+        ``x`` (partial sums); backward: the gather along ``dim``."""
+        return _ScatterSeq.apply(x, self, dim)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' ``x``; backward: the identity (what
+        follows is computed whole on every rank)."""
+        return _Reduce.apply(x, self)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``; backward: the sum of the ranks' gradients (what follows
+        is each rank's own part)."""
+        return _Copy.apply(x, self)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of the ranks' ``x`` (no gradient)."""
+        return self._comm.all_reduce(x.detach(), self._group, op="max")
+
+    def own(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The rank's ``1/size`` of ``x`` along ``dim`` (a view)."""
+        n = x.shape[dim] // self.size
+        if n * self.size != x.shape[dim]:
+            raise ValueError(f"{x.shape[dim]} rows along dimension {dim} do "
+                             f"not divide by the {self.size} ranks along "
+                             f"'{TP_AXIS}'")
+        return x.narrow(dim, self.index * n, n)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` on a new leading axis in index order (no
+        gradient)."""
+        return self._comm.all_gather_group(x.detach(), self._group,
+                                           self.size)
+
+    def _cat(self, x, dim):
+        parts = self._comm.all_gather_group(x.contiguous(), self._group,
+                                            self.size)
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    def _sum_scatter(self, x, dim):
+        if x.shape[dim] % self.size:
+            raise ValueError(f"{x.shape[dim]} rows along dimension {dim} do "
+                             f"not divide by the {self.size} ranks along "
+                             f"'{TP_AXIS}'")
+        out = self._comm.reduce_scatter(x.movedim(dim, 0).contiguous(),
+                                        self._group, self.size)
+        return out.movedim(0, dim).contiguous()
+
+    def _sum(self, x):
+        return self._comm.all_reduce(x.contiguous(), self._group)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp._cat(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._sum_scatter(g, ctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp._sum_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._cat(g, ctx.dim), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp._sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._sum(g), None
 
 
 def _entries(spec: Spec, ndim: int):
@@ -342,6 +501,51 @@ def fix_spec_tree(shape_tree: Tree, spec_tree: Tree, mesh: Mesh) -> Tree:
         return fix_spec_for_shape(tuple(getattr(node, "shape", node)), spec,
                                   mesh)
     return fix(shape_tree, spec_tree)
+
+
+#: the dimension of a leaf a layer splits over "model", by the leaf's
+#: name and the name of the block that holds it; the fused Mamba2 leaves
+#: (``in_proj``'s [z | x | B | C | dt] columns, ``conv_w`` / ``conv_b``'s
+#: [x | B | C] channels) have none: a contiguous cut of them is no
+#: rank's heads
+_ATTN_SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+_MLP_SPLIT = {"wi": 1, "wg": 1, "wo": 0}
+SPLIT_DIMS = {
+    "": {"embed": 0, "unembed": 1},
+    "attn": _ATTN_SPLIT, "self_attn": _ATTN_SPLIT, "cross_attn": _ATTN_SPLIT,
+    "mlp": _MLP_SPLIT, "shared": _MLP_SPLIT,
+    "moe": {"wi": 0, "wg": 0, "wo": 0},
+    "ssm": {"out_proj": 0},
+}
+
+
+def split_dim(path: Tuple[str, ...]) -> Optional[int]:
+    """The dimension a layer splits over "model" of the leaf at ``path``
+    (a layer's view, without the stacked layer axis), or None."""
+    block = path[-2] if len(path) > 1 else ""
+    return SPLIT_DIMS.get(block, {}).get(path[-1])
+
+
+def leaf_plan(path: Tuple[str, ...], spec: Spec, mesh: Mesh, *,
+              ssm_heads: int = 0) -> str:
+    """How the layers use the leaf at ``path`` laid out by ``spec`` (its
+    resolved, shape-fitted spec as one layer sees it): ``"split"`` where
+    "model" shards exactly the dimension the layer splits (a Mamba2
+    ``out_proj`` also needs whole heads a rank: ``ssm_heads`` divisible by
+    the extent), ``"gathered"`` where "model" shards another dimension
+    (:func:`fix_spec_for_shape` moved it, or the leaf is a fused one), and
+    ``"replicated"`` where "model" shards none.  Decided from the spec
+    alone, on any mesh."""
+    dims = [d for d, entry in enumerate(spec)
+            if entry is not None and TP_AXIS in mesh._axes(entry)]
+    if not dims:
+        return "replicated"
+    want = split_dim(path)
+    if dims != [want]:
+        return "gathered"
+    if path[-1] == "out_proj" and ssm_heads % mesh.shape[TP_AXIS]:
+        return "gathered"
+    return "split"
 
 
 def shard_tree(tree: Tree, spec_tree: Tree, mesh: Mesh) -> Tree:

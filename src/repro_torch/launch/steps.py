@@ -20,20 +20,28 @@ the port's ``ModelConfig`` does not have, since nothing here reads them;
 nor is its ``_dp_size``, which nothing in the reference calls.
 
 Under a mesh of ranks (``mesh=``, ``launch.mesh.make_mesh`` bound to a
-``core.comm.DistributedComm``, ROADMAP A.15c) the train and prefill
+``core.comm.DistributedComm``, ROADMAP A.15c-d) the train and prefill
 steps take and return the rank's shards: the parameters laid out by
 :func:`param_and_opt_specs`' parameter specs, the AdamW moments by its
 ZeRO-1 specs and the batch by :func:`batch_specs` (:func:`shard_batch`
 cuts it).  They compute what the reference's ``jax.jit`` of the same step
 with those ``in_shardings`` computes (``repro/launch/dryrun.py``
-``_jit_for_cell``).  The models get each parameter as a
-:class:`StoredLeaf`, gathered where it is used (``models.common.gathered``:
-a layer's parameters inside the layer, so under remat the recompute
-gathers again); the gather's backward sums the full-size gradient over
-the dp axes in float32 and keeps the rank's shard, so a layer's full
-gradient lives until its backward ends.  Ranks along "model" hold their
-shard of each parameter and compute the same rows (tensor-parallel
-compute is ROADMAP A.15d).
+``_jit_for_cell`` of ``prepare_config``, which sets ``seq_shard``), and
+partition the compute on "model" as that program does: the models get
+the mesh's data-parallel group (``comm=``) and its "model" group
+(``tp=``, ``Mesh.tp``); between blocks a rank holds its ``1 / model`` of
+the sequence, ``[B / dp, T / model, d]``, and inside a block it gathers
+the sequence and computes its own heads, MLP columns, experts and
+vocabulary slice (``models/*``).  Each parameter reaches the models as a
+:class:`StoredLeaf`, materialized where it is used
+(``models.common.gathered``: a layer's parameters inside the layer, so
+under remat the recompute gathers again) as :func:`tp_plan` says: a
+``"split"`` leaf gathered over its dp (fsdp) axes only, a ``"gathered"``
+or ``"replicated"`` one whole.  The gather's backward
+(``Mesh.reduce_grad``) sums the gradient over the ranks that computed
+parts of it into a float32 sink holding the rank's shard; the leaves no
+spec shards are summed over the mesh once a step, in one buffer
+(``Mesh.sum_flat``).
 """
 
 from __future__ import annotations
@@ -47,8 +55,8 @@ from ..models import lm, whisper
 from ..models.common import Tree, init_tree, tree_leaves, tree_map
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_init, adamw_update
-from .mesh import Mesh, Spec, axis_size, dp_axes, fix_spec_tree, \
-    resolve_spec_tree, shard_tree
+from .mesh import TP_AXIS, Mesh, Spec, axis_size, dp_axes, fix_spec_tree, \
+    leaf_plan, resolve_spec_tree, shard_tree
 
 #: the parameter subtrees whose leaves are stacked over layers
 STACKED = ("layers", "enc_layers", "dec_layers")
@@ -161,8 +169,7 @@ def build_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None):
     @torch.inference_mode()
     def prefill_step(params, batch):
         x, _aux = lm.forward_hidden(cfg, params, batch)
-        unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        return (x[:, -1] @ unembed).float()
+        return lm.last_logits(cfg, params, x)
 
     return prefill_step
 
@@ -178,45 +185,83 @@ def _ranked(mesh: Optional[Mesh]) -> bool:
 
 class StoredLeaf:
     """A rank's shard of a tensor laid out by ``spec`` on ``mesh``, in
-    the place of the full tensor in a tree the models read: ``full()``
-    gathers it (``models.common.gathered``).  With a ``sink`` (a
-    parameter in a train step) the gather is :class:`_Gather`, whose
-    backward hands ``sink`` the rank's float32 shard of the gradient
-    summed over the dp axes."""
+    the place of the full tensor in a tree the models read: ``value()``
+    gives the tensor the layer computes with (``models.common.gathered``),
+    as ``plan`` (:func:`launch.mesh.leaf_plan`) says: a ``"split"`` leaf
+    gathered over its dp axes only (the rank's "model" shard), any other
+    gathered whole.  With a ``sink`` (a parameter in a train step) the
+    gather is :class:`_Gather`, whose backward hands ``sink`` the rank's
+    float32 shard of the gradient summed over the ranks that computed
+    parts of it (``deferred``: the gradient as it is, summed over the
+    mesh by the step)."""
 
-    def __init__(self, shard, spec, mesh: Mesh, sink=None, anchor=None):
+    def __init__(self, shard, spec, mesh: Mesh, plan: str, sink=None,
+                 anchor=None, deferred: bool = False):
         self.shard, self.spec, self.mesh = shard, tuple(spec), mesh
         self.sink, self.anchor = sink, anchor
+        self.plan, self.deferred = plan, deferred
 
     @property
     def device(self):
-        """The device the full tensor is gathered on."""
+        """The device the tensor is gathered on."""
         return self.mesh.device
 
-    def full(self) -> torch.Tensor:
-        """The full tensor, gathered over the spec's axes."""
+    @property
+    def gather_spec(self) -> Spec:
+        """The part of ``spec`` the value is gathered over."""
+        if self.plan != "split":
+            return self.spec
+        return tuple(e if e is not None and self.mesh.is_dp(e) else None
+                     for e in self.spec)
+
+    def value(self) -> torch.Tensor:
+        """The tensor the layers compute with."""
         if self.sink is not None and torch.is_grad_enabled():
             return _Gather.apply(self.anchor, self)
         shard = torch.as_tensor(self.shard, device=self.mesh.device)
-        return self.mesh.gather(shard, self.spec)
+        return self.mesh.gather(shard, self.gather_spec)
 
 
 class _Gather(torch.autograd.Function):
-    """Forward: the all-gather of a :class:`StoredLeaf` over its spec's
-    axes.  Backward: ``Mesh.reduce_grad`` of the full-size gradient into
-    the leaf's sink (nothing flows to ``anchor``, the tensor that puts the
-    gather on the graph)."""
+    """Forward: :meth:`StoredLeaf.value`'s all-gather.  Backward:
+    ``Mesh.reduce_grad`` of the gradient into the leaf's sink, or the
+    gradient as it is for a ``deferred`` leaf (nothing flows to
+    ``anchor``, the tensor that puts the gather on the graph)."""
 
     @staticmethod
     def forward(ctx, anchor, leaf):
         ctx.leaf = leaf
-        return leaf.mesh.gather(leaf.shard, leaf.spec).detach()
+        return leaf.mesh.gather(leaf.shard, leaf.gather_spec).detach()
 
     @staticmethod
     def backward(ctx, g):
         leaf = ctx.leaf
-        leaf.sink(leaf.mesh.reduce_grad(g, leaf.spec))
+        leaf.sink(g.float() if leaf.deferred
+                  else leaf.mesh.reduce_grad(g, leaf.spec, leaf.plan))
         return None, None
+
+
+def _layer_spec(path, spec) -> Spec:
+    """A leaf's spec as one layer sees it (a stacked leaf's without its
+    layer axis)."""
+    return tuple(spec[1:]) if path[0] in STACKED else tuple(spec)
+
+
+def tp_plan(cfg: ModelConfig, mesh: Mesh) -> Tree:
+    """``launch.mesh.leaf_plan`` of every parameter under ``mesh`` (a
+    stacked leaf's for one layer's view), from the specs of
+    :func:`param_and_opt_specs`: no device, no allocation."""
+    p_specs, _o = param_and_opt_specs(cfg, mesh)
+    heads = cfg.ssm_heads if cfg.ssm_state else 0
+    return _unflatten(p_specs, [
+        leaf_plan(path, _layer_spec(path, spec), mesh, ssm_heads=heads)
+        for path, spec in tree_leaves(p_specs)])
+
+
+def _deferred(plan: str, spec: Spec) -> bool:
+    """A leaf whose gradient the step sums over the whole mesh at its
+    end: replicated over "model" and laid out over no axis."""
+    return plan == "replicated" and all(e is None for e in spec)
 
 
 def _shard_shapes(cfg: ModelConfig, spec_tree: Tree, mesh: Mesh) -> dict:
@@ -247,12 +292,14 @@ def _find(tree: Tree, path):
     return tree
 
 
-def _store(params: Tree, p_specs: Tree, mesh: Mesh, grads=None, anchor=None,
-           accum: int = 1) -> Tree:
+def _store(params: Tree, p_specs: Tree, plans: Tree, mesh: Mesh,
+           grads=None, anchor=None, accum: int = 1) -> Tree:
     """The tree the models read under a mesh: a :class:`StoredLeaf` for
     every parameter (a list of them, one a layer, for a stacked leaf),
-    whose gradient shards are added, over ``accum``, into ``grads``."""
+    used as ``plans`` say, whose gradient shards are added, over
+    ``accum``, into ``grads``."""
     specs = dict(tree_leaves(p_specs))
+    flat_plans = dict(tree_leaves(plans))
 
     def sink(acc):
         if acc is None:
@@ -262,23 +309,57 @@ def _store(params: Tree, p_specs: Tree, mesh: Mesh, grads=None, anchor=None,
         return lambda g: acc.add_(g / accum)
 
     def leaf(path, t):
-        spec = specs[path]
+        spec, plan = _layer_spec(path, specs[path]), flat_plans[path]
         acc = None if grads is None else _find(grads, path)
+        deferred = _deferred(plan, spec)
         if path[0] not in STACKED:
-            return StoredLeaf(t, spec, mesh, sink(acc), anchor)
-        return [StoredLeaf(t[i], spec[1:], mesh,
-                           sink(None if acc is None else acc[i]), anchor)
+            return StoredLeaf(t, spec, mesh, plan, sink(acc), anchor,
+                              deferred)
+        return [StoredLeaf(t[i], spec, mesh, plan,
+                           sink(None if acc is None else acc[i]), anchor,
+                           deferred)
                 for i in range(t.shape[0])]
     return _unflatten(params, [leaf(path, t)
                                for path, t in tree_leaves(params)])
 
 
+def _sum_replicated(grads: Tree, p_specs: Tree, plans: Tree,
+                    mesh: Mesh) -> None:
+    """The gradients of the leaves replicated over "model", summed over
+    the ranks in two buffers: those no spec shards over the whole mesh
+    (their dp sums too), the others over "model" (``reduce_grad`` took
+    their dp sums)."""
+    flat_plans = dict(tree_leaves(plans))
+    whole, model = [], []
+    for path, spec in tree_leaves(p_specs):
+        plan = flat_plans[path]
+        if plan != "replicated":
+            continue
+        g = _find(grads, path)
+        (whole if _deferred(plan, _layer_spec(path, spec)) else
+         model).append(g)
+    mesh.sum_flat(whole, mesh.axis_names)
+    mesh.sum_flat(model, (TP_AXIS,))
+
+
 def _rows(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, torch.Tensor]:
     """The rank's rows of a :func:`shard_batch` batch on its device, each
-    leaf sharded beyond its rows gathered."""
-    return {k: v.full() if isinstance(v, StoredLeaf)
-            else torch.as_tensor(v, device=mesh.device)
-            for k, v in batch.items()}
+    leaf sharded beyond its rows gathered; where "model" computes in
+    parallel, audio frames stay the rank's part of the sequence (the
+    models' layout between blocks; a length the "model" extent does not
+    divide raises)."""
+    tp = mesh.tp
+    out = {}
+    for k, v in batch.items():
+        if k == "frames" and tp is not None:
+            out[k] = torch.as_tensor(v.shard, device=mesh.device) \
+                if isinstance(v, StoredLeaf) and v.spec[1] == TP_AXIS \
+                else tp.own(torch.as_tensor(v, device=mesh.device))
+        elif isinstance(v, StoredLeaf):
+            out[k] = v.value()
+        else:
+            out[k] = torch.as_tensor(v, device=mesh.device)
+    return out
 
 
 def shard_batch(cfg: ModelConfig, batch: Dict[str, Any], mesh: Mesh):
@@ -306,7 +387,7 @@ def shard_batch(cfg: ModelConfig, batch: Dict[str, Any], mesh: Mesh):
         spec = specs[k]
         shard = mesh.cut(v, spec)
         rest = (None,) + tuple(spec[1:])
-        out[k] = StoredLeaf(shard, rest, mesh) \
+        out[k] = StoredLeaf(shard, rest, mesh, "gathered") \
             if any(e is not None for e in rest) else shard
     return out
 
@@ -332,7 +413,8 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int,
                         mesh: Mesh):
     mod = model_module(cfg)
     p_specs, o_specs = param_and_opt_specs(cfg, mesh)
-    dp = mesh.dp
+    plans = tp_plan(cfg, mesh)
+    dp, tp = mesh.dp, mesh.tp
 
     def microbatches(batch):
         rows = _rows(batch, mesh)
@@ -356,10 +438,10 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int,
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
         anchor = torch.zeros((), device=mesh.device, requires_grad=True)
-        store = _store(params, p_specs, mesh, grads, anchor, accum)
+        store = _store(params, p_specs, plans, mesh, grads, anchor, accum)
         loss, metrics_all = None, []
         for part in microbatches(batch):
-            l_i, m_i = mod.loss_fn(cfg, store, part, comm=dp)
+            l_i, m_i = mod.loss_fn(cfg, store, part, comm=dp, tp=tp)
             torch.autograd.backward(l_i)
             m_i = {k: v.detach() for k, v in m_i.items()}
             g_loss = m_i.pop("loss")
@@ -367,6 +449,7 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int,
                 g_loss / accum if loss is None else loss + g_loss / accum)
             metrics_all.append(m_i)
         del store, anchor
+        _sum_replicated(grads, p_specs, plans, mesh)
         metrics = metrics_all[0] if accum == 1 else {
             k: torch.stack([m[k] for m in metrics_all]).mean()
             for k in metrics_all[0]}
@@ -380,21 +463,21 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int,
 
 def _sharded_prefill_step(cfg: ModelConfig, mesh: Mesh):
     p_specs, _o = param_and_opt_specs(cfg, mesh)
-    dp = mesh.dp
+    plans = tp_plan(cfg, mesh)
+    dp, tp = mesh.dp, mesh.tp
 
     @torch.inference_mode()
     def prefill_step(params, batch):
         _check_shards(cfg, params, p_specs, mesh)
-        store = _store(params, p_specs, mesh)
+        store = _store(params, p_specs, plans, mesh)
         rows = _rows(batch, mesh)
         if cfg.encdec:
-            memory = whisper.encode(cfg, store, rows["frames"])
-            last = whisper.decode_train(cfg, store, rows["tokens"],
-                                        memory)[:, -1]
+            memory = whisper.encode(cfg, store, rows["frames"], tp=tp)
+            x = whisper.decode_hidden(cfg, store, rows["tokens"], memory,
+                                      tp=tp)
         else:
-            x, _aux = lm.forward_hidden(cfg, store, rows, comm=dp)
-            last = (x[:, -1] @ lm._unembed(cfg, store)).float()
-        every = dp.gather(last)
+            x, _aux = lm.forward_hidden(cfg, store, rows, comm=dp, tp=tp)
+        every = dp.gather(lm.last_logits(cfg, store, x, tp=tp))
         return every.reshape(every.shape[0] * every.shape[1],
                              *every.shape[2:])
 

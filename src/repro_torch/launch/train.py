@@ -9,10 +9,10 @@ checkpointing and resume (port of ``repro/launch/train.py``).
 
 Runs on the CUDA device unless ``--device`` says otherwise.  A ``--mesh``
 of more than one device runs one process per device (``--dist gloo`` or
-``nccl``, under torchrun; ROADMAP.md A.15c): each rank holds its shard of
-the parameters, the AdamW moments and the batch (``launch/steps.py``),
-draws the global batch from (seed, step) and keeps its rows, and rank 0
-prints the losses.  A resume from the checkpoint of step k regenerates
+``nccl``, under torchrun; ROADMAP.md A.15c-d): each rank holds its shard
+of the parameters, the AdamW moments and the batch and computes its part
+on "model" (``launch/steps.py``), draws the global batch from (seed,
+step) and keeps its rows, and rank 0 prints the losses.  A resume from the checkpoint of step k regenerates
 the batches k, k+1, ... (the data pipeline seeds each batch by (seed,
 step)); under a mesh a checkpoint holds the global tree, gathered leaf by
 leaf and written by rank 0, so it resumes on another mesh or in one

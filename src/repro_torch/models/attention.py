@@ -15,6 +15,16 @@ Sliding-window attention keeps the reference's choice (:func:`banded_sdpa`
 at T >= 2W with T % W == 0, :func:`blocked_sdpa` at and above the
 threshold, masked :func:`sdpa` otherwise), and decode and cross-attention
 are plain products: the reference computes them outside any kernel.
+
+With ``tp`` (a mesh's "model" group, ``launch.mesh.TensorParallel``) the
+input is the rank's part of the sequence: it is gathered along T, the
+rank projects its own heads (``wq`` / ``wk`` / ``wv`` split over
+"model"), applies the positions of the whole sequence, attends on
+``H / model | KV / model`` heads, and its row-parallel ``wo`` products are
+reduce-scattered back along T.  Where the K / V heads are whole (fewer
+than the "model" extent) the rank takes those its query heads read;
+where the query heads are whole, every rank attends on all of them and
+keeps its own rows.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels import ops
-from .common import ParamDef, Tree, apply_mrope, apply_rope, rmsnorm
+from .common import ParamDef, Tree, apply_mrope, apply_rope, is_split, rmsnorm
 
 NEG_INF = -1e30
 
@@ -174,42 +184,91 @@ def banded_sdpa(q, k, v, *, window: int):
 
 
 def attention(cfg, p: Tree, x, positions, *, causal=True,
-              window: Optional[int] = None):
+              window: Optional[int] = None, tp=None):
     """Self attention over [B, T, d].
 
     Without a window: ``ops.flash_attention`` (kernel B9 on a CUDA tensor,
     its plain version on a CPU tensor) at every T.  With one: banded at
     T >= 2W with T % W == 0, blocked (online softmax) at T >=
-    ``cfg.attn_block_threshold``, masked sdpa otherwise.
+    ``cfg.attn_block_threshold``, masked sdpa otherwise.  With ``tp``: see
+    the module docstring.
     """
-    T = x.shape[1]
+    if tp is None:
+        q, k, v = qkv_project(cfg, p, x, positions)
+        return _out(_attend(cfg, q, k, v, causal, window), p["wo"])
+    x = tp.gather_seq(x)
+    p, split = _rank_heads(cfg, p, tp)
     q, k, v = qkv_project(cfg, p, x, positions)
+    out = _out(_attend(cfg, q, k, v, causal, window), p["wo"])
+    return tp.scatter_seq(out) if split else tp.own(out)
+
+
+def _attend(cfg, q, k, v, causal, window):
+    T = q.shape[1]
     if window is None:
-        ctx = ops.flash_attention(q, k, v, causal=causal)
-    elif causal and T >= 2 * window and T % window == 0:
-        ctx = banded_sdpa(q, k, v, window=window)
-    elif T >= cfg.attn_block_threshold:
-        ctx = blocked_sdpa(q, k, v, causal=causal, window=window,
-                           block_k=cfg.attn_block_k)
-    else:
-        bias = causal_window_bias(T, T, causal=causal, window=window,
-                                  device=x.device)
-        ctx = sdpa(q, k, v, bias)
-    return _out(ctx, p["wo"])
+        return ops.flash_attention(q, k, v, causal=causal)
+    if causal and T >= 2 * window and T % window == 0:
+        return banded_sdpa(q, k, v, window=window)
+    if T >= cfg.attn_block_threshold:
+        return blocked_sdpa(q, k, v, causal=causal, window=window,
+                            block_k=cfg.attn_block_k)
+    bias = causal_window_bias(T, T, causal=causal, window=window,
+                              device=q.device)
+    return sdpa(q, k, v, bias)
+
+
+def _rank_heads(cfg, p: Tree, tp):
+    """(the parameters of the rank's heads, whether the heads are split):
+    a split ``wq`` is the rank's query heads, and ``wk`` / ``wv`` are cut
+    to the K / V heads they read where they came whole."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if not is_split(p["wq"], H, 1, tp):
+        return p, False
+    if not is_split(p["wk"], KV, 1, tp):
+        idx = torch.as_tensor(kv_heads(H, KV, tp.size, tp.index),
+                              device=p["wk"].device)
+        p = dict(p, wk=p["wk"].index_select(1, idx),
+                 wv=p["wv"].index_select(1, idx))
+    return p, True
+
+
+def kv_heads(H: int, KV: int, size: int, index: int):
+    """The K / V heads rank ``index`` of ``size`` needs for its query heads
+    ``[index * H / size, (index + 1) * H / size)`` of H in groups of
+    ``H / KV``: each one once where the rank's heads fall into whole
+    groups of equal size, else one a query head."""
+    n, G = H // size, H // KV
+    want = [(index * n + i) // G for i in range(n)]
+    uniq = sorted(set(want))
+    if n % len(uniq) == 0 and want == [u for u in uniq
+                                       for _ in range(n // len(uniq))]:
+        return uniq
+    return want
 
 
 def cross_attention(cfg, p: Tree, x,
-                    memory_kv: Tuple[torch.Tensor, torch.Tensor]):
+                    memory_kv: Tuple[torch.Tensor, torch.Tensor], tp=None):
     """Decoder cross-attention; memory_kv = (k, v) [B, S, KV, hd]
-    precomputed by :func:`cross_kv`."""
+    precomputed by :func:`cross_kv` (with ``tp``: of the rank's heads, from
+    the whole memory, and ``x`` the rank's part of the sequence)."""
+    if tp is not None:
+        x = tp.gather_seq(x)
+        p, split = _rank_heads(cfg, p, tp)
     q = _project(x, p["wq"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
-    return _out(sdpa(q, *memory_kv), p["wo"])
+    out = _out(sdpa(q, *memory_kv), p["wo"])
+    if tp is None:
+        return out
+    return tp.scatter_seq(out) if split else tp.own(out)
 
 
-def cross_kv(cfg, p: Tree, memory):
-    """Cross-attention K/V from the encoder output [B, S, d]."""
+def cross_kv(cfg, p: Tree, memory, tp=None):
+    """Cross-attention K/V from the encoder output [B, S, d] (with
+    ``tp``: the whole memory, and the K / V heads of the rank's query
+    heads)."""
+    if tp is not None:
+        p, _split = _rank_heads(cfg, p, tp)
     k, v = _project(memory, p["wk"]), _project(memory, p["wv"])
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"])

@@ -111,22 +111,57 @@ def init_tree(defs: Tree, generator: torch.Generator, dtype,
 
 def gathered(tree):
     """``tree`` (a tensor or a dict of them) with every stored shard
-    replaced by its full tensor: under a mesh the train and prefill steps
-    (``launch/steps.py``) hand the models the rank's shards as objects
-    whose ``full()`` gathers them, and the models call this where a
-    parameter is used, so a layer's full parameters live only while the
+    replaced by the tensor the layer computes with: under a mesh the train
+    and prefill steps (``launch/steps.py``) hand the models the rank's
+    shards as objects whose ``value()`` gathers them (a leaf split over
+    "model" stays the rank's "model" shard), and the models call this
+    where a parameter is used, so a layer's parameters live only while the
     layer runs.  Tensors pass as they are."""
     if isinstance(tree, dict):
         return {k: gathered(v) for k, v in tree.items()}
-    return tree if isinstance(tree, torch.Tensor) else tree.full()
+    return tree if isinstance(tree, torch.Tensor) else tree.value()
 
 
-def embed_tokens(cfg, params: Tree, tokens):
+def is_split(t, full: int, dim: int, tp) -> bool:
+    """True where a layer under ``tp`` got the rank's "model" shard of a
+    parameter (``launch.mesh.leaf_plan``'s "split": ``t.shape[dim]`` is
+    the config's ``full`` over the "model" extent), False where it got
+    the whole tensor or runs without ``tp``.  Any other width raises."""
+    if tp is None or t.shape[dim] == full:
+        return False
+    if t.shape[dim] * tp.size != full:
+        raise ValueError(
+            f"a parameter of shape {tuple(t.shape)} is neither whole ({full}"
+            f" along dim {dim}) nor a rank's 1/{tp.size} of it")
+    return True
+
+
+def embed_tokens(cfg, params: Tree, tokens, tp=None):
     """Token ids [B, T] -> ``params["embed"]`` rows * sqrt(d_model), in
-    the config's dtype, on the embedding's device."""
+    the config's dtype, on the embedding's device.  With ``tp`` (the
+    "model" group of a mesh, ``launch.mesh.TensorParallel``) the rank's
+    part of the sequence, ``[B, T / model, d]``: a vocabulary-split
+    embedding looks every token up in the rank's slice (other ids give
+    zero rows) and the ranks' sums are reduce-scattered along T; a whole
+    one looks up the rank's tokens."""
     embed = gathered(params["embed"])
-    tokens = torch.as_tensor(tokens, device=embed.device)
-    return (embed[tokens.long()] * math.sqrt(cfg.d_model)).to(cfg.dtype)
+    tokens = torch.as_tensor(tokens, device=embed.device).long()
+    if not is_split(embed, cfg.vocab_size, 0, tp):
+        if tp is not None:
+            tokens = tp.own(tokens)
+        return (embed[tokens] * math.sqrt(cfg.d_model)).to(cfg.dtype)
+    return tp.scatter_seq(embed_partial(cfg, embed, tokens, tp))
+
+
+def embed_partial(cfg, embed_local, tokens, tp):
+    """[B, T, d]: the rows of the ids in the rank's vocabulary slice of
+    ``embed_local`` * sqrt(d_model), zero elsewhere (one rank's term of
+    the lookup)."""
+    n = embed_local.shape[0]
+    local = tokens - tp.index * n
+    own = (local >= 0) & (local < n)
+    rows = embed_local[local.clamp(0, n - 1)] * own[..., None]
+    return (rows * math.sqrt(cfg.d_model)).to(cfg.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -243,9 +278,20 @@ def mlp_defs(cfg, d_ff: Optional[int] = None) -> Tree:
     }
 
 
-def apply_mlp(cfg, p: Tree, x):
+def apply_mlp(cfg, p: Tree, x, tp=None):
     """Apply the config's MLP flavor with params ``p`` (gelu is the tanh
-    approximation, ``jax.nn.gelu``'s default)."""
+    approximation, ``jax.nn.gelu``'s default).  With ``tp`` and the rank's
+    columns of ``wi`` / ``wg`` and rows of ``wo``, ``x`` (the rank's part
+    of the sequence) is gathered along T and the partial products are
+    reduce-scattered back; whole weights run on the rank's rows."""
+    if not is_split(p["wi"], cfg.d_ff, 1, tp):
+        return mlp_product(cfg, p, x)
+    return tp.scatter_seq(mlp_product(cfg, p, tp.gather_seq(x)))
+
+
+def mlp_product(cfg, p: Tree, x):
+    """The MLP's products on ``x`` with the weights in ``p`` (whole, or a
+    rank's columns / rows: then a partial sum)."""
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     else:

@@ -25,6 +25,17 @@ tokens, a choice's slot is its rank within its expert in global token
 order (the counts of the ranks before this one come first), and the aux
 loss takes the global token fractions; each rank runs the experts on its
 own kept choices only, which is exact, since rows are independent.
+
+With ``tp`` as well (the mesh's "model" group,
+``launch.mesh.TensorParallel``; the input the rank's part of the
+sequence) the layer is expert-parallel: the tokens are gathered along T,
+so every rank along "model" routes its dp rank's tokens as above (the
+same choices, drops and aux loss), runs the slots of its own
+``E / model`` experts only, weights and sums the kept choices of those,
+and the ranks' partial outputs (with the shared expert's column- /
+row-parallel products) are reduce-scattered back along T.  Whole expert
+or shared weights (a count the extent does not divide) run on every
+rank; their output is whole and the rank keeps its own rows.
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import ParamDef, Tree
+from .common import ParamDef, Tree, is_split
 
 
 def moe_defs(cfg) -> Tree:
@@ -110,11 +121,16 @@ def dispatch(cfg, gate_idx, comm=None):
     return flat_idx, keep, counts, C
 
 
-def apply_moe(cfg, p: Tree, x, comm=None):
+def apply_moe(cfg, p: Tree, x, comm=None, tp=None):
     """x: [B, T, d] -> ([B, T, d], aux load-balance loss, float32 scalar).
     With ``comm`` the aux loss is this rank's share of the global one:
     its tokens' probabilities over the global token count, times the
-    global fractions (which carry no gradient), so the shares sum to it."""
+    global fractions (which carry no gradient), so the shares sum to it.
+    With ``tp``: see the module docstring (the aux loss is then the same
+    on every rank along "model")."""
+    own_rows = x
+    if tp is not None:
+        x = tp.gather_seq(x)
     B, T, d = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     n = B * T
@@ -130,23 +146,50 @@ def apply_moe(cfg, p: Tree, x, comm=None):
         aux = E * torch.sum(probs.sum(dim=0) / n_all
                             * (counts.float() / (n_all * k)))
 
+    # the rank's experts [e0, e0 + El) (all of them without tp or where
+    # the expert weights came whole)
+    El = p["wi"].shape[0]
+    partial = is_split(p["wi"], E, 0, tp)
+    e0 = tp.index * El if partial else 0
     # slot -> token (n: the zero row) for every buffer row; the overflow
     # row E * C takes every dropped choice and is cut off
     tok = torch.arange(n * k, device=x.device) // k
     src = torch.full((E * C + 1,), n, dtype=torch.long, device=x.device)
     src.index_copy_(0, flat_idx, tok)
     xz = torch.cat([xt, xt.new_zeros(1, d)])
-    expert_in = xz[src[:E * C]].view(E, C, d)
+    expert_in = xz[src[e0 * C:(e0 + El) * C]].view(El, C, d)
 
     h = F.silu(torch.bmm(expert_in, p["wg"])) * torch.bmm(expert_in, p["wi"])
-    expert_out = torch.bmm(h, p["wo"]).view(E * C, d)
+    expert_out = torch.bmm(h, p["wo"]).view(El * C, d)
     del h, expert_in
     expert_out = torch.cat([expert_out, expert_out.new_zeros(1, d)])
 
+    # a choice of another rank's expert (or dropped) reads the zero row
+    local = flat_idx - e0 * C
+    local = torch.where((local >= 0) & (local < El * C), local, El * C)
     w = (gate_vals.reshape(-1) * keep).to(x.dtype)[:, None]
-    out = (expert_out[flat_idx] * w).view(n, k, d).sum(dim=1)
+    out = (expert_out[local] * w).view(n, k, d).sum(dim=1)
 
-    if cfg.moe_shared:
-        s = p["shared"]
-        out = out + (F.silu(xt @ s["wg"]) * (xt @ s["wi"])) @ s["wo"]
-    return out.view(B, T, d), aux
+    shared = p["shared"] if cfg.moe_shared else None
+    if tp is None:
+        if shared is not None:
+            out = out + _shared(shared, xt)
+        return out.view(B, T, d), aux
+    out = out.view(B, T, d)
+    if not partial:
+        out = tp.own(out)
+    shared_split = shared is not None and is_split(shared["wi"], cfg.d_ff,
+                                                   1, tp)
+    if shared_split:
+        y = _shared(shared, x)
+        out = out + y if partial else out + tp.scatter_seq(y)
+    if partial:
+        out = tp.scatter_seq(out)
+    if shared is not None and not shared_split:
+        out = out + _shared(shared, own_rows)
+    return out, aux
+
+
+def _shared(s: Tree, x):
+    """The shared expert (a SwiGLU MLP) on ``x``."""
+    return (F.silu(x @ s["wg"]) * (x @ s["wi"])) @ s["wo"]

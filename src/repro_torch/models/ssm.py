@@ -9,6 +9,17 @@ as masked matmuls and carries chunk-final states from chunk to chunk.  The
 intra-chunk part is ``ops.ssd_intra_chunk`` (kernel B10,
 ``kernels/ssd_chunk.py``, on a CUDA device; its plain version on the CPU)
 and the inter-chunk recurrence runs in PyTorch on either device.
+
+With ``tp`` (a mesh's "model" group, ``launch.mesh.TensorParallel``) a
+prompt's input is the rank's part of the sequence: it is gathered along
+T (the scan needs all of it), and the rank computes its ``H / model``
+heads: their columns of ``z``, ``x`` and ``dt`` and all of ``B`` / ``C``
+from the whole fused ``in_proj``, its ``x`` channels with ``B`` and ``C``
+through the convolution, the scan on its heads, the gated RMSNorm with
+its sum of squares over ``d_inner`` summed over the ranks, and its rows
+of ``out_proj``, whose partial products are reduce-scattered back along
+T.  Where ``out_proj`` came whole (heads the extent does not divide),
+every rank runs the block on all heads and keeps its own rows.
 """
 
 from __future__ import annotations
@@ -19,7 +30,7 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels.ssd_chunk import ssd_inter_chunk
-from .common import ParamDef, Tree, rmsnorm
+from .common import ParamDef, Tree, is_split, rmsnorm
 
 __all__ = ["MambaBlock", "ssm_defs", "ssd_chunked", "mamba_block",
            "init_ssm_state", "mamba_decode_step"]
@@ -80,12 +91,19 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
     return ssd_inter_chunk(y_intra, S, cd, Cm, chunk=chunk, h0=h0)
 
 
-def mamba_block(cfg, p: Tree, x, *, state=None):
+def mamba_block(cfg, p: Tree, x, *, state=None, tp=None):
     """Full Mamba2 block over [B, T, d].  state=None for a prompt.
 
     Returns (out [B, T, d], new_state dict) — state carries (conv, ssm) for
-    decode continuation.
+    decode continuation.  With ``tp`` (a prompt): see the module
+    docstring; the state is then the rank's heads'.
     """
+    if tp is not None:
+        x = tp.gather_seq(x)
+        if not is_split(p["out_proj"], cfg.d_inner, 0, tp):
+            out, new = mamba_block(cfg, p, x)
+            return tp.own(out), new
+        return _mamba_heads(cfg, p, x, tp)
     B, T, d = x.shape
     di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     proj = x @ p["in_proj"]                             # [B, T, 2di+2N+H]
@@ -104,6 +122,44 @@ def mamba_block(cfg, p: Tree, x, *, state=None):
     y = y.reshape(B, T, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["norm"])
     out = y @ p["out_proj"]
+    return out, {"conv": new_conv, "ssm": hT}
+
+
+def _mamba_heads(cfg, p: Tree, x, tp):
+    """:func:`mamba_block` of a prompt on the rank's heads of the whole
+    sequence ``x``: the partial output reduce-scattered along T."""
+    B, T, _d = x.shape
+    di, N, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    H = cfg.ssm_heads // tp.size
+    dl = H * Pd
+    j = tp.index
+    dev = x.device
+
+    def cols(*runs):
+        return torch.cat([torch.arange(a, a + n, device=dev)
+                          for a, n in runs])
+    w = p["in_proj"].index_select(1, cols(
+        (j * dl, dl), (di + j * dl, dl), (2 * di, 2 * N),
+        (2 * di + 2 * N + j * H, H)))
+    z, xBC, dt = torch.split(x @ w, [dl, dl + 2 * N, H], dim=-1)
+    ch = cols((j * dl, dl), (di, 2 * N))
+    xBC, new_conv = _causal_conv(cfg, {"conv_w": p["conv_w"].index_select(
+        1, ch), "conv_b": p["conv_b"].index_select(0, ch)}, xBC)
+    xs, Bm, Cm = torch.split(xBC, [dl, N, N], dim=-1)
+    heads = slice(j * H, (j + 1) * H)
+    dt = F.softplus(dt.float() + p["dt_bias"][heads])
+    A = -torch.exp(p["A_log"][heads].float())
+    xh = xs.reshape(B, T, H, Pd).float()
+    y, hT = ssd_chunked(xh, dt, A, Bm.float(), Cm.float(),
+                        min(cfg.ssm_chunk, T))
+    y = y + p["D"][heads][None, None, :, None] * xh
+    y = y.reshape(B, T, dl).to(x.dtype) * F.silu(z)
+    # rmsnorm over all d_inner channels: the squares summed over the ranks
+    y32 = y.float()
+    ss = tp.copy(tp.reduce(torch.sum(y32 * y32, dim=-1, keepdim=True)))
+    y = (y32 * torch.rsqrt(ss / di + 1e-6)).to(y.dtype) \
+        * p["norm"][j * dl:(j + 1) * dl]
+    out = tp.scatter_seq(y @ p["out_proj"])
     return out, {"conv": new_conv, "ssm": hT}
 
 

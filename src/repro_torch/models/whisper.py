@@ -11,6 +11,14 @@ uses.  The layers are walked in a plain loop; with ``cfg.remat`` and grad
 enabled each layer is recomputed in the backward pass (the reference's
 ``jax.checkpoint`` per scanned layer).  :func:`loss_fn` trains it; the
 cached decode runs under ``torch.inference_mode()``.
+
+Under a mesh's "model" group (``tp``, ``launch.mesh.TensorParallel``)
+the encoder's and the decoder's residual streams are the rank's part of
+their sequences (the frames arrive so), the blocks compute the rank's
+heads and MLP columns (``attention``, ``common.apply_mlp``), the memory is
+gathered along its sequence once for every decoder layer's
+cross-attention, and the loss is vocabulary-parallel
+(``lm.sequence_ce``).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from .common import (ParamDef, Tree, apply_mlp, apply_norm, embed_tokens,
                      sincos_positions, spec_tree, tree_from_numpy,
                      tree_leaves, tree_map)
 from .config import ModelConfig
-from .lm import _global_loss, remat_active
+from .lm import _global_loss, _unembed, remat_active, sequence_ce
 
 
 def _enc_layer_defs(cfg) -> Tree:
@@ -84,8 +92,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Tree, device=None) -> Tree:
     return tree_from_numpy(model_defs(cfg), tree, cfg.dtype, device)
 
 
-def _positions(x):
-    return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+def _positions(B: int, T: int, device):
+    return torch.arange(T, device=device).expand(B, T)
 
 
 def _sincos(T: int, cfg: ModelConfig, device):
@@ -106,42 +114,63 @@ def _layers(cfg: ModelConfig, blk, layers: Tree, n: int, x, *args):
     return x
 
 
-def _enc_block(cfg: ModelConfig, p: Tree, x, positions):
+def _enc_block(cfg: ModelConfig, p: Tree, x, positions, tp=None):
     p = gathered(p)     # a stored shard is gathered inside any recompute
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + attn.attention(cfg, p["attn"], h, positions, causal=False)
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    x = x + attn.attention(cfg, p["attn"], h, positions, causal=False,
+                           tp=tp)
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x),
+                         tp=tp)
 
 
-def _dec_block(cfg: ModelConfig, p: Tree, x, positions, memory):
+def _dec_block(cfg: ModelConfig, p: Tree, x, positions, memory, tp=None):
     p = gathered(p)
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + attn.attention(cfg, p["self_attn"], h, positions, causal=True)
+    x = x + attn.attention(cfg, p["self_attn"], h, positions, causal=True,
+                           tp=tp)
     h = apply_norm(cfg, p["norm2"], x)
-    mem_kv = attn.cross_kv(cfg, p["cross_attn"], memory)
-    x = x + attn.cross_attention(cfg, p["cross_attn"], h, mem_kv)
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], x))
+    mem_kv = attn.cross_kv(cfg, p["cross_attn"], memory, tp)
+    x = x + attn.cross_attention(cfg, p["cross_attn"], h, mem_kv, tp)
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], x),
+                         tp=tp)
 
 
-def encode(cfg: ModelConfig, params: Tree, frames) -> torch.Tensor:
-    """frames: [B, T_enc, d] (conv-stub output) -> encoder states."""
+def _own(t, tp):
+    return t if tp is None else tp.own(t, dim=0)
+
+
+def encode(cfg: ModelConfig, params: Tree, frames, tp=None) -> torch.Tensor:
+    """frames: [B, T_enc, d] (conv-stub output) -> encoder states (with
+    ``tp``: the rank's part of the sequence in and out)."""
     dev = params["embed"].device
     frames = torch.as_tensor(frames, device=dev)
-    x = frames.to(cfg.dtype) + _sincos(frames.shape[1], cfg, dev)
+    T = frames.shape[1] * (1 if tp is None else tp.size)
+    x = frames.to(cfg.dtype) + _own(_sincos(T, cfg, dev), tp)
     x = _layers(cfg, _enc_block, params["enc_layers"], _n_enc(cfg), x,
-                _positions(x))
+                _positions(frames.shape[0], T, dev), tp)
     return apply_norm(cfg, gathered(params["enc_norm"]), x)
+
+
+def decode_hidden(cfg: ModelConfig, params: Tree, tokens, memory,
+                  tp=None) -> torch.Tensor:
+    """Teacher-forced decoder up to its final norm: tokens [B, T_dec],
+    memory [B, T_enc, d] -> [B, T_dec, d] (with ``tp``: memory and the
+    result the rank's part of their sequences)."""
+    x = embed_tokens(cfg, params, tokens, tp)
+    T = x.shape[1] * (1 if tp is None else tp.size)
+    x = x + _own(_sincos(T, cfg, x.device), tp)
+    if tp is not None:
+        memory = tp.gather_seq(memory)
+    x = _layers(cfg, _dec_block, params["dec_layers"], cfg.n_layers, x,
+                _positions(x.shape[0], T, x.device), memory, tp)
+    return apply_norm(cfg, gathered(params["final_norm"]), x)
 
 
 def decode_train(cfg: ModelConfig, params: Tree, tokens,
                  memory) -> torch.Tensor:
     """Teacher-forced decoder: tokens [B, T_dec], memory [B, T_enc, d] ->
     logits [B, T_dec, V] float32 (tied embedding)."""
-    x = embed_tokens(cfg, params, tokens)
-    x = x + _sincos(x.shape[1], cfg, x.device)
-    x = _layers(cfg, _dec_block, params["dec_layers"], cfg.n_layers, x,
-                _positions(x), memory)
-    x = apply_norm(cfg, gathered(params["final_norm"]), x)
+    x = decode_hidden(cfg, params, tokens, memory)
     return (x @ gathered(params["embed"]).T).float()
 
 
@@ -153,22 +182,28 @@ def forward(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor]):
 
 
 def loss_fn(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
-            *, comm=None, **_):
+            *, comm=None, tp=None, **_):
     """Masked cross-entropy over valid (label >= 0) positions -> (ce,
     {"ce", "aux", "zloss"}), on the full teacher-forced logits (T_dec is
     short), as the reference.  With ``comm`` (a mesh's data-parallel
     group) the mean is over the global batch, as ``lm.loss_fn`` takes
-    it."""
+    it, through one chunk of ``lm.sequence_ce`` (no z-loss); with ``tp``
+    as well (its "model" group) the model and the cross-entropy compute
+    on "model"."""
+    if comm is not None:
+        memory = encode(cfg, params, batch["frames"], tp)
+        x = decode_hidden(cfg, params, batch["tokens"], memory, tp)
+        labels = torch.as_tensor(batch["labels"], device=x.device).long()
+        nll_s, _z, cnt = sequence_ce(cfg, x, _unembed(cfg, params), labels,
+                                     tp, chunk=labels.shape[1], z_weight=0.0)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return _global_loss(nll_s, zero, cnt, zero, 0.0, comm, tp)
     logits, aux = forward(cfg, params, batch)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    if comm is not None:
-        zero = torch.zeros_like(aux)
-        return _global_loss(((logz - gold) * mask).sum(), zero, mask.sum(),
-                            aux, 0.0, comm)
     ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce, {"ce": ce, "aux": aux, "zloss": torch.zeros_like(ce)}
 

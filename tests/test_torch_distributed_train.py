@@ -19,7 +19,18 @@ the float32 smoke configs with the full config's ``fsdp``
 ``capacity_factor`` is lowered to 0.5, so choices drop at the global
 capacity (asserted).  The meshes: ``data=4`` (written ``(data=4,
 model=1)``: the reference's spec arithmetic needs a "model" axis),
-``(data=2, model=2)`` and ``(pod=2, data=2, model=2)``.
+``(data=2, model=2)`` and ``(pod=2, data=2, model=2)``.  On the meshes
+with "model" = 2 the ranks compute on "model" (tensor-parallel: each its
+heads, MLP columns, experts and vocabulary slice; the residual stream
+between blocks its half of the sequence), which every rank records: the
+shapes of each layer's residual input, of the q / k / v that reach
+``ops.flash_attention`` and of the x that reaches ``ssd_chunked``.  In
+the same spawns each rank holds the autograd collectives of
+``launch.mesh.TensorParallel`` and the vocabulary-parallel
+cross-entropy, value and gradient, against one process's functions on
+the same inputs (``lm.chunked_ce``).  jamba-v0.1's smoke superblock
+(Mamba2, attention and MoE layers, all split over "model") runs on
+``(data=2, model=2)``.
 
 Tolerances are tests/test_torch_train.py's for one step: metrics rtol
 1e-4 (atol 1e-7); the moments 1e-3 of the leaf's max; a parameter within
@@ -67,7 +78,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.comm import DistributedComm
 from repro_torch.launch import dryrun, mesh as t_mesh, steps
 from repro_torch.launch import train as t_train
-from repro_torch.models import moe
+from repro_torch.kernels import ops
+from repro_torch.models import lm, moe, ssm, whisper
 from repro_torch.models.common import tree_leaves
 from repro_torch.optim import AdamWConfig, adamw_init
 
@@ -80,7 +92,8 @@ MESHES = {"data4": ((4, 1), ("data", "model")),
           "pod2_data2_model2": ((2, 2, 2), ("pod", "data", "model"))}
 OVERRIDES = {"llama4_scout_17b_a16e": dict(capacity_factor=0.5)}
 ARCHS = ("starcoder2_3b", "qwen3_14b", "mamba2_130m",
-         "llama4_scout_17b_a16e", "qwen2_vl_72b", "whisper_large_v3")
+         "llama4_scout_17b_a16e", "qwen2_vl_72b", "whisper_large_v3",
+         "jamba_v0_1_52b")
 MOE = "llama4_scout_17b_a16e"
 # (arch, mesh, kind, accum)
 CELLS = ([(a, "data2_model2", "train", 1) for a in ARCHS]
@@ -93,6 +106,9 @@ CKPT_ARCH = "starcoder2_3b"
 RANK_TIMEOUT = datetime.timedelta(seconds=60)
 SPAWN_SECONDS = 300
 REF_PROCS = 3            # JAX subprocesses, the cells dealt among them
+#: a reference cell's compile and run time in units of a 2-layer cell's
+#: (jamba's superblock is 8 layers)
+REF_WEIGHT = {"jamba_v0_1_52b": 4}
 
 
 def cell_id(cell):
@@ -227,7 +243,45 @@ def _inputs(d, arch, kind):
     return params, batch
 
 
+#: what each rank records where "model" computes in parallel: (module,
+#: function, the positional arguments whose shapes are kept)
+RECORDED = ((lm, "_apply_layer", (4,)), (whisper, "_enc_block", (2,)),
+            (whisper, "_dec_block", (2,)), (ops, "flash_attention", (0, 1)),
+            (ssm, "ssd_chunked", (0,)))
+
+
+def _recorded(cid, out, fn):
+    """``fn()`` with the calls of :data:`RECORDED` noting their argument
+    shapes in ``out[cid/rec/<function>]`` (distinct shapes, in order)."""
+    saved = []
+    for mod, name, args in RECORDED:
+        real = getattr(mod, name)
+        seen = []
+
+        def wrap(*a, _real=real, _seen=seen, _args=args, **kw):
+            shapes = tuple(tuple(a[i].shape) for i in _args)
+            if shapes not in _seen:
+                _seen.append(shapes)
+            return _real(*a, **kw)
+        setattr(mod, name, wrap)
+        saved.append((mod, name, real, seen))
+    try:
+        return fn()
+    finally:
+        for mod, name, real, seen in saved:
+            setattr(mod, name, real)
+            if seen:
+                out[f"{cid}/rec/{name}"] = np.array(seen)
+
+
 def _run_cell(cell, d, comm, out):
+    if MESHES[cell[1]][0][-1] > 1:
+        return _recorded(cell_id(cell), out,
+                         lambda: _run_cell_inner(cell, d, comm, out))
+    return _run_cell_inner(cell, d, comm, out)
+
+
+def _run_cell_inner(cell, d, comm, out):
     arch, mesh_name, kind, accum = cell
     cid = cell_id(cell)
     cfg = t_cfg(arch)
@@ -255,6 +309,191 @@ def _run_cell(cell, d, comm, out):
     out[f"{cid}/bytes_opt"] = np.array(
         sum(t.nbytes for name in ("m", "v")
             for _p, t in tree_leaves(opt[name])) + opt["count"].nbytes)
+
+
+def _collective_checks(mesh, out):
+    """Value and gradient of each autograd collective of ``mesh.tp`` and
+    of the vocabulary-parallel cross-entropy against one process's
+    functions on the same inputs (every rank draws all ranks' inputs from
+    one seed).  The largest absolute error of each goes to
+    ``out["coll/<name>"]``, beside ``out["coll/<name>/scale"]``."""
+    tp = mesh.tp
+    m, j = tp.size, tp.index
+    g = torch.Generator().manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64).float()
+
+    def note(name, got, want):
+        out[f"coll/{name}"] = np.array(float((got - want).abs().max()))
+        out[f"coll/{name}/scale"] = np.array(float(want.abs().max()))
+
+    b, T, d = 2, 8, 6
+    xs = [rnd(b, T // m, d) for _ in range(m)]          # the ranks' parts
+    ws = [rnd(b, T, d) for _ in range(m)]               # their upstream
+    x = xs[j].clone().requires_grad_(True)
+    calls = dict(mesh.comm.calls)
+    y = tp.gather_seq(x)
+    (y * ws[j]).sum().backward()
+    out["calls/gather_seq"] = np.array(
+        [mesh.comm.calls[k] - calls[k] for k in COMM_KINDS])
+    note("gather_seq", y, torch.cat(xs, 1))
+    note("gather_seq/grad", x.grad, tp.own(sum(ws)))
+
+    ps = [rnd(b, T, d) for _ in range(m)]               # partial sums
+    vs = [rnd(b, T // m, d) for _ in range(m)]
+    x = ps[j].clone().requires_grad_(True)
+    calls = dict(mesh.comm.calls)
+    y = tp.scatter_seq(x)
+    (y * vs[j]).sum().backward()
+    out["calls/scatter_seq"] = np.array(
+        [mesh.comm.calls[k] - calls[k] for k in COMM_KINDS])
+    note("scatter_seq", y, tp.own(sum(ps)))
+    note("scatter_seq/grad", x.grad, torch.cat(vs, 1))
+
+    w = rnd(b, d)
+    x = ps[j][:, 0].clone().requires_grad_(True)
+    y = tp.reduce(x)
+    (y * w).sum().backward()
+    note("reduce", y, sum(p[:, 0] for p in ps))
+    note("reduce/grad", x.grad, w)
+
+    x = ps[0][:, 0].clone().requires_grad_(True)
+    y = tp.copy(x)
+    (y * vs[j][:, 0]).sum().backward()
+    note("copy", y, ps[0][:, 0])
+    note("copy/grad", x.grad, sum(v[:, 0] for v in vs))
+
+    note("max", tp.max(ps[j]), torch.stack(ps).amax(0))
+
+    # the vocabulary-parallel cross-entropy (4 chunks), from the ranks'
+    # parts of the sequence, against one process's chunked_ce
+    V = 12
+    cfg = types.SimpleNamespace(vocab_size=V)
+    xf, u = rnd(b, T, d), rnd(d, V)
+    labels = torch.randint(V, (b, T), generator=g)
+    labels[:, ::3] = -1
+    xw = xf.clone().requires_grad_(True)
+    uw = u.clone().requires_grad_(True)
+    want = lm.chunked_ce(xw, uw, labels, chunk=2)
+    (want[0] + want[1]).backward()
+    for kind, unembed in (("split", tp.own(u, 1)), ("whole", u)):
+        x = tp.own(xf).clone().requires_grad_(True)
+        uu = unembed.clone().requires_grad_(True)
+        got = lm.sequence_ce(cfg, x, uu, labels, tp, chunk=2)
+        (got[0] + got[1]).backward()
+        note(f"ce_{kind}", torch.stack(got), torch.stack(want).detach())
+        note(f"ce_{kind}/grad_x", x.grad, tp.own(xw.grad))
+        want_u = tp.own(uw.grad, 1) if kind == "split" else uw.grad
+        # a whole unembedding's gradient is the rank's rows' part
+        got_u = uu.grad if kind == "split" else tp.reduce(uu.grad)
+        note(f"ce_{kind}/grad_unembed", got_u, want_u)
+
+
+#: (layer, arch whose smoke config it takes, T) of :func:`_layer_checks`
+LAYERS = (("attention", "qwen3_14b", 8), ("mlp_gelu", "starcoder2_3b", 8),
+          ("mlp_swiglu", "qwen3_14b", 8), ("mamba", "mamba2_130m", 32),
+          ("moe", "llama4_scout_17b_a16e", 8))
+
+
+def _rank_part(name, p, m, j):
+    """The rank's "model" shard of a layer's parameters where the plan
+    splits them (heads, MLP columns / rows, experts, SSD heads' rows of
+    ``out_proj``)."""
+    def cut(t, dim):
+        n = t.shape[dim] // m
+        return t.narrow(dim, j * n, n)
+    if name == "attention":
+        return dict(p, **{w: cut(p[w], 1) for w in ("wq", "wk", "wv")},
+                    wo=cut(p["wo"], 0))
+    if name.startswith("mlp"):
+        return dict(p, **{w: cut(p[w], 1) for w in ("wi", "wg") if w in p},
+                    wo=cut(p["wo"], 0))
+    if name == "mamba":
+        return dict(p, out_proj=cut(p["out_proj"], 0))
+    return dict(p, **{w: cut(p[w], 0) for w in ("wi", "wg", "wo")},
+                shared=_rank_part("mlp", p["shared"], m, j))
+
+
+def _layer_checks(mesh, out):
+    """Each block under ``mesh.tp`` on the rank's part of the sequence,
+    with the rank's split parameters and with whole ones, against one
+    process's block on the whole sequence: the rank's rows of the output,
+    its part of the input's gradient, a split parameter's gradient slice
+    and the sum over "model" of a whole parameter's.  The largest
+    absolute error of each goes to ``out["layer/<layer>/<split|whole>/
+    <what>"]`` beside its ``/scale``."""
+    from repro_torch.models import attention as attn_mod, common
+    tp = mesh.tp
+    m, j = tp.size, tp.index
+
+    def note(key, got, want):
+        out[key] = np.array(float((got - want).abs().max()))
+        out[f"{key}/scale"] = np.array(float(want.abs().max()))
+
+    for name, arch, T in LAYERS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  dtype=torch.float32)
+        g = torch.Generator().manual_seed(11)
+        layer = lm.init_params(cfg, seed=3)["layers"]["pos0"]
+        p = {"attention": layer.get("attn"), "moe": layer.get("moe"),
+             "mamba": layer.get("ssm")}.get(name, layer.get("mlp"))
+        p = {k: (v[0] if not isinstance(v, dict) else
+                 {kk: vv[0] for kk, vv in v.items()}) for k, v in p.items()}
+        if name == "mlp_gelu":
+            cfg = dataclasses.replace(cfg, mlp="gelu")
+        x = torch.randn(2, T, cfg.d_model, generator=g)
+        w = torch.randn(2, T, cfg.d_model, generator=g)
+        pos = torch.arange(T).expand(2, T)
+
+        def run(params, xx, tpp):
+            if name == "attention":
+                return attn_mod.attention(cfg, params, xx, pos, tp=tpp), 0
+            if name.startswith("mlp"):
+                return common.apply_mlp(cfg, params, xx, tp=tpp), 0
+            if name == "mamba":
+                return ssm.mamba_block(cfg, params, xx, tp=tpp)[0], 0
+            return moe.apply_moe(cfg, params, xx, tp=tpp)
+
+        def leaves(params):
+            return dict(tree_leaves(params))
+
+        full = {k: v.clone().requires_grad_(True)
+                for k, v in leaves(p).items()}
+        xf = x.clone().requires_grad_(True)
+        y, aux = run(_unflat_tree(full), xf, None)
+        ((y * w).sum() + 0.5 * aux).backward()
+        for mode in ("split", "whole"):
+            mine = {k: v.detach().clone().requires_grad_(True)
+                    for k, v in leaves(_rank_part(name, p, m, j)
+                                       if mode == "split" else p).items()}
+            xr = tp.own(x).clone().requires_grad_(True)
+            yr, aux_r = run(_unflat_tree(mine), xr, tp)
+            ((yr * tp.own(w)).sum() + 0.5 * aux_r / m).backward()
+            key = f"layer/{name}/{mode}"
+            note(f"{key}/out", yr, tp.own(y).detach())
+            note(f"{key}/grad_x", xr.grad, tp.own(xf.grad))
+            for k, t in mine.items():
+                want = full[k].grad
+                if t.shape == want.shape:
+                    got = tp.reduce(t.grad)
+                else:
+                    got = t.grad
+                    dim = next(d for d, (a, b) in enumerate(
+                        zip(t.shape, want.shape)) if a != b)
+                    want = want.narrow(dim, j * got.shape[dim],
+                                       got.shape[dim])
+                note(f"{key}/grad/{'/'.join(k)}", got, want)
+
+
+def _unflat_tree(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = v
+    return out
 
 
 def _checkpoint_runs(comm, root, out):
@@ -287,6 +526,10 @@ def _rank_main(rank, mesh_name, store, inputs, out_dir):
         for cell in CELLS:
             if cell[1] == mesh_name:
                 _run_cell(cell, d, comm, out)
+        if MESHES[mesh_name][0][-1] > 1:
+            mesh = t_mesh.make_mesh(*MESHES[mesh_name], comm=comm)
+            _collective_checks(mesh, out)
+            _layer_checks(mesh, out)
         if mesh_name == "data4":
             try:
                 t_mesh.make_mesh((2, 2, 2), ("pod", "data", "model"),
@@ -365,8 +608,7 @@ def runs(tmp_path_factory):
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     cells = [list(c) + [cell_id(c)] for c in CELLS]
     refs = []
-    for i in range(REF_PROCS):
-        part = cells[i::REF_PROCS]
+    for i, part in enumerate(_deal(cells, REF_PROCS)):
         refs.append(subprocess.Popen(
             [sys.executable, "-c", REFERENCE, str(d / f"ref{i}.npz"),
              str(d / "inputs.npz"), json.dumps(part), json.dumps(MESHES),
@@ -395,6 +637,17 @@ def runs(tmp_path_factory):
                     for r in range(int(np.prod(shape)))]
              for name, (shape, _axes) in MESHES.items()}
     return ref, dict(np.load(d / "inputs.npz")), ranks, d, single
+
+
+def _deal(cells, n):
+    """``cells`` in ``n`` parts of about equal :data:`REF_WEIGHT` (the
+    heaviest first, each to the lightest part so far)."""
+    parts, load = [[] for _ in range(n)], [0] * n
+    for c in sorted(cells, key=lambda c: -REF_WEIGHT.get(c[0], 1)):
+        i = load.index(min(load))
+        parts[i].append(c)
+        load[i] += REF_WEIGHT.get(c[0], 1)
+    return parts
 
 
 def single_process(inputs):
@@ -567,6 +820,112 @@ def test_resident_bytes_equal_dry_run(runs, cell):
             else:
                 continue
             assert tuple(v.shape) == leaves[path], (rank, path)
+
+
+TP_CELLS = [c for c in CELLS if MESHES[c[1]][0][-1] > 1]
+
+
+def expected_records(cell, inputs):
+    """What a rank of a tensor-parallel cell records (see
+    :data:`RECORDED`): {function: set of argument shape tuples}."""
+    arch, mesh_name, kind, accum = cell
+    cfg = t_cfg(arch)
+    shape, axes = MESHES[mesh_name]
+    m = shape[-1]
+    rows = B // int(np.prod(shape[:-1])) // accum
+    T = int(inputs[f"in/{arch}/{kind}/seq_len"])
+    d = cfg.d_model
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def flash(t):
+        return ((rows, t, H // m, hd), (rows, t, KV // m, hd))
+    if cfg.encdec:
+        Td = T // cfg.dec_ratio
+        return {"_enc_block": {((rows, T // m, d),)},
+                "_dec_block": {((rows, Td // m, d),)},
+                "flash_attention": {flash(T), flash(Td)}}
+    want = {"_apply_layer": {((rows, T // m, d),)}}
+    if "A" in cfg.pattern():
+        want["flash_attention"] = {flash(T)}
+    if "M" in cfg.pattern():
+        want["ssd_chunked"] = {((rows, T, cfg.ssm_heads // m,
+                                 cfg.ssm_head_dim),)}
+    return want
+
+
+@pytest.mark.parametrize("cell", TP_CELLS, ids=cell_id)
+def test_ranks_compute_on_model_shards(runs, cell):
+    """Where "model" has 2 ranks every rank's residual stream between
+    blocks is [B / dp, T / model, d], B9 (``ops.flash_attention``) gets
+    H / model query and KV / model key / value heads of the whole
+    sequence, and ``ssd_chunked`` (B10) H / model SSD heads."""
+    _ref, inputs, ranks, _d, _s = runs
+    cid = cell_id(cell)
+    want = expected_records(cell, inputs)
+    for rank, got in enumerate(ranks[cell[1]]):
+        rec = {k.split("/")[-1]: {tuple(tuple(int(n) for n in a)
+                                        for a in shapes)
+                                  for shapes in v}
+               for k, v in got.items() if k.startswith(f"{cid}/rec/")}
+        assert rec == want, (rank, rec, want)
+
+
+COLLECTIVES = ("gather_seq", "scatter_seq", "reduce", "copy", "max",
+               "ce_split", "ce_whole")
+COMM_KINDS = ("all_gather_group", "reduce_scatter", "all_reduce")
+
+
+@pytest.mark.parametrize("mesh_name",
+                         [m for m, (s, _a) in MESHES.items() if s[-1] > 1])
+@pytest.mark.parametrize("name", COLLECTIVES)
+def test_tensor_parallel_collectives_value_and_gradient(runs, mesh_name,
+                                                        name):
+    """Each autograd collective of ``TensorParallel`` and the
+    vocabulary-parallel cross-entropy (the rank's vocabulary slice, or a
+    whole unembedding on the rank's tokens) give one process's value and
+    gradient on every rank, within 1e-5 of max(1, max |want|)."""
+    for rank, got in enumerate(runs[2][mesh_name]):
+        keys = [k for k in got if k == f"coll/{name}"
+                or (k.startswith(f"coll/{name}/")
+                    and not k.endswith("/scale"))]
+        assert len(keys) == (1 if name == "max" else
+                             2 if not name.startswith("ce") else 3), keys
+        for k in keys:
+            err, scale = float(got[k]), float(got[f"{k}/scale"])
+            assert err <= 1e-5 * max(1.0, scale), (rank, k, err, scale)
+
+
+@pytest.mark.parametrize("mesh_name",
+                         [m for m, (s, _a) in MESHES.items() if s[-1] > 1])
+@pytest.mark.parametrize("name,want", [("gather_seq", (1, 1, 0)),
+                                       ("scatter_seq", (1, 1, 0))])
+def test_comm_counts_each_collective_once(runs, mesh_name, name, want):
+    """``DistributedComm.calls`` counts one gather and one reduce-scatter
+    on every rank for a sequence gather and its backward, and for a
+    sequence reduce-scatter and its backward."""
+    for rank, got in enumerate(runs[2][mesh_name]):
+        assert tuple(got[f"calls/{name}"]) == want, (rank, COMM_KINDS,
+                                                     got[f"calls/{name}"])
+
+
+@pytest.mark.parametrize("mesh_name",
+                         [m for m, (s, _a) in MESHES.items() if s[-1] > 1])
+@pytest.mark.parametrize("mode", ("split", "whole"))
+@pytest.mark.parametrize("layer", [name for name, _a, _t in LAYERS])
+def test_blocks_on_model_shards_match_one_process(runs, mesh_name, mode,
+                                                  layer):
+    """Attention, both MLP flavours, the Mamba2 block and the MoE layer
+    under ``tp``, with the rank's split parameters and with whole ones
+    (the plan's "gathered" leaves: counts "model" does not divide), give
+    one process's output rows and gradients on every rank, within 1e-5
+    of max(1, max |want|)."""
+    for rank, got in enumerate(runs[2][mesh_name]):
+        keys = [k for k in got if k.startswith(f"layer/{layer}/{mode}/")
+                and not k.endswith("/scale")]
+        assert len(keys) >= 3, keys
+        for k in keys:
+            err, scale = float(got[k]), float(got[f"{k}/scale"])
+            assert err <= 1e-5 * max(1.0, scale), (rank, k, err, scale)
 
 
 @pytest.mark.parametrize("rank", range(4))
