@@ -3371,7 +3371,7 @@ def plain_ssd_pieces(x, dt, A, Bm, Cm, chunk: int, pieces: int = 4):
     is independent), so its [B, nc, L, L, H] decays fit beside a model."""
     from repro_torch.kernels import ref
     T = x.shape[1]
-    step = T // pieces
+    step = max(chunk, T // pieces)
     outs = [ref.ssd_intra_chunk(x[:, t:t + step], dt[:, t:t + step], A,
                                 Bm[:, t:t + step], Cm[:, t:t + step],
                                 chunk=chunk)
@@ -6308,6 +6308,441 @@ def phase_distributed_lm(report: dict, smi: str) -> None:
                 report[kname]["dist_train_step_ms"] = max(step_ms)
                 report[kname]["dist_train_ranks"] = n
 
+# Phase 39: the decode step on a mesh of ranks (ROADMAP A.15d(2)), spawned
+# as phase 38 is (gloo, host-staged, one card), at full width.
+#
+# qwen_decode: qwen3-14b cut to 2 of its 40 layers, fsdp (the config's),
+# on (data=2, model=2), B = 1 and a cache of decode_32k's 32,768 slots:
+# the slots are cut over "data" (B does not divide it) and the 8 K / V
+# heads over "model" (layouts (b) and (a) of models/attention.py).  The
+# state starts at pos0 = S / 2 - 4 with the caches below it drawn from a
+# seed, and 8 teacher-forced steps write across the boundary of the two
+# dp ranks' slots.  Each rank's logits are held against one process's
+# decode_step on the same state at the bf16 decode rule (PERF.md §2):
+# 2e-2 max(1, max |logit|).
+#
+# mamba_decode: mamba2-130m, all 24 layers, on (data=4, model=2) at
+# decode_32k's batch of 128 (32 rows a dp rank): 4 teacher-forced steps,
+# then 4 greedy steps through launch.serve.serve(..., comm=).  B10 runs at
+# chunk 1 on the rank's 12 of 24 heads (an 8-head group and a ragged
+# 4-head one), 24 launches a step.  Rank 0 holds its first B10 launch
+# against the plain version under phase 38's rule; the teacher-forced
+# steps' logits are held to one process's at the decode rule; the greedy
+# tokens must be equal on every rank and, where they differ from one
+# process's serve, one process's top-two margin at the first difference
+# must lie within the rule.
+#
+# Every rank reports its ms a step, the bytes gathered and reduced and
+# the collectives a token (comm.bytes / calls / seconds), its peak memory,
+# and its resident parameter and state bytes, which must equal the dry
+# run's per-device figures (dryrun.argument_bytes) for the cell.
+D39_CELLS = {
+    "qwen_decode": dict(arch="qwen3_14b", layers=2, mesh=((2, 2),
+                        ("data", "model")), batch=1, seq=32768, steps=8),
+    "mamba_decode": dict(arch="mamba2_130m", layers=None, mesh=((4, 2),
+                         ("data", "model")), batch=128, seq=32768,
+                         prompt_len=4, gen_len=5),
+}
+D39_RULE = 2e-2
+D39_SMOKE = False           # the smoke widths (a rehearsal on the CPU)
+
+
+def d39_config(cell: dict):
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if D39_SMOKE else get_config)(cell["arch"])
+    if cell["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=cell["layers"])
+    return cfg
+
+
+def d39_shape(cell: dict):
+    from repro_torch.launch import steps
+    return steps.decode_shape(cell["batch"], cell["seq"])
+
+
+def d39_state(cfg, cell: dict, dev):
+    """qwen_decode's whole state at pos0 = S / 2 - 4, the caches below pos0
+    drawn from a seed on ``dev``."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    pos0 = cell["seq"] // 2 - 4
+    state = lm.init_decode_state(cfg, cell["batch"], cell["seq"], device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for _path, t in tree_leaves(state["layers"]):
+        part = t[:, :, :pos0]
+        part.copy_(torch.randn(part.shape, generator=g, device=dev))
+    state["pos"] = pos0
+    return state
+
+
+def d39_tokens(cfg, cell: dict) -> np.ndarray:
+    return np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (cell["steps"], cell["batch"], 1)).astype(np.int32)
+
+
+def d39_margins(logits) -> tuple:
+    """(top-two margin a row, the decode rule's limit) of [B, 1, V]
+    logits."""
+    top = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu(), \
+        D39_RULE * max(1.0, float(logits.abs().max()))
+
+
+def d39_single(cname: str, out: Path) -> dict:
+    """One process's decode of ``cname`` on the card: its logits (or
+    serve's tokens, teacher-forced logits and margins) go to ``out`` for
+    the ranks and the phase, its figures are returned."""
+    from repro_torch.launch import serve as t_serve, steps
+    from repro_torch.models import lm
+    cell = D39_CELLS[cname]
+    cfg = d39_config(cell)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res: dict = {"logits": [], "ms": []}
+    if cname == "qwen_decode":
+        params = lm.init_params(cfg, seed=0, device=DEVICE)
+        state = d39_state(cfg, cell, DEVICE)
+        step = steps.build_serve_step(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for toks in d39_tokens(cfg, cell):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = step(params, state, torch.as_tensor(
+                toks, device=DEVICE))
+            torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["logits"].append(logits.cpu())
+        del params, state
+    else:
+        real = steps.build_serve_step
+
+        def build(cfg_, *, mesh=None):
+            step = real(cfg_, mesh=mesh)
+
+            def kept(params, state, toks):
+                torch.cuda.synchronize()
+                if not res["ms"]:
+                    torch.cuda.reset_peak_memory_stats()
+                    res["base"] = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                logits, state = step(params, state, toks)
+                torch.cuda.synchronize()
+                res["ms"].append((time.perf_counter() - t0) * 1e3)
+                res.setdefault("margins", []).append(d39_margins(logits))
+                if len(res["logits"]) < cell["prompt_len"]:
+                    res["logits"].append(logits.cpu())
+                return logits, state
+            return kept
+        with mock.patch.object(steps, "build_serve_step", build):
+            res["tokens"] = t_serve.serve(
+                cell["arch"], smoke=D39_SMOKE, batch=cell["batch"],
+                prompt_len=cell["prompt_len"], gen_len=cell["gen_len"],
+                seed=0, device=DEVICE)
+    res["peak"] = torch.cuda.max_memory_allocated() - res.pop("base", base)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.save(res, out)
+    return res
+
+
+def d39_rank(rank: int, cfg: dict) -> None:
+    """One rank of phase 39 cell ``cfg["cell"]``: its figures go to
+    ``cfg["out"]/d39_<cell>_rank<r>.pt``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.launch.mesh import make_mesh, shard_tree
+    from repro_torch.models import attention, lm
+    from repro_torch.models.common import tree_leaves
+
+    comm = rank_comm(rank, cfg)
+    dev = comm.device
+    cname = cfg["cell"]
+    cell = D39_CELLS[cname]
+    mcfg = d39_config(cell)
+    single = torch.load(cfg["single"], weights_only=False)
+    st: dict = {"transport": comm.transport, "device": str(dev),
+                "shapes": {}, "steps": []}
+    first: dict = {}
+    attn_bytes: list = []
+    real_attn = attention.decode_attention
+
+    def counted_attn(*a, **kw):
+        before = sum(comm.bytes.values())
+        out = real_attn(*a, **kw)
+        attn_bytes.append((sum(comm.bytes.values()) - before,
+                           a[3].nbytes + a[4].nbytes))
+        return out
+
+    def resident(params, state):
+        """The rank's shard bytes, as the steps start (the peak from
+        here)."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        st["bytes"] = (sum(t.nbytes for _p, t in tree_leaves(params)),
+                       4 + sum(t.nbytes for _p, t in tree_leaves(
+                           {k: v for k, v in state.items()
+                            if k not in ("pos", "cell")})))
+
+    def timed(step, params, state, toks):
+        torch.cuda.synchronize(dev)
+        before, calls = dict(comm.bytes), dict(comm.calls)
+        secs, launched = comm.seconds, ops.launch_counts()
+        t0 = time.perf_counter()
+        logits, state = step(params, state, toks)
+        torch.cuda.synchronize(dev)
+        now = ops.launch_counts()
+        st["steps"].append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "gathered": comm.bytes["gathered"] - before["gathered"],
+            "reduced": comm.bytes["reduced"] - before["reduced"],
+            "calls": sum(comm.calls[k] - calls[k] for k in calls),
+            "comm_ms": (comm.seconds - secs) * 1e3,
+            "launches": {k: now[k] - launched[k] for k in now}})
+        return logits, state
+
+    def held(logits, t, rows):
+        want = single["logits"][t].to(dev)[rows]
+        return float((logits - want).abs().max()) / (
+            D39_RULE * max(1.0, float(want.abs().max())))
+
+    try:
+        mesh = make_mesh(*cell["mesh"], comm=comm)
+        st["dry_run"] = tuple(dryrun.argument_bytes(
+            mcfg, d39_shape(cell), mesh)[k] for k in ("params", "state"))
+        ops.reset_launch_counts()
+        with d38_recorded(st["shapes"], first), mock.patch.object(
+                attention, "decode_attention", counted_attn):
+            if cname == "qwen_decode":
+                full = lm.init_params(mcfg, seed=0, device=dev)
+                params = shard_tree(full, steps.param_and_opt_specs(
+                    mcfg, mesh)[0], mesh)
+                del full
+                state = steps.shard_decode_state(
+                    mcfg, d39_state(mcfg, cell, dev), d39_shape(cell), mesh)
+                torch.cuda.empty_cache()
+                resident(params, state)
+                step = steps.build_serve_step(mcfg, mesh=mesh)
+                st["held"] = []
+                for t, toks in enumerate(d39_tokens(mcfg, cell)):
+                    logits, state = timed(step, params, state,
+                                          torch.as_tensor(toks, device=dev))
+                    st["held"].append(held(logits, t, slice(None)))
+                st["logits_shape"] = tuple(logits.shape)
+            else:
+                real = steps.build_serve_step
+                st["held"] = []
+                lo = mesh.dp.index * (cell["batch"] // mesh.dp.size)
+                rows = slice(lo, lo + cell["batch"] // mesh.dp.size)
+
+                def build(cfg_, *, mesh=None):
+                    step = real(cfg_, mesh=mesh)
+
+                    def kept(params, state, toks):
+                        if "bytes" not in st:
+                            resident(params, state)
+                        logits, state = timed(step, params, state, toks)
+                        if len(st["held"]) < cell["prompt_len"]:
+                            st["held"].append(held(logits, len(st["held"]),
+                                                   rows))
+                        return logits, state
+                    return kept
+                with mock.patch.object(steps, "build_serve_step", build):
+                    st["tokens"] = t_serve.serve(
+                        cell["arch"], smoke=D39_SMOKE, batch=cell["batch"],
+                        prompt_len=cell["prompt_len"],
+                        gen_len=cell["gen_len"], seed=0, device=dev,
+                        mesh_spec=",".join(f"{a}={s}" for a, s in zip(
+                            cell["mesh"][1], cell["mesh"][0])), comm=comm)
+        st["launches"] = ops.launch_counts()
+        st["peak"] = torch.cuda.max_memory_allocated(dev)
+        st["attn_bytes"] = attn_bytes
+        if rank == 0 and "ssd_chunk" in first:
+            torch.cuda.empty_cache()
+            st["kernel_checks"] = d38_kernel_checks(
+                {"ssd_chunk": first["ssd_chunk"]})
+        del first
+        torch.save(st, Path(cfg["out"]) / f"d39_{cname}_rank{rank}.pt")
+    finally:
+        comm.close()
+
+
+def d39_say(cname: str, cell: dict, ranks: list, single: dict, wall_s: float,
+            smi: str) -> None:
+    gib, mib = 1 / 2**30, 1 / 2**20
+    (sizes, axes) = cell["mesh"]
+    mesh_s = ", ".join(f"{a}={s}" for a, s in zip(axes, sizes))
+
+    def each(fn, fmt="{:.1f}"):
+        return " / ".join(fmt.format(fn(st)) for st in ranks)
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+    say(f"{cname} ({cell['arch']}, {d39_config(cell).n_layers} layers, on "
+        f"({mesh_s}), B {cell['batch']}, cache {cell['seq']}; {DIST_LABEL})"
+        f": {len(ranks)} ranks spawned, ran and joined in {wall_s:.1f} s; "
+        f"ranks 0-{len(ranks) - 1}: ms a decode step "
+        f"{each(lambda s: mean([f['ms'] for f in s['steps'][1:]]))} (mean "
+        f"of steps 2-{len(ranks[0]['steps'])}; first "
+        f"{each(lambda s: s['steps'][0]['ms'])}; one process "
+        f"{mean(single['ms'][1:]):.1f}); gathered "
+        f"{each(lambda s: s['steps'][-1]['gathered'] * mib, '{:.2f}')} MiB "
+        f"and reduced "
+        f"{each(lambda s: s['steps'][-1]['reduced'] * mib, '{:.3f}')} MiB "
+        f"a token in {each(lambda s: s['steps'][-1]['calls'], '{}')} "
+        f"collectives, "
+        f"{each(lambda s: s['steps'][-1]['comm_ms'])} ms of the last step "
+        f"in them (host clock); peak max_memory_allocated over the steps "
+        f"{each(lambda s: s['peak'] * gib, '{:.3f}')} GiB (one process "
+        f"{single['peak'] * gib:.3f} GiB above its start); resident "
+        f"parameters {ranks[0]['bytes'][0] * gib:.4f} GiB and state "
+        f"{ranks[0]['bytes'][1] * mib:.3f} MiB a rank (= the dry run's); "
+        f"logits at "
+        f"{each(lambda s: max(s['held']), '{:.4f}')} of the decode rule "
+        f"against one process; card {smi}")
+
+
+def phase_distributed_decode(report: dict, smi: str) -> None:
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import _build
+
+    report["ssd_chunk"].setdefault("dist_decode_launches", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for cname, cell in D39_CELLS.items():
+            (sizes, axes) = cell["mesh"]
+            n = int(np.prod(sizes))
+            out = Path(tmp) / f"d39_{cname}.pt"
+            single = d39_single(cname, out)
+            cfg = dict(P=n, device=DEVICE, lib=str(_build.build()),
+                       store=str(Path(tmp) / f"store39{cname}"), out=tmp,
+                       cell=cname, single=str(out))
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(d39_rank, args=(cfg,), nprocs=n,
+                                     join=False, start_method="spawn")
+            join_ranks(ctx, DIST_JOIN_S)
+            wall_s = time.perf_counter() - t0
+            ranks = [torch.load(Path(tmp) / f"d39_{cname}_rank{r}.pt",
+                                weights_only=False) for r in range(n)]
+            n_steps = len(single["ms"])
+            mcfg = d39_config(cell)
+            for r, st in enumerate(ranks):
+                check(st["transport"] == "gloo, host-staged"
+                      and st["device"].startswith("cuda"),
+                      f"rank {r}: transport {st['transport']} on "
+                      f"{st['device']}")
+                check(len(st["steps"]) == n_steps,
+                      f"{cname} rank {r}: {len(st['steps'])} steps, one "
+                      f"process {n_steps}")
+                check(all(np.isfinite(h) and h <= 1.0 for h in st["held"]),
+                      f"{cname} rank {r}: logits at "
+                      f"{[round(h, 4) for h in st['held']]} of the decode "
+                      f"rule against one process")
+                check(tuple(st["bytes"]) == tuple(st["dry_run"]),
+                      f"{cname} rank {r}: resident parameter / state bytes "
+                      f"{st['bytes']}, the dry run's {st['dry_run']}")
+                check(st["attn_bytes"] == [] or all(
+                    0 < b < cache for b, cache in st["attn_bytes"]),
+                      f"{cname} rank {r}: an attention layer moved more "
+                      f"than its cache shard: {st['attn_bytes'][:4]}")
+            if cname == "qwen_decode":
+                layers = mcfg.n_layers
+                for r, st in enumerate(ranks):
+                    check(st["logits_shape"] == (1, 1, mcfg.vocab_size),
+                          f"qwen_decode rank {r}: logits "
+                          f"{st['logits_shape']}")
+                    check(len(st["attn_bytes"]) == layers * n_steps,
+                          f"qwen_decode rank {r}: "
+                          f"{len(st['attn_bytes'])} attention calls")
+                    check(sum(st["launches"].values()) == 0,
+                          f"qwen_decode rank {r}: kernels launched "
+                          f"{st['launches']} (decode attention is plain)")
+                d39_say(cname, cell, ranks, single, wall_s, smi)
+                b, cache = ranks[0]["attn_bytes"][-1]
+                say(f"qwen_decode: an attention layer's collectives move "
+                    f"{b} B a token on rank 0, its cache shard (K and V) "
+                    f"holds {cache / 2**20:.1f} MiB: no cache is gathered")
+                continue
+            layers = mcfg.n_layers
+            H = mcfg.ssm_heads // dict(zip(axes, sizes))["model"]
+            rows = cell["batch"] // (n // dict(zip(axes, sizes))["model"])
+            want_shape = (rows, 1, H, mcfg.ssm_head_dim)
+            toks0 = ranks[0]["tokens"]
+            for r, st in enumerate(ranks):
+                check(st["launches"]["ssd_chunk"] == layers * n_steps
+                      and all(f["launches"]["ssd_chunk"] == layers
+                              for f in st["steps"]),
+                      f"mamba_decode rank {r}: B10 launched "
+                      f"{st['launches']['ssd_chunk']} times, "
+                      f"{[f['launches']['ssd_chunk'] for f in st['steps']]}"
+                      f" a step, expected {layers} a step")
+                check([s[0] for s in st["shapes"].get("ssd_chunk", [])]
+                      == [want_shape],
+                      f"mamba_decode rank {r}: B10 at "
+                      f"{st['shapes'].get('ssd_chunk')}, the rank's heads "
+                      f"give {want_shape}")
+                check(np.array_equal(st["tokens"], toks0),
+                      f"mamba_decode rank {r}: greedy tokens differ from "
+                      f"rank 0's")
+            want = single["tokens"]
+            check(toks0.shape == want.shape,
+                  f"mamba_decode: tokens {toks0.shape}, one process "
+                  f"{want.shape}")
+            diff = np.argwhere(toks0 != want)
+            if len(diff):
+                row, t = (int(v) for v in diff[np.argmin(diff[:, 1])])
+                margins, limit = single["margins"][t - 1]
+                margin = float(margins[row])
+                check(t >= cell["prompt_len"] and margin <= limit,
+                      f"mamba_decode: row {row} differs from one process "
+                      f"at position {t}, where its top-two margin is "
+                      f"{margin:.4g} (the rule's limit {limit:.4g})")
+                first = (f"first differs from one process's at row {row}, "
+                         f"position {t} (one process's top-two margin "
+                         f"there {margin:.4g}, within the rule's "
+                         f"{limit:.4g}); {len(diff)} of {want.size} tokens "
+                         f"differ")
+            else:
+                first = "equal to one process's"
+            d39_say(cname, cell, ranks, single, wall_s, smi)
+            say(f"mamba_decode: the [{want.shape[0]}, {want.shape[1]}] "
+                f"tokens of serve() are equal on every rank and {first}; "
+                f"B10 launched {layers} times a step in every rank at "
+                f"{want_shape}")
+            c = ranks[0]["kernel_checks"]["ssd_chunk"]
+            check(c["ratio"] <= 1.0, f"mamba_decode rank 0: B10 on its "
+                  f"first launch's inputs at {c['ratio']:.4f} of its rule "
+                  f"(max abs err {c['err']:.3e})")
+            check(min(c["zeroed"], c["dropped"]) > 1.0,
+                  f"mamba_decode rank 0: B10's rule reads zeroed outputs at "
+                  f"{c['zeroed']:.4g} and a dropped last head group at "
+                  f"{c['dropped']:.4g}: it could pass a wrong kernel")
+            say(f"mamba_decode rank 0, B10's first launch at {want_shape} "
+                f"(chunk 1) vs its plain version: {c['ratio']:.4f} of its "
+                f"rule (max abs err {c['err']:.3e}; max |want| of each "
+                f"output " + ", ".join(f"{t:.3e}" for t in c["top"])
+                + f"; zeroed outputs read {c['zeroed']:.4g}, the ragged "
+                f"last head group dropped {c['dropped']:.4g}), "
+                f"{c['ms']:.4f} ms (plain {c['plain_ms']:.3f}, bound "
+                f"{c['bound_ms']:.5f} by {c['bound_by']}); card {smi}")
+            report["ssd_chunk"].update(
+                dist_decode_launches=min(st["launches"]["ssd_chunk"]
+                                         for st in ranks),
+                dist_decode_shape=str(want_shape),
+                dist_decode_max_abs_err=c["err"],
+                dist_decode_ratio=c["ratio"], dist_decode_ms=c["ms"],
+                dist_decode_plain_ms=c["plain_ms"],
+                dist_decode_bound_ms=c["bound_ms"],
+                dist_decode_bound_by=c["bound_by"],
+                dist_decode_step_ms=max(
+                    sum(f["ms"] for f in st["steps"][1:])
+                    / (len(st["steps"]) - 1) for st in ranks),
+                dist_decode_ranks=n)
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -6429,7 +6864,9 @@ def main() -> int:
               ("the serving, join and k-NN paths under the distributed "
                "backend", lambda: phase_distributed_serving(report, smi)),
               ("the LM steps on a mesh of ranks",
-               lambda: phase_distributed_lm(report, smi))]
+               lambda: phase_distributed_lm(report, smi)),
+              ("the decode step on a mesh of ranks",
+               lambda: phase_distributed_decode(report, smi))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")

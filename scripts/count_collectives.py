@@ -1,7 +1,9 @@
 """Count the collectives one mesh train step of an LM takes on each rank,
 with the bytes each kind sends and the host time spent in them, on gloo
 ranks: the cells of ``chip_smoke.py`` phase 38 (their arch's depth, mesh,
-fsdp, global batch, microbatches and sequence length).  On the CPU the
+fsdp, global batch, microbatches and sequence length), or those of one
+decode token in phase 39's cells (``--cell qwen_decode|mamba_decode``:
+their depth, mesh, batch and cache length, the config's fsdp).  On the CPU the
 arch runs at its smoke widths: the count follows the leaves, the layers,
 the microbatches and the loss's chunks, not the widths (mamba2-130m's
 full-width step counts one optimizer relayout gather more than here,
@@ -14,7 +16,8 @@ It reads the collectives through ``DistributedComm``'s methods, so it runs
 against any tree of the port that has them; put that tree's ``src`` first
 on the path:
 
-    PYTHONPATH=src python3 scripts/count_collectives.py [--cell mamba|qwen]
+    PYTHONPATH=src python3 scripts/count_collectives.py \
+        [--cell mamba|qwen|qwen_decode|mamba_decode]
         [--device cpu|cuda] [--steps 3] [--sites]
 
 ``--sites`` also gives calls, bytes and time of each kind by the two
@@ -42,6 +45,13 @@ CELLS = {
               2),
 }
 SEQ = 4096
+#: phase 39's cells: (arch, layers (None: all), mesh, global batch, cache
+#: length); one decode token a step, from pos = length / 2 - 4
+DECODE_CELLS = {
+    "qwen_decode": ("qwen3_14b", 2, ((2, 2), ("data", "model")), 1, 32768),
+    "mamba_decode": ("mamba2_130m", None, ((4, 2), ("data", "model")), 128,
+                     32768),
+}
 
 
 def _site() -> str:
@@ -93,7 +103,12 @@ def _rank(rank: int, cell: str, n: int, store: str, out: str, device: str,
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig
 
-    arch, layers, fsdp, (sizes, axes), batch, accum = CELLS[cell]
+    decode = cell in DECODE_CELLS
+    if decode:
+        arch, layers, (sizes, axes), batch, seq = DECODE_CELLS[cell]
+        fsdp = get_config(arch).fsdp
+    else:
+        arch, layers, fsdp, (sizes, axes), batch, accum = CELLS[cell]
     cuda = device == "cuda"
     fig = {k: dict.fromkeys(KINDS, 0) for k in ("calls", "bytes", "s")}
     sites = {} if by_site else None
@@ -108,15 +123,37 @@ def _rank(rank: int, cell: str, n: int, store: str, out: str, device: str,
     cfg = dataclasses.replace(cfg, fsdp=fsdp,
                               n_layers=layers or cfg.n_layers)
     mesh = t_mesh.make_mesh(sizes, axes, comm=comm)
-    params, opt = steps.shard_state(
-        cfg, lm.init_params(cfg, seed=0, device=comm.device), mesh)
-    step = steps.build_train_step(cfg, AdamWConfig(), accum=accum, mesh=mesh)
-    dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, batch=batch,
-                      seq_len=SEQ)
+    if decode:
+        shape = steps.decode_shape(batch, seq)
+        params = t_mesh.shard_tree(
+            lm.init_params(cfg, seed=0, device=comm.device),
+            steps.param_and_opt_specs(cfg, mesh)[0], mesh)
+        state = lm.init_decode_state(cfg, batch, seq, device=comm.device)
+        state["pos"] = seq // 2 - 4
+        state = steps.shard_decode_state(cfg, state, shape, mesh)
+        serve_step = steps.build_serve_step(cfg, mesh=mesh)
+        tokens = torch.zeros((batch, 1), dtype=torch.int32)
+
+        def step(params, state, b):
+            return serve_step(params, state, b)[1]
+    else:
+        params, opt = steps.shard_state(
+            cfg, lm.init_params(cfg, seed=0, device=comm.device), mesh)
+        train_step = steps.build_train_step(cfg, AdamWConfig(), accum=accum,
+                                            mesh=mesh)
+        dcfg = DataConfig(seed=0, vocab_size=cfg.vocab_size, batch=batch,
+                          seq_len=SEQ)
+
+        def step(params, opt, b):
+            return train_step(params, opt, b)[:2]
     per_step = []
     for s in range(n_steps):
-        b = {k: torch.as_tensor(v, device=comm.device) for k, v in
-             steps.shard_batch(cfg, make_batch(dcfg, s), mesh).items()}
+        if decode:
+            b = torch.as_tensor(steps.decode_rows(cfg, tokens, shape, mesh),
+                                device=comm.device)
+        else:
+            b = {k: torch.as_tensor(v, device=comm.device) for k, v in
+                 steps.shard_batch(cfg, make_batch(dcfg, s), mesh).items()}
         for part in fig.values():
             part.update(dict.fromkeys(KINDS, 0))
         if sites is not None:
@@ -124,7 +161,10 @@ def _rank(rank: int, cell: str, n: int, store: str, out: str, device: str,
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, _met = step(params, opt, b)
+        if decode:
+            state = step(params, state, b)
+        else:
+            params, opt = step(params, opt, b)
         if cuda:
             torch.cuda.synchronize()
         per_step.append({"ms": (time.perf_counter() - t0) * 1e3,
@@ -136,7 +176,8 @@ def _rank(rank: int, cell: str, n: int, store: str, out: str, device: str,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cell", choices=sorted(CELLS), default="mamba")
+    ap.add_argument("--cell", choices=sorted(CELLS) + sorted(DECODE_CELLS),
+                    default="mamba")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--sites", action="store_true")
@@ -144,7 +185,8 @@ def main(argv=None) -> int:
     if args.device == "cuda":
         from repro_torch.kernels import _build
         _build.build()
-    sizes = CELLS[args.cell][3][0]
+    sizes = (DECODE_CELLS[args.cell][2] if args.cell in DECODE_CELLS
+             else CELLS[args.cell][3])[0]
     n = 1
     for s in sizes:
         n *= s

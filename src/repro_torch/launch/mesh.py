@@ -34,7 +34,11 @@ over "model" at all (``"replicated"``).  :attr:`Mesh.tp` is the rank's
 "model" group, whose autograd collectives (:class:`TensorParallel`) the
 models call: a gather along the sequence whose backward reduce-scatters,
 a reduce-scatter whose backward gathers, an all-reduce whose backward is
-the identity and the identity whose backward all-reduces.
+the identity and the identity whose backward all-reduces.  At decode
+(ROADMAP A.15d(2)) a step carries one token a row, so the residual stream
+is whole on every "model" rank: :attr:`Mesh.tp_decode` is the same group
+in its decode mode, where the sequence gather is the identity and the
+sequence reduce-scatter a sum over "model".
 """
 
 from __future__ import annotations
@@ -231,6 +235,14 @@ class Mesh:
             return None
         return TensorParallel(self)
 
+    @property
+    def tp_decode(self) -> Optional["TensorParallel"]:
+        """:attr:`tp` in its decode mode (``seq=False``): the residual
+        stream whole on every rank along "model"."""
+        if self.comm is None or self.shape.get(TP_AXIS, 1) == 1:
+            return None
+        return TensorParallel(self, seq=False)
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over every rank of the mesh."""
         return t if self.comm is None else self.comm.all_reduce(t)
@@ -239,8 +251,10 @@ class Mesh:
 class DataParallel:
     """The ranks that hold other rows of the batch (the dp axes): their
     number ``size``, this rank's ``index`` (its rows' place in the global
-    batch), ``sum`` (all-reduce) and ``gather`` (all-gather onto a new
-    leading axis in index order)."""
+    batch), ``sum`` (all-reduce), ``max`` and ``gather`` (all-gather onto
+    a new leading axis in index order).  At decode with a batch the dp
+    extent does not divide, the same ranks hold other slots of the KV
+    cache instead (``models.attention.decode_attention``'s ``seq``)."""
 
     def __init__(self, mesh: Mesh):
         self._group, self.size, self.index = mesh.group(dp_axes(mesh))
@@ -251,6 +265,12 @@ class DataParallel:
         if self._group is None:
             return t
         return self._comm.all_reduce(t, self._group)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``t`` over the group's ranks."""
+        if self._group is None:
+            return t
+        return self._comm.all_reduce(t, self._group, op="max")
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' ``t`` on a new leading axis, in index order."""
@@ -268,20 +288,33 @@ class TensorParallel:
     block's replicated input feeds the rank's own part, its gradient
     there is partial, and the conjugate collective sums it.  Partial sums
     travel in their own dtype: a bf16 block's in bf16, which with two
-    ranks rounds the sum once, as a float32 sum cast back would."""
+    ranks rounds the sum once, as a float32 sum cast back would.
 
-    def __init__(self, mesh: Mesh):
+    With ``seq=False`` (decode, :attr:`Mesh.tp_decode`) every rank holds
+    the whole residual stream: :meth:`gather_seq` and :meth:`own` return
+    ``x`` as it is and :meth:`scatter_seq` is :meth:`reduce`, so a block
+    computes its own heads, columns or experts of the whole input and
+    sums its partial output over "model"."""
+
+    def __init__(self, mesh: Mesh, seq: bool = True):
         self._group, self.size, self.index = mesh.group(TP_AXIS)
         self._comm = mesh.comm
+        self.seq = seq
 
     def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """The ranks' ``x`` concatenated along ``dim`` in index order;
-        backward: the reduce-scatter of the gradient along ``dim``."""
+        backward: the reduce-scatter of the gradient along ``dim``.  At
+        decode: ``x``."""
+        if not self.seq:
+            return x
         return _GatherSeq.apply(x, self, dim)
 
     def scatter_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """The rank's ``1/size`` along ``dim`` of the sum of the ranks'
-        ``x`` (partial sums); backward: the gather along ``dim``."""
+        ``x`` (partial sums); backward: the gather along ``dim``.  At
+        decode: the sum of the ranks' ``x``."""
+        if not self.seq:
+            return self.reduce(x)
         return _ScatterSeq.apply(x, self, dim)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
@@ -299,7 +332,10 @@ class TensorParallel:
         return self._comm.all_reduce(x.detach(), self._group, op="max")
 
     def own(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        """The rank's ``1/size`` of ``x`` along ``dim`` (a view)."""
+        """The rank's ``1/size`` of ``x`` along ``dim`` (a view); at
+        decode ``x`` itself."""
+        if not self.seq:
+            return x
         n = x.shape[dim] // self.size
         if n * self.size != x.shape[dim]:
             raise ValueError(f"{x.shape[dim]} rows along dimension {dim} do "

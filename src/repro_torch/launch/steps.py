@@ -42,6 +42,25 @@ or ``"replicated"`` one whole.  The gather's backward
 parts of it into a float32 sink holding the rank's shard; the leaves no
 spec shards are summed over the mesh once a step, in one buffer
 (``Mesh.sum_flat``).
+
+The decode step on a mesh (:func:`build_serve_step` with ``mesh=``, ROADMAP
+A.15d(2)) computes what the reference's ``_jit_for_cell`` of a decode cell
+computes: ``serve_step`` with the parameters laid out by their specs, the
+state by :func:`decode_state_specs` (:func:`shard_decode_state` cuts a
+whole one) and the tokens' rows over the dp axes.  At T = 1 the residual
+stream is whole on every "model" rank, ``[B / dp (or B), 1, d]``
+(``Mesh.tp_decode``): each block computes the rank's heads, columns or
+experts and sums its partial output over "model"; the logits are the
+rank's rows over the whole vocabulary.  The KV cache ``[n_sup, B, S, KV,
+hd]`` is laid out by :func:`_cache_spec` one of three ways, each a branch
+of ``models.attention.decode_attention``: B over the dp axes with the K /
+V heads over "model" (the rank's query heads read its own K / V heads),
+S over the dp axes where B does not divide (each rank attends over its
+slots and the partial softmaxes are merged over the dp group), and
+head_dim over "model" where the K / V heads do not divide (partial scores
+summed over "model").  No cache is gathered.  A Mamba2 layer's ``ssm``
+carry is cut by heads and its ``conv`` carry by channels
+(``models/ssm.py``).  The state's shards are updated in place.
 """
 
 from __future__ import annotations
@@ -51,6 +70,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..configs.registry import Shape
 from ..models import lm, whisper
 from ..models.common import Tree, init_tree, tree_leaves, tree_map
 from ..models.config import ModelConfig
@@ -484,12 +504,93 @@ def _sharded_prefill_step(cfg: ModelConfig, mesh: Mesh):
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig):
-    """One-token decode step closure over the model family."""
+def build_serve_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None):
+    """One-token decode step closure over the model family.  With a
+    ``mesh`` of ranks the step takes the rank's parameter shards, its
+    :func:`shard_decode_state` state and its token rows, updates the
+    state's shards in place and returns the logits of its rows over the
+    whole vocabulary (module docstring)."""
+    if _ranked(mesh):
+        return _sharded_serve_step(cfg, mesh)
     mod = model_module(cfg)
 
     def serve_step(params, state, tokens):
         return mod.decode_step(cfg, params, state, tokens)
+
+    return serve_step
+
+
+def decode_shape(batch: int, seq_len: int) -> Shape:
+    """A decode cell's shape: ``batch`` sequences and a cache of
+    ``seq_len`` positions (the encoder memory's length for an
+    encoder-decoder)."""
+    return Shape("decode", "decode", int(seq_len), int(batch))
+
+
+def batch_split(shape, mesh: Mesh) -> bool:
+    """Whether a decode cell's batch is cut over the dp axes (else every dp
+    rank holds all of it, and the cache's slots are cut instead)."""
+    return _ax_if_div(shape.global_batch, dp_axes(mesh), mesh) is not None
+
+
+def shard_decode_state(cfg: ModelConfig, state: Tree, shape, mesh: Mesh):
+    """The rank's shard of a whole decode state (the family's
+    ``init_decode_state`` at the cell's batch and length) laid out by
+    :func:`decode_state_specs` for ``shape``: each carry cut, then a
+    contiguous copy on the mesh's device.  ``pos`` is kept, and ``cell``
+    records (batch, seq_len) for the step."""
+    _meta, specs, _tokens, _t = decode_state_specs(cfg, shape, mesh)
+    tensors = {k: v for k, v in state.items() if k not in ("pos", "cell")}
+    out = shard_tree(tensors, {k: specs[k] for k in tensors}, mesh)
+    out["pos"] = int(state["pos"])
+    out["cell"] = (shape.global_batch, shape.seq_len)
+    return out
+
+
+def decode_rows(cfg: ModelConfig, tokens, shape, mesh: Mesh):
+    """The rank's rows of a decode cell's global tokens [B, 1] (all of
+    them where the batch is not cut)."""
+    return mesh.cut(tokens, decode_state_specs(cfg, shape, mesh)[3])
+
+
+def _check_state(cfg: ModelConfig, state: Tree, mesh: Mesh,
+                 want: dict) -> None:
+    """Every carry of ``state`` is the rank's shard of its spec's layout
+    at the cell's batch and length (``want`` caches the shapes)."""
+    cell = state.get("cell")
+    if cell is None:
+        raise ValueError("a mesh decode step takes a shard_decode_state "
+                         "state (its 'cell' entry is missing)")
+    if cell not in want:
+        meta, specs, _t, _ts = decode_state_specs(
+            cfg, decode_shape(*cell), mesh)
+        flat = dict(tree_leaves(specs))
+        want[cell] = {path: tuple(mesh.cut(t, flat[path]).shape)
+                      for path, t in tree_leaves(meta) if path != ("pos",)}
+    for path, shape in want[cell].items():
+        got = tuple(_find(state, path).shape)
+        if got != shape:
+            raise ValueError(f"state/{'/'.join(path)}: a shard of {got}, "
+                             f"its layout gives {shape}")
+
+
+def _sharded_serve_step(cfg: ModelConfig, mesh: Mesh):
+    mod = model_module(cfg)
+    p_specs, _o = param_and_opt_specs(cfg, mesh)
+    plans = tp_plan(cfg, mesh)
+    dp, tp = mesh.dp, mesh.tp_decode
+    shapes: dict = {}
+
+    @torch.inference_mode()
+    def serve_step(params, state, tokens):
+        _check_shards(cfg, params, p_specs, mesh)
+        _check_state(cfg, state, mesh, shapes)
+        split = batch_split(decode_shape(*state["cell"]), mesh)
+        store = _store(params, p_specs, plans, mesh)
+        tokens = torch.as_tensor(tokens, device=mesh.device)
+        return mod.decode_step(cfg, store, state, tokens,
+                               comm=dp if split else None,
+                               seq=None if split else dp, tp=tp)
 
     return serve_step
 

@@ -25,6 +25,19 @@ reduce-scattered back along T.  Where the K / V heads are whole (fewer
 than the "model" extent) the rank takes those its query heads read;
 where the query heads are whole, every rank attends on all of them and
 keeps its own rows.
+
+At decode under a mesh (:func:`decode_attention` with ``tp`` in its
+decode mode and ``seq``) the token is whole on every rank and the cache
+is the rank's shard of ``launch/steps.py``'s ``_cache_spec`` layout:
+(a) K / V heads over "model": the rank's query heads read its own K / V
+heads, and its row-parallel ``wo`` products are summed over "model";
+(b) slots over the dp axes (a batch they do not divide): each rank
+attends over its ``S / dp`` consecutive slots, and the float32 partials
+are merged with one maximum and one sum over ``seq``; (c) head_dim over
+"model" (K / V heads the extent does not divide): the queries are
+gathered, each rank's partial scores on its head_dim slice are summed
+over "model", and the context on its slice is gathered back.  The cache
+never moves.
 """
 
 from __future__ import annotations
@@ -247,10 +260,21 @@ def kv_heads(H: int, KV: int, size: int, index: int):
 
 
 def cross_attention(cfg, p: Tree, x,
-                    memory_kv: Tuple[torch.Tensor, torch.Tensor], tp=None):
+                    memory_kv: Tuple[torch.Tensor, torch.Tensor], tp=None,
+                    seq=None):
     """Decoder cross-attention; memory_kv = (k, v) [B, S, KV, hd]
     precomputed by :func:`cross_kv` (with ``tp``: of the rank's heads, from
-    the whole memory, and ``x`` the rank's part of the sequence)."""
+    the whole memory, and ``x`` the rank's part of the sequence).  At
+    decode under a mesh (``tp`` in its decode mode, or ``seq``) the K / V
+    are the rank's shards of the cache layout, as in
+    :func:`decode_attention`."""
+    if seq is not None or (tp is not None and not tp.seq):
+        q = _project(x, p["wq"])
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"])
+        k, v = memory_kv
+        ok = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
+        return _cached_out(cfg, p, q, k, v, ok, tp, seq)
     if tp is not None:
         x = tp.gather_seq(x)
         p, split = _rank_heads(cfg, p, tp)
@@ -280,7 +304,7 @@ def cross_kv(cfg, p: Tree, memory, tp=None):
 # ---------------------------------------------------------------------------
 
 def decode_attention(cfg, p: Tree, x, cache_k, cache_v, pos: int, *,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, tp=None, seq=None):
     """One-token decode: x [B, 1, d]; cache_k/v [B, S, KV, hd]; pos an int.
 
     Ring-buffer cache: the new K/V lands at slot ``pos % S``; slot s holds
@@ -288,19 +312,94 @@ def decode_attention(cfg, p: Tree, x, cache_k, cache_v, pos: int, *,
     plain (S >= max_len) and the sliding-window (S >= window) layouts.
     RoPE is applied at the absolute position before caching.  The caches
     are updated in place and returned.
+
+    Under a mesh (module docstring) ``tp`` is the "model" group in its
+    decode mode and ``seq`` the dp group over which the slots are split
+    (None where the batch is): the caches are the rank's shards, x is
+    whole, and the output is every rank's sum.
     """
-    B = x.shape[0]
-    S = cache_k.shape[1]
-    dev = x.device
+    B, dev = x.shape[0], x.device
+    n_seq, i_seq = (1, 0) if seq is None else (seq.size, seq.index)
+    S_loc = cache_k.shape[1]
+    S = S_loc * n_seq
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
     q, k_new, v_new = qkv_project(cfg, p, x, positions)
+    hl = cache_k.shape[3]
+    if hl != cfg.head_dim:           # (c): the rank's head_dim slice
+        k_new = k_new[..., tp.index * hl:(tp.index + 1) * hl]
+        v_new = v_new[..., tp.index * hl:(tp.index + 1) * hl]
     slot = pos % S
-    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
-    abs_pos = pos - torch.remainder(pos - torch.arange(S, device=dev), S)
+    if slot // S_loc == i_seq:       # this rank holds the slot
+        cache_k[:, slot - i_seq * S_loc] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, slot - i_seq * S_loc] = v_new[:, 0].to(cache_v.dtype)
+    s_glob = i_seq * S_loc + torch.arange(S_loc, device=dev)
+    abs_pos = pos - torch.remainder(pos - s_glob, S)
     ok = abs_pos >= 0
     if window is not None:
         ok &= abs_pos > pos - window
+    if tp is not None or seq is not None:
+        return _cached_out(cfg, p, q, cache_k, cache_v, ok, tp, seq), \
+            cache_k, cache_v
     bias = torch.where(ok, 0.0, NEG_INF).to(torch.float32)[None, :]
     ctx = sdpa(q, cache_k, cache_v, bias)
     return _out(ctx, p["wo"]), cache_k, cache_v
+
+
+def _cached_out(cfg, p: Tree, q, k, v, ok, tp, seq):
+    """The attention block's output [B, 1, d] (every rank's sum) of the
+    queries ``q`` [B, 1, Hq, hd] (the rank's heads where ``wq`` is split,
+    else all) over the rank's cache shards ``k`` / ``v`` [B, S_loc, KV_l,
+    hd_l], ``ok`` [S_loc] the slots to attend to: layouts (a)-(c) of the
+    module docstring."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    split = q.shape[2] != H
+    if k.shape[3] != hd:                            # (c)
+        hl = k.shape[3]
+        if split:
+            q = torch.cat(list(tp.gather(q).unbind(0)), dim=2)
+        qs = q[..., tp.index * hl:(tp.index + 1) * hl]
+        s = tp.reduce(_scores(qs, k, hd))
+        ctx = torch.cat(list(tp.gather(_merged(s, ok, v, seq)).unbind(0)),
+                        dim=-1)
+        if split:
+            n = H // tp.size
+            ctx = ctx[:, :, tp.index * n:(tp.index + 1) * n]
+    else:
+        if tp is not None and split:
+            n, kl = H // tp.size, KV // tp.size
+            assert kl == k.shape[2] and kv_heads(H, KV, tp.size, tp.index) \
+                == list(range(tp.index * kl, (tp.index + 1) * kl)), \
+                "the rank's query heads read other K / V heads than it holds"
+        ctx = _merged(_scores(q, k, hd), ok, v, seq)
+    out = _out(ctx.to(q.dtype), p["wo"])
+    return tp.reduce(out) if split else out
+
+
+def _scores(q, k, hd: int):
+    """float32 scores [B, KV, G, 1, S] of q [B, 1, KV * G, hd_x] against k
+    [B, S, KV, hd_x] (hd_x: all of head_dim or a slice; scaled by the whole
+    head_dim's root)."""
+    B, Tq, Hq, hx = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Tq, KV, Hq // KV, hx)
+    return torch.einsum("bqkgh,bskh->bkgqs", qg.float() / math.sqrt(hd),
+                        k.float())
+
+
+def _merged(s, ok, v, seq):
+    """The softmax context [B, 1, KV * G, hv] float32 of scores ``s`` [B,
+    KV, G, 1, S_loc] over the slots ``ok`` of this rank and, with ``seq``,
+    of the other ranks of that group: one maximum, then one sum of the
+    unnormalized context and of the weights."""
+    s = s + torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+    top = s.amax(dim=-1, keepdim=True)
+    if seq is not None:
+        top = seq.max(top)
+    e = torch.exp(s - top)
+    o = torch.einsum("bkgqs,bskh->bkgqh", e, v.float())
+    ol = torch.cat([o, e.sum(dim=-1)[..., None]], dim=-1)
+    if seq is not None:
+        ol = seq.sum(ol)
+    ctx = ol[..., :-1] / ol[..., -1:]
+    B, KV, G, Tq, hv = ctx.shape
+    return ctx.permute(0, 3, 1, 2, 4).reshape(B, Tq, KV * G, hv)

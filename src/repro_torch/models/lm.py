@@ -23,7 +23,8 @@ the rank's part of the sequence, ``[B / dp, T / model, d]`` (the
 reference's ``PS(dp, "model", None)`` under ``seq_shard``), with the
 norms on it; the blocks compute on "model" (``attention``, ``ssm``,
 ``moe``, ``common.apply_mlp``), and the loss is vocabulary-parallel
-(:func:`chunked_ce`).
+(:func:`chunked_ce`).  The decode step takes the same groups
+(:func:`decode_step`), with ``tp`` in its decode mode.
 """
 
 from __future__ import annotations
@@ -449,32 +450,53 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 @torch.inference_mode()
-def decode_step(cfg: ModelConfig, params: Tree, state: Tree,
-                tokens) -> Tuple[torch.Tensor, Tree]:
+def decode_step(cfg: ModelConfig, params: Tree, state: Tree, tokens, *,
+                comm=None, seq=None, tp=None) -> Tuple[torch.Tensor, Tree]:
     """One decode step: tokens [B, 1] -> (logits [B, 1, V] float32, new
     state).  The state is donated (as the reference's serve loop donates
     it): its carries are updated in place and it is returned with ``pos``
-    advanced."""
-    x = embed_tokens(cfg, params, tokens)
+    advanced.
+
+    Under a mesh (``launch/steps.py``'s serve step) ``params`` are the
+    stored shards, gathered a layer at a time, ``state`` holds the rank's
+    shards and ``tokens`` its rows; ``tp`` is the "model" group in its
+    decode mode: the residual stream ``[B / dp (or B), 1, d]`` is whole on
+    every rank, the embedding a vocabulary-split lookup summed over
+    "model", each block the rank's heads, columns or experts summed over
+    "model", and the logits the rank's vocabulary slice gathered into
+    whole rows.  The KV cache is laid out one of three ways
+    (``models/attention.py``): B over the dp axes, or, where B does not
+    divide, its slots over them (``seq``, the dp group; else ``comm``,
+    the dp group the MoE layers count the global batch over); and K / V
+    heads over "model", or head_dim where they do not divide."""
+    x = embed_tokens(cfg, params, tokens, tp)
     pos = state["pos"]
     for i in range(cfg.n_superblocks):
         params_sb = _index(params["layers"], i)
         for j, kind in enumerate(cfg.pattern()):
-            p = params_sb[f"pos{j}"]
+            p = gathered(params_sb[f"pos{j}"])
             carry = state["layers"][f"pos{j}"]
             h = apply_norm(cfg, p["norm1"], x)
             if kind == "A":
                 y, _k, _v = attn.decode_attention(
                     cfg, p["attn"], h, carry["k"][i], carry["v"][i], pos,
-                    window=cfg.window)
+                    window=cfg.window, tp=tp, seq=seq)
             else:
                 y, new = ssm_mod.mamba_block(
                     cfg, p["ssm"], h,
-                    state={k: a[i] for k, a in carry.items()})
+                    state={k: a[i] for k, a in carry.items()}, tp=tp)
                 for k, a in new.items():
                     carry[k][i].copy_(a)
-            x, _aux = _ffn_residual(cfg, p, x + y)
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = (x @ _unembed(cfg, params)).float()
+            x, _aux = _ffn_residual(cfg, p, x + y, comm, tp)
+    x = apply_norm(cfg, gathered(params["final_norm"]), x)
     state["pos"] = pos + 1
-    return logits, state
+    return decode_logits(cfg, x, _unembed(cfg, params), tp), state
+
+
+def decode_logits(cfg: ModelConfig, x, unembed, tp=None):
+    """float32 logits [B, 1, V] of the final hidden states ``x`` [B, 1, d];
+    with ``tp`` a vocabulary-split ``unembed``'s slices are gathered."""
+    logits = (x @ unembed).float()
+    if not is_split(unembed, cfg.vocab_size, 1, tp):
+        return logits
+    return torch.cat(list(tp.gather(logits).unbind(0)), dim=-1)

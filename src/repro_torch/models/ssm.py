@@ -20,6 +20,15 @@ its sum of squares over ``d_inner`` summed over the ranks, and its rows
 of ``out_proj``, whose partial products are reduce-scattered back along
 T.  Where ``out_proj`` came whole (heads the extent does not divide),
 every rank runs the block on all heads and keeps its own rows.
+
+At decode under a mesh (``tp`` in its decode mode, ``state`` the rank's
+shards: ``ssm`` its heads, ``conv`` its contiguous ``1 / model`` of the
+conv channels where they divide) the token is whole on every rank: each
+rank advances the conv tails of the channels it stores, the ranks'
+one-token conv outputs are gathered over "model", and the rank runs
+B10 (``ops.ssd_intra_chunk`` at chunk 1) on its heads, with the gated
+norm's squares summed over "model" and its ``out_proj`` rows' products
+summed over "model".
 """
 
 from __future__ import annotations
@@ -95,9 +104,12 @@ def mamba_block(cfg, p: Tree, x, *, state=None, tp=None):
     """Full Mamba2 block over [B, T, d].  state=None for a prompt.
 
     Returns (out [B, T, d], new_state dict) — state carries (conv, ssm) for
-    decode continuation.  With ``tp`` (a prompt): see the module
-    docstring; the state is then the rank's heads'.
+    decode continuation.  With ``tp`` (a prompt, or a decode step with
+    the rank's state shards): see the module docstring; the state is
+    then the rank's heads'.
     """
+    if tp is not None and state is not None:
+        return _mamba_decode_heads(cfg, p, x, state, tp)
     if tp is not None:
         x = tp.gather_seq(x)
         if not is_split(p["out_proj"], cfg.d_inner, 0, tp):
@@ -153,13 +165,63 @@ def _mamba_heads(cfg, p: Tree, x, tp):
     y, hT = ssd_chunked(xh, dt, A, Bm.float(), Cm.float(),
                         min(cfg.ssm_chunk, T))
     y = y + p["D"][heads][None, None, :, None] * xh
-    y = y.reshape(B, T, dl).to(x.dtype) * F.silu(z)
-    # rmsnorm over all d_inner channels: the squares summed over the ranks
+    return _gated_out(cfg, p, y.reshape(B, T, dl).to(x.dtype), z, tp), \
+        {"conv": new_conv, "ssm": hT}
+
+
+def _gated_out(cfg, p: Tree, y, z, tp):
+    """The rank's heads' ``y`` gated by ``z``, RMS-normed over all d_inner
+    channels (the squares summed over the ranks) and through its rows of
+    ``out_proj``: the partial output summed over "model" (reduce-scattered
+    along T for a prompt)."""
+    dl = y.shape[-1]
+    y = y * F.silu(z)
     y32 = y.float()
     ss = tp.copy(tp.reduce(torch.sum(y32 * y32, dim=-1, keepdim=True)))
-    y = (y32 * torch.rsqrt(ss / di + 1e-6)).to(y.dtype) \
-        * p["norm"][j * dl:(j + 1) * dl]
-    out = tp.scatter_seq(y @ p["out_proj"])
+    y = (y32 * torch.rsqrt(ss / cfg.d_inner + 1e-6)).to(y.dtype) \
+        * p["norm"][tp.index * dl:(tp.index + 1) * dl]
+    return tp.scatter_seq(y @ p["out_proj"])
+
+
+def _mamba_decode_heads(cfg, p: Tree, x, state: Tree, tp):
+    """One decode token [B, 1, d] (whole on every rank along "model") with
+    the rank's state shards -> (out [B, 1, d], every rank's sum; the new
+    state shards).  The conv runs on the channels whose tails the rank
+    stores (all of them where ``conv`` is whole), and the one-token
+    outputs are gathered; the scan runs on the rank's heads where
+    ``out_proj`` is split, else on all of them."""
+    B = x.shape[0]
+    di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    j = tp.index
+    z, xBC, dt = _split_proj(cfg, x @ p["in_proj"])
+    cl = state["conv"].shape[-1]
+    if cl != xBC.shape[-1]:
+        ch = slice(j * cl, (j + 1) * cl)
+        out, new_conv = _causal_conv(
+            cfg, {"conv_w": p["conv_w"][:, ch], "conv_b": p["conv_b"][ch]},
+            xBC[..., ch], state["conv"])
+        xBC = torch.cat(list(tp.gather(out).unbind(0)), dim=-1)
+    else:
+        xBC, new_conv = _causal_conv(cfg, p, xBC, state["conv"])
+    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    split = is_split(p["out_proj"], di, 0, tp)
+    Hl = H // tp.size if split else H
+    heads = slice(j * Hl, (j + 1) * Hl) if split else slice(0, H)
+    dl = Hl * Pd
+    xs, z = xs[..., heads.start * Pd:heads.stop * Pd], \
+        z[..., heads.start * Pd:heads.stop * Pd]
+    dt = F.softplus(dt[..., heads].float() + p["dt_bias"][heads])
+    A = -torch.exp(p["A_log"][heads].float())
+    xh = xs.reshape(B, 1, Hl, Pd).float()
+    y, hT = ssd_chunked(xh, dt, A, Bm.float(), Cm.float(), 1,
+                        h0=state["ssm"])
+    y = y + p["D"][heads][None, None, :, None] * xh
+    y = y.reshape(B, 1, dl).to(x.dtype)
+    if split:
+        out = _gated_out(cfg, p, y, z, tp)
+    else:
+        out = rmsnorm(y * F.silu(z), p["norm"]) @ p["out_proj"]
     return out, {"conv": new_conv, "ssm": hT}
 
 

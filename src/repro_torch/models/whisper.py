@@ -35,7 +35,8 @@ from .common import (ParamDef, Tree, apply_mlp, apply_norm, embed_tokens,
                      sincos_positions, spec_tree, tree_from_numpy,
                      tree_leaves, tree_map)
 from .config import ModelConfig
-from .lm import _global_loss, _unembed, remat_active, sequence_ce
+from .lm import (_global_loss, _unembed, decode_logits, remat_active,
+                 sequence_ce)
 
 
 def _enc_layer_defs(cfg) -> Tree:
@@ -243,27 +244,34 @@ def _position_embedding(cfg: ModelConfig, pos: int, device):
 
 
 @torch.inference_mode()
-def decode_step(cfg: ModelConfig, params: Tree, state: Tree,
-                tokens) -> Tuple[torch.Tensor, Tree]:
+def decode_step(cfg: ModelConfig, params: Tree, state: Tree, tokens, *,
+                comm=None, seq=None, tp=None) -> Tuple[torch.Tensor, Tree]:
     """One decoder token against the cached self K/V and the encoder
     memory's cross K/V: tokens [B, 1] -> (logits [B, 1, V] float32, new
     state).  The state is donated: its caches are updated in place and it
-    is returned with ``pos`` advanced."""
+    is returned with ``pos`` advanced.  Under a mesh the parameters are
+    stored shards and the state the rank's shards, the self and cross K/V
+    both laid out as the KV cache (``lm.decode_step``; ``seq`` the dp
+    group that splits the cache's slots, and the memory's positions,
+    where it does not split the batch; ``comm`` is not read: the
+    decoder has no MoE layer)."""
     pos = state["pos"]
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, tp)
     x = x + _position_embedding(cfg, pos, x.device).to(cfg.dtype)
     layers = params["dec_layers"]
     for i in range(cfg.n_layers):
-        p = tree_map(lambda a: a[i], layers)
+        p = gathered(tree_map(lambda a: a[i], layers))
         h = apply_norm(cfg, p["norm1"], x)
         y, _k, _v = attn.decode_attention(cfg, p["self_attn"], h,
-                                          state["k"][i], state["v"][i], pos)
+                                          state["k"][i], state["v"][i], pos,
+                                          tp=tp, seq=seq)
         x = x + y
         h = apply_norm(cfg, p["norm2"], x)
         x = x + attn.cross_attention(cfg, p["cross_attn"], h,
-                                     (state["xk"][i], state["xv"][i]))
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], x))
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = (x @ params["embed"].T).float()
+                                     (state["xk"][i], state["xv"][i]), tp,
+                                     seq=seq)
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], x),
+                          tp=tp)
+    x = apply_norm(cfg, gathered(params["final_norm"]), x)
     state["pos"] = pos + 1
-    return logits, state
+    return decode_logits(cfg, x, gathered(params["embed"]).T, tp), state

@@ -71,6 +71,8 @@ import torch.multiprocessing as mp
 import jax
 import jax.numpy as jnp
 
+from _torch_mesh_ranks import deal, flat, join as _join, spawn as _spawn, \
+    unflat
 from repro.configs import get_config as r_config
 from repro.configs import get_smoke_config as r_smoke
 from repro.launch import steps as r_steps
@@ -160,23 +162,6 @@ def seq_len(cfg, b):
         return b["frames"].shape[1]
     return b["tokens"].shape[1] + (b["vision_embeds"].shape[1]
                                    if "vision_embeds" in b else 0)
-
-
-def flat(tree, prefix=""):
-    return {prefix + "/".join(p): np.asarray(v) for p, v in tree_leaves(tree)}
-
-
-def unflat(d, prefix):
-    out = {}
-    for k, v in d.items():
-        if not k.startswith(prefix):
-            continue
-        node = out
-        parts = k[len(prefix):].split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = v
-    return out
 
 
 REFERENCE = r"""
@@ -563,23 +548,6 @@ def _rank_peer_exits(rank, store, timeout_s):
         comm.close()
 
 
-def _join(ctxs, seconds):
-    deadline = time.monotonic() + seconds
-    pending = list(ctxs)
-    while pending:
-        pending = [c for c in pending if not c.join(timeout=0.2)]
-        if pending and time.monotonic() > deadline:
-            for c in pending:
-                for p in c.processes:
-                    p.kill()
-            pytest.fail(f"ranks still running after {seconds} s")
-
-
-def _spawn(fn, nprocs, args):
-    return mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
-                              start_method="spawn")
-
-
 # ---------------------------------------------------------------------------
 # Fixtures
 # ---------------------------------------------------------------------------
@@ -640,14 +608,8 @@ def runs(tmp_path_factory):
 
 
 def _deal(cells, n):
-    """``cells`` in ``n`` parts of about equal :data:`REF_WEIGHT` (the
-    heaviest first, each to the lightest part so far)."""
-    parts, load = [[] for _ in range(n)], [0] * n
-    for c in sorted(cells, key=lambda c: -REF_WEIGHT.get(c[0], 1)):
-        i = load.index(min(load))
-        parts[i].append(c)
-        load[i] += REF_WEIGHT.get(c[0], 1)
-    return parts
+    """``cells`` in ``n`` parts of about equal :data:`REF_WEIGHT`."""
+    return deal(cells, n, REF_WEIGHT)
 
 
 def single_process(inputs):
