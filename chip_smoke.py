@@ -12,10 +12,13 @@ beside the script).  Phases:
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel); read
      the library's SASS with ``cuobjdump``: the bf16 B9 kernel and every
      instantiation of its backward's tensor-core kernel must issue HGMMA
-     (``wgmma``), B7's and B8's tensor-core kernels IMMA / HMMA
-     (``mma.sync``), B2, B5 and B7 no atomics, B3, B4, B6, B8 and B9's
-     and B10's backward no float atomics; and count the SASS instructions of B3's
-     one-trio probes (the exact chain, the prefilter);
+     (``wgmma``), B9's float32 kernels and every instantiation of the
+     backward pair of ``csrc/flash_attention_bwd.cu`` TF32 HMMA
+     (``mma.sync``, the three-product split), B7's and B8's tensor-core
+     kernels IMMA / HMMA (``mma.sync``), B2, B5 and B7 no atomics, B3, B4,
+     B6, B8 and B9's and B10's backward no float atomics; and count the
+     SASS instructions of B3's one-trio probes (the exact chain, the
+     prefilter);
   2. B1 pairwise_batch (bit-equal across two launches, timed by kernel:
      plan, side pass, reduction), B2 pairwise_corr and B3 pcit_filter
      (with the deciles of its search lengths, the useful share of its
@@ -61,7 +64,8 @@ beside the script).  Phases:
      of 256 l2 top-10 queries before and after a block replace, held
      against the f32 ``ServingCorpus.query``;
  16. B9 flash_attention (one quorum pair [8, 4096, 40 | 8, 128], causal
-     and not, bf16 on the ``wgmma`` kernel and f32 on the SIMT one) and B10
+     and not, bf16 on the ``wgmma`` kernel and f32 on the TF32 tensor
+     cores, ``tf32x3``) and B10
      ssd_chunk (mamba2-130m's prefill, [4, 32768, 24, 64], chunk 256, and
      a decode step's [4, 1, 24, 64], chunk 1, timed with 200 launches
      queued behind a spin kernel; bit-equal across two launches; its
@@ -130,7 +134,7 @@ beside the script).  Phases:
      31,744 text tokens through M-RoPE and B9, and the B9 route against
      the plain attention at T = 4,096;
  31. B9's backward (bf16 ``wgmma`` route ``csrc/flash_attention_bwd_tc.cu``,
-     f32 and hd 256 on the SIMT ``csrc/flash_attention_bwd.cu``) against
+     f32 and hd 256 on the TF32 ``csrc/flash_attention_bwd.cu``) against
      its plain version (``kernels/ref.py``, f32) at starcoder2-3b's
      training shape q [2, 4096, 24, 128], k / v [2, 4096, 2, 128] causal in
      bf16 and f32, whisper's encoder shape [8, 1500, 20, 64] full and an
@@ -249,6 +253,7 @@ PCIT_RANK = 16           # latent factors of the synthetic expression data
 # published H100 SXM peaks (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
+PEAK_TF32_FLOPS = 495e12  # TF32 tensor cores, dense
 PEAK_INT8_OPS = 1979e12  # int8 tensor cores, dense
 PEAK_BYTES = 3.35e12     # HBM3
 # fp32 operations per body pair of the n-body step (difference 3, r^2 6,
@@ -503,7 +508,7 @@ def check_sass(lib: Path) -> None:
     check(len(tc) == 3 and all(c > 0 for c in tc.values()),
           f"B9 bf16: HGMMA counts per instantiation {sorted(tc.values())}")
     # B9's backward: bwd_tc_kernel<64 | 128> on wgmma; it, its prologue
-    # and slice sum (flash_attention_bwd_tc.cu) and the SIMT pair
+    # and slice sum (flash_attention_bwd_tc.cu) and the TF32 pair
     # (flash_attention_bwd.cu; the anonymous namespace puts the file's
     # name in every kernel's) issue no float atomic (the dQ chain passes
     # an integer counter)
@@ -517,6 +522,24 @@ def check_sass(lib: Path) -> None:
     check(len(bwd) >= 6 and bwd_float == 0,
           f"B9 backward: {len(bwd)} kernels, {bwd_float} float atomics: "
           f"{sorted(bwd)}")
+    # B9's float32 routes on the TF32 tensor cores: flash_tf32_wg_kernel<64
+    # | 128> issues TF32 HGMMA (wgmma), flash_tf32_kernel<256> and dq_ /
+    # dkv_tf32_kernel<64 | 128 | 256, float | bf16> TF32 HMMA (mma.sync
+    # m16n8k8); none a float atomic
+    tf32 = {n: (sum(".TF32" in ln for ln in f.splitlines()
+                    if "HMMA" in ln or "HGMMA" in ln),
+                len(FLOAT_ATOMIC.findall(f)))
+            for n, f in funcs.items()
+            if re.search(r"flash_tf32_(wg_)?kernel|d(q|kv)_tf32_kernel", n)}
+    tf32_fwd = sorted(c for n, (c, _a) in tf32.items()
+                      if "flash_tf32_" in n)
+    tf32_bwd = sorted(c for n, (c, _a) in tf32.items()
+                      if "flash_tf32_" not in n)
+    tf32_float = sum(a for _c, a in tf32.values())
+    check(len(tf32_fwd) == 3 and len(tf32_bwd) == 12
+          and all(c > 0 for c in tf32_fwd + tf32_bwd) and tf32_float == 0,
+          f"B9 f32 (tf32x3): TF32 HMMA counts per instantiation, forward "
+          f"{tf32_fwd}, backward {tf32_bwd}; {tf32_float} float atomics")
     # B10's backward (ssd_chunk_bwd.cu: ssd_bwd_cb_kernel<vec> x 2,
     # ssd_bwd_dx_kernel<64 | 128, vec> x 4, ssd_bwd_g_kernel<vec> x 2,
     # ssd_bwd_bc_kernel<CL, KS, vec> x 8 and ssd_bwd_sum_kernel): no float
@@ -605,7 +628,11 @@ def check_sass(lib: Path) -> None:
         f"prefilter {sass_ops['prefilter_probe'][0]} "
         f"({sass_ops['prefilter_probe'][1]})")
     say(f"SASS: bf16 B9 (flash_tc_kernel, hd padded to 64 / 128 / 256) "
-        f"HGMMA instructions {sorted(tc.values())}; B9 backward "
+        f"HGMMA instructions {sorted(tc.values())}; f32 B9 "
+        f"(flash_tf32_wg_kernel<64 | 128> HGMMA, flash_tf32_kernel<256> "
+        f"HMMA) TF32 {tf32_fwd}, its backward pair "
+        f"(dq_ / dkv_tf32_kernel, f32 and bf16) TF32 HMMA {tf32_bwd}, float "
+        f"atomics {tf32_float}; B9 backward "
         f"(bwd_tc_kernel, hd padded to 64 / 128) HGMMA "
         f"{sorted(bwd_tc.values())}, float atomics {bwd_float} in its "
         f"{len(bwd)} kernels; B10 backward ({len(b10b)} kernels) float "
@@ -2075,6 +2102,38 @@ def plain_flash_block_rows(q, k, v, causal: bool, rows: int = 512):
     return tuple(torch.cat([o[i] for o in outs], dim=1) for i in range(3))
 
 
+def f64_flash_block_rows(q, k, v, rows: int = 512):
+    """The causal flash block (o, m, l) of ``ref.flash_block`` evaluated in
+    float64 by row chunks and rounded to float32 (the truth the f32
+    partials are read against at large scores)."""
+    from repro_torch.kernels import ref
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    outs = []
+    for r0 in range(0, Tq, rows):
+        r1 = min(Tq, r0 + rows)
+        qg = q[:, r0:r1].double().reshape(B, r1 - r0, KV, H // KV, hd)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg / math.sqrt(hd),
+                         k[:, :r1].double())
+        vis = ref.causal_visible(Tq, Tq, q.device)[r0:r1, :r1]
+        s = torch.where(vis, s, -1e30)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        o = torch.einsum("bkgqs,bskh->bkgqh", p, v[:, :r1].double())
+        outs.append((o.reshape(B, H, r1 - r0, hd).permute(0, 2, 1, 3),
+                     m.reshape(B, H, r1 - r0).permute(0, 2, 1),
+                     p.sum(-1).reshape(B, H, r1 - r0).permute(0, 2, 1)))
+    return tuple(torch.cat([o[i] for o in outs], 1).float() for i in range(3))
+
+
+def partial_share(got, want) -> float:
+    """Worst share of the f32 partials' rule over (o, m, l): 1e-5 |want| +
+    1e-5 max(1, max |want|) for o, 1e-5 |want| + 1e-5 for m and l."""
+    return max(float(((a - w).abs() / (1e-5 * w.abs() + 1e-5 * (
+        max(1.0, float(w.abs().max())) if i == 0 else 1.0))).max())
+        for i, (a, w) in enumerate(zip(got, want)))
+
+
 def flash_errs(got, want) -> tuple[float, float]:
     """(max abs err of the normalized output o / l, max abs err of m)."""
     go = got[0] / got[2].clamp_min(1e-30)[..., None]
@@ -2214,13 +2273,20 @@ def phase_kernels_lm(report: dict) -> None:
             b_ms, b_by = bound(nbytes(q, k, v, *got), n_ops, peak)
             route = route_of(dtype)
             # the wgmma route issues 6 hd tensor operations per visible
-            # pair (P V as P_hi V + P_lo V), the algorithm's bound 4 hd
+            # pair (P V as P_hi V + P_lo V), the algorithm's bound 4 hd;
+            # the tf32x3 route three TF32 products a multiply-add, 12 hd
+            split_ms = (bound(nbytes(q, k, v, *got), 3 * n_ops,
+                              PEAK_TF32_FLOPS)[0]
+                        if route == "tf32x3" else None)
             work = (f"; the split issues {1.5 * n_ops:.3e} tensor operations"
                     f", {bound(0, 1.5 * n_ops, peak)[0]:.3f} ms"
-                    if route == "wgmma" else "")
+                    if route == "wgmma" else
+                    f" ({b_ms / ms:.3f} of it); the split's bound "
+                    f"{split_ms:.3f} ms ({3 * n_ops:.3e} TF32 operations at "
+                    f"495 TFLOP/s; {split_ms / ms:.3f} of it)")
             res[(dtype, causal)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, bound_split_ms=split_ms)
             say(f"B9 flash_attention partial {str(dtype)[6:]} ({route} "
                 f"kernel) causal="
                 f"{causal} q {tuple(q.shape)} kv {tuple(k.shape)}: max_abs"
@@ -2240,13 +2306,50 @@ def phase_kernels_lm(report: dict) -> None:
         r32 = res[(torch.float32, causal)]
         report["flash_attention"].update({
             tag + "ms": r32["ms"], tag + "library_ms": r32["library_ms"],
-            tag + "bound_ms": r32["bound_ms"]})
-    say("B9 f32 route (csrc/flash_attention.cu) beside sdpa on the same f32 "
-        "tensors (enable_gqa, TF32 off): full "
-        f"{res[(torch.float32, False)]['ms']:.3f} vs "
-        f"{res[(torch.float32, False)]['library_ms']:.3f} ms, causal "
-        f"{res[(torch.float32, True)]['ms']:.3f} vs "
-        f"{res[(torch.float32, True)]['library_ms']:.3f} ms")
+            tag + "bound_ms": r32["bound_ms"],
+            tag + "bound_split_ms": r32["bound_split_ms"],
+            tag + "max_abs_err": r32["max_abs_err"]})
+    say("B9 f32 route (csrc/flash_attention.cu, tf32x3) beside sdpa on the "
+        "same f32 tensors (enable_gqa, TF32 off): "
+        + ", ".join(
+            f"{tag} {r['ms']:.3f} vs {r['library_ms']:.3f} ms (bounds: fp32 "
+            f"{r['bound_ms']:.3f} ms, {r['bound_ms'] / r['ms']:.3f} of it; "
+            f"split {r['bound_split_ms']:.3f} ms, "
+            f"{r['bound_split_ms'] / r['ms']:.3f})"
+            for tag, r in (("full", res[(torch.float32, False)]),
+                           ("causal", res[(torch.float32, True)]))))
+
+    # ---- B9 f32 (tf32x3) partials at large scores: q and k scaled so the
+    # scores' std is 8 and 22.6 (a near one-hot softmax, scores up to ~90).
+    # There the plain version's own float32 error is most of the 1e-5
+    # rule, so the kernel is held to a float64 evaluation: within the
+    # rule, or within the plain version's own share of it where that
+    # exceeds 1 (tests/test_torch_flash_tf32x3.py models the same) ----
+    g = torch.Generator(device=DEVICE).manual_seed(24)
+    q, k, v = (torch.randn(1, blk, h, ATTN_HD, generator=g, device=DEVICE)
+               for h in (8, 2, 2))
+    large = []
+    for big in (4.0, 8.0):
+        qb, kb = q * big, k * big ** 0.5
+        got = ops.flash_block(qb, kb, v, causal=True)
+        want = plain_flash_block_rows(qb, kb, v, True)
+        exact = f64_flash_block_rows(qb, kb, v)
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              "B9 f32 at large scores: non-finite partial")
+        k64, p64 = partial_share(got, exact), partial_share(want, exact)
+        kp = partial_share(got, want)
+        check(k64 <= max(1.0, p64), f"B9 f32 at scores of std "
+              f"{big ** 1.5:.1f}: {k64:.3f} of the 1e-5 partial rule against "
+              f"float64 (the plain version {p64:.3f})")
+        large.append((big ** 1.5, k64, p64, kp))
+        del got, want, exact, qb, kb
+    report["flash_attention"]["f32_large_score_shares"] = large
+    say(f"B9 f32 (tf32x3) partials q {tuple(q.shape)} kv {tuple(k.shape)} "
+        "causal at large scores, shares of the 1e-5 rule (kernel against "
+        "float64, plain f32 against float64, kernel against plain): "
+        + "; ".join(f"std {sd:.1f}: {a:.3f}, {b:.3f}, {c:.3f}"
+                    for sd, a, b, c in large))
+    del q, k, v
 
     # ---- B9 bf16 partials at hd 256 over a whole 4,096-key block: 128
     # tiles of 32 keys, each tile's P V joining O by one f32 fmaf --------
@@ -2378,6 +2481,10 @@ def phase_attention(report: dict) -> None:
                   f"{strategy} attention: wrong shape / dtype or not finite")
             if strategy == "quorum" and dtype == torch.bfloat16:
                 report["flash_attention"]["quorum_launches"] = n
+            if dtype == torch.float32:   # the tf32x3 route end to end
+                report["flash_attention"].update({
+                    f"f32_{strategy}_ms": ms,
+                    f"f32_{strategy}_launches": n})
             moved = sum(tr.counter_total(f"comm.ppermute.{c}")
                         for c in ("gather_bytes", "scatter_bytes",
                                   "ring_bytes"))
@@ -2987,8 +3094,9 @@ def phase_observability() -> None:
 
 def device_breakdown(fn) -> dict:
     """Device ms by kernel family over one call of ``fn``, from
-    torch.profiler (CUPTI): B9 (``flash``), its backward (the SIMT pair's
-    ``dq_kernel`` / ``dkv_kernel``, the wgmma route's ``bwd_*_kernel``s),
+    torch.profiler (CUPTI): B9 (``flash``), its backward (the tf32x3 pair's
+    ``dq_tf32_kernel`` / ``dkv_tf32_kernel``, the wgmma route's
+    ``bwd_*_kernel``s),
     B10 (``ssd_``; its backward, ``ssd_bwd_*``, apart), GEMMs, the
     sort / scan / index / gather kernels (the MoE dispatch, with the
     embedding gather), everything else, the ten costliest kernels by name,
@@ -3010,8 +3118,8 @@ def device_breakdown(fn) -> dict:
             continue
         ms = e.device_time_total / 1e3
         key = e.key.lower()
-        if re.search(r"\bd(q|kv)_kernel|\bbwd_(tc|prologue|slices)_kernel",
-                     key):
+        if re.search(r"\bd(q|kv)_tf32_kernel|"
+                     r"\bbwd_(tc|prologue|slices)_kernel", key):
             fam["b9_bwd"] += ms
         elif "flash" in key:
             fam["b9"] += ms
@@ -4080,15 +4188,24 @@ def phase_flash_bwd(report: dict) -> None:
         del out, qs, ks, vs, dos
         # 10 hd operations per visible pair (S, dP, dV, dQ, dK), each input
         # read once, each gradient written once; issued: what the route's
-        # kernels compute (wgmma: whole tiles, BwdPlan.issued_ops; SIMT: S
-        # and dP in both launches, 14 hd)
+        # kernels compute (wgmma: whole tiles, BwdPlan.issued_ops; tf32x3:
+        # S and dP in both launches, each product three TF32 ones in f32,
+        # and in bf16 S and dP one, the others two: 42 / 20 hd a pair).
+        # The split's bound: the algorithm's products as the split issues
+        # them (30 / 16 hd) at the TF32 rate
         n_ops = 2.5 * flash_ops(B, T, T, H, hd, causal)
         route = bwd_route_of(dtype, hd)
+        f32 = dtype == torch.float32
         issued = (bwd_plan(B, T, T, H, KV, hd, causal).issued_ops()
-                  if route == "wgmma" else 1.4 * n_ops)
+                  if route == "wgmma" else (4.2 if f32 else 2.0) * n_ops)
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
             else PEAK_FP32_FLOPS
         b_ms, b_by = bound(nbytes(q, k, v, o, lse, do, *got), n_ops, peak)
+        split_ms = (bound(nbytes(q, k, v, o, lse, do, *got),
+                          (3.0 if f32 else 1.6) * n_ops, PEAK_TF32_FLOPS)[0]
+                    if route == "tf32x3" else None)
+        split = (f"; the split's bound {split_ms:.3f} ms at 495 TFLOP/s TF32"
+                 f" ({split_ms / ms:.3f} of it)" if split_ms else "")
         say(f"B9 backward {name} ({str(dtype)[6:]}, {route} route) q "
             f"{tuple(q.shape)} kv {tuple(k.shape)} causal={causal}: dq / dk "
             f"/ dv max abs err {errs[0]:.3e} / {errs[1]:.3e} / "
@@ -4099,11 +4216,13 @@ def phase_flash_bwd(report: dict) -> None:
             f"pair; {b_ms / ms:.3f} of the bound), plain {plain_ms:.3f} ms, "
             f"sdpa backward {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
             f"{n_ops:.3e} operations on "
-            f"{'bf16 tensor cores' if peak == PEAK_BF16_FLOPS else 'fp32'})")
+            f"{'bf16 tensor cores' if peak == PEAK_BF16_FLOPS else 'fp32'}"
+            f"{split})")
         cell = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                     route=route, tflops_issued=issued / ms / 1e9,
-                    tflops=n_ops / ms / 1e9, bound_share=b_ms / ms)
+                    tflops=n_ops / ms / 1e9, bound_share=b_ms / ms,
+                    bound_split_ms=split_ms, rule_share=max(ratios))
         if name == "starcoder2 train":
             report["flash_attention_bwd"] = dict(
                 cell, launches=0, **{"bwd_" + k: cell[k] for k in (
@@ -4115,7 +4234,8 @@ def phase_flash_bwd(report: dict) -> None:
                 {tag + k: cell[k] for k in ("ms", "library_ms", "bound_ms",
                                             "max_abs_err", "route",
                                             "tflops_issued", "tflops",
-                                            "bound_share")})
+                                            "bound_share", "bound_split_ms",
+                                            "rule_share")})
         del q, k, v, o, lse, do, got
 
 

@@ -1,7 +1,7 @@
 // B9 backward in bf16 on Hopper's tensor cores (wgmma): the gradient of
 // the forward kernels of flash_attention_tc.cu / flash_attention.cu, for
 // bfloat16 q / k / v with hd a multiple of 8 up to 128 (float32, and hd
-// 256, run on the SIMT kernel pair of flash_attention_bwd.cu, whose header
+// 256, run on the TF32 kernel pair of flash_attention_bwd.cu, whose header
 // states the function: D = rowsum(dO * O), P = exp(c S - lse), dV = P^T dO,
 // dS = P * (dO V^T - D), dQ = c dS K, dK = c dS^T Q, dK / dV summed over
 // each kv head's G query heads, end-aligned causal masks, a row that sees

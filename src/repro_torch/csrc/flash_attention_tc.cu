@@ -1,7 +1,7 @@
 // B9 in bf16 on Hopper's tensor cores (replaces the Pallas kernel
 // repro/kernels/flash_attention.py:flash_attention_pallas, body
-// _flash_kernel, for bfloat16 inputs; float32 stays on the SIMT kernel of
-// flash_attention.cu, whose fp32 arithmetic the limits below need).
+// _flash_kernel, for bfloat16 inputs; float32 runs on flash_attention.cu,
+// whose three-product TF32 split keeps the float32 limits below).
 //
 // The function is flash_attention.cu's, mask for mask and epilogue for
 // epilogue: q [B, Tq, H, hd], k / v [B, Tk, KV, hd] with strides and a

@@ -1,5 +1,6 @@
 // B9 backward: the per-pair rule both backward kernels share
-// (flash_attention_bwd.cu, SIMT; flash_attention_bwd_tc.cu, wgmma).
+// (flash_attention_bwd.cu, TF32 mma.sync; flash_attention_bwd_tc.cu,
+// wgmma).
 #pragma once
 
 namespace flash_bwd {

@@ -32,7 +32,7 @@ SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
            "ssd_chunk.cu", "ssd_chunk_bwd.cu")
 # headers the sources include (part of the build key)
 HEADERS = ("pair_tile.cuh", "hopper.cuh", "topk_select.cuh",
-           "compact.cuh", "row_norms.cuh", "flash_bwd.cuh")
+           "compact.cuh", "row_norms.cuh", "flash_bwd.cuh", "tf32x3.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the PCIT filter's output is a threshold decision: no FMA contraction and
@@ -80,14 +80,14 @@ SIGNATURES = {
     + [_i] * 3 + [_vp],
     # q, k, v, o, m, l, lse, row_valid, B, Tq, Tk, H, KV, hd, the (batch,
     # time, head) strides of q, k and v, causal, partial, stream: float32
-    # (SIMT)
+    # (TF32 tensor cores, three products)
     "repro_flash_attention": [_vp] * 8 + [_i] * 6 + [_ll] * 9 + [_i] * 2
     + [_vp],
     # the same for bfloat16 (wgmma)
     "repro_flash_attention_tc": [_vp] * 8 + [_i] * 6 + [_ll] * 9 + [_i] * 2
     + [_vp],
     # q, k, v, o, lse, do, D, dq, dk, dv, B, Tq, Tk, H, KV, hd, causal,
-    # bf16, stream: B9's backward (SIMT)
+    # bf16, stream: B9's backward (TF32 tensor cores)
     "repro_flash_attention_bwd": [_vp] * 10 + [_i] * 8 + [_vp],
     # q, k, v, o, lse, do, D, lse rows, dq accumulator, chain counters, dk
     # and dv slice partials, dq, dk, dv, B, Tq, Tk, H, KV, hd, causal,

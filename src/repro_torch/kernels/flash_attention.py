@@ -12,9 +12,16 @@ of quorum and ring attention (``apps/attention.py``) and the 4-d
   partials stay within 1e-5 of the plain version; bound by the bf16
   tensor cores (4 * hd operations per visible (query, key) pair at 989
   TFLOP/s; the split issues 6 * hd).
-* float32 (``"simt"``, ``repro_torch/csrc/flash_attention.cu``): fp32
-  arithmetic outside the tensor cores (67 TFLOP/s); TF32 would break the
-  same limits.
+* float32 (``"tf32x3"``, ``repro_torch/csrc/flash_attention.cu``): Q·Kᵀ
+  and P·V on the TF32 tensor cores (``wgmma`` at hd <= 128, ``mma.sync``
+  at hd 256) as three products of a hi / lo split of each operand
+  (``csrc/tf32x3.cuh``).  One TF32 product keeps 10 mantissa bits and
+  puts the f32 partials far outside their 1e-5 rule; the split keeps them
+  within it, as float32 arithmetic does (``tests/test_torch_flash_tf32x3.py``
+  emulates both on the CPU; against a float64 evaluation on the card the
+  kernel reads below the plain float32 version, PERF.md).  Bound by the
+  TF32 tensor cores: 12 * hd TF32 operations per visible pair at 495
+  TFLOP/s.
 
 The TPU kernel carries the row statistics across its sequential kv grid
 axis in VMEM scratch; here a block owns (batch*head, a q tile) and loops
@@ -42,9 +49,11 @@ dtype and head width (:func:`bwd_route_of`):
   and passes each query tile's dQ from key tile to key tile through an
   integer counter, and, when the heads are cut into s > 1 slices, a sum of
   the slices' dK / dV partials.  :func:`bwd_plan` is its launch plan.
-* ``"simt"`` (``csrc/flash_attention_bwd.cu``, float32 arithmetic; float32
-  inputs and the other bf16 widths): dq with the D prologue, then dk / dv
-  a block per kv-head key tile walking its G query heads.
+* ``"tf32x3"`` (``csrc/flash_attention_bwd.cu``, float32 inputs and the
+  other bf16 widths): the TF32 tensor cores with the same three-product
+  split (bf16 inputs are exact in TF32, so their products take one or
+  two); dq with the D prologue, then dk / dv a block per kv-head key tile
+  walking its G query heads.
 
 ``ops.flash_attention`` reaches them through a ``torch.autograd.Function``
 on a CUDA tensor that needs a gradient.
@@ -85,16 +94,17 @@ SMS = 132
 
 def route_of(dtype: torch.dtype) -> str:
     """The kernel a CUDA call in ``dtype`` launches: ``"wgmma"`` for
-    bfloat16 (every hd in 1..256, padded to 64, 128 or 256), ``"simt"`` for
-    float32."""
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    bfloat16 (every hd in 1..256, padded to 64, 128 or 256), ``"tf32x3"``
+    for float32 (the TF32 tensor cores, three products a multiply-add)."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def bwd_route_of(dtype: torch.dtype, hd: int) -> str:
     """The backward kernels a CUDA call launches: ``"wgmma"`` for bfloat16
-    with hd a multiple of 8 up to 128, else ``"simt"``."""
+    with hd a multiple of 8 up to 128, else ``"tf32x3"`` (the TF32 tensor
+    cores; float32 operands as three products, bfloat16 ones exact)."""
     return "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 \
-        and hd <= 128 else "simt"
+        and hd <= 128 else "tf32x3"
 
 
 @dataclass(frozen=True)
@@ -256,7 +266,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = 0).  ``with_lse`` (normalized output only): also the row
     log-sum-exp [B, Tq, H] float32, returned as ``(o, lse)``; ``o`` is the
     same either way.  bfloat16 launches the ``wgmma`` kernel, float32 the
-    SIMT one (:func:`route_of`); either way one launch, counted in
+    ``tf32x3`` one (:func:`route_of`); either way one launch, counted in
     ``launches``."""
     global launches
     _check(q, k, v)
@@ -314,7 +324,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
     heads.  The kernels of the route :func:`bwd_route_of` names, on the
     current stream: ``"wgmma"`` the prologue, the fused launch and (with
     s > 1 head slices) the slice sum, as :func:`bwd_plan` lays them out;
-    ``"simt"`` dq with the D prologue, then dk / dv.  Counted once in
+    ``"tf32x3"`` dq with the D prologue, then dk / dv.  Counted once in
     ``bwd_launches``."""
     global bwd_launches
     _check(q, k, v)

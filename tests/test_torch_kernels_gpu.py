@@ -987,7 +987,8 @@ def test_flash_strided_views(cuda, dtype):
 # B9 backward (csrc/flash_attention_bwd{,_tc}.cu): chip_smoke.py phase
 # 31's cells (starcoder2's training shape in bf16 and f32, whisper's
 # encoder shape, hd 256), ragged Tq / Tk off the 64- / 128-row tiles, G = 8,
-# hd 64, 80, 128, 256 and 36 (bf16 on the SIMT route), both routes; and
+# hd 64, 80, 128, 256, 36, 136, 200 and 250 (bf16 on the tf32x3 route),
+# both routes; and
 # the wgmma route's dQ chains and head slices at their edges: Tq > Tk with
 # G = 12 cut into slices (rows that see no key), a ragged T = 1,000 at
 # hd 64, and qwen3-14b's G = 5 (slices of 1, 2 and 2 heads)
@@ -1007,7 +1008,12 @@ FLASH_BWD_CELLS = [(2, 4096, 4096, 2, 12, 128, True, torch.bfloat16),
                    (1, 40, 96, 2, 1, 64, False, torch.bfloat16),
                    (1, 300, 130, 2, 12, 128, True, torch.bfloat16),
                    (2, 1000, 1000, 2, 12, 64, True, torch.bfloat16),
-                   (1, 2048, 2048, 8, 5, 128, True, torch.bfloat16)]
+                   (1, 2048, 2048, 8, 5, 128, True, torch.bfloat16),
+                   # bf16 on the tf32x3 route above 128 or off a multiple
+                   # of 8
+                   (1, 200, 170, 2, 3, 136, True, torch.bfloat16),
+                   (1, 129, 129, 1, 4, 200, False, torch.bfloat16),
+                   (2, 97, 160, 1, 2, 250, True, torch.bfloat16)]
 
 
 def flash_bwd_rule(got, want):
@@ -1052,14 +1058,14 @@ def test_flash_attention_bwd(cuda, B, Tq, Tk, KV, G, hd, causal, dtype):
 
 def test_flash_attention_bwd_routes_and_alignment(cuda):
     """bf16 with hd % 8 == 0 up to 128 takes the wgmma route, the rest the
-    SIMT one; tensors off a 16-byte boundary (views at an odd offset) give
+    tf32x3 one; tensors off a 16-byte boundary (views at an odd offset) give
     the aligned call's bits."""
     from repro_torch.kernels.flash_attention import (
         bwd_route_of, flash_attention_bwd_cuda, flash_attention_cuda)
     assert [bwd_route_of(torch.bfloat16, hd) for hd in (64, 80, 128, 36,
                                                         256)] == \
-        ["wgmma", "wgmma", "wgmma", "simt", "simt"]
-    assert bwd_route_of(torch.float32, 64) == "simt"
+        ["wgmma", "wgmma", "wgmma", "tf32x3", "tf32x3"]
+    assert bwd_route_of(torch.float32, 64) == "tf32x3"
     q, k, v = _qkv(cuda, 1, 70, 70, 2, 3, 64, torch.bfloat16, 4)
     do = torch.randn_like(q)
     o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
@@ -1076,6 +1082,52 @@ def test_flash_attention_bwd_routes_and_alignment(cuda):
                                    shifted(do), causal=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,hd,G", [(torch.float32, 128, 6),
+                                        (torch.float32, 3, 2),
+                                        (torch.bfloat16, 256, 4),
+                                        (torch.float32, 256, 3)])
+def test_flash_attention_bwd_deterministic(cuda, dtype, hd, G):
+    """The tf32x3 backward without atomics: two calls on the same inputs
+    give bit-equal dq / dk / dv (the G heads of a kv head summed in one
+    order; at hd 256 the two warps of a key group add the same two halves
+    of S and dP)."""
+    from repro_torch.kernels.flash_attention import (
+        bwd_route_of, flash_attention_bwd_cuda, flash_attention_cuda)
+    assert bwd_route_of(dtype, hd) == "tf32x3"
+    q, k, v = _qkv(cuda, 2, 300, 300, 2, G, hd, dtype, 17 + hd)
+    do = torch.randn_like(q)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    second = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for g, w in zip(first, want):
+        assert flash_bwd_rule(g, w) <= 1.0
+
+
+@pytest.mark.parametrize("hd", [3, 256])
+@pytest.mark.parametrize("Tq,Tk", [(130, 130), (70, 200), (96, 40)])
+def test_flash_f32_partial_row_valid(cuda, hd, Tq, Tk):
+    """The f32 (tf32x3) partial epilogue at hd 3 (k-steps padded to 8, 4-byte
+    copies) and hd 256 (32-key tiles) with a mix of valid and invalid rows:
+    valid rows within the plain flash block's 1e-5 rule, invalid rows the
+    merge identity, rows that see no key (Tq > Tk) at l = Tk."""
+    q, k, v = _qkv(cuda, 4, Tq, Tk, 2, 3, hd, torch.float32, Tq + hd)
+    valid = torch.tensor([1, 0, 1, 1], device=cuda)
+    o, m, l = ops.flash_block(q, k, v, causal=True, row_valid=valid)
+    on = valid.bool()
+    wo, wm, wl = ref.flash_block(q[on], k[on], v[on], causal=True)
+    torch.testing.assert_close(m[on], wm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l[on], wl, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(o[on], wo, rtol=1e-5,
+                               atol=1e-5 * max(1.0, float(wo.abs().max())))
+    assert bool((o[~on] == 0).all()) and bool((l[~on] == 0).all())
+    assert bool((m[~on] == -1e30).all())
+    if Tq > Tk:
+        assert bool((l[on][:, :Tq - Tk] == Tk).all())
 
 
 @pytest.mark.parametrize("causal", [True, False])
