@@ -51,7 +51,10 @@ beside the script).  Phases:
      split by kernel, beside its scoring pass alone and with lists in
      global memory; B7: beside a GEMM-only yardstick, ``torch._int_mm`` /
      bf16 ``torch.mm`` over the same active tiles, and on each route at
-     d = 128);
+     d = 128; B8 on both routes too); B8 bf16 at d = 128 to 4,096 on both
+     routes against a float64 evaluation and the plain version, and B8 /
+     B7 int8 at d = 1,536 against the plain version with its dot in
+     float64 rounded once;
  11. the k-NN and quantized-pipeline self-checks at P = 2, 5, 8, every mode
      including ``kernel``;
  12. the k-NN graph (top-10, l2) of the join's corpus through B6, held
@@ -198,14 +201,15 @@ beside the script).  Phases:
  37. the serving, join and k-NN paths under the distributed backend: 8
      spawned ranks as in phase 36, the corpora on the host, each rank's
      own blocks on the card: serving on phase 8's 1,000,000 x 128 corpus
-     (8 microbatches of 256 l2 top-10 queries through B4, phase 8's range
+     (4 microbatches of 256 l2 top-10 queries through B4, phase 8's range
      query escalated from capacity 16, a block replace), int8 serving of
      it (before and after the replace), the batcher with rank 0 as the
-     front end and ranks 1-7 following its broadcast launches (8
+     front end and ranks 1-7 following its broadcast launches (4
      microbatches with a stream update, a heterogeneous pack with
      escalations, a partial result under a stepping clock), the join
-     (B5) and the k-NN graph (B6) of phase 9's 262,144 x 128 corpus and
-     their int8 and bf16 paths (B7, B8); the parent runs the same calls
+     (B5) of phase 9's 262,144 x 128 corpus and the k-NN graph (B6) of
+     its first 131,072 rows, and their int8 and bf16 paths (B7, B8); the
+     parent runs the same calls
      on one process and every rank's rows equal its share of them (its
      block's k-NN rows, the pairs its device owns, the same answers
      otherwise), bit for bit except the quantized paths' rescored
@@ -213,6 +217,17 @@ beside the script).  Phases:
      predictor's on every rank, B4-B8 launched in every rank; per rank
      and path: wall time, peak memory, and the resident bytes (serving
      state, quantized stacks, sweep quorums) against one process's (1/P);
+ 38. the LM train and prefill steps on a mesh of ranks (qwen3-14b at 2
+     layers on 4 ranks, mamba2-130m at 12 layers on 8), every rank's
+     warm-up step and prefill held to one process's;
+ 39. the decode step on a mesh of ranks (qwen3-14b x2 at B 1 over a
+     32,768-slot cache on 4 ranks, mamba2-130m through serve() at B 128
+     on 8), every rank's logits held to one process's;
+ 40. the quantized join (262,144 x 960, gist-960-euclidean's width) and
+     k-NN graph (its first 131,072 rows) in bf16 and int8 through B7 /
+     B8 on the tensor cores, held to B5's join and B6's graph of the same
+     rows; B7 / B8 there and on int8 rows of 1,536 on both routes,
+     beside GEMM-only library calls and the bound;
   then a JSON line of every kernel (launches on the main path, error
   against the plain version, times, bound), the nvidia-smi line, and the
   result line ``{"ok": true, "device": {...}}`` last.
@@ -280,6 +295,18 @@ CLUSTER_SPREAD = 0.3
 # before and after the block replace
 KNN_TOPK, QSERVE_BATCHES = 10, 4
 QUANT_CAP = 1 << 20      # B7's per-device buffer at the join's shape
+# B7 / B8 at wide rows (phase 10): bf16 widths held against float64 and
+# the plain version, and an int8 width past the float32-exact 1,040
+WIDE_BF16_D, WIDE_INT8_D = (128, 256, 960, 1040, 4096), 1536
+# phase 40: the quantized join and k-NN graph at gist-960-euclidean's width
+# (ANN-Benchmarks: 1,000,000 x 960, l2; synthetic clustered rows), the
+# join's N cut as phase 9's, the graph's to its first half (its M doubling
+# reaches lists of 512 at this width, and at 262,144 rows their merges ran
+# the card out of memory); B7 / B8 also timed on int8 rows at WIDE_INT8_D
+# (1,536-wide embeddings) over WIDE_INT8_N rows
+WIDE_N, WIDE_D, WIDE_SEED, WIDE_INT8_N = JOIN_N, 960, 40, 65_536
+WIDE_KNN_N = WIDE_N // 2
+WIDE_CHECK_CAP = 1 << 24   # B7's buffer when device 0's band is checked
 # quorum / ring sequence-parallel attention at qwen3-14b's attention widths
 # (H = 40, KV = 8, head_dim = 128) and the prefill_32k length, batch cut
 # from 32 to 1; ATTN_SAMPLE first and last rows of each block are held
@@ -988,13 +1015,23 @@ def tol_of(s: torch.Tensor) -> torch.Tensor:
     return SCORE_TOL * torch.clamp(s.abs(), min=1.0)
 
 
-def check_topk_rows(q, X, xn, got_v, got_i, want_v, want_i, what: str) -> int:
+def check_topk_rows(q, X, xn, got_v, got_i, want_v, want_i, what: str,
+                    terms: bool = False) -> int:
     """Top-k rows [Q, topk] against the wanted ones: values within rtol /
     atol 1e-5; an index may differ only where the brute-force scores of
     the two candidates lie within SCORE_TOL of each other or of the k-th
-    score.  Returns the number of differing entries."""
-    check(torch.allclose(got_v, want_v, rtol=SCORE_TOL, atol=SCORE_TOL),
-          f"{what}: values differ by up to "
+    score.  With ``terms`` the tolerance is SCORE_TOL * max(1, 2 (|q|^2 +
+    |x|^2)) of the wanted candidate instead: the size of the terms an l2
+    score cancels, which sets how far two float32 sums of wide rows in
+    other orders may differ.  Returns the number of differing entries."""
+    tol = tol_of(want_v)
+    close = torch.allclose(got_v, want_v, rtol=SCORE_TOL, atol=SCORE_TOL)
+    if terms:
+        qn = (q * q).sum(-1)[:, None]
+        tol = SCORE_TOL * torch.clamp(2.0 * (qn + xn[want_i.long()]),
+                                      min=1.0)
+        close = bool(((got_v - want_v).abs() <= tol).all())
+    check(close, f"{what}: values differ by up to "
           f"{float((got_v - want_v).abs().max()):.3e}")
     check(bool((got_i >= 0).all() and (got_i < X.shape[0]).all()),
           f"{what}: an index is out of range (a sentinel?)")
@@ -1005,9 +1042,9 @@ def check_topk_rows(q, X, xn, got_v, got_i, want_v, want_i, what: str) -> int:
     s_got = (2.0 * torch.einsum("qd,qtd->qt", q, rows) - xn[got_i.long()]
              - (q * q).sum(-1)[:, None])
     kth = want_v[:, -1:].expand_as(want_v)
-    ok = ((s_got - want_v).abs() <= tol_of(want_v)) | (
-        ((s_got - kth).abs() <= tol_of(kth))
-        & ((want_v - kth).abs() <= tol_of(kth)))
+    tol_k = tol[:, -1:].expand_as(want_v)
+    ok = ((s_got - want_v).abs() <= tol) | (
+        ((s_got - kth).abs() <= tol_k) & ((want_v - kth).abs() <= tol_k))
     check(bool(ok[diff].all()), f"{what}: {int((diff & ~ok).sum())} indices "
           "differ beyond the tie tolerance")
     return int(diff.sum())
@@ -1235,16 +1272,17 @@ def compare_hits(X, xn, thr, got, want, what: str):
     return err, n_diff
 
 
-def join_data():
-    """The join's corpus and a threshold for about JOIN_HITS pairs, taken
-    from the pairs of a seeded sample of rows."""
-    X = clustered(cluster_centers(JOIN_CLUSTERS, JOIN_D, 20), JOIN_N, 21)
+def join_data(d: int = JOIN_D, n: int = JOIN_N, seed: int = 20):
+    """The join's corpus (n x d; phase 9's by default) and a threshold for
+    about JOIN_HITS pairs, taken from the pairs of a seeded sample of
+    rows."""
+    X = clustered(cluster_centers(JOIN_CLUSTERS, d, seed), n, seed + 1)
     xn = (X * X).sum(-1)
-    g = torch.Generator(device=DEVICE).manual_seed(22)
-    rows = torch.randperm(JOIN_N, generator=g, device=DEVICE)[:JOIN_SAMPLE]
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+    rows = torch.randperm(n, generator=g, device=DEVICE)[:JOIN_SAMPLE]
     # each sampled row sees its pairs with every other row, so the sample
     # holds about 2 * JOIN_HITS * S / N of the passing pairs
-    want = max(1, round(2 * JOIN_HITS * JOIN_SAMPLE / JOIN_N))
+    want = max(1, round(2 * JOIN_HITS * JOIN_SAMPLE / n))
     best = None
     for c0 in range(0, JOIN_SAMPLE, 1024):
         r = rows[c0:c0 + 1024]
@@ -1511,7 +1549,7 @@ def common_value_err(got, want, N: int) -> float:
     """Largest |value difference| over the pairs both compacted buffers
     hold (the bf16 bands may differ at their edge)."""
     err = 0.0
-    for p in range(P):
+    for p in range(got[3].shape[0]):
         ng, nw = int(got[3][p]), int(want[3][p])
         gk, gi = torch.sort(pair_keys(got[1][p, :ng], got[2][p, :ng], N))
         wk, wi = torch.sort(pair_keys(want[1][p, :nw], want[2][p, :nw], N))
@@ -1522,16 +1560,21 @@ def common_value_err(got, want, N: int) -> float:
     return err
 
 
-def band_edge_check(qc, thr, got, want, what: str) -> int:
-    """bf16 band buffers against the plain version's: identical, or the
-    pair sets differ only by pairs whose plain band score lies within
-    SCORE_TOL * max(1, |thr - eps|) of the band's edge ``thr - eps``."""
+def band_edge_check(qc, thr, got, want, what: str,
+                    terms: bool = False) -> int:
+    """bf16 band buffers against the plain version's (of one device or
+    more): identical, or the pair sets differ only by pairs whose plain
+    band score lies within SCORE_TOL * max(1, |thr - eps|) of the band's
+    edge ``thr - eps``.  With ``terms`` the score is evaluated in float64
+    and the tolerance is SCORE_TOL * max(1, 2 (|x_i|^2 + |x_j|^2)), the
+    size of the terms an l2 score cancels (check_topk_rows' rule for wide
+    rows, where two float32 orders differ by more than the first rule)."""
     from repro_torch.kernels.ref import quant_eps_tile
     if all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])):
         return 0
     n_diff = 0
     d = qc.q.shape[1]
-    for p in range(P):
+    for p in range(got[3].shape[0]):
         ng = min(int(got[3][p]), got[1].shape[1])
         nw = min(int(want[3][p]), want[1].shape[1])
         gk = pair_keys(got[1][p, :ng], got[2][p, :ng], qc.q.shape[0])
@@ -1541,17 +1584,145 @@ def band_edge_check(qc, thr, got, want, what: str) -> int:
             continue
         i, j = only // qc.q.shape[0], only % qc.q.shape[0]
         bi, bj = i // qc.block, j // qc.block
-        s = (qc.q[i].float() * qc.q[j].float()).sum(-1) \
-            * (qc.scale[bi] * qc.scale[bj])
-        s = (2.0 * s - qc.sq[j]) - qc.sq[i]
         eps = quant_eps_tile(qc.delta[bi], qc.delta[bj], qc.l1[i][:, None],
                              qc.l1[j][:, None], dim=d, metric="l2")[:, 0, 0]
         edge = thr - eps
-        check(bool(((s - edge).abs() <= tol_of(edge)).all()),
+        if terms:
+            s = (qc.q[i].double() * qc.q[j].double()).sum(-1) \
+                * (qc.scale[bi].double() * qc.scale[bj].double())
+            s = (2.0 * s - qc.sq[j].double()) - qc.sq[i].double()
+            tol = SCORE_TOL * torch.clamp(
+                2.0 * (qc.sq[i] + qc.sq[j]).double(), min=1.0)
+        else:
+            s = (qc.q[i].float() * qc.q[j].float()).sum(-1) \
+                * (qc.scale[bi] * qc.scale[bj])
+            s = (2.0 * s - qc.sq[j]) - qc.sq[i]
+            tol = tol_of(edge)
+        check(bool(((s - edge).abs() <= tol).all()),
               f"{what} device {p}: {only.numel()} pairs differ, some away "
               "from the band's edge")
         n_diff += int(only.numel())
     return n_diff
+
+
+WIDE_META = ((1, 1, 0, 0, 200, 200), (1, 0, 0, 1, 200, 200),
+             (1, 1, 1, 1, 200, 200))   # two slots of 200 rows, three pairs
+
+
+def f64_list_err(vals, idx, s64) -> float:
+    """Largest |listed score - its float64 score| over the real entries of
+    wide_rows' lists [1, 2, 200, M] (row r of slot s is row 200 s + r of
+    ``s64``, the candidates its columns)."""
+    real = vals > -1e29
+    rows = torch.arange(vals.shape[1] * vals.shape[2], device=DEVICE)
+    rows = rows.reshape(1, vals.shape[1], vals.shape[2], 1).expand_as(idx)
+    want = s64[rows[real], idx[real].long()]
+    return float((vals[real].double() - want).abs().max())
+
+
+def exact_q_dots(qf, scale, l, h, r0, r1):
+    """``kernels.ref._q_dots`` with the code dot evaluated in float64 and
+    rounded once to float32: int8's contract past d = 1,040, where the
+    plain version's float32 sum depends on its order."""
+    dots = (qf[:, l, r0:r1].double()
+            @ qf[:, h].double().transpose(-1, -2)).float()
+    return dots * (scale[:, l] * scale[:, h])[:, None, None]
+
+
+def wide_rows(report: dict) -> None:
+    """B8 bf16 at every width of WIDE_BF16_D on both routes, 6 seeds:
+    past d = 128 route_of's route no further from a float64 evaluation
+    than the plain float32 version (tensor-core sums truncate: chunks of
+    32 joined in float32, compensated), and within the tie rule of the
+    plain version up to d = 256 (dot scores down to 0, where the rule is
+    1e-5 absolute).  At d <= 128 the route sums in one accumulator, as it
+    did before chunks existed: its float64 reading is printed, the tie
+    rule held.  Then B8 and B7 int8 at d = WIDE_INT8_D, dots past 2^24,
+    equal to the plain version with its dot evaluated in float64 and
+    rounded once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_batch_q import (
+        pairwise_threshold_q_cuda, pairwise_topk_q_cuda, route_of)
+
+    mb = torch.tensor([WIDE_META], dtype=torch.int32, device=DEVICE)
+    lo, hi = [0, 0, 1], [0, 1, 1]
+    kwb = dict(topk=512, block_rows=200, metric="dot")
+    reads = {}
+    for d in WIDE_BF16_D:
+        tie = {"tensor_cores": 0.0, "simt": 0.0}
+        f64 = {"tensor_cores": 0.0, "simt": 0.0, "plain": 0.0}
+        for seed in range(6):
+            g = torch.Generator(device=DEVICE).manual_seed(1000 * d + seed)
+            codes = torch.randn(1, 2, 200, d, generator=g,
+                                device=DEVICE).to(torch.bfloat16)
+            flat = codes.double().reshape(400, d)
+            s64 = flat @ flat.T
+            sdb = torch.ones(1, 2, 2, device=DEVICE)
+            sqb = (codes.float() ** 2).sum(-1)
+            want_v, want_i = ref.pairwise_topk_q(codes, sdb[..., 0], sqb, lo,
+                                                 hi, mb, **kwb)
+            f64["plain"] = max(f64["plain"],
+                               f64_list_err(want_v, want_i, s64))
+            real = want_v > -1e29
+            for route in tie:
+                got_v, got_i = pairwise_topk_q_cuda(codes, sdb, sqb, lo, hi,
+                                                    mb, route=route, **kwb)
+                tie[route] = max(tie[route], float(
+                    ((got_v - want_v).abs() / tol_of(want_v))[real].max()))
+                f64[route] = max(f64[route],
+                                 f64_list_err(got_v, got_i, s64))
+        chosen = route_of(torch.bfloat16, d)
+        check(d <= 128 or f64[chosen] <= f64["plain"],
+              f"B8 bf16 d={d}: route {chosen} reads {f64[chosen]:.3e} from "
+              f"float64, the plain float32 version {f64['plain']:.3e}")
+        check(d > 256 or tie[chosen] <= 1.0,
+              f"B8 bf16 d={d}: route {chosen} reads {tie[chosen]:.3f} of "
+              "the tie rule")
+        reads[d] = (f64[chosen], f64["plain"])
+        say(f"B8 bf16 d={d} dot top-512, worst of 6 seeds: max |err| from "
+            f"float64 tensor cores {f64['tensor_cores']:.3e}, simt "
+            f"{f64['simt']:.3e}, plain float32 {f64['plain']:.3e}; max "
+            f"|err| / (1e-5 max(1, |s|)) against the plain version tensor "
+            f"cores {tie['tensor_cores']:.3f}, simt {tie['simt']:.3f}; "
+            f"route_of picks {chosen}")
+    report["pairwise_topk_q"]["bf16_wide_f64_err"] = {
+        str(d): list(v) for d, v in reads.items()}
+
+    # int8 past the float32-exact width: dots near 1,536 * 124^2 > 2^24
+    d = WIDE_INT8_D
+    g = torch.Generator(device=DEVICE).manual_seed(d)
+    codes = (127 - torch.randint(0, 8, (1, 2, 200, d), generator=g,
+                                 device=DEVICE)).to(torch.int8)
+    sd = torch.tensor([[[0.01, 1e-6], [0.02, 2e-6]]], device=DEVICE)
+    rowsf = codes.float() * sd[..., 0, None, None]
+    l1, sq = rowsf.abs().sum(-1), (rowsf ** 2).sum(-1)
+    route = route_of(torch.int8, d)
+    with mock.patch.object(ref, "_q_dots", exact_q_dots):
+        kw8 = dict(topk=512, block_rows=200, metric="l2")
+        want = ref.pairwise_topk_q(codes, sd[..., 0], sq, lo, hi, mb, **kw8)
+        got = pairwise_topk_q_cuda(codes, sd, sq, lo, hi, mb, **kw8)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"B8 int8 d={d} ({route}): lists differ from the float64 "
+              "dot rounded once")
+    f32_diff = int((ref.pairwise_topk_q(codes, sd[..., 0], sq, lo, hi, mb,
+                                        **kw8)[0] != want[0]).sum())
+    with mock.patch.object(ref, "_q_dots", exact_q_dots):
+        s_ex = exact_q_dots(codes.float().reshape(1, 2, 200, d),
+                            sd[..., 0], 0, 1, 0, 200)
+        kw7 = dict(threshold=float(torch.quantile(s_ex.flatten(), 0.9)),
+                   capacity=1 << 16, block_rows=200, metric="dot")
+        want7 = ref.pairwise_threshold_q(codes, sd[..., 0], sd[..., 1], l1,
+                                         sq, lo, hi, mb, **kw7)
+        got7 = pairwise_threshold_q_cuda(codes, sd, l1, sq, lo, hi, mb,
+                                         **kw7)
+        check(all(torch.equal(a, b) for a, b in zip(got7, want7)),
+              f"B7 int8 d={d} ({route}): band differs from the float64 dot "
+              "rounded once")
+    say(f"B8 / B7 int8 d={d} ({route}; dots up to "
+        f"{float(s_ex.max() / (0.01 * 0.02)):.4g}): lists and band "
+        f"({int(want7[3].sum())} entries) equal the plain version with its "
+        f"dot in float64 rounded once; its float32 matmul moves "
+        f"{f32_diff} of {want[0].numel()} list values")
 
 
 def phase_kernels_knn(report: dict) -> None:
@@ -1671,6 +1842,9 @@ def phase_kernels_knn(report: dict) -> None:
             n_diff = lists_near(got_v, got_i, want_v, want_i, "B8 bf16")
         ms = cuda_ms(lambda: ops.pairwise_topk_q(qq.q, sd, qq.sq, lo, hi,
                                                  meta, **kw), reps=2)
+        # the SIMT route at this shape, in the same call
+        simt_ms = cuda_ms(lambda: pairwise_topk_q_cuda(
+            qq.q, sd, qq.sq, lo, hi, meta, route="simt", **kw), reps=1)
         if qm == "int8":
             lib_ms = per_tile_library(qq.q, lo, hi, meta,
                                       lambda a, b: torch._int_mm(a, b.T))
@@ -1689,52 +1863,20 @@ def phase_kernels_knn(report: dict) -> None:
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (host clock, device "
             f"by device), {lib_name} per active tile {lib_ms:.3f} ms, bound "
             f"{b_ms:.3f} ms ({b_by}, {qm} tensor-core peak); route "
-            f"{route_of(qq.q.dtype, qq.q.shape[-1])}")
+            f"{route_of(qq.q.dtype, qq.q.shape[-1])}; route simt "
+            f"{simt_ms:.3f} ms")
         if qm == "int8":
             report["pairwise_topk_q"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, simt_ms=simt_ms)
         else:   # the bf16 instance rides the same row
             report["pairwise_topk_q"].update(
                 bf16_max_abs_err=err, bf16_ms=ms, bf16_plain_ms=plain_ms,
-                bf16_bound_ms=b_ms, bf16_library_ms=lib_ms)
+                bf16_bound_ms=b_ms, bf16_library_ms=lib_ms,
+                bf16_simt_ms=simt_ms)
         del qq, got_v, got_i, want_v, want_i
 
-    # ---- B8 bf16 by route: the tie rule's worst reading over 6 seeds at
-    # d = 128, 256, 1,040 (dot scores near zero: the rule is 1e-5 absolute
-    # there) -------------------------------------------------------------
-    mb = torch.tensor([[[1, 1, 0, 0, 200, 200], [1, 0, 0, 1, 200, 200],
-                        [1, 1, 1, 1, 200, 200]]], dtype=torch.int32,
-                      device=DEVICE)
-    kwb = dict(topk=512, block_rows=200, metric="dot")
-    for d in (128, 256, 1040):
-        reads = {"tensor_cores": 0.0, "simt": 0.0}
-        for seed in range(6):
-            g = torch.Generator(device=DEVICE).manual_seed(1000 * d + seed)
-            codes = torch.randn(1, 2, 200, d, generator=g,
-                                device=DEVICE).to(torch.bfloat16)
-            sdb = torch.ones(1, 2, 2, device=DEVICE)
-            sqb = (codes.float() ** 2).sum(-1)
-            want_v, _ = ref.pairwise_topk_q(codes, sdb[..., 0], sqb,
-                                            [0, 0, 1], [0, 1, 1], mb, **kwb)
-            real = want_v > -1e29
-            for route in reads:
-                got_v, _ = pairwise_topk_q_cuda(codes, sdb, sqb, [0, 0, 1],
-                                                [0, 1, 1], mb, route=route,
-                                                **kwb)
-                reads[route] = max(reads[route], float(
-                    ((got_v - want_v).abs() / tol_of(want_v))[real].max()))
-        chosen = route_of(torch.bfloat16, d)
-        # at d = 1,040 no float32 summation order but the plain version's
-        # own stays within 1e-5 of it near zero: read, not held
-        check(d == 1040 or reads[chosen] <= 1.0,
-              f"B8 bf16 d={d}: route {chosen} reads {reads[chosen]:.3f} of "
-              "the tie rule")
-        say(f"B8 bf16 d={d} dot top-512 (scores down to 0), worst of 6 "
-            f"seeds: max |err| / (1e-5 max(1, |s|)) tensor cores "
-            f"{reads['tensor_cores']:.3f}, simt {reads['simt']:.3f}; "
-            f"route_of picks {chosen}")
-    del codes
+    wide_rows(report)
 
     # ---- B7 at the quantized join's shapes ------------------------------
     cap = QUANT_CAP
@@ -5264,23 +5406,28 @@ def phase_distributed(report: dict, smi: str) -> None:
 
 # phase 37: the serving tier, the join, the k-NN graph and the quantized
 # paths under the distributed backend.  P ranks on cuda:0 over gloo,
-# host-staged (as phase 36), at the single-process phases' shapes, nothing
-# cut: serving on phase 8's 1,000,000 x 128 corpus (D37_SERVE_BATCHES
-# microbatches of SERVE_Q l2 top-10 through B4, phase 8's range query
+# host-staged (as phase 36), at the single-process phases' shapes, with
+# fewer microbatches: serving on phase 8's 1,000,000 x 128 corpus
+# (D37_SERVE_BATCHES microbatches of SERVE_Q l2 top-10 through B4, phase
+# 8's range query
 # escalated from THR_CAP0, a replace_block), int8 serving of the same
 # corpus (D37_QSERVE_BATCHES microbatches before and after the replace),
 # the batcher on the f32 corpus with rank 0 as the front end (D37_BATCHES
 # microbatches with a stream update every D37_STREAM_EVERY, a
 # heterogeneous pack, an escalation, a partial result under a stepping
-# clock), the join and the k-NN graph of phase 9's 262,144 x 128 corpus
-# (B5, B6) and their int8 and bf16 paths (B7, B8).  The parent runs the
+# clock), the join of phase 9's 262,144 x 128 corpus (B5) and the k-NN
+# graph of its first D37_KNN_N rows (B6), and their int8 and bf16 paths
+# (B7, B8).  The parent runs the
 # same calls on a SingleProcessComm on the card; every rank's rows are held
 # to its share of them (a rank's k-NN rows: its block's; its join pairs:
 # the ones its device owns).  Each rank keeps the corpora on the host and
 # moves only its own blocks (and the rows a rescoring pass reads) to the
 # card.
-D37_SERVE_BATCHES, D37_QSERVE_BATCHES = 8, 2
-D37_BATCHES, D37_STREAM_EVERY = 8, 4
+D37_SERVE_BATCHES, D37_QSERVE_BATCHES = 4, 1
+D37_BATCHES, D37_STREAM_EVERY = 4, 2
+# the k-NN graphs (f32, int8, bf16) on the join corpus's first D37_KNN_N
+# rows (a depth cut: the quantized ones' M passes were most of the phase)
+D37_KNN_N = JOIN_N // 2
 D37_PACK_CAPS = (16, 8, 32, 1, 64, 2)  # below THR_HITS: the pack escalates
 # the rows whose scores the quantized paths rescore with torch.sum over the
 # rows a pass gathers: equal to SCORE_TOL where CUDA's reduction plan
@@ -5495,8 +5642,9 @@ def d37_paths(comm, data: dict, run) -> tuple[dict, dict]:
         fig["join_counts"] = r.counts.tolist()
 
     def knn():
-        g = knn_graph(Xj, comm, topk=KNN_TOPK, metric="l2", mode="batched",
-                      placement="cyclic", use_kernel=True, quant="off")
+        g = knn_graph(Xj[:D37_KNN_N], comm, topk=KNN_TOPK, metric="l2",
+                      mode="batched", placement="cyclic", use_kernel=True,
+                      quant="off")
         rows["knn_i"], rows["knn_v"] = (torch.from_numpy(g.indices),
                                         torch.from_numpy(g.scores))
         fig["knn_row0"] = g.row0
@@ -5514,8 +5662,8 @@ def d37_paths(comm, data: dict, run) -> tuple[dict, dict]:
 
     def qknn(qm):
         st: dict = {}
-        g = quant_knn_graph(Xj, comm, topk=KNN_TOPK, quant=qm, metric="l2",
-                            mode="batched", placement="cyclic",
+        g = quant_knn_graph(Xj[:D37_KNN_N], comm, topk=KNN_TOPK, quant=qm,
+                            metric="l2", mode="batched", placement="cyclic",
                             use_kernel=True, stats=st)
         rows[f"qknn_{qm}_i"] = torch.from_numpy(g.indices)
         rows[f"qknn_{qm}_v"] = torch.from_numpy(g.scores)
@@ -5589,7 +5737,7 @@ def d37_predicted(fig: dict) -> dict:
                                       quant_block_bytes)
 
     plc = resolve_placement("cyclic", P)
-    block = JOIN_N // P
+    block, kblock = JOIN_N // P, D37_KNN_N // P
 
     def sweeps(n, block_bytes, partial_bytes=None):
         p = predict_sweep_comm(plc, block_bytes, partial_bytes=partial_bytes)
@@ -5606,11 +5754,12 @@ def d37_predicted(fig: dict) -> dict:
         "comm.ppermute.merge_bytes": D37_SERVE_BATCHES * merge["bytes"],
         "comm.ppermute.merge_hops": D37_SERVE_BATCHES * merge["hops"]},
         "join": sweeps(fig["join_sweeps"], block * JOIN_D * 4),
-        "knn": sweeps(1, block * JOIN_D * 4, block * KNN_TOPK * 8)}
+        "knn": sweeps(1, kblock * JOIN_D * 4, kblock * KNN_TOPK * 8)}
     for qm in ("int8", "bf16"):
         qbb = quant_block_bytes(block, JOIN_D, qm)
         want[f"qjoin_{qm}"] = sweeps(fig[f"qjoin_{qm}_sweeps"], qbb)
-        passes = [sweeps(1, qbb, block * m * 8)
+        qkb = quant_block_bytes(kblock, JOIN_D, qm)
+        passes = [sweeps(1, qkb, kblock * m * 8)
                   for m, _n in fig[f"qknn_{qm}_passes"]]
         want[f"qknn_{qm}"] = {c: sum(p[c] for p in passes)
                               for c in passes[0]}
@@ -5679,7 +5828,8 @@ def phase_distributed_serving(report: dict, smi: str) -> None:
             if key.startswith(("join_", "qjoin_")):
                 continue
             if key.startswith(("knn_", "qknn_")):
-                want = want[r * block:(r + 1) * block]
+                kb = D37_KNN_N // P
+                want = want[r * kb:(r + 1) * kb]
             if key.startswith("batcher_") and r:
                 continue
             mine[key] = want
@@ -5800,9 +5950,9 @@ def phase_distributed_serving(report: dict, smi: str) -> None:
 # model=2) mesh of 4 ranks: train_4k at a global batch of D38_QWEN_B
 # (2 rows of 4,096 a dp rank, remat on), a warm-up step and D38_TIMED
 # timed steps, then the prefill step on D38_QWEN_B x 4,096.  Cell
-# "mamba": mamba2-130m at full width and depth, fsdp off, on a (data=4,
-# model=2) mesh of 8 ranks: train_4k at a global batch of 16 in 2
-# microbatches (phase 34's step).  The parent first runs the same
+# "mamba": mamba2-130m at full width, depth cut from 24 to
+# D38_MAMBA_LAYERS, fsdp off, on a (data=4, model=2) mesh of 8 ranks:
+# train_4k at a global batch of 16 in 2 microbatches (phase 34's step).  The parent first runs the same
 # single-process step on the same parameters and batch, keeps samples of
 # its results on the host and frees the card.  Every rank's warm-up step
 # is held to it on D38_SAMPLES sampled elements of every leaf (each rank
@@ -5815,15 +5965,16 @@ def phase_distributed_serving(report: dict, smi: str) -> None:
 # step flips where a gradient's sign does); the prefill logits within
 # phase 24's 2e-2 max(1, max |logit|).
 D38_QWEN_LAYERS, D38_QWEN_B, D38_T = 2, 4, 4096
+D38_MAMBA_LAYERS = 12
 D38_CELLS = {
     "qwen": dict(arch="qwen3_14b", layers=D38_QWEN_LAYERS, fsdp=True,
                  mesh=((2, 2), ("data", "model")), batch=D38_QWEN_B,
                  accum=1, prefill=True),
-    "mamba": dict(arch="mamba2_130m", layers=None, fsdp=False,
+    "mamba": dict(arch="mamba2_130m", layers=D38_MAMBA_LAYERS, fsdp=False,
                   mesh=((4, 2), ("data", "model")), batch=MAMBA_B,
                   accum=MAMBA_ACCUM, prefill=False),
 }
-D38_TIMED = 2
+D38_TIMED = 1
 D38_SAMPLES = 1 << 16
 D38_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_chunk",
                "ssd_chunk_bwd")
@@ -6435,15 +6586,15 @@ def phase_distributed_lm(report: dict, smi: str) -> None:
 # on (data=2, model=2), B = 1 and a cache of decode_32k's 32,768 slots:
 # the slots are cut over "data" (B does not divide it) and the 8 K / V
 # heads over "model" (layouts (b) and (a) of models/attention.py).  The
-# state starts at pos0 = S / 2 - 4 with the caches below it drawn from a
-# seed, and 8 teacher-forced steps write across the boundary of the two
+# state starts at pos0 = S / 2 - 1 with the caches below it drawn from a
+# seed, and 3 teacher-forced steps write across the boundary of the two
 # dp ranks' slots.  Each rank's logits are held against one process's
 # decode_step on the same state at the bf16 decode rule (PERF.md §2):
 # 2e-2 max(1, max |logit|).
 #
 # mamba_decode: mamba2-130m, all 24 layers, on (data=4, model=2) at
-# decode_32k's batch of 128 (32 rows a dp rank): 4 teacher-forced steps,
-# then 4 greedy steps through launch.serve.serve(..., comm=).  B10 runs at
+# decode_32k's batch of 128 (32 rows a dp rank): 2 teacher-forced steps,
+# then 2 greedy steps through launch.serve.serve(..., comm=).  B10 runs at
 # chunk 1 on the rank's 12 of 24 heads (an 8-head group and a ragged
 # 4-head one), 24 launches a step.  Rank 0 holds its first B10 launch
 # against the plain version under phase 38's rule; the teacher-forced
@@ -6458,10 +6609,10 @@ def phase_distributed_lm(report: dict, smi: str) -> None:
 # run's per-device figures (dryrun.argument_bytes) for the cell.
 D39_CELLS = {
     "qwen_decode": dict(arch="qwen3_14b", layers=2, mesh=((2, 2),
-                        ("data", "model")), batch=1, seq=32768, steps=8),
+                        ("data", "model")), batch=1, seq=32768, steps=3),
     "mamba_decode": dict(arch="mamba2_130m", layers=None, mesh=((4, 2),
                          ("data", "model")), batch=128, seq=32768,
-                         prompt_len=4, gen_len=5),
+                         prompt_len=2, gen_len=3),
 }
 D39_RULE = 2e-2
 D39_SMOKE = False           # the smoke widths (a rehearsal on the CPU)
@@ -6482,11 +6633,11 @@ def d39_shape(cell: dict):
 
 
 def d39_state(cfg, cell: dict, dev):
-    """qwen_decode's whole state at pos0 = S / 2 - 4, the caches below pos0
-    drawn from a seed on ``dev``."""
+    """qwen_decode's whole state at pos0 = S / 2 - steps / 2, the caches
+    below pos0 drawn from a seed on ``dev``."""
     from repro_torch.models import lm
     from repro_torch.models.common import tree_leaves
-    pos0 = cell["seq"] // 2 - 4
+    pos0 = cell["seq"] // 2 - cell["steps"] // 2
     state = lm.init_decode_state(cfg, cell["batch"], cell["seq"], device=dev)
     g = torch.Generator(device=dev).manual_seed(5)
     for _path, t in tree_leaves(state["layers"]):
@@ -6863,6 +7014,303 @@ def phase_distributed_decode(report: dict, smi: str) -> None:
                 dist_decode_ranks=n)
 
 
+def list_value_err(got_v, want_v) -> float:
+    """Largest |value difference| of two sets of top-M lists, position by
+    position over the wanted lists' real entries (a list's sorted values
+    move no further than the scores they sort)."""
+    real = want_v > -1e29
+    return float((got_v[real] - want_v[real]).abs().max())
+
+
+def wide_dev0_checks(qc, qq, sd, lo, hi, meta, thr: float, metric: str,
+                     M: int) -> dict:
+    """B7 and B8 on device 0's tiles at a wide path's shapes (route_of's
+    route) against their plain versions on the same tensors: int8 up to
+    INT8_EXACT_D equal to the plain version; int8 past it equal to the
+    plain version with its dot evaluated in float64 and rounded once
+    (``exact_q_dots``); bf16: B8's lists no further from that float64
+    evaluation than the plain float32 version's, and B7's band (a capacity
+    that holds it) equal to the plain version's but for pairs at its edge
+    (``band_edge_check`` with the l2 terms' tolerance)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_batch_q import (
+        INT8_EXACT_D, pairwise_threshold_q_cuda, pairwise_topk_q_cuda)
+
+    d = qq.q.shape[-1]
+    block = qq.q.shape[2]
+    one = slice(0, 1)
+    int8 = qq.q.dtype == torch.int8
+    kw7 = dict(threshold=thr, capacity=WIDE_CHECK_CAP, block_rows=block,
+               metric=metric)
+    kw8 = dict(topk=M, block_rows=block, metric=metric)
+    got7 = pairwise_threshold_q_cuda(qq.q[one], sd[one], qq.l1[one],
+                                     qq.sq[one], lo, hi, meta[one], **kw7)
+    got8 = pairwise_topk_q_cuda(qq.q[one], sd[one], qq.sq[one], lo, hi,
+                                meta[one], **kw8)
+    check(int(got7[3][0]) <= WIDE_CHECK_CAP,
+          f"wide B7 check d={d}: device 0's band overflows "
+          f"{WIDE_CHECK_CAP}")
+
+    def plain(exact: bool, b7: bool = True):
+        with (mock.patch.object(ref, "_q_dots", exact_q_dots) if exact
+              else contextlib.nullcontext()):
+            w7 = ref.pairwise_threshold_q(
+                qq.q[one], qq.scale[one], qq.delta[one], qq.l1[one],
+                qq.sq[one], lo, hi, meta[one], **kw7) if b7 else None
+            w8 = ref.pairwise_topk_q(qq.q[one], qq.scale[one], qq.sq[one],
+                                     lo, hi, meta[one], **kw8)
+        return w7, w8
+
+    what = f"wide d={d} {'int8' if int8 else 'bf16'} device 0"
+    out = {"B7": {"dev0_band": int(got7[3][0])}, "B8": {}}
+    if int8:
+        want7, want8 = plain(exact=d > INT8_EXACT_D)
+        rule = ("the plain version with its dot in float64 rounded once"
+                if d > INT8_EXACT_D else "the plain version")
+        check(all(torch.equal(a, b) for a, b in zip(got7, want7)),
+              f"{what}: B7's band buffers differ from {rule}")
+        check(all(torch.equal(a, b) for a, b in zip(got8, want8)),
+              f"{what}: B8's lists differ from {rule}")
+        say(f"{what}: B7's band ({int(got7[3][0])} entries) and B8's "
+            f"top-{M} lists equal {rule}")
+        out["B7"]["dev0_max_abs_err"] = out["B8"]["dev0_max_abs_err"] = 0.0
+        return out
+    want7, want8 = plain(exact=False)
+    _, ex8 = plain(exact=True, b7=False)
+    err8, plain8 = (list_value_err(got8[0], ex8[0]),
+                    list_value_err(want8[0], ex8[0]))
+    check(err8 <= plain8,
+          f"{what}: B8's lists read {err8:.3e} from the float64 dot, the "
+          f"plain float32 version's {plain8:.3e}")
+    n_edge = band_edge_check(qc, thr, got7, want7, f"{what} B7", terms=True)
+    err7 = common_value_err(got7, want7, qc.q.shape[0])
+    say(f"{what}: B8's top-{M} lists {err8:.3e} from the plain version "
+        f"with its dot in float64 rounded once, the plain float32 version "
+        f"{plain8:.3e} ({err8 / plain8:.3f} of it), ids differ from the "
+        f"plain version's at {int((got8[1] != want8[1]).sum())} of "
+        f"{got8[1].numel()} entries; B7's band {int(got7[3][0])} entries "
+        f"(plain {int(want7[3][0])}), {n_edge} pairs differ (at its edge), "
+        f"values of common pairs within {err7:.3e}")
+    out["B7"].update(dev0_max_abs_err=err7, dev0_edge_pairs=n_edge)
+    out["B8"].update(dev0_f64_err=err8, dev0_plain_f64_err=plain8)
+    return out
+
+
+def wide_kernel_times(qc, thr: float, metric: str = "l2",
+                      checks: bool = True) -> dict:
+    """B7 (at ``thr``) and B8 (top-M, M = 16) on the quorum stacks of a
+    quantized corpus: device 0's outputs held to the plain versions
+    (``wide_dev0_checks``; ``checks=False`` skips them, for
+    scripts/pair_q_chunks.py's variants that fail them), route_of's route
+    over every device, both routes on device 0's tiles in one call, GEMM
+    only per active tile, and the bound (2 d operations a candidate of an
+    active tile at the codes' tensor-core peak).  Device ms."""
+    from repro_torch.core import quant
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.placement import get_placement
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pairwise_batch_q import (
+        pairwise_threshold_q_cuda, pairwise_topk_q_cuda)
+    from repro_torch.serving.engine import quantize_pow2
+
+    comm = SingleProcessComm(P, DEVICE)
+    sched = get_placement("cyclic", P).schedule()
+    N, d = qc.q.shape
+    block = N // P
+    M = quantize_pow2(KNN_TOPK)
+    int8 = qc.q.dtype == torch.int8
+    store: dict = {}
+    quant.quorum_allpairs_threshold_q(
+        qc.blocks(), comm, threshold=thr, capacity=QUANT_CAP, schedule=sched,
+        metric=metric, mode="batched", n_valid=N,
+        batch_fn=capture_batch_fn(store, lambda qb, lo, hi, meta: (
+            torch.zeros(P, QUANT_CAP, device=DEVICE),
+            torch.zeros(P, QUANT_CAP, dtype=torch.int32, device=DEVICE),
+            torch.zeros(P, QUANT_CAP, dtype=torch.int32, device=DEVICE),
+            torch.zeros(P, dtype=torch.int32, device=DEVICE))))
+    qq, lo, hi, meta = store.pop("args")
+    sd = quant._kernel_sd(qq)
+    kw7 = dict(threshold=thr, capacity=QUANT_CAP, block_rows=block,
+               metric=metric)
+    kw8 = dict(topk=M, block_rows=block, metric=metric)
+    out = {"B7": ops.pairwise_threshold_q, "B8": ops.pairwise_topk_q}
+    one = {"B7": pairwise_threshold_q_cuda, "B8": pairwise_topk_q_cuda}
+
+    def args(name, sl=slice(None)):
+        rows = (qq.l1[sl], qq.sq[sl]) if name == "B7" else (qq.sq[sl],)
+        return (qq.q[sl], sd[sl]) + rows + (lo, hi, meta[sl])
+
+    res = (wide_dev0_checks(qc, qq, sd, lo, hi, meta, thr, metric, M)
+           if checks else {"B7": {}, "B8": {}})
+    for name, kw in (("B7", kw7), ("B8", kw8)):
+        r = res[name]
+        r["ms"] = cuda_ms(lambda: out[name](*args(name), **kw), reps=2)
+        for route in ("tensor_cores", "simt"):
+            r[f"dev0_{route}_ms"] = cuda_ms(lambda: one[name](
+                *args(name, slice(0, 1)), route=route, **kw), reps=1)
+    if int8:
+        gemm = per_tile_gemm(qq.q, lo, hi, meta, lambda a, b, o: torch._int_mm(
+            a, b.T, out=o), torch.int32)
+    else:
+        gemm = per_tile_gemm(qq.q, lo, hi, meta,
+                             lambda a, b, o: torch.mm(a, b.T, out=o),
+                             torch.bfloat16)
+    cand = active_candidates(meta)
+    b_ms, b_by = bound(nbytes(qq.q, sd, qq.l1, qq.sq, meta), 2.0 * d * cand,
+                       PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)
+    for r in res.values():
+        r.update(gemm_only_ms=gemm, bound_ms=b_ms, bound_by=b_by)
+    return res
+
+
+def phase_wide_quant(report: dict) -> None:
+    """Phase 40: the quantized join (B7) and k-NN graph (B8) of WIDE_N x
+    WIDE_D clustered rows in bf16 and int8, held to the f32 join (B5) and
+    graph (B6) of the same rows with phases 13-14's rules; then B7 / B8 at
+    this path's shapes and at int8 d = WIDE_INT8_D, device 0's outputs
+    held to their plain versions (``wide_dev0_checks``), and timed on
+    both routes."""
+    from repro_torch.core import quant
+    from repro_torch.core.comm import SingleProcessComm
+    from repro_torch.core.knn import knn_graph
+    from repro_torch.core.sparse import similarity_join
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pairwise_batch_q import route_of
+
+    comm = SingleProcessComm(P, DEVICE)
+    X, xn, thr = join_data(WIDE_D, WIDE_N, WIDE_SEED)
+    N = X.shape[0]
+    t0 = time.perf_counter()
+    fj = similarity_join(X, comm, threshold=thr, metric="l2", mode="batched",
+                         placement="cyclic", capacity=JOIN_CAP0,
+                         use_kernel=True)
+    torch.cuda.synchronize()
+    j_s = time.perf_counter() - t0
+    f_i = torch.as_tensor(fj.i, device=DEVICE)
+    f_j = torch.as_tensor(fj.j, device=DEVICE)
+    Xk = X[:WIDE_KNN_N]
+    xnk = xn[:WIDE_KNN_N]
+    t0 = time.perf_counter()
+    fg = knn_graph(Xk, comm, topk=KNN_TOPK, metric="l2", mode="batched",
+                   placement="cyclic", use_kernel=True, quant="off")
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    fv = torch.as_tensor(fg.scores, device=DEVICE)
+    fi = torch.as_tensor(fg.indices, device=DEVICE)
+    del fj, fg
+    say(f"wide f32 reference d={WIDE_D} P={P} l2: the join (B5) of {N} "
+        f"rows, {f_i.numel()} pairs at threshold {thr:.6g}, in {j_s:.3f} s; "
+        f"the top-{KNN_TOPK} graph (B6) of the first {WIDE_KNN_N} in "
+        f"{g_s:.3f} s (host clock)")
+    rows = torch.arange(WIDE_KNN_N, device=DEVICE)
+    for qm in ("bf16", "int8"):
+        route = route_of(torch.int8 if qm == "int8" else torch.bfloat16,
+                         WIDE_D)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        st: dict = {}
+        t0 = time.perf_counter()
+        res = quant.quant_similarity_join(
+            X, comm, threshold=thr, quant=qm, metric="l2", mode="batched",
+            placement="cyclic", capacity=JOIN_CAP0, use_kernel=True, stats=st)
+        torch.cuda.synchronize()
+        j_s = time.perf_counter() - t0
+        j_peak = torch.cuda.max_memory_allocated()
+        n7 = ops.launch_counts()["pairwise_threshold_q"]
+        check(n7 > 0, f"wide quantized join {qm}: B7 was never launched")
+        got_i = torch.as_tensor(res.i, device=DEVICE)
+        got_j = torch.as_tensor(res.j, device=DEVICE)
+        check(bool((got_i < got_j).all()), f"wide quantized join {qm}: i >= j")
+        j_diff = compare_pair_sets(X, xn, thr, got_i, got_j, f_i, f_j,
+                                   f"wide quantized join {qm} vs f32")
+        check(torch.allclose(torch.as_tensor(res.scores, device=DEVICE),
+                             hit_scores(X, xn, got_i, got_j),
+                             rtol=SCORE_TOL, atol=SCORE_TOL),
+              f"wide quantized join {qm}: scores")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        gst: dict = {}
+        t0 = time.perf_counter()
+        g = quant.quant_knn_graph(Xk, comm, topk=KNN_TOPK, quant=qm,
+                                  metric="l2", mode="batched",
+                                  placement="cyclic", use_kernel=True,
+                                  stats=gst)
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        g_peak = torch.cuda.max_memory_allocated()
+        n8 = ops.launch_counts()["pairwise_topk_q"]
+        check(n8 > 0, f"wide quantized k-NN {qm}: B8 was never launched")
+        gv = torch.as_tensor(g.scores, device=DEVICE)
+        gi = torch.as_tensor(g.indices, device=DEVICE)
+        check(gi.shape == (WIDE_KNN_N, KNN_TOPK),
+              f"wide quantized k-NN {qm}: shape")
+        g_diff = 0
+        for r0 in range(0, WIDE_KNN_N, 4096):
+            r = rows[r0:r0 + 4096]
+            g_diff += check_topk_rows(Xk[r], Xk, xnk, gv[r], gi[r], fv[r],
+                                      fi[r], f"wide quantized k-NN {qm} "
+                                      f"rows {r0}.. vs f32", terms=True)
+        del g, gv, gi
+        passes = ", ".join(f"M={m}: {n} pending" for m, n in gst["passes"])
+        say(f"wide quantized {qm} N={N} d={WIDE_D} P={P} l2 (B7 / B8 route "
+            f"{route}): join {res.n_pairs} pairs in {j_s:.3f} s (host clock,"
+            f" synchronized), peak {j_peak / 2**30:.3f} GiB, band emitted "
+            f"{st['emitted']}, kept {st['kept']}, escalations "
+            f"{st['escalations']}, B7 launches {n7}, {j_diff} pairs differ "
+            f"from the f32 join's {f_i.numel()} (at the threshold); k-NN "
+            f"top-{KNN_TOPK} of {WIDE_KNN_N} rows in {g_s:.3f} s, peak "
+            f"{g_peak / 2**30:.3f} GiB, "
+            f"passes [{passes}], B8 launches {n8}, {g_diff} ids differ from "
+            "the f32 graph (near ties)")
+        qc = quant.quantize_corpus(X, P, N // P, qm)
+        t = wide_kernel_times(qc, thr)
+        del qc
+        for name, kern in (("B7", "pairwise_threshold_q"),
+                           ("B8", "pairwise_topk_q")):
+            r = t[name]
+            say(f"wide {name} {kern} {qm} [{P}, k, {N // P}, {WIDE_D}] "
+                f"(route {route}): {r['ms']:.3f} ms over every device; "
+                f"device 0's tiles tensor cores "
+                f"{r['dev0_tensor_cores_ms']:.3f} ms, simt "
+                f"{r['dev0_simt_ms']:.3f} ms ("
+                f"{r['dev0_simt_ms'] / r['dev0_tensor_cores_ms']:.2f}x); GEMM"
+                f" only per active tile {r['gemm_only_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.3f} ms ({r['bound_by']}, {qm} tensor-core "
+                "peak)")
+            row = report.setdefault(kern, {})
+            row[f"wide_{qm}_launches"] = n7 if name == "B7" else n8
+            row.update({f"wide_{qm}_{k}": v for k, v in r.items()
+                        if k != "bound_by"})
+            row[f"wide_{qm}_{'join' if name == 'B7' else 'knn'}_s"] = (
+                j_s if name == "B7" else g_s)
+    del X, xn, Xk, xnk, f_i, f_j, fv, fi
+    torch.cuda.empty_cache()
+
+    # int8 at 1,536: the kernels alone, both routes (device 0's tiles)
+    X8, _xn8, thr8 = join_data(WIDE_INT8_D, WIDE_INT8_N, WIDE_SEED + 10)
+    qc = quant.quantize_corpus(X8, P, WIDE_INT8_N // P, "int8")
+    del X8, _xn8
+    t = wide_kernel_times(qc, thr8)
+    for name, kern in (("B7", "pairwise_threshold_q"),
+                       ("B8", "pairwise_topk_q")):
+        r = t[name]
+        say(f"wide {name} {kern} int8 [{P}, k, {WIDE_INT8_N // P}, "
+            f"{WIDE_INT8_D}] (route {route_of(torch.int8, WIDE_INT8_D)}): "
+            f"{r['ms']:.3f} ms over every device; device 0's tiles tensor "
+            f"cores {r['dev0_tensor_cores_ms']:.3f} ms, simt "
+            f"{r['dev0_simt_ms']:.3f} ms "
+            f"({r['dev0_simt_ms'] / r['dev0_tensor_cores_ms']:.2f}x); GEMM "
+            f"only per active tile {r['gemm_only_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+        report.setdefault(kern, {}).update(
+            {f"wide_int8_{WIDE_INT8_D}_{k}": v for k, v in r.items()
+             if k != "bound_by"})
+
+
 KERNELS = {
     "pairwise_batch": ("src/repro_torch/csrc/pairwise_batch.cu",
                        "src/repro/kernels/pairwise_batch.py:97"),
@@ -6986,7 +7434,9 @@ def main() -> int:
               ("the LM steps on a mesh of ranks",
                lambda: phase_distributed_lm(report, smi)),
               ("the decode step on a mesh of ranks",
-               lambda: phase_distributed_decode(report, smi))]
+               lambda: phase_distributed_decode(report, smi)),
+              ("the quantized join and k-NN graph at d = 960",
+               lambda: phase_wide_quant(report))]
     for i, (name, fn) in enumerate(phases, start=2):
         t0 = time.perf_counter()
         say(f"== phase {i}: {name}")
@@ -7010,7 +7460,7 @@ def main() -> int:
                                          "prefill_", "jamba_", "llama4_",
                                          "whisper_", "qwen2vl_",
                                          "hd256_", "train_", "bwd_",
-                                         "dist_"))}})
+                                         "dist_", "wide_"))}})
     say(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(smi)

@@ -41,7 +41,7 @@ KINDS = ("all_gather_group", "reduce_scatter", "all_reduce")
 #: microbatches); every one at 4,096 tokens a row
 CELLS = {
     "qwen": ("qwen3_14b", 2, True, ((2, 2), ("data", "model")), 4, 1),
-    "mamba": ("mamba2_130m", None, False, ((4, 2), ("data", "model")), 16,
+    "mamba": ("mamba2_130m", 12, False, ((4, 2), ("data", "model")), 16,
               2),
 }
 SEQ = 4096

@@ -1,6 +1,9 @@
 // Shared pieces of the pair-tile kernels B7 pairwise_threshold_q and B8
-// pairwise_topk_q (their SIMT routes): the 64 x 64 SIMT score tile over
-// operands of any storage type, and B8's running top-k lists; and the
+// pairwise_topk_q on their "simt" route, which only the wrappers' route=
+// override takes (the tensor cores serve every row width up to
+// kernels/pairwise_batch_q.py's limits; this route stays as the float32
+// yardstick chip_smoke.py times them against): the 64 x 64 SIMT score
+// tile over int8 or bf16 codes, and B8's running top-k lists; and the
 // final ordering of the lists (order_kernel), which B6 pairwise_topk and
 // both B8 routes use.
 //
@@ -38,7 +41,6 @@ constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int kWarps = kThreads / 32;
 constexpr int kOrderWarps = 4;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -51,21 +53,19 @@ struct TileSmem {
 
 // acc[i][j] = sum over c of A[ty + 16 i][c] * B[tx + 16 j][c] for the
 // a_rows rows of A and b_rows rows of B given (the rest read as 0), one
-// fmaf per c in ascending order.  With bnorm, threads 0..63 also leave
-// |B row tid|^2 there, accumulated in the same order.  Every thread of
-// the block must call it (it synchronizes).
+// fmaf per c in ascending order.  Every thread of the block must call it
+// (it synchronizes).
 template <typename T>
 __device__ __forceinline__ void tile_dots(const T* __restrict__ A, int a_rows,
                                           const T* __restrict__ B, int b_rows,
                                           int d, TileSmem& sm,
-                                          float (&acc)[4][4], float* bnorm) {
+                                          float (&acc)[4][4]) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float norm = 0.f;
   for (int k0 = 0; k0 < d; k0 += kDepth) {
 #pragma unroll
     for (int e = 0; e < kTile * kDepth / kThreads; ++e) {
@@ -78,11 +78,6 @@ __device__ __forceinline__ void tile_dots(const T* __restrict__ A, int a_rows,
           (okk && rr < b_rows) ? to_f32(B[(size_t)rr * d + k0 + kk]) : 0.f;
     }
     __syncthreads();
-    if (bnorm != nullptr && tid < kTile) {
-#pragma unroll
-      for (int kk = 0; kk < kDepth; ++kk)
-        norm = fmaf(sm.Bs[kk][tid], sm.Bs[kk][tid], norm);
-    }
 #pragma unroll
     for (int kk = 0; kk < kDepth; ++kk) {
       float a[4], b[4];
@@ -97,34 +92,21 @@ __device__ __forceinline__ void tile_dots(const T* __restrict__ A, int a_rows,
     }
     __syncthreads();
   }
-  if (bnorm != nullptr && tid < kTile) bnorm[tid] = norm;
-}
-
-// |row|^2 of one row, the same fmaf chain tile_dots uses for bnorm
-template <typename T>
-__device__ __forceinline__ float row_norm(const T* __restrict__ x, int d) {
-  float s = 0.f;
-  for (int c = 0; c < d; ++c) {
-    const float v = to_f32(x[c]);
-    s = fmaf(v, v, s);
-  }
-  return s;
 }
 
 // B8's SIMT selection pass.  One block per (device p, slot, 64-row tile)
 // walks the pairs in order and folds every active tile that touches its
 // slot into its rows' lists: as the lo slot it scores the hi block's
 // valid rows (minus the diagonal on a self tile), as the hi slot of a
-// non-self tile the lo block's valid rows.  Scores are
-// (2 dot - |cand|^2) - |row|^2 for l2, dot times s_lo * s_hi when kQuant
-// (codes with per-slot scales sd[.., 0] and stored norms sq), else the
-// plain dot with norms from the same fmaf chain as the dots.  Lists are
+// non-self tile the lo block's valid rows.  Scores are the code dot
+// times s_lo * s_hi (per-slot scales sd[.., 0]), and for l2
+// (2 s - |cand|^2) - |row|^2 with the stored norms sq.  Lists are
 // [P, k, block, tp], the first topk entries of each in use.
-template <typename T, bool kQuant>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 topk_select_kernel(const T* __restrict__ quorum,   // [P, k, block, d]
-                   const float* __restrict__ sd,   // [P, k, 2] (kQuant)
-                   const float* __restrict__ sq,   // [P, k, block] (kQuant)
+                   const float* __restrict__ sd,   // [P, k, 2]
+                   const float* __restrict__ sq,   // [P, k, block]
                    const int* __restrict__ lo, const int* __restrict__ hi,
                    const int* __restrict__ meta,   // [P, n_pairs, 6]
                    float* __restrict__ list_v,     // [P, k, block, tp]
@@ -153,10 +135,7 @@ topk_select_kernel(const T* __restrict__ quorum,   // [P, k, block, d]
     list_i[o] = kSentinel;
   }
   if (tid < kTile) {
-    float s = 0.f;
-    if (l2 && tid < rows)
-      s = kQuant ? sq[slot_off + r0 + tid] : row_norm(R + (size_t)tid * d, d);
-    rn[tid] = s;
+    rn[tid] = l2 && tid < rows ? sq[slot_off + r0 + tid] : 0.f;
     worst_v[tid] = kNegInf;
     worst_i[tid] = kSentinel;
     worst_p[tid] = 0;
@@ -179,16 +158,14 @@ topk_select_kernel(const T* __restrict__ quorum,   // [P, k, block, d]
         other = l, g = m.ga, nv_o = m.nv_lo, excl = false;
       }
       const float sprod =
-          kQuant ? sd[((size_t)p * k + l) * 2] * sd[((size_t)p * k + h) * 2]
-                 : 1.f;
+          sd[((size_t)p * k + l) * 2] * sd[((size_t)p * k + h) * 2];
       const size_t o_off = ((size_t)p * k + other) * block;
       for (int c0 = 0; c0 < nv_o; c0 += kTile) {
         float acc[4][4];
         const int cols = min(kTile, nv_o - c0);
-        tile_dots<T>(R, rows, quorum + (o_off + c0) * d, cols, d, sm, acc,
-                     (kQuant || !l2) ? nullptr : cn);
+        tile_dots<T>(R, rows, quorum + (o_off + c0) * d, cols, d, sm, acc);
         if (tid < kTile) {
-          if (kQuant && l2) cn[tid] = tid < cols ? sq[o_off + c0 + tid] : 0.f;
+          if (l2) cn[tid] = tid < cols ? sq[o_off + c0 + tid] : 0.f;
           G[tid] = tid < cols ? g * block_rows + c0 + tid : kSentinel;
         }
         __syncthreads();
@@ -198,8 +175,7 @@ topk_select_kernel(const T* __restrict__ quorum,   // [P, k, block, d]
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int cl = tx + 16 * j;
-            float s = acc[i][j];
-            if (kQuant) s = s * sprod;
+            float s = acc[i][j] * sprod;
             if (l2) s = (2.f * s - cn[cl]) - rn[rl];
             S[rl][cl] = s;
           }
@@ -296,7 +272,7 @@ inline int launch_order(float* list_v, int* list_i, float* out_v, int* out_i,
 }
 
 // Launch both passes of B8 (SIMT); returns the first CUDA error.
-template <typename T, bool kQuant>
+template <typename T>
 inline int launch_topk(const T* quorum, const float* sd, const float* sq,
                        const int* lo, const int* hi, const int* meta,
                        float* list_v, int* list_i, float* out_v, int* out_i,
@@ -304,7 +280,7 @@ inline int launch_topk(const T* quorum, const float* sd, const float* sq,
                        int block_rows, int topk, int tp, int l2,
                        cudaStream_t s) {
   const dim3 grid((block + kTile - 1) / kTile, k, P);
-  topk_select_kernel<T, kQuant><<<grid, kThreads, 0, s>>>(
+  topk_select_kernel<T><<<grid, kThreads, 0, s>>>(
       quorum, sd, sq, lo, hi, meta, list_v, list_i, k, block, d, n_pairs,
       block_rows, topk, tp, l2);
   cudaError_t err = cudaGetLastError();

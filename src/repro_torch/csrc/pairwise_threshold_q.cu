@@ -24,82 +24,118 @@
 // prefix.  This file is compiled with -fmad=false: the dequant epilogue
 // and eps round op for op as the plain version's.
 //
-// Route "tensor_cores" (int8 with d <= 1,040, bf16 with d <= 128;
-// kernels/pairwise_batch_q.py:route_of).  One block of 8 warps per
-// (device, pair, 128-row strip) walks the strip's 128-column tiles of the
-// hi slot (on a self tile from its diagonal on), each formed once, lo
-// rows x hi columns.  The codes stay in their storage type: the strip's
-// rows stay resident in shared memory when they fit (up to 256 bytes a
-// row), the column rows (and strip rows, when too long) stream through a
-// 2-stage 16-byte cp.async ring, 128 bytes of d a stage, rows padded by
-// 16 bytes so ldmatrix reads without bank conflicts; each stage also
-// brings its tile's column norms (4-byte cp.async).  Each warp forms a
-// 32 x 64 sub-tile with mma.sync: int8 m16n8k32 into s32, bf16 m16n8k16
-// into f32 (B8's pieces, pairwise_topk_q.cu, copied here so B8's code is
-// left as it is).
+// Route "tensor_cores" (every d up to kernels/pairwise_batch_q.py's
+// limits, int8 d <= 66,572 and bf16 d <= 2^20, both argued below).  One
+// block of 8 warps per (device, pair, 128-row strip) walks the strip's
+// 128-column tiles of the hi slot (on a self tile from its diagonal on),
+// each formed once, lo rows x hi columns.  The codes stay in their
+// storage type: the strip's rows stay resident in shared memory when they
+// fit (up to 256 bytes a row), the column rows (and strip rows, when
+// longer) stream through a 2-stage 16-byte cp.async ring, 128 bytes of d a
+// stage, rows padded by 16 bytes so ldmatrix reads without bank
+// conflicts; each stage also brings its tile's column norms (4-byte
+// cp.async).  Each warp forms a 32 x 64 sub-tile with mma.sync: int8
+// m16n8k32 into s32, bf16 m16n8k16 into f32 (B8's pieces,
+// pairwise_topk_q.cu, copied here so B8's code is left as it is).
 //
 // The epilogue, not the products, sets the pace: the exact score and eps
 // cost about twenty CUDA-core operations an entry, and at chip_smoke.py's
 // join about one entry in 9,000 is in the band.  So an entry first meets
-// a prefilter of one fused add-and-max: with x the code dot (the
-// accumulator), every entry that could be kept has x - B_c >= A_r,
-// B_c = |col|^2 f and A_r = (reject + |row|^2) f - margin, with
-// f = 1 / (2 s_lo s_hi) (l2; dot: 1 / (s_lo s_hi) and no norms) and
-// reject = thr - eps_max.  eps_max is eps (the expression
-// above, in its order) at the warp sub-tile's largest l1 on each side:
-// every term of eps is non-decreasing in each l1 and rounding is
-// monotone, so eps <= eps_max.  The score is a non-decreasing function of
-// x made of at most four rounded operations, so below the real boundary
-// x* = (reject + |row|^2 + |col|^2) / (2 s_lo s_hi) it stays below reject
-// once x is a few float32 ulps of (|reject| + 2 (|row|^2 + |col|^2)) under
-// it; the margin is 2^-18 of that, with B_c and A_r rounded down, 14
-// times what all the roundings need.  All of it needs the deltas and
-// norms >= 0 (they are rounding steps and norms): a warp sub-tile that
-// sees a negative one, or an infinite or undefined bound, runs the exact
-// test on every entry.  A row whose best x - B_c reaches A_r then builds
-// its candidate bits, and the exact test (the plain version's operations
-// under -fmad=false) runs once per set bit, the accumulator picked by a
-// chain of selects so the fragment stays in registers.  The count pass
-// adds each row's survivors (popc of a thread's 16 keep bits, then the
-// quad's and the two column halves'), marks the hot tiles, and keeps one
-// flag per warp sub-tile of a hot tile; the write pass forms only the
-// flagged sub-tiles and ranks a survivor by a popcount over its row's
-// 64-column keep mask, gathered from the quad by two shuffles, one set
-// bit at a time.  Per-row state (norms, positions) lives in shared
-// memory: the tile loop sits at the 128-register limit of two blocks an
-// SM.
+// a prefilter of one fused add-and-max: with x the code dot (the s32 sum,
+// or for bf16 the float32 sum the exact test reads too), every entry that
+// could be kept has x - B_c >= A_r, B_c = |col|^2 f and
+// A_r = (reject + |row|^2) f - margin, with f = 1 / (2 s_lo s_hi) (l2;
+// dot: 1 / (s_lo s_hi) and no norms) and reject = thr - eps_max.  eps_max
+// is eps (the expression above, in its order) at the warp sub-tile's
+// largest l1 on each side: every term of eps is non-decreasing in each l1
+// and rounding is monotone, so eps <= eps_max.  The score is a
+// non-decreasing function of x made of at most five rounded operations
+// (an int8 dot's conversion, exact below 2^24, is one), so below the real
+// boundary x* = (reject + |row|^2 + |col|^2) / (2 s_lo s_hi) it stays
+// below reject once x is a few float32 ulps of (|reject| + 2 (|row|^2 +
+// |col|^2)) under it; the margin is 2^-18 of that, with B_c and A_r
+// rounded down, more than ten times what all the roundings need.  All of
+// it needs the deltas and norms >= 0 (they are rounding steps and norms):
+// a warp sub-tile that sees a negative one, or an infinite or undefined
+// bound, runs the exact test on every entry.  int8 compares in exact
+// integers: B_c rounded down and clamped to [0, 2^30], A_r rounded down
+// and clamped to 2^30 above and to INT_MIN below -2^30 (clamps only
+// loosen the test); with |x| <= d * 127^2 <= 2^30 (d <= 66,572, the
+// route's int8 limit) x - B_c lies in [-2^31, 2^30] and never wraps.  A
+// row whose best x - B_c reaches A_r then builds its candidate bits, and
+// the exact test (the plain version's operations under -fmad=false) runs
+// once per set bit, the accumulator picked by a chain of selects so the
+// fragment stays in registers.  The count pass adds each row's survivors
+// (popc of a thread's 16 keep bits, then the quad's and the two column
+// halves'), marks the hot tiles, and keeps one flag per warp sub-tile of
+// a hot tile; the write pass forms only the flagged sub-tiles and ranks a
+// survivor by a popcount over its row's 64-column keep mask, gathered
+// from the quad by two shuffles, one set bit at a time.  Per-row state
+// (norms, positions) lives in shared memory: the tile loop sits at the
+// 128-register limit of two blocks an SM (one, for the chunked bf16
+// instances below).
 //
-// Exactness.  int8 products are at most 127^2, so the s32 sums are exact
-// and convert to float32 exactly while d * 127^2 < 2^24 (d <= 1,040): the
-// dot equals the plain version's float32 matmul of the widened codes, and
-// with the op-for-op epilogue the int8 band, its order and its overflow
-// prefix equal the plain version's.  bf16 products are exact, and their
-// sums run in the tensor cores' order and accumulation, which does not
-// round to nearest.  The band still holds every pair the f32 join keeps:
-// eps exceeds the worst quantization error by 2*d*d_lo*d_hi +
-// FP_REL*(l1_lo*l1_hi + 1), and with bf16's delta = maxabs * 2^-8 the
-// first term alone, 2*d * 2^-16 * maxabs_lo * maxabs_hi, is twice the
-// error of d = 128 additions that each miss by a whole ulp (at most
-// 2^-23 of sum |products| <= d * maxabs_lo * maxabs_hi each).  Wider bf16
-// rows take route "simt" (the float32 tile, rounding to nearest), as B8's
-// do.  A bf16 band may then differ from the plain version's only at its
-// edge.
+// Exactness, int8.  Products are at most 127^2, so the s32 sums are exact
+// (d * 127^2 < 2^31) and convert once, rounding to nearest: the dot is
+// the exact integer dot rounded once to float32.  Up to d = 1,040 every
+// partial sum is below 2^24, so the plain version's float32 matmul of the
+// widened codes gives the same dot in any order, and with the op-for-op
+// epilogue the int8 band, its order and its overflow prefix equal the
+// plain version's.  Above d = 1,040 they equal a float64 evaluation of the
+// dot rounded once to float32 followed by the same epilogue (the plain
+// version's float32 sum then depends on its order).
 //
-// Route "simt": pair_tile.cuh's 64 x 64 float32 tile over widened codes
-// (exact for int8 while every partial sum is), with the same compaction.
+// Certificate, bf16.  The band holds every pair the f32 join keeps.
+// Products are exact; the tensor cores add them without rounding to
+// nearest.  Model each m16n8k16 step as missing by at most one ulp of its
+// result for each product it adds, so at most 2^-23 S_i a product, S_i
+// the sum of |products| (and carried error) the accumulator holds.  A row
+// of up to 128 sums in one accumulator.  A longer row (never resident)
+// joins each chunk of c = kChunk = 32 of d (chunk_join.cuh, set from
+// BF16_CHUNK) into a float32 running sum in ascending order,
+// compensated: t = run + chunk, and the join's rounding
+// error (run - t) + chunk, exact where |run| >= |chunk| (Kahan's
+// summation, written with the compensation carried forward), starts the
+// next chunk's accumulator.  The chunks' errors add up to at most
+// c 2^-23 S (S = sum over d of |products| <= d maxabs_lo maxabs_hi
+// (1 + 2^-8)^2, the codes rounded to bf16), and the joins, by Kahan's
+// bound, to at most (2^-23 + (d / c) 2^-47) S, and dropping the last
+// join's residual to 2^-24 S.  eps exceeds the worst
+// quantization error by 2*d*d_lo*d_hi + FP_REL*(l1_lo*l1_hi + 1) (the
+// f32 join's own rounding is in FP_REL), and with bf16's delta =
+// maxabs 2^-8 the first term alone is 2 d 2^-16 maxabs_lo maxabs_hi >=
+// 2^-15 S / (1 + 2^-8)^2 > 254 2^-23 S (l2 doubles both sides).  So the
+// band holds while c + 2 + (d / c) 2^-24 <= 254: at c = 32 for every d up
+// to the route's limit, 2^20 (34.0; 38.0 if a step missed by 18 ulps of
+// its result, every one of its 17 terms truncated at the largest's last
+// place and then the sum), and for a single accumulator at d <= 128
+// (128).  Without the compensation the joins would cost (d / c) 2^-24 S:
+// past d = 14,208 the band would no longer be proved.  A bf16 band may
+// then differ from the plain version's only at its edge.  Against
+// float64 these sums read below the plain float32 version's error
+// (chip_smoke.py phase 10; scripts/pair_q_chunks.py compares chunk
+// lengths and plain joins).
+//
+// Route "simt" (the wrapper's route= override only): pair_tile.cuh's
+// 64 x 64 float32 tile over widened codes, one fmaf chain over d, with
+// the same compaction, kept as a yardstick.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "compact.cuh"
+#include "chunk_join.cuh"
 #include "hopper.cuh"
 #include "pair_tile.cuh"
 
 namespace {
 
 using namespace hopper;
+using chunk_join::chunked;
 using compact::Cursor;
 using compact::load_meta;
 using compact::Meta;
@@ -141,8 +177,9 @@ struct Epi {
 // int8 sums are s32, bf16 sums f32 (as in pairwise_topk_q.cu).  The
 // prefilter compares x - B_c with A_r in the sum's own type: int8 in exact
 // integers (B_c rounded down, clamped to [0, 2^30] as B_c >= 0 there; A_r
-// rounded down, INT_MIN below -2^30: |x| < 2^25 on this route), bf16 in
-// float32 (a rounded subtract is monotone).
+// rounded down, clamped to 2^30, INT_MIN below -2^30: |x| <= 2^30 on this
+// route, so x - B_c never wraps), bf16 in float32 (a rounded subtract is
+// monotone).
 template <typename T> struct Acc;
 template <> struct Acc<int8_t> {
   using type = int;
@@ -267,9 +304,10 @@ __device__ __forceinline__ float score_of(typename A::type a, bool small,
 // kResA: the strip's rows stay resident in shared memory (rows of at most
 // kResBytes bytes) and only the column rows stream through the ring; else
 // both stream, a slice at a time.  kWrite: the write pass (hot tiles
-// only), else the count pass.
+// only), else the count pass.  The chunked instances hold a second
+// accumulator set: one block an SM.
 template <typename T, bool kVec, bool kResA, bool kWrite>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, chunked<T, kResA>() ? 1 : 2)
 band_tc_kernel(const T* __restrict__ q,          // [P, k, block, d]
                const float* __restrict__ sd,     // [P, k, 2] (scale, delta)
                const float* __restrict__ l1,     // [P, k, block]
@@ -405,13 +443,14 @@ band_tc_kernel(const T* __restrict__ q,          // [P, k, block, d]
     cp_async_commit();
   }
 
-  AccT acc[2][8][4];
+  constexpr bool kChunked = chunked<T, kResA>();
+  AccT acc[2][8][4], run[2][8][4];   // run: the joined chunks (kChunked)
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0;
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = run[mi][nj][e] = 0;
 
   const bool small = d <= kSmallD;
   for (int it = 0; !cw.done(); ++it) {
@@ -430,6 +469,7 @@ band_tc_kernel(const T* __restrict__ q,          // [P, k, block, d]
     // the write pass forms only the sub-tiles that held a survivor
     const bool mine = !kWrite || tc_smem[(it % kStages) * kStage + kCodes +
                                          2 * kCols * 4 + warp] != 0;
+    const bool last = cw.ks == nks - 1;
 #pragma unroll
     for (int kk = 0; kk < kSlice / 32 && mine; ++kk) {
       uint32_t af[2][4], bfr[4][4];
@@ -448,11 +488,18 @@ band_tc_kernel(const T* __restrict__ q,          // [P, k, block, d]
         for (int nj = 0; nj < 8; ++nj)
           A::mma(acc[mi][nj], af[mi], bfr[nj / 2][2 * (nj % 2)],
                  bfr[nj / 2][2 * (nj % 2) + 1]);
+      // a chunk ends (or the row): into the running sums in ascending
+      // chunk order (chunk_join.cuh)
+      if constexpr (kChunked)
+        if (chunk_join::ends(cw.ks * (kSlice / 32) + kk,
+                             last && kk == kSlice / 32 - 1))
+          chunk_join::join(run, acc);
     }
-    if (cw.ks != nks - 1) {
+    if (!last) {
       cw.step();
       continue;
     }
+    if constexpr (kChunked) chunk_join::take(run, acc);   // the tile's dots
 
     // ---- the tile is scored: dequant, band, masks, count or write ----
     const int c0 = cw.t.ct * kCols;
@@ -779,7 +826,7 @@ band_simt_kernel(const T* __restrict__ q,          // [P, k, block, d]
     const int cols = min(kTile, m.nv_hi - c0);
     float acc[4][4];
     pt::tile_dots<T>(q + (lo_off + r0) * d, rows, q + (hi_off + c0) * d,
-                     cols, d, sm, acc, nullptr);
+                     cols, d, sm, acc);
     if (tid < kTile) {
       cn[tid] = tid < cols ? sq[hi_off + c0 + tid] : 0.f;
       cl1[tid] = tid < cols ? l1[hi_off + c0 + tid] : 0.f;
@@ -858,8 +905,9 @@ int run_simt(const T* q, const float* sd, const float* l1, const float* sq,
 }  // namespace
 
 // route (kernels/pairwise_batch_q.py:route_of): 1 = tensor cores (int8
-// with d <= 1,040, bf16 with d <= 128; 128-row strips), 0 = the float32
-// SIMT tile (64-row strips); hot [P, n_pairs, strips, words] of
+// with d <= 66,572, bf16 with d <= 2^20; 128-row strips), 0 = the
+// float32 SIMT tile (the wrapper's route= override; 64-row strips); hot
+// [P, n_pairs, strips, words] of
 // kernels.pairwise_threshold.hot_words(block, strip rows); warp_hot
 // [P, n_pairs, strips, strips, 8] bytes (route 1 only)
 extern "C" int repro_pairwise_threshold_q(

@@ -14,14 +14,15 @@
 // Bound on the H100: 2*d operations per candidate pair of an active tile
 // at the int8 (1,979 TOP/s) or bf16 (989 TFLOP/s) tensor-core rate.
 //
-// Design (route "tensor_cores").  One block of 8 warps owns 128 rows of
-// one (device, slot): it walks the pairs in order and scores every tile
-// that touches its slot from its own side, against 128-row tiles of the
-// other slot, so it is the only writer of its rows' lists (a non-self
-// tile is formed twice, once per side: on the tensor cores that costs
-// milliseconds).  The codes stay in their storage type: the block's own
-// rows stay resident in shared memory when they fit (up to 256 bytes a
-// row), and the candidate rows (and own rows, when too long) stream
+// Design (route "tensor_cores", every d up to kernels/pairwise_batch_q.py's
+// limits: int8 d <= 66,572, bf16 d <= 2^20).  One block of 8 warps owns
+// 128 rows of one (device, slot): it walks the pairs in order and scores
+// every tile that touches its slot from its own side, against 128-row
+// tiles of the other slot, so it is the only writer of its rows' lists (a
+// non-self tile is formed twice, once per side: on the tensor cores that
+// costs milliseconds).  The codes stay in their storage type: the block's
+// own rows stay resident in shared memory when they fit (up to 256 bytes
+// a row), and the candidate rows (and own rows, when longer) stream
 // through a 2-stage 16-byte cp.async ring, 128 bytes of d a stage, all
 // K-contiguous as stored, rows padded by 16 bytes so ldmatrix reads
 // without bank conflicts; the ring runs on across tiles, so the next tile
@@ -39,23 +40,48 @@
 // warp's registers while it drains a list of up to 512 (a separate kernel
 // instance for each); order_kernel (pair_tile.cuh) sorts the lists.
 //
-// Exactness.  int8 products are at most 127^2, so the s32 sums are exact
-// and convert to float32 exactly while d * 127^2 < 2^24 (d <= 1,040): the
-// dot equals the plain version's float32 matmul of the widened codes,
-// which is exact in any order.  This file is compiled with -fmad=false, so
-// the epilogue rounds op for op as the plain version's does, and the int8
-// lists equal the plain version's, ties included.  Above d = 1,040 the
-// wrapper takes route "simt" (pair_tile.cuh's float32 tile, exact while
-// every partial sum is), chosen by shape.  bf16 products are exact; their
-// sums run in the tensor cores' order and accumulation, which does not
-// round to nearest and drifts with d: near zero, where the tie rule is
-// 1e-5 absolute, it keeps a margin at d = 128 and not beyond, so wider
-// bf16 rows take route "simt" too.
+// Exactness, int8.  Products are at most 127^2, so the s32 sums are exact
+// while d * 127^2 < 2^31 (d <= 133,143) and convert once, rounding to
+// nearest (__int2float_rn; exactly below 2^24, d <= 1,040).  So the dot
+// is the exact integer dot rounded once to float32, and with this file
+// compiled with -fmad=false the epilogue rounds op for op as the plain
+// version's does.  Up to d = 1,040 every partial sum is exact in float32
+// too, so the plain version's float32 matmul gives the same dot in any
+// order and the int8 lists equal its lists, ties included; above, the
+// lists equal a float64 evaluation of the dot rounded once to float32
+// and then the same epilogue.  The route's limit, 66,572, is B7's
+// (pairwise_threshold_q.cu), so one route_of serves both.
+//
+// Accuracy, bf16.  Products are exact.  The tensor cores add them
+// without rounding to nearest (each m16n8k16 step truncates), so a single
+// accumulator over d drifts with d and, near zero where the tie rule is
+// 1e-5 absolute, leaves the plain version's float32 sum behind past
+// d = 128.  So rows longer than 128 (never resident) join each chunk of
+// kChunk = 32 of d (chunk_join.cuh, set from BF16_CHUNK) into a running
+// float32 sum in ascending order,
+// compensated: t = run + chunk, and the join's rounding error
+// (run - t) + chunk starts the next chunk's accumulator (Kahan's
+// summation with the compensation carried forward), so the joins add
+// almost nothing and the truncations act on 32 products at a time.
+// Against float64 this reads below the plain float32 version's error,
+// which longer chunks or joins by plain adds do not (chip_smoke.py phase
+// 10; scripts/pair_q_chunks.py).  The second set of 64 accumulators
+// a thread needs leaves one block an SM (up to 255 registers a thread).
+// The host's certificate of the lists (core/quant.py) holds the quantized
+// score to eps; the slack eps leaves for rounding covers this sum at every
+// width up to the route's limit (B7's argument, in
+// pairwise_threshold_q.cu's header).
+//
+// Route "simt" (the wrapper's route= override only): pair_tile.cuh's
+// float32 tile, one fmaf chain over d, kept as a yardstick.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "chunk_join.cuh"
 #include "hopper.cuh"
 #include "pair_tile.cuh"
 #include "topk_select.cuh"
@@ -63,6 +89,7 @@
 namespace {
 
 using namespace hopper;
+using chunk_join::chunked;
 using namespace topk_select;
 using pair_tile::load_meta;
 using pair_tile::Meta;
@@ -224,9 +251,10 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, int ld,
 // most kResBytes bytes), and only the candidate rows stream through the
 // ring; else both stream, a slice at a time.  kLong: lists longer than
 // kSmemTp, in global memory (a separate instance, so the short lists'
-// kernel carries none of their drain's registers).
+// kernel carries none of their drain's registers).  The chunked
+// instances hold a second accumulator set: one block an SM.
 template <typename T, bool kVec, bool kResA, bool kLong>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, chunked<T, kResA>() ? 1 : 2)
 topk_tc_kernel(const T* __restrict__ quorum,   // [P, k, block, d]
                const float* __restrict__ sd,   // [P, k, 2]
                const float* __restrict__ sq,   // [P, k, block]
@@ -315,13 +343,14 @@ topk_tc_kernel(const T* __restrict__ quorum,   // [P, k, block, d]
     cp_async_commit();
   }
 
-  AccT acc[2][8][4];
+  constexpr bool kChunked = chunked<T, kResA>();
+  AccT acc[2][8][4], run[2][8][4];   // run: the joined chunks (kChunked)
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0;
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = run[mi][nj][e] = 0;
 
   const bool small = d <= kSmallD;
   float cn = 0.f;   // this thread's candidate norm of the tile (l2)
@@ -347,6 +376,7 @@ topk_tc_kernel(const T* __restrict__ quorum,   // [P, k, block, d]
     const uint32_t sa = kResA ? a_res + cw.ks * kSlice
                               : ring + (it % kStages) * kStage;
     const int lda = kResA ? a_ld : kLd;
+    const bool last = cw.ks == sch.nks - 1;
 #pragma unroll
     for (int kk = 0; kk < kSlice / 32; ++kk) {
       uint32_t af[2][4], bfr[4][4];
@@ -365,11 +395,18 @@ topk_tc_kernel(const T* __restrict__ quorum,   // [P, k, block, d]
         for (int nj = 0; nj < 8; ++nj)
           A::mma(acc[mi][nj], af[mi], bfr[nj / 2][2 * (nj % 2)],
                  bfr[nj / 2][2 * (nj % 2) + 1]);
+      // a chunk ends (or the row): into the running sums in ascending
+      // chunk order (chunk_join.cuh)
+      if constexpr (kChunked)
+        if (chunk_join::ends(cw.ks * (kSlice / 32) + kk,
+                             last && kk == kSlice / 32 - 1))
+          chunk_join::join(run, acc);
     }
-    if (cw.ks != sch.nks - 1) {
+    if (!last) {
       sch.step(cw);
       continue;
     }
+    if constexpr (kChunked) chunk_join::take(run, acc);   // the tile's dots
 
     // ---- the tile is scored: dequant epilogue, in place ----
     const int cols = min(kCols, cw.seg.nv - cw.c0);
@@ -530,7 +567,8 @@ int run_tc(const void* q, const void* sd, const void* sq, const void* lo,
 }  // namespace
 
 // route (kernels/pairwise_batch_q.py:route_of): 1 = tensor cores (int8
-// with d <= 1,040, bf16 with d <= 128), 0 = the float32 SIMT tile
+// with d <= 66,572, bf16 with d <= 2^20), 0 = the float32 SIMT tile
+// (the wrapper's route= override)
 extern "C" int repro_pairwise_topk_q(const void* q, const void* sd,
                                      const void* sq, const void* lo,
                                      const void* hi, const void* meta,
@@ -549,12 +587,12 @@ extern "C" int repro_pairwise_topk_q(const void* q, const void* sd,
                           out_i, P, k, block, d, n_pairs, block_rows, topk,
                           tp, l2, s);
   if (bf16)
-    return pair_tile::launch_topk<__nv_bfloat16, true>(
+    return pair_tile::launch_topk<__nv_bfloat16>(
         (const __nv_bfloat16*)q, (const float*)sd, (const float*)sq,
         (const int*)lo, (const int*)hi, (const int*)meta, (float*)list_v,
         (int*)list_i, (float*)out_v, (int*)out_i, P, k, block, d, n_pairs,
         block_rows, topk, tp, l2, s);
-  return pair_tile::launch_topk<int8_t, true>(
+  return pair_tile::launch_topk<int8_t>(
       (const int8_t*)q, (const float*)sd, (const float*)sq, (const int*)lo,
       (const int*)hi, (const int*)meta, (float*)list_v, (int*)list_i,
       (float*)out_v, (int*)out_i, P, k, block, d, n_pairs, block_rows, topk,

@@ -32,7 +32,8 @@ SOURCES = ("pairwise_batch.cu", "pairwise_corr.cu", "pcit_filter.cu",
            "ssd_chunk.cu", "ssd_chunk_bwd.cu")
 # headers the sources include (part of the build key)
 HEADERS = ("pair_tile.cuh", "hopper.cuh", "topk_select.cuh",
-           "compact.cuh", "row_norms.cuh", "flash_bwd.cuh", "tf32x3.cuh")
+           "compact.cuh", "row_norms.cuh", "flash_bwd.cuh", "tf32x3.cuh",
+           "chunk_join.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the PCIT filter's output is a threshold decision: no FMA contraction and
@@ -116,8 +117,19 @@ def nvcc_path() -> str:
     return found
 
 
-def _flags(src: str) -> tuple:
-    return FLAGS + FILE_FLAGS.get(src, ())
+# the sources that include chunk_join.cuh: B7's and B8's bf16 chunk length
+CHUNKED = ("pairwise_threshold_q.cu", "pairwise_topk_q.cu")
+
+
+def _flags(src: str, chunk: int | None = None) -> tuple:
+    """nvcc's flags for ``src``; B7 and B8 also take their bf16 chunk
+    length, ``chunk`` (default ``pairwise_batch_q.BF16_CHUNK``), as
+    ``-DREPRO_BF16_CHUNK``."""
+    flags = FLAGS + FILE_FLAGS.get(src, ())
+    if src not in CHUNKED:
+        return flags
+    from .pairwise_batch_q import BF16_CHUNK
+    return flags + (f"-DREPRO_BF16_CHUNK={chunk or BF16_CHUNK}",)
 
 
 def build_key() -> str:

@@ -19,19 +19,27 @@ rate.  Both files are built with ``-fmad=false``, so the dequant
 epilogues round op for op as the plain versions' do.
 
 Both score on the tensor cores with ``mma.sync`` (int8 into s32, bf16
-into f32).  B7 forms each tile once, lo rows x hi columns, on 128 x 128
-tiles, and compacts through ``csrc/compact.cuh`` (count, scan, write;
-the write pass scores again only the tiles, and within them the warp
-sub-tiles, that held a survivor); an entry meets a one-operation
-prefilter on its code dot, provably looser than the band, before the
-exact score and eps (the file header has the argument).  B8 selects
-behind each row's admission bound in registers.  Int8 with d
-above 1,040, where an s32 sum may no longer convert to float32 exactly,
-and bf16 with d above 128, where the tensor cores' accumulation drifts
-past the 1e-5 tie rule (B8) and past the band's certified slack (B7),
-take the float32 SIMT tile of ``csrc/pair_tile.cuh`` instead
-(:func:`route_of`).  Either way the int8 lists and the int8 band equal
-the plain versions'.
+into f32) at every row width up to :data:`INT8_TC_MAX_D` /
+:data:`BF16_TC_MAX_D`, which no published corpus reaches.  B7 forms each
+tile once, lo rows x hi columns, on 128 x 128 tiles, and compacts through
+``csrc/compact.cuh`` (count, scan, write; the write pass scores again only
+the tiles, and within them the warp sub-tiles, that held a survivor); an
+entry meets a one-operation prefilter on its code dot, provably looser
+than the band, before the exact score and eps (the file header has the
+argument).  B8 selects behind each row's admission bound in registers.
+
+int8 sums are exact s32 sums, converted once to float32: up to
+:data:`INT8_EXACT_D` (1,040) exactly, so the int8 lists and band equal
+the plain versions'; above, the float32 rounding of the exact dot (the
+plain version's float32 matmul then depends on its order).  The tensor
+cores' float32 accumulation of bf16 products does not round to nearest,
+so bf16 rows longer than 128 join each :data:`BF16_CHUNK` of d into a
+float32 running sum, compensated (the rounding error of each join starts
+the next chunk's accumulator); the file headers bound the error and
+prove the B7 band against it.  The float32 SIMT tile of
+``csrc/pair_tile.cuh`` (route ``"simt"``) runs only when a caller asks
+for it (``route=``), as the yardstick ``chip_smoke.py`` times the tensor
+cores against.
 
 The plain versions beside them are :func:`pairwise_threshold_q_plain` and
 :func:`pairwise_topk_q_plain`; the device dispatch is
@@ -53,31 +61,47 @@ from .ref import pairwise_topk_q as pairwise_topk_q_plain
 __all__ = ["pairwise_threshold_q_cuda", "pairwise_topk_q_cuda",
            "pairwise_threshold_q_plain", "pairwise_topk_q_plain",
            "threshold_launches", "topk_launches", "route_of", "band_tile",
-           "INT8_EXACT_D", "BF16_TC_MAX_D"]
+           "INT8_EXACT_D", "INT8_TC_MAX_D", "BF16_TC_MAX_D", "BF16_CHUNK"]
 
 #: B7 / B8 launches since the counts were last set to 0
 threshold_launches = 0
 topk_launches = 0
 
 #: the largest d at which every int8 code dot (|dot| <= d * 127^2) is an
-#: integer below 2^24, so its int32 sum converts to float32 exactly
+#: integer below 2^24, so its int32 sum converts to float32 exactly and
+#: the plain version's float32 matmul gives it in any order
 INT8_EXACT_D = (1 << 24) // (127 * 127)
 
-#: the widest bf16 rows scored on the tensor cores: their f32 accumulation
-#: (which does not round to nearest) drifts from the plain version's f32
-#: product with d, and near zero the tie rule is 1e-5 absolute; at d = 256
-#: it nears the rule where the float32 fmaf chain keeps a margin
-#: (``chip_smoke.py`` reads both routes at d = 128, 256 and 1,040)
-BF16_TC_MAX_D = 128
+#: the widest int8 rows on the tensor cores: every code dot stays within
+#: 2^30 (its s32 sum is exact up to 2^31), so B7's integer prefilter
+#: x - B_c, with B_c in [0, 2^30], never wraps
+#: (``csrc/pairwise_threshold_q.cu``)
+INT8_TC_MAX_D = (1 << 30) // (127 * 127)
+
+#: d a tensor-core accumulator sums before the chunk joins the row's
+#: float32 sum, compensated (bf16 rows longer than 128; the kernels'
+#: kChunk in ``csrc/chunk_join.cuh``, passed by ``_build`` as
+#: -DREPRO_BF16_CHUNK: at 32 every width read on the card lies closer to
+#: float64 than the plain float32 version, at 64 and 128 not;
+#: scripts/pair_q_chunks.py)
+BF16_CHUNK = 32
+
+#: the widest bf16 rows on the tensor cores: B7's band keeps every pair of
+#: the f32 join while c + 2 + (d / c) 2^-24 <= 254 at c =
+#: :data:`BF16_CHUNK` (``csrc/pairwise_threshold_q.cu``), which the
+#: compensated joins make all but independent of d; 2^20 keeps a row's
+#: 2 d bytes, an int in the kernels, far inside 2^31
+BF16_TC_MAX_D = 1 << 20
 
 
 def route_of(dtype: torch.dtype, d: int) -> str:
     """The B7 and B8 kernel a CUDA call with codes of ``dtype`` and width
     ``d`` launches: ``"tensor_cores"`` (``mma.sync``) for int8 with d <=
-    :data:`INT8_EXACT_D` (1,040) and bf16 with d <= :data:`BF16_TC_MAX_D`
-    (128); ``"simt"`` (the float32 tile of ``csrc/pair_tile.cuh``) above
-    them.  B7 strips are :func:`band_tile` rows on each route."""
-    limit = INT8_EXACT_D if dtype == torch.int8 else BF16_TC_MAX_D
+    :data:`INT8_TC_MAX_D` (66,572) and bf16 with d <=
+    :data:`BF16_TC_MAX_D` (1,048,576); ``"simt"`` (the float32 tile of
+    ``csrc/pair_tile.cuh``) above them, past every published width.  B7
+    strips are :func:`band_tile` rows on each route."""
+    limit = INT8_TC_MAX_D if dtype == torch.int8 else BF16_TC_MAX_D
     return "tensor_cores" if d <= limit else "simt"
 
 
@@ -129,7 +153,7 @@ def pairwise_threshold_q_cuda(q: torch.Tensor, sd: torch.Tensor,
     capacity] float32, i / j [P, capacity] int32, count [P] int32)`` as
     ``kernels/ref.py:pairwise_threshold_q``.  ``route`` overrides
     :func:`route_of` (``chip_smoke.py`` times both routes at one
-    shape)."""
+    shape; a failed build or launch raises, on either route)."""
     global threshold_launches
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")

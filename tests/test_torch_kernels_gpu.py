@@ -547,16 +547,19 @@ PAIR_CELLS = [(2, 3, 16, 8, 4, False, False), (1, 4, 100, 24, 6, True, False),
               (2, 3, 300, 128, 5, False, False),
               (1, 3, 300, 16, 5, True, True), (2, 2, 77, 32, 3, False, True)]
 # B8's tensor-core tile edges: 128-row tiles, 128-byte d slices (d 40: 40
-# / 80 bytes; d 256: int8 resident in two slices, bf16 on the SIMT route),
-# plain loads (d 24), self-only schedules
+# / 80 bytes; d 256: int8 resident in two slices, bf16 streamed in four,
+# chunks of 32 joined in float32, compensated), plain loads (d 24),
+# self-only schedules
 B8_CELLS = PAIR_CELLS + [(1, 3, 300, 40, 5, True, False),
                          (1, 2, 200, 256, 3, False, False),
                          (2, 2, 260, 40, 3, True, True),
                          (1, 2, 129, 24, 4, False, True)]
-# the int8 exactness limit: d 1,040 on the tensor cores (own rows streamed,
-# 1,040 bytes), 1,041 on the SIMT route.  int8 only: bf16 sums of 1,040
-# products in another order than the plain version's move scores near zero
-# by up to 9.2e-5 even on the float32 fmaf chain (PERF.md)
+# the int8 float32-exactness limit: d 1,040 and 1,041, both on the tensor
+# cores (own rows streamed); at these values every dot stays below 2^24,
+# so the lists equal the plain version's on either side.  int8 only: bf16
+# sums of 1,040 products in another order than the plain version's move
+# scores near zero by up to 9.2e-5 even on the float32 fmaf chain
+# (PERF.md); test_pair_q_wide_rows holds bf16 there
 B8_INT8_CELLS = [(1, 2, 200, 1040, 3, False, False),
                  (1, 2, 150, 1041, 3, True, False)]
 
@@ -698,9 +701,13 @@ def test_pairwise_topk_q_int8_limit(cuda, P, k, block, d, n_pairs, integer,
 
 @pytest.mark.parametrize("d", [1040, 1041])
 def test_pairwise_topk_q_routes(cuda, d):
-    """The int8 call at d = 1,040 runs the tensor-core kernel and at 1,041
-    the SIMT one; each counts one launch and equals the plain version."""
-    from repro_torch.kernels.pairwise_batch_q import route_of
+    """The int8 call on each side of the old 1,040 limit runs the
+    tensor-core kernel (the route reaches 66,572), counts one launch and
+    equals the plain version; the SIMT route, asked for by name, gives the
+    same lists at the same shape (every dot here is below 2^24)."""
+    from repro_torch.kernels.pairwise_batch_q import (INT8_TC_MAX_D,
+                                                      pairwise_topk_q_cuda,
+                                                      route_of)
     quorum, lo, hi, meta = _pair_inputs(np.random.default_rng(d), 1, 2, 64, d,
                                         2, False, False, cuda)
     codes, sd, _l1, sq = _quantized(quorum, "int8")
@@ -710,9 +717,78 @@ def test_pairwise_topk_q_routes(cuda, d):
     want = ref.pairwise_topk_q(codes, sd[..., 0], sq, lo, hi, meta, topk=5,
                                block_rows=64)
     assert ops.launch_counts()["pairwise_topk_q"] == 1
-    assert route_of(torch.int8, d) == ("tensor_cores" if d <= 1040
-                                       else "simt")
+    assert route_of(torch.int8, d) == "tensor_cores" and d <= INT8_TC_MAX_D
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    other = pairwise_topk_q_cuda(codes, sd, sq, lo, hi, meta, topk=5,
+                                 block_rows=64, route="simt")
+    assert torch.equal(other[0], want[0]) and torch.equal(other[1], want[1])
+
+
+def _exact_q_dots(qf, scale, l, h, r0, r1):
+    """``ref._q_dots`` with the code dot evaluated in float64 and rounded
+    once to float32."""
+    dots = (qf[:, l, r0:r1].double()
+            @ qf[:, h].double().transpose(-1, -2)).float()
+    return dots * (scale[:, l] * scale[:, h])[:, None, None]
+
+
+# past the old route limits (bf16 128, int8 1,040), on the tensor cores:
+# bf16 d 200 (not a multiple of 16: plain loads), 960 (gist-960) and
+# 4,096; int8 d 1,536 (1,536-wide embeddings), dots past 2^24
+WIDE_CELLS = [("bf16", 200), ("bf16", 960), ("bf16", 4096), ("int8", 1536)]
+
+
+def _wide_inputs(qmode, d, cuda):
+    rng = np.random.default_rng(d)
+    quorum, lo, hi, meta = _pair_inputs(rng, 1, 3, 150, d, 5, False, False,
+                                        cuda)
+    if qmode == "int8":   # near-equal positive codes: dots near d * 124^2
+        quorum = 127.0 - torch.as_tensor(
+            rng.integers(0, 8, size=tuple(quorum.shape)), dtype=torch.float32,
+            device=cuda)
+    return (quorum, lo, hi, meta) + _quantized(quorum, qmode)
+
+
+@pytest.mark.parametrize("qmode,d", WIDE_CELLS)
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_pair_q_wide_rows(cuda, qmode, d, metric):
+    """B8 and B7 at wide rows on route_of's route (the tensor cores).
+    int8: the lists and the band equal the plain version with its dot
+    evaluated in float64 and rounded once (its own float32 sum depends on
+    its order there).  bf16: the lists are no further from that float64
+    evaluation, rank by rank, than the plain float32 version's (and within
+    its tie rule at d <= 256), and the band differs from the plain
+    version's only at its edge."""
+    from unittest import mock
+
+    from repro_torch.kernels.pairwise_batch_q import route_of
+    quorum, lo, hi, meta, codes, sd, l1, sq = _wide_inputs(qmode, d, cuda)
+    assert route_of(codes.dtype, d) == "tensor_cores"
+    kw = dict(topk=16, block_rows=150, metric=metric)
+    got = ops.pairwise_topk_q(codes, sd, sq, lo, hi, meta, **kw)
+    plain = ref.pairwise_topk_q(codes, sd[..., 0], sq, lo, hi, meta, **kw)
+    with mock.patch.object(ref, "_q_dots", _exact_q_dots):
+        exact = ref.pairwise_topk_q(codes, sd[..., 0], sq, lo, hi, meta, **kw)
+        s = ref.tile_scores(quorum[0, 0], quorum[0, -1], metric)
+        kw7 = dict(threshold=float(torch.quantile(s.flatten(), 0.9)),
+                   capacity=1 << 16, block_rows=150, metric=metric)
+        exact7 = ref.pairwise_threshold_q(codes, sd[..., 0], sd[..., 1], l1,
+                                          sq, lo, hi, meta, **kw7)
+    got7 = ops.pairwise_threshold_q(codes, sd, l1, sq, lo, hi, meta, **kw7)
+    if qmode == "int8":
+        assert torch.equal(got[0], exact[0]) and torch.equal(got[1], exact[1])
+        assert all(torch.equal(a, b) for a, b in zip(got7, exact7))
+        return
+    real = exact[0] > -1e29
+    err = float((got[0] - exact[0]).abs()[real].max())
+    err_plain = float((plain[0] - exact[0]).abs()[real].max())
+    assert err <= err_plain, (err, err_plain)
+    if d <= 256:
+        _assert_lists_near(*got, *plain)
+    plain7 = ref.pairwise_threshold_q(codes, sd[..., 0], sd[..., 1], l1, sq,
+                                      lo, hi, meta, **kw7)
+    n = plain7[3].to(torch.float32)
+    assert bool(((got7[3] - plain7[3]).abs() <= 1e-4 * n + 2).all())
 
 
 def test_pair_kernels_count_launches(cuda):
@@ -735,7 +811,8 @@ def test_pair_kernels_count_launches(cuda):
 
 # B5 / B7 around their 128-row strips and 128-column tiles (B7's SIMT route:
 # 64): blocks of 1, 127, 129 and 300 rows, d of 1, 33 and 130 (bf16 at
-# d 130 on the SIMT route); small-integer data, so every score is exact
+# d 130 streamed, in chunks of 32 joined in float32); small-integer data,
+# so every score is exact
 RAGGED_CELLS = [(1, 2, 1, 1, 3, False), (2, 3, 127, 33, 5, False),
                 (1, 3, 129, 130, 5, False), (2, 3, 300, 1, 5, True),
                 (1, 3, 300, 33, 4, True), (1, 2, 129, 130, 3, False)]
@@ -851,9 +928,9 @@ def test_pairwise_threshold_q_routes(cuda, qmode, d):
     assert ops.launch_counts()["pairwise_threshold_q"] == 1
     want = ref.pairwise_threshold_q(codes, sd[..., 0], sd[..., 1], l1, sq,
                                     lo, hi, meta, **kw)
-    limit = 1040 if qmode == "int8" else 128
-    assert route_of(codes.dtype, d) == ("tensor_cores" if d <= limit
-                                        else "simt")
+    # every published width is on the tensor cores (the old limits were
+    # 1,040 and 128); the SIMT route runs only by name
+    assert route_of(codes.dtype, d) == "tensor_cores"
     other = pairwise_threshold_q_cuda(
         codes, sd, l1, sq, lo, hi, meta, route="simt"
         if route_of(codes.dtype, d) == "tensor_cores" else "tensor_cores",

@@ -12,7 +12,8 @@ against the JAX package's.
   bf16 values within rtol 1e-5;
 * drivers: ``quant_similarity_join``, ``quant_knn_graph`` and
   ``serving_query`` (after a block replace too) equal the reference's numpy
-  oracles, indices exactly and scores within 1e-5.
+  oracles, indices exactly and scores within 1e-5; the join and the graph
+  also at wide rows (d 960 bf16, 1,536 int8).
 """
 
 import os
@@ -264,6 +265,46 @@ def test_drivers_match_oracles(reference, name, P, qm):
                                         use_kernel=uk)
             np.testing.assert_array_equal(got.indices, want.indices)
             np.testing.assert_allclose(got.scores, want.scores, **TOL)
+
+
+# wide rows, past the tensor-core routes' old limits (bf16 128, int8
+# 1,040): gist-960's width in bf16, 1,536-wide embeddings in int8
+WIDE_CELLS = [("bf16", 960), ("int8", 1536)]
+
+
+@pytest.mark.parametrize("qm,d", WIDE_CELLS)
+@pytest.mark.parametrize("P", [5, 8])
+def test_drivers_wide_rows_match_oracles(qm, d, P):
+    """The quantized join (with an escalation) and the certified k-NN
+    graph at wide rows, through the B7 / B8 hooks, equal the reference's
+    numpy oracles (its own drivers fail on jax 0.9): the host's
+    certification and f32 rescoring that the tensor-core route feeds at
+    these widths, over clustered rows whose neighbours sit close.  Scores
+    within 1e-5 of the largest squared norm: an l2 score cancels terms of
+    that size, summed in another float32 order by each side."""
+    rng = np.random.default_rng(d + P)
+    N = P * 6 - 2
+    centres = rng.normal(size=(4, d))
+    corpus = (centres[rng.integers(0, 4, N)]
+              + 0.2 * rng.normal(size=(N, d))).astype(np.float32)
+    comm = SingleProcessComm(P, "cpu")
+    tol = dict(rtol=1e-5, atol=1e-5 * float((corpus ** 2).sum(1).max()))
+    for metric in ("dot", "l2"):
+        thr = float(r_sparse.threshold_for_selectivity(corpus, 0.08, metric))
+        wi, wj, ws = r_sparse.brute_force_join(corpus, thr, metric)
+        st = {}
+        res = quant.quant_similarity_join(
+            corpus, comm, threshold=thr, quant=qm, metric=metric,
+            use_kernel=True, capacity=4, stats=st)
+        np.testing.assert_array_equal(res.i, wi)
+        np.testing.assert_array_equal(res.j, wj)
+        np.testing.assert_allclose(res.scores, ws, **tol)
+        assert res.escalations >= 1 and st["kept"] == len(wi)
+        want = r_knn.brute_force_knn(corpus, 4, metric)
+        got = quant.quant_knn_graph(corpus, comm, topk=4, quant=qm,
+                                    metric=metric, use_kernel=True)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        np.testing.assert_allclose(got.scores, want.scores, **tol)
 
 
 def test_knn_doubles_m_until_certified():

@@ -9,27 +9,38 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.pairwise_batch_q import (BF16_TC_MAX_D,
-                                                  INT8_EXACT_D, band_tile,
+from repro_torch.kernels.pairwise_batch_q import (BF16_CHUNK,
+                                                  BF16_TC_MAX_D,
+                                                  INT8_EXACT_D,
+                                                  INT8_TC_MAX_D, band_tile,
                                                   pairwise_threshold_q_cuda,
                                                   pairwise_topk_q_cuda,
                                                   route_of)
 from repro_torch.kernels.pairwise_threshold import hot_words
 from repro_torch.kernels.query_score import MAX_TOPK, query_topk_cuda
 
+TC = "tensor_cores"
 ROUTE_CELLS = [
-    (torch.int8, 1, "tensor_cores"), (torch.int8, 128, "tensor_cores"),
-    (torch.int8, 1040, "tensor_cores"), (torch.int8, 1041, "simt"),
-    (torch.int8, 4096, "simt"), (torch.bfloat16, 24, "tensor_cores"),
-    (torch.bfloat16, 128, "tensor_cores"), (torch.bfloat16, 129, "simt"),
-    (torch.bfloat16, 1041, "simt")]
+    (torch.int8, 1, TC), (torch.int8, 128, TC), (torch.int8, 1040, TC),
+    (torch.int8, 1041, TC), (torch.int8, 4096, TC), (torch.bfloat16, 24, TC),
+    (torch.bfloat16, 128, TC), (torch.bfloat16, 129, TC),
+    (torch.bfloat16, 1041, TC),
+    # published widths: gist-960, 1,536-wide embeddings
+    (torch.bfloat16, 960, TC), (torch.int8, 960, TC),
+    (torch.bfloat16, 1536, TC), (torch.int8, 1536, TC),
+    # each limit and one past it
+    (torch.int8, 66571, TC), (torch.int8, 66572, TC),
+    (torch.int8, 66573, "simt"), (torch.bfloat16, 1048575, TC),
+    (torch.bfloat16, 1048576, TC), (torch.bfloat16, 1048577, "simt")]
 
 
 @pytest.mark.parametrize("dtype,d,route", ROUTE_CELLS)
 def test_b8_route_of(dtype, d, route):
-    """int8 takes the tensor cores while its int32 sums convert to float32
-    exactly (d <= 1,040), bf16 while their f32 accumulation stays within
-    the tie rule (d <= 128); both take the float32 SIMT tile above."""
+    """Both dtypes take the tensor cores at every width up to the limits
+    the kernel headers prove: int8 while every dot stays within 2^30
+    (d <= 66,572: exact s32 sums, B7's integer prefilter never wraps), bf16
+    while B7's band covers the compensated chunk sums (d <= 2^20); the
+    float32 SIMT tile only above, past every published width."""
     assert route_of(dtype, d) == route
 
 
@@ -47,10 +58,15 @@ def test_b7_route_of(dtype, d, route):
 
 
 def test_route_limits():
-    assert BF16_TC_MAX_D == 128
-    assert INT8_EXACT_D == 1040
+    """INT8_EXACT_D keeps its meaning (the widest int8 rows whose every dot
+    is a float32 integer); the route limits are INT8_TC_MAX_D (|dot| <=
+    2^30) and BF16_TC_MAX_D (B7's certificate at chunks of BF16_CHUNK,
+    checked in tests/test_torch_pair_tc_chunks.py)."""
+    assert (BF16_TC_MAX_D, BF16_CHUNK) == (1 << 20, 32)
+    assert (INT8_EXACT_D, INT8_TC_MAX_D) == (1040, 66572)
     worst = 127 * 127
     assert INT8_EXACT_D * worst < 2 ** 24 <= (INT8_EXACT_D + 1) * worst
+    assert INT8_TC_MAX_D * worst <= 2 ** 30 < (INT8_TC_MAX_D + 1) * worst
 
 
 def _f32_sums(products: np.ndarray, rng) -> list:
@@ -88,9 +104,10 @@ def test_int8_dots_exact_in_float32_at_1040(case):
 
 def test_int8_dots_inexact_in_float32_at_1041():
     """One more column and the worst case (every product 127^2) passes
-    2^24 on an odd sum: float32 cannot hold it, so route_of sends int8
-    rows this wide to the float32 tile, whose result is then the one the
-    plain version's float32 matmul also has to round."""
+    2^24 on an odd sum: float32 cannot hold it, and a float32 sum in any
+    order rounds it.  So past 1,040 the tensor-core route's contract is
+    the exact s32 dot rounded once to float32, not the plain version's
+    order-dependent float32 matmul."""
     d = INT8_EXACT_D + 1
     prods = np.full(d, 127 * 127, np.int64)
     exact = int(prods.sum())
@@ -279,6 +296,56 @@ def test_b7_prefilter_keeps_every_band_entry(seed, qmode, metric):
     slack = (2.0 ** -16 * (abs(float(reject)) + 2 * (cn.max() + rn.max()))
              + 4.0 * float(sprod))
     assert not (passed & (s < reject - slack)).any()
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_b7_prefilter_wide_int8(seed, metric):
+    """Past d = 1,040 an int8 dot (up to d * 127^2 <= 2^30 on the route)
+    rounds once to float32 before the exact test.  Every entry that test
+    keeps still passes the integer prefilter, and x - B_c stays an int32
+    (no wrap), for dots drawn around each boundary by integers and by
+    float32 steps of x."""
+    rng = np.random.default_rng(200 + seed)
+    m, n = 32, 64
+    d = int(rng.choice([1041, 4096, INT8_TC_MAX_D]))
+    xmax = d * 127 * 127
+    scale = (10.0 ** rng.uniform(-3, -1, 2)).astype(F32)
+    sprod = F32(scale[0] * scale[1])
+    d_lo, d_hi = F32(scale[0] / 2), F32(scale[1] / 2)
+    l1_r = rng.uniform(0, 127 * d * scale[0], m).astype(F32)
+    l1_c = rng.uniform(0, 127 * d * scale[1], n).astype(F32)
+    if metric == "l2":
+        rn = rng.uniform(0, xmax * scale[0] ** 2, m).astype(F32)
+        cn = rng.uniform(0, xmax * scale[1] ** 2, n).astype(F32)
+    else:
+        rn, cn = np.zeros(m, F32), np.zeros(n, F32)
+    thr = F32(rng.uniform(-0.5, 0.5) * xmax * sprod)
+    eps = ref.quant_eps_tile(d_lo, d_hi, torch.from_numpy(l1_r),
+                             torch.from_numpy(l1_c), dim=d,
+                             metric=metric).numpy()
+    eps_max = ref.quant_eps_tile(d_lo, d_hi, torch.tensor([l1_r.max()]),
+                                 torch.tensor([l1_c.max()]), dim=d,
+                                 metric=metric).numpy()[0, 0]
+    reject = F32(thr - eps_max)
+    bound = F32(thr - eps)
+    div = 2.0 * float(sprod) if metric == "l2" else float(sprod)
+    xstar = (bound.astype(np.float64) + cn[None, :] + rn[:, None]) / div
+    off = np.concatenate([np.arange(-40, 41), 128 * np.arange(-40, 41),
+                          rng.uniform(-1e6, 1e6, 40)])
+    x = np.clip(np.round(xstar[..., None] + off), -xmax, xmax)
+    x = x.astype(np.int64)
+    s = _exact_score(x, cn[None, :, None], rn[:, None, None], sprod, metric)
+    keep = s >= bound[..., None]
+    passed = _prefilter(x, cn[None, :, None], rn[:, None, None], reject,
+                        sprod, cn.max(), rn.max(), metric, "int8")
+    assert keep.any() and (~keep).any()
+    assert not (keep & ~passed).any()
+    b = np.floor(np.minimum(np.maximum(F32(cn * F32(F32(0.5 if metric == "l2"
+                                                          else 1.0) / sprod)),
+                                       F32(0)), F32(2.0 ** 30)))
+    diff = x - b.astype(np.int64)[None, :, None]
+    assert diff.min() >= -2 ** 31 and diff.max() < 2 ** 31
 
 
 def _admit(offers, n):
