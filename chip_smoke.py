@@ -3325,6 +3325,23 @@ def alloc_counters() -> tuple[int, int, frozenset]:
             frozenset(seg["address"] for seg in torch.cuda.memory_snapshot()))
 
 
+def window_open(dev=None) -> int:
+    """Open a step's memory window (phase 35 (d), (e)): the allocator's
+    requested bytes now, then its peaks reset to the current figures."""
+    now = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    return now
+
+
+def window_close(opened: int, dev=None) -> tuple:
+    """(the requested bytes' peak rise over the window that ``opened``,
+    the allocator's reserved peak less its requested peak there)."""
+    stats = torch.cuda.memory_stats(dev)
+    return (stats["requested_bytes.all.peak"] - opened,
+            stats["reserved_bytes.all.peak"]
+            - stats["requested_bytes.all.peak"])
+
+
 def record_resident(report: dict, arch: str, before: tuple, **trees) -> int:
     """Keep for phase 35 what the allocator's two counters rose by since
     ``before``, every leaf of ``trees`` (argument name -> tree of
@@ -3387,13 +3404,14 @@ def phase_qwen_prefill(report: dict) -> None:
     prefill(params, {"tokens": toks[:, :512]})              # warm-up
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    opened = window_open()
     base = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     logits = prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    rise, headroom = window_close(opened)
     n = ops.launch_counts()["flash_attention"]
     peak = torch.cuda.max_memory_allocated() - base
     report["flash_attention"]["launches"] = n
@@ -3403,8 +3421,10 @@ def phase_qwen_prefill(report: dict) -> None:
           and bool(torch.isfinite(logits).all()),
           "prefill: logits of the wrong shape or not finite")
     del logits
-    report["dry_run"]["qwen3_14b"].update(kind="prefill", batch=QWEN_B,
-                                          seq=QWEN_T, ms=secs * 1e3)
+    report["dry_run"]["qwen3_14b"].update(
+        kind="prefill", batch=QWEN_B, seq=QWEN_T, ms=secs * 1e3, accum=1,
+        rise=[rise], headroom=[headroom], cold_headroom=headroom,
+        tokens=toks.dtype)
     say(f"qwen3-14b prefill {QWEN_B} x {QWEN_T} tokens ({cfg.n_layers} "
         f"layers, bf16): {secs * 1e3:.1f} ms (host clock, synchronized), "
         f"{QWEN_B * QWEN_T / secs:.0f} tokens/s, peak "
@@ -4430,26 +4450,37 @@ def phase_starcoder2_train(report: dict) -> None:
                       seq_len=STAR_T)
     pipe = make_pipeline(dcfg, device=DEVICE)
     try:
+        # the warm-up's window opens on an emptied cache: the allocator's
+        # reserved-over-requested peak there is a step's own slack (phase
+        # 35's budget)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        opened = window_open()
         t0 = time.perf_counter()
         params, opt, met = step(params, opt, next(pipe))      # warm-up
         warm_loss = float(met["loss"])
+        cold = window_close(opened)
         say(f"warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
             f"loss {warm_loss:.4f}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         ops.reset_launch_counts()
-        times, losses, gnorms = [], [], []
+        times, losses, gnorms, windows = [], [], [], []
+        top = 0
         for _ in range(STAR_STEPS):
             batch = next(pipe)
             torch.cuda.synchronize()
+            top = max(top, torch.cuda.max_memory_allocated())
+            opened = window_open()
             t0 = time.perf_counter()
             params, opt, met = step(params, opt, batch)
             losses.append(float(met["loss"]))
             gnorms.append(float(met["grad_norm"]))
             times.append(time.perf_counter() - t0)
+            windows.append(window_close(opened))
         counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated() - base
+        peak = max(top, torch.cuda.max_memory_allocated()) - base
         fwd, bwd = counts["flash_attention"], counts["flash_attention_bwd"]
         want_fwd = 2 * cfg.n_layers * STAR_ACCUM * STAR_STEPS
         want_bwd = cfg.n_layers * STAR_ACCUM * STAR_STEPS
@@ -4467,7 +4498,10 @@ def phase_starcoder2_train(report: dict) -> None:
         report["flash_attention_bwd"].update(
             train_step_ms=step_ms, train_tokens_per_s=tps)
         report["dry_run"]["starcoder2_3b"].update(
-            kind="train", batch=STAR_B, seq=STAR_T, ms=step_ms)
+            kind="train", batch=STAR_B, seq=STAR_T, ms=step_ms,
+            accum=STAR_ACCUM, rise=[w[0] for w in windows],
+            headroom=[w[1] for w in windows], cold_headroom=cold[1],
+            tokens=batch["tokens"].dtype)
         say(f"starcoder2-3b train step ({STAR_B} x {STAR_T} tokens, "
             f"accum {STAR_ACCUM}): {step_ms:.1f} ms a step (host clock, "
             f"synchronized; steps {', '.join(f'{1e3 * t:.1f}' for t in times)}"
@@ -4828,25 +4862,33 @@ def phase_mamba2_train(report: dict) -> None:
                       seq_len=MAMBA_T)
     pipe = make_pipeline(dcfg, device=DEVICE)
     try:
+        torch.cuda.synchronize()            # as phase 32: a cold window
+        torch.cuda.empty_cache()
+        opened = window_open()
         t0 = time.perf_counter()
         params, opt, met = step(params, opt, next(pipe))      # warm-up
         say(f"warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
             f"{float(met['loss']):.4f}")
+        cold = window_close(opened)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         ops.reset_launch_counts()
-        times, losses, gnorms = [], [], []
+        times, losses, gnorms, windows = [], [], [], []
+        top = 0
         for _ in range(MAMBA_STEPS):
             batch = next(pipe)
             torch.cuda.synchronize()
+            top = max(top, torch.cuda.max_memory_allocated())
+            opened = window_open()
             t0 = time.perf_counter()
             params, opt, met = step(params, opt, batch)
             losses.append(float(met["loss"]))
             gnorms.append(float(met["grad_norm"]))
             times.append(time.perf_counter() - t0)
+            windows.append(window_close(opened))
         counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated() - base
+        peak = max(top, torch.cuda.max_memory_allocated()) - base
         fwd, bwd = counts["ssd_chunk"], counts["ssd_chunk_bwd"]
         want_fwd = 2 * cfg.n_layers * MAMBA_ACCUM * MAMBA_STEPS
         want_bwd = cfg.n_layers * MAMBA_ACCUM * MAMBA_STEPS
@@ -4863,7 +4905,10 @@ def phase_mamba2_train(report: dict) -> None:
             launches=bwd, train_step_ms=step_ms, train_tokens_per_s=tps,
             train_peak_gib=peak / 2**30)
         report["dry_run"]["mamba2_130m"].update(
-            kind="train", batch=MAMBA_B, seq=MAMBA_T, ms=step_ms)
+            kind="train", batch=MAMBA_B, seq=MAMBA_T, ms=step_ms,
+            accum=MAMBA_ACCUM, rise=[w[0] for w in windows],
+            headroom=[w[1] for w in windows], cold_headroom=cold[1],
+            tokens=batch["tokens"].dtype)
         say(f"mamba2-130m train step ({MAMBA_B} x {MAMBA_T} tokens, accum "
             f"{MAMBA_ACCUM}): {step_ms:.1f} ms a step (host clock, "
             f"synchronized; steps {', '.join(f'{1e3 * t:.1f}' for t in times)}"
@@ -4936,6 +4981,23 @@ def phase_mamba2_train(report: dict) -> None:
 # tensor rounded up to 512 bytes plus at most a 1 MiB unsplit tail in the
 # large pool, summing to the rise exactly; (c) model flops a step over
 # the measured step time, as a share of the dense bf16 tensor-core peak
+#
+# (d) the requested bytes a step adds above the resident state, predicted
+# by the dry run's trace on meta tensors (launch/meta_trace.py) on a
+# one-device mesh at each phase's own cut shape and accum, against the
+# rise of the allocator's requested_bytes.all.peak over each step those
+# phases timed (window_open / window_close, no step added): equal, or
+# above it by exactly one batch where the train phases' pipeline thread
+# puts its next batch on the card inside the window; (e) the same for
+# every rank of phases 38 and 39 (a rank's batch is on the card before its
+# window), traced in the rank on its rank of a CountingComm mesh: equal;
+# (f) the counting comm's collectives by kind and bytes against the ranks'
+# DistributedComm counters over the same steps: equal; (g) the counted
+# flops a step beside model flops, both over the measured step as shares
+# of the bf16 peak; (h) the sweep's accum / fits / footprint of the train
+# records; and the memory budget of dryrun.HBM_BUDGET derived from the
+# card: its memory less the CUDA context and the most the allocator
+# reserved above the requested bytes in a step begun on an emptied cache.
 DRY_RUN_CELLS = ("starcoder2_3b", "mamba2_130m", "qwen3_14b")
 PEAK_BF16_FLOPS = 989e12     # one H100 SXM, dense bf16 tensor cores
 ALLOC_BLOCK = 512            # the caching allocator's block rounding
@@ -5018,29 +5080,45 @@ def phase_dry_run(report: dict, smi: str) -> None:
     from repro_torch.configs.registry import Shape, all_cells
     from repro_torch.launch import dryrun
 
-    # (a) the sweep, in this process and in a fresh one
+    # (a) the sweep, in this process and in a fresh one (started first,
+    # so the two run side by side on the host's cores)
     allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
     held = alloc_counters()
     with tempfile.TemporaryDirectory() as tmp:
         out, fresh = Path(tmp) / "dryrun.json", Path(tmp) / "fresh.json"
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            records = dryrun.main(["--all", "--out", str(out)])
-        secs = time.perf_counter() - t0
-        written = json.loads(out.read_text())
         code = ("import sys, torch\n"
                 "from repro_torch.launch import dryrun\n"
                 "dryrun.main(['--all', '--out', sys.argv[1]])\n"
                 "print('CUDA initialised:', torch.cuda.is_initialized())\n")
-        r = subprocess.run(
-            [sys.executable, "-c", code, str(fresh)], capture_output=True,
-            text=True, timeout=300,
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, str(fresh)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                records = dryrun.main(["--all", "--out", str(out)])
+            secs = time.perf_counter() - t0
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        fresh_s = time.perf_counter() - t0
+        written = json.loads(out.read_text())
+        r = subprocess.CompletedProcess(proc.args, proc.returncode, stdout,
+                                        stderr)
         check(r.returncode == 0, f"dry run in a fresh process: "
               f"{r.stderr[-2000:]}")
         fresh_records = json.loads(fresh.read_text())
     cells = {(a, s.name, mp) for a, s in all_cells() for mp in (False, True)}
-    check(written == json.loads(json.dumps(records)) == fresh_records,
+
+    def untimed(recs):
+        # every figure but the seconds the traces took
+        return [{k: v for k, v in c.items() if k != "compile_s"}
+                for c in recs]
+    check(untimed(written) == untimed(json.loads(json.dumps(records)))
+          == untimed(fresh_records),
           "dry run: the records written, returned and made in a fresh "
           "process differ")
     check(len(written) == len(cells) == 66 and not [
@@ -5055,7 +5133,9 @@ def phase_dry_run(report: dict, smi: str) -> None:
           f"dry run in a fresh process initialised CUDA: {r.stdout[-500:]}")
     big = max(written, key=lambda c: c["memory"]["argument_bytes"])
     say(f"(a) dry run --all: {len(written)} records (33 cells x 2 "
-        f"production meshes), no error, in {secs:.2f} s on the host; the "
+        f"production meshes), no error, in {secs:.2f} s on the host (the "
+        f"fresh process beside it: {fresh_s:.2f} s; the traces' "
+        f"compile_s sum {sum(c['compile_s'] for c in written):.1f}); the "
         f"card's allocator unchanged ({held[0]} bytes held, {allocs} "
         f"allocations before and after); a fresh process running the same "
         f"sweep left CUDA uninitialised and wrote the same records; largest"
@@ -5079,6 +5159,153 @@ def phase_dry_run(report: dict, smi: str) -> None:
             f"({tokens} tokens): {flops:.4e} model flops in {rec['ms']:.1f} "
             f"ms = {rate / 1e12:.1f} TFLOP/s, {rate / PEAK_BF16_FLOPS:.4f} of"
             f" the 989 TFLOP/s dense bf16 peak; card {smi}")
+
+    # the budget, (d) the peaks, (g) the counted cost, (h) the sweep
+    dry_run_budget(report, smi)
+    dry_run_peaks(report, smi)
+    train = [c for c in written if c["kind"] == "train"]
+    check(len(train) == 20, f"dry run: {len(train)} train records")
+    say("(h) --all's train records (accum, fits_hbm, footprint GiB; "
+        f"budget {dryrun.HBM_BUDGET / 2**30:.3f} GiB): " + "; ".join(
+            f"{c['arch']}{' mp' if c['multi_pod'] else ''} {c['accum']}, "
+            f"{c['fits_hbm']}, {c['footprint_bytes'] / 2**30:.3f}"
+            for c in train))
+
+
+def dry_run_budget(report: dict, smi: str) -> None:
+    """The footprint budget of one card, from the card: its memory, less
+    the CUDA context (what the device holds outside the allocator's
+    segments) and the most the allocator reserved above the bytes the
+    tensors asked for in a step that began on an emptied cache (phase
+    24's timed prefill, the warm-up steps of phases 32 and 34: 512-byte
+    rounding, unsplit tails, split segments).  The dry run's
+    ``HBM_BUDGET`` may be no more."""
+    from repro_torch.launch import dryrun
+    free, total = torch.cuda.mem_get_info()
+    context = total - free - torch.cuda.memory_reserved()
+    slack = {arch: report["dry_run"][arch]["cold_headroom"]
+             for arch in DRY_RUN_CELLS}
+    headroom = max(slack.values())
+    budget = total - context - headroom
+    report["dry_run_budget"] = budget
+    say(f"budget: {total} bytes of device memory ({total / 2**30:.3f} GiB,"
+        f" total_memory {torch.cuda.get_device_properties(0).total_memory}"
+        f"), less {context} of CUDA context ({context / 2**30:.3f} GiB) and "
+        f"{headroom} reserved above requested at the most in a step begun "
+        f"on an emptied cache (" + ", ".join(
+            f"{a} {h}" for a, h in slack.items()) + "; over the timed "
+        "steps, whose cache held earlier blocks: " + ", ".join(
+            f"{a} {max(report['dry_run'][a]['headroom'])}"
+            for a in DRY_RUN_CELLS) + f"): {budget} bytes "
+        f"({budget / 2**30:.3f} GiB); dryrun.HBM_BUDGET "
+        f"{dryrun.HBM_BUDGET} ({dryrun.HBM_BUDGET / 2**30:.3f} GiB); card "
+        f"{smi}")
+    check(dryrun.HBM_BUDGET <= budget, f"dryrun.HBM_BUDGET "
+          f"{dryrun.HBM_BUDGET} is more than the card's {budget}")
+
+
+def dry_run_trace(cfg, shape, mesh_cell, accum: int, rank: int = 0,
+                  tokens=None, cost: bool = False) -> dict:
+    """The dry run's trace of one step of ``cfg`` at ``shape`` on rank
+    ``rank`` of a mesh of ``mesh_cell`` ((sizes, axes)) at ``accum``:
+    ``meta_trace.trace``'s record, ``rise`` (its peak above the held
+    arguments) and the counting comm's ``comm`` counters (none on one
+    device); ``tokens`` the dtype the phase's batch tokens have."""
+    from repro_torch.launch import dryrun, meta_trace
+    from repro_torch.launch.mesh import Mesh
+    sizes, axes = mesh_cell
+    mesh, comm = dryrun.rank_mesh(Mesh(tuple(axes), tuple(sizes)), rank)
+    step, args = dryrun.step_and_args(cfg, shape, mesh, accum=accum)
+    batch = args[-1]
+    if tokens is not None and isinstance(batch, dict):
+        for k in ("tokens", "labels"):
+            if k in batch:
+                batch[k] = batch[k].to(tokens)
+    rec = meta_trace.trace(step, args, cost=cost)
+    rec["rise"] = rec["peak"] - rec["held"]
+    if comm is not None:
+        rec["comm"] = comm.counters()
+    return rec
+
+
+def dry_run_peaks(report: dict, smi: str) -> None:
+    """Phase 35 (d) and (g) on phases 24, 32 and 34's steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import Shape
+    from repro_torch.launch import dryrun
+    rows = []
+    for arch in DRY_RUN_CELLS:
+        rec = report["dry_run"][arch]
+        cfg = get_config(arch)
+        shape = Shape(f"{rec['kind']}_cut", rec["kind"], rec["seq"],
+                      rec["batch"])
+        tr = dry_run_trace(cfg, shape, ((1, 1), ("data", "model")),
+                           rec["accum"], tokens=rec["tokens"], cost=True)
+        gaps = [r - tr["rise"] for r in rec["rise"]]
+        # a train phase's pipeline thread may put its next batch (tokens
+        # and labels) on the card while a step runs: that batch, or nothing
+        prefetched = 2 * rec["batch"] * rec["seq"] * rec["tokens"].itemsize \
+            if rec["kind"] == "train" else 0
+        rows.append((arch, rec, tr, gaps, prefetched))
+        flops, _tokens = dryrun.model_flops(cfg, shape)
+        secs = rec["ms"] / 1e3
+        say(f"(d) {arch} {rec['kind']} {rec['batch']} x {rec['seq']} accum "
+            f"{rec['accum']}: predicted {tr['rise']} requested bytes above "
+            f"the resident state ({tr['rise'] / 2**30:.4f} GiB; in 512-byte "
+            f"blocks {tr['peak_blocks'] - tr['held']}), the card's "
+            f"requested_bytes.all.peak rose by "
+            f"{', '.join(str(r) for r in rec['rise'])} over its timed steps"
+            f" (measured - predicted {', '.join(str(g) for g in gaps)}; "
+            f"a prefetched batch {prefetched}); traced in "
+            f"{tr['seconds']:.2f} s on the host; card {smi}")
+        kern = ", ".join(f"{k} {n} calls {o:.4e}"
+                         for k, (n, o) in sorted(tr["kernels"].items()))
+        say(f"(g) {arch}: counted {tr['flops']:.4e} flops a step ({kern}), "
+            f"model flops {flops:.4e} (counted / model "
+            f"{tr['flops'] / flops:.4f}); over the measured "
+            f"{rec['ms']:.1f} ms: {tr['flops'] / secs / 1e12:.1f} and "
+            f"{flops / secs / 1e12:.1f} TFLOP/s, "
+            f"{tr['flops'] / secs / PEAK_BF16_FLOPS:.4f} and "
+            f"{flops / secs / PEAK_BF16_FLOPS:.4f} of the 989 TFLOP/s dense "
+            f"bf16 peak; counted bytes {tr['bytes']:.4e}; card {smi}")
+    for arch, rec, tr, gaps, prefetched in rows:
+        check(all(g in (0, prefetched) for g in gaps),
+              f"(d) {arch}: the card's rises {rec['rise']} against the "
+              f"predicted {tr['rise']} (a prefetched batch {prefetched})")
+
+
+def dry_run_ranks(what: str, ranks: list, kind: str, figs) -> None:
+    """Phase 35 (e) and (f) on a cell of phases 38 / 39: each rank's
+    prediction (``st["predicted"][kind]``, its own trace of the step on
+    its rank of a counting mesh, made in the rank before its steps)
+    against its measured steps (``figs(st)``, a step's figures each): the
+    requested-byte rise equal to it (the ranks' batches are on the card
+    before the window opens), the counting comm's calls by kind and bytes
+    equal to the rank's ``DistributedComm`` counters over the step."""
+    rows, bad = [], []
+    for r, st in enumerate(ranks):
+        pred = st["predicted"][kind]
+        want = (pred["comm"]["calls"], pred["comm"]["bytes"])
+        for f in figs(st):
+            gap = f["rise"] - pred["rise"]
+            rows.append(f"rank {r} {pred['rise']} / {f['rise']} ({gap:+d})")
+            if gap:
+                bad.append(("peak", r, pred["rise"], f["rise"]))
+            got = (f["calls_by_kind"], {"gathered": f["gathered"],
+                                        "reduced": f["reduced"]})
+            if got != want:
+                bad.append(("comm", r, want, got))
+    first = ranks[0]["predicted"][kind]
+    say(f"(e) {what}: predicted / measured requested-byte rise a step "
+        f"(measured - predicted): " + "; ".join(rows) + "; traced in "
+        + " / ".join(f"{st['predicted'][kind]['seconds']:.2f}"
+                     for st in ranks) + " s in the ranks")
+    comm_ok = not [b for b in bad if b[0] == "comm"]
+    say(f"(f) {what}: the counting comm a step on rank 0: calls "
+        f"{first['comm']['calls']}, bytes {first['comm']['bytes']}; "
+        + ("equal" if comm_ok else "NOT equal")
+        + " to each rank's DistributedComm counters over each step")
+    check(not bad, f"{what}: {bad[:4]}")
 
 
 # phase 36: the distributed backend on the card.  P ranks, each a process
@@ -6288,6 +6515,7 @@ def d38_kernel_checks(first: dict) -> dict:
 def d38_rank(rank: int, cfg: dict) -> None:
     """One rank of phase 38 cell ``cfg["cell"]``: its figures go to
     ``cfg["out"]/d38_<cell>_rank<r>.pt``."""
+    import dataclasses
     comm = rank_comm(rank, cfg)
     dev = comm.device
     cell = D38_CELLS[cfg["cell"]]
@@ -6295,6 +6523,18 @@ def d38_rank(rank: int, cfg: dict) -> None:
                 "shapes": {}}
     first: dict = {}
     try:
+        # phase 35 (e), (f): the dry run's trace of this rank's steps,
+        # before the kernels' first launches are recorded
+        mcfg = d38_config(cell)
+        tokens = torch.from_numpy(
+            d38_batch(mcfg, cell, 0)["tokens"][:0]).dtype
+        st["predicted"] = {"train": dry_run_trace(
+            mcfg, d38_shape(cell), cell["mesh"], cell["accum"], rank,
+            tokens)}
+        if cell["prefill"]:
+            st["predicted"]["prefill"] = dry_run_trace(
+                mcfg, dataclasses.replace(d38_shape(cell), kind="prefill"),
+                cell["mesh"], 1, rank, tokens)
         with d38_recorded(st["shapes"], first):
             d38_rank_steps(rank, cfg, comm, cell, st)
         if rank == 0:
@@ -6341,15 +6581,19 @@ def d38_rank_steps(rank: int, cfg: dict, comm, cell: dict, st: dict) -> None:
 
     def timed(fn):
         torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+        opened = window_open(dev)
         before = dict(comm.bytes)
         calls, secs = dict(comm.calls), comm.seconds
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize(dev)
+        rise, headroom = window_close(opened, dev)
         return out, {"ms": (time.perf_counter() - t0) * 1e3,
                      "peak": torch.cuda.max_memory_allocated(dev),
+                     "rise": rise, "headroom": headroom,
+                     "calls_by_kind": {k: comm.calls[k] - calls[k]
+                                       for k in calls},
                      "launches": ops.launch_counts(),
                      "gathered": comm.bytes["gathered"]
                      - before["gathered"],
@@ -6578,6 +6822,13 @@ def phase_distributed_lm(report: dict, smi: str) -> None:
                     st["steps"][-1]["launches"][kname] for st in ranks)
                 report[kname]["dist_train_step_ms"] = max(step_ms)
                 report[kname]["dist_train_ranks"] = n
+            # phase 35 (e), (f) on the timed steps (the warm-up step's
+            # first uses, cuBLAS's workspace among them, are the base)
+            dry_run_ranks(f"{cname} train", ranks, "train",
+                          lambda st: st["steps"])
+            if cell["prefill"]:
+                dry_run_ranks(f"{cname} prefill", ranks, "prefill",
+                              lambda st: [st["prefill"]])
 
 # Phase 39: the decode step on a mesh of ranks (ROADMAP A.15d(2)), spawned
 # as phase 38 is (gloo, host-staged, one card), at full width.
@@ -6760,17 +7011,23 @@ def d39_rank(rank: int, cfg: dict) -> None:
 
     def timed(step, params, state, toks):
         torch.cuda.synchronize(dev)
+        top = torch.cuda.max_memory_allocated(dev)
+        opened = window_open(dev)
         before, calls = dict(comm.bytes), dict(comm.calls)
         secs, launched = comm.seconds, ops.launch_counts()
         t0 = time.perf_counter()
         logits, state = step(params, state, toks)
         torch.cuda.synchronize(dev)
+        rise, headroom = window_close(opened, dev)
+        st["top"] = max(st.get("top", 0), top)
         now = ops.launch_counts()
         st["steps"].append({
             "ms": (time.perf_counter() - t0) * 1e3,
+            "rise": rise, "headroom": headroom,
             "gathered": comm.bytes["gathered"] - before["gathered"],
             "reduced": comm.bytes["reduced"] - before["reduced"],
             "calls": sum(comm.calls[k] - calls[k] for k in calls),
+            "calls_by_kind": {k: comm.calls[k] - calls[k] for k in calls},
             "comm_ms": (comm.seconds - secs) * 1e3,
             "launches": {k: now[k] - launched[k] for k in now}})
         return logits, state
@@ -6784,6 +7041,9 @@ def d39_rank(rank: int, cfg: dict) -> None:
         mesh = make_mesh(*cell["mesh"], comm=comm)
         st["dry_run"] = tuple(dryrun.argument_bytes(
             mcfg, d39_shape(cell), mesh)[k] for k in ("params", "state"))
+        # phase 35 (e), (f): the dry run's trace of this rank's step
+        st["predicted"] = {"decode": dry_run_trace(
+            mcfg, d39_shape(cell), cell["mesh"], 1, rank)}
         ops.reset_launch_counts()
         with d38_recorded(st["shapes"], first), mock.patch.object(
                 attention, "decode_attention", counted_attn):
@@ -6829,7 +7089,8 @@ def d39_rank(rank: int, cfg: dict) -> None:
                         mesh_spec=",".join(f"{a}={s}" for a, s in zip(
                             cell["mesh"][1], cell["mesh"][0])), comm=comm)
         st["launches"] = ops.launch_counts()
-        st["peak"] = torch.cuda.max_memory_allocated(dev)
+        st["peak"] = max(st.pop("top", 0),
+                         torch.cuda.max_memory_allocated(dev))
         st["attn_bytes"] = attn_bytes
         if rank == 0 and "ssd_chunk" in first:
             torch.cuda.empty_cache()
@@ -6932,6 +7193,10 @@ def phase_distributed_decode(report: dict, smi: str) -> None:
                           f"qwen_decode rank {r}: kernels launched "
                           f"{st['launches']} (decode attention is plain)")
                 d39_say(cname, cell, ranks, single, wall_s, smi)
+                # phase 35 (e), (f) on the steps after the first (its first
+                # uses are the base)
+                dry_run_ranks(cname, ranks, "decode",
+                              lambda st: st["steps"][1:])
                 b, cache = ranks[0]["attn_bytes"][-1]
                 say(f"qwen_decode: an attention layer's collectives move "
                     f"{b} B a token on rank 0, its cache shard (K and V) "
@@ -6979,6 +7244,7 @@ def phase_distributed_decode(report: dict, smi: str) -> None:
             else:
                 first = "equal to one process's"
             d39_say(cname, cell, ranks, single, wall_s, smi)
+            dry_run_ranks(cname, ranks, "decode", lambda st: st["steps"][1:])
             say(f"mamba_decode: the [{want.shape[0]}, {want.shape[1]}] "
                 f"tokens of serve() are equal on every rank and {first}; "
                 f"B10 launched {layers} times a step in every rank at "

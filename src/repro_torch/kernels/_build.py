@@ -215,6 +215,26 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+#: callables ``fn(name, operations, inputs, outputs)`` told of every
+#: meta-route call of a wrapper (``launch/meta_trace.py`` counts its cost);
+#: empty outside a dry run
+meta_observers: list = []
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True where every tensor lies on the ``meta`` device (no storage):
+    a wrapper then allocates its outputs and scratch as its CUDA route
+    does and launches nothing, since there is no data to compute on."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
+def meta_call(name: str, operations: float, inputs, outputs) -> None:
+    """A wrapper's meta route: tell :data:`meta_observers` of the call
+    (the kernel's operation count, the tensors it reads and writes)."""
+    for fn in meta_observers:
+        fn(name, operations, tuple(inputs), tuple(outputs))
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor lies on one CUDA device."""
     devs = {t.device for t in tensors}

@@ -253,30 +253,30 @@ def _last_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, partial: bool = False,
-                         row_valid: torch.Tensor | None = None,
-                         with_lse: bool = False):
-    """q [B, Tq, H, hd], k / v [B, Tk, KV, hd] (float32 or bfloat16, one
-    CUDA device).  ``partial=False``: the normalized output [B, Tq, H, hd]
-    in q's dtype, as ``ref.flash_attention``.  ``partial=True``: ``(o, m,
-    l)`` float32 — o [B, Tq, H, hd] unnormalized, m / l [B, Tq, H] — as
-    ``ref.flash_block``.  ``row_valid`` [B] (bool or integer): rows whose
-    flag is 0 are written as the merge identity (o = 0, m = NEG_INF,
-    l = 0).  ``with_lse`` (normalized output only): also the row
-    log-sum-exp [B, Tq, H] float32, returned as ``(o, lse)``; ``o`` is the
-    same either way.  bfloat16 launches the ``wgmma`` kernel, float32 the
-    ``tf32x3`` one (:func:`route_of`); either way one launch, counted in
-    ``launches``."""
-    global launches
-    _check(q, k, v)
-    if with_lse and (partial or row_valid is not None):
-        raise ValueError("with_lse is for the normalized output of every "
-                         "row (no partial, no row_valid)")
-    _build.require_cuda("flash_attention", q, k, v)
-    q, k, v = (_last_contiguous(t) for t in (q, k, v))
+def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
+    """(query, key) pairs a head attends over: every pair, or with causal
+    masking (end-aligned) row i's first ``i + Tk - Tq + 1`` keys."""
+    if not causal:
+        return Tq * Tk
+    lo = max(0, Tq - Tk)                   # rows before lo see no key
+    first, last = lo + Tk - Tq + 1, Tk     # row lo's keys, row Tq - 1's
+    return (Tq - lo) * (first + last) // 2 if Tq > lo else 0
+
+
+def operations(B: int, Tq: int, Tk: int, H: int, hd: int, causal: bool,
+               backward: bool = False) -> float:
+    """The algorithm's operations (the bound of PERF.md's table): 4 hd per
+    visible pair and head forward (q.k, p.v), 10 hd backward (S, dP, dV,
+    dQ, dK)."""
+    return (10.0 if backward else 4.0) * hd * B * H * \
+        visible_pairs(Tq, Tk, causal)
+
+
+def _outputs(q, partial: bool, with_lse: bool, row_valid):
+    """(o, m, l, lse, valid): what a forward call writes, on ``q``'s
+    device, as either route allocates it (m / l / lse / valid None where
+    the call has none)."""
     B, Tq, H, hd = q.shape
-    Tk, KV = k.shape[1], k.shape[2]
     dev = q.device
     if partial:
         o = torch.empty(B, Tq, H, hd, dtype=torch.float32, device=dev)
@@ -294,11 +294,47 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"row_valid has {valid.numel()} flags for "
                              f"{B} rows")
         valid = valid.to(torch.int32).contiguous()
+    return o, m, l, lse, valid
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, partial: bool = False,
+                         row_valid: torch.Tensor | None = None,
+                         with_lse: bool = False):
+    """q [B, Tq, H, hd], k / v [B, Tk, KV, hd] (float32 or bfloat16, one
+    CUDA device).  ``partial=False``: the normalized output [B, Tq, H, hd]
+    in q's dtype, as ``ref.flash_attention``.  ``partial=True``: ``(o, m,
+    l)`` float32 — o [B, Tq, H, hd] unnormalized, m / l [B, Tq, H] — as
+    ``ref.flash_block``.  ``row_valid`` [B] (bool or integer): rows whose
+    flag is 0 are written as the merge identity (o = 0, m = NEG_INF,
+    l = 0).  ``with_lse`` (normalized output only): also the row
+    log-sum-exp [B, Tq, H] float32, returned as ``(o, lse)``; ``o`` is the
+    same either way.  bfloat16 launches the ``wgmma`` kernel, float32 the
+    ``tf32x3`` one (:func:`route_of`); either way one launch, counted in
+    ``launches``.  On ``meta`` tensors (a dry run) the outputs are
+    allocated as here and nothing launches or counts."""
+    global launches
+    _check(q, k, v)
+    if with_lse and (partial or row_valid is not None):
+        raise ValueError("with_lse is for the normalized output of every "
+                         "row (no partial, no row_valid)")
+    meta = _build.on_meta(q, k, v)
+    if not meta:
+        _build.require_cuda("flash_attention", q, k, v)
+    q, k, v = (_last_contiguous(t) for t in (q, k, v))
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    o, m, l, lse, valid = _outputs(q, partial, with_lse, row_valid)
     out = (o, m, l) if partial else (o, lse) if with_lse else o
     if o.numel() == 0:
         return out
     if Tk == 0:
         raise ValueError("flash_attention needs at least one key")
+    if meta:
+        _build.meta_call("flash_attention",
+                         operations(B, Tq, Tk, H, hd, causal), (q, k, v),
+                         [t for t in (o, m, l, lse) if t is not None])
+        return out
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             m.data_ptr() if partial else None,
             l.data_ptr() if partial else None,
@@ -309,7 +345,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.library()
     fn = (lib.repro_flash_attention_tc if route_of(q.dtype) == "wgmma"
           else lib.repro_flash_attention)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(q.device):
         rc = fn(*args, _build.stream_of(q))
     _build.check(rc, "flash_attention")
     launches += 1
@@ -325,10 +361,14 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
     current stream: ``"wgmma"`` the prologue, the fused launch and (with
     s > 1 head slices) the slice sum, as :func:`bwd_plan` lays them out;
     ``"tf32x3"`` dq with the D prologue, then dk / dv.  Counted once in
-    ``bwd_launches``."""
+    ``bwd_launches``.  On ``meta`` tensors the outputs and the route's
+    scratch (at the H100's :data:`SMS`) are allocated as here and nothing
+    launches or counts."""
     global bwd_launches
     _check(q, k, v)
-    _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+    meta = _build.on_meta(q, k, v, o, lse, do)
+    if not meta:
+        _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
         raise ValueError(f"o and do must match q {tuple(q.shape)} "
@@ -349,24 +389,20 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
         torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
+    route = bwd_route_of(q.dtype, hd)
+    sms = SMS if meta else \
+        torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan, D, scratch = _bwd_scratch(route, B, Tq, Tk, H, KV, hd, causal,
+                                    sms, q.device)
+    if meta:
+        _build.meta_call("flash_attention_bwd",
+                         operations(B, Tq, Tk, H, hd, causal, True),
+                         (q, k, v, o, lse, do), (dq, dk, dv))
+        return dq, dk, dv
     lib = _build.library()
-    f32, dev = torch.float32, q.device
-    with torch.cuda.device(dev):
-        if bwd_route_of(q.dtype, hd) == "wgmma":
-            plan = bwd_plan(B, Tq, Tk, H, KV, hd, causal,
-                            sms=torch.cuda.get_device_properties(
-                                dev).multi_processor_count)
-            TqP = plan.nqt * plan.bq
-            D = torch.empty(B, H, TqP, dtype=f32, device=dev)
-            lse_rows = torch.empty(B, H, TqP, dtype=f32, device=dev)
-            dq_acc = torch.empty(B, H, TqP, plan.hdp, dtype=f32, device=dev)
-            counters = torch.empty(B, H, plan.nqt, dtype=torch.int32,
-                                   device=dev)
-            dkp = dvp = None
-            if plan.slices > 1:
-                dkp, dvp = (torch.empty(plan.slices, B, Tk, KV, hd,
-                                        dtype=f32, device=dev)
-                            for _ in range(2))
+    with torch.cuda.device(q.device):
+        if route == "wgmma":
+            lse_rows, dq_acc, counters, dkp, dvp = scratch
             rc = lib.repro_flash_attention_bwd_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), D.data_ptr(),
@@ -376,7 +412,6 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
                 dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, KV, hd,
                 int(causal), plan.slices, _build.stream_of(q))
         else:
-            D = torch.empty(B, Tq, H, dtype=f32, device=dev)
             rc = lib.repro_flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), D.data_ptr(), dq.data_ptr(),
@@ -386,3 +421,25 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
     _build.check(rc, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv
+
+
+def _bwd_scratch(route: str, B: int, Tq: int, Tk: int, H: int, KV: int,
+                 hd: int, causal: bool, sms: int, dev):
+    """(plan, D, scratch) of a backward call on ``route``, as either route
+    allocates them: the ``"wgmma"`` plan for ``sms`` SMs with D and its
+    (lse_rows, dq_acc, counters, dK / dV slice partials or None), or
+    (None, D, ()) for ``"tf32x3"``."""
+    f32 = torch.float32
+    if route != "wgmma":
+        return None, torch.empty(B, Tq, H, dtype=f32, device=dev), ()
+    plan = bwd_plan(B, Tq, Tk, H, KV, hd, causal, sms=sms)
+    TqP = plan.nqt * plan.bq
+    D = torch.empty(B, H, TqP, dtype=f32, device=dev)
+    lse_rows = torch.empty(B, H, TqP, dtype=f32, device=dev)
+    dq_acc = torch.empty(B, H, TqP, plan.hdp, dtype=f32, device=dev)
+    counters = torch.empty(B, H, plan.nqt, dtype=torch.int32, device=dev)
+    dkp = dvp = None
+    if plan.slices > 1:
+        dkp, dvp = (torch.empty(plan.slices, B, Tk, KV, hd, dtype=f32,
+                                device=dev) for _ in range(2))
+    return plan, D, (lse_rows, dq_acc, counters, dkp, dvp)

@@ -50,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .flash_attention import SMS
 from .ref import ssd_intra_chunk as ssd_intra_chunk_plain
 from .ref import ssd_intra_chunk_bwd as ssd_intra_chunk_bwd_plain
 
@@ -84,6 +85,21 @@ def bwd_s_splits(cells: int, N: int, H: int, sms: int) -> int:
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 128, 256
 
 
+def operations(Bsz: int, T: int, H: int, Pd: int, N: int, L: int,
+               backward: bool = False) -> float:
+    """The algorithm's operations (the bound of PERF.md's table), over the
+    visible pairs (j <= i) of each chunk of L: forward 2 N per pair once
+    per (batch row, chunk) for C B^T, and per head 2 Pd per pair and 2 N
+    Pd per position; backward 6 N per pair once per (batch row, chunk),
+    and per head 4 Pd per pair and 4 N Pd per position."""
+    nc, tri = T // L, L * (L + 1) // 2
+    if backward:
+        return Bsz * nc * (H * (4.0 * Pd * tri + 4.0 * N * Pd * L)
+                           + 6.0 * N * tri)
+    return Bsz * nc * (2.0 * N * tri
+                       + H * (2.0 * Pd * tri + 2.0 * L * N * Pd))
+
+
 def _check_args(x, dt, A, Bm, Cm, chunk: int) -> None:
     """Raise unless x [B, T, H, P], dt [B, T, H], A [H] and Bm / Cm
     [B, T, N] fit together and T divides into chunks of ``chunk``."""
@@ -102,8 +118,9 @@ def _check_args(x, dt, A, Bm, Cm, chunk: int) -> None:
         raise ValueError(f"T={T} does not divide into chunks of {chunk}")
 
 
-def _check_cuda_f32(name: str, tensors: dict) -> None:
-    _build.require_cuda(name, *tensors.values())
+def _check_f32(name: str, tensors: dict, meta: bool) -> None:
+    if not meta:
+        _build.require_cuda(name, *tensors.values())
     for what, t in tensors.items():
         if t.dtype != torch.float32:
             raise ValueError(f"{name} takes float32, got {what} {t.dtype}")
@@ -117,7 +134,8 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     H])`` float32, as ``ref.ssd_intra_chunk``."""
     global launches
     _check_args(x, dt, A, Bm, Cm, chunk)
-    _check_cuda_f32("ssd_chunk", dict(x=x, dt=dt, A=A, B=Bm, C=Cm))
+    meta = _build.on_meta(x, dt, A, Bm, Cm)
+    _check_f32("ssd_chunk", dict(x=x, dt=dt, A=A, B=Bm, C=Cm), meta)
     Bsz, T, H, P = x.shape
     N = Bm.shape[-1]
     if chunk > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
@@ -133,6 +151,10 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     S = torch.empty(Bsz, nc, H, N, P, dtype=torch.float32, device=dev)
     cd = torch.empty(Bsz, T, H, dtype=torch.float32, device=dev)
     if y.numel() == 0:
+        return y, S, cd
+    if meta:
+        _build.meta_call("ssd_chunk", operations(Bsz, T, H, P, N, chunk),
+                         (x, dt, A, Bm, Cm), (y, S, cd))
         return y, S, cd
     with torch.cuda.device(dev):
         rc = _build.library().repro_ssd_chunk(
@@ -167,8 +189,9 @@ def ssd_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy, dS, dcd, *, chunk: int):
             raise ValueError(f"ssd_chunk_bwd: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
         grads[name] = t
-    _check_cuda_f32("ssd_chunk_bwd", dict(x=x, dt=dt, A=A, B=Bm, C=Cm,
-                                          **grads))
+    meta = _build.on_meta(x, dt, A, Bm, Cm, *grads.values())
+    _check_f32("ssd_chunk_bwd", dict(x=x, dt=dt, A=A, B=Bm, C=Cm, **grads),
+               meta)
     if chunk > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
         raise ValueError(f"ssd_chunk_bwd supports chunk <= {MAX_CHUNK}, "
                          f"P <= {MAX_HEAD_DIM}, N <= {MAX_STATE}; got "
@@ -189,18 +212,18 @@ def ssd_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy, dS, dcd, *, chunk: int):
     if dx.numel() == 0:
         return (dx.zero_(), ddt.zero_(), torch.zeros(H, **f32), dB.zero_(),
                 dC.zero_())
-    groups = -(-H // BWD_HEADS)
+    sms = SMS if meta else \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    kbs, db_part, cb_part, dcb_part, dA_part, dend = _bwd_scratch(
+        Bsz, T, H, N, chunk, dS is not None, sms, dev)
+    if meta:
+        _build.meta_call("ssd_chunk_bwd",
+                         operations(Bsz, T, H, P, N, chunk, True),
+                         (x, dt, A, Bm, Cm, dy, *(t for t in (dS, dcd)
+                                                  if t is not None)),
+                         (dx, ddt, dA_part, dB, dC))
+        return dx, ddt, dA_part.sum((0, 1)), dB, dC
     with torch.cuda.device(dev):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        kbs = 1 if dS is None else bwd_s_splits(Bsz * nc, N, H, sms)
-        db_part = torch.empty(kbs, Bsz, T, N, **f32) if kbs > 1 else None
-        # C B^T of each (batch row, chunk), and a dCB partial per group of
-        # heads, [chunk, chunk] with rows padded to 16 bytes
-        ldc = -(-chunk // 4) * 4
-        cb_part = torch.empty(Bsz, nc, chunk, ldc, **f32)
-        dcb_part = torch.empty(Bsz, nc, groups, chunk, ldc, **f32)
-        dA_part = torch.empty(Bsz, nc, H, **f32)
-        dend = torch.empty(Bsz, T, H, **f32)
         ptr = (lambda t: None if t is None else t.data_ptr())
         rc = _build.library().repro_ssd_chunk_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
@@ -213,6 +236,25 @@ def ssd_chunk_bwd_cuda(x, dt, A, Bm, Cm, dy, dS, dcd, *, chunk: int):
     _build.check(rc, "ssd_chunk_bwd")
     bwd_launches += 1
     return dx, ddt, dA_part.sum((0, 1)), dB, dC
+
+
+def _bwd_scratch(Bsz: int, T: int, H: int, N: int, chunk: int,
+                 has_dS: bool, sms: int, dev):
+    """(kbs, dB's S-term partials or None, C B^T, dCB partials, dA
+    partials, dend) of a backward call for ``sms`` SMs, as either route
+    allocates them."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    nc, groups = T // chunk, -(-H // BWD_HEADS)
+    kbs = bwd_s_splits(Bsz * nc, N, H, sms) if has_dS else 1
+    db_part = torch.empty(kbs, Bsz, T, N, **f32) if kbs > 1 else None
+    # C B^T of each (batch row, chunk), and a dCB partial per group of
+    # heads, [chunk, chunk] with rows padded to 16 bytes
+    ldc = -(-chunk // 4) * 4
+    cb_part = torch.empty(Bsz, nc, chunk, ldc, **f32)
+    dcb_part = torch.empty(Bsz, nc, groups, chunk, ldc, **f32)
+    dA_part = torch.empty(Bsz, nc, H, **f32)
+    dend = torch.empty(Bsz, T, H, **f32)
+    return kbs, db_part, cb_part, dcb_part, dA_part, dend
 
 
 def ssd_inter_chunk(y_intra: torch.Tensor, S: torch.Tensor, cd: torch.Tensor,

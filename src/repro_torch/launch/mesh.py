@@ -73,6 +73,8 @@ class Mesh:
         if len(self.axis_names) != len(self.axis_sizes):
             raise ValueError(f"{len(self.axis_names)} axis names for "
                              f"{len(self.axis_sizes)} sizes")
+        # :meth:`group`'s answers, by axes (a bound mesh's never change)
+        object.__setattr__(self, "_groups", {})
 
     @property
     def shape(self) -> dict:
@@ -121,6 +123,9 @@ class Mesh:
         indexed as :meth:`index` does.  The group is None where the entry
         spans one device."""
         axes = self._axes(entry)
+        known = self._groups.get(axes)
+        if known is not None:
+            return known
         size, index = self.index(entry)
         if size == 1 or self.comm is None:
             return None, size, index
@@ -133,7 +138,9 @@ class Mesh:
                     rest.append(r % sz)
                 r //= sz
             parts.setdefault(tuple(rest), []).append(rank)
-        return self.comm.group(list(parts.values())), size, index
+        known = self.comm.group(list(parts.values())), size, index
+        self._groups[axes] = known
+        return known
 
     def is_dp(self, entry) -> bool:
         """True where a spec entry's axes are all data-parallel ones;
@@ -148,15 +155,26 @@ class Mesh:
     def cut(self, t, spec: Spec):
         """This rank's block of a full ``t`` (tensor or numpy array) laid
         out by ``spec``: a view, on the host where ``t`` is."""
+        shard = self.shard_shape(tuple(t.shape), spec)
         idx = []
-        for d, entry in enumerate(_entries(spec, t.ndim)):
-            size, i = self.index(entry)
-            n = t.shape[d] // size
-            if n * size != t.shape[d]:
-                raise ValueError(f"dimension {d} of {tuple(t.shape)} does "
-                                 f"not divide by {entry}'s {size}")
+        for n, entry in zip(shard, _entries(spec, len(shard))):
+            i = self.index(entry)[1]
             idx.append(slice(i * n, (i + 1) * n))
         return t[tuple(idx)]
+
+    def shard_shape(self, shape: Tuple[int, ...], spec: Spec
+                    ) -> Tuple[int, ...]:
+        """The shape of a rank's block of a full tensor of ``shape`` laid
+        out by ``spec`` (:meth:`cut`'s); a dimension that does not divide
+        by its entry's devices raises ``ValueError``."""
+        out = []
+        for d, entry in enumerate(_entries(spec, len(shape))):
+            size = axis_size(self, self._axes(entry))
+            if shape[d] % size:
+                raise ValueError(f"dimension {d} of {tuple(shape)} does "
+                                 f"not divide by {entry}'s {size}")
+            out.append(shape[d] // size)
+        return tuple(out)
 
     def gather(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
         """The inverse of :meth:`cut`: ``t`` put back together along every

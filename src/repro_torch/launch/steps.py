@@ -65,6 +65,7 @@ carry is cut by heads and its ``conv`` carry by channels
 
 from __future__ import annotations
 
+import functools
 import types
 from typing import Any, Dict, Optional, Tuple
 
@@ -286,10 +287,10 @@ def _deferred(plan: str, spec: Spec) -> bool:
 
 def _shard_shapes(cfg: ModelConfig, spec_tree: Tree, mesh: Mesh) -> dict:
     """Parameter path -> the shape of the rank's shard laid out by
-    ``spec_tree``."""
+    ``spec_tree`` (from the shapes of ``model_defs``: nothing is made)."""
     specs = dict(tree_leaves(spec_tree))
-    return {path: tuple(mesh.cut(t, specs[path]).shape)
-            for path, t in tree_leaves(param_shapes(cfg))}
+    return {path: mesh.shard_shape(tuple(d.shape), specs[path])
+            for path, d in tree_leaves(model_module(cfg).model_defs(cfg))}
 
 
 def _check_shards(cfg: ModelConfig, params: Tree, p_specs: Tree,
@@ -539,7 +540,8 @@ def shard_decode_state(cfg: ModelConfig, state: Tree, shape, mesh: Mesh):
     :func:`decode_state_specs` for ``shape``: each carry cut, then a
     contiguous copy on the mesh's device.  ``pos`` is kept, and ``cell``
     records (batch, seq_len) for the step."""
-    _meta, specs, _tokens, _t = decode_state_specs(cfg, shape, mesh)
+    specs, _shapes = _decode_layout(cfg, (shape.global_batch,
+                                          shape.seq_len), mesh)
     tensors = {k: v for k, v in state.items() if k not in ("pos", "cell")}
     out = shard_tree(tensors, {k: specs[k] for k in tensors}, mesh)
     out["pos"] = int(state["pos"])
@@ -553,21 +555,31 @@ def decode_rows(cfg: ModelConfig, tokens, shape, mesh: Mesh):
     return mesh.cut(tokens, decode_state_specs(cfg, shape, mesh)[3])
 
 
-def _check_state(cfg: ModelConfig, state: Tree, mesh: Mesh,
-                 want: dict) -> None:
+@functools.lru_cache(maxsize=None)
+def _layout(cfg: ModelConfig, cell: Tuple[int, int], names, sizes):
+    meta, specs, _t, _ts = decode_state_specs(cfg, decode_shape(*cell),
+                                              Mesh(names, sizes))
+    flat = dict(tree_leaves(specs))
+    return specs, {path: Mesh(names, sizes).shard_shape(tuple(t.shape),
+                                                        flat[path])
+                   for path, t in tree_leaves(meta) if path != ("pos",)}
+
+
+def _decode_layout(cfg: ModelConfig, cell: Tuple[int, int], mesh: Mesh):
+    """(spec tree, path -> shard shape) of a decode state at ``cell``
+    (batch, length) on ``mesh``'s layout, made once per process (the
+    shapes do not depend on the rank)."""
+    return _layout(cfg, tuple(cell), mesh.axis_names, mesh.axis_sizes)
+
+
+def _check_state(cfg: ModelConfig, state: Tree, mesh: Mesh) -> None:
     """Every carry of ``state`` is the rank's shard of its spec's layout
-    at the cell's batch and length (``want`` caches the shapes)."""
+    at the cell's batch and length."""
     cell = state.get("cell")
     if cell is None:
         raise ValueError("a mesh decode step takes a shard_decode_state "
                          "state (its 'cell' entry is missing)")
-    if cell not in want:
-        meta, specs, _t, _ts = decode_state_specs(
-            cfg, decode_shape(*cell), mesh)
-        flat = dict(tree_leaves(specs))
-        want[cell] = {path: tuple(mesh.cut(t, flat[path]).shape)
-                      for path, t in tree_leaves(meta) if path != ("pos",)}
-    for path, shape in want[cell].items():
+    for path, shape in _decode_layout(cfg, cell, mesh)[1].items():
         got = tuple(_find(state, path).shape)
         if got != shape:
             raise ValueError(f"state/{'/'.join(path)}: a shard of {got}, "
@@ -579,12 +591,11 @@ def _sharded_serve_step(cfg: ModelConfig, mesh: Mesh):
     p_specs, _o = param_and_opt_specs(cfg, mesh)
     plans = tp_plan(cfg, mesh)
     dp, tp = mesh.dp, mesh.tp_decode
-    shapes: dict = {}
 
     @torch.inference_mode()
     def serve_step(params, state, tokens):
         _check_shards(cfg, params, p_specs, mesh)
-        _check_state(cfg, state, mesh, shapes)
+        _check_state(cfg, state, mesh)
         split = batch_split(decode_shape(*state["cell"]), mesh)
         store = _store(params, p_specs, plans, mesh)
         tokens = torch.as_tensor(tokens, device=mesh.device)

@@ -73,7 +73,8 @@ from repro.launch import steps as r_steps
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.comm import DistributedComm
 from repro_torch.kernels import ops
-from repro_torch.launch import dryrun, mesh as t_mesh, serve as t_serve, steps
+from repro_torch.launch import dryrun, meta_trace, mesh as t_mesh, \
+    serve as t_serve, steps
 from repro_torch.models import attention, lm, whisper
 from repro_torch.models.common import tree_leaves, tree_map
 
@@ -243,6 +244,27 @@ def _state_tensors(state):
     return {k: v for k, v in state.items() if k not in ("pos", "cell")}
 
 
+#: ``DistributedComm.calls``' kinds, in the order ``comm_figures`` keeps
+COMM_KINDS = ("all_gather_group", "reduce_scatter", "all_reduce")
+
+
+def comm_figures(comm):
+    """A comm's calls by kind, then its gathered and reduced bytes."""
+    return np.array([comm.calls[k] for k in COMM_KINDS]
+                    + [comm.bytes["gathered"], comm.bytes["reduced"]])
+
+
+def counted_comm(cell, rank):
+    """``comm_figures`` of the dry run's trace of one decode step of the
+    cell on ``rank`` (``meta_trace.CountingComm``, no process group)."""
+    arch, mesh_name, *_ = cell
+    tmpl = t_mesh.Mesh(MESHES[mesh_name][1], MESHES[mesh_name][0])
+    mesh, comm = dryrun.rank_mesh(tmpl, rank)
+    step, args = dryrun.step_and_args(t_cfg(arch), shape_of(cell), mesh)
+    meta_trace.trace(step, args, cost=False)
+    return comm_figures(comm)
+
+
 def _run_cell(cell, d, comm, out):
     arch, mesh_name, B, S, pos0, n = cell
     cid = cell_id(cell)
@@ -269,6 +291,7 @@ def _run_cell(cell, d, comm, out):
         out[f"{cid}/shape/state/" + "/".join(path)] = np.array(t.shape)
     step = steps.build_serve_step(cfg, mesh=mesh)
     toks = d[f"in/{cid}/tokens"]
+    out[f"{cid}/comm_counted"] = counted_comm(cell, comm.rank)
     attn_bytes, kernel_shapes = [], []
     real_attn, real_ssd = attention.decode_attention, ops.ssd_intra_chunk
 
@@ -287,8 +310,10 @@ def _run_cell(cell, d, comm, out):
     try:
         for t in range(n):
             before = sum(comm.bytes.values())
+            figures = comm_figures(comm)
             logits, state = step(params, state, torch.from_numpy(
                 steps.decode_rows(cfg, toks[t], shape, mesh)))
+            out[f"{cid}/comm_real{t}"] = comm_figures(comm) - figures
             out[f"{cid}/logits{t}"] = logits.numpy()
             out[f"{cid}/token_bytes{t}"] = np.array(
                 sum(comm.bytes.values()) - before)
@@ -533,6 +558,20 @@ def test_decode_resident_bytes_equal_dry_run(runs, cell):
             assert s == leaves[path], (rank, path, s, leaves[path])
 
 
+@pytest.mark.parametrize("cell", CELLS, ids=cell_id)
+def test_counting_comm_equals_the_ranks_counters(runs, cell):
+    """The dry run's trace of a decode step on each rank counts the
+    collectives by kind and the gathered and reduced bytes that the
+    rank's ``DistributedComm`` counted over every decode step of the
+    cell (no shape depends on the position)."""
+    _ref, ranks, _s, _single = runs
+    cid = cell_id(cell)
+    for rank, got in enumerate(ranks[cid]):
+        want = list(got[f"{cid}/comm_counted"])
+        for t in range(cell[5]):
+            assert list(got[f"{cid}/comm_real{t}"]) == want, (rank, t)
+
+
 LAYOUTS = {"a": [c for c in CELLS if "a" in layout(c)],
            "b": [c for c in CELLS if "b" in layout(c)],
            "c": [c for c in CELLS if "c" in layout(c)]}
@@ -644,7 +683,7 @@ def test_serve_step_refuses_a_state_of_another_layout():
                                        m)
     sharded["layers"]["pos0"]["k"] = sharded["layers"]["pos0"]["k"][:, :1]
     with pytest.raises(ValueError, match="its layout gives"):
-        steps._check_state(cfg, sharded, m, {})
+        steps._check_state(cfg, sharded, m)
     del sharded["cell"]
     with pytest.raises(ValueError, match="shard_decode_state"):
-        steps._check_state(cfg, sharded, m, {})
+        steps._check_state(cfg, sharded, m)

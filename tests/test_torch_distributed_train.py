@@ -78,7 +78,7 @@ from repro.configs import get_smoke_config as r_smoke
 from repro.launch import steps as r_steps
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.comm import DistributedComm
-from repro_torch.launch import dryrun, mesh as t_mesh, steps
+from repro_torch.launch import dryrun, meta_trace, mesh as t_mesh, steps
 from repro_torch.launch import train as t_train
 from repro_torch.kernels import ops
 from repro_torch.models import lm, moe, ssm, whisper
@@ -259,7 +259,36 @@ def _recorded(cid, out, fn):
                 out[f"{cid}/rec/{name}"] = np.array(seen)
 
 
+def comm_figures(comm):
+    """A comm's calls by kind, then its gathered and reduced bytes."""
+    return np.array([comm.calls[k] for k in COMM_KINDS]
+                    + [comm.bytes["gathered"], comm.bytes["reduced"]])
+
+
+def counted_comm(cfg, kind, seq, accum, mesh_name, rank):
+    """``comm_figures`` of the dry run's trace of the cell's step on
+    ``rank`` (``meta_trace.CountingComm``), its batch in the config's
+    dtype as the ranks' is."""
+    tmpl = t_mesh.Mesh(MESHES[mesh_name][1], MESHES[mesh_name][0])
+    mesh, comm = dryrun.rank_mesh(tmpl, rank)
+    step, args = dryrun.step_and_args(
+        cfg, types.SimpleNamespace(kind=kind, global_batch=B, seq_len=seq),
+        mesh, accum=accum)
+    batch = args[-1]
+    for k, v in batch.items():
+        if isinstance(v, steps.StoredLeaf):
+            v.shard = v.shard.to(cfg.dtype)
+        elif v.is_floating_point():
+            batch[k] = v.to(cfg.dtype)
+    meta_trace.trace(step, args, cost=False)
+    return comm_figures(comm)
+
+
 def _run_cell(cell, d, comm, out):
+    arch, mesh_name, kind, accum = cell
+    out[f"{cell_id(cell)}/comm_counted"] = counted_comm(
+        t_cfg(arch), kind, int(d[f"in/{arch}/{kind}/seq_len"]), accum,
+        mesh_name, comm.rank)
     if MESHES[cell[1]][0][-1] > 1:
         return _recorded(cell_id(cell), out,
                          lambda: _run_cell_inner(cell, d, comm, out))
@@ -274,17 +303,20 @@ def _run_cell_inner(cell, d, comm, out):
     tree, batch = _inputs(d, arch, kind)
     full = steps.model_module(cfg).params_from_numpy(cfg, tree)
     b = steps.shard_batch(cfg, batch, mesh)
+    before = comm_figures(comm)
     if kind == "prefill":
         params = t_mesh.shard_tree(full, steps.param_and_opt_specs(
             cfg, mesh)[0], mesh)
         out[f"{cid}/logits"] = steps.build_prefill_step(cfg, mesh=mesh)(
             params, b).numpy()
+        out[f"{cid}/comm_real"] = comm_figures(comm) - before
         return
     params, opt = steps.shard_state(cfg, full, mesh)
     del full
     step = steps.build_train_step(cfg, AdamWConfig(**OCFG), accum=accum,
                                   mesh=mesh)
     params, opt, met = step(params, opt, b)
+    out[f"{cid}/comm_real"] = comm_figures(comm) - before
     for k, v in met.items():
         out[f"{cid}/met/{k}"] = v.numpy()
     for name, t in (("p", params), ("m", opt["m"]), ("v", opt["v"])):
@@ -782,6 +814,19 @@ def test_resident_bytes_equal_dry_run(runs, cell):
             else:
                 continue
             assert tuple(v.shape) == leaves[path], (rank, path)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=cell_id)
+def test_counting_comm_equals_the_ranks_counters(runs, cell):
+    """The dry run's trace of the cell's step on each rank
+    (``meta_trace.CountingComm``, no process group) counts the collectives
+    by kind and the gathered and reduced bytes that the rank's
+    ``DistributedComm`` counted over the same step."""
+    cid = cell_id(cell)
+    for rank, got in enumerate(runs[2][cell[1]]):
+        assert got[f"{cid}/comm_real"].sum() > 0, rank
+        assert list(got[f"{cid}/comm_counted"]) == list(
+            got[f"{cid}/comm_real"]), (rank, COMM_KINDS)
 
 
 TP_CELLS = [c for c in CELLS if MESHES[c[1]][0][-1] > 1]

@@ -165,13 +165,19 @@ def test_argument_bytes_by_hand():
     assert got["uneven"] == []
 
 
+def untimed(record):
+    return {k: v for k, v in record.items() if k != "compile_s"}
+
+
 def test_main_writes_a_cell_and_all_resumes(tmp_path, capsys):
     out = tmp_path / "dryrun.json"
     dryrun.main(["--arch", "mamba2_130m", "--shape", "train_4k",
                  "--out", str(out)])
     first = json.loads(out.read_text())
-    assert len(first) == 1 and first[0] == json.loads(json.dumps(
+    again = json.loads(json.dumps(
         dryrun.run_cell("mamba2_130m", "train_4k", verbose=False)))
+    # every figure but the seconds the traces took
+    assert len(first) == 1 and untimed(first[0]) == untimed(again)
     records = dryrun.main(["--all", "--out", str(out)])
     assert "resuming: 1 cells already recorded" in capsys.readouterr().out
     written = json.loads(out.read_text())
